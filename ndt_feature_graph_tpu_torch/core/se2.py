@@ -42,6 +42,18 @@ def compose_np(a, b):
     return np.stack([x, y, t], -1).astype(np.float32)
 
 
+def sub_np(origin, pose):
+    """Host-side numpy float32 `sub` (identical math)."""
+    origin = np.asarray(origin, np.float32)
+    pose = np.asarray(pose, np.float32)
+    co, so = np.cos(origin[..., 2]), np.sin(origin[..., 2])
+    dx = pose[..., 0] - origin[..., 0]
+    dy = pose[..., 1] - origin[..., 1]
+    t = pose[..., 2] - origin[..., 2]
+    return np.stack([dx * co + dy * so, -dx * so + dy * co,
+                     np.arctan2(np.sin(t), np.cos(t))], -1).astype(np.float32)
+
+
 def inverse(a):
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
     x = -(a[..., 0] * ca + a[..., 1] * sa)

@@ -22,6 +22,18 @@
 // scratch, then a second tiny launch sums the block partials in block
 // order.  Repeated runs give bit-identical poses.
 //
+// The batched entry (fgh_dense_flat_batch) is the same term for B lanes
+// of loop-closure link refinement (d2d_analytic.fgh_dense_flat_batch in
+// the JAX package): a (pair blocks, B) grid over one flat (N*H*W, 8)
+// bank, each lane with its own increment, initial pose, source list,
+// target origin and 64-bit row offset, then one summing block per lane.
+// At the offline shapes (~190 pairs x 256 source cells x 25 window
+// cells, ~1.2 M pairs per trial) a call is ~0.2 GFLOP and ~39 MB of
+// rows, gathered from a bank of a few tens of MB that largely stays in
+// L2: still far from either roofline, so the design keeps the main
+// path's fusion (no intermediate in device memory) and its fixed-order,
+// atomic-free reduction.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -shared -Xcompiler -fPIC (no --use_fast_math: expf and the divisions
 // stay IEEE f32) and bound through the plain C interface at the bottom.
@@ -138,21 +150,17 @@ __device__ __forceinline__ void block_reduce_store(float* v,
   }
 }
 
-// D2D window term: one thread per (source cell, window cell) pair.
-__global__ void __launch_bounds__(kThreads) fgh_dense_flat_kernel(
+// D2D window term of pair `t` = (source cell, window cell) of one lane:
+// adds its 10 components to v when the pair is valid.
+__device__ __forceinline__ void window_pair(
     const float* __restrict__ d, const float* __restrict__ T0,
     const float* __restrict__ means, const float* __restrict__ covs,
     const uint8_t* __restrict__ mask, const float* __restrict__ packed,
     const float* __restrict__ origin, long long row_offset, int n_src,
-    int h, int w, float res, int nb, float lfd1, float lfd2,
-    float* __restrict__ partials) {
-  float v[kComps];
-#pragma unroll
-  for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
-
+    int h, int w, float res, int nb, float lfd1, float lfd2, long long t,
+    float* v) {
   const int win = 2 * nb + 1;
   const int kwin = win * win;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t < (long long)n_src * kwin) {
     const int i = (int)(t / kwin);
     const int k = (int)(t % kwin);
@@ -198,7 +206,47 @@ __global__ void __launch_bounds__(kThreads) fgh_dense_flat_kernel(
       }
     }
   }
+}
+
+// D2D window term: one thread per (source cell, window cell) pair.
+__global__ void __launch_bounds__(kThreads) fgh_dense_flat_kernel(
+    const float* __restrict__ d, const float* __restrict__ T0,
+    const float* __restrict__ means, const float* __restrict__ covs,
+    const uint8_t* __restrict__ mask, const float* __restrict__ packed,
+    const float* __restrict__ origin, long long row_offset, int n_src,
+    int h, int w, float res, int nb, float lfd1, float lfd2,
+    float* __restrict__ partials) {
+  float v[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
+  window_pair(d, T0, means, covs, mask, packed, origin, row_offset, n_src,
+              h, w, res, nb, lfd1, lfd2,
+              (long long)blockIdx.x * kThreads + threadIdx.x, v);
   block_reduce_store(v, partials);
+}
+
+// The same term for B lanes in one launch: blockIdx.y is the lane, whose
+// increment, initial pose, source cells, target origin and row offset
+// into the shared flat bank are its own; blockIdx.x walks its pairs.
+// Each lane's block partials land in its own row of `partials`
+// (lane * gridDim.x + blockIdx.x).
+__global__ void __launch_bounds__(kThreads) fgh_dense_flat_batch_kernel(
+    const float* __restrict__ d, const float* __restrict__ T0,
+    const float* __restrict__ means, const float* __restrict__ covs,
+    const uint8_t* __restrict__ mask, const float* __restrict__ packed,
+    const float* __restrict__ origins,
+    const long long* __restrict__ row_offsets, int n_src, int h, int w,
+    float res, int nb, float lfd1, float lfd2,
+    float* __restrict__ partials) {
+  const long long lane = blockIdx.y;
+  float v[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
+  window_pair(d + 3 * lane, T0 + 3 * lane, means + lane * n_src * 2,
+              covs + lane * n_src * 4, mask + lane * n_src, packed,
+              origins + 2 * lane, row_offsets[lane], n_src, h, w, res, nb,
+              lfd1, lfd2, (long long)blockIdx.x * kThreads + threadIdx.x, v);
+  block_reduce_store(v, partials + lane * gridDim.x * kComps);
 }
 
 // Paired term: one thread per pair of flattened, broadcast inputs.
@@ -220,13 +268,16 @@ __global__ void __launch_bounds__(kThreads) pair_fgh_kernel(
   block_reduce_store(v, partials);
 }
 
-// Fixed-order sum of the block partials: out[c] = sum_b partials[b][c].
+// Fixed-order sum of the block partials, one block per lane:
+// out[lane][c] = sum_b partials[lane][b][c].
 __global__ void sum_partials_kernel(const float* __restrict__ partials,
                                     int n_blocks, float* __restrict__ out) {
+  const long long lane = blockIdx.x;
   if (threadIdx.x < kComps) {
+    const float* p = partials + lane * n_blocks * kComps;
     float acc = 0.0f;
-    for (int b = 0; b < n_blocks; ++b) acc += partials[b * kComps + threadIdx.x];
-    out[threadIdx.x] = acc;
+    for (int b = 0; b < n_blocks; ++b) acc += p[b * kComps + threadIdx.x];
+    out[lane * kComps + threadIdx.x] = acc;
   }
 }
 
@@ -249,6 +300,23 @@ int ndtg_fgh_dense_flat(const float* d, const float* T0, const float* means,
       d, T0, means, covs, mask, packed, origin, row_offset, n_src, h, w, res,
       nb, lfd1, lfd2, partials);
   sum_partials_kernel<<<1, 32, 0, st>>>(partials, n_blocks, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B lanes: partials (B, n_blocks, 10), out (B, 10).
+int ndtg_fgh_dense_flat_batch(const float* d, const float* T0,
+                              const float* means, const float* covs,
+                              const uint8_t* mask, const float* packed,
+                              const float* origins,
+                              const long long* row_offsets, int n_lanes,
+                              int n_src, int h, int w, float res, int nb,
+                              float lfd1, float lfd2, float* partials,
+                              int n_blocks, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fgh_dense_flat_batch_kernel<<<dim3(n_blocks, n_lanes), kThreads, 0, st>>>(
+      d, T0, means, covs, mask, packed, origins, row_offsets, n_src, h, w,
+      res, nb, lfd1, lfd2, partials);
+  sum_partials_kernel<<<n_lanes, 32, 0, st>>>(partials, n_blocks, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,10 +42,10 @@ class FeatureSet:
 
 
 def top_k_stable(x, k: int):
-    """(values, indices) of the k largest entries, lower index first
-    among ties — the order of `jax.lax.top_k`."""
+    """(values, indices) of the k largest entries along the last dim,
+    lower index first among ties — the order of `jax.lax.top_k`."""
     vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    return vals[..., :k], idx[..., :k]
 
 
 def detect(params: FeatureParams, ranges, hit) -> FeatureSet:

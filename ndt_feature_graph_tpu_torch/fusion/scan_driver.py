@@ -1,6 +1,6 @@
-"""Online graph-SLAM sequence driver (port of
+"""Online graph-SLAM sequence drivers (port of
 ndt_feature_graph_tpu/fusion/scan_driver.py: run_graph_sequence,
-unstack_bank).
+run_graph_chunk, unstack_bank).
 
 The reference runs the whole sequence inside one XLA executable with
 the node splits under lax.cond.  Here the scan loop is a Python loop
@@ -13,8 +13,6 @@ Frozen nodes are written into a pre-allocated node bank.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -22,18 +20,8 @@ from ndt_feature_graph_tpu.config import FuserParams
 from ndt_feature_graph_tpu_torch.core import motion_model, se2
 from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
 from ndt_feature_graph_tpu_torch.graph import node as node_mod
+from ndt_feature_graph_tpu_torch.graph.node import map_tensors
 from ndt_feature_graph_tpu_torch.io import dataset
-
-
-def map_tensors(fn, *trees):
-    """Apply `fn` leaf-wise over matching nested dataclasses of tensors."""
-    t0 = trees[0]
-    if dataclasses.is_dataclass(t0):
-        return type(t0)(**{
-            f.name: map_tensors(fn, *(getattr(t, f.name) for t in trees))
-            for f in dataclasses.fields(t0)
-        })
-    return fn(*trees)
 
 
 def split_schedule(odom, dist_moved, update_count, split_dist,
@@ -95,14 +83,14 @@ def run_graph_sequence(
     ranges (T, B); hit (T, B); ransac_u (T, M, 2) RANSAC draws, or None
     to draw them on the device from `generator`.
 
-    Returns (state, fmap, bank, node_T_bank (max_nodes, 3), edge_rel
-    (max_nodes, 3), edge_cov (max_nodes, 3, 3), traj (T, 3) global poses,
-    current_T (3,), meta = (dist_moved, update_count, n_frozen)).
+    Returns (state, fmap, bank, node_T_bank (n_frozen, 3), edge_rel
+    (n_frozen, 3), edge_cov (n_frozen, 3, 3), traj (T, 3) global poses,
+    current_T (3,), meta = (dist_moved, update_count, n_frozen)); the
+    bank holds the n_frozen nodes this call froze.
     """
     dev = ranges.device
     t_len = ranges.shape[0]
     sp = state.base.sensor_pose
-    fm_capacity, desc_dim = fmap.desc.shape
     split, insert, dist, cnt, n_frozen = split_schedule(
         odom.cpu().numpy(), dist_moved, update_count, split_dist,
         max_nodes, fm_incr,
@@ -114,15 +102,14 @@ def run_graph_sequence(
         )
 
     bank = map_tensors(
-        lambda x: torch.zeros((max_nodes,) + x.shape, dtype=x.dtype,
+        lambda x: torch.zeros((n_frozen,) + x.shape, dtype=x.dtype,
                               device=dev),
-        node_mod.empty_node(params, fm_capacity, dev),
+        node_mod.empty_node(params, fmap.desc.shape[0], dev),
     )
     z = dict(dtype=torch.float32, device=dev)
-    node_T_bank = torch.zeros((max_nodes, 3), **z)
-    edge_rel = torch.zeros((max_nodes, 3), **z)
-    edge_cov = torch.zeros((max_nodes, 3, 3), **z)
-    cov_floor = torch.eye(3, **z) * 1e-4
+    node_T_bank = torch.zeros((n_frozen, 3), **z)
+    edge_rel = torch.zeros((n_frozen, 3), **z)
+    edge_cov = torch.zeros((n_frozen, 3, 3), **z)
 
     st, fm = state, fmap
     cur_T = current_T.to(torch.float32)
@@ -134,29 +121,14 @@ def run_graph_sequence(
         )
         traj.append(se2.compose(cur_T, ns.base.Tnow))
         if split[t]:
-            frozen = node_mod.freeze_node(params, cur_T, ns.base, fm)
+            frozen, rel, cov, new_T, st, fm = split_node(
+                params, link_source, cur_T, ns, fm, ranges[t], hit[t])
             map_tensors(lambda b, v: b[nn].copy_(v), bank, frozen)
-            rel = ns.base.Todom if link_source == "odom" else ns.base.Tnow
             node_T_bank[nn] = cur_T
             edge_rel[nn] = rel
-            edge_cov[nn] = motion_model.measurement_cov(
-                params.motion, rel) + cov_floor
-            cur_T = se2.compose(cur_T, ns.base.Tnow)
+            edge_cov[nn] = cov
+            cur_T = new_T
             nn += 1
-            # Fresh fuser for the new node, seeded with this scan in the
-            # node-local (identity) frame; the scan's features are
-            # already in ns.prev_feats / prev_desc.
-            pts, mask = dataset.scan_to_points(ranges[t], hit[t])
-            zero = torch.zeros(3, **z)
-            base_new = fuser.initialize(params, zero, sp, pts, mask)
-            st = feature_fuser.FeatureFuserState(
-                base=base_new, prev_feats=ns.prev_feats,
-                prev_desc=ns.prev_desc, prev_pose=zero,
-            )
-            fm = node_mod.insert_features(
-                node_mod.empty_feature_map(fm_capacity, desc_dim, dev),
-                ns.prev_feats, ns.prev_desc, sp,
-            )
         else:
             st = ns
             if insert[t]:
@@ -168,6 +140,38 @@ def run_graph_sequence(
     traj = torch.stack(traj) if traj else torch.zeros((0, 3), **z)
     return (st, fm, bank, node_T_bank, edge_rel, edge_cov, traj, cur_T,
             (dist, cnt, n_frozen))
+
+
+def split_node(params: FuserParams, link_source: str, cur_T,
+               ns: feature_fuser.FeatureFuserState, fm, ranges, hit):
+    """A node split after the split scan was fused into the active node
+    (`ns`): freeze it with the incremental edge (rel = fused or raw local
+    odometry pose, motion-model covariance + 1e-4 I) and open the next
+    node, a fresh fuser seeded with that same scan in the node-local
+    (identity) frame whose feature map starts with the scan's features
+    (already in ns.prev_feats / prev_desc).
+
+    Returns (frozen node, rel, cov, new node origin, new state, new
+    feature map)."""
+    sp = ns.base.sensor_pose
+    dev = sp.device
+    frozen = node_mod.freeze_node(params, cur_T, ns.base, fm)
+    rel = ns.base.Todom if link_source == "odom" else ns.base.Tnow
+    cov = motion_model.measurement_cov(params.motion, rel) + torch.eye(
+        3, device=dev) * 1e-4
+    new_T = se2.compose(cur_T, ns.base.Tnow)
+    pts, mask = dataset.scan_to_points(ranges, hit)
+    zero = torch.zeros(3, device=dev)
+    st = feature_fuser.FeatureFuserState(
+        base=fuser.initialize(params, zero, sp, pts, mask),
+        prev_feats=ns.prev_feats, prev_desc=ns.prev_desc, prev_pose=zero,
+    )
+    fm_capacity, desc_dim = fm.desc.shape
+    fm_new = node_mod.insert_features(
+        node_mod.empty_feature_map(fm_capacity, desc_dim, dev),
+        ns.prev_feats, ns.prev_desc, sp,
+    )
+    return frozen, rel, cov, new_T, st, fm_new
 
 
 def unstack_bank(bank, n: int):

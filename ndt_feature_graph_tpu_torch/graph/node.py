@@ -109,6 +109,22 @@ def freeze_node(params: FuserParams, node_T, fstate: fuser_mod.FuserState,
     )
 
 
+def map_tensors(fn, *trees):
+    """Apply `fn` leaf-wise over matching nested dataclasses of tensors."""
+    t0 = trees[0]
+    if dataclasses.is_dataclass(t0):
+        return type(t0)(**{
+            f.name: map_tensors(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)
+        })
+    return fn(*trees)
+
+
+def stack_nodes(nodes) -> NodeData:
+    """Stack a list of nodes into one (N, ...) NodeData bank (copies)."""
+    return map_tensors(lambda *xs: torch.stack(xs), *nodes)
+
+
 def empty_node(params: FuserParams, fm_capacity: int,
                device=None) -> NodeData:
     """Shape template of a node (the bank is this, stacked)."""

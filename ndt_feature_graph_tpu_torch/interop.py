@@ -7,6 +7,11 @@ state)` or a nested mapping — and build the port's dataclasses on
 `device`.  `to_numpy` goes back: a nested dict of numpy arrays under the
 same field names (the port's dataclasses use the JAX names).  The JAX
 FeatureFuserState's PRNG `key` has no port counterpart and is dropped.
+A stacked (N, ...) JAX node bank goes through `node_from_jax` as one
+node does; link and edge indices become int64.  `graph_from_jax` loads a
+whole frozen JAX graph (bank, node poses, odometry edges) into a port
+NDTFeatureGraphSLAM, and `tree_from_flat` reads such a bank back from an
+npz of dotted field paths.
 
 Nothing here imports jax.
 """
@@ -24,9 +29,12 @@ from ndt_feature_graph_tpu_torch.fusion.feature_fuser import (
     FeatureFuserState,
 )
 from ndt_feature_graph_tpu_torch.fusion.fuser import FuserState
+from ndt_feature_graph_tpu_torch.graph.links import LinkSet
 from ndt_feature_graph_tpu_torch.graph.node import (
-    FeatureMapBuffer, NodeData,
+    FeatureMapBuffer, NodeData, map_tensors,
 )
+from ndt_feature_graph_tpu_torch.graph.optimize import EdgeList
+from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.ops.d2d import PackedTarget
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList, NDTGrid
 
@@ -87,6 +95,60 @@ def node_from_jax(n, device=None) -> NodeData:
         **_tensors(n, ("T", "Tlocal_odom", "Tlocal_fuse", "occ_origin",
                        "occ", "desc"), device),
     )
+
+
+def _indices(obj, names, device):
+    return {n: torch.tensor(np.asarray(_get(obj, n)), dtype=torch.int64,
+                            device=device) for n in names}
+
+
+def link_set_from_jax(ls, device=None) -> LinkSet:
+    return LinkSet(**_indices(ls, ("ref", "mov"), device),
+                   **_tensors(ls, ("T", "cov", "score", "mask"), device))
+
+
+def edge_list_from_jax(e, device=None) -> EdgeList:
+    is_odom = _get(e, "is_odom")
+    return EdgeList(
+        **_indices(e, ("i", "j"), device),
+        **_tensors(e, ("meas", "info", "mask"), device),
+        is_odom=None if is_odom is None else torch.tensor(
+            np.asarray(is_odom), device=device),
+    )
+
+
+def tree_from_flat(flat: Mapping, prefix: str) -> dict:
+    """The nested mapping stored under `prefix` in a flat mapping whose
+    keys are dotted field paths ("prefix.target.packed"), such as an npz
+    written from a flattened JAX tree."""
+    out: dict = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix + "."):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split(".")
+        d = out
+        for name in path:
+            d = d.setdefault(name, {})
+        d[leaf] = value
+    return out
+
+
+def graph_from_jax(params, bank, node_T, edges, device=None):
+    """A port NDTFeatureGraphSLAM holding a frozen JAX graph, ready for
+    optimize_offline: `bank` a stacked (N, ...) JAX node bank, `node_T`
+    (N, 3) the node poses, `edges` the odometry edges as (i, j, rel (3,),
+    cov (3, 3))."""
+    stacked = node_from_jax(bank, device)
+    n = stacked.T.shape[0]
+    slam = NDTFeatureGraphSLAM(params)
+    slam.nodes = [map_tensors(lambda a, i=i: a[i], stacked)
+                  for i in range(n)]
+    slam.node_T = [np.asarray(t, np.float32).copy()
+                   for t in np.asarray(node_T)]
+    slam.odom_edges = [(int(i), int(j), np.asarray(rel, np.float32),
+                        np.asarray(cov, np.float32))
+                       for (i, j, rel, cov) in edges]
+    return slam
 
 
 def to_numpy(obj):

@@ -1,13 +1,17 @@
 """Hand-written Hopper kernels of the registration hot path — the
 counterpart of ndt_feature_graph_tpu/ops/pallas_kernels.py.
 
-`csrc/pair_fgh.cu` holds two entries that share one device function
+`csrc/pair_fgh.cu` holds three entries that share one device function
 for the per-pair D2D algebra (pallas_kernels._fgh_components):
 
   * `fgh_dense_flat` — the main path's D2D window term: per Newton trial
     ONE launch forms the trial pose, moves the source cells, gathers
     their (2n+1)^2 window rows from the packed (H*W, 8) table, masks and
     reduces to (f, g, H).  Plain twin: d2d_analytic.fgh_dense_flat.
+  * `fgh_dense_flat_batch` — the same term for B lanes against one flat
+    (N*H*W, 8) node bank, each lane with its own row offset: the lockstep
+    Newton of loop-closure link refinement.  Plain twin:
+    d2d_analytic.fgh_dense_flat_batch.
   * `pair_fgh_reduce` — the Pallas kernel's signature: masked sum of the
     pair derivatives of given pairs; serves the paired feature term.
     Plain twin: `pair_fgh_reduce_reference` below.
@@ -47,7 +51,8 @@ NVCC_FLAGS = [
 ]
 
 # Launch counts per entry: incremented only where a kernel launches.
-LAUNCHES = {"fgh_dense_flat": 0, "pair_fgh_reduce": 0}
+LAUNCHES = {"fgh_dense_flat": 0, "pair_fgh_reduce": 0,
+            "fgh_dense_flat_batch": 0}
 
 _lib = None
 build_log = ""        # nvcc/ptxas output of the build in this process
@@ -101,6 +106,10 @@ def build():
         P, P, P, P, P, P, P, LL, I, I, I, F, I, F, F, P, I, P, P,
     ]
     lib.ndtg_fgh_dense_flat.restype = I
+    lib.ndtg_fgh_dense_flat_batch.argtypes = [
+        P, P, P, P, P, P, P, P, I, I, I, I, F, I, F, F, P, I, P, P,
+    ]
+    lib.ndtg_fgh_dense_flat_batch.restype = I
     lib.ndtg_pair_fgh_reduce.argtypes = [
         P, P, P, P, P, LL, F, F, P, I, P, P,
     ]
@@ -112,15 +121,20 @@ def build():
 _SYM_INDEX = {}       # device -> index of the 3x3 Hessian in the 10 sums
 
 
+def _sym_index(device):
+    """Index of the 3x3 Hessian in the 10 sums, made once per device: a
+    fresh host-to-device copy per call would synchronise the stream."""
+    sym = _SYM_INDEX.get(device)
+    if sym is None:
+        sym = torch.tensor([4, 5, 6, 5, 7, 8, 6, 8, 9], device=device)
+        _SYM_INDEX[device] = sym
+    return sym
+
+
 def _unpack10(out):
     """(10,) [s, g0..g2, h00 h01 h02 h11 h12 h22] -> (f, g (3,), H (3,3))
-    on the device.  The index tensor is made once per device: a fresh
-    host-to-device copy per call would synchronise the stream."""
-    sym = _SYM_INDEX.get(out.device)
-    if sym is None:
-        sym = torch.tensor([4, 5, 6, 5, 7, 8, 6, 8, 9], device=out.device)
-        _SYM_INDEX[out.device] = sym
-    return out[0], out[1:4], out[sym].reshape(3, 3)
+    on the device."""
+    return out[0], out[1:4], out[_sym_index(out.device)].reshape(3, 3)
 
 
 def _check(name, t, dtype, shape, device):
@@ -184,6 +198,61 @@ def fgh_dense_flat(d, T0, src: CellList, packed, origin, h: int, w: int,
     _raise_on(err, "fgh_dense_flat")
     LAUNCHES["fgh_dense_flat"] += 1
     return _unpack10(out)
+
+
+MAX_LANES = 65535     # gridDim.y of the batched launch
+
+
+def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
+                         row_offsets, h: int, w: int, res: float, n: int,
+                         lfd1: float, lfd2: float):
+    """(f (B,), g (B, 3), H (B, 3, 3)) of B lanes of the D2D window term
+    against one flat (R, 8) packed bank — d2d_analytic.
+    fgh_dense_flat_batch in one launch (plus the per-lane sum) on CUDA
+    tensors.  Lane b moves src_b[b] by d_b[b] ∘ T0_b[b] and reads the
+    bank rows from row_offsets[b] (int64) on, with origin origins[b]."""
+    if d_b.device.type == "cpu":
+        m = MatcherParams(n_neighbours=n, lfd1=lfd1, lfd2=lfd2)
+        return d2d_analytic.fgh_dense_flat_batch(
+            d_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w, res, m
+        )
+    if d_b.device.type != "cuda":
+        raise ValueError(
+            f"fgh_dense_flat_batch: unsupported device {d_b.device}")
+    dev = d_b.device
+    b, n_src = src_b.mask.shape
+    f32 = torch.float32
+    _check("d_b", d_b, f32, (b, 3), dev)
+    _check("T0_b", T0_b, f32, (b, 3), dev)
+    _check("src_b.means", src_b.means, f32, (b, n_src, 2), dev)
+    _check("src_b.covs", src_b.covs, f32, (b, n_src, 2, 2), dev)
+    _check("src_b.mask", src_b.mask, torch.bool, (b, n_src), dev)
+    _check("packed_flat", packed_flat, f32, (packed_flat.shape[0], 8), dev)
+    _check("origins", origins, f32, (b, 2), dev)
+    _check("row_offsets", row_offsets, torch.int64, (b,), dev)
+    if packed_flat.data_ptr() % 16:
+        raise ValueError("packed_flat: rows must be 16-byte aligned")
+    if not 0 < b <= MAX_LANES:
+        raise ValueError(f"fgh_dense_flat_batch: {b} lanes, expected "
+                         f"1..{MAX_LANES}")
+    lib = build()
+    nblk = _blocks(lib, n_src * (2 * n + 1) ** 2)
+    partials = torch.empty((b, nblk, 10), dtype=f32, device=dev)
+    out = torch.empty((b, 10), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_fgh_dense_flat_batch(
+            d_b.data_ptr(), T0_b.data_ptr(), src_b.means.data_ptr(),
+            src_b.covs.data_ptr(), src_b.mask.data_ptr(),
+            packed_flat.data_ptr(), origins.data_ptr(),
+            row_offsets.data_ptr(), b, n_src, h, w, float(res), n,
+            float(lfd1), float(lfd2), partials.data_ptr(), nblk,
+            out.data_ptr(), stream,
+        )
+    _raise_on(err, "fgh_dense_flat_batch")
+    LAUNCHES["fgh_dense_flat_batch"] += 1
+    sym = _sym_index(dev)
+    return out[:, 0], out[:, 1:4], out[:, sym].reshape(b, 3, 3)
 
 
 def _fgh_components(mu_x, mu_y, s00, s01, s11, mx, my, c00, c01, c11,

@@ -130,49 +130,63 @@ def _psd_project(H):
 
 
 def newton_match(fgh_fn, d_init, m: MatcherParams):
-    """Damped-Newton (Levenberg-Marquardt) minimizer over the 3-DoF
-    increment — the reference's fixed-budget trial loop: 2*itr_max
-    trials spent in chunks of 6 (a chunk always runs whole), one
-    fgh evaluation per trial whose derivatives are reused as the next
-    linearization on acceptance, masked updates once `stop` is set, and
-    the best-score fallback.
+    """Damped-Newton (Levenberg-Marquardt) minimizer over one 3-DoF
+    increment: newton_match_batch with one lane.  `fgh_fn((3,)) -> (f,
+    g (3,), H (3, 3))`.  Returns (d, score_best, trials, converged) as
+    device tensors."""
+    d, f, itr, stop = newton_match_batch(
+        d_init[None], m,
+        lambda d_b: tuple(x[None] for x in fgh_fn(d_b[0])))
+    return d[0], f[0], itr[0], stop[0]
 
-    Host sync: one per 6-trial chunk — the stop flag is read before
-    each chunk after the first, and the remaining chunks are skipped
-    once it is set.  The reference's skipped chunks change nothing
-    (every update is masked by `stop`), so results, trial counts and
-    `converged` are identical to running the whole budget.
 
-    Returns (d, score_best, trials, converged) as device tensors.
-    """
+def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
+    """B independent damped-Newton (Levenberg-Marquardt) minimizations
+    over 3-DoF increments, advancing in lockstep with per-lane masks —
+    the reference's fixed-budget trial loop: 2*itr_max trials spent in
+    chunks of 6 (a chunk always runs whole), one fgh evaluation per
+    trial whose derivatives are reused as the next linearization on
+    acceptance, masked updates once a lane's `stop` is set, and the
+    best-score fallback.  `fgh_fn_batch((B, 3)) -> (f (B,), g (B, 3),
+    H (B, 3, 3))` evaluates every lane in one call.
+
+    Host sync: one read of `stop.all()` per 6-trial chunk; the remaining
+    chunks are skipped once EVERY lane has stopped, as the reference's
+    lax.cond does (a stopped lane's updates are masked, so results,
+    trial counts and `converged` are those of the whole budget).
+
+    Returns (d (B, 3), score (B,), trials (B,), converged (B,))."""
+    b = d_init_b.shape[0]
     max_trials = 2 * m.itr_max
-    dev = d_init.device
+    dev = d_init_b.device
     lam_min, lam_max = 1e-6, 1e7
     eye = torch.eye(3, dtype=torch.float32, device=dev)
 
-    d = d_init.to(torch.float32)
-    f, g, H = fgh_fn(d)
-    lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    d = d_init_b.to(torch.float32)
+    f, g, H = fgh_fn_batch(d)
+    lam = torch.full((b,), 1e-3, dtype=torch.float32, device=dev)
     best_d, best_f = d, f
-    itr = torch.zeros((), dtype=torch.int32, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    itr = torch.zeros(b, dtype=torch.int32, device=dev)
+    stop = torch.zeros(b, dtype=torch.bool, device=dev)
 
     trial_chunk = 6
     n_chunks = -(-max_trials // trial_chunk)
     for c in range(n_chunks):
-        if c and bool(stop):
+        if c and bool(stop.all()):
             break
         for _ in range(trial_chunk):
             Hp = _psd_project(H)
-            grad_vanished = torch.linalg.vector_norm(g) <= m.delta_score
-            delta = -torch.linalg.solve_ex(Hp + lam * eye, g)[0]
-            f_new, g_new, H_new = fgh_fn(d + delta)
-            accept = (f_new <= f + 1e-4 * torch.dot(delta, g)) & ~stop
+            grad_vanished = torch.linalg.vector_norm(g, dim=-1) <= (
+                m.delta_score)
+            delta = -torch.linalg.solve_ex(
+                Hp + lam[:, None, None] * eye, g[..., None])[0][..., 0]
+            f_new, g_new, H_new = fgh_fn_batch(d + delta)
+            accept = (f_new <= f + 1e-4 * (delta * g).sum(-1)) & ~stop
 
-            d_next = torch.where(accept, d + delta, d)
+            d_next = torch.where(accept[:, None], d + delta, d)
             f_next = torch.where(accept, f_new, f)
-            g_next = torch.where(accept, g_new, g)
-            H_next = torch.where(accept, H_new, H)
+            g_next = torch.where(accept[:, None], g_new, g)
+            H_next = torch.where(accept[:, None, None], H_new, H)
             if m.step_control:
                 lam_new = torch.where(
                     accept, torch.clamp(lam * 0.33, min=lam_min), lam * 6.0
@@ -183,7 +197,7 @@ def newton_match(fgh_fn, d_init, m: MatcherParams):
 
             better = f_next < best_f
             best_f = torch.where(better, f_next, best_f)
-            best_d = torch.where(better, d_next, best_d)
+            best_d = torch.where(better[:, None], d_next, best_d)
 
             score_converged = accept & (f - f_new <= m.delta_score)
             stop_new = stop | grad_vanished | (lam_new > lam_max) | (
@@ -195,5 +209,49 @@ def newton_match(fgh_fn, d_init, m: MatcherParams):
             )
 
     use_best = f > best_f
-    return (torch.where(use_best, best_d, d),
+    return (torch.where(use_best[:, None], best_d, d),
             torch.where(use_best, best_f, f), itr, stop)
+
+
+def _jacobi_eigh3(H, sweeps: int = 6):
+    """Eigen-decomposition of symmetric 3x3 matrices (..., 3, 3) by
+    cyclic Jacobi rotations: (eigenvalues (..., 3), eigenvectors
+    (..., 3, 3) as columns).  Elementwise tensor ops only, so a
+    non-finite input comes out non-finite instead of raising, and the
+    device is never synchronised (torch.linalg.eigh checks its
+    convergence flag on the host)."""
+    A = 0.5 * (H + H.transpose(-1, -2))
+    V = torch.eye(3, dtype=H.dtype, device=H.device).expand(A.shape).clone()
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            apq = A[..., p, q]
+            app, aqq = A[..., p, p], A[..., q, q]
+            small = apq.abs() <= 1e-30
+            theta = (aqq - app) / (2.0 * torch.where(small, 1.0, apq))
+            t = torch.sign(theta) / (theta.abs()
+                                     + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(small, 0.0, torch.where(theta == 0, 1.0, t))
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s = t * c
+            J = torch.eye(3, dtype=H.dtype, device=H.device).expand(
+                A.shape).clone()
+            J[..., p, p] = c
+            J[..., q, q] = c
+            J[..., p, q] = s
+            J[..., q, p] = -s
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
+
+
+def cov_from_hessian(H, m: MatcherParams):
+    """THE pose-covariance convention (reference d2d.cov_from_hessian):
+    cov_scale * H^-1 with the Hessian eigenvalues floored at 1e-6,
+    symmetrized.  Batched over leading dims; a non-finite Hessian (a
+    degenerate pair) gives a non-finite covariance, which
+    links.valid_links drops, without raising."""
+    evals, evecs = _jacobi_eigh3(H)
+    evals = torch.clamp(evals, min=1e-6)
+    cov = (evecs / evals[..., None, :]) @ evecs.transpose(-1, -2)
+    cov = 0.5 * (cov + cov.transpose(-1, -2))
+    return m.cov_scale * cov

@@ -111,26 +111,30 @@ def _pair_fgh(mu, Sig, m_rot, Crot, lfd1, lfd2):
     return s, g, H
 
 
-def _masked_sum(s, g, H, ok):
+def _masked_sum(s, g, H, ok, n_sum=None):
+    """Masked sum of per-pair (s, g, H) over the last `n_sum` pair dims
+    of `ok` (default: all of them)."""
     okf = ok.to(torch.float32)
-    lead = tuple(range(ok.dim()))
+    n_sum = ok.dim() if n_sum is None else n_sum
+    dims = tuple(range(ok.dim() - n_sum, ok.dim()))
     return (
-        (s * okf).sum(),
-        (g * okf[..., None]).sum(lead),
-        (H * okf[..., None, None]).sum(lead),
+        (s * okf).sum(dims),
+        (g * okf[..., None]).sum(dims),
+        (H * okf[..., None, None]).sum(dims),
     )
 
 
 def _fgh_reduce(d, moved: CellList, t_means, t_covs, t_valid,
                 m: MatcherParams):
-    """Per-pair fgh over gathered (N, K) windows, masked sum."""
-    mu = moved.means[:, None, :] - t_means
-    Sig = moved.covs[:, None, :, :] + t_covs
-    m_rot = (moved.means - d[:2])[:, None, :]
-    ok = t_valid & moved.mask[:, None]
-    s, g, H = _pair_fgh(mu, Sig, m_rot, moved.covs[:, None, :, :],
+    """Per-pair fgh over gathered (..., N, K) windows, masked sum over
+    (N, K); d (..., 3)."""
+    mu = moved.means[..., :, None, :] - t_means
+    Sig = moved.covs[..., :, None, :, :] + t_covs
+    m_rot = (moved.means - d[..., None, :2])[..., :, None, :]
+    ok = t_valid & moved.mask[..., None]
+    s, g, H = _pair_fgh(mu, Sig, m_rot, moved.covs[..., :, None, :, :],
                         m.lfd1, m.lfd2)
-    return _masked_sum(s, g, H, ok)
+    return _masked_sum(s, g, H, ok, 2)
 
 
 def window_cells(d, T0, src: CellList, origin, resolution: float):
@@ -152,6 +156,23 @@ def fgh_dense_flat(d, T0, src: CellList, packed_flat, origin, row_offset,
         packed_flat, h, w, iy0, ix0, m.n_neighbours, row_offset
     )
     return _fgh_reduce(d, moved, t_means, t_covs, t_valid, m)
+
+
+def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
+                         row_offsets, h: int, w: int, resolution: float,
+                         m: MatcherParams):
+    """fgh_dense_flat for B lanes at once, each with its own increment
+    d_b (B, 3), initial pose T0_b (B, 3), source cells src_b (B, N, ...),
+    target origin origins (B, 2) and row offset row_offsets (B,) into
+    one flat (R, 8) packed bank.  Returns (f (B,), g (B, 3),
+    H (B, 3, 3))."""
+    moved, iy0, ix0 = window_cells(d_b, T0_b, src_b, origins[:, None, :],
+                                   resolution)
+    t_means, t_covs, t_valid = d2d.gather_windows_flat(
+        packed_flat, h, w, iy0, ix0, m.n_neighbours,
+        row_offsets.to(torch.int64)[:, None, None],
+    )
+    return _fgh_reduce(d_b, moved, t_means, t_covs, t_valid, m)
 
 
 def paired_inputs(d, T0, src: CellList, tgt: CellList):

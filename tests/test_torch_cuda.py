@@ -78,5 +78,56 @@ def test_kernels_match_plain_at_main_path_shapes(cuda_device):
     sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
                                           int(fx["max_nodes"]))
     errs, times = chip_smoke.kernel_checks(sp, fx, cuda_device)
-    assert set(errs) == set(times) == set(cuda_kernels.LAUNCHES)
+    assert set(errs) == set(times) == {"fgh_dense_flat", "pair_fgh_reduce"}
+
+
+def _small_bank(dev):
+    """Four canonical nodes: fusers initialized on fixture scans 0, 50,
+    100 and 150 in their node frames, frozen at the ground-truth poses,
+    and the relative poses of all ordered pairs."""
+    from ndt_feature_graph_tpu_torch.core import se2
+    from ndt_feature_graph_tpu_torch.fusion import fuser
+    from ndt_feature_graph_tpu_torch.graph import node as node_mod
+    from ndt_feature_graph_tpu_torch.io import dataset
+
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    p = sp.fuser
+    t = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    scans = (0, 50, 100, 150)
+    fmap = node_mod.empty_feature_map(16, 48, dev)
+    nodes = []
+    for s in scans:
+        pts, mask = dataset.scan_to_points(t(fx["ranges"][s]),
+                                           t(fx["hit"][s], torch.bool))
+        st = fuser.initialize(p, torch.zeros(3, device=dev),
+                              torch.zeros(3, device=dev), pts, mask)
+        nodes.append(node_mod.freeze_node(p, t(fx["gt"][s]), st, fmap))
+    bank = node_mod.stack_nodes(nodes)
+    pairs = np.asarray([(i, j) for i in range(4) for j in range(4) if i != j])
+    gt = t(fx["gt"][list(scans)])
+    T0 = se2.sub(gt[pairs[:, 0]], gt[pairs[:, 1]]).cpu().numpy()
+    return sp, bank, pairs, T0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 12, 300])
+def test_fgh_dense_flat_batch_matches_plain(cuda_device, lanes):
+    """The batch entry against its plain twin on a canonical node bank:
+    pair lanes plus an all-masked lane, a lane on the bank's last node
+    and one whose windows cross the grid edge; two calls give identical
+    bits (chip_smoke.py's phase 3b)."""
+    from ndt_feature_graph_tpu_torch.graph import links
+
+    sp, bank, pairs, T0 = _small_bank(cuda_device)
+    idx = np.resize(np.arange(len(pairs)), lanes)
+    before = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+    err, _ = chip_smoke.batch_kernel_checks(
+        bank, pairs[idx], T0[idx], links.source_cell_budget(bank), sp,
+        cuda_device, times=False)
+    assert np.isfinite(err)
+    assert cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == before + 2
 

@@ -130,7 +130,8 @@ def test_cpu_wrappers_use_the_plain_twins():
                            0, H_, W_, RES, M)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert cuda_kernels.LAUNCHES == {"fgh_dense_flat": 0,
-                                     "pair_fgh_reduce": 0}
+                                     "pair_fgh_reduce": 0,
+                                     "fgh_dense_flat_batch": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -150,6 +151,14 @@ def test_wrappers_reject_other_devices():
                                     torch.zeros(16, 8, device="meta"),
                                     torch.zeros(2, device="meta"), 4, 4,
                                     0.5, 2, 1.0, 0.05)
+    src_b = tnm.CellList(*(x[None] for x in (src.means, src.covs,
+                                              src.mask)))
+    with pytest.raises(ValueError):
+        cuda_kernels.fgh_dense_flat_batch(
+            meta[None], meta[None], src_b, torch.zeros(16, 8, device="meta"),
+            torch.zeros(1, 2, device="meta"),
+            torch.zeros(1, dtype=torch.int64, device="meta"), 4, 4, 0.5, 2,
+            1.0, 0.05)
 
 
 @pytest.mark.parametrize("d", [(0.0, 0.0, 0.0), (0.05, -0.08, 0.02)])

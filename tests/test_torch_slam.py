@@ -157,7 +157,7 @@ def test_ransac_key_replay_matches_jax_keys():
     run."""
     seq = _seq()
     p = _params(False)
-    draws, keys = _draws()
+    draws, keys = _draws()[:2]
     assert draws.shape == (27, p.fuser.features.ransac_hypotheses, 2)
     ref = JSLAM(p, seed=0)
     ref.initialize(jnp.asarray(seq.gt[0]), jnp.zeros(3),
