@@ -8,15 +8,24 @@ Runs on a machine with a CUDA card and no JAX:
   2. builds the CUDA kernels from csrc/ (nvcc, sm_90a) and times the build;
   3. holds each kernel entry against its plain PyTorch twin on the card at
      the main path's shapes — a real canonical fuser state's packed table
-     with N=256 source cells x K=25 window cells, 64 feature pairs — plus
-     edge cases (all pairs masked; windows crossing the grid edge), and
-     times kernel vs plain;
+     with N=256 source cells x K=25 window cells, 64 feature pairs, the
+     odometry information — plus edge cases (each term of the objective
+     switched off in turn; all pairs masked; an empty feature list;
+     windows of 9 and 49 cells; windows crossing the grid edge; two
+     calls, identical bits), and times kernel vs plain in turns (plain,
+     kernel, kernel, plain) beside the bound of the run's own inputs;
   4. drives the main path (NDTFeatureGraphSLAM.initialize +
      run_sequence_device) over the canonical 200-scan fixture with the
-     JAX reference's RANSAC draws, checks that both kernel entries
-     launched, that the frozen-node count matches JAX and that the
-     trajectory stays within 1 cm / 5 mrad of the JAX trajectory, and
-     reports ATE and scans/s (one warm-up run, then the median of 3);
+     JAX reference's RANSAC draws, checks that `newton_objective` — and
+     no other entry — launched, once per Newton trial, that the
+     frozen-node count matches JAX and that the trajectory stays within
+     1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
+     (one warm-up run, then the median of 3);
+     3c. plain registration on that graph: d2d.match_d2d +
+         covariance_d2d of its last frozen node against the final
+         submap's packed table (the `fgh_dense_flat` entry), and
+         `fgh_paired` on its own (the `pair_fgh_reduce` entry), kernel
+         against plain;
   5. offline loop closure: builds bench.py's offline graph (a node every
      0.25 m) with pipeline.run_slam and checks its node count, then
      3b. holds the batched entry `fgh_dense_flat_batch` against its plain
@@ -41,9 +50,21 @@ Runs on a machine with a CUDA card and no JAX:
      propose -> refine -> rescore pairs/s at B=256 and 1024;
   6. online loop closure (bench.py's bench_online_lc setting,
      run_sequence_chunked with chunk=64): trajectory and node poses
-     within 1 cm / 5 mrad of JAX, the same node and loop-link counts, all
-     three kernel entries launched; scans/s (median of 3);
-  7. prints a JSON line per kernel and, last, the result line.
+     within 1 cm / 5 mrad of JAX, the same node and loop-link counts,
+     `newton_objective` and `fgh_dense_flat_batch` launched; scans/s
+     (median of 3);
+  7. prints one JSON line of all kernel entries and, last, the result
+     line.
+
+A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
+summed time of the kernels a call launches, mean over many calls);
+`events_ms` adds the host's launch gaps (CUDA events around a run of
+calls).  `bound_ms` is the larger of the bytes the call must move (each
+input read once: the distinct table rows its windows touch, its cell
+lists, its scalars; 13 floats written) over 3.35 TB/s and its
+operations (FLOPS_PER_PAIR for each unmasked, in-bounds, valid pair)
+over 67 TFLOP/s: NVIDIA's H100 SXM figures.  No single PyTorch call
+computes any entry, so `library_ms` is null.
 
 Exits non-zero (and prints no result) without a CUDA card or if any
 phase fails.  With --out DIR the details also go to DIR/chip_smoke.json.
@@ -62,7 +83,7 @@ import time
 import numpy as np
 import torch
 
-from ndt_feature_graph_tpu.config import (
+from ndt_feature_graph_tpu_torch.config import (
     FeatureParams, FuserParams, GraphParams, NDTMapParams, SLAMParams,
 )
 from ndt_feature_graph_tpu_torch import interop, pipeline
@@ -73,7 +94,7 @@ from ndt_feature_graph_tpu_torch.graph import node as node_mod
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io import dataset
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
-from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d_analytic
+from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d, d2d_analytic
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -92,6 +113,13 @@ F_RTOL = 1e-4                 # tests/test_pallas_kernels.py tolerances
 GH_RTOL, G_ATOL, H_ATOL = 2e-3, 1e-4, 1e-3
 CANCEL_RTOL = 1e-3            # batch lanes: see compare()
 XY_TOL, TH_TOL = 0.01, 0.005  # trajectory vs the JAX reference
+MATCH_TOL, COV_RTOL = 1e-4, 1e-3   # match_d2d pose, covariance_d2d
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
+# Operations of one pair, counted from pair_components in the source:
+# ~165 multiplies and adds of the algebra and the sums, one divide and
+# one exp counted as ~17 each.
+FLOPS_PER_PAIR = 200
+CELL_BYTES = 8 + 16 + 1       # a cell's mean, covariance and mask
 
 
 def canonical_slam_params(split_m=2.0, max_nodes=64, **graph) -> SLAMParams:
@@ -158,6 +186,54 @@ def device_ms(fn, reps=50):
     return sum(e.self_device_time_total for e in on_dev) * 1e-3 / reps
 
 
+def time_turns(kernel, plain, reps=50, plain_reps=10):
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain) inside this one call.  Returns the means as {"ms",
+    "plain_ms"} (device time) and {"events_ms", "plain_events_ms"}
+    (with the host), and prints every reading."""
+    dev_t = [device_ms(plain, plain_reps), device_ms(kernel, reps),
+             device_ms(kernel, reps), device_ms(plain, plain_reps)]
+    ev_t = [time_ms(plain, plain_reps), time_ms(kernel, reps),
+            time_ms(kernel, reps), time_ms(plain, plain_reps)]
+    fmt = lambda t: ", ".join(f"{x * 1e3:.2f}" for x in t)  # noqa: E731
+    print(f"    device time, us (plain, kernel, kernel, plain): "
+          f"{fmt(dev_t)}; with the host (CUDA events): {fmt(ev_t)}")
+    return {"ms": (dev_t[1] + dev_t[2]) / 2,
+            "plain_ms": (dev_t[0] + dev_t[3]) / 2,
+            "events_ms": (ev_t[1] + ev_t[2]) / 2,
+            "plain_events_ms": (ev_t[0] + ev_t[3]) / 2}
+
+
+def bound(n_bytes, n_pairs):
+    """The least time the card could take for a call that must move
+    `n_bytes` and evaluate `n_pairs` pairs: {"bound_ms", "bound_by"}."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_pairs * FLOPS_PER_PAIR / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb):
+    """What the window term of this call needs, for its bound: (bytes
+    of the distinct table rows the unmasked source cells' windows read
+    plus the cell lists, pairs that are unmasked, in bounds and valid).
+    Works for one lane or (B, ...) lanes."""
+    o = origins if origins.dim() == 1 else origins[:, None, :]
+    _, iy0, ix0 = d2d_analytic.window_cells(d, T0, src, o, res)
+    offs = torch.arange(-nb, nb + 1, device=d.device)
+    iy = iy0[..., None, None] + offs[:, None]
+    ix = ix0[..., None, None] + offs[None, :]
+    inb = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    flat = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    if row_offsets is not None:
+        flat = flat + row_offsets[:, None, None, None]
+    live = src.mask[..., None, None].expand_as(flat)
+    rows = torch.unique(flat[live])
+    valid = (packed[flat][..., 5] > 0.5) & inb & live
+    n_bytes = 32 * rows.numel() + CELL_BYTES * src.mask.numel()
+    return n_bytes, int(valid.sum())
+
+
 def compare(name, got, ref, quiet=False, cancel=0.0):
     """Max abs error of (f, g, H) vs the plain version, within the
     stated tolerances.  `cancel` > 0 widens the absolute tolerance of g
@@ -200,11 +276,32 @@ def random_pairs(n, dev, seed=0):
     return t(mu), t(Sig), t(m_rot), t(Crot), torch.as_tensor(ok, device=dev)
 
 
-def kernel_checks(sp, fx, dev):
-    """Phase 3: each kernel entry vs its plain twin on the card."""
+def feature_pairs(T0, dev, n=64, seed=0):
+    """`n` feature pseudo-cells as feature_fuser builds them (fixed
+    2e-4 covariances, about 60% of the pairs unmasked): source features
+    in the vehicle frame and targets a few centimetres from where T0
+    puts them."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(0, 5, (n, 2)).astype(np.float32)
+    covs = np.tile(np.eye(2, dtype=np.float32) * 2e-4, (n, 1, 1))
+    mask = rng.random(n) < 0.6
+    x, y, th = T0.cpu().numpy()
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    tgt = (src @ rot.T + [x, y] + rng.normal(0, 0.03, (n, 2))).astype(
+        np.float32)
+    t = lambda x_, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x_, dtype=dt, device=dev)
+    return (CellList(t(src), t(covs), t(mask, torch.bool)),
+            CellList(t(tgt), t(covs), t(mask, torch.bool)))
+
+
+def trial_case(sp, fx, dev):
+    """The inputs of one Newton trial of the main path: a canonical
+    fuser state after scan 0, scan 1's local cells at full capacity
+    (1,024), its predicted pose and odometry information, an increment
+    and 64 feature pairs.  Returns (state, src, T0, Q, d, feat_src,
+    feat_tgt)."""
     p = sp.fuser
-    m = p.matcher
-    h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
     T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
     pts0, mask0 = dataset.scan_to_points(T(fx["ranges"][0]),
                                          T(fx["hit"][0], torch.bool))
@@ -213,32 +310,72 @@ def kernel_checks(sp, fx, dev):
     pts1, mask1 = dataset.scan_to_points(T(fx["ranges"][1]),
                                          T(fx["hit"][1], torch.bool))
     src, _ = fuser._build_local_cells(p, state.sensor_pose, pts1, mask1)
+    T0 = se2.compose(state.Tnow, T(fx["odom"][1]))
+    Q = fuser._increment_information(p, T(fx["odom"][1]), T0)
+    return (state, src, T0, Q, T([0.02, -0.01, 0.004]),
+            *feature_pairs(T0, dev))
+
+
+def kernel_checks(sp, fx, dev):
+    """Phase 3: the single-lane kernel entries vs their plain twins on
+    the card.  Returns {entry: {"max_abs_err", and on a CUDA device
+    "ms", "plain_ms", "events_ms", "plain_events_ms", "bound_ms",
+    "bound_by"}}."""
+    p = sp.fuser
+    m = p.matcher
+    h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
+    T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
+    state, src, T0, Q, d, feat_src, feat_tgt = trial_case(sp, fx, dev)
     src = src.head(p.match_cell_budget)
     n_valid = int(src.mask.sum())
     check(src.means.shape[0] == 256, "source list is not 256 cells")
-    T0 = se2.compose(state.Tnow, T(fx["odom"][1]))
-    d = T([0.02, -0.01, 0.004])
+    origin = state.grid.origin
     print(f"  packed table {tuple(state.packed.shape)}, N=256 source cells "
-          f"({n_valid} valid) x K={(2 * m.n_neighbours + 1) ** 2}")
+          f"({n_valid} valid) x K={(2 * m.n_neighbours + 1) ** 2}, "
+          f"{int(feat_src.mask.sum())} of 64 feature pairs unmasked")
 
-    def dense(d_, src_, origin, packed=state.packed):
+    def objective(src_, fs, ft, Q_, m_=m, packed=state.packed):
+        args = (d, T0, src_, packed, origin, h, w, res, m_, fs, ft, Q_)
+        return (cuda_kernels.newton_objective(*args),
+                cuda_kernels.newton_objective_reference(*args))
+
+    got, ref = objective(src, feat_src, feat_tgt, Q)
+    err_obj = compare("newton_objective 256x25 + 64 pairs + Q", got, ref)
+    again, _ = objective(src, feat_src, feat_tgt, Q)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "newton_objective is not deterministic")
+    masked = dataclasses.replace(src, mask=torch.zeros_like(src.mask))
+    no_feat = dataclasses.replace(feat_src,
+                                  mask=torch.zeros_like(feat_src.mask))
+    for name, args in (
+            ("window off", (None, feat_src, feat_tgt, Q)),
+            ("features off", (src, None, None, Q)),
+            ("odometry off", (src, feat_src, feat_tgt, None)),
+            ("all source cells masked", (masked, feat_src, feat_tgt, Q)),
+            ("empty feature list", (src, no_feat, feat_tgt, Q)),
+            ("K=9", (src, feat_src, feat_tgt, Q, m.replace(n_neighbours=1))),
+            ("K=49", (src, feat_src, feat_tgt, Q,
+                      m.replace(n_neighbours=3)))):
+        err_obj = max(err_obj, compare(f"newton_objective, {name}",
+                                       *objective(*args)))
+    got, _ = objective(masked, no_feat, feat_tgt, None)
+    check(all(float(x.abs().max()) == 0.0 for x in got),
+          "newton_objective with every pair masked is not exactly zero")
+
+    def dense(d_, src_, origin_, packed=state.packed):
         return (
             cuda_kernels.fgh_dense_flat(
-                d_, T0, src_, packed, origin, h, w, res,
+                d_, T0, src_, packed, origin_, h, w, res,
                 m.n_neighbours, m.lfd1, m.lfd2),
             d2d_analytic.fgh_dense_flat(
-                d_, T0, src_, packed, origin, 0, h, w, res, m),
+                d_, T0, src_, packed, origin_, 0, h, w, res, m),
         )
 
-    origin = state.grid.origin
     err_dense = compare("fgh_dense_flat N=256 K=25", *dense(d, src, origin))
-    k1 = cuda_kernels.fgh_dense_flat(d, T0, src, state.packed, origin, h, w,
-                                     res, m.n_neighbours, m.lfd1, m.lfd2)
-    k2 = cuda_kernels.fgh_dense_flat(d, T0, src, state.packed, origin, h, w,
-                                     res, m.n_neighbours, m.lfd1, m.lfd2)
+    k1, _ = dense(d, src, origin)
+    k2, _ = dense(d, src, origin)
     check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
           "fgh_dense_flat is not deterministic")
-    masked = dataclasses.replace(src, mask=torch.zeros_like(src.mask))
     got, ref = dense(d, masked, origin)
     check(all(float(x.abs().max()) == 0.0 for x in got),
           "all-masked fgh_dense_flat is not exactly zero")
@@ -263,18 +400,46 @@ def kernel_checks(sp, fx, dev):
     mu, Sig, m_rot, Crot, ok = random_pairs(64, dev)
     got = cuda_kernels.pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, m.lfd1,
                                        m.lfd2)
+    again = cuda_kernels.pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, m.lfd1,
+                                         m.lfd2)
     ref = cuda_kernels.pair_fgh_reduce_reference(mu, Sig, m_rot, Crot, ok,
                                                  m.lfd1, m.lfd2)
     err_pair = compare("pair_fgh_reduce 64 pairs", got, ref)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "pair_fgh_reduce is not deterministic")
     none = torch.zeros_like(ok)
     got = cuda_kernels.pair_fgh_reduce(mu, Sig, m_rot, Crot, none, m.lfd1,
                                        m.lfd2)
     check(all(float(x.abs().max()) == 0.0 for x in got),
           "all-masked pair_fgh_reduce is not exactly zero")
 
+    out = {"newton_objective": {"max_abs_err": err_obj},
+           "fgh_dense_flat": {"max_abs_err": err_dense},
+           "pair_fgh_reduce": {"max_abs_err": err_pair}}
     if dev.type != "cuda":          # CPU rehearsal: no timing
-        return {"fgh_dense_flat": err_dense, "pair_fgh_reduce": err_pair}, {}
+        return out
+    win_bytes, win_pairs = window_work(d, T0, src, state.packed, origin,
+                                       None, h, w, res, nb)
+    scalars, out_bytes = 4 * (3 + 3 + 2), 4 * 13
+    n_feat = feat_src.mask.numel()
+    feat_live = int((feat_src.mask & feat_tgt.mask).sum())
+    bounds = {
+        "newton_objective": bound(
+            win_bytes + 2 * CELL_BYTES * n_feat + scalars + 4 * 9 + out_bytes,
+            win_pairs + feat_live),
+        "fgh_dense_flat": bound(win_bytes + scalars + out_bytes, win_pairs),
+        "pair_fgh_reduce": bound(
+            ok.numel() * (8 + 16 + 8 + 16 + 1) + out_bytes, int(ok.sum())),
+    }
     calls = {
+        "newton_objective": (
+            lambda: cuda_kernels.newton_objective(
+                d, T0, src, state.packed, origin, h, w, res, m, feat_src,
+                feat_tgt, Q),
+            lambda: cuda_kernels.newton_objective_reference(
+                d, T0, src, state.packed, origin, h, w, res, m, feat_src,
+                feat_tgt, Q),
+        ),
         "fgh_dense_flat": (
             lambda: cuda_kernels.fgh_dense_flat(
                 d, T0, src, state.packed, origin, h, w, res,
@@ -289,15 +454,11 @@ def kernel_checks(sp, fx, dev):
                 mu, Sig, m_rot, Crot, ok, m.lfd1, m.lfd2),
         ),
     }
-    times = {k: (time_ms(kf), time_ms(pf)) for k, (kf, pf) in calls.items()}
-    for k, (kt, pt) in times.items():
-        print(f"  {k}: kernel {kt * 1e3:.1f} us, plain {pt * 1e3:.1f} us "
-              f"per call (CUDA events, mean of 200)")
     for k, (kf, pf) in calls.items():
-        print(f"  {k}: device time kernel {device_ms(kf) * 1e3:.2f} us, "
-              f"plain {device_ms(pf) * 1e3:.2f} us per call "
-              f"(torch.profiler, mean of 50)")
-    return {"fgh_dense_flat": err_dense, "pair_fgh_reduce": err_pair}, times
+        print(f"  {k}: bound {bounds[k]['bound_ms'] * 1e3:.4f} us "
+              f"({bounds[k]['bound_by']})")
+        out[k].update(time_turns(kf, pf, 200, 20), **bounds[k])
+    return out
 
 
 def bank_lanes(bank, pairs, T0, budget, res, dev):
@@ -341,12 +502,37 @@ def bank_lanes(bank, pairs, T0, budget, res, dev):
             (ref * hw).contiguous(), (b, b + 1, b + 2))
 
 
+def small_bank(sp, fx, dev):
+    """A small node bank for checks of the batch entry away from the
+    offline graph: four canonical nodes (fusers initialized on fixture
+    scans 0, 50, 100, 150 in their node frames, frozen at the
+    ground-truth poses), all ordered pairs and their relative poses.
+    Returns (bank, pairs (12, 2), T0 (12, 3))."""
+    p = sp.fuser
+    t = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    scans = (0, 50, 100, 150)
+    fmap = node_mod.empty_feature_map(16, 48, dev)
+    nodes = []
+    for s in scans:
+        pts, mask = dataset.scan_to_points(t(fx["ranges"][s]),
+                                           t(fx["hit"][s], torch.bool))
+        st = fuser.initialize(p, torch.zeros(3, device=dev),
+                              torch.zeros(3, device=dev), pts, mask)
+        nodes.append(node_mod.freeze_node(p, t(fx["gt"][s]), st, fmap))
+    pairs = np.asarray([(i, j) for i in range(4) for j in range(4) if i != j])
+    gt = t(fx["gt"][list(scans)])
+    T0 = se2.sub(gt[pairs[:, 0]], gt[pairs[:, 1]]).cpu().numpy()
+    return node_mod.stack_nodes(nodes), pairs, T0
+
+
 def batch_kernel_checks(bank, pairs, T0, budget, sp, dev, times=True):
     """Phase 3b: `fgh_dense_flat_batch` against its plain twin at the
     offline shapes on a node bank: per-lane (f, g, H) at the stated
     tolerances, determinism (two calls, identical bits), the all-masked
     lane exactly zero, the last-node and grid-edge lanes nonzero.
-    Returns (max_abs_err, (kernel ms, plain ms) or None)."""
+    Returns the entry's {"max_abs_err"} and, with `times`, its times and
+    bound as kernel_checks gives them."""
     p = sp.fuser
     m = p.matcher
     h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
@@ -379,15 +565,18 @@ def batch_kernel_checks(bank, pairs, T0, budget, sp, dev, times=True):
           "edge lanes have no window crossing the edge next to valid cells")
     print(f"  max_abs_err over {lanes} lanes {err:.3e}; "
           f"{int(crossing.sum())} source windows cross the grid edge")
+    out = {"max_abs_err": err}
     if not times:
-        return err, None
-    kt, pt = time_ms(kernel, 50), time_ms(plain, 5)
-    print(f"  fgh_dense_flat_batch B={lanes}: kernel {kt * 1e3:.1f} us, "
-          f"plain {pt * 1e3:.1f} us per call (CUDA events)")
-    print(f"  fgh_dense_flat_batch B={lanes}: device time kernel "
-          f"{device_ms(kernel, 20) * 1e3:.2f} us, plain "
-          f"{device_ms(plain, 3) * 1e3:.2f} us per call (torch.profiler)")
-    return err, (kt, pt)
+        return out
+    n_bytes, n_pairs = window_work(d, T0, src, packed, origins, offs, h, w,
+                                   res, m.n_neighbours)
+    out.update(bound(n_bytes + lanes * (4 * (3 + 3 + 2) + 8 + 4 * 13),
+                     n_pairs))
+    print(f"  fgh_dense_flat_batch B={lanes}: bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}; "
+          f"{n_bytes / 1e6:.2f} MB, {n_pairs} pairs)")
+    out.update(time_turns(kernel, plain, 50, 3))
+    return out
 
 
 def run_main_path(sp, fx, dev):
@@ -595,7 +784,7 @@ def offline_phase(fx, lc, dev):
     """Phase 5: pipeline.run_slam + optimize_offline on bench.py's
     offline graph, against the JAX record; with phase 3b on its node
     bank and phase 5a on the reference's own graph.  Returns (summary,
-    launches of the optimize_offline run, batch-entry error, times)."""
+    launches of the optimize_offline run, the batch entry's checks)."""
     sp = canonical_slam_params(OFFLINE_SPLIT_M, 64)
     check(repr(sp) == str(lc["off_params_repr"]),
           "canonical_lc.npz was made at other offline parameters")
@@ -615,12 +804,12 @@ def offline_phase(fx, lc, dev):
     pairs = np.stack([lc["off_link_ref"], lc["off_link_mov"]], 1)
     print(f"phase 3b: fgh_dense_flat_batch vs plain on the card "
           f"({len(pairs)} candidate pairs, source budget {budget})")
-    err, times = batch_kernel_checks(bank, pairs, lc["off_link_T"], budget,
-                                     sp, dev)
+    batch = batch_kernel_checks(bank, pairs, lc["off_link_T"], budget, sp,
+                                dev)
     big = np.resize(pairs, (BIG_B, 2))
-    err_big, _ = batch_kernel_checks(
+    err_big = batch_kernel_checks(
         bank, big, np.resize(lc["off_link_T"], (BIG_B, 3)), budget, sp, dev,
-        times=False)
+        times=False)["max_abs_err"]
 
     print("phase 5a: optimize_offline on JAX's own graph (node bank, poses "
           "and odometry edges from canonical_lc.npz)")
@@ -703,7 +892,70 @@ def offline_phase(fx, lc, dev):
         "pairs_per_s": {b: r for b, (r, _) in rates.items()},
         "batch_err_b1024": err_big,
     }
-    return summary, launches, err, times
+    return summary, launches, batch
+
+
+def registration_phase(sp, slam, dev):
+    """Phase 3c: the port's plain registration on the main-path graph,
+    kernel against plain.  d2d.match_d2d + covariance_d2d of the last
+    frozen node's cells against the final submap's packed table (the
+    `fgh_dense_flat` entry: pose within MATCH_TOL, covariance within
+    COV_RTOL of its largest entry), and cuda_kernels.fgh_paired on its
+    own (the `pair_fgh_reduce` entry).  Returns the launches of these
+    two paths."""
+    p = sp.fuser
+    m = p.matcher
+    base = slam.state.base
+    tgt = d2d.PackedTarget(origin=base.grid.origin, packed=base.packed)
+    node = slam.nodes[-1]
+    T = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    # The node's frame in the final submap's frame, from the graph.
+    T_init = se2.sub(T(slam.current_T), T(slam.node_T[-1]))
+    cells = CellList(*(x.contiguous() for x in (
+        node.cells.means, node.cells.covs, node.cells.mask)))
+
+    cuda_kernels.reset_launch_counts()
+    got = d2d.match_d2d(tgt, cells, T_init, p.ndt, m)
+    cov = d2d.covariance_d2d(tgt, cells, got.T, p.ndt, m)
+    launches = dict(cuda_kernels.LAUNCHES)
+    check(launches["fgh_dense_flat"] > 0,
+          "match_d2d + covariance_d2d did not launch fgh_dense_flat")
+
+    def plain_fgh(T0):
+        return lambda d: d2d_analytic.fgh_dense_flat(
+            d, T0, cells, tgt.packed, tgt.origin, 0, p.ndt.grid_h,
+            p.ndt.grid_w, p.ndt.resolution, m)
+
+    zero = torch.zeros(3, device=dev)
+    d_ref, f_ref, itr_ref, _ = d2d.newton_match(plain_fgh(T_init), zero, m)
+    T_ref = se2.compose(d_ref, T_init)
+    cov_ref = d2d.cov_from_hessian(plain_fgh(got.T)(zero)[2], m)
+    xy, th = max_dev(got.T.cpu().numpy(), T_ref.cpu().numpy())
+    cov_dev = float((cov - cov_ref).abs().max() / cov_ref.abs().max())
+    print(f"  match_d2d of node {len(slam.nodes) - 1} "
+          f"({int(cells.mask.sum())} cells) against the final submap: "
+          f"{int(got.iterations)} trials (plain {int(itr_ref)}), "
+          f"{launches['fgh_dense_flat']} launches with covariance_d2d, "
+          f"moved {float(got.d[:2].norm()) * 100:.3f} cm; kernel vs plain "
+          f"pose {xy:.2e} m / {th:.2e} rad, score {float(got.score):.4f} "
+          f"vs {float(f_ref):.4f}; covariance_d2d within {cov_dev:.2e} of "
+          f"its largest entry")
+    check(max(xy, th) <= MATCH_TOL,
+          "match_d2d: kernel and plain poses differ beyond 1e-4")
+    check(np.isfinite(cov.cpu().numpy()).all() and cov_dev <= COV_RTOL,
+          "covariance_d2d: kernel and plain differ beyond 1e-3")
+
+    feat_src, feat_tgt = feature_pairs(T_init, dev, seed=1)
+    d = T([0.01, 0.02, -0.003])
+    cuda_kernels.reset_launch_counts()
+    got_p = cuda_kernels.fgh_paired(d, T_init, feat_src, feat_tgt, m)
+    launches["pair_fgh_reduce"] = cuda_kernels.LAUNCHES["pair_fgh_reduce"]
+    compare("fgh_paired on its own (64 feature pairs)", got_p,
+            d2d_analytic.fgh_paired(d, T_init, feat_src, feat_tgt, m))
+    check(launches["pair_fgh_reduce"] == 1,
+          "fgh_paired did not launch pair_fgh_reduce once")
+    return launches
 
 
 def online_lc_run(sp, fx, lc, dev):
@@ -731,8 +983,9 @@ def online_phase(fx, lc, dev):
     slam, _ = online_lc_run(sp, fx, lc, dev)
     launches = dict(cuda_kernels.LAUNCHES)
     print(f"  launches in the online-LC run: {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched by the online-LC run")
+    for k in ("newton_objective", "fgh_dense_flat_batch"):
+        check(launches[k] > 0,
+              f"kernel {k} was not launched by the online-LC run")
     traj = np.stack(slam.trajectory)
     check(traj.shape == lc["on_traj"].shape and np.isfinite(traj).all(),
           "online-LC trajectory not finite / of the wrong shape")
@@ -787,15 +1040,21 @@ def main():
     check(repr(sp) == str(fx["params_repr"]),
           "the fixture was made at other parameters than canonical_slam_params")
     print("phase 3: kernels vs plain on the card")
-    errs, times = kernel_checks(sp, fx, dev)
+    checks = kernel_checks(sp, fx, dev)
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
     slam, _ = run_main_path(sp, fx, dev)
     launches = dict(cuda_kernels.LAUNCHES)
-    print(f"  launches in the main-path run: {launches}")
-    for k in ("fgh_dense_flat", "pair_fgh_reduce"):
-        check(launches[k] > 0, f"kernel {k} was not launched by the main path")
+    scans = fx["ranges"].shape[0] - 1
+    print(f"  launches in the main-path run: {launches} "
+          f"({launches['newton_objective'] / scans:.2f} newton_objective "
+          f"per scan: one per Newton trial)")
+    check(launches["newton_objective"] > 0,
+          "newton_objective was not launched by the main path")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "newton_objective"),
+          "the main path launched another entry than newton_objective")
     traj = np.stack(slam.trajectory)
     check(traj.shape == fx["traj"].shape and np.isfinite(traj).all(),
           f"trajectory {traj.shape} not finite / not {fx['traj'].shape}")
@@ -818,29 +1077,38 @@ def main():
 
     runs = [run_main_path(sp, fx, dev)[1] for _ in range(3)]
     med = sorted(runs)[1]
-    scans = fx["ranges"].shape[0] - 1
     print(f"  scans/s: {scans / med:.2f} (median of 3 runs after the "
           f"warm-up: {', '.join(f'{r:.3f}' for r in runs)} s for "
           f"{scans} scans)")
 
+    print("phase 3c: plain registration on the main-path graph "
+          "(match_d2d, covariance_d2d, fgh_paired)")
+    reg_launches = registration_phase(sp, slam, dev)
+
     lc = dict(np.load(LC_FIXTURE))
     print("phase 5: offline graph, canonical corridor, a node every "
           f"{OFFLINE_SPLIT_M} m (pipeline.run_slam)")
-    offline, off_launches, errs["fgh_dense_flat_batch"], \
-        times["fgh_dense_flat_batch"] = offline_phase(fx, lc, dev)
+    offline, off_launches, checks["fgh_dense_flat_batch"] = offline_phase(
+        fx, lc, dev)
     print("phase 6: online loop closure, canonical corridor "
           "(run_sequence_chunked, chunk=64)")
     online, on_launches = online_phase(fx, lc, dev)
 
-    # Each entry's launches in the path that uses it: the main path's two,
-    # and optimize_offline's batch entry.
-    path_launches = {**launches, "fgh_dense_flat_batch":
-                     off_launches["fgh_dense_flat_batch"]}
+    # Each entry's launches on the path that uses it, counted from 0
+    # just before that path: the main path, plain registration
+    # (match_d2d + covariance_d2d; fgh_paired) and optimize_offline.
+    path_launches = {
+        "newton_objective": launches["newton_objective"],
+        "fgh_dense_flat": reg_launches["fgh_dense_flat"],
+        "pair_fgh_reduce": reg_launches["pair_fgh_reduce"],
+        "fgh_dense_flat_batch": off_launches["fgh_dense_flat_batch"],
+    }
+    for k, v in path_launches.items():
+        check(v > 0, f"kernel {k} was launched by no path")
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": path_launches[k], "max_abs_err": errs[k],
-        "ms": times[k][0], "plain_ms": times[k][1],
-    } for k in ("fgh_dense_flat", "pair_fgh_reduce", "fgh_dense_flat_batch")]
+        "launches": path_launches[k], **checks[k], "library_ms": None,
+    } for k in path_launches]
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
@@ -849,7 +1117,8 @@ def main():
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
                       "ate_m": ate, "ate_jax_m": ate_ref},
         "offline": offline, "online_lc": online,
-        "launches": {"main_path": launches, "optimize_offline": off_launches,
+        "launches": {"main_path": launches, "registration": reg_launches,
+                     "optimize_offline": off_launches,
                      "online_lc": on_launches},
     }
     if args.out:

@@ -2,6 +2,7 @@
 
     python3 examples/profile_torch_port.py [--scans 80] [--out DIR]
     python3 examples/profile_torch_port.py --offline [--out DIR]
+    python3 examples/profile_torch_port.py --wall-only [--runs 5] [--tree DIR]
 
 Runs the main path of chip_smoke.py (NDTFeatureGraphSLAM.initialize +
 run_sequence_device over the first `--scans` scans of the canonical
@@ -9,8 +10,18 @@ fixture, which holds its first node split at scan 76) once to warm up, once
 timed without the profiler, and once under torch.profiler.
 Prints the device operations ranked by device time, the host operations
 ranked by host time, the device busy share (summed kernel time over the
-profiled wall time) and the device operations per scan; writes the
-tables to DIR/torch_port_profile.txt with `--out DIR`.
+profiled wall time), the device operations per scan, the Newton trials
+per scan (launches of `newton_objective`) and the device operations of
+one Newton trial (a profiled `d2d.newton_match` on the inputs of
+chip_smoke.py's phase 3, over its launches); writes the tables to
+DIR/torch_port_profile.txt with `--out DIR`.
+
+With --wall-only it runs the main path `--runs` times after a warm-up
+without the profiler (which takes minutes over 200 scans) and prints the
+wall times and scans/s.  `--tree DIR` takes chip_smoke.py and the port
+from another checkout (say, the parent commit unpacked under build/), so
+that two versions can be timed in turns inside one call; only
+--wall-only is sure to work against an older tree.
 
 With --offline it does the same for optimize_offline on chip_smoke.py's
 offline graph (phase 5), and first times its stages one by one, each
@@ -31,18 +42,52 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--tree" in sys.argv:                # before chip_smoke is imported
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--tree") + 1])
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
 
-def report(prof, gpu, wall, wall_prof, per, count, out, name):
+def device_ops(prof):
+    """(operations on the device, their summed time in us) of a profile."""
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in on_dev),
+            sum(e.self_device_time_total for e in on_dev))
+
+
+def ops_per_trial(sp, fx, dev):
+    """Device operations of one Newton trial of the main path: a
+    profiled d2d.newton_match on the objective of chip_smoke.py's phase
+    3 (256 source cells, 64 feature pairs, odometry), over the trials it
+    ran.  Returns (operations per trial, trials)."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d
+
+    p = sp.fuser
+    state, src, T0, Q, _, fs, ft = chip_smoke.trial_case(sp, fx, dev)
+    src = src.head(p.match_cell_budget)
+
+    def fgh(d):
+        return cuda_kernels.newton_objective(
+            d, T0, src, state.packed, state.grid.origin, p.ndt.grid_h,
+            p.ndt.grid_w, p.ndt.resolution, p.matcher, fs, ft, Q)
+
+    zero = torch.zeros(3, device=dev)
+    d2d.newton_match(fgh, zero, p.matcher)                 # warm-up
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        d2d.newton_match(fgh, zero, p.matcher)
+        torch.cuda.synchronize()
+    trials = cuda_kernels.LAUNCHES["newton_objective"]
+    return device_ops(prof)[0] / trials, trials
+
+
+def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
     """Print and save the profile tables and the busy-share summary."""
     events = prof.key_averages()
-    on_dev = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in on_dev)
-    launches = sum(e.count for e in on_dev)
+    launches, dev_us = device_ops(prof)
     by_dev = events.table(sort_by="self_device_time_total", row_limit=25)
     by_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
     summary = {
@@ -51,6 +96,7 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name):
         "device_busy_s": dev_us * 1e-6,
         "device_busy_share": dev_us * 1e-6 / wall_prof,
         f"device_ops_per_{per[:-1]}": launches / count,
+        **(extra or {}),
     }
     print(gpu)
     print(by_dev)
@@ -132,6 +178,12 @@ def main():
     ap.add_argument("--scans", type=int, default=80)
     ap.add_argument("--offline", action="store_true",
                     help="profile optimize_offline instead")
+    ap.add_argument("--wall-only", action="store_true",
+                    help="time the main path without the profiler")
+    ap.add_argument("--runs", type=int, default=5,
+                    help="timed runs of --wall-only")
+    ap.add_argument("--tree", help="checkout to take chip_smoke.py and "
+                    "the port from (default: this one)")
     ap.add_argument("--out", help="directory for the profile files")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -148,14 +200,31 @@ def main():
     fx["ransac_u"] = fx["ransac_u"][:args.scans - 1]
     scans = fx["ranges"].shape[0] - 1
 
+    if args.wall_only:
+        chip_smoke.run_main_path(sp, fx, dev)              # warm-up
+        walls = [chip_smoke.run_main_path(sp, fx, dev)[1]
+                 for _ in range(args.runs)]
+        print(json.dumps({
+            "gpu": gpu, "tree": ROOT, "scans": scans, "wall_s": walls,
+            "scans_per_s_median": scans / sorted(walls)[len(walls) // 2]}))
+        return
+
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
     chip_smoke.run_main_path(sp, fx, dev)                  # warm-up
+    cuda_kernels.reset_launch_counts()
     _, wall = chip_smoke.run_main_path(sp, fx, dev)
+    trials = cuda_kernels.LAUNCHES["newton_objective"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = chip_smoke.run_main_path(sp, fx, dev)
 
+    per_trial, n = ops_per_trial(sp, fx, dev)
     report(prof, gpu, wall, wall_prof, "scans", scans, args.out,
-           "torch_port_profile.txt")
+           "torch_port_profile.txt",
+           {"scans_per_s": scans / wall, "newton_trials_per_scan":
+            trials / scans, "device_ops_per_newton_trial": per_trial,
+            "newton_trials_profiled": n})
 
 
 if __name__ == "__main__":

@@ -1,0 +1,124 @@
+"""Launch-shape sweep of the port's objective kernel on one CUDA card.
+
+    python3 examples/tune_torch_port_kernels.py [--out DIR]
+
+Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
+(-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
+shapes chip_smoke.py checks them at, with the cluster size forced to 1,
+2, 4 and 8 blocks per lane beside the wrapper's own choice:
+
+  * `newton_objective` and `fgh_dense_flat` on one lane of 256 source
+    cells (the main path's budget) and `newton_objective` on 1,024 (the
+    cell list's capacity), 64 feature pairs, K = 25;
+  * `fgh_dense_flat_batch` on 174 and 1,027 lanes of 192 source cells
+    against a bank of four canonical nodes.
+
+Times are device times per call (torch.profiler, as chip_smoke.py's
+`ms`).  Every forced shape is first held against the plain version.
+One JSON line per reading; with --out DIR they also go to
+DIR/tune_torch_port_kernels.jsonl.  It is how the block size in the
+source and the cluster-size rule in ops/cuda_kernels.py were chosen.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from ndt_feature_graph_tpu_torch.ops import cuda_kernels  # noqa: E402
+
+THREADS = (256, 512, 1024)
+CLUSTERS = (None, 1, 2, 4, 8)       # None: the wrapper's own choice
+BUDGET = 192                        # source cells per batched lane
+
+
+def rebuild(threads):
+    """Load the library built at `threads` threads per block."""
+    cuda_kernels._lib = None
+    cuda_kernels._RESIDENT_BLOCKS.clear()
+    cuda_kernels.NVCC_FLAGS = [
+        f for f in cuda_kernels.NVCC_FLAGS
+        if not f.startswith("-DNDTG_OBJECTIVE_THREADS")
+    ] + [f"-DNDTG_OBJECTIVE_THREADS={threads}"]
+    lib = cuda_kernels.build()
+    if lib.ndtg_objective_threads() != threads:
+        raise RuntimeError(f"built {lib.ndtg_objective_threads()} threads")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="directory for the JSON lines")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_torch_port_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    gpu = chip_smoke.gpu_line()
+    fx = dict(np.load(chip_smoke.FIXTURE))
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    p = sp.fuser
+    m = p.matcher
+    h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
+    state, src_full, T0, Q, d, fs, ft = chip_smoke.trial_case(sp, fx, dev)
+    bank, pairs, T0_b = chip_smoke.small_bank(sp, fx, dev)
+    own_choice = cuda_kernels._objective_cluster
+    lines = []
+
+    def emit(**rec):
+        rec = {"gpu": gpu, **rec}
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    for threads in THREADS:
+        rebuild(threads)
+        for cluster in CLUSTERS:
+            cuda_kernels._objective_cluster = own_choice if cluster is None \
+                else (lambda *a, c=cluster: c)
+            for n_src in (256, 1024):
+                src = src_full.head(n_src)
+                a = (d, T0, src, state.packed, state.grid.origin, h, w, res,
+                     m, fs, ft, Q)
+                chip_smoke.compare(
+                    "", cuda_kernels.newton_objective(*a),
+                    cuda_kernels.newton_objective_reference(*a), quiet=True)
+                emit(entry="newton_objective", threads=threads,
+                     cluster=cluster, n_src=n_src, device_us=1e3 *
+                     chip_smoke.device_ms(
+                         lambda: cuda_kernels.newton_objective(*a)))
+            src = src_full.head(256)
+            emit(entry="fgh_dense_flat", threads=threads, cluster=cluster,
+                 n_src=256, device_us=1e3 * chip_smoke.device_ms(
+                     lambda: cuda_kernels.fgh_dense_flat(
+                         d, T0, src, state.packed, state.grid.origin, h, w,
+                         res, m.n_neighbours, m.lfd1, m.lfd2)))
+            for lanes in (171, 1024):
+                idx = np.resize(np.arange(len(pairs)), lanes)
+                chip_smoke.batch_kernel_checks(
+                    bank, pairs[idx], T0_b[idx], BUDGET, sp, dev, times=False)
+                b = chip_smoke.bank_lanes(bank, pairs[idx], T0_b[idx],
+                                          BUDGET, res, dev)[:6]
+                emit(entry="fgh_dense_flat_batch", threads=threads,
+                     cluster=cluster, lanes=lanes + 3, n_src=BUDGET,
+                     device_us=1e3 * chip_smoke.device_ms(
+                         lambda: cuda_kernels.fgh_dense_flat_batch(
+                             *b, h, w, res, m.n_neighbours, m.lfd1, m.lfd2),
+                         20))
+    cuda_kernels._objective_cluster = own_choice
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "tune_torch_port_kernels.jsonl"),
+                  "w") as f:
+            f.writelines(json.dumps(x) + "\n" for x in lines)
+
+
+if __name__ == "__main__":
+    main()

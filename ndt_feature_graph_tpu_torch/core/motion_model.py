@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ndt_feature_graph_tpu.config import MotionParams
+from ndt_feature_graph_tpu_torch.config import MotionParams
 
 
 def measurement_cov(params: MotionParams, rel_pose):

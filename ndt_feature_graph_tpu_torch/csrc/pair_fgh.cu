@@ -1,58 +1,90 @@
 // Hopper (sm_90a) kernels for the SE(2) D2D score / gradient / Hessian
-// reduction of NDT registration.
+// of NDT registration: one launch evaluates a whole Newton trial's
+// objective.
 //
 // Replaces: ndt_feature_graph_tpu/ops/pallas_kernels.py:pair_fgh_reduce
-// (body _kernel, pair algebra _fgh_components), and in front of it the
-// window gather + masking of d2d_analytic.fgh_dense_flat
-// (ops/d2d.py:gather_windows_flat).
+// (body _kernel, pair algebra _fgh_components), and around it what the
+// JAX package leaves to XLA per trial: the window gather + masking of
+// d2d_analytic.fgh_dense_flat (ops/d2d.py:gather_windows_flat), the
+// pair inputs of d2d_analytic.fgh_paired, the odometry term
+// d2d_analytic.fgh_mahalanobis and the sum of the three terms
+// (fusion/fuser.py:fgh_fn).
 //
-// What bounds it on the H100: at the main path's shapes (N = 256 source
-// cells x K = 25 window cells = 6,400 pairs per Newton trial) one call
-// is ~1 MFLOP of f32 pair algebra and ~205 KB of 32-byte table rows,
-// mostly served from L2 (the whole 1.28 MB packed table fits in the
-// 50 MB L2).  That is microseconds of work at the card's rates: the
-// call is bound by launch latency, not by FLOPs or bytes.
+// What bounds it on the H100 (3.35 TB/s, 67 TFLOP/s f32).  The main
+// path's trial is N = 256 source cells x K = 25 window cells = 6,400
+// window pairs + 64 feature pairs: at most 205 KB of 32-byte table rows
+// (served from L2: the whole 1.28 MB table fits in the 50 MB L2) and
+// ~1.3 MFLOP, i.e. 0.06 us of bytes and 0.02 us of operations.  The
+// batched entry at the offline shapes (174 lanes x 192 x 25 = 835,200
+// pairs) is at most 26.7 MB of rows and ~0.17 GFLOP: 8 us of bytes.
+// So a single trial is bound by launch latency and by the length of
+// its dependent chain, not by the card's rates; only the batch entry
+// comes near a roofline (bytes).  The measured times and the bounds of
+// each run's own inputs are printed by chip_smoke.py.
 //
-// What the design does about it: one fused launch per Newton trial
-// computes the trial pose, moves every source cell, gathers its window
-// rows (two float4 loads per row), masks, evaluates the pair algebra
-// and reduces — no per-pair intermediate ever reaches device memory.
-// The reduction is deterministic (no float atomics): warp shuffles,
-// then a fixed-order sum over the warps of a block into a (blocks, 10)
-// scratch, then a second tiny launch sums the block partials in block
-// order.  Repeated runs give bit-identical poses.
-//
-// The batched entry (fgh_dense_flat_batch) is the same term for B lanes
-// of loop-closure link refinement (d2d_analytic.fgh_dense_flat_batch in
-// the JAX package): a (pair blocks, B) grid over one flat (N*H*W, 8)
-// bank, each lane with its own increment, initial pose, source list,
-// target origin and 64-bit row offset, then one summing block per lane.
-// At the offline shapes (~190 pairs x 256 source cells x 25 window
-// cells, ~1.2 M pairs per trial) a call is ~0.2 GFLOP and ~39 MB of
-// rows, gathered from a bank of a few tens of MB that largely stays in
-// L2: still far from either roofline, so the design keeps the main
-// path's fusion (no intermediate in device memory) and its fixed-order,
-// atomic-free reduction.
+// What the design does about it:
+//   * One launch per trial.  A thread-block cluster (up to 8 blocks)
+//     serves one lane; the blocks' partial sums are added by block rank
+//     0 through distributed shared memory in rank order, so there is no
+//     second launch, no scratch in device memory and no float atomic:
+//     two calls give identical bits.
+//   * The main path's feature pairs and its odometry term ride in the
+//     same launch: the paired front end forms its inputs (move the
+//     source feature, difference to the target feature) in registers,
+//     and the finishing block adds window + paired + odometry sums in
+//     that order and writes f, g (3) and the full H (3x3), 13 floats,
+//     so the caller slices views and launches nothing more.
+//   * A short dependent chain.  The trial pose (five trigonometric
+//     calls) is computed once per block into shared memory while the
+//     warps already load their source cells.  A warp takes a group of
+//     source cells (every n_warps-th one, so the list's valid head is
+//     spread over all warps), lane j owning the j-th: it moves the
+//     gaussian and finds the window's base cell once per cell.  The
+//     group's (cell, window cell) pairs are laid flat over the lanes,
+//     32 per step, each lane fetching its pair's cell from the owner by
+//     shuffle, so every lane works whatever K = (2n+1)^2 is (K = 25
+//     would leave 7 of 32 lanes idle with one warp per cell) and the
+//     table reads of a step do not wait on one another.  A window row
+//     is 2n+1 consecutive 32-byte table rows, read as two float4 per
+//     lane.  Threads keep their sums in registers over all their pairs
+//     and reduce once: warp shuffles, a fixed-order sum over the
+//     block's warps in shared memory, then the cluster.
+//   * The batched entry is the same kernel with blockIdx.y the lane:
+//     each lane has its own increment, pose, source list, origin and
+//     64-bit row offset into one flat bank.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// -shared -Xcompiler -fPIC (no --use_fast_math: expf and the divisions
-// stay IEEE f32) and bound through the plain C interface at the bottom.
+// -shared -Xcompiler -fPIC (no --use_fast_math: expf, the divisions and
+// the trigonometry stay IEEE f32) and bound through the plain C
+// interface at the bottom.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kComps = 10;   // s, g0..g2, h00 h01 h02 h11 h12 h22
+constexpr int kComps = 10;     // s, g0..g2, h00 h01 h02 h11 h12 h22
+constexpr int kOut = 13;       // f, g (3), H (3x3 row-major)
+constexpr int kMaxCluster = 8;   // the portable cluster size
+// Threads per block of the objective kernel.  256 is the fastest of
+// 256, 512 and 1024 on the H100 for the batched lanes and as fast as
+// 512 for one lane of 256 source cells
+// (examples/tune_torch_port_kernels.py builds the others with -D).
+#ifndef NDTG_OBJECTIVE_THREADS
+#define NDTG_OBJECTIVE_THREADS 256
+#endif
+constexpr int kObjectiveThreads = NDTG_OBJECTIVE_THREADS;
+constexpr int kPairThreads = 256;
 
-// Per-pair (s, g0..g2, h00, h01, h02, h11, h12, h22); mirrors
-// pallas_kernels._fgh_components term by term.
+// Adds one pair's (s, g0..g2, h00, h01, h02, h11, h12, h22) to acc;
+// mirrors pallas_kernels._fgh_components term by term.
 __device__ __forceinline__ void pair_components(
     float mu_x, float mu_y, float s00, float s01, float s11,
     float mx, float my, float c00, float c01, float c11,
-    float lfd1, float lfd2, float* out) {
+    float lfd1, float lfd2, float* acc) {
   const float det = fmaxf(s00 * s11 - s01 * s01, 1e-12f);
   const float inv = 1.0f / det;
   const float a00 = s11 * inv;
@@ -114,27 +146,57 @@ __device__ __forceinline__ void pair_components(
   const float alpha = 0.5f * lfd2;
   const float E = expf(-alpha * q);
   const float k = lfd1 * alpha * E;
-  out[0] = -lfd1 * E;
-  out[1] = k * q_x;
-  out[2] = k * q_y;
-  out[3] = k * q_t;
-  out[4] = k * (h_xx - alpha * q_x * q_x);
-  out[5] = k * (h_xy - alpha * q_x * q_y);
-  out[6] = k * (h_xt - alpha * q_x * q_t);
-  out[7] = k * (h_yy - alpha * q_y * q_y);
-  out[8] = k * (h_yt - alpha * q_y * q_t);
-  out[9] = k * (h_tt - alpha * q_t * q_t);
+  acc[0] += -lfd1 * E;
+  acc[1] += k * q_x;
+  acc[2] += k * q_y;
+  acc[3] += k * q_t;
+  acc[4] += k * (h_xx - alpha * q_x * q_x);
+  acc[5] += k * (h_xy - alpha * q_x * q_y);
+  acc[6] += k * (h_xt - alpha * q_x * q_t);
+  acc[7] += k * (h_yy - alpha * q_y * q_y);
+  acc[8] += k * (h_yt - alpha * q_y * q_t);
+  acc[9] += k * (h_tt - alpha * q_t * q_t);
 }
 
-// Sum each of the 10 components over the block in a fixed order and
-// write the block's partials.  Every thread of the block must call it.
-__device__ __forceinline__ void block_reduce_store(float* v,
-                                                   float* partials) {
-  __shared__ float warp_sums[kWarps][kComps];
+// T = Trans(d_xy) Rot(d_t) o T0 (d2d._apply_increment) as (tx, ty, cos,
+// sin).  Every block of a lane runs this same instruction sequence on
+// the same d and T0, so all its blocks hold the same pose.
+__device__ __forceinline__ void trial_pose(const float* __restrict__ d,
+                                           const float* __restrict__ T0,
+                                           float* pose) {
+  const float cd = cosf(d[2]), sd = sinf(d[2]);
+  pose[0] = d[0] + T0[0] * cd - T0[1] * sd;
+  pose[1] = d[1] + T0[0] * sd + T0[1] * cd;
+  const float traw = d[2] + T0[2];
+  const float tt = atan2f(sinf(traw), cosf(traw));
+  pose[2] = cosf(tt);
+  pose[3] = sinf(tt);
+}
+
+// Moved gaussian: mean' = R m + t, K = R C R^T.
+__device__ __forceinline__ void move_gaussian(
+    const float* pose, float m0, float m1, float C00, float C01, float C10,
+    float C11, float& mx, float& my, float& k00, float& k01, float& k11) {
+  const float tx = pose[0], ty = pose[1], c = pose[2], s = pose[3];
+  mx = c * m0 - s * m1 + tx;
+  my = s * m0 + c * m1 + ty;
+  const float rc00 = c * C00 - s * C10, rc01 = c * C01 - s * C11;
+  const float rc10 = s * C00 + c * C10, rc11 = s * C01 + c * C11;
+  k00 = rc00 * c - rc01 * s;
+  k01 = rc00 * s + rc01 * c;
+  k11 = rc10 * s + rc11 * c;
+}
+
+// Sum each of NC components over the block in a fixed order into
+// part[0..NC) (shared memory).  Every thread of the block must call it.
+template <int THREADS, int NC>
+__device__ __forceinline__ void block_sum(const float* v,
+                                          float (*warp_sums)[2 * kComps],
+                                          float* part) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int c = 0; c < kComps; ++c) {
+  for (int c = 0; c < NC; ++c) {
     float x = v[c];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -143,194 +205,404 @@ __device__ __forceinline__ void block_reduce_store(float* v,
     if (lane == 0) warp_sums[warp][c] = x;
   }
   __syncthreads();
-  if (threadIdx.x < kComps) {
+  if (threadIdx.x < NC) {
     float acc = 0.0f;
-    for (int wi = 0; wi < kWarps; ++wi) acc += warp_sums[wi][threadIdx.x];
-    partials[blockIdx.x * kComps + threadIdx.x] = acc;
+#pragma unroll
+    for (int wi = 0; wi < THREADS / 32; ++wi) acc += warp_sums[wi][threadIdx.x];
+    part[threadIdx.x] = acc;
   }
 }
 
-// D2D window term of pair `t` = (source cell, window cell) of one lane:
-// adds its 10 components to v when the pair is valid.
-__device__ __forceinline__ void window_pair(
-    const float* __restrict__ d, const float* __restrict__ T0,
+// Component of the 10 sums behind output o of (f, g0..g2, H row-major).
+// The Hessian's upper triangle sits at 4..9: (0,0) (0,1) (0,2) (1,1)
+// (1,2) (2,2).
+__device__ __forceinline__ int comp_of_output(int o) {
+  if (o < 4) return o;
+  const int i = (o - 4) / 3, j = (o - 4) % 3;
+  const int lo = min(i, j), hi = max(i, j);
+  return 4 + 2 * lo - (lo >> 1) + hi;
+}
+
+// Output o of the odometry term (d^T Q d, (Q + Q^T) d, Q + Q^T).
+__device__ __forceinline__ float odometry_output(int o,
+                                                 const float* __restrict__ d,
+                                                 const float* __restrict__ Q) {
+  if (o == 0) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      acc += (d[0] * Q[j] + d[1] * Q[3 + j] + d[2] * Q[6 + j]) * d[j];
+    }
+    return acc;
+  }
+  if (o < 4) {
+    const int i = o - 1;
+    return (Q[3 * i] + Q[i]) * d[0] + (Q[3 * i + 1] + Q[3 + i]) * d[1] +
+           (Q[3 * i + 2] + Q[6 + i]) * d[2];
+  }
+  const int i = (o - 4) / 3, j = (o - 4) % 3;
+  return Q[3 * i + j] + Q[3 * j + i];
+}
+
+// Sum over the cluster's blocks, in rank order, of component c of each
+// block's shared `part`: the reads are issued together, then added.
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
+                                             float* part, int c,
+                                             unsigned n_blocks) {
+  float x[kMaxCluster];
+#pragma unroll
+  for (unsigned r = 0; r < kMaxCluster; ++r) {
+    x[r] = r < n_blocks ? cluster.map_shared_rank(part, r)[c] : 0.0f;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (unsigned r = 0; r < kMaxCluster; ++r) {
+    if (r < n_blocks) acc += x[r];
+  }
+  return acc;
+}
+
+// The finishing step of a cluster: block rank 0 adds the blocks' window
+// partials part[0..10) in rank order, then (paired) the paired partials
+// part[10..20) of the first `paired_blocks` ranks, then (Q != nullptr)
+// the odometry term, and writes the 13 outputs.  Every thread of every
+// block of the cluster must call it; `part` is each block's own shared
+// array, written by threads of the calling block before the call.
+__device__ __forceinline__ void cluster_finish(float* part, bool paired,
+                                               unsigned paired_blocks,
+                                               const float* __restrict__ d,
+                                               const float* __restrict__ Q,
+                                               float* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                      // every block's partials are written
+  if (cluster.block_rank() == 0 && threadIdx.x < kOut) {
+    const int o = threadIdx.x;
+    const int c = comp_of_output(o);
+    float acc = cluster_sum(cluster, part, c, cluster.num_blocks());
+    if (paired) acc += cluster_sum(cluster, part, kComps + c, paired_blocks);
+    if (Q != nullptr) acc += odometry_output(o, d, Q);
+    out[o] = acc;
+  }
+  cluster.sync();                      // peers stay until rank 0 has read
+}
+
+struct ObjectiveArgs {
+  // Per lane (lane = blockIdx.y): increment and initial pose (B, 3).
+  const float* d;
+  const float* T0;
+  // Window term; packed == nullptr switches it off.  Source cells
+  // (B, n_src, ...), flat packed bank, origins (B, 2), row offsets (B,)
+  // or nullptr for offset 0.
+  const float* means;
+  const float* covs;
+  const uint8_t* mask;
+  const float* packed;
+  const float* origins;
+  const long long* row_offsets;
+  int n_src, h, w, nb;
+  float res;
+  // Paired feature term (single lane); fs_means == nullptr: off.
+  const float* fs_means;
+  const float* fs_covs;
+  const uint8_t* fs_mask;
+  const float* ft_means;
+  const float* ft_covs;
+  const uint8_t* ft_mask;
+  int n_feat;
+  // Odometry term (single lane); nullptr: off.
+  const float* Q;
+  float lfd1, lfd2;
+  float* out;   // (B, 13)
+};
+
+// A source cell as its owner lane holds it: raw, then moved.
+struct SourceCell {
+  float m0, m1, c00, c01, c10, c11;
+  bool ok;
+};
+
+__device__ __forceinline__ SourceCell load_cell(
     const float* __restrict__ means, const float* __restrict__ covs,
-    const uint8_t* __restrict__ mask, const float* __restrict__ packed,
-    const float* __restrict__ origin, long long row_offset, int n_src,
-    int h, int w, float res, int nb, float lfd1, float lfd2, long long t,
-    float* v) {
-  const int win = 2 * nb + 1;
-  const int kwin = win * win;
-  if (t < (long long)n_src * kwin) {
-    const int i = (int)(t / kwin);
-    const int k = (int)(t % kwin);
-    if (mask[i]) {
-      // T = Trans(d_xy) Rot(d_t) o T0  (d2d._apply_increment).
-      const float cd = cosf(d[2]), sd = sinf(d[2]);
-      const float tx = d[0] + T0[0] * cd - T0[1] * sd;
-      const float ty = d[1] + T0[0] * sd + T0[1] * cd;
-      const float traw = d[2] + T0[2];
-      const float tt = atan2f(sinf(traw), cosf(traw));
-      const float c = cosf(tt), s = sinf(tt);
+    const uint8_t* __restrict__ mask, int i, bool mine) {
+  SourceCell s;
+  s.ok = mine && mask[i];
+  if (s.ok) {
+    const float2 m = *reinterpret_cast<const float2*>(means + 2 * i);
+    const float4 c = *reinterpret_cast<const float4*>(covs + 4 * i);
+    s.m0 = m.x; s.m1 = m.y;
+    s.c00 = c.x; s.c01 = c.y; s.c10 = c.z; s.c11 = c.w;
+  } else {
+    s.m0 = s.m1 = s.c00 = s.c01 = s.c10 = s.c11 = 0.0f;
+  }
+  return s;
+}
 
-      // Moved source gaussian: mean' = R m + t, K = R C R^T.
-      const float m0 = means[2 * i], m1 = means[2 * i + 1];
-      const float mx = c * m0 - s * m1 + tx;
-      const float my = s * m0 + c * m1 + ty;
-      const float C00 = covs[4 * i], C01 = covs[4 * i + 1];
-      const float C10 = covs[4 * i + 2], C11 = covs[4 * i + 3];
-      const float rc00 = c * C00 - s * C10, rc01 = c * C01 - s * C11;
-      const float rc10 = s * C00 + c * C10, rc11 = s * C01 + c * C11;
-      const float k00 = rc00 * c - rc01 * s;
-      const float k01 = rc00 * s + rc01 * c;
-      const float k11 = rc10 * s + rc11 * c;
+// One cluster per lane evaluates the lane's objective.  Window term: a
+// warp takes `g` source cells at a time (g <= 32, as many as spread the
+// list over the cluster's warps), every n_warps-th cell from its own
+// index on; lane j owns the j-th of them — loads it (before the pose is
+// ready), moves it and finds its window's base cell — and the g x K
+// (cell, window cell) pairs are laid flat over the
+// lanes, 32 per step, each lane fetching its pair's cell from the
+// owner by shuffle: every lane works whatever K is.  Paired term: one
+// thread per feature pair.  Then block sums and the cluster's finish.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
+  constexpr int kWarps = THREADS / 32;
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ float pose[4];
+  __shared__ float warp_sums[kWarps][2 * kComps];
+  __shared__ float part[2 * kComps];
 
-      // Window cell of this thread (dy-major, as gather_windows_flat).
-      float rx = (mx - origin[0]) / res;
-      float ry = (my - origin[1]) / res;
-      rx = fminf(fmaxf(rx, -1.0e9f), 1.0e9f);
-      ry = fminf(fmaxf(ry, -1.0e9f), 1.0e9f);
-      const int ix = (int)floorf(rx) + (k % win - nb);
-      const int iy = (int)floorf(ry) + (k / win - nb);
-      const bool inb = iy >= 0 && iy < h && ix >= 0 && ix < w;
-      const int cy = min(max(iy, 0), h - 1);
-      const int cx = min(max(ix, 0), w - 1);
-      const float4* row = reinterpret_cast<const float4*>(
-          packed + (row_offset + (long long)cy * w + cx) * 8);
-      const float4 r0 = __ldg(row);       // mean_x mean_y c00 c01
-      const float4 r1 = __ldg(row + 1);   // c11 valid 0 0
-      if (inb && r1.y > 0.5f) {
-        pair_components(mx - r0.x, my - r0.y, k00 + r0.z, k01 + r0.w,
-                        k11 + r1.x, mx - d[0], my - d[1], k00, k01, k11,
-                        lfd1, lfd2, v);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_blocks = (int)cluster.num_blocks();
+  const long long b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const float* d = a.d + 3 * b;
+  const bool window = a.packed != nullptr;
+  const bool paired = a.fs_means != nullptr;
+
+  // The first group of source cells is loaded while thread 0 computes
+  // the pose: neither depends on the other.
+  const float* means = window ? a.means + b * a.n_src * 2 : nullptr;
+  const float* covs = window ? a.covs + b * a.n_src * 4 : nullptr;
+  const uint8_t* mask = window ? a.mask + b * a.n_src : nullptr;
+  const int n_warps = n_blocks * kWarps;
+  const int warp = rank * kWarps + (threadIdx.x >> 5);
+  const int g = min(32, (a.n_src + n_warps - 1) / n_warps);
+  int t0 = 0;   // the warp's cells are warp + t * n_warps, t = t0 + lane
+  SourceCell cell;
+  cell.ok = false;
+  if (window) {
+    const int i = warp + lane * n_warps;
+    cell = load_cell(means, covs, mask, i, lane < g && i < a.n_src);
+  }
+  if (threadIdx.x == 0) trial_pose(d, a.T0 + 3 * b, pose);
+  __syncthreads();
+  const float d0 = d[0], d1 = d[1];
+
+  float v[2 * kComps];   // window sums, then paired sums
+#pragma unroll
+  for (int c = 0; c < 2 * kComps; ++c) v[c] = 0.0f;
+
+  if (paired) {
+    for (int p = rank * THREADS + threadIdx.x; p < a.n_feat;
+         p += n_blocks * THREADS) {
+      if (a.fs_mask[p] && a.ft_mask[p]) {
+        const float* sm = a.fs_means + 2 * p;
+        const float* sc = a.fs_covs + 4 * p;
+        float mx, my, k00, k01, k11;
+        move_gaussian(pose, sm[0], sm[1], sc[0], sc[1], sc[2], sc[3], mx, my,
+                      k00, k01, k11);
+        const float* tm = a.ft_means + 2 * p;
+        const float* tc = a.ft_covs + 4 * p;
+        pair_components(mx - tm[0], my - tm[1], k00 + tc[0], k01 + tc[1],
+                        k11 + tc[3], mx - d0, my - d1, k00, k01, k11, a.lfd1,
+                        a.lfd2, v + kComps);
       }
     }
   }
+
+  if (window) {
+    const float ox = a.origins[2 * b], oy = a.origins[2 * b + 1];
+    const long long row0 = a.row_offsets != nullptr ? a.row_offsets[b] : 0;
+    const float4* table = reinterpret_cast<const float4*>(a.packed) + 2 * row0;
+    const int win = 2 * a.nb + 1;
+    const int kwin = win * win;
+    const int step_j = 32 / kwin, step_k = 32 % kwin;   // q += 32
+    while (warp + t0 * n_warps < a.n_src) {      // warp-uniform
+      // Owner lanes: the moved gaussian and the window's base cell
+      // (dy-major windows, as gather_windows_flat).
+      float mx, my, k00, k01, k11;
+      move_gaussian(pose, cell.m0, cell.m1, cell.c00, cell.c01, cell.c10,
+                    cell.c11, mx, my, k00, k01, k11);
+      float rx = (mx - ox) / a.res;
+      float ry = (my - oy) / a.res;
+      rx = fminf(fmaxf(rx, -1.0e9f), 1.0e9f);
+      ry = fminf(fmaxf(ry, -1.0e9f), 1.0e9f);
+      const int bx = (int)floorf(rx) - a.nb;
+      const int by = (int)floorf(ry) - a.nb;
+      const int ok = cell.ok ? 1 : 0;
+      // Pairs up to the group's last unmasked cell: cell lists keep
+      // their valid cells first, so this trims the masked tail, and the
+      // stride n_warps between a warp's cells spreads the valid ones
+      // evenly over the warps.
+      const int n_pairs = (32 - __clz(__ballot_sync(kFull, cell.ok))) * kwin;
+      int j = lane / kwin;            // owner lane of this lane's pair
+      int k = lane - j * kwin;        // its window cell
+      for (int q = lane; q - lane < n_pairs; q += 32) {
+        const int src_lane = min(j, 31);
+        const float pmx = __shfl_sync(kFull, mx, src_lane);
+        const float pmy = __shfl_sync(kFull, my, src_lane);
+        const float p00 = __shfl_sync(kFull, k00, src_lane);
+        const float p01 = __shfl_sync(kFull, k01, src_lane);
+        const float p11 = __shfl_sync(kFull, k11, src_lane);
+        const int pbx = __shfl_sync(kFull, bx, src_lane);
+        const int pby = __shfl_sync(kFull, by, src_lane);
+        const int pok = __shfl_sync(kFull, ok, src_lane);
+        if (q < n_pairs && pok) {
+          const int ix = pbx + k % win;
+          const int iy = pby + k / win;
+          const bool inb = iy >= 0 && iy < a.h && ix >= 0 && ix < a.w;
+          const int cy = min(max(iy, 0), a.h - 1);
+          const int cx = min(max(ix, 0), a.w - 1);
+          const float4* row = table + 2 * ((long long)cy * a.w + cx);
+          const float4 r0 = __ldg(row);       // mean_x mean_y c00 c01
+          const float4 r1 = __ldg(row + 1);   // c11 valid 0 0
+          if (inb && r1.y > 0.5f) {
+            pair_components(pmx - r0.x, pmy - r0.y, p00 + r0.z, p01 + r0.w,
+                            p11 + r1.x, pmx - d0, pmy - d1, p00, p01, p11,
+                            a.lfd1, a.lfd2, v);
+          }
+        }
+        j += step_j;
+        k += step_k;
+        if (k >= kwin) {
+          k -= kwin;
+          ++j;
+        }
+      }
+      t0 += g;
+      if (warp + t0 * n_warps < a.n_src) {
+        const int i = warp + (t0 + lane) * n_warps;
+        cell = load_cell(means, covs, mask, i, lane < g && i < a.n_src);
+      }
+    }
+  }
+
+  // Blocks that hold feature pairs: the first ceil(n_feat / THREADS).
+  const unsigned paired_blocks =
+      min(n_blocks, (a.n_feat + THREADS - 1) / THREADS);
+  if (paired && rank < (int)paired_blocks) {
+    block_sum<THREADS, 2 * kComps>(v, warp_sums, part);
+  } else {
+    block_sum<THREADS, kComps>(v, warp_sums, part);
+  }
+  cluster_finish(part, paired, paired_blocks, d, a.Q, a.out + kOut * b);
 }
 
-// D2D window term: one thread per (source cell, window cell) pair.
-__global__ void __launch_bounds__(kThreads) fgh_dense_flat_kernel(
-    const float* __restrict__ d, const float* __restrict__ T0,
-    const float* __restrict__ means, const float* __restrict__ covs,
-    const uint8_t* __restrict__ mask, const float* __restrict__ packed,
-    const float* __restrict__ origin, long long row_offset, int n_src,
-    int h, int w, float res, int nb, float lfd1, float lfd2,
-    float* __restrict__ partials) {
-  float v[kComps];
-#pragma unroll
-  for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
-  window_pair(d, T0, means, covs, mask, packed, origin, row_offset, n_src,
-              h, w, res, nb, lfd1, lfd2,
-              (long long)blockIdx.x * kThreads + threadIdx.x, v);
-  block_reduce_store(v, partials);
-}
-
-// The same term for B lanes in one launch: blockIdx.y is the lane, whose
-// increment, initial pose, source cells, target origin and row offset
-// into the shared flat bank are its own; blockIdx.x walks its pairs.
-// Each lane's block partials land in its own row of `partials`
-// (lane * gridDim.x + blockIdx.x).
-__global__ void __launch_bounds__(kThreads) fgh_dense_flat_batch_kernel(
-    const float* __restrict__ d, const float* __restrict__ T0,
-    const float* __restrict__ means, const float* __restrict__ covs,
-    const uint8_t* __restrict__ mask, const float* __restrict__ packed,
-    const float* __restrict__ origins,
-    const long long* __restrict__ row_offsets, int n_src, int h, int w,
-    float res, int nb, float lfd1, float lfd2,
-    float* __restrict__ partials) {
-  const long long lane = blockIdx.y;
-  float v[kComps];
-#pragma unroll
-  for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
-  window_pair(d + 3 * lane, T0 + 3 * lane, means + lane * n_src * 2,
-              covs + lane * n_src * 4, mask + lane * n_src, packed,
-              origins + 2 * lane, row_offsets[lane], n_src, h, w, res, nb,
-              lfd1, lfd2, (long long)blockIdx.x * kThreads + threadIdx.x, v);
-  block_reduce_store(v, partials + lane * gridDim.x * kComps);
-}
-
-// Paired term: one thread per pair of flattened, broadcast inputs.
-__global__ void __launch_bounds__(kThreads) pair_fgh_kernel(
+// Paired term on prebuilt, flattened, broadcast inputs (the Pallas
+// kernel's signature): the cluster's threads stride over the pairs.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS) pair_fgh_kernel(
     const float* __restrict__ mu, const float* __restrict__ sig,
     const float* __restrict__ m_rot, const float* __restrict__ crot,
     const uint8_t* __restrict__ ok, long long n_pairs, float lfd1,
-    float lfd2, float* __restrict__ partials) {
+    float lfd2, float* __restrict__ out) {
+  __shared__ float warp_sums[THREADS / 32][2 * kComps];
+  __shared__ float part[kComps];
   float v[kComps];
 #pragma unroll
   for (int c = 0; c < kComps; ++c) v[c] = 0.0f;
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p < n_pairs && ok[p]) {
-    pair_components(mu[2 * p], mu[2 * p + 1], sig[4 * p], sig[4 * p + 1],
-                    sig[4 * p + 3], m_rot[2 * p], m_rot[2 * p + 1],
-                    crot[4 * p], crot[4 * p + 1], crot[4 * p + 3], lfd1,
-                    lfd2, v);
+  for (long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
+       p < n_pairs; p += (long long)gridDim.x * THREADS) {
+    if (ok[p]) {
+      pair_components(mu[2 * p], mu[2 * p + 1], sig[4 * p], sig[4 * p + 1],
+                      sig[4 * p + 3], m_rot[2 * p], m_rot[2 * p + 1],
+                      crot[4 * p], crot[4 * p + 1], crot[4 * p + 3], lfd1,
+                      lfd2, v);
+    }
   }
-  block_reduce_store(v, partials);
+  block_sum<THREADS, kComps>(v, warp_sums, part);
+  cluster_finish(part, false, 0, nullptr, nullptr, out);
 }
 
-// Fixed-order sum of the block partials, one block per lane:
-// out[lane][c] = sum_b partials[lane][b][c].
-__global__ void sum_partials_kernel(const float* __restrict__ partials,
-                                    int n_blocks, float* __restrict__ out) {
-  const long long lane = blockIdx.x;
-  if (threadIdx.x < kComps) {
-    const float* p = partials + lane * n_blocks * kComps;
-    float acc = 0.0f;
-    for (int b = 0; b < n_blocks; ++b) acc += p[b * kComps + threadIdx.x];
-    out[lane * kComps + threadIdx.x] = acc;
+// Launch `kernel` on a (cluster, n_lanes) grid whose x extent is one
+// thread-block cluster.  Returns the launch error (0 = success).
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kernel)(KArgs...), int threads, int cluster,
+                    int n_lanes, cudaStream_t stream, Args... args) {
+  if (cluster < 1 || cluster > kMaxCluster || n_lanes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, n_lanes, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ndtg_block_threads() { return kThreads; }
+int ndtg_max_cluster() { return kMaxCluster; }
+int ndtg_pair_threads() { return kPairThreads; }
 
-// Returns cudaGetLastError() after both launches (0 = success).
-int ndtg_fgh_dense_flat(const float* d, const float* T0, const float* means,
-                        const float* covs, const uint8_t* mask,
-                        const float* packed, const float* origin,
-                        long long row_offset, int n_src, int h, int w,
-                        float res, int nb, float lfd1, float lfd2,
-                        float* partials, int n_blocks, float* out,
-                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fgh_dense_flat_kernel<<<n_blocks, kThreads, 0, st>>>(
-      d, T0, means, covs, mask, packed, origin, row_offset, n_src, h, w, res,
-      nb, lfd1, lfd2, partials);
-  sum_partials_kernel<<<1, 32, 0, st>>>(partials, n_blocks, out);
-  return static_cast<int>(cudaGetLastError());
+int ndtg_objective_threads() { return kObjectiveThreads; }
+
+// Blocks of the objective kernel one SM holds.
+int ndtg_objective_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, objective_kernel<kObjectiveThreads>, kObjectiveThreads, 0);
+  return n;
 }
 
-// B lanes: partials (B, n_blocks, 10), out (B, 10).
-int ndtg_fgh_dense_flat_batch(const float* d, const float* T0,
-                              const float* means, const float* covs,
-                              const uint8_t* mask, const float* packed,
-                              const float* origins,
-                              const long long* row_offsets, int n_lanes,
-                              int n_src, int h, int w, float res, int nb,
-                              float lfd1, float lfd2, float* partials,
-                              int n_blocks, float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fgh_dense_flat_batch_kernel<<<dim3(n_blocks, n_lanes), kThreads, 0, st>>>(
-      d, T0, means, covs, mask, packed, origins, row_offsets, n_src, h, w,
-      res, nb, lfd1, lfd2, partials);
-  sum_partials_kernel<<<n_lanes, 32, 0, st>>>(partials, n_blocks, out);
-  return static_cast<int>(cudaGetLastError());
+// The objective of n_lanes lanes, one cluster of `cluster` blocks x
+// ndtg_objective_threads() threads per lane.  Null pointers switch
+// terms off: packed (window), fs_means (paired), Q (odometry); a null
+// row_offsets is offset 0.  out: (n_lanes, 13).  Returns the launch
+// error (0 = success).
+int ndtg_objective(const float* d, const float* T0, const float* means,
+                   const float* covs, const uint8_t* mask,
+                   const float* packed, const float* origins,
+                   const long long* row_offsets, int n_lanes, int n_src,
+                   int h, int w, float res, int nb, const float* fs_means,
+                   const float* fs_covs, const uint8_t* fs_mask,
+                   const float* ft_means, const float* ft_covs,
+                   const uint8_t* ft_mask, int n_feat, const float* Q,
+                   float lfd1, float lfd2, float* out, int cluster,
+                   void* stream) {
+  ObjectiveArgs a;
+  a.d = d;
+  a.T0 = T0;
+  a.means = means;
+  a.covs = covs;
+  a.mask = mask;
+  a.packed = packed;
+  a.origins = origins;
+  a.row_offsets = row_offsets;
+  a.n_src = n_src;
+  a.h = h;
+  a.w = w;
+  a.nb = nb;
+  a.res = res;
+  a.fs_means = fs_means;
+  a.fs_covs = fs_covs;
+  a.fs_mask = fs_mask;
+  a.ft_means = ft_means;
+  a.ft_covs = ft_covs;
+  a.ft_mask = ft_mask;
+  a.n_feat = n_feat;
+  a.Q = Q;
+  a.lfd1 = lfd1;
+  a.lfd2 = lfd2;
+  a.out = out;
+  return launch_clusters(objective_kernel<kObjectiveThreads>,
+                         kObjectiveThreads, cluster, n_lanes,
+                         static_cast<cudaStream_t>(stream), a);
 }
 
+// out: (13,).  One cluster of `cluster` blocks x ndtg_pair_threads().
 int ndtg_pair_fgh_reduce(const float* mu, const float* sig,
                          const float* m_rot, const float* crot,
                          const uint8_t* ok, long long n_pairs, float lfd1,
-                         float lfd2, float* partials, int n_blocks,
-                         float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  pair_fgh_kernel<<<n_blocks, kThreads, 0, st>>>(mu, sig, m_rot, crot, ok,
-                                                 n_pairs, lfd1, lfd2,
-                                                 partials);
-  sum_partials_kernel<<<1, 32, 0, st>>>(partials, n_blocks, out);
-  return static_cast<int>(cudaGetLastError());
+                         float lfd2, float* out, int cluster, void* stream) {
+  return launch_clusters(pair_fgh_kernel<kPairThreads>, kPairThreads,
+                         cluster, 1, static_cast<cudaStream_t>(stream), mu,
+                         sig, m_rot, crot, ok, n_pairs, lfd1, lfd2, out);
 }
 
 }  // extern "C"

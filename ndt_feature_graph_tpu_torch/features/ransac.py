@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from ndt_feature_graph_tpu.config import FeatureParams
+from ndt_feature_graph_tpu_torch.config import FeatureParams
 from ndt_feature_graph_tpu_torch.features.detector import (
     FeatureSet, top_k_stable,
 )

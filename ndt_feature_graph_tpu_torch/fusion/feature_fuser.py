@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from ndt_feature_graph_tpu.config import FuserParams
+from ndt_feature_graph_tpu_torch.config import FuserParams
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features import descriptor, detector, ransac
 from ndt_feature_graph_tpu_torch.fusion import fuser
@@ -70,8 +70,10 @@ def _prepare_features(state: FeatureFuserState, params: FuserParams,
                                    state.prev_feats.pts[res.corr_ref])
     src_pts = se2.transform_points(sp, feats.pts[res.corr_mov])
     c = res.corr_ref.shape[0]
+    # Materialised once per scan: the objective kernel reads the lists
+    # of every Newton trial through plain pointers.
     covs = (torch.eye(2, dtype=torch.float32, device=pts.device)
-            * params.feature_cov_xy).expand(c, 2, 2)
+            * params.feature_cov_xy).expand(c, 2, 2).contiguous()
     pair_mask = res.inlier_mask & feats_ok
     feat_tgt = CellList(means=tgt_pts, covs=covs, mask=pair_mask)
     feat_src = CellList(means=src_pts, covs=covs, mask=pair_mask)

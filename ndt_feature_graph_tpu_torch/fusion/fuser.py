@@ -4,9 +4,10 @@ feature correspondences + odometry prior) -> consistency gate with
 odometry fallback -> map update with an incremental refresh of the
 packed registration table.
 
-The D2D window term and the paired feature term of every Newton trial
-go through the CUDA kernel entries (ops/cuda_kernels.py) — on CPU
-tensors through their plain twins.  The reference's TPU gather layouts
+Every Newton trial's objective — D2D window term, paired feature term
+and odometry term — is one launch of the CUDA kernel entry
+`cuda_kernels.newton_objective`; on CPU tensors it is the sum of the
+plain terms.  The reference's TPU gather layouts
 (`gather_block`, `gather_window_cells`, `gather_table_bf16`) select
 table shapes only; the port's kernel reads the packed table directly,
 which is what those layouts are exact to.
@@ -20,10 +21,9 @@ from typing import Optional
 
 import torch
 
-from ndt_feature_graph_tpu.config import FuserParams, NDTMapParams
+from ndt_feature_graph_tpu_torch.config import FuserParams, NDTMapParams
 from ndt_feature_graph_tpu_torch.core import motion_model, se2
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d, ndt_map
-from ndt_feature_graph_tpu_torch.ops.d2d_analytic import fgh_mahalanobis
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList, NDTGrid
 
 
@@ -144,25 +144,11 @@ def update(state: FuserState, params: FuserParams, Tmotion, pts, mask,
     use_feat = m.use_feat and feat_src is not None and feat_tgt is not None
 
     def fgh_fn(d):
-        terms = []
-        if m.use_ndt:
-            terms.append(cuda_kernels.fgh_dense_flat(
-                d, T_pred, src, tgt_packed, tgt_origin, h, w, res,
-                m.n_neighbours, m.lfd1, m.lfd2,
-            ))
-        if use_feat:
-            terms.append(cuda_kernels.fgh_paired(d, T_pred, feat_src,
-                                                 feat_tgt, m))
-        if m.use_odom:
-            terms.append(fgh_mahalanobis(d, Q))
-        if not terms:
-            return (torch.zeros((), device=d.device),
-                    torch.zeros(3, device=d.device),
-                    torch.zeros((3, 3), device=d.device))
-        f, g, H = terms[0]
-        for f_i, g_i, H_i in terms[1:]:
-            f, g, H = f + f_i, g + g_i, H + H_i
-        return f, g, H
+        return cuda_kernels.newton_objective(
+            d, T_pred, src if m.use_ndt else None, tgt_packed, tgt_origin,
+            h, w, res, m, feat_src if use_feat else None,
+            feat_tgt if use_feat else None, Q if m.use_odom else None,
+        )
 
     d, score, itr, conv = d2d.newton_match(
         fgh_fn, torch.zeros(3, dtype=torch.float32, device=pts.device), m

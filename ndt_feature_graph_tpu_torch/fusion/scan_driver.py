@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ndt_feature_graph_tpu.config import FuserParams
+from ndt_feature_graph_tpu_torch.config import FuserParams
 from ndt_feature_graph_tpu_torch.core import motion_model, se2
 from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
 from ndt_feature_graph_tpu_torch.graph import node as node_mod

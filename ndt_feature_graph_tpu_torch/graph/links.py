@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from ndt_feature_graph_tpu.config import (
+from ndt_feature_graph_tpu_torch.config import (
     FeatureParams, GraphParams, MatcherParams, NDTMapParams,
 )
 from ndt_feature_graph_tpu_torch.core import se2

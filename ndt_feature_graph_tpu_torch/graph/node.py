@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from ndt_feature_graph_tpu.config import FuserParams
+from ndt_feature_graph_tpu_torch.config import FuserParams
 from ndt_feature_graph_tpu_torch.features.descriptor import descriptor_dim
 from ndt_feature_graph_tpu_torch.features.detector import FeatureSet
 from ndt_feature_graph_tpu_torch.fusion import fuser as fuser_mod
@@ -53,7 +53,7 @@ def _feature_set(capacity: int, device) -> FeatureSet:
 
 
 def empty_feature_map(capacity: int, desc_dim: int,
-                      device=None) -> FeatureMapBuffer:
+                      device) -> FeatureMapBuffer:
     return FeatureMapBuffer(
         feats=_feature_set(capacity, device),
         desc=torch.full((capacity, desc_dim), 0.5, dtype=torch.float32,
@@ -126,7 +126,7 @@ def stack_nodes(nodes) -> NodeData:
 
 
 def empty_node(params: FuserParams, fm_capacity: int,
-               device=None) -> NodeData:
+               device) -> NodeData:
     """Shape template of a node (the bank is this, stacked)."""
     h, w = params.ndt.grid_h, params.ndt.grid_w
     mc = params.ndt.max_cells

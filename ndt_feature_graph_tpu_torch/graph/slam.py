@@ -22,7 +22,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ndt_feature_graph_tpu.config import GraphParams, SLAMParams
+from ndt_feature_graph_tpu_torch.config import GraphParams, SLAMParams
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features.descriptor import descriptor_dim
 from ndt_feature_graph_tpu_torch.fusion import feature_fuser, scan_driver

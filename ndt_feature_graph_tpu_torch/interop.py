@@ -4,16 +4,19 @@ This system has no weights: what the two sides share is state.  The
 `*_from_jax` functions take the JAX package's state as numpy arrays under
 the JAX field names — a NamedTuple such as `jax.tree.map(np.asarray,
 state)` or a nested mapping — and build the port's dataclasses on
-`device`.  `to_numpy` goes back: a nested dict of numpy arrays under the
+`device` (None: the CUDA card, raising where there is none — see
+resolve_device).  `to_numpy` goes back: a nested dict of numpy arrays under the
 same field names (the port's dataclasses use the JAX names).  The JAX
 FeatureFuserState's PRNG `key` has no port counterpart and is dropped.
 A stacked (N, ...) JAX node bank goes through `node_from_jax` as one
 node does; link and edge indices become int64.  `graph_from_jax` loads a
 whole frozen JAX graph (bank, node poses, odometry edges) into a port
 NDTFeatureGraphSLAM, and `tree_from_flat` reads such a bank back from an
-npz of dotted field paths.
+npz of dotted field paths.  `params_from_jax` turns the JAX package's
+parameter dataclasses into the port's own (config.py).
 
-Nothing here imports jax.
+Nothing here imports jax or the JAX package: its objects come in as
+arguments and are read by field name.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ndt_feature_graph_tpu_torch import config, resolve_device
 from ndt_feature_graph_tpu_torch.features.detector import FeatureSet
 from ndt_feature_graph_tpu_torch.fusion.feature_fuser import (
     FeatureFuserState,
@@ -43,7 +47,28 @@ def _get(obj, name):
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
+def params_from_jax(p):
+    """The port's parameter dataclass (config.py) equal to the JAX
+    package's `p` (any class of its config tree): the class of the same
+    name, built field by field, nested dataclasses recursively.  Raises
+    where one side has a field the other lacks, so the two trees cannot
+    drift apart unnoticed.  `repr()` of the result equals `repr(p)`."""
+    cls = getattr(config, type(p).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(p):
+        raise TypeError(f"no parameter class {type(p).__name__} in the port")
+    theirs = {f.name for f in dataclasses.fields(p)}
+    ours = {f.name for f in dataclasses.fields(cls)}
+    if theirs != ours:
+        raise ValueError(
+            f"{cls.__name__}: fields differ between the JAX package and "
+            f"the port: {sorted(theirs ^ ours)}")
+    values = {n: getattr(p, n) for n in sorted(ours)}
+    return cls(**{n: params_from_jax(v) if dataclasses.is_dataclass(v) else v
+                  for n, v in values.items()})
+
+
 def _tensors(obj, names, device):
+    device = resolve_device(device)
     return {n: torch.tensor(np.asarray(_get(obj, n)), device=device)
             for n in names}
 
@@ -98,6 +123,7 @@ def node_from_jax(n, device=None) -> NodeData:
 
 
 def _indices(obj, names, device):
+    device = resolve_device(device)
     return {n: torch.tensor(np.asarray(_get(obj, n)), dtype=torch.int64,
                             device=device) for n in names}
 
@@ -109,6 +135,7 @@ def link_set_from_jax(ls, device=None) -> LinkSet:
 
 def edge_list_from_jax(e, device=None) -> EdgeList:
     is_odom = _get(e, "is_odom")
+    device = resolve_device(device)
     return EdgeList(
         **_indices(e, ("i", "j"), device),
         **_tensors(e, ("meas", "info", "mask"), device),

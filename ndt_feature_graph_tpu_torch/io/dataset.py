@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ndt_feature_graph_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass
 class Sequence:
@@ -39,8 +41,9 @@ def beam_angles(num_beams: int, fov: float = 2.0 * math.pi,
     result is not fixed bit for bit: its vectorised body and scalar tail
     round differently, so the eager and the jitted linspace disagree in
     a few entries (5 of 720); this helper matches either to one ulp.
-    Cached per device, so the scan loop makes no host-to-device copy."""
-    key = (num_beams, float(fov), torch.device(device or "cpu"))
+    Cached per device, so the scan loop makes no host-to-device copy.
+    `device=None` is the CUDA card (resolve_device)."""
+    key = (num_beams, float(fov), resolve_device(device))
     out = _ANGLES.get(key)
     if out is None:
         f32, f64 = torch.float32, torch.float64
@@ -66,7 +69,9 @@ def scan_to_points(ranges, hit, fov=2.0 * math.pi):
 
 
 def load_sequence(path, device=None) -> Sequence:
-    """Load a sequence npz (keys ranges, hit, odom, gt) onto `device`."""
+    """Load a sequence npz (keys ranges, hit, odom, gt) onto `device`
+    (None: the CUDA card, raising where there is none)."""
+    device = resolve_device(device)
     with np.load(path) as d:
         return Sequence(
             ranges=torch.as_tensor(d["ranges"], dtype=torch.float32,

@@ -1,20 +1,26 @@
 """Hand-written Hopper kernels of the registration hot path — the
 counterpart of ndt_feature_graph_tpu/ops/pallas_kernels.py.
 
-`csrc/pair_fgh.cu` holds three entries that share one device function
-for the per-pair D2D algebra (pallas_kernels._fgh_components):
+`csrc/pair_fgh.cu` holds two kernels that share one device function for
+the per-pair D2D algebra (pallas_kernels._fgh_components); every entry
+is ONE launch whose thread-block cluster reduces on the chip, in a fixed
+order, and writes (f, g, H) as 13 floats:
 
-  * `fgh_dense_flat` — the main path's D2D window term: per Newton trial
-    ONE launch forms the trial pose, moves the source cells, gathers
-    their (2n+1)^2 window rows from the packed (H*W, 8) table, masks and
-    reduces to (f, g, H).  Plain twin: d2d_analytic.fgh_dense_flat.
-  * `fgh_dense_flat_batch` — the same term for B lanes against one flat
-    (N*H*W, 8) node bank, each lane with its own row offset: the lockstep
-    Newton of loop-closure link refinement.  Plain twin:
-    d2d_analytic.fgh_dense_flat_batch.
+  * `newton_objective` — the main path's whole Newton trial: the D2D
+    window term (trial pose, moved source cells, their (2n+1)^2 window
+    rows of the packed (H*W, 8) table, masks), the paired feature term
+    (its pair inputs formed in the kernel) and the odometry term, summed
+    in that order.  Plain twin: `newton_objective_reference`.
+  * `fgh_dense_flat` — the window term alone (plain registration,
+    d2d.match_d2d / covariance_d2d).  Plain twin:
+    d2d_analytic.fgh_dense_flat.
+  * `fgh_dense_flat_batch` — the window term for B lanes against one
+    flat (N*H*W, 8) node bank, each lane with its own row offset and its
+    own cluster: the lockstep Newton of loop-closure link refinement.
+    Plain twin: d2d_analytic.fgh_dense_flat_batch.
   * `pair_fgh_reduce` — the Pallas kernel's signature: masked sum of the
-    pair derivatives of given pairs; serves the paired feature term.
-    Plain twin: `pair_fgh_reduce_reference` below.
+    pair derivatives of given pairs (`fgh_paired` on its own).  Plain
+    twin: `pair_fgh_reduce_reference`.
 
 The source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface at the first CUDA call (never at import: machines
@@ -29,16 +35,16 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+from typing import Optional
 
 import torch
 
-from ndt_feature_graph_tpu.config import MatcherParams
+from ndt_feature_graph_tpu_torch.config import MatcherParams
 from ndt_feature_graph_tpu_torch.ops import d2d_analytic
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
@@ -51,8 +57,9 @@ NVCC_FLAGS = [
 ]
 
 # Launch counts per entry: incremented only where a kernel launches.
-LAUNCHES = {"fgh_dense_flat": 0, "pair_fgh_reduce": 0,
-            "fgh_dense_flat_batch": 0}
+LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
+            "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0}
+
 
 _lib = None
 build_log = ""        # nvcc/ptxas output of the build in this process
@@ -100,18 +107,18 @@ def build():
     lib = ctypes.CDLL(str(out))
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.ndtg_block_threads.argtypes = []
-    lib.ndtg_block_threads.restype = I
-    lib.ndtg_fgh_dense_flat.argtypes = [
-        P, P, P, P, P, P, P, LL, I, I, I, F, I, F, F, P, I, P, P,
+    for fn in (lib.ndtg_max_cluster, lib.ndtg_pair_threads,
+               lib.ndtg_objective_threads, lib.ndtg_objective_blocks_per_sm):
+        fn.argtypes = []
+        fn.restype = I
+    lib.ndtg_objective.argtypes = [
+        P, P, P, P, P, P, P, P, I, I, I, I, F, I,     # window term
+        P, P, P, P, P, P, I,                          # paired term
+        P, F, F, P, I, P,         # Q, lfd1, lfd2, out, cluster, stream
     ]
-    lib.ndtg_fgh_dense_flat.restype = I
-    lib.ndtg_fgh_dense_flat_batch.argtypes = [
-        P, P, P, P, P, P, P, P, I, I, I, I, F, I, F, F, P, I, P, P,
-    ]
-    lib.ndtg_fgh_dense_flat_batch.restype = I
+    lib.ndtg_objective.restype = I
     lib.ndtg_pair_fgh_reduce.argtypes = [
-        P, P, P, P, P, LL, F, F, P, I, P, P,
+        P, P, P, P, P, LL, F, F, P, I, P,
     ]
     lib.ndtg_pair_fgh_reduce.restype = I
     _lib = lib
@@ -132,9 +139,15 @@ def _sym_index(device):
 
 
 def _unpack10(out):
-    """(10,) [s, g0..g2, h00 h01 h02 h11 h12 h22] -> (f, g (3,), H (3,3))
-    on the device."""
+    """(10,) [s, g0..g2, h00 h01 h02 h11 h12 h22] -> (f, g (3,), H (3,3));
+    the plain versions' sums."""
     return out[0], out[1:4], out[_sym_index(out.device)].reshape(3, 3)
+
+
+def _unpack13(out):
+    """The kernels' (..., 13) output [f, g0..g2, H row-major] as views
+    (f (...), g (..., 3), H (..., 3, 3)): no further launch."""
+    return out[..., 0], out[..., 1:4], out[..., 4:13].unflatten(-1, (3, 3))
 
 
 def _check(name, t, dtype, shape, device):
@@ -149,13 +162,158 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _blocks(lib, n_items: int) -> int:
-    return max(1, math.ceil(n_items / lib.ndtg_block_threads()))
+def _check_cells(name, cells: CellList, lead, device):
+    """A CellList with leading shape `lead` (ending in its cell count);
+    the kernel reads a mean as one float2 and a covariance as one
+    float4."""
+    f32 = torch.float32
+    _check(f"{name}.means", cells.means, f32, (*lead, 2), device)
+    _check(f"{name}.covs", cells.covs, f32, (*lead, 2, 2), device)
+    _check(f"{name}.mask", cells.mask, torch.bool, lead, device)
+    if cells.means.data_ptr() % 8 or cells.covs.data_ptr() % 16:
+        raise ValueError(f"{name}: means must be 8-byte and covs 16-byte "
+                         "aligned")
+
+
+def _check_table(name, packed, rows, device):
+    _check(name, packed, torch.float32, (rows, 8), device)
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
+
+
+def _cluster_blocks(lib, n_items: int, per_block: int) -> int:
+    """Blocks of a cluster that `n_items` fill at `per_block` a block,
+    within the portable cluster size."""
+    return max(1, min(lib.ndtg_max_cluster(), -(-n_items // per_block)))
+
+
+_RESIDENT_BLOCKS = {}     # device -> objective-kernel blocks it holds
+
+
+def _objective_cluster(lib, device, n_lanes: int, n_src: int,
+                       n_feat: int) -> int:
+    """Blocks per lane of the objective kernel: as many as give each of
+    the lane's source cells a warp and each feature pair a thread, but
+    no more than keep every lane's cluster on the card at once (measured
+    on the H100: a second wave of clusters, and larger clusters, cost
+    more than longer warps)."""
+    resident = _RESIDENT_BLOCKS.get(device)
+    if resident is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        resident = sms * lib.ndtg_objective_blocks_per_sm()
+        _RESIDENT_BLOCKS[device] = resident
+    threads = lib.ndtg_objective_threads()
+    wanted = max(_cluster_blocks(lib, n_src, threads // 32),
+                 _cluster_blocks(lib, n_feat, threads))
+    return max(1, min(wanted, resident // n_lanes))
 
 
 def _raise_on(err: int, entry: str):
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed, cudaError {err}")
+
+
+def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
+                      h, w, res, n, lfd1, lfd2, feat_src=None,
+                      feat_tgt=None, Q=None):
+    """One launch of the objective kernel on checked CUDA tensors; None
+    switches a term off.  d (B, 3) or (3,): returns the (B, 13) or (13,)
+    output.  Counts the launch under `entry`."""
+    dev = d.device
+    lib = build()
+    n_lanes = d.shape[0] if d.dim() == 2 else 1
+    n_src = src.mask.shape[-1] if src is not None else 0
+    n_feat = feat_src.mask.shape[0] if feat_src is not None else 0
+    out = torch.empty((*d.shape[:-1], 13), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    cells = lambda c: (  # noqa: E731
+        (None, None, None) if c is None
+        else (c.means.data_ptr(), c.covs.data_ptr(), c.mask.data_ptr()))
+    cluster = _objective_cluster(lib, dev, n_lanes, n_src, n_feat)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_objective(
+            d.data_ptr(), T0.data_ptr(), *cells(src), ptr(packed),
+            ptr(origins), ptr(row_offsets), n_lanes, n_src, h, w,
+            float(res), n, *cells(feat_src), *cells(feat_tgt), n_feat,
+            ptr(Q), float(lfd1), float(lfd2), out.data_ptr(),
+            cluster, stream,
+        )
+    _raise_on(err, entry)
+    LAUNCHES[entry] += 1
+    return out
+
+
+def newton_objective_reference(d, T0, src: Optional[CellList], packed,
+                               origin, h: int, w: int, res: float,
+                               m: MatcherParams,
+                               feat_src: Optional[CellList] = None,
+                               feat_tgt: Optional[CellList] = None,
+                               Q=None):
+    """Plain PyTorch `newton_objective`: the sum, in this order, of the
+    D2D window term (d2d_analytic.fgh_dense_flat), the paired feature
+    term (d2d_analytic.paired_inputs through pair_fgh_reduce_reference)
+    and the odometry term (d2d_analytic.fgh_mahalanobis); None switches
+    a term off, and with none left the objective is zero."""
+    terms = []
+    if src is not None:
+        terms.append(d2d_analytic.fgh_dense_flat(
+            d, T0, src, packed, origin, 0, h, w, res, m))
+    if feat_src is not None:
+        terms.append(pair_fgh_reduce_reference(
+            *d2d_analytic.paired_inputs(d, T0, feat_src, feat_tgt),
+            m.lfd1, m.lfd2))
+    if Q is not None:
+        terms.append(d2d_analytic.fgh_mahalanobis(d, Q))
+    if not terms:
+        return (torch.zeros((), device=d.device),
+                torch.zeros(3, device=d.device),
+                torch.zeros((3, 3), device=d.device))
+    f, g, H = terms[0]
+    for f_i, g_i, H_i in terms[1:]:
+        f, g, H = f + f_i, g + g_i, H + H_i
+    return f, g, H
+
+
+def newton_objective(d, T0, src: Optional[CellList], packed, origin,
+                     h: int, w: int, res: float, m: MatcherParams,
+                     feat_src: Optional[CellList] = None,
+                     feat_tgt: Optional[CellList] = None, Q=None):
+    """(f, g (3,), H (3,3)) of one Newton trial's objective at increment
+    d over initial pose T0: the D2D window cost of `src` against the
+    packed (H*W, 8) table, plus the paired cost of the feature lists
+    `feat_src` / `feat_tgt` (src[i] against tgt[i]), plus the odometry
+    term d^T Q d — one kernel launch on CUDA tensors.  `src`, the
+    feature lists (both or neither) and `Q` may each be None: that term
+    is off."""
+    if (feat_src is None) != (feat_tgt is None):
+        raise ValueError("newton_objective: feat_src and feat_tgt go "
+                         "together")
+    if d.device.type == "cpu":
+        return newton_objective_reference(d, T0, src, packed, origin, h, w,
+                                          res, m, feat_src, feat_tgt, Q)
+    if d.device.type != "cuda":
+        raise ValueError(f"newton_objective: unsupported device {d.device}")
+    dev = d.device
+    f32 = torch.float32
+    _check("d", d, f32, (3,), dev)
+    _check("T0", T0, f32, (3,), dev)
+    if src is not None:
+        _check_cells("src", src, (src.mask.shape[0],), dev)
+        _check_table("packed", packed, h * w, dev)
+        _check("origin", origin, f32, (2,), dev)
+    if feat_src is not None:
+        n_feat = feat_src.mask.shape[0]
+        _check_cells("feat_src", feat_src, (n_feat,), dev)
+        _check_cells("feat_tgt", feat_tgt, (n_feat,), dev)
+    if Q is not None:
+        _check("Q", Q, f32, (3, 3), dev)
+    out = _launch_objective(
+        "newton_objective", d, T0, src,
+        packed if src is not None else None,
+        origin if src is not None else None, None, h, w, res,
+        m.n_neighbours, m.lfd1, m.lfd2, feat_src, feat_tgt, Q)
+    return _unpack13(out)
 
 
 def fgh_dense_flat(d, T0, src: CellList, packed, origin, h: int, w: int,
@@ -171,33 +329,15 @@ def fgh_dense_flat(d, T0, src: CellList, packed, origin, h: int, w: int,
     if d.device.type != "cuda":
         raise ValueError(f"fgh_dense_flat: unsupported device {d.device}")
     dev = d.device
-    n_src = src.means.shape[0]
     f32 = torch.float32
     _check("d", d, f32, (3,), dev)
     _check("T0", T0, f32, (3,), dev)
-    _check("src.means", src.means, f32, (n_src, 2), dev)
-    _check("src.covs", src.covs, f32, (n_src, 2, 2), dev)
-    _check("src.mask", src.mask, torch.bool, (n_src,), dev)
-    _check("packed", packed, f32, (h * w, 8), dev)
+    _check_cells("src", src, (src.mask.shape[0],), dev)
+    _check_table("packed", packed, h * w, dev)
     _check("origin", origin, f32, (2,), dev)
-    if packed.data_ptr() % 16:
-        raise ValueError("packed: rows must be 16-byte aligned")
-    lib = build()
-    nblk = _blocks(lib, n_src * (2 * n + 1) ** 2)
-    partials = torch.empty((nblk, 10), dtype=f32, device=dev)
-    out = torch.empty(10, dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ndtg_fgh_dense_flat(
-            d.data_ptr(), T0.data_ptr(), src.means.data_ptr(),
-            src.covs.data_ptr(), src.mask.data_ptr(), packed.data_ptr(),
-            origin.data_ptr(), 0, n_src, h, w, float(res), n,
-            float(lfd1), float(lfd2), partials.data_ptr(), nblk,
-            out.data_ptr(), stream,
-        )
-    _raise_on(err, "fgh_dense_flat")
-    LAUNCHES["fgh_dense_flat"] += 1
-    return _unpack10(out)
+    return _unpack13(_launch_objective(
+        "fgh_dense_flat", d, T0, src, packed, origin, None, h, w, res, n,
+        lfd1, lfd2))
 
 
 MAX_LANES = 65535     # gridDim.y of the batched launch
@@ -208,7 +348,7 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
                          lfd1: float, lfd2: float):
     """(f (B,), g (B, 3), H (B, 3, 3)) of B lanes of the D2D window term
     against one flat (R, 8) packed bank — d2d_analytic.
-    fgh_dense_flat_batch in one launch (plus the per-lane sum) on CUDA
+    fgh_dense_flat_batch in one launch, a cluster per lane, on CUDA
     tensors.  Lane b moves src_b[b] by d_b[b] ∘ T0_b[b] and reads the
     bank rows from row_offsets[b] (int64) on, with origin origins[b]."""
     if d_b.device.type == "cpu":
@@ -224,35 +364,16 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
     f32 = torch.float32
     _check("d_b", d_b, f32, (b, 3), dev)
     _check("T0_b", T0_b, f32, (b, 3), dev)
-    _check("src_b.means", src_b.means, f32, (b, n_src, 2), dev)
-    _check("src_b.covs", src_b.covs, f32, (b, n_src, 2, 2), dev)
-    _check("src_b.mask", src_b.mask, torch.bool, (b, n_src), dev)
-    _check("packed_flat", packed_flat, f32, (packed_flat.shape[0], 8), dev)
+    _check_cells("src_b", src_b, (b, n_src), dev)
+    _check_table("packed_flat", packed_flat, packed_flat.shape[0], dev)
     _check("origins", origins, f32, (b, 2), dev)
     _check("row_offsets", row_offsets, torch.int64, (b,), dev)
-    if packed_flat.data_ptr() % 16:
-        raise ValueError("packed_flat: rows must be 16-byte aligned")
     if not 0 < b <= MAX_LANES:
         raise ValueError(f"fgh_dense_flat_batch: {b} lanes, expected "
                          f"1..{MAX_LANES}")
-    lib = build()
-    nblk = _blocks(lib, n_src * (2 * n + 1) ** 2)
-    partials = torch.empty((b, nblk, 10), dtype=f32, device=dev)
-    out = torch.empty((b, 10), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ndtg_fgh_dense_flat_batch(
-            d_b.data_ptr(), T0_b.data_ptr(), src_b.means.data_ptr(),
-            src_b.covs.data_ptr(), src_b.mask.data_ptr(),
-            packed_flat.data_ptr(), origins.data_ptr(),
-            row_offsets.data_ptr(), b, n_src, h, w, float(res), n,
-            float(lfd1), float(lfd2), partials.data_ptr(), nblk,
-            out.data_ptr(), stream,
-        )
-    _raise_on(err, "fgh_dense_flat_batch")
-    LAUNCHES["fgh_dense_flat_batch"] += 1
-    sym = _sym_index(dev)
-    return out[:, 0], out[:, 1:4], out[:, sym].reshape(b, 3, 3)
+    return _unpack13(_launch_objective(
+        "fgh_dense_flat_batch", d_b, T0_b, src_b, packed_flat, origins,
+        row_offsets, h, w, res, n, lfd1, lfd2))
 
 
 def _fgh_components(mu_x, mu_y, s00, s01, s11, mx, my, c00, c01, c11,
@@ -338,7 +459,8 @@ def pair_fgh_reduce_reference(mu, Sig, m_rot, Crot, ok, lfd1, lfd2):
 
 def pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, lfd1, lfd2):
     """Fused masked reduction of the pair derivatives (the TPU kernel's
-    signature).  Shapes as pair_fgh_reduce_reference."""
+    signature), one launch on CUDA tensors.  Shapes as
+    pair_fgh_reduce_reference."""
     if ok.device.type == "cpu":
         return pair_fgh_reduce_reference(mu, Sig, m_rot, Crot, ok, lfd1,
                                          lfd2)
@@ -358,23 +480,23 @@ def pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, lfd1, lfd2):
     )
     n_pairs = ok.numel()
     lib = build()
-    nblk = _blocks(lib, n_pairs)
-    partials = torch.empty((nblk, 10), dtype=f32, device=dev)
-    out = torch.empty(10, dtype=f32, device=dev)
+    out = torch.empty(13, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndtg_pair_fgh_reduce(
             mu.data_ptr(), Sig.data_ptr(), m_rot.data_ptr(),
             Crot.data_ptr(), ok.data_ptr(), n_pairs, float(lfd1),
-            float(lfd2), partials.data_ptr(), nblk, out.data_ptr(), stream,
+            float(lfd2), out.data_ptr(),
+            _cluster_blocks(lib, n_pairs, lib.ndtg_pair_threads()), stream,
         )
     _raise_on(err, "pair_fgh_reduce")
     LAUNCHES["pair_fgh_reduce"] += 1
-    return _unpack10(out)
+    return _unpack13(out)
 
 
 def fgh_paired(d, T0, src: CellList, tgt: CellList, m: MatcherParams):
-    """d2d_analytic.fgh_paired with the reduction through
-    `pair_fgh_reduce` (the kernel on CUDA tensors)."""
+    """d2d_analytic.fgh_paired on its own, with the reduction through
+    `pair_fgh_reduce` (the kernel on CUDA tensors).  Inside a Newton
+    trial the paired term rides in `newton_objective` instead."""
     mu, Sig, m_rot, Crot, ok = d2d_analytic.paired_inputs(d, T0, src, tgt)
     return pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, m.lfd1, m.lfd2)

@@ -1,6 +1,7 @@
 """NDT distribution-to-distribution registration core (port of
 ndt_feature_graph_tpu/ops/d2d.py: the packed registration table, the
-flat window gather, and the damped-Newton minimizer).
+flat window gather, the damped-Newton minimizer, and plain D2D
+registration with its covariance: match_d2d, covariance_d2d).
 
 The registration target is the (H*W, 8) channel-packed table
 [mean_x, mean_y, c00, c01, c11, valid, 0, 0] — one 32-byte row per
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from ndt_feature_graph_tpu.config import MatcherParams, NDTMapParams
+from ndt_feature_graph_tpu_torch.config import MatcherParams, NDTMapParams
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.ops import ndt_map
 
@@ -41,7 +42,7 @@ def pack_rows(mean, cov, valid):
     )
 
 
-def empty_pack_row(device=None):
+def empty_pack_row(device):
     """The packed row of a never-observed cell (what finalize_stats gives
     zero statistics)."""
     return torch.tensor([0.0, 0.0, 1e-3, 0.0, 1e-3, 0.0, 0.0, 0.0],
@@ -211,6 +212,52 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
     use_best = f > best_f
     return (torch.where(use_best[:, None], best_d, d),
             torch.where(use_best, best_f, f), itr, stop)
+
+
+@dataclasses.dataclass
+class NewtonResult:
+    d: torch.Tensor           # (3,) final increment
+    T: torch.Tensor           # (3,) final pose (increment ∘ T0)
+    score: torch.Tensor       # final (best) score
+    iterations: torch.Tensor  # int32 trial count
+    converged: torch.Tensor   # bool
+
+
+def _window_fgh(tgt: PackedTarget, src: ndt_map.CellList, T0,
+                map_params: NDTMapParams, m: MatcherParams):
+    """fgh_fn of the D2D window cost of `src` over initial pose T0
+    against `tgt`: the `fgh_dense_flat` kernel entry on CUDA tensors."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    def fgh_fn(d):
+        return cuda_kernels.fgh_dense_flat(
+            d, T0, src, tgt.packed, tgt.origin, map_params.grid_h,
+            map_params.grid_w, map_params.resolution, m.n_neighbours,
+            m.lfd1, m.lfd2)
+    return fgh_fn
+
+
+def match_d2d(tgt: PackedTarget, src: ndt_map.CellList, T_init,
+              map_params: NDTMapParams, m: MatcherParams) -> NewtonResult:
+    """Plain D2D registration of the cell list `src` from initial pose
+    T_init against the packed table of `tgt` (the reference's match_d2d
+    on the DenseTarget of the same grid): the window term alone."""
+    T_init = T_init.to(torch.float32)
+    d, f, itr, conv = newton_match(
+        _window_fgh(tgt, src, T_init, map_params, m),
+        torch.zeros(3, dtype=torch.float32, device=T_init.device), m)
+    return NewtonResult(d=d, T=_apply_increment(d, T_init), score=f,
+                        iterations=itr, converged=conv)
+
+
+def covariance_d2d(tgt: PackedTarget, src: ndt_map.CellList, T,
+                   map_params: NDTMapParams, m: MatcherParams):
+    """Pose covariance (3, 3) from the inverse Hessian of the D2D window
+    cost at the estimate T (cov_from_hessian's convention)."""
+    T = T.to(torch.float32)
+    _, _, H = _window_fgh(tgt, src, T, map_params, m)(
+        torch.zeros(3, dtype=torch.float32, device=T.device))
+    return cov_from_hessian(H, m)
 
 
 def _jacobi_eigh3(H, sweeps: int = 6):

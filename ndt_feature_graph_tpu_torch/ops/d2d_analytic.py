@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ndt_feature_graph_tpu.config import MatcherParams
+from ndt_feature_graph_tpu_torch.config import MatcherParams
 from ndt_feature_graph_tpu_torch.ops import d2d
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 

@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from ndt_feature_graph_tpu.config import NDTMapParams
+from ndt_feature_graph_tpu_torch.config import NDTMapParams
 from ndt_feature_graph_tpu_torch.core import se2
 
 

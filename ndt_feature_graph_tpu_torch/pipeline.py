@@ -9,8 +9,8 @@ import time
 import numpy as np
 import torch
 
-from ndt_feature_graph_tpu.config import SLAMParams
-from ndt_feature_graph_tpu.io import tum
+from ndt_feature_graph_tpu_torch.config import SLAMParams
+from ndt_feature_graph_tpu_torch.io import tum
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io import dataset as dataset_mod

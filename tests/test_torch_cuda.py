@@ -1,5 +1,7 @@
 """The CUDA kernel entries of ops/cuda_kernels.py against their plain
-PyTorch twins on the card.  Marked `cuda`: they skip without a CUDA
+PyTorch twins on the card: the whole Newton-trial objective
+(`newton_objective`, with the paired front end on its own), the window
+term, the batch entry and the paired reduction.  Marked `cuda`: they skip without a CUDA
 card.  The file imports no JAX, so it also runs where JAX is not
 installed (skip the JAX-importing conftest there):
 
@@ -77,40 +79,93 @@ def test_kernels_match_plain_at_main_path_shapes(cuda_device):
         fx = dict(f)
     sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
                                           int(fx["max_nodes"]))
-    errs, times = chip_smoke.kernel_checks(sp, fx, cuda_device)
-    assert set(errs) == set(times) == {"fgh_dense_flat", "pair_fgh_reduce"}
+    out = chip_smoke.kernel_checks(sp, fx, cuda_device)
+    assert set(out) == {"newton_objective", "fgh_dense_flat",
+                        "pair_fgh_reduce"}
+    for entry in out.values():
+        assert entry["ms"] > entry["bound_ms"] > 0.0
 
 
-def _small_bank(dev):
-    """Four canonical nodes: fusers initialized on fixture scans 0, 50,
-    100 and 150 in their node frames, frozen at the ground-truth poses,
-    and the relative poses of all ordered pairs."""
-    from ndt_feature_graph_tpu_torch.core import se2
-    from ndt_feature_graph_tpu_torch.fusion import fuser
-    from ndt_feature_graph_tpu_torch.graph import node as node_mod
-    from ndt_feature_graph_tpu_torch.io import dataset
+def _trial(dev):
+    from ndt_feature_graph_tpu_torch.ops import d2d_analytic
 
     with np.load(chip_smoke.FIXTURE) as f:
         fx = dict(f)
     sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
                                           int(fx["max_nodes"]))
-    p = sp.fuser
+    return sp.fuser, chip_smoke.trial_case(sp, fx, dev), d2d_analytic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_src", [256, 1024])
+@pytest.mark.parametrize("n", [1, 2, 3], ids=["K9", "K25", "K49"])
+def test_newton_objective_matches_plain(cuda_device, n, n_src):
+    """The whole trial objective (window + 64 feature pairs + odometry)
+    at the source list's budget and at its full capacity, for windows of
+    9, 25 and 49 cells: one launch, identical bits on repeat."""
+    p, (state, src, T0, Q, d, fs, ft), _ = _trial(cuda_device)
+    m = p.matcher.replace(n_neighbours=n)
+    args = (d, T0, src.head(n_src), state.packed, state.grid.origin,
+            p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution, m, fs, ft, Q)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.newton_objective(*args)
+    again = cuda_kernels.newton_objective(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES == {
+        "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
+        "fgh_dense_flat_batch": 0}
+    chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
+                       got, cuda_kernels.newton_objective_reference(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [1, 64, 300, 5000])
+def test_paired_front_end_matches_plain(cuda_device, n_pairs):
+    """The paired term alone through newton_objective (pair inputs
+    formed in the kernel) against d2d_analytic.fgh_paired, from one pair
+    to lists that span several blocks of the cluster."""
+    p, (state, _, T0, _, d, _, _), d2d_analytic = _trial(cuda_device)
+    fs, ft = chip_smoke.feature_pairs(T0, cuda_device, n=n_pairs, seed=7)
+    got = cuda_kernels.newton_objective(
+        d, T0, None, None, None, p.ndt.grid_h, p.ndt.grid_w,
+        p.ndt.resolution, p.matcher, fs, ft)
+    again = cuda_kernels.newton_objective(
+        d, T0, None, None, None, p.ndt.grid_h, p.ndt.grid_w,
+        p.ndt.resolution, p.matcher, fs, ft)
+    chip_smoke.compare(f"paired front end, {n_pairs} pairs", got,
+                       d2d_analytic.fgh_paired(d, T0, fs, ft, p.matcher))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_fuser_update_launches_one_objective_per_trial(cuda_device):
+    """fuser.update on CUDA tensors launches `newton_objective` once per
+    Newton trial (the first evaluation, then whole chunks of 6) and no
+    other entry."""
+    from ndt_feature_graph_tpu_torch.fusion import fuser
+    from ndt_feature_graph_tpu_torch.io import dataset
+
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    p, (state, _, T0, _, _, fs, ft), _ = _trial(cuda_device)
     t = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
-        x, dtype=dt, device=dev)
-    scans = (0, 50, 100, 150)
-    fmap = node_mod.empty_feature_map(16, 48, dev)
-    nodes = []
-    for s in scans:
-        pts, mask = dataset.scan_to_points(t(fx["ranges"][s]),
-                                           t(fx["hit"][s], torch.bool))
-        st = fuser.initialize(p, torch.zeros(3, device=dev),
-                              torch.zeros(3, device=dev), pts, mask)
-        nodes.append(node_mod.freeze_node(p, t(fx["gt"][s]), st, fmap))
-    bank = node_mod.stack_nodes(nodes)
-    pairs = np.asarray([(i, j) for i in range(4) for j in range(4) if i != j])
-    gt = t(fx["gt"][list(scans)])
-    T0 = se2.sub(gt[pairs[:, 0]], gt[pairs[:, 1]]).cpu().numpy()
-    return sp, bank, pairs, T0
+        x, dtype=dt, device=cuda_device)
+    pts, mask = dataset.scan_to_points(t(fx["ranges"][1]),
+                                       t(fx["hit"][1], torch.bool))
+    cuda_kernels.reset_launch_counts()
+    _, info = fuser.update(state, p, t(fx["odom"][1]), pts, mask, fs, ft)
+    n = cuda_kernels.LAUNCHES["newton_objective"]
+    assert n >= 7 and (n - 1) % 6 == 0 and n - 1 >= int(info.iterations)
+    assert sum(cuda_kernels.LAUNCHES.values()) == n
+
+
+def _small_bank(dev):
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    return (sp, *chip_smoke.small_bank(sp, fx, dev))
 
 
 @pytest.mark.cuda
@@ -125,9 +180,9 @@ def test_fgh_dense_flat_batch_matches_plain(cuda_device, lanes):
     sp, bank, pairs, T0 = _small_bank(cuda_device)
     idx = np.resize(np.arange(len(pairs)), lanes)
     before = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
-    err, _ = chip_smoke.batch_kernel_checks(
+    out = chip_smoke.batch_kernel_checks(
         bank, pairs[idx], T0[idx], links.source_cell_budget(bank), sp,
         cuda_device, times=False)
-    assert np.isfinite(err)
+    assert np.isfinite(out["max_abs_err"])
     assert cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == before + 2
 

@@ -48,6 +48,8 @@ P = FuserParams(
     features=FeatureParams(num_beams=360, max_range=15.0),
 )
 M = P.matcher
+TP = interop.params_from_jax(P)      # the port's own dataclasses
+TM = TP.matcher
 H_, W_ = P.ndt.grid_h, P.ndt.grid_w
 RES = P.ndt.resolution
 
@@ -74,8 +76,8 @@ def _case():
 
 def _torch_case():
     state, src, T0, Q, _ = _case()
-    return (interop.fuser_state_from_jax(_np(state)),
-            interop.cell_list_from_jax(_np(src)),
+    return (interop.fuser_state_from_jax(_np(state), device="cpu"),
+            interop.cell_list_from_jax(_np(src), device="cpu"),
             torch.tensor(np.asarray(T0)), torch.tensor(np.asarray(Q)))
 
 
@@ -127,9 +129,10 @@ def test_cpu_wrappers_use_the_plain_twins():
                                     tstate.grid.origin, H_, W_, RES,
                                     M.n_neighbours, M.lfd1, M.lfd2)
     b = tda.fgh_dense_flat(d, tT0, tsrc, tstate.packed, tstate.grid.origin,
-                           0, H_, W_, RES, M)
+                           0, H_, W_, RES, TM)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert cuda_kernels.LAUNCHES == {"fgh_dense_flat": 0,
+    assert cuda_kernels.LAUNCHES == {"newton_objective": 0,
+                                     "fgh_dense_flat": 0,
                                      "pair_fgh_reduce": 0,
                                      "fgh_dense_flat_batch": 0}
 
@@ -170,7 +173,7 @@ def test_fgh_dense_flat_matches_jax_flat_and_block(d):
     dj = jnp.asarray(d, jnp.float32)
     got = tda.fgh_dense_flat(torch.tensor(d, dtype=torch.float32), tT0,
                              tsrc, tstate.packed, tstate.grid.origin, 0, H_,
-                             W_, RES, M)
+                             W_, RES, TM)
     flat = jda.fgh_dense_flat(dj, T0, src, state.packed, state.grid.origin,
                               0, H_, W_, RES, M)
     _assert_fgh(got, flat)
@@ -218,10 +221,10 @@ def test_fgh_paired_and_mahalanobis_match_jax():
     tt = tnm.CellList(torch.tensor(means_t), torch.tensor(covs),
                       torch.tensor(mask))
     ref = jda.fgh_paired(jnp.asarray(d), jnp.asarray(T0), js, jt, M)
-    _assert_fgh(tda.fgh_paired(torch.tensor(d), torch.tensor(T0), ts, tt, M),
+    _assert_fgh(tda.fgh_paired(torch.tensor(d), torch.tensor(T0), ts, tt, TM),
                 ref)
     _assert_fgh(cuda_kernels.fgh_paired(torch.tensor(d), torch.tensor(T0),
-                                        ts, tt, M), ref)
+                                        ts, tt, TM), ref)
     _, _, _, Q, _ = _case()
     _assert_fgh(tda.fgh_mahalanobis(torch.tensor(d), torch.tensor(
         np.asarray(Q))), jda.fgh_mahalanobis(jnp.asarray(d), Q))
@@ -274,7 +277,8 @@ def test_newton_match_trials_match_jax(seed, step_control):
     fj, ft = _bowl(seed)
     dj, sj, ij, cj = jax.jit(
         lambda: jd2d.newton_match(None, jnp.zeros(3), m, fj))()
-    dt, st, it, ct = td2d.newton_match(ft, torch.zeros(3), m)
+    dt, st, it, ct = td2d.newton_match(ft, torch.zeros(3),
+                                       interop.params_from_jax(m))
     assert int(it) == int(ij)
     assert bool(ct) == bool(cj)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
@@ -301,7 +305,7 @@ def test_newton_match_real_cost_matches_jax():
 
     dj, sj, ij, cj = jax.jit(
         lambda: jd2d.newton_match(None, jnp.zeros(3), M, fj))()
-    dt, st, it, ct = td2d.newton_match(ft, torch.zeros(3), M)
+    dt, st, it, ct = td2d.newton_match(ft, torch.zeros(3), TM)
     assert bool(ct) == bool(cj)
     assert int(it) == int(ij)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=2e-5)
@@ -316,23 +320,23 @@ def test_packed_table_and_refresh_match_jax():
     # Covariance rows come from (outer - n mean mean^T) / (n - 1): the
     # cancellation turns ulp differences of the mean into ~4e-6 absolute.
     np.testing.assert_allclose(
-        td2d.packed_from_grid(tstate.grid, P.ndt).numpy(),
+        td2d.packed_from_grid(tstate.grid, TP.ndt).numpy(),
         np.asarray(state.packed), rtol=1e-5, atol=1e-5)
     pts, mask = jds.scan_to_points(seq.ranges[1], seq.hit[1])
     wpts = jse2.transform_points(T0, pts)
     jg, jf = jnm.add_points_touched(state.grid, P.ndt, wpts, mask)
     jp = jd2d.refresh_packed(state.packed, jg, P.ndt, jf)
-    tg, tf = tnm.add_points_touched(tstate.grid, P.ndt,
+    tg, tf = tnm.add_points_touched(tstate.grid, TP.ndt,
                                     torch.tensor(np.asarray(wpts)),
                                     torch.tensor(np.asarray(mask)))
-    tp = td2d.refresh_packed(tstate.packed, tg, P.ndt, tf)
+    tp = td2d.refresh_packed(tstate.packed, tg, TP.ndt, tf)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
                                atol=1e-5)
     # Invariant: refreshing the touched rows of the port's own table
     # equals re-finalizing the whole grid, bit for bit.
-    tp_own = td2d.refresh_packed(td2d.packed_from_grid(tstate.grid, P.ndt),
-                                 tg, P.ndt, tf)
+    tp_own = td2d.refresh_packed(td2d.packed_from_grid(tstate.grid, TP.ndt),
+                                 tg, TP.ndt, tf)
     np.testing.assert_array_equal(
-        tp_own.numpy(), td2d.packed_from_grid(tg, P.ndt).numpy())
+        tp_own.numpy(), td2d.packed_from_grid(tg, TP.ndt).numpy())
     np.testing.assert_array_equal(
-        td2d.empty_pack_row().numpy(), np.asarray(jd2d.empty_pack_row()))
+        td2d.empty_pack_row("cpu").numpy(), np.asarray(jd2d.empty_pack_row()))

@@ -28,6 +28,7 @@ from ndt_feature_graph_tpu_torch.features import ransac as tr
 
 torch.set_num_threads(2)
 FP = FeatureParams(num_beams=360, max_range=15.0)
+TFP = interop.params_from_jax(FP)    # the port's own dataclass
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,7 +53,7 @@ def _feats(t):
 def test_detect_matches_jax(t):
     r, h = _scan(t)
     jf = jdet.detect(FP, jnp.asarray(r), jnp.asarray(h))
-    tf = tdet.detect(FP, torch.tensor(r), torch.tensor(h))
+    tf = tdet.detect(TFP, torch.tensor(r), torch.tensor(h))
     m = np.asarray(jf.mask)
     np.testing.assert_array_equal(m, tf.mask.numpy())
     assert m.sum() >= 5
@@ -85,9 +86,11 @@ def test_describe_matches_jax(stat):
     r, h = _scan(7)
     jf = jdet.detect(fp, jnp.asarray(r), jnp.asarray(h))
     jd = jdesc.describe(fp, jf, jnp.asarray(r), jnp.asarray(h))
-    td = tdesc.describe(fp, interop.feature_set_from_jax(
-        jax.tree.map(np.asarray, jf)), torch.tensor(r), torch.tensor(h))
-    assert td.shape == (fp.max_features, tdesc.descriptor_dim(fp))
+    tfp = interop.params_from_jax(fp)
+    td = tdesc.describe(tfp, interop.feature_set_from_jax(
+        jax.tree.map(np.asarray, jf), "cpu"), torch.tensor(r),
+        torch.tensor(h))
+    assert td.shape == (fp.max_features, tdesc.descriptor_dim(tfp))
     np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=1e-5,
                                atol=1e-6)
 
@@ -113,8 +116,8 @@ def test_match_sets_with_injected_draws(pair):
     u = jax.random.uniform(ki, (FP.ransac_hypotheses, 2))
     jres = jr.match_sets(FP, jref, jrd, jmov, jmd, key)
     to = lambda f: interop.feature_set_from_jax(  # noqa: E731
-        jax.tree.map(np.asarray, f))
-    tres = tr.match_sets(FP, to(jref), torch.tensor(np.asarray(jrd)),
+        jax.tree.map(np.asarray, f), "cpu")
+    tres = tr.match_sets(TFP, to(jref), torch.tensor(np.asarray(jrd)),
                          to(jmov), torch.tensor(np.asarray(jmd)),
                          torch.tensor(np.asarray(u)))
     for name in ("corr_ref", "corr_mov", "corr_mask", "inlier_mask",

@@ -53,6 +53,7 @@ P = FuserParams(
                      max_cells=512),
     features=FeatureParams(num_beams=360, max_range=15.0),
 )
+TP = interop.params_from_jax(P)      # the port's own dataclasses
 FUSER_ATOL, FEATURE_FUSER_ATOL, TABLE_ATOL = 1e-5, 3e-5, 1e-4
 
 
@@ -101,7 +102,7 @@ def test_fuser_initialize_matches_jax():
     pts, mask = jds.scan_to_points(seq.ranges[0], seq.hit[0])
     init = np.asarray([1.0, -0.5, 0.3], np.float32)
     js = jfu.initialize(P, jnp.asarray(init), jnp.zeros(3), pts, mask)
-    ts = tfu.initialize(P, _t(init), torch.zeros(3), _t(pts), _t(mask))
+    ts = tfu.initialize(TP, _t(init), torch.zeros(3), _t(pts), _t(mask))
     np.testing.assert_array_equal(np.asarray(js.grid.count),
                                   ts.grid.count.numpy())
     _close(js.grid.origin, ts.grid.origin, 0, 0)
@@ -123,9 +124,9 @@ def test_fuser_update_matches_jax(step):
     js, jinfo = jfu.update(jst.base, P, seq.odom[step], pts, mask, fsrc,
                            ftgt)
     ts, tinfo = tfu.update(
-        interop.fuser_state_from_jax(_np(jst.base)), P, _t(seq.odom[step]),
-        _t(pts), _t(mask), interop.cell_list_from_jax(_np(fsrc)),
-        interop.cell_list_from_jax(_np(ftgt)))
+        interop.fuser_state_from_jax(_np(jst.base), "cpu"), TP, _t(seq.odom[step]),
+        _t(pts), _t(mask), interop.cell_list_from_jax(_np(fsrc), "cpu"),
+        interop.cell_list_from_jax(_np(ftgt), "cpu"))
     np.testing.assert_allclose(ts.Tnow.numpy(), np.asarray(js.Tnow),
                                rtol=0, atol=FUSER_ATOL)
     assert bool(tinfo.converged) == bool(jinfo.converged)
@@ -138,7 +139,7 @@ def test_fuser_update_matches_jax(step):
     # The incremental table invariant holds on the port's own state.
     np.testing.assert_array_equal(
         ts.packed.numpy(),
-        td2d.refresh_packed(ts.packed, ts.grid, P.ndt,
+        td2d.refresh_packed(ts.packed, ts.grid, TP.ndt,
                             torch.arange(P.ndt.grid_h * P.ndt.grid_w)
                             ).numpy())
 
@@ -150,8 +151,9 @@ def test_feature_fuser_update_matches_jax(step):
     scan `step`."""
     seq = _seq()
     states, infos, draws = _jax_states()
-    ts = interop.feature_fuser_state_from_jax(_np(states[step - 1]))
-    ts, tinfo, _ = tff.update(ts, P, _t(seq.odom[step]),
+    ts = interop.feature_fuser_state_from_jax(_np(states[step - 1]),
+                                              "cpu")
+    ts, tinfo, _ = tff.update(ts, TP, _t(seq.odom[step]),
                               _t(seq.ranges[step]), _t(seq.hit[step]),
                               _t(draws[step - 1]))
     js, jinfo = states[step], infos[step - 1]
@@ -169,11 +171,11 @@ def test_feature_fuser_update_matches_jax(step):
 
 def test_check_params_rejects_unported_modes():
     with pytest.raises(NotImplementedError):
-        tfu.check_params(P.replace(rolling_map=True))
+        tfu.check_params(TP.replace(rolling_map=True))
     with pytest.raises(ValueError):
-        tfu.check_params(P.replace(gather_window_cells=40,
+        tfu.check_params(TP.replace(gather_window_cells=40,
                                    gather_block=True))
-    tfu.check_params(P.replace(gather_window_cells=76, gather_block=True))
+    tfu.check_params(TP.replace(gather_window_cells=76, gather_block=True))
 
 
 def test_feature_map_and_freeze_node_match_jax():
@@ -182,8 +184,8 @@ def test_feature_map_and_freeze_node_match_jax():
     cap, dd = 16, descriptor_dim(P.features)
     pose = jse2.compose(st.base.Tnow, st.base.sensor_pose)
     jb = jnode.empty_feature_map(cap, dd)
-    tb = tnode.empty_feature_map(cap, dd)
-    tst = interop.feature_fuser_state_from_jax(_np(st))
+    tb = tnode.empty_feature_map(cap, dd, "cpu")
+    tst = interop.feature_fuser_state_from_jax(_np(st), "cpu")
     for _ in range(3):                     # wraps the 16-slot ring
         jb = jnode.insert_features(jb, st.prev_feats, st.prev_desc, pose)
         tb = tnode.insert_features(tb, tst.prev_feats, tst.prev_desc,
@@ -198,7 +200,7 @@ def test_feature_map_and_freeze_node_match_jax():
 
     node_T = np.asarray([2.0, 1.0, 0.5], np.float32)
     jn = jnode.freeze_node(P, jnp.asarray(node_T), st.base, jb)
-    tn = tnode.freeze_node(P, _t(node_T), tst.base, tb)
+    tn = tnode.freeze_node(TP, _t(node_T), tst.base, tb)
     got = interop.to_numpy(tn)
     m = np.asarray(jn.cells.mask)
     np.testing.assert_array_equal(m, got["cells"]["mask"])
@@ -207,5 +209,5 @@ def test_feature_map_and_freeze_node_match_jax():
     for name in ("T", "Tlocal_odom", "Tlocal_fuse", "occ_origin", "occ"):
         _close(getattr(jn, name), _t(got[name]), 0, 0)
     _close(jn.target.packed, _t(got["target"]["packed"]), 0, 0)
-    back = interop.node_from_jax(got)
+    back = interop.node_from_jax(got, "cpu")
     assert torch.equal(back.target.packed, tn.target.packed)

@@ -3,6 +3,7 @@ with the JAX reference: the same numpy inputs through both sides, atol
 1e-6 (float32 trigonometry differs at ulp level between XLA and
 PyTorch's CPU kernels)."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -12,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from ndt_feature_graph_tpu import config as jconfig
 from ndt_feature_graph_tpu.config import MotionParams
 from ndt_feature_graph_tpu.core import motion_model as jmm
 from ndt_feature_graph_tpu.core import se2 as jse2
 from ndt_feature_graph_tpu.io import dataset as jds
+from ndt_feature_graph_tpu_torch import config as tconfig
+from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch.core import motion_model as tmm
 from ndt_feature_graph_tpu_torch.core import se2 as tse2
 from ndt_feature_graph_tpu_torch.io import dataset as tds
@@ -84,11 +88,12 @@ def test_motion_model_matches_jax():
     rng = np.random.default_rng(3)
     rel = rng.normal(0, 0.3, (50, 3)).astype(np.float32)
     mp = MotionParams()
+    tmp = interop.params_from_jax(mp)
     _close(jmm.measurement_cov(mp, jnp.asarray(rel)),
-           tmm.measurement_cov(mp, torch.tensor(rel)))
+           tmm.measurement_cov(tmp, torch.tensor(rel)))
     np.testing.assert_allclose(
         np.asarray(jmm.odometry_information(mp, jnp.asarray(rel))),
-        tmm.odometry_information(mp, torch.tensor(rel)).numpy(),
+        tmm.odometry_information(tmp, torch.tensor(rel)).numpy(),
         rtol=1e-6,
     )
 
@@ -99,7 +104,7 @@ def test_beam_angles_match_jnp_linspace(beams):
     is not fixed bit for bit (its eager and jitted forms differ in a few
     entries), so the port is held to one ulp of it."""
     ref = np.asarray(jnp.linspace(-np.pi, np.pi, beams, endpoint=False))
-    got = tds.beam_angles(beams).numpy()
+    got = tds.beam_angles(beams, device="cpu").numpy()
     ulps = np.abs(got.astype(np.float64) - ref) / np.spacing(np.abs(ref))
     assert ulps.max() <= 1.0
     assert (got != ref).sum() <= 5
@@ -125,15 +130,78 @@ def test_load_sequence_roundtrip(tmp_path):
     )
     path = tmp_path / "seq.npz"
     jds.save_sequence(path, seq)
-    got = tds.load_sequence(path)
+    got = tds.load_sequence(path, device="cpu")
     for name in ("ranges", "hit", "odom", "gt"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       getattr(seq, name))
     assert got.hit.dtype == torch.bool
 
 
+def test_loaders_default_to_the_card_and_raise_without_one(tmp_path):
+    """`device=None` means the CUDA card: where there is none the loaders
+    raise instead of landing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default lands on it")
+    path = tmp_path / "seq.npz"
+    np.savez(path, ranges=np.zeros((2, 8), np.float32),
+             hit=np.zeros((2, 8), bool), odom=np.zeros((2, 3), np.float32),
+             gt=np.zeros((2, 3), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tds.load_sequence(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tds.beam_angles(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.cell_list_from_jax({
+            "means": np.zeros((1, 2), np.float32),
+            "covs": np.zeros((1, 2, 2), np.float32),
+            "mask": np.zeros(1, bool)})
+
+
+PARAM_CLASSES = ["MotionParams", "NDTMapParams", "MatcherParams",
+                 "FeatureParams", "FuserParams", "GraphParams", "SLAMParams"]
+
+
+@pytest.mark.parametrize("name", PARAM_CLASSES)
+def test_params_from_jax_round_trip(name):
+    """Each class of the JAX config tree becomes the port's class of the
+    same name with the same repr, at the defaults and at the canonical
+    operating point's values."""
+    jp = getattr(jconfig, name)()
+    if name == "SLAMParams":
+        jp = jconfig.SLAMParams(
+            fuser=jconfig.FuserParams(
+                ndt=jconfig.NDTMapParams(
+                    resolution=0.5, size_x=100.0, size_y=100.0,
+                    sensor_range=30.0, max_points_per_scan=720,
+                    max_cells=1024),
+                features=jconfig.FeatureParams(num_beams=720,
+                                               max_range=30.0),
+                match_cell_budget=256, gather_window_cells=136,
+                gather_block=True),
+            graph=jconfig.GraphParams(new_node_transl_dist=0.25,
+                                      online_loop_closure=True))
+    tp = interop.params_from_jax(jp)
+    assert type(tp) is getattr(tconfig, name)
+    assert repr(tp) == repr(jp)
+    assert dataclasses.asdict(tp) == dataclasses.asdict(jp)
+    if name == "SLAMParams":
+        assert type(tp.fuser.ndt) is tconfig.NDTMapParams
+        assert (tp.fuser.ndt.grid_h, tp.fuser.ndt.grid_w) == (200, 200)
+        assert tp.replace(min_incr_dist=0.5).min_incr_dist == 0.5
+
+
+def test_params_from_jax_rejects_differing_fields():
+    with pytest.raises(TypeError):
+        interop.params_from_jax(3.0)
+    odd = dataclasses.make_dataclass("MotionParams", [("Cd", float, 0.1)])
+    with pytest.raises(ValueError, match="fields differ"):
+        interop.params_from_jax(odd())
+
+
 def test_port_imports_without_jax():
-    """Importing every module of the port leaves no jax* in sys.modules."""
+    """Importing every module of the port and chip_smoke leaves neither
+    jax* nor the JAX package (ndt_feature_graph_tpu, any submodule) in
+    sys.modules."""
     code = (
         "import sys, importlib, pkgutil, torch\n"
         "import ndt_feature_graph_tpu_torch as p\n"
@@ -141,7 +209,7 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib'))\n"
+        "('jax', 'jaxlib', 'ndt_feature_graph_tpu'))\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

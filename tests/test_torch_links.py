@@ -70,6 +70,8 @@ P = FuserParams(
     features=FeatureParams(num_beams=360, max_range=15.0),
 )
 M = P.matcher
+TP = interop.params_from_jax(P)      # the port's own dataclasses
+TM = TP.matcher
 H_, W_ = P.ndt.grid_h, P.ndt.grid_w
 RES = P.ndt.resolution
 NODE_SCANS = (0, 5, 10, 15, 20, 24)
@@ -117,7 +119,7 @@ def _jax_links():
 
 
 def _tbank():
-    return interop.node_from_jax(_np(_bank()[0]))
+    return interop.node_from_jax(_np(_bank()[0]), "cpu")
 
 
 def _u(p):
@@ -130,7 +132,7 @@ def test_compute_links_batch_matches_jax():
     ls_j = _jax_links()[0]
     mask = np.ones(len(pairs), bool)
     mask[3] = False
-    ls_t = tl.compute_links_batch(P.features, RES, _tbank(),
+    ls_t = tl.compute_links_batch(TP.features, RES, _tbank(),
                                   torch.tensor(pairs[:, 0]),
                                   torch.tensor(pairs[:, 1]),
                                   torch.tensor(mask), _u(len(pairs)))
@@ -153,10 +155,10 @@ def test_match_sets_batch_equals_per_pair():
     u = _u(len(pairs))
     r, m = torch.tensor(pairs[:, 0]), torch.tensor(pairs[:, 1])
     feats = lambda i: map_tensors(lambda x: x[i], bank.feats)  # noqa
-    batch = tr.match_sets(P.features, feats(r), bank.desc[r], feats(m),
+    batch = tr.match_sets(TP.features, feats(r), bank.desc[r], feats(m),
                           bank.desc[m], u)
     for k in (0, 4, 9):
-        one = tr.match_sets(P.features, feats(r[k]), bank.desc[r[k]],
+        one = tr.match_sets(TP.features, feats(r[k]), bank.desc[r[k]],
                             feats(m[k]), bank.desc[m[k]], u[k])
         for name in ("corr_ref", "corr_mov", "corr_mask", "inlier_mask",
                      "num_inliers", "valid"):
@@ -170,13 +172,14 @@ def test_overlap_scores_match_jax():
     stacked, pairs, _ = _bank()
     ls_j = _jax_links()[2]
     bank = _tbank()
-    got = tl.rescore_links(RES, bank, interop.link_set_from_jax(_np(ls_j)))
+    got = tl.rescore_links(RES, bank, interop.link_set_from_jax(_np(ls_j),
+                                                            "cpu"))
     np.testing.assert_allclose(got.score.numpy(), np.asarray(ls_j.score),
                                atol=1e-5)
     nodes = [jax.tree.map(lambda x, k=k: x[k], stacked) for k in (0, 1)]
     T = ls_j.T[0]
     sj, nj = jl.occupancy_overlap_score(nodes[0], nodes[1], T, RES)
-    tn = [interop.node_from_jax(_np(n)) for n in nodes]
+    tn = [interop.node_from_jax(_np(n), "cpu") for n in nodes]
     st, nt = tl.occupancy_overlap_score(tn[0], tn[1],
                                         torch.tensor(np.asarray(T)), RES)
     assert int(nt) == int(nj) > 0
@@ -230,7 +233,7 @@ def test_fgh_dense_flat_batch_matches_jax():
     one = tda.fgh_dense_flat(torch.tensor(d[k]), torch.tensor(T0[k]),
                              CellList(*(torch.tensor(x[k]) for x in src)),
                              torch.tensor(packed), torch.tensor(origins[k]),
-                             int(offs[k]), H_, W_, RES, M)
+                             int(offs[k]), H_, W_, RES, TM)
     np.testing.assert_allclose(float(one[0]), float(f_t[k]), rtol=1e-6)
     assert cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == 0
 
@@ -260,8 +263,8 @@ def test_refine_links_d2d_matches_jax():
     compose(0, T) can move it by ~0.4 (measured 1.5% on lane 2)."""
     ls_j, refined_j, _, budget = _jax_links()
     assert tl.source_cell_budget(_tbank()) == budget
-    got = tl.refine_links_d2d(P.ndt, M, _tbank(),
-                              interop.link_set_from_jax(_np(ls_j)),
+    got = tl.refine_links_d2d(TP.ndt, TM, _tbank(),
+                              interop.link_set_from_jax(_np(ls_j), "cpu"),
                               src_budget=budget)
     np.testing.assert_array_equal(got.mask.numpy(),
                                   np.asarray(refined_j.mask))
@@ -288,8 +291,8 @@ def test_valid_links_match_jax_with_a_non_finite_link():
     node_T = gt_nodes.astype(np.float32)
     ref = np.asarray(jl.valid_links(gp, jnp.asarray(node_T), jax.tree.map(
         jnp.asarray, ls)))
-    got = tl.valid_links(gp, torch.tensor(node_T),
-                         interop.link_set_from_jax(ls)).numpy()
+    got = tl.valid_links(interop.params_from_jax(gp), torch.tensor(node_T),
+                         interop.link_set_from_jax(ls, "cpu")).numpy()
     np.testing.assert_array_equal(got, ref)
     assert not got[1] and not got[2] and got.sum() >= 3
 
@@ -327,7 +330,8 @@ def test_newton_match_batch_matches_jax(step_control):
     fj, ft = _bowls(12)
     dj, sj, ij, cj = jax.jit(
         lambda: jd2d.newton_match_batch(jnp.zeros((12, 3)), m, fj))()
-    dt, st, it, ct = td2d.newton_match_batch(torch.zeros(12, 3), m, ft)
+    dt, st, it, ct = td2d.newton_match_batch(
+        torch.zeros(12, 3), interop.params_from_jax(m), ft)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
@@ -347,7 +351,8 @@ def test_cov_from_hessian_matches_jax_and_passes_nan():
     m = MatcherParams()
     ref = np.asarray(jax.vmap(lambda h: jd2d.cov_from_hessian(h, m))(
         jnp.asarray(H)))
-    got = td2d.cov_from_hessian(torch.tensor(H), m).numpy()
+    got = td2d.cov_from_hessian(torch.tensor(H),
+                                interop.params_from_jax(m)).numpy()
     fin = np.isfinite(ref).all((1, 2))
     np.testing.assert_array_equal(np.isfinite(got).all((1, 2)), fin)
     assert not fin[5] and fin.sum() == len(Hs) - 1

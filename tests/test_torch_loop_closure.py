@@ -36,6 +36,7 @@ from ndt_feature_graph_tpu.config import (
 )
 from ndt_feature_graph_tpu.io import dataset as jds
 from ndt_feature_graph_tpu.io import tum
+from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch import pipeline as tpipe
 from ndt_feature_graph_tpu_torch.fusion.scan_driver import split_schedule
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
@@ -64,6 +65,9 @@ OFFLINE = SLAMParams(
 )
 ONLINE = OFFLINE.replace(
     graph=OFFLINE.graph.replace(online_loop_closure=True))
+# The port runs on its own dataclasses.
+T_OFFLINE = interop.params_from_jax(OFFLINE)
+T_ONLINE = interop.params_from_jax(ONLINE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,7 +126,7 @@ def _offline_replay():
 @functools.lru_cache(maxsize=None)
 def _port_offline():
     rep = _offline_replay()
-    slam, stats = tpipe.run_slam(OFFLINE, _tseq(), seed=0,
+    slam, stats = tpipe.run_slam(T_OFFLINE, _tseq(), seed=0,
                                  ransac_u=torch.tensor(rep.scan_u),
                                  pair_u=list(rep.pair_u))
     before = np.stack(slam.node_T)
@@ -143,7 +147,7 @@ def _jax_online():
 @functools.lru_cache(maxsize=None)
 def _port_online():
     _, rep = _jax_online()
-    slam, _ = tpipe.run_slam(ONLINE, _tseq(), seed=0,
+    slam, _ = tpipe.run_slam(T_ONLINE, _tseq(), seed=0,
                              ransac_u=torch.tensor(rep.scan_u),
                              pair_u=list(rep.pair_u))
     return slam
@@ -170,12 +174,10 @@ def test_solve_links_on_jax_links_matches_jax():
     """The fixpoint loop alone (validate -> solve, graduated schedule) on
     the reference's own LinkSet and initial poses: the same kept set,
     poses atol 1e-4 (float32 LU solves on both sides)."""
-    from ndt_feature_graph_tpu_torch import interop
-
     _, jbefore, jout, jlinks, jkeep, _ = _jax_offline()
     tslam = copy.copy(_port_offline()[0])
     tslam.node_T = [t.copy() for t in jbefore]
-    out = tslam.solve_links(interop.link_set_from_jax(jlinks)).numpy()
+    out = tslam.solve_links(interop.link_set_from_jax(jlinks, "cpu")).numpy()
     np.testing.assert_array_equal(tslam.offline_keep, jkeep)
     np.testing.assert_allclose(out, jout, atol=1e-4)
 
@@ -188,7 +190,6 @@ def test_optimize_offline_on_the_jax_graph_matches_jax():
     the reference's pair draws: the same LinkSet mask and kept set, kept
     links' poses and the optimized node poses atol ATOL."""
     from ndt_feature_graph_tpu.graph import node as jnode
-    from ndt_feature_graph_tpu_torch import interop
 
     jslam, jbefore, jout, jlinks, jkeep, _ = _jax_offline()
     flat = fixture_gen.flatten_tree(
@@ -196,7 +197,8 @@ def test_optimize_offline_on_the_jax_graph_matches_jax():
     edges = [(i, j, np.asarray(rel), np.asarray(cov))
              for (i, j, rel, cov) in jslam.odom_edges]
     tslam = interop.graph_from_jax(
-        OFFLINE, interop.tree_from_flat(flat, "bank"), jbefore, edges)
+        T_OFFLINE, interop.tree_from_flat(flat, "bank"), jbefore, edges,
+        device="cpu")
     assert tslam.device == torch.device("cpu")
     tslam.pair_u = list(_offline_replay().pair_u)
     out = tslam.optimize_offline().numpy()
@@ -254,7 +256,7 @@ def test_update_per_scan_matches_the_chunked_driver():
     (measured: 0.34 m apart at scan 72).  That entry is left out."""
     jslam, rep = _jax_online()
     s, odom_g = _tseq(), torch.tensor(_gated()[0])
-    slam = NDTFeatureGraphSLAM(ONLINE, seed=0)
+    slam = NDTFeatureGraphSLAM(T_ONLINE, seed=0)
     slam.pair_u = list(rep.pair_u)
     slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
     solved = []
@@ -278,21 +280,21 @@ def test_unported_options_raise():
     tslam = _port_offline()[0]
     node_T = torch.tensor(np.stack(tslam.node_T))
     edges = tslam._edges_from(None, None)
-    for gp in (OFFLINE.graph.replace(solver="direct"),
-               OFFLINE.graph.replace(solver_dense_max_nodes=4)):
+    for gp in (T_OFFLINE.graph.replace(solver="direct"),
+               T_OFFLINE.graph.replace(solver_dense_max_nodes=4)):
         with pytest.raises(NotImplementedError, match="sparse_direct"):
             tslam._solve(gp, node_T, edges)
-    tslam.params = OFFLINE.replace(graph=OFFLINE.graph.replace(
+    tslam.params = T_OFFLINE.replace(graph=T_OFFLINE.graph.replace(
         link_group_nodes=8, link_batch_size=4))
     try:
         with pytest.raises(NotImplementedError, match="link_group_nodes"):
             tslam._propose_links(None, *tslam.candidate_pairs())
     finally:
-        tslam.params = OFFLINE
-    for p in (OFFLINE.fuser.replace(rolling_map=True),
-              OFFLINE.fuser.replace(features=OFFLINE.fuser.features.replace(
+        tslam.params = T_OFFLINE
+    for p in (T_OFFLINE.fuser.replace(rolling_map=True),
+              T_OFFLINE.fuser.replace(features=T_OFFLINE.fuser.features.replace(
                   ransac_adaptive=True))):
-        slam = NDTFeatureGraphSLAM(OFFLINE.replace(fuser=p))
+        slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(fuser=p))
         s = _tseq()
         with pytest.raises(NotImplementedError):
             slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])

@@ -16,6 +16,7 @@ import torch
 from ndt_feature_graph_tpu.config import NDTMapParams
 from ndt_feature_graph_tpu.io import dataset as jds
 from ndt_feature_graph_tpu.ops import ndt_map as jnm
+from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch.ops import ndt_map as tnm
 
 torch.set_num_threads(2)
@@ -25,6 +26,7 @@ PARAMS = NDTMapParams(
     resolution=0.5, size_x=40.0, size_y=40.0, sensor_range=15.0,
     max_points_per_scan=360, max_cells=512,
 )
+TPARAMS = interop.params_from_jax(PARAMS)   # the port's own dataclass
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,8 +55,8 @@ def _grids(pts, mask, center=(0.3, -0.2)):
     jg, jf = jnm.add_points_touched(jnm.empty_grid(PARAMS, jnp.asarray(c)),
                                     PARAMS, jnp.asarray(pts),
                                     jnp.asarray(mask))
-    tg, tf = tnm.add_points_touched(tnm.empty_grid(PARAMS, torch.tensor(c)),
-                                    PARAMS, torch.tensor(pts),
+    tg, tf = tnm.add_points_touched(tnm.empty_grid(TPARAMS, torch.tensor(c)),
+                                    TPARAMS, torch.tensor(pts),
                                     torch.tensor(mask))
     return jg, jf, tg, tf
 
@@ -82,7 +84,7 @@ def test_update_occupancy_matches_jax():
     origin = np.asarray([0.1, -0.1], np.float32)
     jg = jnm.update_occupancy(jg, PARAMS, jnp.asarray(origin),
                               jnp.asarray(pts), jnp.asarray(mask))
-    tg = tnm.update_occupancy(tg, PARAMS, torch.tensor(origin),
+    tg = tnm.update_occupancy(tg, TPARAMS, torch.tensor(origin),
                               torch.tensor(pts), torch.tensor(mask))
     _close(jg.occ, tg.occ, atol=1e-5)
     assert np.abs(tg.occ.numpy()).max() > 0.5
@@ -92,7 +94,7 @@ def test_finalize_matches_jax():
     pts, mask = _scan(seed=1)
     jg, _, tg, _ = _grids(pts, mask)
     jm, jc, jv = jnm.finalize(jg, PARAMS)
-    tm, tc, tv = tnm.finalize(tg, PARAMS)
+    tm, tc, tv = tnm.finalize(tg, TPARAMS)
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     assert tv.numpy().sum() > 20
     _close(jm, tm)
@@ -119,10 +121,10 @@ def test_cell_lists_match_jax(touched):
     jg, jf, tg, tf = _grids(pts, mask)
     if touched:
         a = jnm.to_cell_list_touched(jg, PARAMS, jf)
-        b = tnm.to_cell_list_touched(tg, PARAMS, tf)
+        b = tnm.to_cell_list_touched(tg, TPARAMS, tf)
     else:
         a = jnm.to_cell_list(jg, PARAMS)
-        b = tnm.to_cell_list(tg, PARAMS)
+        b = tnm.to_cell_list(tg, TPARAMS)
     m = np.asarray(a.mask)
     np.testing.assert_array_equal(m, b.mask.numpy())
     assert m.sum() > 20

@@ -76,7 +76,7 @@ def _both(kind):
     poses, e = _graph(kind)
     je = jopt.EdgeList(**{k: jnp.asarray(v) for k, v in e.items()})
     return (jnp.asarray(poses), je, torch.tensor(poses),
-            interop.edge_list_from_jax(e))
+            interop.edge_list_from_jax(e, "cpu"))
 
 
 def test_spd_info_np_matches_jax():
@@ -155,7 +155,7 @@ def test_optimize_guards_inactive_nodes():
     je = jopt.EdgeList(**{k: jnp.asarray(v) for k, v in e.items()})
     out_j, _ = jopt.optimize(jnp.asarray(pad), je, iterations=5)
     out_t, _ = topt.optimize(torch.tensor(pad),
-                             interop.edge_list_from_jax(e), iterations=5)
+                             interop.edge_list_from_jax(e, "cpu"), iterations=5)
     assert np.isfinite(out_t.numpy()).all()
     np.testing.assert_array_equal(out_t.numpy()[-4:], 0.0)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-4)

@@ -28,6 +28,7 @@ from ndt_feature_graph_tpu.config import (
 )
 from ndt_feature_graph_tpu.graph.slam import NDTFeatureGraphSLAM as JSLAM
 from ndt_feature_graph_tpu.io import dataset as jds
+from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch.fusion.scan_driver import split_schedule
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM as TSLAM
 
@@ -88,7 +89,7 @@ def _draws():
 def _port_run(block: bool):
     seq = _seq()
     t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt)  # noqa
-    slam = TSLAM(_params(block), seed=0)
+    slam = TSLAM(interop.params_from_jax(_params(block)), seed=0)
     slam.initialize(t(seq.gt[0]), torch.zeros(3), t(seq.ranges[0]),
                     t(seq.hit[0], torch.bool))
     slam.run_sequence_device(t(seq.odom), t(seq.ranges),
