@@ -53,7 +53,37 @@ Runs on a machine with a CUDA card and no JAX:
      within 1 cm / 5 mrad of JAX, the same node and loop-link counts,
      `newton_objective` and `fgh_dense_flat_batch` launched; scans/s
      (median of 3);
-  7. prints one JSON line of all kernel entries and, last, the result
+  7. fleet serving at bench.py's fleet operating point (the canonical
+     parameters with bfloat16 gather rows; 40 scans of a 720-beam loop per
+     stream, from canonical_fleet.npz), first
+     3d. `newton_objective_batch` against its plain twin on the card at
+         a fleet step's shapes, B = 8 and 64 lanes x 256 source cells x
+         K=25 + 64 feature pairs + the odometry term per lane: each term
+         off in turn, bfloat16 rows on and off, an all-masked lane, a
+         lane with an empty feature list, a lane whose windows cross the
+         grid's edge, two calls with identical bits, times in turns;
+     then the points-only driver run_sequence_batch at B = 8 against the
+     JAX record (bfloat16 rows on and off: nine poses in ten within
+     2 mm / 1 mrad, the tolerance the reference holds its own batch path
+     to, none beyond 5 cm / 20 mrad — the LM stop test fires at rounding
+     noise, see fleet_dev; the reference's own spread under an odometry
+     change of 1e-6 / 1e-5, 2-3 mm here, is in the record and printed
+     beside), at B = 32 and 64
+     (streams 0-7 equal the B = 8 run's) and at B = 32 with occ_every=4
+     (the same poses): only `newton_objective_batch` launches, once per
+     Newton trial; aggregate scans/s at each B (median of 3);
+     7b. the full pipeline run_sequence_features_batch at B = 8 against
+         the JAX record with its RANSAC draws, then B = 32;
+     7c. serve_fleet_interleaved(group_size=8, time_chunk=8) and
+         serve_fleet_grouped(group_size=8) over 20 streams (a padded last
+         group): the same trajectories, equal to the matching streams of
+         the B = 32 run;
+  8. rolling_map: the first 60 scans of the main-path fixture through
+     run_sequence_features with a 70 m window and a 0.6 m margin, so
+     that the window recentres at least twice, against the same run on
+     the CPU's plain versions; the packed table equals packed_from_grid
+     of the final grid;
+  9. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -88,20 +118,37 @@ from ndt_feature_graph_tpu_torch.config import (
 )
 from ndt_feature_graph_tpu_torch import interop, pipeline
 from ndt_feature_graph_tpu_torch.core import se2
-from ndt_feature_graph_tpu_torch.fusion import fuser
+from ndt_feature_graph_tpu_torch.fusion import (
+    feature_fuser, fuser, scan_driver,
+)
 from ndt_feature_graph_tpu_torch.graph import links as links_mod
 from ndt_feature_graph_tpu_torch.graph import node as node_mod
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io import dataset
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
+from ndt_feature_graph_tpu_torch.models import presets
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d, d2d_analytic
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
+from ndt_feature_graph_tpu_torch.parallel import scaling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_200.npz"
 FIXTURE = os.path.join(ROOT, FIXTURE_REL)
 LC_FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_lc.npz"
 LC_FIXTURE = os.path.join(ROOT, LC_FIXTURE_REL)
+FLEET_FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_fleet.npz"
+FLEET_FIXTURE = os.path.join(ROOT, FLEET_FIXTURE_REL)
+FLEET_SIZES = (8, 32, 64)     # bench.py's fleet cells, points only
+FLEET_FULL_SIZES = (8, 32)    # ... and of the full pipeline
+FLEET_SERVE = dict(streams=20, group_size=8, time_chunk=8)
+# Fleet trajectories and scores vs the JAX record and between runs on
+# the card: the reference's own batch-path tolerances
+# (tests/test_scan_driver.py) for nine tenths of the poses, and a bound
+# on every pose (fleet_dev says why).
+FLEET_XY_TOL, FLEET_TH_TOL = 2e-3, 1e-3
+FLEET_XY_MAX, FLEET_TH_MAX = 5e-2, 2e-2
+FLEET_SCORE_RTOL, FLEET_SCORE_ATOL = 3e-2, 1e-2
+ROLLING = dict(scans=60, size_m=70.0, roll_margin=0.6)
 OFFLINE_SPLIT_M = 0.25        # bench.py bench_offline's graph
 LC_GRAPH = dict(online_loop_closure=True, valid_min_idx_dist=1,
                 online_lc_candidate_dist=20.0)   # bench_online_lc's
@@ -234,10 +281,12 @@ def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb):
     return n_bytes, int(valid.sum())
 
 
-def compare(name, got, ref, quiet=False, cancel=0.0):
+def compare(name, got, ref, quiet=False, cancel=0.0, f_atol=1e-6):
     """Max abs error of (f, g, H) vs the plain version, within the
-    stated tolerances.  `cancel` > 0 widens the absolute tolerance of g
-    and H by that share of their largest entry.  Where source cells lie
+    stated tolerances (`f_atol`: the absolute part of f's, for an f that
+    cancels between its terms).  `cancel` > 0 widens the absolute
+    tolerance of g and H by that share of their largest entry.  Where
+    source cells lie
     tens of metres from the lane's pose, one pair's theta-theta Hessian
     term is ~1e6 (lever arm squared times Sig^-1 ~ 1e3) and cancels
     inside the pair; the kernel and the plain version write that algebra
@@ -249,7 +298,7 @@ def compare(name, got, ref, quiet=False, cancel=0.0):
                            for x in (f, g, H, fr, gr, Hr))
     g_atol = G_ATOL + cancel * float(np.abs(gr).max())
     h_atol = H_ATOL + cancel * float(np.abs(Hr).max())
-    ok = (np.allclose(f, fr, rtol=F_RTOL, atol=1e-6)
+    ok = (np.allclose(f, fr, rtol=F_RTOL, atol=f_atol)
           and np.allclose(g, gr, rtol=GH_RTOL, atol=g_atol)
           and np.allclose(H, Hr, rtol=GH_RTOL, atol=h_atol))
     err = float(max(np.abs(f - fr).max(), np.abs(g - gr).max(),
@@ -1012,6 +1061,422 @@ def online_phase(fx, lc, dev):
             "dev_xy_m": max(xy, nxy), "dev_theta_rad": max(th, nth)}, launches
 
 
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fleet_trial_case(fp, seq, b, dev):
+    """The inputs of one Newton trial of a fleet step of `b` streams: the
+    fleet's states after scan 0, scan 1's source cells at the match
+    budget, the predicted poses and odometry information, an increment
+    and 64 feature pairs for each lane.  Lane 1 has every source cell
+    masked, lane 2 an empty feature list, and lane 3 reads a table
+    rolled so that its mapped cells start at row 0 / column 0: its
+    windows cross the grid's edge next to valid cells.  Returns (d, T0,
+    src, packed_flat, origins, row_offsets, feat_src, feat_tgt, Q)."""
+    h, w, res = fp.ndt.grid_h, fp.ndt.grid_w, fp.ndt.resolution
+    states, odom, pts, mask = scaling.build_fleet_inputs(fp, seq, b)
+    T0 = se2.compose(states.Tnow, odom[:, 0])
+    src = fuser._match_cells(fp, states.sensor_pose, pts[:, 0], mask[:, 0])
+    Q = fuser._increment_information(fp, odom[:, 0], T0).contiguous()
+    pairs = [feature_pairs(T0[i], dev, seed=i) for i in range(b)]
+    fs, ft = (CellList(*(torch.stack([getattr(lane[k], f) for lane in pairs])
+                         for f in ("means", "covs", "mask")))
+              for k in (0, 1))
+    src.mask[1] = False
+    fs.mask[2] = False
+    tab = states.packed[3].reshape(h, w, 8)
+    valid = tab[..., 5] > 0.5
+    r0 = int(valid.any(1).nonzero()[0])
+    c0 = int(valid.any(0).nonzero()[0])
+    packed = states.packed.clone()
+    packed[3] = tab.roll((-r0, -c0), (0, 1)).reshape(h * w, 8)
+    origins = states.grid.origin.clone()
+    origins[3] += res * torch.tensor([c0, r0], dtype=torch.float32,
+                                     device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b)
+    d = (torch.randn((b, 3), generator=gen, device=dev)
+         * torch.tensor([0.05, 0.05, 0.01], device=dev)).contiguous()
+    return (d, T0.contiguous(), src, packed.reshape(b * h * w, 8), origins,
+            torch.arange(b, device=dev) * (h * w), fs, ft, Q)
+
+
+def fleet_kernel_checks(fp, seq, b, dev, times=True):
+    """Phase 3d: `newton_objective_batch` against its plain twin at a
+    fleet step's shapes, `b` lanes: every lane's (f, g, H) at the stated
+    tolerances (source cells lie up to 30 m from the pose here, so g and
+    H get compare()'s cancellation allowance, as the other batch entry's
+    lanes do) with bfloat16 rows on and off, each term off in turn,
+    identical bits on repeat, the edge-case lanes of fleet_trial_case.
+    Returns the entry's {"max_abs_err"} and, with `times`, its times
+    (bfloat16 rows on, the fleet's mode) and bound."""
+    m = fp.matcher
+    h, w, res = fp.ndt.grid_h, fp.ndt.grid_w, fp.ndt.resolution
+    d, T0, src, packed, origins, offs, fs, ft, Q = fleet_trial_case(
+        fp, seq, b, dev)
+    n_src, n_feat = src.mask.shape[1], fs.mask.shape[1]
+    check(n_src == 256 and n_feat == 64, "fleet lanes are not 256 + 64")
+    print(f"  B={b} lanes x N={n_src} source cells "
+          f"({int(src.mask.sum(1).max())} valid at most) x "
+          f"K={(2 * m.n_neighbours + 1) ** 2} + {n_feat} feature pairs + Q")
+
+    def both(src_, fs_, ft_, Q_, bf16):
+        args = (d, T0, src_, packed, origins, offs, h, w, res, m, fs_, ft_,
+                Q_, bf16)
+        return (cuda_kernels.newton_objective_batch(*args),
+                cuda_kernels.newton_objective_batch_reference(*args))
+
+    def lanes_err(name, got, ref):
+        # A lane's f may cancel between its terms (the odometry term is
+        # positive, the others negative: -0.23 from terms of ~20 seen on
+        # the card), so f is held to F_RTOL of the lanes' largest |f|.
+        f_atol = F_RTOL * float(ref[0].abs().max())
+        return max(compare(f"newton_objective_batch {name}, lane {k}",
+                           tuple(x[k] for x in got), tuple(x[k] for x in ref),
+                           quiet=k > 3 or "off" in name, cancel=CANCEL_RTOL,
+                           f_atol=f_atol)
+                   for k in range(b))
+
+    err = 0.0
+    for bf16 in (False, True):
+        rows = "bf16 rows" if bf16 else "f32 rows"
+        got, ref = both(src, fs, ft, Q, bf16)
+        err = max(err, lanes_err(rows, got, ref))
+        again, _ = both(src, fs, ft, Q, bf16)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              "newton_objective_batch is not deterministic")
+        if bf16:
+            f32 = both(src, fs, ft, Q, False)[0]
+            check(not torch.equal(got[0], f32[0]),
+                  "the bfloat16 row mode changes nothing")
+        for name, args in (("window off", (None, fs, ft, Q)),
+                           ("features off", (src, None, None, Q)),
+                           ("odometry off", (src, fs, ft, None))):
+            err = max(err, lanes_err(f"{rows}, {name}",
+                                     *both(*args, bf16)))
+    got, ref = both(src, None, None, None, True)
+    check(float(got[0][1]) == 0.0 and float(got[2][1].abs().max()) == 0.0,
+          "the all-masked lane's window term is not exactly zero")
+    _, iy0, ix0 = d2d_analytic.window_cells(
+        d[3], T0[3], CellList(src.means[3], src.covs[3], src.mask[3]),
+        origins[3], res)
+    crossing = src.mask[3] & (torch.minimum(iy0, ix0) < m.n_neighbours)
+    check(int(crossing.sum()) > 0 and float(ref[0][3]) < 0.0,
+          "lane 3 has no window crossing the edge next to valid cells")
+    print(f"  max_abs_err over {b} lanes, all cases: {err:.3e}; "
+          f"{int(crossing.sum())} source windows of lane 3 cross the edge")
+    out = {"max_abs_err": err}
+    if not times or dev.type != "cuda":
+        return out
+    n_bytes, n_pairs = window_work(d, T0, src, packed, origins, offs, h, w,
+                                   res, m.n_neighbours)
+    # Per lane: d, T0, origin, row offset, Q, the 13 outputs.
+    per_lane = 4 * (3 + 3 + 2) + 8 + 4 * 9 + 4 * 13
+    n_bytes += 2 * CELL_BYTES * fs.mask.numel() + b * per_lane
+    n_pairs += int((fs.mask & ft.mask).sum())
+    out.update(bound(n_bytes, n_pairs))
+    print(f"  newton_objective_batch B={b}: bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}; "
+          f"{n_bytes / 1e6:.2f} MB, {n_pairs} pairs)")
+    args = (d, T0, src, packed, origins, offs, h, w, res, m, fs, ft, Q, True)
+    out.update(time_turns(
+        lambda: cuda_kernels.newton_objective_batch(*args),
+        lambda: cuda_kernels.newton_objective_batch_reference(*args), 50, 5))
+    return out
+
+
+def run_fleet(driver, fp, inputs, dev, **kw):
+    """One run of a fleet driver, forced by a readback of a digest of
+    every output and a device synchronisation.  Returns ((final states,
+    trajectories, scores), seconds)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = driver(fp, *inputs, **kw)
+    value = float(scaling.digest(*out))
+    sync(dev)
+    check(np.isfinite(value), "fleet outputs are not finite")
+    return out, time.perf_counter() - t0
+
+
+def fleet_rate(driver, fp, inputs, dev, **kw):
+    """Aggregate scans/s of a fleet driver: the median of 3 runs (a run
+    has come before as warm-up), each with the odometry moved by a
+    further 1e-5 as the reference's bench does."""
+    states, odom, *rest = inputs
+    runs = [run_fleet(driver, fp, (states, odom + (k + 1) * 1e-5, *rest),
+                      dev, **kw)[1] for k in range(3)]
+    return odom.shape[0] * odom.shape[1] / sorted(runs)[1], runs
+
+
+def fleet_spread(fl, path):
+    """The reference's own (xy, theta) spread on the fleet record's
+    `path` ("pts" or "feat"): how far its trajectories move when its
+    odometry moves by 1e-6 or 1e-5 (`*_eps_traj`).  On this loop (0.78 m
+    and 9 degrees a scan) one scan's registration lands millimetres
+    elsewhere under such a change, and any reordered float32 sum does
+    the same to the port."""
+    spread = [max_dev(e, fl[f"{path}_traj"]) for e in fl[f"{path}_eps_traj"]]
+    return tuple(max(s[k] for s in spread) for k in (0, 1))
+
+
+def fleet_dev(name, traj, scores, ref_traj, ref_scores, spread):
+    """Hold fleet trajectories (B, T, 3) and scores (B, T) to reference
+    ones.  Nine poses in ten lie within 2 mm / 1 mrad, the tolerance the
+    reference holds its small batch test to, and none further than 5 cm
+    / 20 mrad; nine scores in ten within the reference's rtol 3e-2 /
+    atol 1e-2.  Not every pose can be held to 2 mm: the LM stop test
+    (an accepted step improving f by at most 1e-4, three float32 ulps
+    of |f| ~ 500) fires at rounding noise, so here and there a scan's
+    registration stops early, millimetres (measured up to 23 mm, with a
+    score 15% worse) from where the same program lands on another run
+    of the card, whose atomic map update adds in another order; the
+    next scans pull it back.  The reference's own `spread`
+    (fleet_spread: what an odometry change of 1e-6 / 1e-5 does to it)
+    is printed beside.  Returns the largest (xy, theta) deviation."""
+    traj, scores = traj.cpu().numpy(), scores.cpu().numpy()
+    check(traj.shape == ref_traj.shape and np.isfinite(traj).all(),
+          f"{name}: trajectories {traj.shape} not finite / not "
+          f"{ref_traj.shape}")
+    xy = np.abs(traj[..., :2] - ref_traj[..., :2]).max(-1)
+    dth = traj[..., 2] - ref_traj[..., 2]
+    th = np.abs(np.arctan2(np.sin(dth), np.cos(dth)))
+    s_ok = np.isclose(scores, ref_scores, rtol=FLEET_SCORE_RTOL,
+                      atol=FLEET_SCORE_ATOL)
+    q = lambda x: ", ".join(  # noqa: E731
+        f"{np.percentile(x, p_) * 1e3:.3f}" for p_ in (50, 90, 99, 100))
+    print(f"  {name}: xy mm at 50/90/99/100% of the poses {q(xy)}; theta "
+          f"mrad {q(th)} (the reference's own spread: "
+          f"{spread[0] * 1e3:.2f} mm / {spread[1] * 1e3:.2f} mrad); "
+          f"{100 * s_ok.mean():.1f}% of the scores within rtol 3e-2")
+    check(np.percentile(xy, 90) <= FLEET_XY_TOL
+          and np.percentile(th, 90) <= FLEET_TH_TOL,
+          f"{name}: over a tenth of the poses deviate beyond 2 mm / 1 mrad")
+    check(xy.max() <= FLEET_XY_MAX and th.max() <= FLEET_TH_MAX,
+          f"{name}: a pose deviates beyond 5 cm / 20 mrad")
+    check(s_ok.mean() >= 0.9, f"{name}: over a tenth of the scores deviate "
+                              "beyond rtol 3e-2 / atol 1e-2")
+    return float(xy.max()), float(th.max())
+
+
+def only_batch_entry(launches, name):
+    check(launches["newton_objective_batch"] > 0
+          and sum(launches.values()) == launches["newton_objective_batch"],
+          f"{name} launched {launches}: expected newton_objective_batch "
+          "alone")
+
+
+def fleet_points_phase(fp, fl, dev):
+    """Phase 7: run_sequence_batch at B = 8 against the JAX record, then
+    B = 32 and 64 and, at B = 32, the occ_every=4 cadence.  Returns
+    (summary, launches of the checked B = 8 run, the B = 32
+    trajectories)."""
+    seq = sequence(fl, dev)
+    steps = seq.odom.shape[0] - 1
+    drv = scan_driver.run_sequence_batch
+    h, w = fp.ndt.grid_h, fp.ndt.grid_w
+    spread = fleet_spread(fl, "pts")
+    summary = {"scans_per_s": {}, "run_s": {}, "jax_spread": spread}
+
+    inputs = scaling.build_fleet_inputs(fp, seq, 8)
+    cuda_kernels.reset_launch_counts()
+    (finals, traj8, sc8), _ = run_fleet(drv, fp, inputs, dev)
+    launches = dict(cuda_kernels.LAUNCHES)
+    if dev.type == "cuda":
+        only_batch_entry(launches, "run_sequence_batch")
+    n = launches["newton_objective_batch"]
+    print(f"  launches in the B=8 run: {launches} ({n / steps:.2f} per fleet "
+          f"step: one per lockstep Newton trial, the first evaluation and "
+          f"whole chunks of 6)")
+    summary["dev_bf16"] = fleet_dev("B=8, bf16 rows, vs JAX", traj8, sc8,
+                                    fl["pts_traj"], fl["pts_scores"], spread)
+    table = d2d.packed_from_grid(finals.grid, fp.ndt)
+    t_dev = float((finals.packed - table).abs().max())
+    check(t_dev <= 1e-4, f"final packed tables differ from "
+                         f"packed_from_grid of the final grids by {t_dev}")
+    check(int(finals.n_updates.min()) == steps + 1, "n_updates is off")
+    state_mb = sum(x.numel() * x.element_size() for x in (
+        finals.packed, finals.grid.count, finals.grid.psum,
+        finals.grid.outer, finals.grid.occ)) / 1e6
+    print(f"  final tables equal packed_from_grid within {t_dev:.1e}; "
+          f"state on the device {state_mb:.1f} MB at B=8 "
+          f"({h}x{w} cells a stream)")
+    (_, t32, s32), _ = run_fleet(drv, fp.replace(gather_table_bf16=False),
+                                 inputs, dev)
+    summary["dev_f32"] = fleet_dev("B=8, f32 rows, vs JAX", t32, s32,
+                                   fl["pts_f32_traj"], fl["pts_f32_scores"],
+                                   spread)
+    ref8 = (traj8.cpu().numpy(), sc8.cpu().numpy())
+    mid, traj_mid = FLEET_SIZES[1], None
+    for b in FLEET_SIZES:
+        if b != 8:
+            inputs = scaling.build_fleet_inputs(fp, seq, b)
+            cuda_kernels.reset_launch_counts()
+            (_, traj, sc), _ = run_fleet(drv, fp, inputs, dev)
+            n = cuda_kernels.LAUNCHES["newton_objective_batch"]
+            fleet_dev(f"B={b}, streams 0-7 vs the B=8 run", traj[:8],
+                      sc[:8], *ref8, spread)
+            if b == mid:
+                traj_mid = (traj, sc)
+        rate, runs = fleet_rate(drv, fp, inputs, dev)
+        summary["scans_per_s"][b], summary["run_s"][b] = rate, runs
+        summary.setdefault("launches_per_step", {})[b] = n / steps
+        print(f"  B={b}: {rate:.1f} aggregate scans/s (median of 3: "
+              f"{', '.join(f'{r:.3f}' for r in runs)} s for {b} x {steps} "
+              f"scans); {n / steps:.2f} launches per step")
+        if b == mid:
+            fp4 = fp.replace(occ_every=4)
+            (_, t4, s4), _ = run_fleet(drv, fp4, inputs, dev)
+            fleet_dev(f"B={b}, occ_every=4 vs occ_every=1", t4, s4,
+                      traj.cpu().numpy(), sc.cpu().numpy(), spread)
+            # In turns (1, 4, 4, 1): the host drifts inside a call.
+            turns = [fleet_rate(drv, p_, inputs, dev)[0]
+                     for p_ in (fp, fp4, fp4, fp)]
+            summary["scans_per_s"][f"{b}_occ_turns_1441"] = turns
+            print(f"  B={b}, aggregate scans/s in turns, occ_every = 1, 4, "
+                  f"4, 1: {', '.join(f'{r:.1f}' for r in turns)}")
+    return summary, launches, traj_mid
+
+
+def fleet_full_phase(fp, fl, dev):
+    """Phase 7b: run_sequence_features_batch at B = 8 against the JAX
+    record with its RANSAC draws, then B = 32 (stream b draws as stream
+    b % 8).  Returns (summary, launches of the checked run)."""
+    seq = sequence(fl, dev)
+    steps = seq.odom.shape[0] - 1
+    drv = scan_driver.run_sequence_features_batch
+    u8 = torch.as_tensor(fl["ransac_u"], device=dev)
+    spread = fleet_spread(fl, "feat")
+    summary = {"scans_per_s": {}, "run_s": {}, "jax_spread": spread}
+    ref8 = None
+    for b in FLEET_FULL_SIZES:
+        inputs = scaling.build_fleet_feature_inputs(fp, seq, b)
+        u = u8.repeat(b // 8, 1, 1, 1)
+        cuda_kernels.reset_launch_counts()
+        (_, traj, sc), _ = run_fleet(drv, fp, inputs, dev, ransac_u=u)
+        if b == 8:
+            launches = dict(cuda_kernels.LAUNCHES)
+            if dev.type == "cuda":
+                only_batch_entry(launches, "run_sequence_features_batch")
+            print(f"  launches in the B=8 run: {launches}")
+            summary["dev"] = fleet_dev("B=8 vs JAX", traj, sc,
+                                       fl["feat_traj"], fl["feat_scores"],
+                                       spread)
+            ref8 = (traj.cpu().numpy(), sc.cpu().numpy())
+        else:
+            fleet_dev(f"B={b}, streams 0-7 vs the B=8 run", traj[:8],
+                      sc[:8], *ref8, spread)
+        rate, runs = fleet_rate(drv, fp, inputs, dev, ransac_u=u)
+        summary["scans_per_s"][b], summary["run_s"][b] = rate, runs
+        print(f"  B={b}: {rate:.1f} aggregate scans/s (median of 3: "
+              f"{', '.join(f'{r:.3f}' for r in runs)} s for {b} x {steps} "
+              f"scans)")
+    return summary, launches
+
+
+def fleet_serve_phase(fp, fl, traj_b32, sc_b32, dev):
+    """Phase 7c: the interleaved and the grouped serving schedules over
+    20 streams in groups of 8 (the last group padded)."""
+    seq = sequence(fl, dev)
+    n, g, c = (FLEET_SERVE[k] for k in ("streams", "group_size",
+                                        "time_chunk"))
+    inputs = scaling.build_fleet_inputs(fp, seq, n)
+    (_, tg, sg), t_grouped = run_fleet(scaling.serve_fleet_grouped, fp,
+                                       inputs, dev, group_size=g)
+    (fi, ti, si), t_inter = run_fleet(scaling.serve_fleet_interleaved, fp,
+                                      inputs, dev, group_size=g,
+                                      time_chunk=c)
+    check(ti.shape == (n, seq.odom.shape[0] - 1, 3)
+          and fi.packed.shape[0] == n, "served fleet has the wrong shape")
+    spread = fleet_spread(fl, "pts")
+    fleet_dev("interleaved vs grouped", ti, si, tg.cpu().numpy(),
+              sg.cpu().numpy(), spread)
+    xy, th = fleet_dev(f"grouped vs streams 0-{n - 1} of the "
+                       f"B={FLEET_SIZES[1]} run", tg, sg,
+                       traj_b32[:n].cpu().numpy(),
+                       sc_b32[:n].cpu().numpy(), spread)
+    print(f"  grouped {t_grouped:.3f} s, interleaved {t_inter:.3f} s")
+    return {"grouped_s": t_grouped, "interleaved_s": t_inter,
+            "dev_vs_batch": (xy, th)}
+
+
+def rolling_phase(fx, dev):
+    """Phase 8: rolling_map on the main-path fixture's first scans
+    through run_sequence_features, in a window small enough to recentre,
+    against the same run on the CPU's plain versions."""
+    n = ROLLING["scans"]
+    fp = canonical_slam_params().fuser
+    fp = fp.replace(ndt=fp.ndt.replace(size_x=ROLLING["size_m"],
+                                       size_y=ROLLING["size_m"]),
+                    rolling_map=True, roll_margin=ROLLING["roll_margin"])
+
+    def run(device):
+        T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            x, dtype=dt, device=device)
+        ranges, hit = T(fx["ranges"][:n]), T(fx["hit"][:n], torch.bool)
+        state = feature_fuser.initialize(fp, T(fx["gt"][0]),
+                                         torch.zeros(3, device=device),
+                                         ranges[0], hit[0])
+        origin0 = state.base.grid.origin.clone()
+        final, traj, scores = scan_driver.run_sequence_features(
+            fp, state, T(fx["odom"][1:n]), ranges[1:], hit[1:],
+            ransac_u=T(fx["ransac_u"][:n - 1]))
+        return final, traj, origin0
+
+    cuda_kernels.reset_launch_counts()
+    final, traj, origin0 = run(dev)
+    sync(dev)
+    launches = dict(cuda_kernels.LAUNCHES)
+    if dev.type == "cuda":
+        check(launches["newton_objective"] > 0
+              and sum(launches.values()) == launches["newton_objective"],
+              f"run_sequence_features launched {launches}")
+    cells = (final.base.grid.origin - origin0) / fp.ndt.resolution
+    moved = int(cells.abs().max().round())
+    table = d2d.packed_from_grid(final.base.grid, fp.ndt)
+    t_dev = float((final.base.packed - table).abs().max())
+    _, traj_cpu, _ = run(torch.device("cpu"))
+    xy, th = max_dev(traj.cpu().numpy(), traj_cpu.numpy())
+    print(f"  {n - 1} scans, the window moved by {moved} cells; packed "
+          f"table within {t_dev:.1e} of packed_from_grid; trajectory "
+          f"within {xy * 1e3:.4f} mm / {th * 1e3:.4f} mrad of the CPU's "
+          f"plain versions; launches {launches}")
+    check(np.isfinite(traj.cpu().numpy()).all(), "trajectory not finite")
+    check(moved >= 2, "the window did not recentre twice")
+    check(t_dev <= 1e-4, "the packed table left packed_from_grid")
+    check(xy <= XY_TOL and th <= TH_TOL,
+          "rolling-map trajectory deviates from the plain versions beyond "
+          "1 cm / 5 mrad")
+    return {"cells_moved": moved, "dev_xy_m": xy, "dev_theta_rad": th}
+
+
+def fleet_phases(dev):
+    """Phases 3d, 7, 7b, 7c.  Returns (record, the batch entry's checks,
+    its launches on the fleet path)."""
+    fl = dict(np.load(FLEET_FIXTURE))
+    fp = presets.fleet_serving()
+    check(repr(fp) == str(fl["params_repr"]),
+          "canonical_fleet.npz was made at other parameters than "
+          "presets.fleet_serving")
+    seq = sequence(fl, dev)
+    print("phase 3d: newton_objective_batch vs plain on the card")
+    small = fleet_kernel_checks(fp, seq, FLEET_SIZES[0], dev)
+    checks = fleet_kernel_checks(fp, seq, FLEET_SIZES[-1], dev)
+    checks["max_abs_err"] = max(checks["max_abs_err"], small["max_abs_err"])
+    checks["b8"] = {k: v for k, v in small.items() if k != "max_abs_err"}
+    print("phase 7: points-only fleet (run_sequence_batch)")
+    points, launches, mid_run = fleet_points_phase(fp, fl, dev)
+    print("phase 7b: full-pipeline fleet (run_sequence_features_batch)")
+    full, full_launches = fleet_full_phase(fp, fl, dev)
+    print("phase 7c: serve_fleet_interleaved and serve_fleet_grouped, "
+          f"{FLEET_SERVE['streams']} streams")
+    serve = fleet_serve_phase(fp, fl, *mid_run, dev)
+    record = {"points": points, "full": full, "serve": serve,
+              "launches": {"points_b8": launches, "full_b8": full_launches}}
+    return record, checks, launches["newton_objective_batch"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -1093,15 +1558,22 @@ def main():
     print("phase 6: online loop closure, canonical corridor "
           "(run_sequence_chunked, chunk=64)")
     online, on_launches = online_phase(fx, lc, dev)
+    fleet, checks["newton_objective_batch"], fleet_launches = fleet_phases(
+        dev)
+    print("phase 8: rolling_map (run_sequence_features, "
+          f"{ROLLING['size_m']:.0f} m window)")
+    rolling = rolling_phase(fx, dev)
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
-    # (match_d2d + covariance_d2d; fgh_paired) and optimize_offline.
+    # (match_d2d + covariance_d2d; fgh_paired), optimize_offline and the
+    # B = 8 fleet run.
     path_launches = {
         "newton_objective": launches["newton_objective"],
         "fgh_dense_flat": reg_launches["fgh_dense_flat"],
         "pair_fgh_reduce": reg_launches["pair_fgh_reduce"],
         "fgh_dense_flat_batch": off_launches["fgh_dense_flat_batch"],
+        "newton_objective_batch": fleet_launches,
     }
     for k, v in path_launches.items():
         check(v > 0, f"kernel {k} was launched by no path")
@@ -1116,7 +1588,8 @@ def main():
                       "nodes": n_nodes, "dev_xy_m": dev_xy,
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
                       "ate_m": ate, "ate_jax_m": ate_ref},
-        "offline": offline, "online_lc": online,
+        "offline": offline, "online_lc": online, "fleet": fleet,
+        "rolling_map": rolling,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
                      "online_lc": on_launches},

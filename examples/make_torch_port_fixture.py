@@ -38,6 +38,24 @@ sequence of canonical_200.npz, which it checks): on the same corridor,
           (and the splits whose proposals took them), the trajectory,
           node poses and loop links.
 
+With --fleet it writes the fleet record
+(ndt_feature_graph_tpu_torch/data/canonical_fleet.npz): one 40-scan,
+720-beam loop sequence made as parallel/scaling.build_fleet_inputs makes
+it (`loop_trajectory(40, radius=5.0)`, seed 0), and for B = 8 streams at
+bench.py's fleet operating point (`bench.fleet_params`)
+
+  ranges, hit, odom, gt          the sequence (every stream starts at gt[0])
+  pts_traj, pts_scores           run_sequence_batch, bfloat16 gather rows
+  pts_f32_traj, pts_f32_scores   the same with gather_table_bf16 off
+  ransac_u (B, T-1, M, 2)        the streams' RANSAC draws
+  feat_traj, feat_scores         run_sequence_features_batch
+  pts_eps_traj, feat_eps_traj    (2, B, T-1, 3) the same two runs with the
+                                 odometry moved by 1e-6 and by 1e-5: the
+                                 reference's own spread at this operating
+                                 point (a scan of this loop registers
+                                 millimetres elsewhere under such a change)
+  params_repr                    repr() of the fleet FuserParams
+
 `replay_ransac_draws` is the replay of the JAX key chain, shared with
 the port's parity tests; `recording_slam_class` logs the keys a JAX run
 really takes, against which the replay is checked.
@@ -56,6 +74,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "ndt_feature_graph_tpu_torch", "data")
 DEFAULT_OUT = os.path.join(DATA, "canonical_200.npz")
 LC_OUT = os.path.join(DATA, "canonical_lc.npz")
+FLEET_OUT = os.path.join(DATA, "canonical_fleet.npz")
+FLEET_B = 8
+FLEET_EPS = (1e-6, 1e-5)    # odometry offsets of the fleet record's spread
 SPLIT_M = 2.0
 MAX_NODES = 64
 SEED = 0
@@ -319,11 +340,92 @@ def make_lc_fixture(out, seq, fp):
           f"nodes, {len(lcs)} proposals, {len(on.loop_links)} loop links")
 
 
+def replay_fleet_draws(seed, n_streams, t_steps, m_hyp):
+    """The RANSAC draws of scaling.build_fleet_feature_inputs' streams
+    over `t_steps` scans: stream b's key is the b-th split of
+    PRNGKey(seed + 2); each scan splits it and draws (M, 2) uniforms
+    from the first half of a split of the scan key.  Returns (draws
+    (B, T, M, 2), the streams' keys after the last scan)."""
+    import jax
+
+    def stream(key):
+        def scan(key, _):
+            key, sub = jax.random.split(key)
+            ki, _ = jax.random.split(sub)
+            return key, jax.random.uniform(ki, (m_hyp, 2))
+
+        return jax.lax.scan(scan, key, None, length=t_steps)
+
+    keys, u = jax.vmap(stream)(
+        jax.random.split(jax.random.PRNGKey(seed + 2), n_streams))
+    return np.asarray(u, np.float32), np.asarray(keys)
+
+
+def make_fleet_fixture(out, params):
+    """The fleet record (see the module docstring)."""
+    import jax
+
+    import bench
+    from ndt_feature_graph_tpu.fusion import scan_driver
+    from ndt_feature_graph_tpu.io import dataset
+    from ndt_feature_graph_tpu.parallel import scaling
+
+    fp = bench.fleet_params(params)
+    t, beams = bench.FLEET_T, fp.features.num_beams
+    seq = dataset.simulate_sequence(
+        jax.random.PRNGKey(SEED), dataset.loop_trajectory(t, radius=5.0),
+        num_beams=beams, max_range=fp.ndt.sensor_range)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+
+    states, odom, pts, mask = scaling.build_fleet_inputs(
+        fp, FLEET_B, t_steps=t, num_beams=beams, seed=SEED)
+    if not np.array_equal(np.asarray(odom[0]), np.asarray(seq.odom[1:])):
+        raise SystemExit("fleet: build_fleet_inputs made another sequence")
+    _, traj, scores = scan_driver.run_sequence_batch(fp, states, odom, pts,
+                                                     mask)
+    _, traj32, scores32 = scan_driver.run_sequence_batch(
+        fp.replace(gather_table_bf16=False), states, odom, pts, mask)
+    traj_eps = [scan_driver.run_sequence_batch(fp, states, odom + e, pts,
+                                               mask)[1] for e in FLEET_EPS]
+
+    fstates, odom, ranges, hit = scaling.build_fleet_feature_inputs(
+        fp, FLEET_B, t_steps=t, num_beams=beams, seed=SEED)
+    finals, ftraj, fscores = scan_driver.run_sequence_features_batch(
+        fp, fstates, odom, ranges, hit)
+    ftraj_eps = [scan_driver.run_sequence_features_batch(
+        fp, fstates, odom + e, ranges, hit)[1] for e in FLEET_EPS]
+    u, keys = replay_fleet_draws(SEED, FLEET_B, t - 1,
+                                 fp.features.ransac_hypotheses)
+    if not np.array_equal(keys, np.asarray(finals.key)):
+        raise SystemExit("fleet: the replayed stream keys are not JAX's")
+
+    np.savez_compressed(
+        out, ranges=f32(seq.ranges), hit=np.asarray(seq.hit, bool),
+        odom=f32(seq.odom), gt=f32(seq.gt),
+        pts_traj=f32(traj), pts_scores=f32(scores),
+        pts_f32_traj=f32(traj32), pts_f32_scores=f32(scores32),
+        ransac_u=u, feat_traj=f32(ftraj), feat_scores=f32(fscores),
+        pts_eps_traj=f32(traj_eps), feat_eps_traj=f32(ftraj_eps),
+        params_repr=np.str_(repr(fp)),
+    )
+
+    def spread(a, b):
+        return np.abs(f32(a)[..., :2] - f32(b)[..., :2]).max()
+
+    print(f"wrote {out}: {FLEET_B} streams x {t - 1} scans; bf16 rows move "
+          f"the poses by {spread(traj, traj32):.2e} m; the odometry moved "
+          f"by {FLEET_EPS} moves them by "
+          f"{[float(spread(traj, x)) for x in traj_eps]} m (points) and "
+          f"{[float(spread(ftraj, x)) for x in ftraj_eps]} m (features)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
     ap.add_argument("--lc", action="store_true",
                     help="write the loop-closure record")
+    ap.add_argument("--fleet", action="store_true",
+                    help="write the fleet record")
     args = ap.parse_args()
 
     import jax
@@ -337,6 +439,9 @@ def main():
     from ndt_feature_graph_tpu.config import GraphParams, SLAMParams
     from ndt_feature_graph_tpu.graph.slam import NDTFeatureGraphSLAM
 
+    if args.fleet:
+        return make_fleet_fixture(args.out or FLEET_OUT,
+                                  bench.canonical_params())
     seq = bench.make_sequence()
     max_cells, fp = bench.verify_cell_budget(bench.canonical_params(), seq)
     if fp.match_cell_budget != bench.MATCH_CELL_BUDGET:

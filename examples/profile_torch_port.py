@@ -3,6 +3,7 @@
     python3 examples/profile_torch_port.py [--scans 80] [--out DIR]
     python3 examples/profile_torch_port.py --offline [--out DIR]
     python3 examples/profile_torch_port.py --wall-only [--runs 5] [--tree DIR]
+    python3 examples/profile_torch_port.py --fleet B [--full] [--out DIR]
 
 Runs the main path of chip_smoke.py (NDTFeatureGraphSLAM.initialize +
 run_sequence_device over the first `--scans` scans of the canonical
@@ -22,6 +23,13 @@ wall times and scans/s.  `--tree DIR` takes chip_smoke.py and the port
 from another checkout (say, the parent commit unpacked under build/), so
 that two versions can be timed in turns inside one call; only
 --wall-only is sure to work against an older tree.
+
+With --fleet B it profiles the fleet path of chip_smoke.py's phase 7:
+scan_driver.run_sequence_batch (with --full, run_sequence_features_batch)
+over B streams of the fleet record's 39 scans at presets.fleet_serving():
+device operations per fleet step, Newton trials (launches of
+`newton_objective_batch`) per step, the busy share, the aggregate
+scans/s of the unprofiled run and the device time by operation.
 
 With --offline it does the same for optimize_offline on chip_smoke.py's
 offline graph (phase 5), and first times its stages one by one, each
@@ -173,11 +181,50 @@ def offline(dev, gpu, fx, out):
             json.dump({"gpu": gpu, "stages_s": stages}, f, indent=1)
 
 
+def fleet(dev, gpu, b, full, out):
+    """The profile of one fleet run of `b` streams (phase 7 / 7b)."""
+    from ndt_feature_graph_tpu_torch.fusion import scan_driver
+    from ndt_feature_graph_tpu_torch.models import presets
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+    from ndt_feature_graph_tpu_torch.parallel import scaling
+
+    fl = dict(np.load(chip_smoke.FLEET_FIXTURE))
+    fp = presets.fleet_serving()
+    seq = chip_smoke.sequence(fl, dev)
+    kw = {}
+    if full:
+        drv = scan_driver.run_sequence_features_batch
+        inputs = scaling.build_fleet_feature_inputs(fp, seq, b)
+        kw["ransac_u"] = torch.as_tensor(
+            np.resize(fl["ransac_u"], (b, *fl["ransac_u"].shape[1:])),
+            device=dev)
+    else:
+        drv = scan_driver.run_sequence_batch
+        inputs = scaling.build_fleet_inputs(fp, seq, b)
+    steps = inputs[1].shape[1]
+    chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)       # warm-up
+    cuda_kernels.reset_launch_counts()
+    _, wall = chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)
+    trials = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)
+    name = f"torch_port_fleet_{'full_' if full else ''}b{b}_profile.txt"
+    report(prof, gpu, wall, wall_prof, "steps", steps, out, name,
+           {"streams": b, "driver": drv.__name__,
+            "aggregate_scans_per_s": b * steps / wall,
+            "newton_trials_per_step": trials / steps})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=80)
     ap.add_argument("--offline", action="store_true",
                     help="profile optimize_offline instead")
+    ap.add_argument("--fleet", type=int, metavar="B",
+                    help="profile a fleet run of B streams instead")
+    ap.add_argument("--full", action="store_true",
+                    help="with --fleet: the full feature pipeline")
     ap.add_argument("--wall-only", action="store_true",
                     help="time the main path without the profiler")
     ap.add_argument("--runs", type=int, default=5,
@@ -190,6 +237,8 @@ def main():
         raise SystemExit("profile_torch_port: no CUDA device")
     dev = torch.device("cuda", 0)
     gpu = chip_smoke.gpu_line()
+    if args.fleet:
+        return fleet(dev, gpu, args.fleet, args.full, args.out)
     fx = dict(np.load(chip_smoke.FIXTURE))
     if args.offline:
         return offline(dev, gpu, fx, args.out)

@@ -1,6 +1,6 @@
 """Launch-shape sweep of the port's objective kernel on one CUDA card.
 
-    python3 examples/tune_torch_port_kernels.py [--out DIR]
+    python3 examples/tune_torch_port_kernels.py [--out DIR] [--fleet]
 
 Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
 (-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
@@ -11,7 +11,10 @@ shapes chip_smoke.py checks them at, with the cluster size forced to 1,
     cells (the main path's budget) and `newton_objective` on 1,024 (the
     cell list's capacity), 64 feature pairs, K = 25;
   * `fgh_dense_flat_batch` on 174 and 1,027 lanes of 192 source cells
-    against a bank of four canonical nodes.
+    against a bank of four canonical nodes;
+  * `newton_objective_batch` on 8, 32 and 64 lanes of 256 source cells
+    and 64 feature pairs (a fleet step of chip_smoke.py's phase 3d,
+    bfloat16 rows), at 256 threads; `--fleet` times this entry alone.
 
 Times are device times per call (torch.profiler, as chip_smoke.py's
 `ms`).  Every forced shape is first held against the plain version.
@@ -57,12 +60,17 @@ def rebuild(threads):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the JSON lines")
+    ap.add_argument("--fleet", action="store_true",
+                    help="sweep `newton_objective_batch` alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_torch_port_kernels: no CUDA device")
     dev = torch.device("cuda", 0)
     gpu = chip_smoke.gpu_line()
     fx = dict(np.load(chip_smoke.FIXTURE))
+    fl = dict(np.load(chip_smoke.FLEET_FIXTURE))
+    fleet_p = chip_smoke.presets.fleet_serving()
+    fleet_seq = chip_smoke.sequence(fl, dev)
     sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
                                           int(fx["max_nodes"]))
     p = sp.fuser
@@ -78,12 +86,12 @@ def main():
         lines.append(rec)
         print(json.dumps(rec), flush=True)
 
-    for threads in THREADS:
+    for threads in THREADS[:1] if args.fleet else THREADS:
         rebuild(threads)
         for cluster in CLUSTERS:
             cuda_kernels._objective_cluster = own_choice if cluster is None \
                 else (lambda *a, c=cluster: c)
-            for n_src in (256, 1024):
+            for n_src in () if args.fleet else (256, 1024):
                 src = src_full.head(n_src)
                 a = (d, T0, src, state.packed, state.grid.origin, h, w, res,
                      m, fs, ft, Q)
@@ -95,12 +103,14 @@ def main():
                      chip_smoke.device_ms(
                          lambda: cuda_kernels.newton_objective(*a)))
             src = src_full.head(256)
-            emit(entry="fgh_dense_flat", threads=threads, cluster=cluster,
-                 n_src=256, device_us=1e3 * chip_smoke.device_ms(
-                     lambda: cuda_kernels.fgh_dense_flat(
-                         d, T0, src, state.packed, state.grid.origin, h, w,
-                         res, m.n_neighbours, m.lfd1, m.lfd2)))
-            for lanes in (171, 1024):
+            if not args.fleet:
+                emit(entry="fgh_dense_flat", threads=threads,
+                     cluster=cluster, n_src=256,
+                     device_us=1e3 * chip_smoke.device_ms(
+                         lambda: cuda_kernels.fgh_dense_flat(
+                             d, T0, src, state.packed, state.grid.origin, h,
+                             w, res, m.n_neighbours, m.lfd1, m.lfd2)))
+            for lanes in () if args.fleet else (171, 1024):
                 idx = np.resize(np.arange(len(pairs)), lanes)
                 chip_smoke.batch_kernel_checks(
                     bank, pairs[idx], T0_b[idx], BUDGET, sp, dev, times=False)
@@ -111,6 +121,21 @@ def main():
                      device_us=1e3 * chip_smoke.device_ms(
                          lambda: cuda_kernels.fgh_dense_flat_batch(
                              *b, h, w, res, m.n_neighbours, m.lfd1, m.lfd2),
+                         20))
+            for lanes in chip_smoke.FLEET_SIZES if threads == 256 else ():
+                a = chip_smoke.fleet_trial_case(fleet_p, fleet_seq, lanes,
+                                                dev)
+                call = (*a[:6], h, w, res, m, *a[6:], True)
+                for k, (x, y) in enumerate(zip(
+                        zip(*cuda_kernels.newton_objective_batch(*call)),
+                        zip(*cuda_kernels.newton_objective_batch_reference(
+                            *call)))):
+                    chip_smoke.compare(f"lane {k}", x, y, quiet=True,
+                                       cancel=chip_smoke.CANCEL_RTOL)
+                emit(entry="newton_objective_batch", threads=threads,
+                     cluster=cluster, lanes=lanes, n_src=256, n_feat=64,
+                     device_us=1e3 * chip_smoke.device_ms(
+                         lambda: cuda_kernels.newton_objective_batch(*call),
                          20))
     cuda_kernels._objective_cluster = own_choice
     if args.out:

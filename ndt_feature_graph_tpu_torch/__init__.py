@@ -1,7 +1,8 @@
 """ndt_feature_graph_tpu_torch — PyTorch/CUDA port of ndt_feature_graph_tpu.
 
 The JAX package `ndt_feature_graph_tpu` is the reference; this package
-mirrors its layout (core/, io/, ops/, features/, fusion/, graph/) and
+mirrors its layout (core/, io/, ops/, features/, fusion/, graph/,
+models/, parallel/) and
 function names so each port sits beside its counterpart.  It imports
 torch, never jax and nothing of the JAX package: the parameter
 dataclasses (config.py) and the numpy trajectory tools (io/tum.py) are

@@ -49,9 +49,19 @@
 //     lane.  Threads keep their sums in registers over all their pairs
 //     and reduce once: warp shuffles, a fixed-order sum over the
 //     block's warps in shared memory, then the cluster.
-//   * The batched entry is the same kernel with blockIdx.y the lane:
+//   * The batched entries are the same kernel with blockIdx.y the lane:
 //     each lane has its own increment, pose, source list, origin and
-//     64-bit row offset into one flat bank.
+//     64-bit row offset into one flat bank, and its own feature lists
+//     and odometry information: a fleet step's whole Newton trial, all
+//     streams, is one launch.  The lanes' clusters share nothing, so a
+//     lane's sums are those of the same lane launched alone.
+//   * A row mode for the reference's bfloat16 gather table: each row
+//     read has its two mean channels made relative to its cell's world
+//     centre (origin + (cell index + 0.5) * resolution), all channels
+//     rounded to bfloat16 (to nearest even) and the centre added back in
+//     f32.  The centre depends on the absolute cell index alone, so the
+//     kernel rounds the f32 table's rows as it reads them and no second
+//     table is kept.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -shared -Xcompiler -fPIC (no --use_fast_math: expf, the divisions and
@@ -59,6 +69,7 @@
 // interface at the bottom.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -171,6 +182,23 @@ __device__ __forceinline__ void trial_pose(const float* __restrict__ d,
   const float tt = atan2f(sinf(traw), cosf(traw));
   pose[2] = cosf(tt);
   pose[3] = sinf(tt);
+}
+
+// x rounded to bfloat16 (to nearest even) and back.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A mean channel as the bfloat16 row mode holds it: relative to the
+// cell centre origin + (cell + 0.5) * res, rounded, centre added back.
+// The explicit roundings keep the compiler from contracting the centre
+// into a fused multiply-add, so it equals the plain version's bit for
+// bit.
+__device__ __forceinline__ float bf16_mean(float mean, float origin, int cell,
+                                           float res) {
+  const float centre =
+      __fadd_rn(origin, __fmul_rn(__fadd_rn((float)cell, 0.5f), res));
+  return __fadd_rn(bf16_round(__fsub_rn(mean, centre)), centre);
 }
 
 // Moved gaussian: mean' = R m + t, K = R C R^T.
@@ -287,7 +315,8 @@ __device__ __forceinline__ void cluster_finish(float* part, bool paired,
 }
 
 struct ObjectiveArgs {
-  // Per lane (lane = blockIdx.y): increment and initial pose (B, 3).
+  // Every term is per lane (lane = blockIdx.y, B lanes).
+  // Increment and initial pose (B, 3).
   const float* d;
   const float* T0;
   // Window term; packed == nullptr switches it off.  Source cells
@@ -301,7 +330,7 @@ struct ObjectiveArgs {
   const long long* row_offsets;
   int n_src, h, w, nb;
   float res;
-  // Paired feature term (single lane); fs_means == nullptr: off.
+  // Paired feature term, lists (B, n_feat, ...); fs_means == nullptr: off.
   const float* fs_means;
   const float* fs_covs;
   const uint8_t* fs_mask;
@@ -309,7 +338,7 @@ struct ObjectiveArgs {
   const float* ft_covs;
   const uint8_t* ft_mask;
   int n_feat;
-  // Odometry term (single lane); nullptr: off.
+  // Odometry term, (B, 3, 3); nullptr: off.
   const float* Q;
   float lfd1, lfd2;
   float* out;   // (B, 13)
@@ -346,8 +375,14 @@ __device__ __forceinline__ SourceCell load_cell(
 // lanes, 32 per step, each lane fetching its pair's cell from the
 // owner by shuffle: every lane works whatever K is.  Paired term: one
 // thread per feature pair.  Then block sums and the cluster's finish.
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
+// BF16_ROWS reads the table in the bfloat16 row mode; it is a template
+// argument so that the f32 instantiation carries none of its registers.
+// At 256 threads the kernel is held to the registers of three blocks
+// per SM (85 a thread): the cluster-size rule of the wrapper counts the
+// blocks the card holds at once, and 174 lanes cost 13% more at two.
+template <int THREADS, bool BF16_ROWS>
+__global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
+    objective_kernel(ObjectiveArgs a) {
   constexpr int kWarps = THREADS / 32;
   constexpr unsigned kFull = 0xffffffffu;
   __shared__ float pose[4];
@@ -387,8 +422,10 @@ __global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
   for (int c = 0; c < 2 * kComps; ++c) v[c] = 0.0f;
 
   if (paired) {
-    for (int p = rank * THREADS + threadIdx.x; p < a.n_feat;
-         p += n_blocks * THREADS) {
+    const long long f0 = b * a.n_feat;      // the lane's feature lists
+    for (int i = rank * THREADS + threadIdx.x; i < a.n_feat;
+         i += n_blocks * THREADS) {
+      const long long p = f0 + i;
       if (a.fs_mask[p] && a.ft_mask[p]) {
         const float* sm = a.fs_means + 2 * p;
         const float* sc = a.fs_covs + 4 * p;
@@ -448,8 +485,15 @@ __global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
           const int cy = min(max(iy, 0), a.h - 1);
           const int cx = min(max(ix, 0), a.w - 1);
           const float4* row = table + 2 * ((long long)cy * a.w + cx);
-          const float4 r0 = __ldg(row);       // mean_x mean_y c00 c01
-          const float4 r1 = __ldg(row + 1);   // c11 valid 0 0
+          float4 r0 = __ldg(row);             // mean_x mean_y c00 c01
+          float4 r1 = __ldg(row + 1);         // c11 valid 0 0
+          if (BF16_ROWS) {
+            r0.x = bf16_mean(r0.x, ox, cx, a.res);
+            r0.y = bf16_mean(r0.y, oy, cy, a.res);
+            r0.z = bf16_round(r0.z);
+            r0.w = bf16_round(r0.w);
+            r1.x = bf16_round(r1.x);
+          }
           if (inb && r1.y > 0.5f) {
             pair_components(pmx - r0.x, pmy - r0.y, p00 + r0.z, p01 + r0.w,
                             p11 + r1.x, pmx - d0, pmy - d1, p00, p01, p11,
@@ -471,7 +515,8 @@ __global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
     }
   }
 
-  // Blocks that hold feature pairs: the first ceil(n_feat / THREADS).
+  // Blocks that hold feature pairs: the first ceil(n_feat / THREADS),
+  // the same for every lane (n_feat is the lists' capacity).
   const unsigned paired_blocks =
       min(n_blocks, (a.n_feat + THREADS - 1) / THREADS);
   if (paired && rank < (int)paired_blocks) {
@@ -479,7 +524,8 @@ __global__ void __launch_bounds__(THREADS) objective_kernel(ObjectiveArgs a) {
   } else {
     block_sum<THREADS, kComps>(v, warp_sums, part);
   }
-  cluster_finish(part, paired, paired_blocks, d, a.Q, a.out + kOut * b);
+  cluster_finish(part, paired, paired_blocks, d,
+                 a.Q != nullptr ? a.Q + 9 * b : nullptr, a.out + kOut * b);
 }
 
 // Paired term on prebuilt, flattened, broadcast inputs (the Pallas
@@ -546,20 +592,26 @@ int ndtg_objective_threads() { return kObjectiveThreads; }
 int ndtg_objective_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, objective_kernel<kObjectiveThreads>, kObjectiveThreads, 0);
-  return n;
+      &n, objective_kernel<kObjectiveThreads, false>, kObjectiveThreads, 0);
+  int n_bf16 = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n_bf16, objective_kernel<kObjectiveThreads, true>, kObjectiveThreads,
+      0);
+  return n < n_bf16 ? n : n_bf16;
 }
 
 // The objective of n_lanes lanes, one cluster of `cluster` blocks x
 // ndtg_objective_threads() threads per lane.  Null pointers switch
 // terms off: packed (window), fs_means (paired), Q (odometry); a null
-// row_offsets is offset 0.  out: (n_lanes, 13).  Returns the launch
-// error (0 = success).
+// row_offsets is offset 0.  Feature lists are (n_lanes, n_feat, ...), Q
+// (n_lanes, 3, 3); bf16_rows != 0 reads the table in the bfloat16 row
+// mode.  out: (n_lanes, 13).  Returns the launch error (0 = success).
 int ndtg_objective(const float* d, const float* T0, const float* means,
                    const float* covs, const uint8_t* mask,
                    const float* packed, const float* origins,
                    const long long* row_offsets, int n_lanes, int n_src,
-                   int h, int w, float res, int nb, const float* fs_means,
+                   int h, int w, float res, int nb, int bf16_rows,
+                   const float* fs_means,
                    const float* fs_covs, const uint8_t* fs_mask,
                    const float* ft_means, const float* ft_covs,
                    const uint8_t* ft_mask, int n_feat, const float* Q,
@@ -590,8 +642,10 @@ int ndtg_objective(const float* d, const float* T0, const float* means,
   a.lfd1 = lfd1;
   a.lfd2 = lfd2;
   a.out = out;
-  return launch_clusters(objective_kernel<kObjectiveThreads>,
-                         kObjectiveThreads, cluster, n_lanes,
+  void (*kernel)(ObjectiveArgs) =
+      bf16_rows != 0 ? objective_kernel<kObjectiveThreads, true>
+                     : objective_kernel<kObjectiveThreads, false>;
+  return launch_clusters(kernel, kObjectiveThreads, cluster, n_lanes,
                          static_cast<cudaStream_t>(stream), a);
 }
 

@@ -20,8 +20,9 @@ from ndt_feature_graph_tpu_torch.io.dataset import beam_angles
 
 
 def describe(params: FeatureParams, feats: FeatureSet, ranges, hit):
-    """(F, descriptor_dim) descriptors for one scan; `feats` in the
-    sensor frame of (`ranges`, `hit`)."""
+    """(..., F, descriptor_dim) descriptors; `feats` (..., F) in the
+    sensor frame of the scan (`ranges`, `hit`) (..., B) with the same
+    leading dims (independent scans)."""
     r_bins, p_bins = params.rho_bins, params.phi_bins
     nbins = r_bins * p_bins
     dev = ranges.device
@@ -35,7 +36,7 @@ def describe(params: FeatureParams, feats: FeatureSet, ranges, hit):
     support = params.max_rho * torch.clamp(
         feats.scales / params.base_sigma, min=1.0
     ) ** 0.5
-    support = support.clamp(params.max_rho, 4.0 * params.max_rho)  # (F,)
+    support = support.clamp(params.max_rho, 4.0 * params.max_rho)  # (.., F)
 
     def polar_bins(rel_pts, feat_angle, sup):
         """rel_pts (..., 2) relative to feature -> (bin_idx, in_support)."""
@@ -53,39 +54,40 @@ def describe(params: FeatureParams, feats: FeatureSet, ranges, hit):
         return ri.clamp(0, r_bins - 1) * p_bins + pi_, ok
 
     # Hits: endpoints of hitting beams.
-    rel = endpoints[None, :, :] - feats.pts[:, None, :]             # (F,B,2)
-    hbin, hok = polar_bins(rel, feats.angles[:, None], support[:, None])
-    hok = hok & hit[None, :] & feats.mask[:, None]
+    rel = endpoints[..., None, :, :] - feats.pts[..., :, None, :]  # (.,F,B,2)
+    hbin, hok = polar_bins(rel, feats.angles[..., None], support[..., None])
+    hok = hok & hit[..., None, :] & feats.mask[..., None]
 
     # Misses: samples along each beam's chord through the support circle.
-    dp = torch.einsum("bc,fc->fb", d_hat, feats.pts)                # (F, B)
+    dp = torch.einsum("bc,...fc->...fb", d_hat, feats.pts)        # (., F, B)
     p2 = (feats.pts ** 2).sum(-1)
-    disc = dp * dp - p2[:, None] + support[:, None] ** 2
+    disc = dp * dp - p2[..., None] + support[..., None] ** 2
     has_chord = disc > 0.0
     root = torch.sqrt(torch.clamp(disc, min=0.0))
     t0 = torch.clamp(dp - root, min=0.0)
-    t1 = torch.minimum(dp + root, ranges[None, :] * 0.999)
+    t1 = torch.minimum(dp + root, ranges[..., None, :] * 0.999)
     chord = torch.clamp(t1 - t0, min=0.0)
     s_steps = 8
     sfrac = (torch.arange(s_steps, dtype=torch.float32, device=dev)
              + 0.5) / s_steps
-    t_s = t0[:, :, None] + chord[:, :, None] * sfrac                # (F,B,K)
-    sample_pts = t_s[..., None] * d_hat[None, :, None, :]
-    mrel = sample_pts - feats.pts[:, None, None, :]
+    t_s = t0[..., None] + chord[..., None] * sfrac              # (., F, B, K)
+    sample_pts = t_s[..., None] * d_hat[:, None, :]
+    mrel = sample_pts - feats.pts[..., :, None, None, :]
     mbin, mok = polar_bins(
-        mrel, feats.angles[:, None, None], support[:, None, None]
+        mrel, feats.angles[..., None, None], support[..., None, None]
     )
-    mok = mok & has_chord[:, :, None] & (chord[:, :, None] > 1e-6) \
-        & feats.mask[:, None, None]
+    mok = mok & has_chord[..., None] & (chord[..., None] > 1e-6) \
+        & feats.mask[..., None, None]
     bin_w = torch.clamp((support - params.min_rho) / r_bins, min=1e-6)
-    mw = torch.where(mok, chord[:, :, None] / s_steps
-                     / bin_w[:, None, None], 0.0)
+    mw = torch.where(mok, chord[..., None] / s_steps
+                     / bin_w[..., None, None], 0.0)
 
     bins_iota = torch.arange(nbins, device=dev)
     h_onehot = (hbin[..., None] == bins_iota).to(torch.float32)
-    hits = torch.einsum("fb,fbn->fn", hok.to(torch.float32), h_onehot)
+    hits = torch.einsum("...fb,...fbn->...fn", hok.to(torch.float32),
+                        h_onehot)
     m_onehot = (mbin[..., None] == bins_iota).to(torch.float32)
-    misses = torch.einsum("fbk,fbkn->fn", mw, m_onehot)
+    misses = torch.einsum("...fbk,...fbkn->...fn", mw, m_onehot)
     if params.descriptor_stat == "hitmiss":
         hn = hits / torch.clamp(hits.sum(-1, keepdim=True), min=1e-9)
         mn = misses / torch.clamp(misses.sum(-1, keepdim=True), min=1e-9)

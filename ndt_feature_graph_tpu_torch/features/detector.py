@@ -22,17 +22,19 @@ import torch
 from ndt_feature_graph_tpu_torch.config import FeatureParams
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.io.dataset import beam_angles
+from ndt_feature_graph_tpu_torch.ops.ndt_map import take_rows
 
 
 @dataclasses.dataclass
 class FeatureSet:
-    """Padded interest points in the SENSOR frame."""
+    """Padded interest points in the SENSOR frame (leading dims: a
+    batch of scans)."""
 
-    pts: torch.Tensor        # (F, 2)
-    angles: torch.Tensor     # (F,) orientation
-    scales: torch.Tensor     # (F,) detection scale (sigma)
-    response: torch.Tensor   # (F,) detector response
-    mask: torch.Tensor       # (F,) bool
+    pts: torch.Tensor        # (..., F, 2)
+    angles: torch.Tensor     # (..., F) orientation
+    scales: torch.Tensor     # (..., F) detection scale (sigma)
+    response: torch.Tensor   # (..., F) detector response
+    mask: torch.Tensor       # (..., F) bool
 
     def transform(self, pose):
         return dataclasses.replace(
@@ -49,8 +51,8 @@ def top_k_stable(x, k: int):
 
 
 def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
-    """Detect up to `max_features` interest points in one scan
-    (ranges (B,), hit (B,) bool)."""
+    """Detect up to `max_features` interest points per scan (ranges
+    (..., B), hit (..., B) bool; leading dims are independent scans)."""
     b = params.num_beams
     dev = ranges.device
     angles = beam_angles(b, device=dev)
@@ -59,48 +61,50 @@ def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
     )
     ar = torch.arange(b, device=dev)
 
-    seg = torch.linalg.vector_norm(pts - torch.roll(pts, 1, 0), dim=-1)
-    seg = torch.cat([seg.new_zeros(1), seg[1:]])
-    cumarc = torch.cumsum(seg, 0)
+    seg = torch.linalg.vector_norm(pts - torch.roll(pts, 1, -2), dim=-1)
+    seg = torch.cat([torch.zeros_like(seg[..., :1]), seg[..., 1:]], -1)
+    cumarc = torch.cumsum(seg, -1)
 
-    jump = torch.abs(ranges - torch.roll(ranges, 1)) > 0.5
-    jump = torch.cat([jump.new_zeros(1), jump[1:]])
-    jump = jump | ~hit | ~torch.roll(hit, 1)
-    seg_id = torch.cumsum(jump.to(torch.int32), 0)
+    jump = torch.abs(ranges - torch.roll(ranges, 1, -1)) > 0.5
+    jump = torch.cat([torch.zeros_like(jump[..., :1]), jump[..., 1:]], -1)
+    jump = jump | ~hit | ~torch.roll(hit, 1, -1)
+    seg_id = torch.cumsum(jump.to(torch.int32), -1)
 
     half = int(params.smooth_half_beams)
     offs = torch.arange(-half, half + 1, device=dev)
     nidx = (ar[:, None] + offs[None, :]).clamp(0, b - 1)
-    darc = torch.abs(cumarc[nidx] - cumarc[:, None])          # (B, W)
-    same_piece = (seg_id[nidx] == seg_id[:, None]) & hit[nidx]
-    pts_n = pts[nidx]                                         # (B, W, 2)
+    darc = torch.abs(cumarc[..., nidx] - cumarc[..., None])   # (..., B, W)
+    same_piece = (seg_id[..., nidx] == seg_id[..., None]) & hit[..., nidx]
+    pts_n = pts[..., nidx, :]                                 # (..., B, W, 2)
 
     responses, tangents, sigmas = [], [], []
     for i in range(params.num_scales):
         sigma = params.base_sigma * params.sigma_step**i
         w = torch.exp(-0.5 * (darc / sigma) ** 2) * same_piece
         wsum = torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        sm = torch.einsum("bw,bwc->bc", w / wsum, pts_n)      # (B, 2)
+        sm = torch.einsum("...bw,...bwc->...bc", w / wsum, pts_n)
 
         fwd = torch.searchsorted(cumarc, cumarc + sigma).clamp(0, b - 1)
         bwd = torch.searchsorted(cumarc, cumarc - sigma).clamp(0, b - 1)
-        f = sm[fwd] - sm
-        bk = sm - sm[bwd]
-        dot = f[:, 0] * bk[:, 0] + f[:, 1] * bk[:, 1]
-        cross = bk[:, 0] * f[:, 1] - bk[:, 1] * f[:, 0]
+        sm_f, sm_b = take_rows(sm, fwd), take_rows(sm, bwd)
+        f = sm_f - sm
+        bk = sm - sm_b
+        dot = f[..., 0] * bk[..., 0] + f[..., 1] * bk[..., 1]
+        cross = bk[..., 0] * f[..., 1] - bk[..., 1] * f[..., 0]
         curv = torch.abs(torch.atan2(cross, dot + 1e-12))
 
         ok = (
-            hit & hit[fwd] & hit[bwd]
-            & (seg_id[fwd] == seg_id) & (seg_id[bwd] == seg_id)
+            hit & take_rows(hit, fwd) & take_rows(hit, bwd)
+            & (take_rows(seg_id, fwd) == seg_id)
+            & (take_rows(seg_id, bwd) == seg_id)
             & (fwd > ar) & (bwd < ar)
         )
         responses.append(torch.where(ok, curv, 0.0))
-        tangents.append(sm[fwd] - sm[bwd])
+        tangents.append(sm_f - sm_b)
         sigmas.append(sigma)
 
-    resp = torch.stack(responses)                  # (S, B)
-    tang = torch.stack(tangents)                   # (S, B, 2)
+    resp = torch.stack(responses, -2)              # (..., S, B)
+    tang = torch.stack(tangents, -3)               # (..., S, B, 2)
 
     left = torch.roll(resp, 1, -1)
     right = torch.roll(resp, -1, -1)
@@ -111,20 +115,21 @@ def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
     )
     peak_resp = torch.where(is_peak, resp, 0.0)
 
-    best_scale = torch.argmax(peak_resp, 0)      # first max, as jnp
-    best_resp = peak_resp.amax(0)
+    best_scale = torch.argmax(peak_resp, -2)     # first max, as jnp
+    best_resp = peak_resp.amax(-2)
 
     top_resp, top_idx = top_k_stable(best_resp, params.max_features)
     valid = top_resp > 0.0
 
-    sel_scale_idx = best_scale[top_idx]
+    sel_scale_idx = take_rows(best_scale, top_idx)
     # Scale sigmas selected with where(), not a host->device table copy.
     sel_scale = torch.zeros_like(top_resp)
     for i, sigma in enumerate(sigmas):
         sel_scale = torch.where(sel_scale_idx == i, sigma, sel_scale)
-    sel_pts = pts[top_idx]
-    sel_tang = tang[sel_scale_idx, top_idx]                   # (F, 2)
-    na = torch.atan2(sel_tang[:, 0], -sel_tang[:, 1])
+    sel_pts = take_rows(pts, top_idx)
+    sel_tang = take_rows(tang.flatten(-3, -2),
+                         sel_scale_idx * b + top_idx)          # (..., F, 2)
+    na = torch.atan2(sel_tang[..., 0], -sel_tang[..., 1])
     nvec = torch.stack([torch.cos(na), torch.sin(na)], -1)
     flip = (nvec * -sel_pts).sum(-1) < 0
     na = torch.where(flip, na + math.pi, na)

@@ -24,6 +24,7 @@ from ndt_feature_graph_tpu_torch.features.detector import (
 from ndt_feature_graph_tpu_torch.features.distance import (
     symmetric_chi2_matrix,
 )
+from ndt_feature_graph_tpu_torch.ops.ndt_map import take_rows as _take
 
 
 @dataclasses.dataclass
@@ -36,15 +37,6 @@ class MatchResult:
     corr_mask: torch.Tensor    # (C,) candidate validity
     inlier_mask: torch.Tensor  # (C,) inliers under final T
     valid: torch.Tensor        # bool — enough inliers for a pose
-
-
-def _take(x, idx):
-    """Per-batch gather along the item axis: x (*B, C, *r), idx (*B, M)
-    -> (*B, M, *r) with out[..., k, :] = x[..., idx[..., k], :]."""
-    nb = idx.dim() - 1
-    rest = x.shape[nb + 1:]
-    ix = idx.reshape(idx.shape + (1,) * len(rest))
-    return torch.gather(x, nb, ix.expand(idx.shape + rest))
 
 
 def _procrustes(a, b, w):

@@ -5,7 +5,9 @@ The previous scan's interest points are RANSAC-matched against the
 current scan's, gated against odometry, turned into paired
 fixed-covariance pseudo-cells and minimized jointly with the NDT and
 odometry terms.  The RANSAC draws `u` (M, 2) are an argument: the
-reference's per-scan PRNG key has no torch counterpart.
+reference's per-scan PRNG key has no torch counterpart.  `update_batch`
+is the same step for B independent streams at once (the reference vmaps
+its feature half): every function here takes a leading stream dimension.
 """
 
 from __future__ import annotations
@@ -19,15 +21,15 @@ from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features import descriptor, detector, ransac
 from ndt_feature_graph_tpu_torch.fusion import fuser
 from ndt_feature_graph_tpu_torch.io import dataset
-from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
+from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList, take_rows
 
 
 @dataclasses.dataclass
 class FeatureFuserState:
     base: fuser.FuserState
     prev_feats: detector.FeatureSet   # sensor frame of the previous scan
-    prev_desc: torch.Tensor           # (F, D)
-    prev_pose: torch.Tensor           # (3,) Tnow when prev scan was taken
+    prev_desc: torch.Tensor           # (..., F, D)
+    prev_pose: torch.Tensor           # (..., 3) Tnow at the previous scan
 
 
 def initialize(params: FuserParams, init_pose, sensor_pose, ranges,
@@ -43,7 +45,8 @@ def initialize(params: FuserParams, init_pose, sensor_pose, ranges,
 def _prepare_features(state: FeatureFuserState, params: FuserParams,
                       Tmotion, ranges, hit, u):
     """Scan projection + detect + describe + RANSAC + odometry-
-    consistency gate + paired pseudo-cells.
+    consistency gate + paired pseudo-cells, for one stream or over a
+    leading stream dimension (u then (..., M, 2)).
 
     Returns (pts, mask, feats, desc, feat_src, feat_tgt, res)."""
     fp = params.features
@@ -59,22 +62,22 @@ def _prepare_features(state: FeatureFuserState, params: FuserParams,
     T_feat_vehicle = se2.compose(se2.compose(sp, res.T), se2.inverse(sp))
     diff = se2.sub(T_feat_vehicle, Tmotion)
     consistent = (
-        (torch.linalg.vector_norm(diff[:2])
+        (torch.linalg.vector_norm(diff[..., :2], dim=-1)
          <= params.max_translation_norm / 10.0)
-        & (torch.abs(diff[2]) <= params.max_rotation_norm / 4.0)
+        & (torch.abs(diff[..., 2]) <= params.max_rotation_norm / 4.0)
     ) | (not params.check_consistency)
     feats_ok = res.valid & consistent
 
     world_prev = se2.compose(state.prev_pose, sp)
-    tgt_pts = se2.transform_points(world_prev,
-                                   state.prev_feats.pts[res.corr_ref])
-    src_pts = se2.transform_points(sp, feats.pts[res.corr_mov])
-    c = res.corr_ref.shape[0]
+    tgt_pts = se2.transform_points(
+        world_prev, take_rows(state.prev_feats.pts, res.corr_ref))
+    src_pts = se2.transform_points(sp, take_rows(feats.pts, res.corr_mov))
     # Materialised once per scan: the objective kernel reads the lists
     # of every Newton trial through plain pointers.
     covs = (torch.eye(2, dtype=torch.float32, device=pts.device)
-            * params.feature_cov_xy).expand(c, 2, 2).contiguous()
-    pair_mask = res.inlier_mask & feats_ok
+            * params.feature_cov_xy).expand(
+                *res.corr_ref.shape, 2, 2).contiguous()
+    pair_mask = res.inlier_mask & feats_ok[..., None]
     feat_tgt = CellList(means=tgt_pts, covs=covs, mask=pair_mask)
     feat_src = CellList(means=src_pts, covs=covs, mask=pair_mask)
     return pts, mask, feats, desc, feat_src, feat_tgt, res
@@ -93,3 +96,22 @@ def update(state: FeatureFuserState, params: FuserParams, Tmotion, ranges,
     new_state = FeatureFuserState(base=base, prev_feats=feats,
                                   prev_desc=desc, prev_pose=base.Tnow)
     return new_state, info, res
+
+
+def update_batch(states: FeatureFuserState, params: FuserParams, Tmotion,
+                 ranges, hit, u, update_map: bool = True, occ_on=None):
+    """One full-pipeline scan update for B independent streams: the
+    feature half over the stream dimension, the joint registration
+    through fuser.update_batch with each stream's own feature pairs.
+    states: (B, ...) on every field; Tmotion (B, 3); ranges, hit
+    (B, beams); u (B, M, 2) the streams' RANSAC draws; `occ_on` as
+    fuser.update_batch.  Returns (new_states, infos, match results)."""
+    pts, mask, feats, desc, feat_src, feat_tgt, res = _prepare_features(
+        states, params, Tmotion, ranges, hit, u
+    )
+    base, info = fuser.update_batch(states.base, params, Tmotion, pts, mask,
+                                    feat_src=feat_src, feat_tgt=feat_tgt,
+                                    update_map=update_map, occ_on=occ_on)
+    new_states = FeatureFuserState(base=base, prev_feats=feats,
+                                   prev_desc=desc, prev_pose=base.Tnow)
+    return new_states, info, res

@@ -1,6 +1,8 @@
-"""Online graph-SLAM sequence drivers (port of
-ndt_feature_graph_tpu/fusion/scan_driver.py: run_graph_sequence,
-run_graph_chunk, unstack_bank).
+"""Sequence drivers (port of ndt_feature_graph_tpu/fusion/scan_driver.py):
+the online graph-SLAM drivers (run_graph_sequence, run_graph_chunk,
+unstack_bank), the single-stream drivers (run_sequence,
+run_sequence_features) and the fleet drivers over B independent streams
+(run_sequence_batch, run_sequence_features_batch).
 
 The reference runs the whole sequence inside one XLA executable with
 the node splits under lax.cond.  Here the scan loop is a Python loop
@@ -8,7 +10,10 @@ over device tensors, and every branch that the reference takes on
 device is decided on the host BEFORE the loop: whether a scan splits
 and whether it feeds the node feature map depend only on odometry and
 counters (`split_schedule`), so the loop issues no per-scan host read.
-Frozen nodes are written into a pre-allocated node bank.
+Frozen nodes are written into a pre-allocated node bank.  The fleet
+drivers decide the occupancy cadence the same way (`_occ_flags`): the
+only host read of a fleet step is the Newton stop flag per 6-trial
+chunk (d2d.newton_match_batch).
 """
 
 from __future__ import annotations
@@ -95,11 +100,7 @@ def run_graph_sequence(
         odom.cpu().numpy(), dist_moved, update_count, split_dist,
         max_nodes, fm_incr,
     )
-    if ransac_u is None:
-        ransac_u = torch.rand(
-            (t_len, params.features.ransac_hypotheses, 2),
-            generator=generator, device=dev,
-        )
+    ransac_u = _draws(ransac_u, (t_len,), params, generator, dev)
 
     bank = map_tensors(
         lambda x: torch.zeros((n_frozen,) + x.shape, dtype=x.dtype,
@@ -178,3 +179,98 @@ def unstack_bank(bank, n: int):
     """The first `n` rows of a stacked node bank as per-node NodeData
     (views into the bank, on its device)."""
     return tuple(map_tensors(lambda a, i=i: a[i], bank) for i in range(n))
+
+
+def _draws(ransac_u, shape, params: FuserParams, generator, device):
+    """The given RANSAC draws, or `shape + (M, 2)` uniforms drawn on the
+    device from `generator`."""
+    if ransac_u is not None:
+        return ransac_u
+    return torch.rand((*shape, params.features.ransac_hypotheses, 2),
+                      generator=generator, device=device)
+
+
+def run_sequence(params: FuserParams, state: fuser.FuserState, odom, pts,
+                 mask):
+    """Chain fuser.update over a (T, ...) sequence.  odom (T, 3); pts
+    (T, P, 2); mask (T, P).  Returns (final_state, trajectory (T, 3),
+    scores (T,))."""
+    traj, scores = [], []
+    for t in range(odom.shape[0]):
+        state, info = fuser.update(state, params, odom[t], pts[t], mask[t])
+        traj.append(state.Tnow)
+        scores.append(info.score)
+    return state, torch.stack(traj), torch.stack(scores)
+
+
+def run_sequence_features(params: FuserParams,
+                          state: feature_fuser.FeatureFuserState, odom,
+                          ranges, hit, ransac_u=None, generator=None):
+    """The full feature pipeline (detect + describe + RANSAC + joint
+    fusion) chained over a (T, ...) sequence.  odom (T, 3); ranges, hit
+    (T, beams); ransac_u (T, M, 2) or None to draw on the device.
+    Returns (final_state, trajectory (T, 3), scores (T,))."""
+    t_len = odom.shape[0]
+    u = _draws(ransac_u, (t_len,), params, generator, ranges.device)
+    traj, scores = [], []
+    for t in range(t_len):
+        state, info, _ = feature_fuser.update(state, params, odom[t],
+                                              ranges[t], hit[t], u[t])
+        traj.append(state.base.Tnow)
+        scores.append(info.score)
+    return state, torch.stack(traj), torch.stack(scores)
+
+
+def _occ_flags(params: FuserParams, t: int):
+    """Per-step occupancy-cadence flags of the fleet drivers
+    (config.FuserParams.occ_every), on the host: step t of a call is on
+    the cadence when t % occ_every == 0, so the cadence restarts with
+    every call of these functions, as the reference's does."""
+    k = params.occ_every
+    if k <= 1:
+        return [True] * t
+    return [i % k == 0 for i in range(t)]
+
+
+def _time_major(*xs):
+    """(B, T, ...) inputs as contiguous (T, B, ...): one copy before the
+    loop instead of a strided read per step."""
+    return tuple(x.transpose(0, 1).contiguous() for x in xs)
+
+
+def run_sequence_batch(params: FuserParams, states: fuser.FuserState, odom,
+                       pts, mask):
+    """Fleet driver: B independent streams, each a T-step sequence,
+    through fuser.update_batch.  states: FuserState with a leading (B,);
+    odom (B, T, 3); pts (B, T, P, 2); mask (B, T, P).  Returns
+    (final_states, trajectories (B, T, 3), scores (B, T))."""
+    odom, pts, mask = _time_major(odom, pts, mask)
+    traj, scores = [], []
+    for t, occ_on in enumerate(_occ_flags(params, odom.shape[0])):
+        states, info = fuser.update_batch(
+            states, params, odom[t], pts[t], mask[t], occ_on=occ_on)
+        traj.append(states.Tnow)
+        scores.append(info.score)
+    return states, torch.stack(traj, 1), torch.stack(scores, 1)
+
+
+def run_sequence_features_batch(params: FuserParams,
+                                states: feature_fuser.FeatureFuserState,
+                                odom, ranges, hit, ransac_u=None,
+                                generator=None):
+    """Full-pipeline fleet driver: B independent streams of the
+    feature-aware pipeline through feature_fuser.update_batch.  states:
+    FeatureFuserState with a leading (B,); odom (B, T, 3); ranges, hit
+    (B, T, beams); ransac_u (B, T, M, 2) or None to draw on the device.
+    Returns (final_states, trajectories (B, T, 3), scores (B, T))."""
+    b, t_len = odom.shape[:2]
+    u = _draws(ransac_u, (b, t_len), params, generator, ranges.device)
+    odom, ranges, hit, u = _time_major(odom, ranges, hit, u)
+    traj, scores = [], []
+    for t, occ_on in enumerate(_occ_flags(params, t_len)):
+        states, info, _ = feature_fuser.update_batch(
+            states, params, odom[t], ranges[t], hit[t], u[t],
+            occ_on=occ_on)
+        traj.append(states.base.Tnow)
+        scores.append(info.score)
+    return states, torch.stack(traj, 1), torch.stack(scores, 1)

@@ -8,6 +8,10 @@ state)` or a nested mapping — and build the port's dataclasses on
 resolve_device).  `to_numpy` goes back: a nested dict of numpy arrays under the
 same field names (the port's dataclasses use the JAX names).  The JAX
 FeatureFuserState's PRNG `key` has no port counterpart and is dropped.
+A fleet's stacked state (a leading (B,) on every field, as
+`jax.tree.map(jnp.stack, ...)` makes it) goes through
+`fuser_state_from_jax` / `feature_fuser_state_from_jax` as one stream's
+does, and comes back through `to_numpy` with the same leading (B,).
 A stacked (N, ...) JAX node bank goes through `node_from_jax` as one
 node does; link and edge indices become int64.  `graph_from_jax` loads a
 whole frozen JAX graph (bank, node poses, odometry edges) into a port

@@ -18,6 +18,11 @@ order, and writes (f, g, H) as 13 floats:
     flat (N*H*W, 8) node bank, each lane with its own row offset and its
     own cluster: the lockstep Newton of loop-closure link refinement.
     Plain twin: d2d_analytic.fgh_dense_flat_batch.
+  * `newton_objective_batch` — a fleet step's whole Newton trial: B
+    streams' objectives, every term per lane (its own source list, row
+    offset into the flat (B*H*W, 8) stack of the streams' tables,
+    feature lists and odometry information), one launch for all B.
+    Plain twin: `newton_objective_batch_reference`.
   * `pair_fgh_reduce` — the Pallas kernel's signature: masked sum of the
     pair derivatives of given pairs (`fgh_paired` on its own).  Plain
     twin: `pair_fgh_reduce_reference`.
@@ -58,7 +63,8 @@ NVCC_FLAGS = [
 
 # Launch counts per entry: incremented only where a kernel launches.
 LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
-            "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0}
+            "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
+            "newton_objective_batch": 0}
 
 
 _lib = None
@@ -112,7 +118,7 @@ def build():
         fn.argtypes = []
         fn.restype = I
     lib.ndtg_objective.argtypes = [
-        P, P, P, P, P, P, P, P, I, I, I, I, F, I,     # window term
+        P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,  # window term
         P, P, P, P, P, P, I,                          # paired term
         P, F, F, P, I, P,         # Q, lfd1, lfd2, out, cluster, stream
     ]
@@ -215,7 +221,7 @@ def _raise_on(err: int, entry: str):
 
 def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
                       h, w, res, n, lfd1, lfd2, feat_src=None,
-                      feat_tgt=None, Q=None):
+                      feat_tgt=None, Q=None, bf16_rows=False):
     """One launch of the objective kernel on checked CUDA tensors; None
     switches a term off.  d (B, 3) or (3,): returns the (B, 13) or (13,)
     output.  Counts the launch under `entry`."""
@@ -223,7 +229,7 @@ def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
     lib = build()
     n_lanes = d.shape[0] if d.dim() == 2 else 1
     n_src = src.mask.shape[-1] if src is not None else 0
-    n_feat = feat_src.mask.shape[0] if feat_src is not None else 0
+    n_feat = feat_src.mask.shape[-1] if feat_src is not None else 0
     out = torch.empty((*d.shape[:-1], 13), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     cells = lambda c: (  # noqa: E731
@@ -235,7 +241,8 @@ def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
         err = lib.ndtg_objective(
             d.data_ptr(), T0.data_ptr(), *cells(src), ptr(packed),
             ptr(origins), ptr(row_offsets), n_lanes, n_src, h, w,
-            float(res), n, *cells(feat_src), *cells(feat_tgt), n_feat,
+            float(res), n, int(bf16_rows), *cells(feat_src),
+            *cells(feat_tgt), n_feat,
             ptr(Q), float(lfd1), float(lfd2), out.data_ptr(),
             cluster, stream,
         )
@@ -249,7 +256,7 @@ def newton_objective_reference(d, T0, src: Optional[CellList], packed,
                                m: MatcherParams,
                                feat_src: Optional[CellList] = None,
                                feat_tgt: Optional[CellList] = None,
-                               Q=None):
+                               Q=None, bf16_rows: bool = False):
     """Plain PyTorch `newton_objective`: the sum, in this order, of the
     D2D window term (d2d_analytic.fgh_dense_flat), the paired feature
     term (d2d_analytic.paired_inputs through pair_fgh_reduce_reference)
@@ -258,17 +265,24 @@ def newton_objective_reference(d, T0, src: Optional[CellList], packed,
     terms = []
     if src is not None:
         terms.append(d2d_analytic.fgh_dense_flat(
-            d, T0, src, packed, origin, 0, h, w, res, m))
+            d, T0, src, packed, origin, 0, h, w, res, m, bf16_rows))
     if feat_src is not None:
         terms.append(pair_fgh_reduce_reference(
             *d2d_analytic.paired_inputs(d, T0, feat_src, feat_tgt),
             m.lfd1, m.lfd2))
     if Q is not None:
         terms.append(d2d_analytic.fgh_mahalanobis(d, Q))
+    return _sum_terms(terms, d)
+
+
+def _sum_terms(terms, d):
+    """The (f, g, H) terms added in their order; zeros of d's lanes if
+    there is none."""
     if not terms:
-        return (torch.zeros((), device=d.device),
-                torch.zeros(3, device=d.device),
-                torch.zeros((3, 3), device=d.device))
+        lead = d.shape[:-1]
+        return (torch.zeros(lead, device=d.device),
+                torch.zeros((*lead, 3), device=d.device),
+                torch.zeros((*lead, 3, 3), device=d.device))
     f, g, H = terms[0]
     for f_i, g_i, H_i in terms[1:]:
         f, g, H = f + f_i, g + g_i, H + H_i
@@ -278,20 +292,23 @@ def newton_objective_reference(d, T0, src: Optional[CellList], packed,
 def newton_objective(d, T0, src: Optional[CellList], packed, origin,
                      h: int, w: int, res: float, m: MatcherParams,
                      feat_src: Optional[CellList] = None,
-                     feat_tgt: Optional[CellList] = None, Q=None):
+                     feat_tgt: Optional[CellList] = None, Q=None,
+                     bf16_rows: bool = False):
     """(f, g (3,), H (3,3)) of one Newton trial's objective at increment
     d over initial pose T0: the D2D window cost of `src` against the
     packed (H*W, 8) table, plus the paired cost of the feature lists
     `feat_src` / `feat_tgt` (src[i] against tgt[i]), plus the odometry
     term d^T Q d — one kernel launch on CUDA tensors.  `src`, the
     feature lists (both or neither) and `Q` may each be None: that term
-    is off."""
+    is off.  `bf16_rows` reads the table rows as the reference's
+    bfloat16 gather table holds them (d2d.bf16_rows)."""
     if (feat_src is None) != (feat_tgt is None):
         raise ValueError("newton_objective: feat_src and feat_tgt go "
                          "together")
     if d.device.type == "cpu":
         return newton_objective_reference(d, T0, src, packed, origin, h, w,
-                                          res, m, feat_src, feat_tgt, Q)
+                                          res, m, feat_src, feat_tgt, Q,
+                                          bf16_rows)
     if d.device.type != "cuda":
         raise ValueError(f"newton_objective: unsupported device {d.device}")
     dev = d.device
@@ -312,7 +329,7 @@ def newton_objective(d, T0, src: Optional[CellList], packed, origin,
         "newton_objective", d, T0, src,
         packed if src is not None else None,
         origin if src is not None else None, None, h, w, res,
-        m.n_neighbours, m.lfd1, m.lfd2, feat_src, feat_tgt, Q)
+        m.n_neighbours, m.lfd1, m.lfd2, feat_src, feat_tgt, Q, bf16_rows)
     return _unpack13(out)
 
 
@@ -343,6 +360,89 @@ def fgh_dense_flat(d, T0, src: CellList, packed, origin, h: int, w: int,
 MAX_LANES = 65535     # gridDim.y of the batched launch
 
 
+def _check_lanes(entry, b):
+    if not 0 < b <= MAX_LANES:
+        raise ValueError(f"{entry}: {b} lanes, expected 1..{MAX_LANES}")
+
+
+def newton_objective_batch_reference(
+        d_b, T0_b, src_b: Optional[CellList], packed_flat, origins,
+        row_offsets, h: int, w: int, res: float, m: MatcherParams,
+        feat_src_b: Optional[CellList] = None,
+        feat_tgt_b: Optional[CellList] = None, Q_b=None,
+        bf16_rows: bool = False):
+    """Plain PyTorch `newton_objective_batch`: per lane the sum, in this
+    order, of the window term (d2d_analytic.fgh_dense_flat_batch), the
+    paired feature term of the lane's own lists (d2d_analytic.fgh_paired
+    over the lanes) and the lane's odometry term (f += d.Q.d, g +=
+    (Q+Q^T) d, H += Q+Q^T); None switches a term off."""
+    terms = []
+    if src_b is not None:
+        terms.append(d2d_analytic.fgh_dense_flat_batch(
+            d_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w, res,
+            m, bf16_rows))
+    if feat_src_b is not None:
+        terms.append(d2d_analytic.fgh_paired(d_b, T0_b, feat_src_b,
+                                             feat_tgt_b, m))
+    if Q_b is not None:
+        terms.append(d2d_analytic.fgh_mahalanobis(d_b, Q_b))
+    return _sum_terms(terms, d_b)
+
+
+def newton_objective_batch(
+        d_b, T0_b, src_b: Optional[CellList], packed_flat, origins,
+        row_offsets, h: int, w: int, res: float, m: MatcherParams,
+        feat_src_b: Optional[CellList] = None,
+        feat_tgt_b: Optional[CellList] = None, Q_b=None,
+        bf16_rows: bool = False):
+    """(f (B,), g (B, 3), H (B, 3, 3)) of one Newton trial of B streams:
+    lane b's objective at increment d_b[b] over pose T0_b[b] is the D2D
+    window cost of src_b[b] against the rows of the flat (R, 8) stack of
+    packed tables from row_offsets[b] (int64) on, with grid origin
+    origins[b], plus the paired cost of its own feature lists
+    feat_src_b[b] / feat_tgt_b[b] ((B, C) cells), plus its odometry term
+    with Q_b[b] ((B, 3, 3)) — one kernel launch for all B lanes on CUDA
+    tensors, a cluster per lane.  `src_b`, the feature lists (both or
+    neither) and `Q_b` may each be None: that term is off.  `bf16_rows`
+    reads the table rows as the reference's bfloat16 gather table holds
+    them (d2d.bf16_rows)."""
+    if (feat_src_b is None) != (feat_tgt_b is None):
+        raise ValueError("newton_objective_batch: feat_src_b and "
+                         "feat_tgt_b go together")
+    args = (d_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w, res,
+            m, feat_src_b, feat_tgt_b, Q_b, bf16_rows)
+    if d_b.device.type == "cpu":
+        return newton_objective_batch_reference(*args)
+    if d_b.device.type != "cuda":
+        raise ValueError(
+            f"newton_objective_batch: unsupported device {d_b.device}")
+    dev = d_b.device
+    f32 = torch.float32
+    if d_b.dim() != 2:
+        raise ValueError(f"d_b: shape {tuple(d_b.shape)}, expected (B, 3)")
+    b = d_b.shape[0]
+    _check_lanes("newton_objective_batch", b)
+    _check("d_b", d_b, f32, (b, 3), dev)
+    _check("T0_b", T0_b, f32, (b, 3), dev)
+    if src_b is not None:
+        _check_cells("src_b", src_b, (b, src_b.mask.shape[-1]), dev)
+        _check_table("packed_flat", packed_flat, packed_flat.shape[0], dev)
+        _check("origins", origins, f32, (b, 2), dev)
+        _check("row_offsets", row_offsets, torch.int64, (b,), dev)
+    if feat_src_b is not None:
+        lead = (b, feat_src_b.mask.shape[-1])
+        _check_cells("feat_src_b", feat_src_b, lead, dev)
+        _check_cells("feat_tgt_b", feat_tgt_b, lead, dev)
+    if Q_b is not None:
+        _check("Q_b", Q_b, f32, (b, 3, 3), dev)
+    on = src_b is not None
+    return _unpack13(_launch_objective(
+        "newton_objective_batch", d_b, T0_b, src_b,
+        packed_flat if on else None, origins if on else None,
+        row_offsets if on else None, h, w, res, m.n_neighbours, m.lfd1,
+        m.lfd2, feat_src_b, feat_tgt_b, Q_b, bf16_rows))
+
+
 def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
                          row_offsets, h: int, w: int, res: float, n: int,
                          lfd1: float, lfd2: float):
@@ -368,9 +468,7 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
     _check_table("packed_flat", packed_flat, packed_flat.shape[0], dev)
     _check("origins", origins, f32, (b, 2), dev)
     _check("row_offsets", row_offsets, torch.int64, (b,), dev)
-    if not 0 < b <= MAX_LANES:
-        raise ValueError(f"fgh_dense_flat_batch: {b} lanes, expected "
-                         f"1..{MAX_LANES}")
+    _check_lanes("fgh_dense_flat_batch", b)
     return _unpack13(_launch_objective(
         "fgh_dense_flat_batch", d_b, T0_b, src_b, packed_flat, origins,
         row_offsets, h, w, res, n, lfd1, lfd2))

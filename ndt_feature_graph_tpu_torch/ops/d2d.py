@@ -42,49 +42,81 @@ def pack_rows(mean, cov, valid):
     )
 
 
+_EMPTY_ROW = {}       # device -> the packed row of an empty cell
+
+
 def empty_pack_row(device):
     """The packed row of a never-observed cell (what finalize_stats gives
-    zero statistics)."""
-    return torch.tensor([0.0, 0.0, 1e-3, 0.0, 1e-3, 0.0, 0.0, 0.0],
-                        dtype=torch.float32, device=device)
+    zero statistics): the fill of ndt_map.recenter_with_aux.  Made once
+    per device, so a scan makes no host-to-device copy."""
+    device = torch.device(device)
+    row = _EMPTY_ROW.get(device)
+    if row is None:
+        row = torch.tensor([0.0, 0.0, 1e-3, 0.0, 1e-3, 0.0, 0.0, 0.0],
+                           dtype=torch.float32, device=device)
+        _EMPTY_ROW[device] = row
+    return row
 
 
 def packed_from_grid(grid: ndt_map.NDTGrid, params: NDTMapParams):
-    """Full (H*W, 8) packed table from a grid."""
+    """Full (..., H*W, 8) packed table from a grid (a stack of grids)."""
     mean, cov, valid = ndt_map.finalize(grid, params)
-    return pack_rows(mean, cov, valid).reshape(-1, 8)
+    return pack_rows(mean, cov, valid).flatten(-3, -2)
 
 
 def refresh_packed(packed, grid: ndt_map.NDTGrid, params: NDTMapParams,
                    flat_idx):
     """Re-finalize only the packed rows of the cells a scan touched
-    (`flat_idx` from add_points_touched, sentinel h*w for dropped
-    points).  The sentinel is clamped onto cell h*w-1, whose row is then
-    rewritten with its own current value — exact, no extra buffer.
-    Duplicate indices write identical rows."""
+    (`flat_idx` (..., P) from add_points_touched, sentinel h*w for
+    dropped points; leading dims index a stack of grids and tables).
+    The sentinel is clamped onto cell h*w-1, whose row is then rewritten
+    with its own current value — exact, no extra buffer.  Duplicate
+    indices write identical rows."""
     h, w = params.grid_h, params.grid_w
     fi = flat_idx.clamp(max=h * w - 1)
-    n = grid.count.reshape(-1)[fi]
-    ps = grid.psum.reshape(-1, 2)[fi]
-    op = grid.outer.reshape(-1, 2, 2)[fi]
-    mean, cov, valid = ndt_map.finalize_stats(n, ps, op, params)
-    return packed.index_copy(0, fi, pack_rows(mean, cov, valid))
+    mean, cov, valid = ndt_map.finalize_stats(
+        *ndt_map._stats_at(grid, fi), params)
+    rows = (fi + ndt_map._stream_offsets(fi.shape[:-1], h * w,
+                                         fi.device)).reshape(-1)
+    return packed.reshape(-1, 8).index_copy(
+        0, rows, pack_rows(mean, cov, valid).reshape(-1, 8)
+    ).reshape(packed.shape)
+
+
+def bf16_rows(rows, cx, cy):
+    """Packed rows (..., 8) as the reference's bfloat16 table holds
+    them: the two mean channels made relative to the cell's world centre
+    (cx, cy), all 8 channels rounded to bfloat16 (to nearest even), and
+    the centre added back in float32."""
+    rel = torch.cat([(rows[..., 0] - cx)[..., None],
+                     (rows[..., 1] - cy)[..., None], rows[..., 2:]], -1)
+    q = rel.to(torch.bfloat16).to(torch.float32)
+    return torch.cat([(q[..., 0] + cx)[..., None],
+                      (q[..., 1] + cy)[..., None], q[..., 2:]], -1)
 
 
 def gather_windows_flat(packed_flat, h: int, w: int, iy0, ix0, n: int,
-                        row_offset=0):
+                        row_offset=0, bf16_cells=None):
     """Window gather against a flat packed table.  Returns (t_means
     (..., K, 2), t_covs (..., K, 2, 2), t_valid (..., K)), K = (2n+1)^2;
     a window cell off the grid is clamped for the read and masked.  The
     window is dy-major (k = (dy+n)*(2n+1) + dx+n), as in the reference's
-    gather and the kernel."""
+    gather and the kernel.  `bf16_cells` = (origin broadcastable to
+    (..., 2), resolution) switches the bfloat16 row mode on (bf16_rows):
+    a cell's centre is origin + (cell index + 0.5) * resolution."""
     offs = torch.arange(-n, n + 1, device=iy0.device)
     dy, dx = offs.repeat_interleave(2 * n + 1), offs.repeat(2 * n + 1)
     iy = iy0[..., None] + dy
     ix = ix0[..., None] + dx
     inb = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-    flat = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
-    rows = packed_flat[row_offset + flat]
+    iyc, ixc = iy.clamp(0, h - 1), ix.clamp(0, w - 1)
+    rows = packed_flat[row_offset + (iyc * w + ixc)]
+    if bf16_cells is not None:
+        origin, res = bf16_cells
+        rows = bf16_rows(
+            rows,
+            origin[..., 0, None] + (ixc.to(torch.float32) + 0.5) * res,
+            origin[..., 1, None] + (iyc.to(torch.float32) + 0.5) * res)
     c00, c01, c11 = rows[..., 2], rows[..., 3], rows[..., 4]
     t_covs = torch.stack(
         [torch.stack([c00, c01], -1), torch.stack([c01, c11], -1)], -2

@@ -148,19 +148,23 @@ def window_cells(d, T0, src: CellList, origin, resolution: float):
 
 
 def fgh_dense_flat(d, T0, src: CellList, packed_flat, origin, row_offset,
-                   h: int, w: int, resolution: float, m: MatcherParams):
+                   h: int, w: int, resolution: float, m: MatcherParams,
+                   bf16_rows: bool = False):
     """Analytic (score, grad, Hessian) of the D2D window cost of `src`
-    moved by d ∘ T0 against the flat packed table at `row_offset`."""
+    moved by d ∘ T0 against the flat packed table at `row_offset`;
+    `bf16_rows` reads the rows as the reference's bfloat16 table holds
+    them (d2d.bf16_rows)."""
     moved, iy0, ix0 = window_cells(d, T0, src, origin, resolution)
     t_means, t_covs, t_valid = d2d.gather_windows_flat(
-        packed_flat, h, w, iy0, ix0, m.n_neighbours, row_offset
+        packed_flat, h, w, iy0, ix0, m.n_neighbours, row_offset,
+        (origin[None], resolution) if bf16_rows else None,
     )
     return _fgh_reduce(d, moved, t_means, t_covs, t_valid, m)
 
 
 def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
                          row_offsets, h: int, w: int, resolution: float,
-                         m: MatcherParams):
+                         m: MatcherParams, bf16_rows: bool = False):
     """fgh_dense_flat for B lanes at once, each with its own increment
     d_b (B, 3), initial pose T0_b (B, 3), source cells src_b (B, N, ...),
     target origin origins (B, 2) and row offset row_offsets (B,) into
@@ -171,31 +175,37 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
     t_means, t_covs, t_valid = d2d.gather_windows_flat(
         packed_flat, h, w, iy0, ix0, m.n_neighbours,
         row_offsets.to(torch.int64)[:, None, None],
+        (origins[:, None, :], resolution) if bf16_rows else None,
     )
     return _fgh_reduce(d_b, moved, t_means, t_covs, t_valid, m)
 
 
 def paired_inputs(d, T0, src: CellList, tgt: CellList):
     """Pair inputs (mu, Sig, m_rot, Crot, ok) of the correspondence-
-    restricted cost: src[i] scores only against tgt[i]."""
+    restricted cost: src[i] scores only against tgt[i].  Leading dims of
+    d, T0 and the lists are lanes."""
     moved = src.transform(d2d._apply_increment(d, T0))
     return (
         moved.means - tgt.means,
         moved.covs + tgt.covs,
-        moved.means - d[:2],
+        moved.means - d[..., None, :2],
         moved.covs,
         src.mask & tgt.mask,
     )
 
 
 def fgh_paired(d, T0, src: CellList, tgt: CellList, m: MatcherParams):
-    """Analytic (score, grad, Hessian) of the paired cost."""
+    """Analytic (score, grad, Hessian) of the paired cost, summed over
+    the pairs of each lane."""
     mu, Sig, m_rot, Crot, ok = paired_inputs(d, T0, src, tgt)
     s, g, H = _pair_fgh(mu, Sig, m_rot, Crot, m.lfd1, m.lfd2)
-    return _masked_sum(s, g, H, ok)
+    return _masked_sum(s, g, H, ok, 1)
 
 
 def fgh_mahalanobis(d, Q):
-    """(d^T Q d, (Q+Q^T) d, Q+Q^T) — the soft odometry constraint."""
-    Qs = Q + Q.T
-    return d @ Q @ d, Qs @ d, Qs
+    """(d^T Q d, (Q+Q^T) d, Q+Q^T) — the soft odometry constraint, per
+    lane over leading dims."""
+    Qs = Q + Q.transpose(-1, -2)
+    if d.dim() == 1:
+        return d @ Q @ d, Qs @ d, Qs
+    return (torch.einsum("...i,...ij,...j->...", d, Q, d), _mv(Qs, d), Qs)

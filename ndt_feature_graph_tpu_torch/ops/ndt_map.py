@@ -12,11 +12,18 @@ Differences from the JAX reference, by construction:
     adjacent difference + cumsum-scatter compaction at the static
     capacity, with the reference's ascending order and fill values —
     no data-dependent shapes, no device sync.
+  * No vmap: every function takes a stack of grids (leading stream
+    dimensions on every field) and scatters once into the flattened
+    stack with a per-stream offset, so a fleet step costs one scatter,
+    not one per stream.  Per stream the additions keep their order.
+  * `recenter` shifts by a device integer with an index gather
+    (`torch.roll` takes host integers, which would cost a host read).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -26,22 +33,23 @@ from ndt_feature_graph_tpu_torch.core import se2
 
 @dataclasses.dataclass
 class NDTGrid:
-    """Dense NDT submap. origin = world coords of the (0, 0) cell corner."""
+    """Dense NDT submap. origin = world coords of the (0, 0) cell corner.
+    A stack of grids carries leading stream dimensions on every field."""
 
-    origin: torch.Tensor     # (2,)
-    count: torch.Tensor      # (H, W)
-    psum: torch.Tensor       # (H, W, 2)
-    outer: torch.Tensor      # (H, W, 2, 2)
-    occ: torch.Tensor        # (H, W) log-odds occupancy
+    origin: torch.Tensor     # (..., 2)
+    count: torch.Tensor      # (..., H, W)
+    psum: torch.Tensor       # (..., H, W, 2)
+    outer: torch.Tensor      # (..., H, W, 2, 2)
+    occ: torch.Tensor        # (..., H, W) log-odds occupancy
 
 
 @dataclasses.dataclass
 class CellList:
     """Compact padded view of gaussians (registration sources)."""
 
-    means: torch.Tensor      # (N, 2)
-    covs: torch.Tensor       # (N, 2, 2)
-    mask: torch.Tensor       # (N,) bool
+    means: torch.Tensor      # (..., N, 2)
+    covs: torch.Tensor       # (..., N, 2, 2)
+    mask: torch.Tensor       # (..., N) bool
 
     def transform(self, pose):
         """mean' = T mean, cov' = R cov R^T."""
@@ -52,27 +60,50 @@ class CellList:
         )
 
     def head(self, n: int) -> "CellList":
-        return CellList(self.means[:n], self.covs[:n], self.mask[:n])
+        """The first `n` cells (of each list of a stack), contiguous."""
+        return CellList(self.means[..., :n, :].contiguous(),
+                        self.covs[..., :n, :, :].contiguous(),
+                        self.mask[..., :n].contiguous())
+
+
+def take_rows(x, idx):
+    """Per-stream gather of rows: x (*L, R, *r), idx (*L, M) -> (*L, M,
+    *r) with out[..., k, :] = x[..., idx[..., k], :]."""
+    nl = idx.dim() - 1
+    if nl == 0:
+        return x[idx]
+    rest = x.shape[nl + 1:]
+    ix = idx.reshape(idx.shape + (1,) * len(rest))
+    return torch.gather(x, nl, ix.expand(idx.shape + rest))
+
+
+def _stream_offsets(lead, stride: int, device):
+    """(*lead, 1) offsets of each stream's block of `stride` rows in the
+    flattened stack ((1,) zeros for a single grid)."""
+    n = math.prod(lead)
+    return (torch.arange(n, device=device) * stride).reshape(*lead, 1)
 
 
 def empty_grid(params: NDTMapParams, center) -> NDTGrid:
-    """Empty grid centred on `center` (2,) world coords (a tensor: the
-    grid lives on its device)."""
+    """Empty grid centred on `center` (..., 2) world coords (a tensor:
+    the grid lives on its device; leading dims give a stack of grids)."""
     h, w = params.grid_h, params.grid_w
     center = center.to(torch.float32)
+    lead = center.shape[:-1]
     z = dict(dtype=torch.float32, device=center.device)
     return NDTGrid(
-        origin=torch.stack([center[0] - params.size_x / 2.0,
-                            center[1] - params.size_y / 2.0]),
-        count=torch.zeros((h, w), **z),
-        psum=torch.zeros((h, w, 2), **z),
-        outer=torch.zeros((h, w, 2, 2), **z),
-        occ=torch.zeros((h, w), **z),
+        origin=torch.stack([center[..., 0] - params.size_x / 2.0,
+                            center[..., 1] - params.size_y / 2.0], -1),
+        count=torch.zeros((*lead, h, w), **z),
+        psum=torch.zeros((*lead, h, w, 2), **z),
+        outer=torch.zeros((*lead, h, w, 2, 2), **z),
+        occ=torch.zeros((*lead, h, w), **z),
     )
 
 
 def cell_index(params: NDTMapParams, origin, pts):
-    """Point (..., 2) -> (iy, ix) integer cell coords (floor(p/res))."""
+    """Point (..., 2) -> (iy, ix) integer cell coords (floor(p/res));
+    `origin` broadcasts against `pts`."""
     rel = (pts - origin) / params.resolution
     ix = torch.floor(rel[..., 0]).to(torch.int32)
     iy = torch.floor(rel[..., 1]).to(torch.int32)
@@ -86,10 +117,11 @@ def in_bounds(params: NDTMapParams, iy, ix):
 
 
 def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
-    """Scatter a masked point batch (P, 2) into the sufficient statistics
-    and return the touched flat cell indices (sentinel h*w for dropped
-    points)."""
-    iy, ix = cell_index(params, grid.origin, pts)
+    """Scatter a masked point batch (..., P, 2) into the sufficient
+    statistics of a grid (or a stack of grids, one per leading index)
+    and return the touched flat cell indices (..., P) within each grid
+    (sentinel h*w for dropped points)."""
+    iy, ix = cell_index(params, grid.origin[..., None, :], pts)
     # NaN guard: int casts of NaN are platform-defined and can pass the
     # bounds check.
     finite = torch.isfinite(pts).all(-1)
@@ -99,15 +131,16 @@ def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
     ptsm = torch.where(ok[..., None], pts, 0.0)
     # Dropped points carry zero contributions: clamp their index onto a
     # real cell instead of the reference's mode="drop".
-    fi = flat.clamp(max=h * w - 1)
+    fi = (flat.clamp(max=h * w - 1) + _stream_offsets(
+        pts.shape[:-2], h * w, pts.device)).reshape(-1)
     count = grid.count.reshape(-1).index_add(
-        0, fi, ok.to(grid.count.dtype)
-    ).reshape(h, w)
-    psum = grid.psum.reshape(-1, 2).index_add(0, fi, ptsm).reshape(h, w, 2)
+        0, fi, ok.reshape(-1).to(grid.count.dtype)
+    ).reshape(grid.count.shape)
+    psum = grid.psum.reshape(-1, 2).index_add(
+        0, fi, ptsm.reshape(-1, 2)).reshape(grid.psum.shape)
     op = ptsm[..., :, None] * ptsm[..., None, :]
-    outer = grid.outer.reshape(-1, 2, 2).index_add(0, fi, op).reshape(
-        h, w, 2, 2
-    )
+    outer = grid.outer.reshape(-1, 2, 2).index_add(
+        0, fi, op.reshape(-1, 2, 2)).reshape(grid.outer.shape)
     return dataclasses.replace(grid, count=count, psum=psum,
                                outer=outer), flat
 
@@ -121,31 +154,35 @@ def update_occupancy(grid: NDTGrid, params: NDTMapParams, sensor_origin,
                      pts, mask) -> NDTGrid:
     """Log-odds occupancy along beams: endpoint cells get `occ_hit`,
     cells sampled along the ray (`ray_samples` per beam) get
-    `occ_miss`."""
+    `occ_miss`.  sensor_origin (..., 2), pts (..., P, 2), mask (..., P):
+    leading dims index a stack of grids."""
     h, w = params.grid_h, params.grid_w
-    iy, ix = cell_index(params, grid.origin, pts)
+    iy, ix = cell_index(params, grid.origin[..., None, :], pts)
     mask = mask & torch.isfinite(pts).all(-1)
     ok = mask & in_bounds(params, iy, ix)
     flat = torch.where(ok, iy * w + ix, h * w - 1).to(torch.int64)
 
     s = (torch.arange(params.ray_samples, device=pts.device,
                       dtype=torch.float32) + 0.5) / params.ray_samples
-    ray = sensor_origin[None, None, :] + s[None, :, None] * (
-        pts[:, None, :] - sensor_origin[None, None, :]
-    )  # (P, S, 2)
-    riy, rix = cell_index(params, grid.origin, ray)
-    rok = mask[:, None] & in_bounds(params, riy, rix)
-    rok = rok & ~((riy == iy[:, None]) & (rix == ix[:, None]))
-    rflat = torch.where(rok, riy * w + rix, h * w - 1).reshape(-1).to(
+    so = sensor_origin[..., None, None, :]
+    ray = so + s[:, None] * (pts[..., :, None, :] - so)   # (..., P, S, 2)
+    riy, rix = cell_index(params, grid.origin[..., None, None, :], ray)
+    rok = mask[..., None] & in_bounds(params, riy, rix)
+    rok = rok & ~((riy == iy[..., None]) & (rix == ix[..., None]))
+    rflat = torch.where(rok, riy * w + rix, h * w - 1).flatten(-2).to(
         torch.int64
     )
+    offs = _stream_offsets(pts.shape[:-2], h * w, pts.device)
     # Masked entries add exactly zero onto a clamped index.
     occ = grid.occ.reshape(-1).index_add(
-        0, flat, torch.where(ok, params.occ_hit, 0.0)
+        0, (flat + offs).reshape(-1),
+        torch.where(ok, params.occ_hit, 0.0).reshape(-1)
     ).index_add(
-        0, rflat, torch.where(rok.reshape(-1), params.occ_miss, 0.0)
+        0, (rflat + offs).reshape(-1),
+        torch.where(rok, params.occ_miss, 0.0).reshape(-1)
     )
-    occ = occ.reshape(h, w).clamp(-params.occ_clamp, params.occ_clamp)
+    occ = occ.reshape(grid.occ.shape).clamp(-params.occ_clamp,
+                                            params.occ_clamp)
     return dataclasses.replace(grid, occ=occ)
 
 
@@ -207,62 +244,117 @@ def finalize(grid: NDTGrid, params: NDTMapParams):
 
 
 def nonzero_fixed(flags, size: int, fill_value: int):
-    """`jnp.nonzero(flags, size=size, fill_value=fill_value)[0]` for a
-    1-D bool tensor: ascending positions of the set entries, padded with
-    `fill_value` — by cumsum-scatter compaction into a buffer with one
-    sentinel slot (no data-dependent shape)."""
-    n = flags.shape[0]
-    pos = torch.cumsum(flags.to(torch.int64), 0) - 1
+    """`jnp.nonzero(flags, size=size, fill_value=fill_value)[0]` along
+    the last dim of a bool tensor: ascending positions of the set
+    entries, padded with `fill_value` — by cumsum-scatter compaction
+    into a buffer with one sentinel slot (no data-dependent shape)."""
+    n = flags.shape[-1]
+    pos = torch.cumsum(flags.to(torch.int64), -1) - 1
     slot = torch.where(flags & (pos < size), pos, size)
-    out = torch.full((size + 1,), fill_value, dtype=torch.int64,
-                     device=flags.device)
-    out.scatter_(0, slot, torch.arange(n, device=flags.device))
-    return out[:size]
+    out = torch.full((*flags.shape[:-1], size + 1), fill_value,
+                     dtype=torch.int64, device=flags.device)
+    out.scatter_(-1, slot, torch.arange(n, device=flags.device).expand_as(
+        slot))
+    return out[..., :size]
 
 
 def unique_fixed(values, size: int, fill_value: int):
-    """`jnp.unique(values, size=size, fill_value=fill_value)` for a 1-D
-    integer tensor: the ascending distinct values, padded with
-    `fill_value` — sort, keep the first of each run, compact."""
-    srt = torch.sort(values).values
+    """`jnp.unique(values, size=size, fill_value=fill_value)` along the
+    last dim of an integer tensor: the ascending distinct values, padded
+    with `fill_value` — sort, keep the first of each run, compact."""
+    srt = torch.sort(values, dim=-1).values
     first = torch.ones_like(srt, dtype=torch.bool)
-    first[1:] = srt[1:] != srt[:-1]
-    pos = torch.cumsum(first.to(torch.int64), 0) - 1
+    first[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    pos = torch.cumsum(first.to(torch.int64), -1) - 1
     slot = torch.where(first & (pos < size), pos, size)
-    out = torch.full((size + 1,), fill_value, dtype=srt.dtype,
-                     device=srt.device)
-    out.scatter_(0, slot, srt)
-    return out[:size]
+    out = torch.full((*srt.shape[:-1], size + 1), fill_value,
+                     dtype=srt.dtype, device=srt.device)
+    out.scatter_(-1, slot, srt)
+    return out[..., :size]
 
 
 def to_cell_list(grid: NDTGrid, params: NDTMapParams) -> CellList:
-    """Compact the valid gaussians into a fixed-capacity padded list."""
+    """Compact the valid gaussians (of each grid of a stack) into a
+    fixed-capacity padded list."""
     mean, cov, valid = finalize(grid, params)
     h, w = params.grid_h, params.grid_w
-    flat_valid = valid.reshape(-1)
+    flat_valid = valid.flatten(-2)
     idx = nonzero_fixed(flat_valid, params.max_cells, h * w - 1)
-    got = torch.arange(params.max_cells, device=idx.device) < flat_valid.sum()
+    got = torch.arange(params.max_cells, device=idx.device) < (
+        flat_valid.sum(-1, keepdim=True))
     return CellList(
-        means=mean.reshape(-1, 2)[idx],
-        covs=cov.reshape(-1, 2, 2)[idx],
+        means=take_rows(mean.flatten(-3, -2), idx),
+        covs=take_rows(cov.flatten(-4, -3), idx),
         mask=got,
     )
+
+
+def _stats_at(grid: NDTGrid, idx):
+    """(count, psum, outer) of the flat cells `idx` (..., M) of each
+    grid."""
+    return (take_rows(grid.count.flatten(-2), idx),
+            take_rows(grid.psum.flatten(-3, -2), idx),
+            take_rows(grid.outer.flatten(-4, -3), idx))
 
 
 def to_cell_list_touched(grid: NDTGrid, params: NDTMapParams,
                          flat_touched) -> CellList:
     """to_cell_list for a grid built from ONE scan: finalize and compact
     only the unique touched candidates (same cells, same ascending
-    order as to_cell_list whenever they fit max_cells)."""
+    order as to_cell_list whenever they fit max_cells; the padded rows
+    differ)."""
     h, w = params.grid_h, params.grid_w
     cap = params.max_cells
     cand = unique_fixed(flat_touched, cap, h * w)
-    safe = cand.clamp(max=h * w - 1)
-    n = grid.count.reshape(-1)[safe]
-    ps = grid.psum.reshape(-1, 2)[safe]
-    op = grid.outer.reshape(-1, 2, 2)[safe]
-    mean, cov, valid = finalize_stats(n, ps, op, params)
+    mean, cov, valid = finalize_stats(
+        *_stats_at(grid, cand.clamp(max=h * w - 1)), params)
     valid = valid & (cand < h * w)
     idx = nonzero_fixed(valid, cap, cap - 1)
-    got = torch.arange(cap, device=idx.device) < valid.sum()
-    return CellList(means=mean[idx], covs=cov[idx], mask=got)
+    got = torch.arange(cap, device=idx.device) < valid.sum(-1, keepdim=True)
+    return CellList(means=take_rows(mean, idx), covs=take_rows(cov, idx),
+                    mask=got)
+
+
+def recenter_with_aux(grid: NDTGrid, params: NDTMapParams, new_center,
+                      aux=None, aux_fill=None):
+    """Shift the grid window (each window of a stack) by whole cells so
+    it is centred, to cell quantization, on `new_center` (..., 2) world
+    coords — the rolling map.  Cells that stay inside keep their
+    statistics and occupancy exactly, cells off the trailing edge are
+    dropped, newly exposed cells start empty.  An optional companion
+    (..., H*W, C) per-cell table `aux` (the fuser's packed table) moves
+    in lockstep, exposed rows set to `aux_fill` (C,).  The shift is a
+    device integer applied as an index gather: no host read; a zero
+    shift is an exact no-op.  Returns (grid, aux or None)."""
+    res = params.resolution
+    h, w = params.grid_h, params.grid_w
+    dev = grid.origin.device
+    cur_center = torch.stack([grid.origin[..., 0] + params.size_x / 2.0,
+                              grid.origin[..., 1] + params.size_y / 2.0], -1)
+    shift = torch.round((new_center.to(grid.origin.dtype) - cur_center)
+                        / res).to(torch.int64)         # (..., 2) = (sx, sy)
+    new_origin = grid.origin + shift.to(grid.origin.dtype) * res
+    # The cell at new index (iy, ix) held old index (iy + sy, ix + sx).
+    iy = torch.arange(h, device=dev)[:, None] + shift[..., 1, None, None]
+    ix = torch.arange(w, device=dev)[None, :] + shift[..., 0, None, None]
+    keep = ((iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)).flatten(-2)
+    src = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).flatten(-2)
+
+    def mv(a, fill=0.0):
+        """a (..., H*W, *r) moved; exposed cells get `fill`."""
+        k = keep.reshape(keep.shape + (1,) * (a.dim() - keep.dim()))
+        return torch.where(k, take_rows(a, src), fill)
+
+    g = NDTGrid(
+        origin=new_origin,
+        count=mv(grid.count.flatten(-2)).reshape(grid.count.shape),
+        psum=mv(grid.psum.flatten(-3, -2)).reshape(grid.psum.shape),
+        outer=mv(grid.outer.flatten(-4, -3)).reshape(grid.outer.shape),
+        occ=mv(grid.occ.flatten(-2)).reshape(grid.occ.shape),
+    )
+    return g, None if aux is None else mv(aux, aux_fill)
+
+
+def recenter(grid: NDTGrid, params: NDTMapParams, new_center) -> NDTGrid:
+    """recenter_with_aux without a companion table."""
+    return recenter_with_aux(grid, params, new_center)[0]

@@ -1,0 +1,198 @@
+"""Fleet serving on one device (port of
+ndt_feature_graph_tpu/parallel/scaling.py): fleet inputs, the grouped and
+the interleaved serving schedules over scan_driver.run_sequence_batch,
+and the throughput measurement.
+
+A fleet is B independent scan streams whose state is one FuserState (or
+FeatureFuserState) with a leading (B,) on every field.  The inputs
+replicate one recorded sequence with a per-stream odometry jitter, as
+the reference's do; the sequence comes in loaded (io.dataset.Sequence)
+instead of being simulated here: the reference's simulator draws from
+its own random generator.  Sharding a fleet over several devices is not
+ported: `measure_fleet_throughput(n_devices > 1)` raises.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ndt_feature_graph_tpu_torch.config import FuserParams
+from ndt_feature_graph_tpu_torch.fusion import (
+    feature_fuser, fuser, scan_driver,
+)
+from ndt_feature_graph_tpu_torch.graph.node import map_tensors
+from ndt_feature_graph_tpu_torch.io import dataset
+from ndt_feature_graph_tpu_torch.io.dataset import Sequence
+
+
+def replicate(tree, n: int):
+    """A state (or any nested dataclass of tensors) stacked `n` times
+    along a new leading stream dimension."""
+    return map_tensors(lambda x: x.expand(n, *x.shape).contiguous(), tree)
+
+
+def _stream_inputs(seq: Sequence, n_streams: int, *per_scan):
+    """Scans 1.. of `seq` replicated over the streams: the odometry with
+    the per-stream jitter 1e-4 * stream index on every component (so the
+    streams are distinct work), and each of `per_scan` as it is."""
+    dev = seq.odom.device
+    jitter = 1e-4 * torch.arange(n_streams, device=dev)[:, None, None]
+    odom = seq.odom[1:].expand(n_streams, -1, -1) + jitter
+    return (odom, *(x[1:].expand(n_streams, *x[1:].shape).contiguous()
+                    for x in per_scan))
+
+
+def build_fleet_inputs(params: FuserParams, seq: Sequence, n_streams: int):
+    """Inputs of the points-only fleet driver from a (T, ...) sequence:
+    (states, odom (B, T-1, 3), pts (B, T-1, P, 2), mask (B, T-1, P)),
+    every stream initialized on scan 0 at the sequence's first pose."""
+    pts_all, mask_all = dataset.scan_to_points(seq.ranges, seq.hit)
+    zero = torch.zeros(3, device=seq.odom.device)
+    state = fuser.initialize(params, seq.gt[0], zero, pts_all[0],
+                             mask_all[0])
+    return (replicate(state, n_streams),
+            *_stream_inputs(seq, n_streams, pts_all, mask_all))
+
+
+def build_fleet_feature_inputs(params: FuserParams, seq: Sequence,
+                               n_streams: int):
+    """Inputs of the full-pipeline fleet driver: (states, odom (B, T-1,
+    3), ranges (B, T-1, beams), hit (B, T-1, beams)).  The streams'
+    RANSAC draws are an argument of run_sequence_features_batch."""
+    zero = torch.zeros(3, device=seq.odom.device)
+    state = feature_fuser.initialize(params, seq.gt[0], zero, seq.ranges[0],
+                                     seq.hit[0])
+    return (replicate(state, n_streams),
+            *_stream_inputs(seq, n_streams, seq.ranges, seq.hit))
+
+
+def _leaves(tree):
+    out = []
+    map_tensors(out.append, tree)
+    return out
+
+
+def digest(*trees):
+    """A scalar that depends on every tensor of `trees`: reading it back
+    forces all the work that produced them."""
+    return sum(x.to(torch.float32).sum() for t in trees for x in _leaves(t))
+
+
+def measure_fleet_throughput(params: FuserParams, seq: Sequence,
+                             n_devices: int = 1, streams_per_device: int = 4,
+                             reps: int = 5):
+    """Sustained aggregate scans/s of run_sequence_batch over
+    n_devices * streams_per_device streams of `seq`.  Each repetition
+    perturbs the odometry, ends in a readback of a digest of every
+    output and a device synchronisation; one forced warm-up first.
+    Returns (scans_per_sec at the median time, sorted times)."""
+    if n_devices != 1:
+        raise NotImplementedError(
+            "a fleet sharded over several devices is not ported "
+            "(ROADMAP.md queue 1, the multi-device item)")
+    n_streams = n_devices * streams_per_device
+    states, odom, pts, mask = build_fleet_inputs(params, seq, n_streams)
+
+    def run(odom_k):
+        out = scan_driver.run_sequence_batch(params, states, odom_k, pts,
+                                             mask)
+        value = float(digest(*out))
+        if odom.device.type == "cuda":
+            torch.cuda.synchronize(odom.device)
+        return value
+
+    run(odom)
+    times = []
+    for k in range(reps):
+        odom_k = odom + (k + 1) * 1e-5
+        t0 = time.perf_counter()
+        run(odom_k)
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return n_streams * odom.shape[1] / times[len(times) // 2], times
+
+
+def scaling_report(params: FuserParams, seq: Sequence, device_counts=(1,),
+                   **kw):
+    """Throughput + efficiency table over device counts."""
+    rows = []
+    base = None
+    for n in device_counts:
+        sps, _ = measure_fleet_throughput(params, seq, n, **kw)
+        if base is None:
+            base = sps / n
+        rows.append({"devices": n, "scans_per_sec": round(sps, 1),
+                     "efficiency": round(sps / (n * base), 3)})
+    return rows
+
+
+def _groups(b: int, group_size: int):
+    return [(s, min(s + group_size, b)) for s in range(0, b, group_size)]
+
+
+def _take(x, s: int, e: int, group_size: int):
+    """Streams s..e of x, padded to `group_size` by replicating stream
+    s (the group's first)."""
+    pad = group_size - (e - s)
+    sl = x[s:e]
+    if pad:
+        sl = torch.cat([sl, x[s:s + 1].expand(pad, *x.shape[1:])])
+    return sl
+
+
+def serve_fleet_grouped(params: FuserParams, states, odom, pts, mask,
+                        group_size: int = 8):
+    """Serve a fleet of independent scan streams in groups of
+    `group_size` through scan_driver.run_sequence_batch, each group over
+    its whole sequence before the next starts (the last partial group is
+    padded by replicating its first stream, the padding's outputs
+    dropped).  Fine for batch replay; for live serving use
+    serve_fleet_interleaved.  Returns (final_states, trajectories,
+    scores) shaped like run_sequence_batch over the whole fleet."""
+    outs = []
+    for s, e in _groups(states.Tnow.shape[0], group_size):
+        res = scan_driver.run_sequence_batch(
+            params, map_tensors(lambda x: _take(x, s, e, group_size), states),
+            *(_take(x, s, e, group_size) for x in (odom, pts, mask)))
+        outs.append(tuple(map_tensors(lambda x: x[:e - s], r) for r in res))
+    return tuple(map_tensors(lambda *xs: torch.cat(xs), *rs)
+                 for rs in zip(*outs))
+
+
+def serve_fleet_interleaved(params: FuserParams, states, odom, pts, mask,
+                            group_size: int = 8, time_chunk: int = 8):
+    """serve_fleet_grouped with a per-robot latency contract: fixed
+    `time_chunk`-scan slices are round-robined across the groups, so
+    every stream advances by time_chunk scans each rotation and the
+    worst-case staleness is one rotation, whatever the sequence length.
+    Per stream the arithmetic is the grouped path's (the chunk boundary
+    only splits the scan loop), except that the occupancy cadence
+    (config.occ_every) restarts with every chunk, as in the reference:
+    `grid.occ` differs from the grouped path's when time_chunk is not a
+    multiple of occ_every; poses do not.  Returns (final_states,
+    trajectories, scores) like run_sequence_batch over the whole
+    fleet."""
+    b, t = odom.shape[:2]
+    bounds = _groups(b, group_size)
+    g_states = [map_tensors(lambda x: _take(x, s, e, group_size), states)
+                for s, e in bounds]
+    chunks = [[] for _ in bounds]          # per group: (traj, scores)
+    for c0 in range(0, t, time_chunk):
+        c1 = min(c0 + time_chunk, t)
+        for gi, (s, e) in enumerate(bounds):
+            g_states[gi], traj, scores = scan_driver.run_sequence_batch(
+                params, g_states[gi],
+                *(_take(x[:, c0:c1], s, e, group_size)
+                  for x in (odom, pts, mask)))
+            chunks[gi].append((traj, scores))
+    finals = map_tensors(
+        lambda *xs: torch.cat(xs),
+        *(map_tensors(lambda x: x[:e - s], st)
+          for (s, e), st in zip(bounds, g_states)))
+    trajs, scores = (
+        torch.cat([torch.cat([c[k] for c in chunks[gi]], 1)[:e - s]
+                   for gi, (s, e) in enumerate(bounds)])
+        for k in (0, 1))
+    return finals, trajs, scores

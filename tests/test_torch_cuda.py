@@ -1,8 +1,8 @@
 """The CUDA kernel entries of ops/cuda_kernels.py against their plain
 PyTorch twins on the card: the whole Newton-trial objective
 (`newton_objective`, with the paired front end on its own), the window
-term, the batch entry and the paired reduction.  Marked `cuda`: they skip without a CUDA
-card.  The file imports no JAX, so it also runs where JAX is not
+term, the batch entry, the fleet step's `newton_objective_batch` and the
+paired reduction.  Marked `cuda`: they skip without a CUDA card.  The file imports no JAX, so it also runs where JAX is not
 installed (skip the JAX-importing conftest there):
 
     python3 -m pytest --noconftest tests/test_torch_cuda.py
@@ -113,7 +113,7 @@ def test_newton_objective_matches_plain(cuda_device, n, n_src):
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES == {
         "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
-        "fgh_dense_flat_batch": 0}
+        "fgh_dense_flat_batch": 0, "newton_objective_batch": 0}
     chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
                        got, cuda_kernels.newton_objective_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -186,3 +186,56 @@ def test_fgh_dense_flat_batch_matches_plain(cuda_device, lanes):
     assert np.isfinite(out["max_abs_err"])
     assert cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == before + 2
 
+
+def _fleet(dev):
+    with np.load(chip_smoke.FLEET_FIXTURE) as f:
+        fl = dict(f)
+    return chip_smoke.presets.fleet_serving(), chip_smoke.sequence(fl, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [4, 8, 64, 200])
+def test_newton_objective_batch_matches_plain(cuda_device, lanes):
+    """The fleet step's entry against its plain twin at a fleet step's
+    shapes (256 source cells x K=25 + 64 feature pairs + odometry per
+    lane): bfloat16 rows on and off, each term off in turn, an
+    all-masked lane, a lane with an empty feature list, a lane whose
+    windows cross the grid's edge, identical bits on repeat
+    (chip_smoke.py's phase 3d).  200 lanes leave each lane one block."""
+    fp, seq = _fleet(cuda_device)
+    cuda_kernels.reset_launch_counts()
+    out = chip_smoke.fleet_kernel_checks(fp, seq, lanes, cuda_device,
+                                         times=False)
+    torch.cuda.synchronize()
+    assert np.isfinite(out["max_abs_err"])
+    n = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    assert n > 0 and sum(cuda_kernels.LAUNCHES.values()) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features", [False, True])
+def test_update_batch_launches_one_objective_per_trial(cuda_device,
+                                                       features):
+    """A fleet step on CUDA tensors launches `newton_objective_batch`
+    once per lockstep Newton trial (the first evaluation, then whole
+    chunks of 6) and no other entry."""
+    from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
+    from ndt_feature_graph_tpu_torch.parallel import scaling
+
+    fp, seq = _fleet(cuda_device)
+    cuda_kernels.reset_launch_counts()
+    if features:
+        states, odom, ranges, hit = scaling.build_fleet_feature_inputs(
+            fp, seq, 8)
+        u = torch.rand((8, fp.features.ransac_hypotheses, 2),
+                       device=cuda_device)
+        _, info, _ = feature_fuser.update_batch(
+            states, fp, odom[:, 0], ranges[:, 0], hit[:, 0], u)
+    else:
+        states, odom, pts, mask = scaling.build_fleet_inputs(fp, seq, 8)
+        _, info = fuser.update_batch(states, fp, odom[:, 0], pts[:, 0],
+                                     mask[:, 0])
+    n = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    assert n >= 7 and (n - 1) % 6 == 0
+    assert n - 1 >= int(info.iterations.max())
+    assert sum(cuda_kernels.LAUNCHES.values()) == n

@@ -134,7 +134,8 @@ def test_cpu_wrappers_use_the_plain_twins():
     assert cuda_kernels.LAUNCHES == {"newton_objective": 0,
                                      "fgh_dense_flat": 0,
                                      "pair_fgh_reduce": 0,
-                                     "fgh_dense_flat_batch": 0}
+                                     "fgh_dense_flat_batch": 0,
+                                     "newton_objective_batch": 0}
 
 
 def test_wrappers_reject_other_devices():

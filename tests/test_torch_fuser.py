@@ -170,8 +170,7 @@ def test_feature_fuser_update_matches_jax(step):
 
 
 def test_check_params_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        tfu.check_params(TP.replace(rolling_map=True))
+    tfu.check_params(TP.replace(rolling_map=True))     # ported
     with pytest.raises(ValueError):
         tfu.check_params(TP.replace(gather_window_cells=40,
                                    gather_block=True))

@@ -291,11 +291,16 @@ def test_unported_options_raise():
             tslam._propose_links(None, *tslam.candidate_pairs())
     finally:
         tslam.params = T_OFFLINE
-    for p in (T_OFFLINE.fuser.replace(rolling_map=True),
-              T_OFFLINE.fuser.replace(features=T_OFFLINE.fuser.features.replace(
-                  ransac_adaptive=True))):
-        slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(fuser=p))
-        s = _tseq()
-        with pytest.raises(NotImplementedError):
-            slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
-            slam.update(s.odom[1], s.ranges[1], s.hit[1])
+    adaptive = T_OFFLINE.fuser.replace(
+        features=T_OFFLINE.fuser.features.replace(ransac_adaptive=True))
+    slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(fuser=adaptive))
+    s = _tseq()
+    with pytest.raises(NotImplementedError):
+        slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
+        slam.update(s.odom[1], s.ranges[1], s.hit[1])
+    # rolling_map is ported: the same two calls run.
+    slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(
+        fuser=T_OFFLINE.fuser.replace(rolling_map=True)))
+    slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
+    slam.update(s.odom[1], s.ranges[1], s.hit[1])
+    assert np.isfinite(np.asarray(slam.trajectory[-1])).all()

@@ -152,6 +152,65 @@ def test_newton_objective_on_cpu_is_the_reference(terms):
     assert set(cuda_kernels.LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("bf16_rows", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("terms", TERMS)
+def test_batch_reference_equals_the_single_lane_reference(terms, bf16_rows):
+    """newton_objective_batch_reference is newton_objective_reference
+    lane by lane: three lanes with their own increment, pose, source
+    list (lane 1 all masked), feature lists, odometry information and
+    row offset into a stack of three tables (lane 2's shifted with its
+    origin).  f to 1e-6 relative, g and H to 1e-5 of their largest entry
+    (the lanes' sums run over the same pairs in the same order; the
+    batched einsums may round differently)."""
+    window, features, odometry = _switches(terms)
+    tstate, tsrc, tT0, tQ, tfs, tft = _torch_case()
+    hw = H_ * W_
+    shifted = tstate.packed.reshape(H_, W_, 8).roll((3, -2), (0, 1))
+    packed = torch.cat([tstate.packed, tstate.packed,
+                        shifted.reshape(hw, 8)])
+    origins = torch.stack([tstate.grid.origin, tstate.grid.origin,
+                           tstate.grid.origin + RES * torch.tensor(
+                               [2.0, -3.0])])
+    offs = torch.arange(3) * hw
+    d = torch.tensor([[0.03, -0.05, 0.012], [-0.02, 0.01, -0.004],
+                      [0.0, 0.04, 0.02]])
+    T0 = tT0 + torch.tensor([[0.0, 0.0, 0.0], [0.01, 0.0, 0.002],
+                             [-0.02, 0.01, 0.0]])
+    stack = lambda c: type(c)(*(torch.stack([x] * 3) for x in (  # noqa: E731
+        c.means, c.covs, c.mask)))
+    src, fs, ft = stack(tsrc), stack(tfs), stack(tft)
+    src.mask[1] = False
+    fs.means[2] += 0.01
+    Q = torch.stack([tQ, 2.0 * tQ, tQ.T.contiguous()])
+    lane = lambda c, i: type(c)(c.means[i], c.covs[i], c.mask[i])  # noqa
+    got = cuda_kernels.newton_objective_batch_reference(
+        d, T0, src if window else None, packed, origins, offs, H_, W_, RES,
+        TM, fs if features else None, ft if features else None,
+        Q if odometry else None, bf16_rows)
+    for i in range(3):
+        ref = cuda_kernels.newton_objective_reference(
+            d[i], T0[i], lane(src, i) if window else None,
+            packed[i * hw:(i + 1) * hw], origins[i], H_, W_, RES, TM,
+            lane(fs, i) if features else None,
+            lane(ft, i) if features else None,
+            Q[i] if odometry else None, bf16_rows)
+        np.testing.assert_allclose(float(got[0][i]), float(ref[0]),
+                                   rtol=1e-6, atol=1e-6)
+        for k in (1, 2):
+            np.testing.assert_allclose(
+                got[k][i].numpy(), ref[k].numpy(), rtol=0,
+                atol=1e-5 * max(float(ref[k].abs().max()), 1e-3))
+    if bf16_rows and window:
+        plain = cuda_kernels.newton_objective_batch_reference(
+            d, T0, src, packed, origins, offs, H_, W_, RES, TM, None, None,
+            None, False)
+        rounded = cuda_kernels.newton_objective_batch_reference(
+            d, T0, src, packed, origins, offs, H_, W_, RES, TM, None, None,
+            None, True)
+        assert not torch.equal(plain[0], rounded[0])
+        assert float(rounded[0][1]) == 0.0          # the all-masked lane
+
+
 def test_newton_objective_rejects_bad_arguments():
     tT0, tsrc, packed, origin, *rest = _port_args(True, True, True)
     with pytest.raises(ValueError, match="go together"):
