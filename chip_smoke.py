@@ -83,7 +83,44 @@ Runs on a machine with a CUDA card and no JAX:
      that the window recentres at least twice, against the same run on
      the CPU's plain versions; the packed table equals packed_from_grid
      of the final grid;
-  9. prints one JSON line of all kernel entries and, last, the result
+  9. offline optimization at scale (canonical_solver.npz, made from the
+     JAX package by examples/make_torch_port_fixture.py --solver):
+     (a) optimize_direct on bench.py's 570-node multi-loop graph, rebuilt
+         from its numpy recipe (max_seg_len 64, 12 iterations, dcs):
+         within 1 cm / 5 mrad of JAX's poses and 1% of its chi2;
+     (b) the same on the reference's 4,000-node two-lap graph (stored;
+         max_seg_len 128, 25 iterations).  After 25 iterations its LM
+         still random-walks along a near-null mode of the graph: the
+         reference's own poses move 0.3-0.6 m when its initial poses move
+         by 1e-6, and over 32 such runs its ATE ratio spans 0.35-0.64 (3
+         not under 0.6) and its chi2 0.12551-0.12767.  So every factor's
+         relative pose is held to JAX's within 1 cm / 5 mrad (the
+         reference's own runs agree to 0.06 mm), chi2 to the reference's
+         range widened by TWO_LAP_RTOL, and the ATE must fall; the ATE
+         ratio and the absolute distance are printed;
+     (c) the two-lap recipe at 10,000 nodes with numpy noise, held to the
+         reference's runs on the same input (the record has their chi2
+         and ATE): chi2 and the ATE ratio within their ranges widened by
+         TWO_LAP_RTOL.  At this size the solve raises the aligned ATE
+         1.35x for the reference too (the laps' common drift is not
+         observable from lap-to-lap closures), so the reference test's
+         0.6 is printed, not required;
+     for (a)-(c) the solve's wall time (median of 3 after a warm-up,
+     each ending in a synchronisation) and the device operations of one
+     LM iteration;
+     (d) optimize_offline with solver="direct" and solver_max_seg_len=4
+         on JAX's own loop-closure graph (as phase 5a), then its solve on
+         JAX's links within 1 mm of JAX's direct solve;
+     (e) _propose_links with link_group_nodes=8 (link_batch_size=16) on
+         that bank with the JAX chunks' draws, by phase 5a's link rules;
+     (f) that graph saved and loaded back: identical arrays;
+     (g) the CLI in this process — slam --optimize, optimize, export-map,
+         eval — on the canonical sequence written as a sequence npz: the
+         `optimize` output within 1 cm / 5 mrad of the port's own
+         optimize_offline of the same checkpoint;
+     `fgh_dense_flat_batch` launches in (d), (e) and (g) are printed and
+     must be > 0;
+ 10. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -103,11 +140,14 @@ phase fails.  With --out DIR the details also go to DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,15 +156,17 @@ import torch
 from ndt_feature_graph_tpu_torch.config import (
     FeatureParams, FuserParams, GraphParams, NDTMapParams, SLAMParams,
 )
-from ndt_feature_graph_tpu_torch import interop, pipeline
+from ndt_feature_graph_tpu_torch import cli, interop, pipeline
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.fusion import (
     feature_fuser, fuser, scan_driver,
 )
 from ndt_feature_graph_tpu_torch.graph import links as links_mod
 from ndt_feature_graph_tpu_torch.graph import node as node_mod
+from ndt_feature_graph_tpu_torch.graph import optimize as opt_mod
+from ndt_feature_graph_tpu_torch.graph import sparse_direct
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
-from ndt_feature_graph_tpu_torch.io import dataset
+from ndt_feature_graph_tpu_torch.io import dataset, serialize, tum
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
 from ndt_feature_graph_tpu_torch.models import presets
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d, d2d_analytic
@@ -167,6 +209,100 @@ HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
 # one exp counted as ~17 each.
 FLOPS_PER_PAIR = 200
 CELL_BYTES = 8 + 16 + 1       # a cell's mean, covariance and mask
+
+
+# Phase 9, offline at scale.  (a) bench.py's 570-node multi-loop graph
+# (bench.py:518-551); (b) the reference's 4,000-node two-lap graph
+# (tests/test_sparse_solver.py:169-219, its arrays in the record);
+# (c) the two-lap recipe at 10,000 nodes with numpy noise; (d) the
+# direct solver on the canonical loop-closure graph; (e) grouped link
+# proposals on that bank.
+SOLVER_FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_solver.npz"
+SOLVER_FIXTURE = os.path.join(ROOT, SOLVER_FIXTURE_REL)
+MULTI_LOOP = dict(n_nodes=570, max_seg_len=64, iterations=12,
+                  robust_kernel="dcs")
+TWO_LAP = dict(n_nodes=4000, max_seg_len=128, iterations=25)
+TWO_LAP_BIG = 10000
+DIRECT_GRAPH = dict(solver="direct", solver_max_seg_len=4)
+GROUPED_GRAPH = dict(link_batch_size=16, link_group_nodes=8)
+DIRECT_TOL = 1e-3             # (d): the solve on JAX's links, metres
+# (b), (c): the reference's own range of chi2 and of the ATE ratio over its
+# runs from initial poses moved by k * 1e-6, widened by this much (the
+# port's runs on the CPU reach 2.5% above the reference's highest chi2).
+TWO_LAP_RTOL = 0.05
+
+
+def multi_loop_graph(n_nodes=570, seed=0):
+    """bench.py's synthetic multi-loop pose graph (bench.py:518-551):
+    eight laps of a 5 m circle, odometry between consecutive nodes and a
+    closure from every node to the one a lap later, 1 cm measurement
+    noise, 5 cm initial noise, information 100 I.  Returns (init (N, 3),
+    i, j, meas (E, 3), info diagonal (E,)), numpy, float32."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 8 * 2 * np.pi, n_nodes)
+    gt = np.stack([5 * np.cos(th), 5 * np.sin(th), np.zeros(n_nodes)],
+                  -1).astype(np.float32)
+    per_loop = n_nodes // 8
+    li = np.arange(0, n_nodes - per_loop - 2)
+    i = np.concatenate([np.arange(n_nodes - 1), li]).astype(np.int32)
+    j = np.concatenate([np.arange(1, n_nodes), li + per_loop]).astype(
+        np.int32)
+    meas = np.zeros((i.shape[0], 3), np.float32)
+    for k in range(i.shape[0]):
+        d = gt[j[k]] - gt[i[k]]
+        c, s = np.cos(gt[i[k], 2]), np.sin(gt[i[k], 2])
+        meas[k] = [c * d[0] + s * d[1], -s * d[0] + c * d[1], d[2]]
+    meas += rng.normal(0, 0.01, meas.shape).astype(np.float32)
+    init = gt + rng.normal(0, 0.05, gt.shape).astype(np.float32)
+    return init, i, j, meas, np.full(i.shape[0], 100.0, np.float32)
+
+
+def two_lap_graph(n, seed=7, every=20):
+    """The reference's two-lap square (tests/test_sparse_solver.py
+    _two_lap_slam_problem) with numpy noise: 1 m steps, noisy odometry
+    (5 mm, 0.5 mrad; information 50 I), clean lap-to-lap closures every
+    `every` nodes (information 200 I), the drifted dead reckoning as the
+    initial estimate.  Returns (gt, init, i, j, meas, info diagonal),
+    numpy, float32."""
+    rng = np.random.default_rng(seed)
+    lap = n // 2
+    side = lap // 4
+    rels = []
+    for _ in range(2):
+        for _ in range(4):
+            rels.extend([[1.0, 0.0, 0.0]] * (side - 1))
+            rels.append([1.0, 0.0, np.pi / 2])
+    rels = np.asarray(rels[: n - 1], np.float32)
+
+    def chain(steps):
+        out = [np.zeros(3, np.float32)]
+        for r in steps:
+            out.append(se2.compose_np(out[-1], r))
+        return np.stack(out)
+
+    gt = chain(rels)
+    odo = (rels + rng.normal(0, 1, rels.shape)
+           * [0.005, 0.005, 0.0005]).astype(np.float32)
+    li = np.arange(0, lap, every)
+    lj = li + lap
+    i = np.concatenate([np.arange(n - 1), li]).astype(np.int32)
+    j = np.concatenate([np.arange(1, n), lj]).astype(np.int32)
+    meas = np.concatenate([odo, se2.sub_np(gt[li], gt[lj])])
+    info = np.concatenate([np.full(n - 1, 50.0), np.full(len(li), 200.0)])
+    return gt, chain(odo), i, j, meas, info.astype(np.float32)
+
+
+def ate_aligned(p, gt):
+    """RMSE after an SE(2) alignment (Umeyama, no scale) — the
+    reference's metric for the two-lap graph, which removes the gauge
+    mode a single-anchor graph only weakly observes."""
+    P = np.asarray(p[:, :2], np.float64)
+    G = np.asarray(gt[:, :2], np.float64)
+    mp, mg = P.mean(0), G.mean(0)
+    U, _, Vt = np.linalg.svd((P - mp).T @ (G - mg))
+    R = Vt.T @ np.diag([1, np.sign(np.linalg.det(Vt.T @ U.T))]) @ U.T
+    Pa = (P - mp) @ R.T + mg
+    return float(np.sqrt(np.mean(np.sum((Pa - G) ** 2, -1))))
 
 
 def canonical_slam_params(split_m=2.0, max_nodes=64, **graph) -> SLAMParams:
@@ -715,14 +851,13 @@ def check_kept_links(gp, lc, keep, link_T, mask):
     return len(differ)
 
 
-def link_costs(bank, lc, T, sp):
-    """The D2D cost of each candidate link of the record at poses T
-    (L, 3) on `bank`, by the plain batch twin."""
+def link_costs(bank, ref, mov, T, sp):
+    """The D2D cost of each link (ref, mov) at poses T (L, 3) on `bank`,
+    by the plain batch twin."""
     p = sp.fuser
     h, w = p.ndt.grid_h, p.ndt.grid_w
     dev = bank.T.device
-    ref, mov = (torch.as_tensor(lc["off_link_" + k], device=dev)
-                for k in ("ref", "mov"))
+    ref, mov = (torch.as_tensor(x, device=dev) for x in (ref, mov))
     budget = links_mod.source_cell_budget(bank)
     src = CellList(*(x[mov, :budget].contiguous() for x in (
         bank.cells.means, bank.cells.covs, bank.cells.mask)))
@@ -762,8 +897,9 @@ def check_refinement(slam, lc, sp):
     ref_T = lc["off_link_T"]
     n_port = int(link_moved(port_T, ref_T)[valid].sum())
     n_ref = int(link_moved(lc["off_link_T_eps"], ref_T)[valid].sum())
-    costs = tuple(float(link_costs(bank, lc, t, sp)[valid].sum()) for t in (
-        port_T, ref_T, lc["off_link_T_eps"]))
+    costs = tuple(float(link_costs(bank, lc["off_link_ref"],
+                                   lc["off_link_mov"], t, sp)[valid].sum())
+                  for t in (port_T, ref_T, lc["off_link_T_eps"]))
     print(f"  RANSAC poses within {r_dev:.2e} of JAX; refined poses moved "
           f"beyond 1 cm / 5 mrad from JAX: {n_port} of {int(valid.sum())} "
           f"(the reference's own, from RANSAC poses + 1e-6: {n_ref}); "
@@ -773,6 +909,32 @@ def check_refinement(slam, lc, sp):
     check(abs(costs[0] - costs[1]) <= 0.02 * abs(costs[1]),
           "the refined links' summed cost departs from JAX's beyond 2%")
     return n_port, n_ref, costs
+
+
+def check_grouped(ls, sv, bank, sp, n=None):
+    """Grouped link proposals against the JAX record (the first `n`
+    candidate pairs, default all), by phase 5a's link rules: the same
+    pairs and valid mask, and the refined poses' summed D2D cost within
+    2% of that of JAX's; lanes may part where the batched Newton's rough
+    cost lets float32 sums in another order move them (counted).
+    Returns (lanes moved beyond 1 cm / 5 mrad, (port cost, JAX cost))."""
+    n = len(sv["grp_ref"]) if n is None else n
+    for k in ("ref", "mov", "mask"):
+        check(np.array_equal(getattr(ls, k).cpu().numpy(),
+                             sv["grp_" + k][:n]),
+              f"grouped proposals: {k} differs from JAX")
+    valid = sv["grp_mask"][:n]
+    port_T = ls.T.cpu().numpy()
+    moved = int(link_moved(port_T, sv["grp_T"][:n])[valid].sum())
+    ref, mov = sv["grp_ref"][:n], sv["grp_mov"][:n]
+    costs = tuple(float(link_costs(bank, ref, mov, t, sp)[valid].sum())
+                  for t in (port_T, sv["grp_T"][:n]))
+    print(f"  grouped proposals ({n} pairs): refined poses moved beyond "
+          f"1 cm / 5 mrad from JAX: {moved} of {int(valid.sum())}; summed "
+          f"D2D cost {costs[0]:.2f}, JAX {costs[1]:.2f}")
+    check(abs(costs[0] - costs[1]) <= 0.02 * abs(costs[1]),
+          "the grouped links' summed cost departs from JAX's beyond 2%")
+    return moved, costs
 
 
 def nearest_record(out, lc):
@@ -1059,6 +1221,317 @@ def online_phase(fx, lc, dev):
     return {"scans_per_s": scans / sorted(runs)[1], "run_s": runs,
             "nodes": len(slam.nodes), "loop_links": len(links),
             "dev_xy_m": max(xy, nxy), "dev_theta_rad": max(th, nth)}, launches
+
+
+def edge_rel_dev(a, b, i, j):
+    """Largest difference between poses a and b (N, 3) in the relative
+    pose of the factors (i, j): xy, wrapped theta."""
+    d = se2.sub_np(a[i], a[j]) - se2.sub_np(b[i], b[j])
+    return (float(np.abs(d[:, :2]).max()),
+            float(np.abs(np.arctan2(np.sin(d[:, 2]), np.cos(d[:, 2]))).max()))
+
+
+def solver_edges(i, j, meas, info_diag, dev):
+    """An EdgeList on the card from numpy edges with information
+    info_diag * I."""
+    T = lambda x, dt=None: torch.as_tensor(x, dtype=dt,  # noqa: E731
+                                           device=dev)
+    eye = np.eye(3, dtype=np.float32)
+    return opt_mod.EdgeList(
+        i=T(np.asarray(i, np.int64)), j=T(np.asarray(j, np.int64)),
+        meas=T(meas, torch.float32),
+        info=T(np.asarray(info_diag, np.float32)[:, None, None] * eye),
+        mask=torch.ones(len(i), dtype=torch.bool, device=dev))
+
+
+def direct_solve(init, edges, seg, **kw):
+    """What slam._solve's direct branch runs: the segment layout (on the
+    host) and optimize_direct; ends in a synchronisation."""
+    part = sparse_direct.make_segments(init.shape[0], edges, max_seg_len=seg)
+    out = sparse_direct.optimize_direct(init, edges, part, **kw)
+    torch.cuda.synchronize()
+    return out, part
+
+
+def ops_per_iteration(init, edges, seg, **kw):
+    """Device operations (kernels, copies, sets) of one LM iteration of
+    optimize_direct: a 3-iteration solve less a 1-iteration one, over
+    two (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for its in (1, 3):
+        kw_its = dict(kw, iterations=its)
+        direct_solve(init, edges, seg, **kw_its)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            direct_solve(init, edges, seg, **kw_its)
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 2
+
+
+def scale_case(name, init_np, edges, seg, dev, **kw):
+    """One phase-9 solve: its result, the wall time of a solve (median
+    of 3 after a warm-up, each ending in a synchronisation), the device
+    operations of one LM iteration and the longest segment."""
+    init = torch.as_tensor(init_np, dtype=torch.float32, device=dev)
+    (out, chi2), part = direct_solve(init, edges, seg, **kw)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        direct_solve(init, edges, seg, **kw)
+        times.append(time.perf_counter() - t0)
+    ops = ops_per_iteration(init, edges, seg, **kw)
+    L = int(part.idx.shape[1])
+    S = int(part.sep_ids.shape[0])
+    print(f"  {name}: {init_np.shape[0]} nodes, {len(edges.i)} edges, "
+          f"{S} separators, {part.idx.shape[0]} segments, L = {L}; solve "
+          f"{sorted(times)[1] * 1e3:.1f} ms (median of 3: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}); {ops:.0f} device "
+          f"ops per LM iteration")
+    return (out.cpu().numpy(), float(chi2),
+            {"solve_s": times, "ops_per_iteration": ops, "L": L,
+             "separators": S, "nodes": int(init_np.shape[0])})
+
+
+def offline_scale_phase(fx, lc, dev):
+    """Phase 9: offline optimization at scale on the card (the module
+    docstring lists (a)-(g)).  Returns (summary, fgh_dense_flat_batch
+    launches in (d), (e), (g))."""
+    sv = dict(np.load(SOLVER_FIXTURE))
+    summary, launches = {}, {}
+
+    def held(name, out, chi2, ref, ref_chi2):
+        xy, th = max_dev(out, ref)
+        rel = abs(chi2 - float(ref_chi2)) / abs(float(ref_chi2))
+        print(f"  {name} vs JAX: {xy * 100:.4f} cm / {th * 1e3:.4f} mrad; "
+              f"chi2 {chi2:.5f} (JAX {float(ref_chi2):.5f}, {rel:.2e} "
+              "relative)")
+        check(np.isfinite(out).all() and xy <= XY_TOL and th <= TH_TOL,
+              f"{name}: poses deviate from JAX beyond 1 cm / 5 mrad")
+        check(rel <= 0.01, f"{name}: chi2 departs from JAX's beyond 1%")
+        return {"dev_xy_m": xy, "dev_theta_rad": th, "chi2": chi2,
+                "chi2_jax": float(ref_chi2)}
+
+    print("phase 9a: optimize_direct, bench.py's 570-node multi-loop graph")
+    init, i, j, meas, info = multi_loop_graph(MULTI_LOOP["n_nodes"])
+    check(np.array_equal(init, sv["ml_init"])
+          and np.array_equal(meas, sv["ml_meas"]),
+          "the 570-node graph rebuilt here differs from the record's")
+    out, chi2, st = scale_case(
+        "570", init, solver_edges(i, j, meas, info, dev),
+        MULTI_LOOP["max_seg_len"], dev, iterations=MULTI_LOOP["iterations"],
+        robust_kernel=MULTI_LOOP["robust_kernel"])
+    summary["a_570"] = {**st, **held("570", out, chi2, sv["ml_T"],
+                                     sv["ml_chi2"])}
+
+    def two_lap_case(name, gt, init, i, j, meas, info, ref_chi2, ref_ate,
+                     steady):
+        """The two-lap solve held to the reference's outcomes on the same
+        input: `ref_chi2` and `ref_ate` (aligned ATE after) of its runs
+        from the initial poses and from poses moved by k * 1e-6.  chi2
+        must lie within the reference's own range widened by
+        TWO_LAP_RTOL.  Where the reference's ATE is `steady` across its
+        runs, the port's ATE ratio must lie in its range so widened;
+        where it is not (the low mode's random walk, (b)), the ratio is
+        printed beside the reference's range and the solve must lower
+        the ATE."""
+        out, chi2, st = scale_case(name, init, solver_edges(
+            i, j, meas, info, dev), TWO_LAP["max_seg_len"], dev,
+            iterations=TWO_LAP["iterations"])
+        before, after = ate_aligned(init, gt), ate_aligned(out, gt)
+        ratios = np.asarray(ref_ate) / before
+        lo, hi = float(np.min(ref_chi2)), float(np.max(ref_chi2))
+        r_lo, r_hi = float(ratios.min()), float(ratios.max())
+        print(f"  {name}: aligned ATE {before:.4f} m -> {after:.4f} m "
+              f"(x{after / before:.3f}; the reference x{r_lo:.3f}-"
+              f"x{r_hi:.3f} over {len(ratios)} runs, "
+              f"{int((ratios >= 0.6).sum())} of them not under x0.6); "
+              f"chi2 {chi2:.5f} (the reference {lo:.5f}-{hi:.5f})")
+        check(np.isfinite(chi2) and (1 - TWO_LAP_RTOL) * lo <= chi2
+              <= (1 + TWO_LAP_RTOL) * hi,
+              f"{name}: chi2 outside the reference's own range")
+        if steady:
+            check((1 - TWO_LAP_RTOL) * r_lo <= after / before
+                  <= (1 + TWO_LAP_RTOL) * r_hi,
+                  f"{name}: the ATE ratio is outside the reference's range")
+        else:
+            check(after < before, f"{name}: the solve did not lower the ATE")
+        return out, chi2, {**st, "ate_before_m": before, "ate_m": after,
+                           "ate_ratio_jax": [r_lo, r_hi],
+                           "chi2_jax": [lo, hi]}
+
+    print("phase 9b: optimize_direct, the reference's 4,000-node two-lap "
+          "graph (stored)")
+    tl = [sv["tl_" + k] for k in ("gt", "init", "i", "j", "meas", "info")]
+    out, chi2, st = two_lap_case(
+        "4000", *tl, np.append(sv["tl_eps_chi2"], sv["tl_chi2"]),
+        np.append(sv["tl_eps_ate"], sv["tl_ate"][1]), steady=False)
+    xy, th = max_dev(out, sv["tl_T"])
+    rxy, rth = edge_rel_dev(out, sv["tl_T"], tl[2], tl[3])
+    print(f"  4000 vs JAX: every factor's relative pose within "
+          f"{rxy * 1e3:.4f} mm / {rth * 1e3:.4f} mrad; absolute poses "
+          f"{xy:.3f} m / {th * 1e3:.3f} mrad apart along the low mode")
+    check(rxy <= XY_TOL and rth <= TH_TOL,
+          "4000: relative poses deviate from JAX beyond 1 cm / 5 mrad")
+    summary["b_4000"] = {**st, "rel_dev_xy_m": rxy, "rel_dev_theta_rad": rth,
+                         "abs_dev_xy_m": xy, "chi2": chi2}
+
+    print(f"phase 9c: optimize_direct, the two-lap recipe at {TWO_LAP_BIG} "
+          "nodes (numpy noise)")
+    big = two_lap_graph(TWO_LAP_BIG)
+    summary["c_10000"] = two_lap_case(
+        str(TWO_LAP_BIG), *big, sv["big_chi2"], sv["big_ate"][1:],
+        steady=True)[2]
+
+    print("phase 9d: optimize_offline with solver=\"direct\" "
+          f"(solver_max_seg_len={DIRECT_GRAPH['solver_max_seg_len']}) on "
+          "JAX's own loop-closure graph")
+    sp = canonical_slam_params(OFFLINE_SPLIT_M, 64)
+    bank = interop.tree_from_flat(lc, "off_bank")
+
+    def jax_graph(graph):
+        params = sp.replace(graph=sp.graph.replace(**graph))
+        edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
+                    lc["off_edge_rel"], lc["off_edge_cov"])
+        return params, interop.graph_from_jax(
+            params, bank, lc["off_node_T_before"], edges, device=dev)
+
+    sp_dir, slam = jax_graph(DIRECT_GRAPH)
+    slam.pair_u = [lc["off_pair_u"][0]]
+    cuda_kernels.reset_launch_counts()
+    out = slam.optimize_offline().cpu().numpy()
+    launches["d"] = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+    before = lc["off_node_T_before"]
+    print(f"  optimize_offline: {int(slam.offline_keep.sum())} kept links, "
+          f"node ATE {node_ate(before, fx, lc):.5f} m -> "
+          f"{node_ate(out, fx, lc):.5f} m; fgh_dense_flat_batch launches "
+          f"{launches['d']}")
+    check(np.isfinite(out).all() and launches["d"] > 0,
+          "optimize_offline (direct) is not finite or launched no kernel")
+    slam.node_T = [t.copy() for t in before]
+    solved = slam.solve_links(interop.link_set_from_jax({
+        k: lc["off_link_" + k] for k in
+        ("ref", "mov", "T", "cov", "score", "mask")}, dev)).cpu().numpy()
+    sxy, sth = max_dev(solved, sv["dir_node_T"])
+    same = bool((slam.offline_keep == sv["dir_keep"]).all())
+    print(f"  the direct solve on JAX's links: kept set "
+          f"{'equal' if same else 'DIFFERENT'}, node poses within "
+          f"{sxy * 1e3:.4f} mm / {sth * 1e3:.4f} mrad of JAX's direct solve")
+    check(same and sxy <= DIRECT_TOL,
+          "the direct solve on JAX's links departs from JAX's beyond 1 mm")
+    summary["d_direct"] = {"kept": int(slam.offline_keep.sum()),
+                           "solve_dev_xy_m": sxy, "solve_dev_theta_rad": sth,
+                           "launches": launches["d"]}
+
+    print("phase 9f: checkpoint round trip of that graph (save, load)")
+    slam.trajectory = [t.copy() for t in before]
+    slam.times = [float(k) for k in range(len(before))]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        t0 = time.perf_counter()
+        slam.save(path)
+        loaded = NDTFeatureGraphSLAM.load(path, sp_dir, device=dev)
+        rt_s = time.perf_counter() - t0
+    a, b = (node_mod.stack_nodes(g.nodes) for g in (slam, loaded))
+    same = all(torch.equal(xa, xb) for (_, xa), (_, xb) in zip(
+        serialize._leaves_with_path(a), serialize._leaves_with_path(b)))
+    for k in ("node_T", "trajectory"):
+        same &= np.array_equal(np.stack(getattr(slam, k)),
+                               np.stack(getattr(loaded, k)))
+    same &= all(e[0] == f[0] and e[1] == f[1] and np.array_equal(e[2], f[2])
+                and np.array_equal(e[3], f[3])
+                for e, f in zip(slam.odom_edges, loaded.odom_edges))
+    same &= len(slam.odom_edges) == len(loaded.odom_edges)
+    print(f"  {len(loaded.nodes)} nodes saved and loaded in {rt_s:.2f} s: "
+          f"arrays {'identical' if same else 'DIFFERENT'}")
+    check(same, "the checkpoint round trip changed an array")
+    summary["f_checkpoint"] = {"identical": same, "round_trip_s": rt_s}
+
+    print("phase 9e: grouped link proposals (link_group_nodes="
+          f"{GROUPED_GRAPH['link_group_nodes']}, link_batch_size="
+          f"{GROUPED_GRAPH['link_batch_size']}) on that bank")
+    sp_grp, slam = jax_graph(GROUPED_GRAPH)
+    slam.pair_u = list(sv["grp_pair_u"])
+    stacked = node_mod.stack_nodes(slam.nodes)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ls = slam._propose_links(stacked, *slam.candidate_pairs())
+    torch.cuda.synchronize()
+    grp_s = time.perf_counter() - t0
+    launches["e"] = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+    check(slam.pair_u == [], "the grouped proposals took another number "
+          "of draws than JAX's chunks")
+    moved, costs = check_grouped(ls, sv, stacked, sp_grp)
+    print(f"  {len(sv['grp_pair_u'])} chunks in {grp_s:.2f} s; "
+          f"fgh_dense_flat_batch launches {launches['e']}")
+    check(launches["e"] > 0, "grouped proposals launched no kernel")
+    summary["e_grouped"] = {"moved": moved, "costs": costs, "wall_s": grp_s,
+                            "launches": launches["e"]}
+
+    print("phase 9g: the CLI (slam --optimize, optimize, export-map, eval) "
+          "on the canonical 200-scan sequence")
+    summary["g_cli"], launches["g"] = cli_case(fx, dev)
+    for k, v in launches.items():
+        check(v > 0, f"phase 9{k} launched no fgh_dense_flat_batch")
+    return summary, launches
+
+
+def cli_case(fx, dev):
+    """Phase 9g: the port's CLI in this process (so that its launches
+    count) on the canonical sequence written as a sequence npz, at the
+    canonical map and scan widths with bench.py's offline node spacing
+    (the CLI's other flags at their defaults); the `optimize` output
+    against the port's own optimize_offline of the same checkpoint."""
+    flags = ["--map-size", "100", "--sensor-range", "30", "--num-beams",
+             "720", "--max-cells", "1024", "--new-node-dist",
+             str(OFFLINE_SPLIT_M)]
+    with tempfile.TemporaryDirectory() as tmp:
+        seqf = os.path.join(tmp, "seq.npz")
+        np.savez_compressed(seqf, **{k: fx[k] for k in
+                                     ("ranges", "hit", "odom", "gt")})
+        d = os.path.join(tmp, "out")
+        logs = {}
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, argv in (
+                ("slam", ["slam", "--dataset", seqf, "--out", d,
+                          "--optimize"]),
+                ("optimize", ["optimize", "--graph", f"{d}/graph.npz",
+                              "--out", f"{d}/opt.tum"]),
+                ("export", ["export-map", "--graph", f"{d}/graph.npz",
+                            "--out", f"{d}/map.pgm"]),
+                ("eval", ["eval", "--est", f"{d}/est.tum",
+                          "--gt", f"{d}/gt.tum"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv + (flags if name != "eval" else []))
+            logs[name] = buf.getvalue()
+        wall = time.perf_counter() - t0
+        n = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+        _, opt = tum.read_tum(f"{d}/opt.tum")
+        _, nodes_opt = tum.read_tum(f"{d}/nodes_opt.tum")
+        ev = json.loads(logs["eval"].strip().splitlines()[-1])
+        ex = json.loads(logs["export"].strip().splitlines()[-1])
+        ap = argparse.ArgumentParser()
+        cli._add_common(ap)
+        params = cli._params_from_args(ap.parse_args(flags))
+        own = NDTFeatureGraphSLAM.load(f"{d}/graph.npz", params, device=dev)
+        ref = own.optimize_offline().cpu().numpy()
+        pgm = os.path.getsize(f"{d}/map.pgm")
+    xy, th = max_dev(opt, ref)
+    print(f"  {wall:.1f} s for the four commands; {len(nodes_opt)} nodes; "
+          f"eval ATE {ev['ate_rmse_m']:.4f} m; map {ex['cells']} cells "
+          f"({pgm} bytes); fgh_dense_flat_batch launches {n}; `optimize` "
+          f"within {xy * 100:.4f} cm / {th * 1e3:.4f} mrad of the port's "
+          "own optimize_offline of the same checkpoint")
+    check(np.isfinite(opt).all() and np.isfinite(nodes_opt).all()
+          and len(opt) == len(nodes_opt) and np.isfinite(ev["ate_rmse_m"]),
+          "the CLI's outputs are not finite or of the wrong size")
+    check(xy <= XY_TOL and th <= TH_TOL,
+          "the CLI's optimized nodes deviate from optimize_offline")
+    return {"wall_s": wall, "nodes": len(opt), "ate_m": ev["ate_rmse_m"],
+            "dev_xy_m": xy, "dev_theta_rad": th, "launches": n}, n
 
 
 def sync(dev):
@@ -1563,6 +2036,9 @@ def main():
     print("phase 8: rolling_map (run_sequence_features, "
           f"{ROLLING['size_m']:.0f} m window)")
     rolling = rolling_phase(fx, dev)
+    print("phase 9: offline at scale (the segment-Schur solver, grouped "
+          "proposals, checkpoints, the CLI)")
+    scale, scale_launches = offline_scale_phase(fx, lc, dev)
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
@@ -1589,10 +2065,11 @@ def main():
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
                       "ate_m": ate, "ate_jax_m": ate_ref},
         "offline": offline, "online_lc": online, "fleet": fleet,
-        "rolling_map": rolling,
+        "rolling_map": rolling, "offline_scale": scale,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
-                     "online_lc": on_launches},
+                     "online_lc": on_launches,
+                     "offline_scale_fgh_dense_flat_batch": scale_launches},
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

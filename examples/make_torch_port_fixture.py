@@ -56,6 +56,33 @@ bench.py's fleet operating point (`bench.fleet_params`)
                                  millimetres elsewhere under such a change)
   params_repr                    repr() of the fleet FuserParams
 
+With --solver it writes the offline-at-scale record
+(ndt_feature_graph_tpu_torch/data/canonical_solver.npz), made with the
+JAX package's own solvers and proposals:
+
+  ml_*    bench.py's 570-node multi-loop graph (`chip_smoke.multi_loop_graph`,
+          the numpy recipe of bench.py:518-551): its initial poses and
+          measurements (so that the rebuild is checked), and
+          sparse_direct.optimize_direct's poses and chi2 (max_seg_len 64,
+          12 iterations, dcs);
+  tl_*    the 4,000-node two-lap graph of tests/test_sparse_solver.py
+          (its noise comes from jax.random, so the problem is stored:
+          initial poses, edges, information as the scalar diagonal,
+          ground truth) and the direct solve's poses and chi2
+          (max_seg_len 128, 25 iterations), with the aligned ATE before
+          and after, and the chi2 and ATE of the same solve from initial
+          poses moved by k * 1e-6, k = 1..31 (the reference's own spread);
+  big_*   the reference's chi2 and aligned ATE (before, then after) on
+          chip_smoke's 10,000-node two-lap graph, from init + k * 1e-6,
+          k = 0..6;
+  dir_*   optimize_offline's fixpoint loop with solver="direct" and
+          solver_max_seg_len=4 on the loop-closure record's own graph and
+          its proposed links (canonical_lc.npz off_*): node poses and the
+          final keep mask;
+  grp_*   _propose_links with link_batch_size=16, link_group_nodes=8 on
+          that node bank: the chunk bounds, the chunks' replayed draws and
+          the LinkSet.
+
 `replay_ransac_draws` is the replay of the JAX key chain, shared with
 the port's parity tests; `recording_slam_class` logs the keys a JAX run
 really takes, against which the replay is checked.
@@ -75,12 +102,15 @@ DATA = os.path.join(ROOT, "ndt_feature_graph_tpu_torch", "data")
 DEFAULT_OUT = os.path.join(DATA, "canonical_200.npz")
 LC_OUT = os.path.join(DATA, "canonical_lc.npz")
 FLEET_OUT = os.path.join(DATA, "canonical_fleet.npz")
+SOLVER_OUT = os.path.join(DATA, "canonical_solver.npz")
 FLEET_B = 8
 FLEET_EPS = (1e-6, 1e-5)    # odometry offsets of the fleet record's spread
 SPLIT_M = 2.0
 MAX_NODES = 64
 SEED = 0
 ALT_ODOM = 1e-6     # odometry offset (m, rad) of the second offline record
+TL_EPS, N_EPS = 1e-6, 31  # the two-lap solves' spread: init + k * TL_EPS
+N_EPS_BIG = 7             # ... at 10,000 nodes (k = 0..6)
 
 
 class Replay(NamedTuple):
@@ -340,6 +370,181 @@ def make_lc_fixture(out, seq, fp):
           f"nodes, {len(lcs)} proposals, {len(on.loop_links)} loop links")
 
 
+def jax_graph_from_lc(lc, sparams, seed=SEED):
+    """A JAX NDTFeatureGraphSLAM holding the loop-closure record's frozen
+    offline graph (its node bank, poses before the solve and odometry
+    edges), as chip_smoke's phase 5a gives it to the port."""
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.features.detector import FeatureSet
+    from ndt_feature_graph_tpu.graph import node as jnode
+    from ndt_feature_graph_tpu.graph.slam import NDTFeatureGraphSLAM
+    from ndt_feature_graph_tpu.ops import d2d as jd2d
+    from ndt_feature_graph_tpu.ops import ndt_map as jnm
+
+    a = lambda k: jnp.asarray(lc["off_bank." + k])  # noqa: E731
+    bank = jnode.NodeData(
+        T=a("T"), Tlocal_odom=a("Tlocal_odom"), Tlocal_fuse=a("Tlocal_fuse"),
+        target=jd2d.PackedTarget(origin=a("target.origin"),
+                                 packed=a("target.packed")),
+        cells=jnm.CellList(a("cells.means"), a("cells.covs"),
+                           a("cells.mask")),
+        occ_origin=a("occ_origin"), occ=a("occ"),
+        feats=FeatureSet(*(a("feats." + k) for k in FeatureSet._fields)),
+        desc=a("desc"))
+    slam = NDTFeatureGraphSLAM(sparams, seed=seed)
+    n = bank.T.shape[0]
+    slam.nodes = [jax_tree_map(lambda x, k=k: x[k], bank) for k in range(n)]
+    slam.node_T = [t.copy() for t in lc["off_node_T_before"]]
+    slam.odom_edges = [(int(i), int(j), r, c) for (i, j), r, c in zip(
+        lc["off_edge_ij"], lc["off_edge_rel"], lc["off_edge_cov"])]
+    return slam
+
+
+def jax_tree_map(fn, tree):
+    import jax
+
+    return jax.tree.map(fn, tree)
+
+
+def make_solver_fixture(out, fp):
+    """The offline-at-scale record (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.config import GraphParams, SLAMParams
+    from ndt_feature_graph_tpu.graph import links as jlinks
+    from ndt_feature_graph_tpu.graph import node as jnode
+    from ndt_feature_graph_tpu.graph import optimize as jopt
+    from ndt_feature_graph_tpu.graph import sparse_direct as jsd
+    from ndt_feature_graph_tpu_torch.graph.slam import group_bounds
+    from chip_smoke import (DIRECT_GRAPH, GROUPED_GRAPH, MULTI_LOOP,
+                            TWO_LAP, TWO_LAP_BIG, ate_aligned,
+                            multi_loop_graph, two_lap_graph)
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_sparse_solver import _two_lap_slam_problem
+
+    def solve(init, i, j, meas, info_diag, seg, **kw):
+        e = len(i)
+        edges = jopt.EdgeList(
+            i=jnp.asarray(i, jnp.int32), j=jnp.asarray(j, jnp.int32),
+            meas=jnp.asarray(meas),
+            info=jnp.asarray(info_diag[:, None, None] * np.eye(3, dtype=
+                                                               np.float32)),
+            mask=jnp.ones(e, bool))
+        part = jsd.make_segments(init.shape[0], edges, max_seg_len=seg)
+        p, chi = jsd.optimize_direct(jnp.asarray(init), edges, part, **kw)
+        return np.asarray(p, np.float32), np.float32(chi)
+
+    rec = {}
+    ml = multi_loop_graph(MULTI_LOOP["n_nodes"])
+    rec["ml_init"], _, _, rec["ml_meas"], _ = ml
+    rec["ml_T"], rec["ml_chi2"] = solve(
+        *ml, MULTI_LOOP["max_seg_len"], iterations=MULTI_LOOP["iterations"],
+        robust_kernel=MULTI_LOOP["robust_kernel"])
+    print(f"570 nodes: chi2 {rec['ml_chi2']:.4f}")
+
+    n = TWO_LAP["n_nodes"]
+    gt, init, edges = _two_lap_slam_problem(n)
+    info = np.asarray(edges.info)
+    info_diag = info[:, 0, 0]
+    if not np.array_equal(info, info_diag[:, None, None] * np.eye(3)):
+        raise SystemExit("two-lap information is not c * I")
+    rec.update(tl_gt=np.asarray(gt, np.float32),
+               tl_init=np.asarray(init, np.float32),
+               tl_i=np.asarray(edges.i, np.int32),
+               tl_j=np.asarray(edges.j, np.int32),
+               tl_meas=np.asarray(edges.meas, np.float32),
+               tl_info=info_diag.astype(np.float32))
+    rec["tl_T"], rec["tl_chi2"] = solve(
+        rec["tl_init"], rec["tl_i"], rec["tl_j"], rec["tl_meas"],
+        rec["tl_info"], TWO_LAP["max_seg_len"],
+        iterations=TWO_LAP["iterations"])
+    rec["tl_ate"] = np.float32([ate_aligned(rec["tl_init"], rec["tl_gt"]),
+                                ate_aligned(rec["tl_T"], rec["tl_gt"])])
+    print(f"4000 nodes: chi2 {rec['tl_chi2']:.4f}, ATE {rec['tl_ate']}")
+    # The reference's own spread: the same solve from initial poses moved
+    # by k * 1e-6 (its low mode random-walks; see chip_smoke phase 9b).
+    eps = [solve(rec["tl_init"] + k * TL_EPS, rec["tl_i"], rec["tl_j"],
+                 rec["tl_meas"], rec["tl_info"], TWO_LAP["max_seg_len"],
+                 iterations=TWO_LAP["iterations"])
+           for k in range(1, N_EPS + 1)]
+    rec["tl_eps_chi2"] = np.float32([c for _, c in eps])
+    rec["tl_eps_ate"] = np.float32([ate_aligned(p, rec["tl_gt"])
+                                    for p, _ in eps])
+    print(f"  under init + k * {TL_EPS}: chi2 {rec['tl_eps_chi2']}, ATE "
+          f"{rec['tl_eps_ate']}")
+
+    # (c) has no stored problem (chip_smoke makes it with numpy); the
+    # reference's chi2 and aligned ATE on it, from init + k * 1e-6.
+    gt, init, i, j, meas, info = two_lap_graph(TWO_LAP_BIG)
+    big = [solve(init + k * TL_EPS, i, j, meas, info, TWO_LAP["max_seg_len"],
+                 iterations=TWO_LAP["iterations"])
+           for k in range(N_EPS_BIG)]
+    rec["big_chi2"] = np.float32([c for _, c in big])
+    rec["big_ate"] = np.float32([ate_aligned(init, gt)]
+                                + [ate_aligned(p, gt) for p, _ in big])
+    print(f"{TWO_LAP_BIG} nodes: chi2 {rec['big_chi2']}, ATE "
+          f"{rec['big_ate']}")
+
+    from chip_smoke import OFFLINE_SPLIT_M
+
+    lc = dict(np.load(LC_OUT))
+    base = SLAMParams(fuser=fp, graph=GraphParams(
+        new_node_transl_dist=OFFLINE_SPLIT_M, max_nodes=MAX_NODES))
+    if repr(base) != str(lc["off_params_repr"]):
+        raise SystemExit(f"{LC_OUT} was made at other offline parameters")
+    links = jlinks.LinkSet(**{k: jnp.asarray(lc["off_link_" + k]) for k in
+                              ("ref", "mov", "T", "cov", "score", "mask")})
+    sp_dir = SLAMParams(fuser=base.fuser,
+                        graph=base.graph.replace(**DIRECT_GRAPH))
+    slam = jax_graph_from_lc(lc, sp_dir)
+    slam._propose_links = lambda *a: links
+    after, _, keeps = record_offline(slam)
+    rec.update(dir_node_T=after.astype(np.float32), dir_keep=keeps[-1])
+    print(f"direct solve on the record's links: {int(keeps[-1].sum())} "
+          "kept links")
+
+    sp_grp = SLAMParams(fuser=base.fuser,
+                        graph=base.graph.replace(**GROUPED_GRAPH))
+    cls = recording_slam_class()
+    slam = jax_graph_from_lc(lc, sp_grp)
+    rslam = cls(sp_grp, seed=SEED)
+    rslam.nodes, rslam.node_T = slam.nodes, slam.node_T
+    rslam.odom_edges = slam.odom_edges
+    stacked = jnode.stack_nodes(rslam.nodes)
+    pairs = rslam.candidate_pairs()
+    ls = rslam._propose_links(stacked, *pairs)
+    m_hyp = base.fuser.features.ransac_hypotheses
+    key = jax.random.PRNGKey(SEED)
+    pair_u = []
+    for _, sub in rslam.key_log:
+        key, want = jax.random.split(key)
+        if not np.array_equal(np.asarray(want), sub):
+            raise SystemExit("grouped: the replayed keys are not JAX's")
+        pair_u.append(_pair_uniforms(want, GROUPED_GRAPH["link_batch_size"],
+                                     m_hyp))
+    ref_np = np.asarray(pairs[0])
+    chunk_start = [s for s, _ in group_bounds(
+        ref_np, np.asarray(pairs[1]), np.asarray(pairs[2]),
+        GROUPED_GRAPH["link_batch_size"],
+        max(2, GROUPED_GRAPH["link_group_nodes"]))]
+    if len(chunk_start) != len(pair_u):
+        raise SystemExit("grouped: chunk count differs from the draws")
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    rec.update(grp_pair_u=np.stack(pair_u),
+               grp_chunk_start=np.asarray(chunk_start, np.int64),
+               grp_ref=np.asarray(ls.ref, np.int64),
+               grp_mov=np.asarray(ls.mov, np.int64), grp_T=f32(ls.T),
+               grp_cov=f32(ls.cov), grp_score=f32(ls.score),
+               grp_mask=np.asarray(ls.mask))
+    print(f"grouped proposals: {len(pair_u)} chunks, "
+          f"{int(np.asarray(ls.mask).sum())} valid links of {len(ref_np)}")
+    np.savez_compressed(out, **rec)
+    print(f"wrote {out} ({os.path.getsize(out) / 1e6:.2f} MB)")
+
+
 def replay_fleet_draws(seed, n_streams, t_steps, m_hyp):
     """The RANSAC draws of scaling.build_fleet_feature_inputs' streams
     over `t_steps` scans: stream b's key is the b-th split of
@@ -424,6 +629,8 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--lc", action="store_true",
                     help="write the loop-closure record")
+    ap.add_argument("--solver", action="store_true",
+                    help="write the offline-at-scale record")
     ap.add_argument("--fleet", action="store_true",
                     help="write the fleet record")
     args = ap.parse_args()
@@ -448,6 +655,8 @@ def main():
         raise SystemExit(f"cell budget gate failed: {max_cells} cells")
     if args.lc:
         return make_lc_fixture(args.out or LC_OUT, seq, fp)
+    if args.solver:
+        return make_solver_fixture(args.out or SOLVER_OUT, fp)
     args.out = args.out or DEFAULT_OUT
     sparams = SLAMParams(
         fuser=fp,

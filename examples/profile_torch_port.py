@@ -4,6 +4,7 @@
     python3 examples/profile_torch_port.py --offline [--out DIR]
     python3 examples/profile_torch_port.py --wall-only [--runs 5] [--tree DIR]
     python3 examples/profile_torch_port.py --fleet B [--full] [--out DIR]
+    python3 examples/profile_torch_port.py --solver [--out DIR]
 
 Runs the main path of chip_smoke.py (NDTFeatureGraphSLAM.initialize +
 run_sequence_device over the first `--scans` scans of the canonical
@@ -30,6 +31,13 @@ over B streams of the fleet record's 39 scans at presets.fleet_serving():
 device operations per fleet step, Newton trials (launches of
 `newton_objective_batch`) per step, the busy share, the aggregate
 scans/s of the unprofiled run and the device time by operation.
+
+With --solver it profiles the segment-Schur solve of chip_smoke.py's
+phase 9 (sparse_direct.optimize_direct on the 570-node multi-loop graph,
+the 4,000-node two-lap graph of the solver record and the 10,000-node
+two-lap recipe): per graph the unprofiled wall of a solve, the device
+operations per LM iteration, the busy share and the device time by
+operation.
 
 With --offline it does the same for optimize_offline on chip_smoke.py's
 offline graph (phase 5), and first times its stages one by one, each
@@ -216,11 +224,48 @@ def fleet(dev, gpu, b, full, out):
             "newton_trials_per_step": trials / steps})
 
 
+def solver(dev, gpu, out):
+    """The profile of one optimize_direct solve per phase-9 graph."""
+    import time
+
+    sv = dict(np.load(chip_smoke.SOLVER_FIXTURE))
+    ml = chip_smoke.multi_loop_graph(chip_smoke.MULTI_LOOP["n_nodes"])
+    big = chip_smoke.two_lap_graph(chip_smoke.TWO_LAP_BIG)[1:]
+    cases = {
+        "570": (ml, chip_smoke.MULTI_LOOP),
+        "4000": ([sv["tl_" + k] for k in ("init", "i", "j", "meas",
+                                           "info")], chip_smoke.TWO_LAP),
+        str(chip_smoke.TWO_LAP_BIG): (big, chip_smoke.TWO_LAP),
+    }
+    for name, ((init, i, j, meas, info), cfg) in cases.items():
+        edges = chip_smoke.solver_edges(i, j, meas, info, dev)
+        p0 = torch.as_tensor(init, device=dev)
+        kw = {k: v for k, v in cfg.items()
+              if k in ("iterations", "robust_kernel")}
+
+        def solve():
+            t0 = time.perf_counter()
+            chip_smoke.direct_solve(p0, edges, cfg["max_seg_len"], **kw)
+            return time.perf_counter() - t0
+
+        solve()                                          # warm-up
+        wall = solve()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof = solve()
+        print(f"== {name} nodes")
+        report(prof, gpu, wall, wall_prof, "iterations", kw["iterations"],
+               out, f"torch_port_solver_{name}_profile.txt",
+               {"nodes": len(init), "edges": len(i)})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=80)
     ap.add_argument("--offline", action="store_true",
                     help="profile optimize_offline instead")
+    ap.add_argument("--solver", action="store_true",
+                    help="profile the segment-Schur solves of phase 9")
     ap.add_argument("--fleet", type=int, metavar="B",
                     help="profile a fleet run of B streams instead")
     ap.add_argument("--full", action="store_true",
@@ -239,6 +284,8 @@ def main():
     gpu = chip_smoke.gpu_line()
     if args.fleet:
         return fleet(dev, gpu, args.fleet, args.full, args.out)
+    if args.solver:
+        return solver(dev, gpu, args.out)
     fx = dict(np.load(chip_smoke.FIXTURE))
     if args.offline:
         return offline(dev, gpu, fx, args.out)

@@ -29,8 +29,27 @@ from ndt_feature_graph_tpu_torch.fusion import feature_fuser, scan_driver
 from ndt_feature_graph_tpu_torch.graph import links as links_mod
 from ndt_feature_graph_tpu_torch.graph import node as node_mod
 from ndt_feature_graph_tpu_torch.graph import optimize as opt_mod
+from ndt_feature_graph_tpu_torch.graph import sparse_direct as sparse_direct_mod
 
 FEATURE_MAP_CAPACITY = 128
+
+
+def group_bounds(ref, mov, mask, batch: int, group_nodes: int):
+    """The (start, end) pair ranges of the grouped link proposals:
+    consecutive candidate pairs (numpy) accumulate until a chunk holds
+    `batch` pairs or would reference more than `group_nodes` distinct
+    nodes (the reference's rule, graph/slam.py _propose_links_grouped)."""
+    bounds, start, nodes_in = [], 0, set()
+    for k in range(len(ref)):
+        pair = {int(ref[k]), int(mov[k])} if mask[k] else set()
+        new = pair - nodes_in
+        if k > start and (k - start >= batch
+                          or len(nodes_in) + len(new) > group_nodes):
+            bounds.append((start, k))
+            start, nodes_in, new = k, set(), pair
+        nodes_in |= new
+    bounds.append((start, len(ref)))
+    return bounds
 
 
 def _np_pose(x):
@@ -421,36 +440,76 @@ class NDTFeatureGraphSLAM:
 
     def _propose_links(self, stacked, ref, mov, mask):
         """Propose -> D2D-refine -> rescore candidate links, in chunks of
-        gp.link_batch_size pairs when that is > 0 (else one batch)."""
+        gp.link_batch_size pairs when that is > 0 (else one batch).  With
+        gp.link_group_nodes > 0 a chunk also closes before it would
+        reference more than that many distinct nodes, and runs against a
+        compact sub-bank of those nodes (_propose_links_grouped)."""
         p = self.params.fuser
         gp = self.params.graph
-        if gp.link_group_nodes > 0:
-            raise NotImplementedError(
-                "link_group_nodes > 0 is not ported (measured 8.5x slower "
-                "than plain chunking in the reference)"
-            )
         budget = links_mod.source_cell_budget(stacked)
 
-        def run(ref_c, mov_c, mask_c):
+        def run(stk, ref_c, mov_c, mask_c):
             ls = links_mod.compute_links_batch(
-                p.features, p.ndt.resolution, stacked, ref_c, mov_c, mask_c,
+                p.features, p.ndt.resolution, stk, ref_c, mov_c, mask_c,
                 self._pair_draws(ref_c.shape[0]),
             )
-            ls = links_mod.refine_links_d2d(p.ndt, p.matcher, stacked, ls,
+            ls = links_mod.refine_links_d2d(p.ndt, p.matcher, stk, ls,
                                             src_budget=budget)
-            return links_mod.rescore_links(p.ndt.resolution, stacked, ls)
+            return links_mod.rescore_links(p.ndt.resolution, stk, ls)
 
         n = int(ref.shape[0])
         B = gp.link_batch_size
         if B <= 0 or n <= B:
-            return run(ref, mov, mask)
+            return run(stacked, ref, mov, mask)
+        if gp.link_group_nodes > 0:
+            # A chunk's first pair can reference 2 distinct nodes, so the
+            # sub-bank holds at least 2.
+            return self._propose_links_grouped(
+                stacked, ref, mov, mask, run, B, max(2, gp.link_group_nodes))
         pad = (-n) % B
         z = torch.zeros(pad, dtype=ref.dtype, device=ref.device)
         ref_p, mov_p = torch.cat([ref, z]), torch.cat([mov, z])
         mask_p = torch.cat([mask, z.to(torch.bool)])
-        chunks = [run(ref_p[c:c + B], mov_p[c:c + B], mask_p[c:c + B])
-                  for c in range(0, n + pad, B)]
+        chunks = [run(stacked, ref_p[c:c + B], mov_p[c:c + B],
+                      mask_p[c:c + B]) for c in range(0, n + pad, B)]
         return node_mod.map_tensors(lambda *xs: torch.cat(xs)[:n], *chunks)
+
+    def _propose_links_grouped(self, stacked, ref, mov, mask, run,
+                               batch: int, group_nodes: int):
+        """Locality-grouped chunking: consecutive pairs accumulate until
+        the chunk holds `batch` pairs or would reference more than
+        `group_nodes` distinct nodes; the chunk then runs against a
+        sub-bank of exactly those nodes (padded to `group_nodes` with the
+        first), gathered by index.  Each chunk takes one `batch`-pair draw
+        from the queue, in chunk order.  The pair order is kept and the
+        outputs carry global node indices."""
+        ref_np, mov_np = ref.cpu().numpy(), mov.cpu().numpy()
+        mask_np = mask.cpu().numpy()
+        dev = ref.device
+        outs = []
+        for (s, e) in group_bounds(ref_np, mov_np, mask_np, batch,
+                                   group_nodes):
+            live = [k for k in range(s, e) if mask_np[k]]
+            uniq = sorted({int(ref_np[k]) for k in live}
+                          | {int(mov_np[k]) for k in live}) or [0]
+            local = {g: i for i, g in enumerate(uniq)}
+            sel = torch.as_tensor(uniq + [uniq[0]] * (group_nodes - len(uniq)),
+                                  device=dev)
+            sub = node_mod.map_tensors(lambda x: x[sel], stacked)
+            ref_c = np.zeros(batch, np.int64)
+            mov_c = np.zeros(batch, np.int64)
+            mask_c = np.zeros(batch, bool)
+            for k in live:
+                ref_c[k - s] = local[int(ref_np[k])]
+                mov_c[k - s] = local[int(mov_np[k])]
+                mask_c[k - s] = True
+            t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+            ls = run(sub, t(ref_c), t(mov_c), t(mask_c))
+            cnt = e - s
+            outs.append(links_mod.LinkSet(
+                ref=ref[s:e], mov=mov[s:e], T=ls.T[:cnt], cov=ls.cov[:cnt],
+                score=ls.score[:cnt], mask=ls.mask[:cnt] & mask[s:e]))
+        return node_mod.map_tensors(lambda *xs: torch.cat(xs), *outs)
 
     def _edges_from(self, link_set, link_keep):
         """Odometry edges + kept offline links + the links accepted by
@@ -479,24 +538,22 @@ class NDTFeatureGraphSLAM:
         return self._edge_list(edges)
 
     def _solve(self, gp: GraphParams, node_T, edges, robust_delta=None):
-        """Dense pose-graph solve.  The reference's segment-Schur solver
-        (graph/sparse_direct.py) is not ported: solver="direct", or more
-        nodes than solver_dense_max_nodes under "auto", raises."""
+        """Solver dispatch: the dense solve for small graphs, the exact
+        segment-Schur solve (graph/sparse_direct.py, O(E) memory) beyond
+        gp.solver_dense_max_nodes or when gp.solver == "direct"."""
         n = int(node_T.shape[0])
+        delta = gp.robust_delta if robust_delta is None else robust_delta
+        kw = dict(prior_information=gp.prior_information,
+                  iterations=gp.gn_iterations, damping=gp.gn_damping,
+                  robust_kernel=gp.robust_kernel, robust_delta=delta)
         if gp.solver == "direct" or (
             gp.solver == "auto" and n > gp.solver_dense_max_nodes
         ):
-            raise NotImplementedError(
-                f"solver={gp.solver!r} at {n} nodes needs the segment-Schur "
-                "solver of graph/sparse_direct.py, which is not ported yet"
-            )
-        return opt_mod.optimize(
-            node_T, edges, prior_information=gp.prior_information,
-            iterations=gp.gn_iterations, damping=gp.gn_damping,
-            robust_kernel=gp.robust_kernel,
-            robust_delta=gp.robust_delta if robust_delta is None
-            else robust_delta,
-        )
+            part = sparse_direct_mod.make_segments(
+                n, edges, max_seg_len=gp.solver_max_seg_len)
+            return sparse_direct_mod.optimize_direct(node_T, edges, part,
+                                                     **kw)
+        return opt_mod.optimize(node_T, edges, **kw)
 
     def optimize_offline(self, verbose=False):
         """Full offline pipeline: all-pairs feature links -> D2D refine
@@ -545,3 +602,76 @@ class NDTFeatureGraphSLAM:
     def optimized_trajectory(self):
         """Node-origin trajectory after optimization."""
         return np.stack(self.node_T)
+
+    # ---------------- checkpointing ----------------
+
+    def save(self, path):
+        """Checkpoint the frozen graph (nodes, odometry edges, trajectory)
+        to one npz in the reference's layout (io/serialize.py): the JAX
+        package loads it, and its checkpoints load here."""
+        from ndt_feature_graph_tpu_torch.io import serialize
+
+        if not self.nodes:
+            raise ValueError("nothing to save: no frozen nodes")
+        odom = self.odom_edges or [(0, 0, np.zeros(3), np.eye(3))]
+        f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+        serialize.save_pytree(path, {
+            "nodes": node_mod.stack_nodes(self.nodes),
+            "node_T": f32(np.stack(self.node_T)),
+            "odom_i": np.asarray([e[0] for e in odom], np.int32),
+            "odom_j": np.asarray([e[1] for e in odom], np.int32),
+            "odom_rel": f32(np.stack([e[2] for e in odom])),
+            "odom_cov": f32(np.stack([e[3] for e in odom])),
+            "n_odom": np.int32(len(self.odom_edges)),
+            "trajectory": f32(np.stack(self.trajectory)),
+            "times": f32(self.times),
+        })
+
+    @classmethod
+    def load(cls, path, params: SLAMParams, device=None):
+        """Rebuild a graph (ready for optimize_offline) from a checkpoint
+        on `device` (None: the CUDA card).  A checkpoint without packed
+        tables rebuilds them (serialize.derive_packed)."""
+        from ndt_feature_graph_tpu_torch import resolve_device
+        from ndt_feature_graph_tpu_torch.io import serialize
+
+        dev = resolve_device(device)
+        with np.load(path) as data:
+            n_nodes = data["node_T"].shape[0]
+            n_odom = int(data["n_odom"])
+            n_edges = data["odom_i"].shape[0]
+            n_traj = data["trajectory"].shape[0]
+            n_times = data["times"].shape[0]
+        node = node_mod.empty_node(params.fuser, FEATURE_MAP_CAPACITY, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        template = {
+            # Views: the template gives structure, dtypes and the device.
+            "nodes": node_mod.map_tensors(
+                lambda x: x.expand((n_nodes,) + x.shape), node),
+            "node_T": torch.zeros((n_nodes, 3), **f32),
+            "odom_i": torch.zeros(n_edges, **i32),
+            "odom_j": torch.zeros(n_edges, **i32),
+            "odom_rel": torch.zeros((n_edges, 3), **f32),
+            "odom_cov": torch.zeros((n_edges, 3, 3), **f32),
+            "n_odom": torch.zeros((), **i32),
+            "trajectory": torch.zeros((n_traj, 3), **f32),
+            "times": torch.zeros(n_times, **f32),
+        }
+        tree = serialize.load_pytree(path, template,
+                                     derive=serialize.derive_packed)
+        slam = cls(params)
+        slam.generator = torch.Generator(device=dev)
+        slam.generator.manual_seed(slam.seed)
+        stacked = tree["nodes"]
+        slam.nodes = [node_mod.map_tensors(lambda x, k=k: x[k], stacked)
+                      for k in range(n_nodes)]
+        host = {k: tree[k].cpu().numpy() for k in tree if k != "nodes"}
+        slam.node_T = [t.copy() for t in host["node_T"]]
+        slam.odom_edges = [
+            (int(host["odom_i"][k]), int(host["odom_j"][k]),
+             host["odom_rel"][k].copy(), host["odom_cov"][k].copy())
+            for k in range(n_odom)]
+        slam.trajectory = [t.copy() for t in host["trajectory"]]
+        slam.times = list(host["times"])
+        return slam

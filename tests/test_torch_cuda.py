@@ -239,3 +239,91 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
     assert n >= 7 and (n - 1) % 6 == 0
     assert n - 1 >= int(info.iterations.max())
     assert sum(cuda_kernels.LAUNCHES.values()) == n
+
+
+def _solver_graph(kind, dev):
+    """A 200-node graph of chip_smoke's recipes on `dev`: the reference's
+    two-lap square (closures every 10 nodes) or bench.py's multi-loop
+    circle."""
+    if kind == "two_lap":
+        _, init, i, j, meas, info = chip_smoke.two_lap_graph(200, every=10)
+    else:
+        init, i, j, meas, info = chip_smoke.multi_loop_graph(200)
+    return (torch.as_tensor(init, device=dev),
+            chip_smoke.solver_edges(i, j, meas, info, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,seg,robust", [("two_lap", 16, "none"),
+                                             ("two_lap", 128, "dcs"),
+                                             ("multi_loop", 64, "dcs")])
+def test_optimize_direct_on_the_card_matches_the_cpu(cuda_device, kind, seg,
+                                                     robust):
+    """The segment-Schur solve on the card against the port on the CPU at
+    200 nodes: poses within 5e-4, chi2 within 1e-3 relative (the
+    reference's tolerances against its dense solve; the card's
+    scatter-adds sum in another order)."""
+    from ndt_feature_graph_tpu_torch.graph import sparse_direct
+
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        init, edges = _solver_graph(kind, dev)
+        part = sparse_direct.make_segments(200, edges, max_seg_len=seg)
+        p, chi2 = sparse_direct.optimize_direct(init, edges, part,
+                                                iterations=25,
+                                                robust_kernel=robust)
+        out.append((p.cpu().numpy(), float(chi2)))
+    (p_cpu, c_cpu), (p_gpu, c_gpu) = out
+    np.testing.assert_allclose(p_gpu, p_cpu, atol=5e-4)
+    np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-3)
+
+
+def _solve64(blocks, edges):
+    """The float64 dense solution of H x = b for EdgeBlocks on the CPU."""
+    n = blocks.D.shape[0]
+    H = np.zeros((n, n, 3, 3))
+    H[np.arange(n), np.arange(n)] = blocks.D.double().numpy()
+    Hij = blocks.Hij.double().numpy()
+    for e, (i, j) in enumerate(zip(edges.i.numpy(), edges.j.numpy())):
+        H[i, j] += Hij[e]
+        H[j, i] += Hij[e].T
+    x = np.linalg.solve(H.transpose(0, 2, 1, 3).reshape(3 * n, 3 * n),
+                        blocks.b.double().numpy().reshape(-1))
+    return x.reshape(n, 3)
+
+
+@pytest.mark.cuda
+def test_solvers_on_the_card_match_the_cpu(cuda_device):
+    """One segment-Schur linear solve (within 1e-3 of the float64
+    solution's scale: the float32 LU of its reduced system alone leaves
+    1.6e-4 of its own float64 solve on the CPU, 2.7e-4 on the card, where
+    the whole solve measured 8.1e-5 and 3.6e-4), PCG with the chain
+    and the Jacobi preconditioner and the blocked Schur solve (poses
+    within 5e-4; each converged: 10 Gauss-Newton iterations, 150 CG
+    iterations, within 1e-6 of the dense solve on the CPU) on the card
+    against the CPU at 200 nodes."""
+    from ndt_feature_graph_tpu_torch.graph import schur, sparse
+    from ndt_feature_graph_tpu_torch.graph import sparse_direct
+
+    res = []
+    for dev in (torch.device("cpu"), cuda_device):
+        init, edges = _solver_graph("multi_loop", dev)
+        blocks = sparse.linearize_edges(init, edges, 100.0, 1e-2, init[0],
+                                        robust_kernel="dcs")
+        if dev.type == "cpu":
+            x64 = _solve64(blocks, edges)
+        part = sparse_direct.make_segments(200, edges, max_seg_len=8)
+        x = sparse_direct.solve_normal_equations(blocks, edges, part, 200)
+        poses = [sparse.optimize_pcg(init, edges, iterations=10,
+                                     cg_iterations=150,
+                                     preconditioner=pre)[0]
+                 for pre in ("chain", "jacobi")]
+        poses.append(schur.optimize_schur(
+            init, edges, schur.make_partition(200, edges, 4), iterations=10))
+        res.append((x.cpu().numpy(), [p.cpu().numpy() for p in poses]))
+    (x_cpu, p_cpu), (x_gpu, p_gpu) = res
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, atol=5e-4)
+    scale = np.abs(x64).max()
+    for x in (x_cpu, x_gpu):
+        assert np.abs(x - x64).max() <= 1e-3 * scale

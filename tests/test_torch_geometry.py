@@ -208,7 +208,9 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "for m in ('models.presets', 'parallel.scaling'):\n"
+        "for m in ('models.presets', 'parallel.scaling', 'graph.sparse',\n"
+        "          'graph.sparse_direct', 'graph.schur', 'io.serialize',\n"
+        "          'utils.occupancy', 'cli'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'ndt_feature_graph_tpu'))\n"

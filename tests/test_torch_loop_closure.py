@@ -39,6 +39,8 @@ from ndt_feature_graph_tpu.io import tum
 from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch import pipeline as tpipe
 from ndt_feature_graph_tpu_torch.fusion.scan_driver import split_schedule
+from ndt_feature_graph_tpu_torch.graph import node as node_mod
+from ndt_feature_graph_tpu_torch.graph import sparse_direct
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
 
@@ -276,21 +278,36 @@ def test_update_per_scan_matches_the_chunked_driver():
 
 def test_unported_options_raise():
     """The options the port does not run raise instead of taking another
-    path."""
+    path; those ported since run: the segment-Schur solve (solver="direct",
+    and "auto" beyond solver_dense_max_nodes) and grouped link proposals
+    (tests/test_torch_sparse_solvers.py holds both to JAX)."""
     tslam = _port_offline()[0]
     node_T = torch.tensor(np.stack(tslam.node_T))
     edges = tslam._edges_from(None, None)
+    n = node_T.shape[0]
     for gp in (T_OFFLINE.graph.replace(solver="direct"),
                T_OFFLINE.graph.replace(solver_dense_max_nodes=4)):
-        with pytest.raises(NotImplementedError, match="sparse_direct"):
-            tslam._solve(gp, node_T, edges)
+        got, chi2 = tslam._solve(gp, node_T, edges)
+        ref, _ = sparse_direct.optimize_direct(
+            node_T, edges, sparse_direct.make_segments(
+                n, edges, gp.solver_max_seg_len),
+            prior_information=gp.prior_information,
+            iterations=gp.gn_iterations, damping=gp.gn_damping,
+            robust_kernel=gp.robust_kernel, robust_delta=gp.robust_delta)
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+        assert np.isfinite(float(chi2))
     tslam.params = T_OFFLINE.replace(graph=T_OFFLINE.graph.replace(
         link_group_nodes=8, link_batch_size=4))
+    pair_u, tslam.pair_u = tslam.pair_u, None
     try:
-        with pytest.raises(NotImplementedError, match="link_group_nodes"):
-            tslam._propose_links(None, *tslam.candidate_pairs())
+        stacked = node_mod.stack_nodes(tslam.nodes)
+        pairs = tslam.candidate_pairs()
+        ls = tslam._propose_links(stacked, *pairs)
+        for got, want in zip((ls.ref, ls.mov), pairs[:2]):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert not (ls.mask & ~pairs[2]).any() and ls.mask.any()
     finally:
-        tslam.params = T_OFFLINE
+        tslam.params, tslam.pair_u = T_OFFLINE, pair_u
     adaptive = T_OFFLINE.fuser.replace(
         features=T_OFFLINE.fuser.features.replace(ransac_adaptive=True))
     slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(fuser=adaptive))

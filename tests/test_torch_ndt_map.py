@@ -90,7 +90,32 @@ def test_update_occupancy_matches_jax():
     assert np.abs(tg.occ.numpy()).max() > 0.5
 
 
+def _reference_cov_spread(pts, mask, jc, orders=8, center=(0.3, -0.2)):
+    """Largest change of the reference's own finalized covariances when
+    the same points are summed in other orders: the sample covariance
+    outer/n - mean mean^T cancels in float32 (cells metres from the
+    origin, covariances ~1e-3), so any change of a sum's rounding moves
+    it by ~1e-5."""
+    rng = np.random.default_rng(0)
+    c = jnp.asarray(np.asarray(center, np.float32))
+    spread = 0.0
+    for _ in range(orders):
+        perm = rng.permutation(len(pts))
+        g, _ = jnm.add_points_touched(jnm.empty_grid(PARAMS, c), PARAMS,
+                                      jnp.asarray(pts[perm]),
+                                      jnp.asarray(mask[perm]))
+        spread = max(spread, float(np.abs(
+            np.asarray(jnm.finalize(g, PARAMS)[1]) - np.asarray(jc)).max()))
+    return spread
+
+
 def test_finalize_matches_jax():
+    """Means and the valid mask at the module's tolerances; covariances
+    to the reference's own spread under a reordering of the same points
+    (1.5e-5 over four orders, 2.0e-5 over twelve).  The port's CPU result
+    itself moves that much in some processes: there torch's float32 sqrt
+    returns a 12-bit approximation over half the grid (ROADMAP queue 3),
+    which this cancellation turns into 1.35e-5 of covariance."""
     pts, mask = _scan(seed=1)
     jg, _, tg, _ = _grids(pts, mask)
     jm, jc, jv = jnm.finalize(jg, PARAMS)
@@ -98,7 +123,9 @@ def test_finalize_matches_jax():
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     assert tv.numpy().sum() > 20
     _close(jm, tm)
-    _close(jc, tc)
+    spread = _reference_cov_spread(pts, mask, jc)
+    assert 1e-6 < spread < 1e-4
+    _close(jc, tc, atol=max(ATOL, spread))
 
 
 def test_condition_cov_matches_jax():
