@@ -21,6 +21,14 @@ Runs on a machine with a CUDA card and no JAX:
      frozen-node count matches JAX and that the trajectory stays within
      1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
      (one warm-up run, then the median of 3);
+     3e. the fixed-order map update (add_points_touched +
+         update_occupancy of three canonical scans, into one grid and a
+         stack of three) on the card equals the CPU's bit for bit and
+         repeats; its device time beside the atomic index_add it
+         replaced, in turns; torch.sqrt of 2^20 float32 values on the
+         card equals numpy.sqrt (0 elements differ);
+     the three timed runs repeat the first run's trajectory bit for bit
+     and its launch counts;
      3c. plain registration on that graph: d2d.match_d2d +
          covariance_d2d of its last frozen node against the final
          submap's packed table (the `fgh_dense_flat` entry), and
@@ -69,9 +77,12 @@ Runs on a machine with a CUDA card and no JAX:
      noise, see fleet_dev; the reference's own spread under an odometry
      change of 1e-6 / 1e-5, 2-3 mm here, is in the record and printed
      beside), at B = 32 and 64
-     (streams 0-7 equal the B = 8 run's) and at B = 32 with occ_every=4
-     (the same poses): only `newton_objective_batch` launches, once per
-     Newton trial; aggregate scans/s at each B (median of 3);
+     (streams 0-7 equal the B = 8 run's; at B = 32 a second run of the
+     same inputs, and whether it repeats every trajectory, stream 21's
+     with the reference's bistable scan among them) and at B = 32 with
+     occ_every=4 (the same poses): only `newton_objective_batch`
+     launches, once per Newton trial; aggregate scans/s at each B
+     (median of 3);
      7b. the full pipeline run_sequence_features_batch at B = 8 against
          the JAX record with its RANSAC draws, then B = 32;
      7c. serve_fleet_interleaved(group_size=8, time_chunk=8) and
@@ -120,7 +131,22 @@ Runs on a machine with a CUDA card and no JAX:
          optimize_offline of the same checkpoint;
      `fgh_dense_flat_batch` launches in (d), (e) and (g) are printed and
      must be > 0;
- 10. prints one JSON line of all kernel entries and, last, the result
+ 10. localization at the canonical point (canonical_localize.npz, made
+     from the JAX package by make_torch_port_fixture.py --localize):
+     cli localize's map of the first half and 32-scan database, the
+     distance field exactly, relocalize + badness of scan 67 on JAX's
+     draws, MCL (512 particles) over the second half on JAX's recorded
+     draws within the reference's own spread; MCL steps/s and the ms of
+     relocalize, build_distance_map and adjust_pose (localization
+     launches no kernel entry);
+ 11. the HMT tile store (canonical_hmt.npz, --hmt): HMTFuser over a
+     481-scan out-and-back corridor at the canonical sensor against the
+     JAX run, a save / load / spill / exact recall on the card, and a
+     resume from the directory JAX wrote; scans/s and recentre ms;
+     11b. the CLI's `localize` (tracking and --kidnapped) and `fuse`
+     (plain, --hmt-dir, --resume) in this process on the canonical
+     sequence;
+ 12. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -154,7 +180,8 @@ import numpy as np
 import torch
 
 from ndt_feature_graph_tpu_torch.config import (
-    FeatureParams, FuserParams, GraphParams, NDTMapParams, SLAMParams,
+    FeatureParams, FuserParams, GraphParams, MotionParams, NDTMapParams,
+    SLAMParams,
 )
 from ndt_feature_graph_tpu_torch import cli, interop, pipeline
 from ndt_feature_graph_tpu_torch.core import se2
@@ -169,7 +196,12 @@ from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io import dataset, serialize, tum
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
 from ndt_feature_graph_tpu_torch.models import presets
-from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d, d2d_analytic
+from ndt_feature_graph_tpu_torch.fusion.hmt_driver import HMTFuser
+from ndt_feature_graph_tpu_torch.localization import mcl, monitor, place_rec
+from ndt_feature_graph_tpu_torch.ops import (
+    cuda_kernels, d2d, d2d_analytic, ndt_map,
+)
+from ndt_feature_graph_tpu_torch.ops.hmt import HMTMap
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 from ndt_feature_graph_tpu_torch.parallel import scaling
 
@@ -183,6 +215,7 @@ FLEET_FIXTURE = os.path.join(ROOT, FLEET_FIXTURE_REL)
 FLEET_SIZES = (8, 32, 64)     # bench.py's fleet cells, points only
 FLEET_FULL_SIZES = (8, 32)    # ... and of the full pipeline
 FLEET_SERVE = dict(streams=20, group_size=8, time_chunk=8)
+FLEET_STREAM = 21             # the B = 32 stream with the bistable scan
 # Fleet trajectories and scores vs the JAX record and between runs on
 # the card: the reference's own batch-path tolerances
 # (tests/test_scan_driver.py) for nine tenths of the poses, and a bound
@@ -217,6 +250,15 @@ CELL_BYTES = 8 + 16 + 1       # a cell's mean, covariance and mask
 # (c) the two-lap recipe at 10,000 nodes with numpy noise; (d) the
 # direct solver on the canonical loop-closure graph; (e) grouped link
 # proposals on that bank.
+# Phase 10, localization (cli.py cmd_localize at the canonical point), and
+# phase 11, the HMT tile store (HMTFuser on an out-and-back corridor):
+# examples/make_torch_port_fixture.py --localize / --hmt.
+LOCALIZE_FIXTURE = os.path.join(
+    ROOT, "ndt_feature_graph_tpu_torch/data/canonical_localize.npz")
+HMT_FIXTURE = os.path.join(ROOT,
+                           "ndt_feature_graph_tpu_torch/data/canonical_hmt.npz")
+BADNESS_TOL = 1e-5            # metres
+SQRT_N = 1 << 20              # fault 1: float32 roots checked on the card
 SOLVER_FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_solver.npz"
 SOLVER_FIXTURE = os.path.join(ROOT, SOLVER_FIXTURE_REL)
 MULTI_LOOP = dict(n_nodes=570, max_seg_len=64, iterations=12,
@@ -1703,9 +1745,9 @@ def fleet_dev(name, traj, scores, ref_traj, ref_scores, spread):
     (an accepted step improving f by at most 1e-4, three float32 ulps
     of |f| ~ 500) fires at rounding noise, so here and there a scan's
     registration stops early, millimetres (measured up to 23 mm, with a
-    score 15% worse) from where the same program lands on another run
-    of the card, whose atomic map update adds in another order; the
-    next scans pull it back.  The reference's own `spread`
+    score 15% worse) from where the same program lands when a sum
+    rounds otherwise (the card and XLA order their sums differently);
+    the next scans pull it back.  The reference's own `spread`
     (fleet_spread: what an odometry change of 1e-6 / 1e-5 does to it)
     is printed beside.  Returns the largest (xy, theta) deviation."""
     traj, scores = traj.cpu().numpy(), scores.cpu().numpy()
@@ -1792,6 +1834,16 @@ def fleet_points_phase(fp, fl, dev):
                       sc[:8], *ref8, spread)
             if b == mid:
                 traj_mid = (traj, sc)
+                (_, rep, _), _ = run_fleet(drv, fp, inputs, dev)
+                k = FLEET_STREAM
+                same = torch.equal(rep, traj)
+                s_xy, s_th = max_dev(rep[k].cpu().numpy(),
+                                     traj[k].cpu().numpy())
+                print(f"  B={b}, the same inputs again: every trajectory "
+                      f"identical {same}; stream {k} (bistable in the "
+                      f"reference) moved {s_xy * 1e3:.4f} mm / "
+                      f"{s_th * 1e3:.4f} mrad")
+                summary["repeat_identical"] = same
         rate, runs = fleet_rate(drv, fp, inputs, dev)
         summary["scans_per_s"][b], summary["run_s"][b] = rate, runs
         summary.setdefault("launches_per_step", {})[b] = n / steps
@@ -1924,6 +1976,450 @@ def rolling_phase(fx, dev):
     return {"cells_moved": moved, "dev_xy_m": xy, "dev_theta_rad": th}
 
 
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint32)
+
+
+def atomic_scatter(bases, idx, vals):
+    """The map scatter as the port made it before its fixed order: one
+    `index_add` per field, atomic on the card.  Kept only to time the
+    fixed-order ndt_map.scatter_add_rows against (`scatter_swapped`)."""
+    return [b.index_add(0, idx, v) for b, v in zip(bases, vals)]
+
+
+@contextlib.contextmanager
+def scatter_swapped(fn):
+    """ndt_map's map scatter replaced by `fn` inside the block."""
+    fixed = ndt_map.scatter_add_rows
+    ndt_map.scatter_add_rows = fn
+    try:
+        yield
+    finally:
+        ndt_map.scatter_add_rows = fixed
+
+
+def map_update_case(mp, fx, device, streams=0, scans=(0, 2, 4)):
+    """The map update of canonical scans at their ground-truth poses:
+    add_points_touched, then update_occupancy, scan after scan into one
+    grid (or a stack of `streams` grids, stream k's points moved by
+    0.37 k m: the fleet's flat scatter).  The world points are made on
+    the CPU and copied to `device`, so every device scatters the same
+    inputs.  Returns the fields as numpy."""
+    cpu = torch.device("cpu")
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=cpu)
+    lead = (streams,) if streams else ()
+    grid = ndt_map.empty_grid(mp, torch.zeros(lead + (2,), device=device))
+    for t in scans:
+        pts, mask = dataset.scan_to_points(T(fx["ranges"][t]),
+                                           T(fx["hit"][t], torch.bool))
+        world = se2.transform_points(T(fx["gt"][t]), pts)
+        sensor = T(fx["gt"][t][:2])
+        if streams:
+            world = torch.stack([world + 0.37 * k for k in range(streams)])
+            mask = mask.expand(streams, -1)
+            sensor = sensor.expand(streams, 2)
+        world, mask, sensor = (x.to(device) for x in (world, mask, sensor))
+        grid, _ = ndt_map.add_points_touched(grid, mp, world, mask)
+        grid = ndt_map.update_occupancy(grid, mp, sensor, world, mask)
+    return {k: getattr(grid, k).cpu().numpy()
+            for k in ("count", "psum", "outer", "occ")}
+
+
+def map_update_phase(sp, fx, dev):
+    """Phase 3e: the fixed-order map update on the card equals the CPU's
+    bit for bit on the same points and repeats (one grid and a stack of
+    3); its device time
+    beside the atomic index_add it replaced (in turns); and torch's
+    float32 sqrt on the card is correctly rounded (numpy's)."""
+    mp = sp.fuser.ndt
+    out = {}
+    for streams in (0, 3):
+        cpu = map_update_case(mp, fx, torch.device("cpu"), streams)
+        card = map_update_case(mp, fx, dev, streams)
+        again = map_update_case(mp, fx, dev, streams)
+        diff = {k: int((_bits(card[k]) != _bits(cpu[k])).sum()) for k in cpu}
+        rep = all(np.array_equal(_bits(card[k]), _bits(again[k]))
+                  for k in card)
+        print(f"  {streams or 1} grid(s), 3 scans: elements differing from "
+              f"the CPU's bits {diff}; a second run identical: {rep}")
+        check(rep and not any(diff.values()),
+              "the map update on the card is not the CPU's bit for bit")
+        out[f"differing_{streams or 1}"] = diff
+    x = torch.rand(SQRT_N, device=dev) * 100.0
+    ref = np.sqrt(x.cpu().numpy())
+    n_sqrt = int((torch.sqrt(x).cpu().numpy() != ref).sum())
+    n_cpu = int((torch.sqrt(x.cpu()).numpy() != ref).sum())
+    print(f"  torch.sqrt on {SQRT_N} float32 values on {dev.type}: {n_sqrt} "
+          f"differ from numpy.sqrt (torch's CPU build here: {n_cpu})")
+    if dev.type == "cuda":
+        check(n_sqrt == 0, "torch.sqrt on the card is not correctly rounded")
+    out["sqrt_cpu_differing"] = n_cpu
+    out["sqrt_differing"] = n_sqrt
+    if dev.type != "cuda":
+        return out
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    state = fuser.initialize(sp.fuser, T(fx["gt"][0]),
+                             torch.zeros(3, device=dev),
+                             *dataset.scan_to_points(T(fx["ranges"][0]),
+                                                     T(fx["hit"][0],
+                                                       torch.bool)))
+    pts, mask = dataset.scan_to_points(T(fx["ranges"][2]),
+                                       T(fx["hit"][2], torch.bool))
+    world = se2.transform_points(T(fx["gt"][2]), pts)
+    sensor = T(fx["gt"][2][:2])
+
+    def ordered():
+        g, _ = ndt_map.add_points_touched(state.grid, mp, world, mask)
+        return ndt_map.update_occupancy(g, mp, sensor, world, mask)
+
+    def atomic():
+        with scatter_swapped(atomic_scatter):
+            return ordered()
+
+    print("  one scan's map update (add_points_touched + update_occupancy, "
+          "720 points, 720 x 49 occupancy entries), fixed order vs the "
+          "atomic index_add:")
+    t = time_turns(ordered, atomic, 50, 50)
+    out.update(ordered_us=t["ms"] * 1e3, atomic_us=t["plain_ms"] * 1e3,
+               ordered_events_us=t["events_ms"] * 1e3,
+               atomic_events_us=t["plain_events_ms"] * 1e3)
+    return out
+
+
+def localize_phase(sp, fx, dev):
+    """Phase 10: cli.py cmd_localize's two modes at the canonical point
+    against the JAX record (canonical_localize.npz): the map of every
+    second scan of the first half at ground-truth poses with a 32-scan
+    database; the distance field exactly; relocalize of scan 67 on
+    JAX's draws (the same stored scan and inliers, pose within
+    1 cm / 5 mrad, badness within 1e-5 m); MCL with 512 particles over
+    the second half on JAX's recorded draws: every estimate within the
+    reference's own spread (its 31 runs with the odometry moved by
+    +-k * 1e-6, k = 1..16), no more differing resampling decisions than
+    the most those runs show (the effective sample size sits near n/2
+    at a few steps), the final error within theirs.  Times MCL steps/s (median of 3 after a
+    warm-up), relocalize, build_distance_map and adjust_pose."""
+    lx = dict(np.load(LOCALIZE_FIXTURE))
+    mp = sp.fuser.ndt
+    fp_db = FeatureParams(num_beams=sp.fuser.features.num_beams,
+                          max_range=mp.sensor_range)
+    check(repr(mp) == str(lx["params_repr"])
+          and repr(fp_db) == str(lx["features_repr"]),
+          "canonical_localize.npz was made at other parameters")
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    ranges, hit = T(fx["ranges"]), T(fx["hit"], torch.bool)
+    odom, gt = T(fx["odom"]), T(fx["gt"])
+    split, q = int(lx["split"]), int(lx["query"])
+    cuda_kernels.reset_launch_counts()
+
+    grid = ndt_map.empty_grid(mp, torch.zeros(2, device=dev))
+    db = place_rec.empty_database(fp_db, 32, dev)
+    for t in lx["map_scans"]:
+        pts, mask = dataset.scan_to_points(ranges[t], hit[t])
+        world = se2.transform_points(gt[t], pts)
+        grid = ndt_map.add_points(grid, mp, world, mask)
+        grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world, mask)
+        db = place_rec.insert_scan(db, fp_db, gt[t], ranges[t], hit[t])
+    check(int(db.mask.sum()) == int(lx["db_used"]),
+          f"{int(db.mask.sum())} scans stored, JAX {int(lx['db_used'])}")
+    tgt = d2d.make_dense_target(grid, mp)
+
+    dmap = monitor.build_distance_map(grid.occ, grid.origin, mp.resolution)
+    n_bad = int((dmap.dist.cpu().numpy() != lx["dist"]).sum())
+    print(f"  {int(db.mask.sum())} scans stored; distance field "
+          f"{tuple(dmap.dist.shape)}: {n_bad} cells differ from JAX's")
+    check(n_bad == 0, "the distance field is not JAX's")
+    u = T(lx["reloc_u"])
+    pose, best, n = place_rec.relocalize(db, fp_db, ranges[q], hit[q], u,
+                                         min_num_matches=8)
+    check(pose is not None and best == int(lx["reloc_best"])
+          and n == int(lx["reloc_inliers"]),
+          f"relocalize: stored scan {best}, {n} inliers; JAX "
+          f"{int(lx['reloc_best'])}, {int(lx['reloc_inliers'])}")
+    r_xy, r_th = max_dev(pose, lx["reloc_pose"])
+    pts_q, mask_q = dataset.scan_to_points(ranges[q], hit[q])
+    bad = float(monitor.badness(dmap, T(pose), pts_q, mask_q))
+    adj, adj_score = monitor.adjust_pose(dmap, T(pose), pts_q, mask_q)
+    a_xy, a_th = max_dev(adj.cpu().numpy(), lx["adjust_pose"])
+    print(f"  scan {q} -> stored scan {best} with {n} inliers (JAX the "
+          f"same); pose {r_xy * 1e3:.4f} mm / {r_th * 1e3:.4f} mrad from "
+          f"JAX's; badness {bad:.6f} m (JAX {float(lx['reloc_badness']):.6f});"
+          f" adjust_pose {a_xy * 1e3:.4f} mm / {a_th * 1e3:.4f} mrad, score "
+          f"{float(adj_score):.6f} (JAX {float(lx['adjust_score']):.6f})")
+    check(r_xy <= XY_TOL and r_th <= TH_TOL, "relocalized pose off JAX's")
+    check(abs(bad - float(lx["reloc_badness"])) <= BADNESS_TOL,
+          "badness off JAX's")
+    check(abs(float(adj_score) - float(lx["adjust_score"])) <= BADNESS_TOL,
+          "adjust_pose's badness off JAX's")
+
+    draws = mcl.recorded_draws(T(lx["mcl_init_xy"]), T(lx["mcl_init_theta"]),
+                               T(lx["mcl_noise"]), lx["mcl_resampled"],
+                               T(lx["mcl_u0"]))
+
+    def track():
+        sync(dev)
+        t0 = time.perf_counter()
+        loc = mcl.MCL(mp, MotionParams(), tgt,
+                      n_particles=int(lx["particles"]), draws=draws)
+        loc.initialize(gt[split], spread_xy=0.5, spread_theta=0.2)
+        est = [loc.step(odom[t], *dataset.scan_to_points(ranges[t], hit[t]))
+               for t in range(split + 1, ranges.shape[0])]
+        est = torch.stack(est)
+        sync(dev)
+        return est.cpu().numpy(), loc.resampled, time.perf_counter() - t0
+
+    est, resampled, _ = track()
+    ref, ref_eps = lx["mcl_est"], lx["mcl_est_eps"]    # eps: (31, S, 3)
+    spread = max_dev(ref_eps, ref)
+    tol = (max(spread[0], XY_TOL), max(spread[1], TH_TOL))
+    dxy, dth = max_dev(est, ref)
+    n_dec = int((np.asarray(resampled) != lx["mcl_resampled"]).sum())
+    n_dec_eps = int((lx["mcl_resampled_eps"] != lx["mcl_resampled"]
+                     ).sum(-1).max())
+    gt_np = fx["gt"][split + 1:, :2]
+    err = np.linalg.norm(est[:, :2] - gt_np, axis=1)
+    err_eps = np.linalg.norm(ref_eps[..., :2] - gt_np, axis=-1)   # (31, S)
+    ref_err = lx["mcl_err"]
+    print(f"  MCL {int(lx['particles'])} particles, {len(est)} steps: "
+          f"estimates within {dxy * 1e3:.3f} mm / {dth * 1e3:.3f} mrad of "
+          f"JAX's (its own spread {spread[0] * 1e3:.3f} mm / "
+          f"{spread[1] * 1e3:.3f} mrad); {n_dec} resampling decisions differ"
+          f" (JAX's own runs: up to {n_dec_eps}); final error "
+          f"{err[-1]:.4f} m (JAX {ref_err[-1]:.4f}, its perturbed runs "
+          f"{', '.join(f'{e:.4f}' for e in err_eps[:, -1])}), "
+          f"mean {err.mean():.4f} m (JAX {ref_err.mean():.4f})")
+    check(dxy <= tol[0] and dth <= tol[1],
+          "MCL estimates beyond the reference's own spread")
+    check(n_dec <= n_dec_eps, "more resampling decisions differ than in "
+                              "any of the reference's own runs")
+    check(abs(err[-1] - ref_err[-1]) <= max(
+        float(np.abs(err_eps[:, -1] - ref_err[-1]).max()), XY_TOL),
+          "MCL final error beyond the reference's own spread")
+    launches = dict(cuda_kernels.LAUNCHES)
+    check(sum(launches.values()) == 0,
+          f"localization launched kernel entries: {launches}")
+    out = {"mcl_dev": (dxy, dth), "jax_spread": spread,
+           "resample_decisions_differing": n_dec,
+           "final_error_m": float(err[-1]), "reloc": (best, n),
+           "badness_m": bad}
+    if dev.type != "cuda":
+        return out
+    runs = [track()[2] for _ in range(3)]
+    steps = len(est)
+    out["mcl_steps_per_s"] = steps / sorted(runs)[1]
+
+    def ms(fn, reps=5):
+        fn()
+        ts = []
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[reps // 2] * 1e3
+
+    out["relocalize_ms"] = ms(lambda: place_rec.relocalize(
+        db, fp_db, ranges[q], hit[q], u, min_num_matches=8))
+    out["build_distance_map_ms"] = ms(lambda: monitor.build_distance_map(
+        grid.occ, grid.origin, mp.resolution))
+    out["adjust_pose_ms"] = ms(lambda: monitor.adjust_pose(
+        dmap, T(pose), pts_q, mask_q))
+    print(f"  MCL {out['mcl_steps_per_s']:.1f} steps/s (median of 3: "
+          f"{', '.join(f'{r:.3f}' for r in runs)} s for {steps} steps); "
+          f"relocalize {out['relocalize_ms']:.2f} ms (32 stored scans), "
+          f"build_distance_map {out['build_distance_map_ms']:.2f} ms, "
+          f"adjust_pose {out['adjust_pose_ms']:.2f} ms (343 candidates); "
+          f"launches {launches}")
+    return out
+
+
+def _grid_np(g):
+    return {k: getattr(g, k).cpu().numpy()
+            for k in ("origin", "count", "psum", "outer", "occ")}
+
+
+def _same_grid(a, b):
+    return all(np.array_equal(_bits(a[k]), _bits(b[k])) for k in a)
+
+
+def hmt_phase(dev):
+    """Phase 11: HMTFuser on the out-and-back corridor of
+    tests/test_hmt_driver.py at the canonical sensor (481 scans, margin
+    10 m, 64-cell tiles, chunks of 16) against the JAX record
+    (canonical_hmt.npz): the same recentres (each check lies 2 m from
+    the margin); the trajectory within 1 cm / 5 mrad, the stored cells
+    and the global_gaussians count equal, or within the reference's own
+    spread where that is wider (the most its 31 runs with the odometry
+    moved by +-k * 1e-6, k = 1..16, move from its run);
+    `newton_objective` alone launched, once per Newton trial; the port's directory saved after 240 scans loads
+    back to the same window, which recentred away and back is recalled
+    bit for bit; a fuser loaded from the directory JAX wrote resumes
+    over 32 scans as JAX's did.  Prints scans/s and the recentre ms."""
+    hx = dict(np.load(HMT_FIXTURE))
+    fp = canonical_slam_params().fuser
+    check(repr(fp) == str(hx["params_repr"]),
+          "canonical_hmt.npz was made at other parameters")
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    pts, mask = dataset.scan_to_points(T(hx["ranges"]), T(hx["hit"],
+                                                          torch.bool))
+    odom, gt = T(hx["odom"]), T(hx["gt"])
+    a, c, n_res = int(hx["save_at"]), int(hx["chunk"]), int(hx["resume"])
+    kw = dict(recenter_margin=float(hx["margin"]),
+              tile_cells=int(hx["tile_cells"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        own, jdir = os.path.join(tmp, "port"), os.path.join(tmp, "jax")
+        cuda_kernels.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        hf = HMTFuser(fp, gt[0], torch.zeros(3, device=dev), pts[0], mask[0],
+                      **kw)
+        first = hf.run_sequence(odom[1:a + 1], pts[1:a + 1], mask[1:a + 1],
+                                chunk=c)
+        sync(dev)
+        t1 = time.perf_counter()
+        hf.save(own)
+        saved = _grid_np(hf.state.grid)
+        t2 = time.perf_counter()
+        rest = hf.run_sequence(odom[a + 1:], pts[a + 1:], mask[a + 1:],
+                               chunk=c)
+        sync(dev)
+        wall = (t1 - t0) + (time.perf_counter() - t2)
+        launches = dict(cuda_kernels.LAUNCHES)
+        traj = np.concatenate([first, rest])
+        scans = traj.shape[0]
+        n_obj = launches["newton_objective"]
+        if dev.type == "cuda":
+            check(n_obj >= scans and (n_obj - scans) % 6 == 0
+                  and sum(launches.values()) == n_obj,
+                  f"the HMT run launched {launches}: expected "
+                  "newton_objective alone, 1 + 6k a scan")
+        spread = max_dev(hx["traj_eps"], hx["traj"])
+        tol = (max(spread[0], XY_TOL), max(spread[1], TH_TOL))
+        dxy, dth = max_dev(traj, hx["traj"])
+        hf.hmt.grid = hf.state.grid
+        n_gauss = hf.hmt.global_gaussians()[0].shape[0]
+        counts = {"stored cells": (hf.stored_cell_count(), "stored_cells"),
+                  "gaussians": (n_gauss, "n_gauss")}
+        rt = np.asarray(hf.recenter_times) * 1e3
+        print(f"  {scans} scans in {wall:.3f} s ({scans / wall:.1f} scans/s,"
+              f" {hf.n_recenters} recentres of {np.median(rt):.1f} ms "
+              f"median, {rt.max():.1f} max); {n_obj} newton_objective "
+              f"launches ({n_obj / scans:.2f} a scan); trajectory within "
+              f"{dxy * 1e3:.3f} mm / {dth * 1e3:.3f} mrad of JAX's (its "
+              f"own 31 runs with the odometry moved by +-k * 1e-6: "
+              f"{spread[0] * 1e3:.3f} mm / {spread[1] * 1e3:.3f} mrad); "
+              f"recentres {hf.n_recenters} (JAX {int(hx['n_recenters'])}, "
+              f"its runs {hx['n_recenters_eps'].tolist()}), " + ", ".join(
+                  f"{k} {v} (JAX {int(hx[r])}, its runs "
+                  f"{hx[r + '_eps'].tolist()})"
+                  for k, (v, r) in counts.items()))
+        check(dxy <= tol[0] and dth <= tol[1],
+              "HMT trajectory beyond 1 cm / 5 mrad and the reference's "
+              "own spread")
+        check(hf.n_recenters == int(hx["n_recenters"]),
+              "the recentres differ from JAX's")
+        for k, (v, r) in counts.items():
+            own_spread = int(np.abs(hx[r + "_eps"] - hx[r]).max())
+            check(abs(v - int(hx[r])) <= own_spread,
+                  f"{k} beyond the reference's own spread")
+
+        back = HMTFuser.load(own, fp, device=dev)
+        check(_same_grid(_grid_np(back.state.grid), saved),
+              "the saved window does not load back bit for bit")
+        m = back.hmt
+        stored = m.stored_cell_count()
+        away = m.center() + np.asarray([0.0, 3.0 * fp.ndt.size_y])
+        m.recenter(away)
+        check(int(m.grid.count.sum()) == 0, "the window did not empty")
+        m.recenter(away - np.asarray([0.0, 3.0 * fp.ndt.size_y]))
+        exact = _same_grid(_grid_np(m.grid), saved)
+        print(f"  saved after {a} scans and loaded: {stored} stored cells;"
+              f" the window spilled whole and recalled: identical bits "
+              f"{exact}")
+        check(exact and m.stored_cell_count() == stored,
+              "the recalled window is not the spilled one bit for bit")
+
+        os.makedirs(jdir)
+        for k, v in hx.items():
+            if k.startswith("dir/"):
+                with open(os.path.join(jdir, k[4:]), "wb") as f:
+                    f.write(v.tobytes())
+        with open(os.path.join(own, "hmt.json")) as f1, \
+                open(os.path.join(jdir, "hmt.json")) as f2:
+            same_tiles = (sorted(json.load(f1)["tiles"])
+                          == sorted(json.load(f2)["tiles"]))
+        hf2 = HMTFuser.load(jdir, fp, device=dev)
+        check(torch.equal(hf2.state.Tlast_fuse, hf2.state.Tnow),
+              "a loaded fuser does not restart Tlast_fuse at Tnow")
+        sl = slice(a + 1, a + 1 + n_res)
+        res = hf2.run_sequence(odom[sl], pts[sl], mask[sl], chunk=c)
+        rxy, rth = max_dev(res, hx["resume_traj"])
+        print(f"  loaded JAX's directory ({sum(k.startswith('dir/') for k in hx)}"
+              f" files; the port's holds the same tiles: {same_tiles}) and "
+              f"resumed {n_res} scans: within {rxy * 1e3:.3f} mm / "
+              f"{rth * 1e3:.3f} mrad of JAX's resumed run")
+        check(same_tiles, "the port's directory holds other tiles than JAX's")
+        check(rxy <= XY_TOL and rth <= TH_TOL,
+              "the run resumed from JAX's directory deviates from JAX's")
+    return {"scans_per_s": scans / wall, "wall_s": wall,
+            "recenter_ms": rt.tolist(), "n_recenters": hf.n_recenters,
+            "stored_cells": hf.stored_cell_count(), "n_gauss": n_gauss,
+            "dev": (dxy, dth),
+            "jax_spread": spread, "resume_dev": (rxy, rth),
+            "launches": launches}
+
+
+def cli_localize_fuse_case(dev):
+    """Phase 11b: the CLI's `localize` (tracking, --kidnapped) and `fuse`
+    (plain, --hmt-dir, --resume) in this process on the canonical
+    sequence, at the canonical map and scan widths; their draws are the
+    card's own generators'.  Checks the outputs' sizes and finiteness,
+    MCL's mean error under the reference test's 0.3 m, the kidnapped
+    scan relocalized within 0.5 m, `newton_objective` launched by fuse."""
+    flags = ["--map-size", "100", "--sensor-range", "30", "--num-beams",
+             "720", "--max-cells", "1024"]
+    pre = [] if dev.type == "cuda" else ["--device", "cpu"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hmt = os.path.join(tmp, "hmt")
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, argv in (
+                ("localize", ["localize"]),
+                ("kidnapped", ["localize", "--kidnapped"]),
+                ("fuse", ["fuse", "--out", f"{tmp}/fuse"]),
+                ("fuse_hmt", ["fuse", "--out", f"{tmp}/hmt_out",
+                              "--hmt-dir", hmt]),
+                ("fuse_resume", ["fuse", "--out", f"{tmp}/resume",
+                                 "--hmt-dir", hmt, "--resume"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(pre + argv + ["--dataset", FIXTURE] + flags)
+            runs[name] = json.loads([ln for ln in buf.getvalue().splitlines()
+                                     if ln.startswith("{")][-1])
+        wall = time.perf_counter() - t0
+    n = cuda_kernels.LAUNCHES["newton_objective"]
+    print(f"  {wall:.1f} s for the five commands; newton_objective "
+          f"launches {n}")
+    for name, r in runs.items():
+        print(f"  {name}: {json.dumps(r)[:240]}")
+    loc, kid = runs["localize"], runs["kidnapped"]
+    check(loc["steps"] == 99 and np.isfinite(loc["mean_error_m"])
+          and loc["mean_error_m"] < 0.3, "cli localize did not track")
+    check(kid["relocalized"] and kid["position_error_m"] < 0.5,
+          "cli localize --kidnapped did not relocalize")
+    check(all(runs[k]["n_scans"] == 199 and np.isfinite(
+        runs[k]["ate_rmse_m"]) for k in ("fuse", "fuse_hmt", "fuse_resume")),
+        "cli fuse's outputs are not finite or of the wrong size")
+    if dev.type == "cuda":
+        check(n > 0, "cli fuse launched no newton_objective")
+    return {"wall_s": wall, **runs, "newton_objective_launches": n}
+
 def fleet_phases(dev):
     """Phases 3d, 7, 7b, 7c.  Returns (record, the batch entry's checks,
     its launches on the fleet path)."""
@@ -1979,6 +2475,8 @@ def main():
           "the fixture was made at other parameters than canonical_slam_params")
     print("phase 3: kernels vs plain on the card")
     checks = kernel_checks(sp, fx, dev)
+    print("phase 3e: the fixed-order map update, card vs CPU; float32 sqrt")
+    map_update = map_update_phase(sp, fx, dev)
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
@@ -2013,11 +2511,19 @@ def main():
     check(dev_xy <= XY_TOL and dev_th <= TH_TOL,
           "trajectory deviates from the JAX reference beyond 1 cm / 5 mrad")
 
-    runs = [run_main_path(sp, fx, dev)[1] for _ in range(3)]
+    runs, same = [], True
+    for _ in range(3):
+        cuda_kernels.reset_launch_counts()
+        again, sec = run_main_path(sp, fx, dev)
+        runs.append(sec)
+        same &= (np.array_equal(np.stack(again.trajectory), traj)
+                 and dict(cuda_kernels.LAUNCHES) == launches)
     med = sorted(runs)[1]
     print(f"  scans/s: {scans / med:.2f} (median of 3 runs after the "
           f"warm-up: {', '.join(f'{r:.3f}' for r in runs)} s for "
-          f"{scans} scans)")
+          f"{scans} scans); the three runs repeat the first's trajectory "
+          f"bit for bit and its launch counts: {same}")
+    check(same, "the main path does not repeat on the card")
 
     print("phase 3c: plain registration on the main-path graph "
           "(match_d2d, covariance_d2d, fgh_paired)")
@@ -2039,6 +2545,13 @@ def main():
     print("phase 9: offline at scale (the segment-Schur solver, grouped "
           "proposals, checkpoints, the CLI)")
     scale, scale_launches = offline_scale_phase(fx, lc, dev)
+    print("phase 10: localization at the canonical point (cli localize's "
+          "two modes)")
+    localization = localize_phase(sp, fx, dev)
+    print("phase 11: the HMT tile store (HMTFuser, out-and-back corridor)")
+    hmt = hmt_phase(dev)
+    print("phase 11b: the CLI's localize and fuse on the canonical sequence")
+    hmt["cli"] = cli_localize_fuse_case(dev)
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
@@ -2063,7 +2576,9 @@ def main():
         "main_path": {"scans_per_s": scans / med, "run_s": runs,
                       "nodes": n_nodes, "dev_xy_m": dev_xy,
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
-                      "ate_m": ate, "ate_jax_m": ate_ref},
+                      "ate_m": ate, "ate_jax_m": ate_ref,
+                      "runs_repeat": same},
+        "map_update": map_update, "localization": localization, "hmt": hmt,
         "offline": offline, "online_lc": online, "fleet": fleet,
         "rolling_map": rolling, "offline_scale": scale,
         "launches": {"main_path": launches, "registration": reg_launches,

@@ -83,6 +83,42 @@ JAX package's own solvers and proposals:
           that node bank: the chunk bounds, the chunks' replayed draws and
           the LinkSet.
 
+With --localize it writes the localization record
+(ndt_feature_graph_tpu_torch/data/canonical_localize.npz), cli.py
+cmd_localize's two modes on canonical_200.npz's sequence at the
+canonical parameters: the map of every second scan of the first half at
+ground-truth poses (map_scans), with a scan database of capacity 32;
+
+  dist                    the distance field of that map (metres)
+  reloc_*                 relocalize of scan `query` (67): its draws
+                          reloc_u (K, M, 2), best index, inliers, pose,
+                          its badness, and adjust_pose from that pose
+  mcl_*                   MCL (512 particles) over the second half: every
+                          draw in key-chain order (mcl_draws), the
+                          resampling decisions, the estimates, and both
+                          again with the odometry moved by +-k * 1e-6,
+                          k = 1..16, 31 runs (mcl_*_eps: the
+                          reference's own spread)
+
+With --hmt it writes the HMT record
+(ndt_feature_graph_tpu_torch/data/canonical_hmt.npz): the out-and-back
+corridor of tests/test_hmt_driver.py at the canonical sensor (x_end 60 m,
+0.5 m steps, 481 scans, 720 beams, 30 m range) through HMTFuser at the
+canonical parameters (margin 10 m, 64-cell tiles, chunks of 16):
+
+  ranges, hit, odom, gt   the sequence
+  traj, n_recenters,      the run, its recentres, stored cells and
+  stored_cells, n_gauss   global_gaussians count at the end
+  traj_eps, ..._eps       the same with the odometry moved by
+                          +-k * 1e-6, k = 1..16, 31 runs (the
+                          reference's own spread)
+  check_off               the vehicle's offset from the window centre at
+                          every recentre check
+  dir/<file>              the HMT directory the run saved after save_at
+                          scans, file by file (uint8)
+  resume_traj             a fuser loaded from it, over the next `resume`
+                          scans
+
 `replay_ransac_draws` is the replay of the JAX key chain, shared with
 the port's parity tests; `recording_slam_class` logs the keys a JAX run
 really takes, against which the replay is checked.
@@ -103,6 +139,19 @@ DEFAULT_OUT = os.path.join(DATA, "canonical_200.npz")
 LC_OUT = os.path.join(DATA, "canonical_lc.npz")
 FLEET_OUT = os.path.join(DATA, "canonical_fleet.npz")
 SOLVER_OUT = os.path.join(DATA, "canonical_solver.npz")
+LOCALIZE_OUT = os.path.join(DATA, "canonical_localize.npz")
+HMT_OUT = os.path.join(DATA, "canonical_hmt.npz")
+LOCALIZE = dict(particles=512, capacity=32, min_matches=8, reloc_seed=1,
+                mcl_seed=0)
+# The odometry offsets of a record's perturbed runs (the reference's own
+# spread): +-k * 1e-6, k = 1..16, 31 runs.
+EPS_RUNS = tuple(s * k * 1e-6 for k in range(1, 17) for s in (1, -1))[:31]
+# The out-and-back corridor of tests/test_hmt_driver.py at the canonical
+# sensor (its world recipe unchanged but for the length); the JAX run
+# saves its directory after `save_at` scans, and a fuser loaded from it
+# resumes over `resume` scans.
+HMT = dict(seed=0, x_end=60.0, step=0.5, obstacles=16, margin=10.0,
+           tile_cells=64, chunk=16, save_at=240, resume=32)
 FLEET_B = 8
 FLEET_EPS = (1e-6, 1e-5)    # odometry offsets of the fleet record's spread
 SPLIT_M = 2.0
@@ -212,6 +261,62 @@ def recording_slam_class():
             return sub
 
     return RecordingSLAM
+
+
+def recording_mcl_class():
+    """A JAX MCL subclass that logs every key its _sub hands out and, per
+    step, whether it resampled (a step that resamples takes two keys)."""
+    from ndt_feature_graph_tpu.localization import mcl
+
+    class RecordingMCL(mcl.MCL):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.keys, self.resampled, self.estimates = [], [], []
+
+        def _sub(self):
+            k = super()._sub()
+            self.keys.append(k)
+            return k
+
+        def step(self, *a):
+            n0 = len(self.keys)
+            est = super().step(*a)
+            self.resampled.append(len(self.keys) - n0 == 2)
+            self.estimates.append(np.asarray(est))
+            return est
+
+    return RecordingMCL
+
+
+def mcl_draws(rec):
+    """The draws a RecordingMCL run took, as the port's MCL replays them
+    (mcl.recorded_draws): init_xy (n, 2) and init_theta (n, 1) uniform in
+    [-1, 1), noise (S, n, 3) standard normals, resampled (S,), u0 (R,)
+    uniform in [0, 1/n)."""
+    import jax
+
+    n = rec.n
+    k1, k2 = jax.random.split(rec.keys[0])
+    out = dict(
+        init_xy=jax.random.uniform(k1, (n, 2), minval=-1.0, maxval=1.0),
+        init_theta=jax.random.uniform(k2, (n, 1), minval=-1.0, maxval=1.0),
+        noise=[], resampled=np.asarray(rec.resampled, bool), u0=[])
+    keys = iter(rec.keys[1:])
+    for did in rec.resampled:
+        out["noise"].append(jax.random.normal(next(keys), (n, 3)))
+        if did:
+            out["u0"].append(jax.random.uniform(next(keys), (), minval=0.0,
+                                                maxval=1.0 / n))
+    out["noise"] = np.stack(out["noise"]) if out["noise"] else np.zeros(
+        (0, n, 3))
+    out["u0"] = np.asarray(out["u0"], np.float32).reshape(-1)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def relocalize_draws(key, capacity, m_hyp):
+    """The RANSAC draws (K, M, 2) of place_rec.relocalize under `key`:
+    one key split per stored scan, each drawing as match_sets does."""
+    return _pair_uniforms(key, capacity, m_hyp)
 
 
 def lc_splits_of(key_log):
@@ -545,6 +650,212 @@ def make_solver_fixture(out, fp):
     print(f"wrote {out} ({os.path.getsize(out) / 1e6:.2f} MB)")
 
 
+def _loc_map(mp, fp_db, seq, split):
+    """cmd_localize's map and scan database (JAX)."""
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.core import se2
+    from ndt_feature_graph_tpu.io import dataset
+    from ndt_feature_graph_tpu.localization import place_rec
+    from ndt_feature_graph_tpu.ops import ndt_map
+
+    grid = ndt_map.empty_grid(mp, jnp.zeros(2))
+    db = place_rec.empty_database(fp_db, capacity=LOCALIZE["capacity"])
+    for t in range(0, split, 2):
+        pts, mask = dataset.scan_to_points(seq.ranges[t], seq.hit[t])
+        world = se2.transform_points(seq.gt[t], pts)
+        grid = ndt_map.add_points(grid, mp, world, mask)
+        grid = ndt_map.update_occupancy(grid, mp, seq.gt[t][:2], world, mask)
+        db = place_rec.insert_scan(db, fp_db, seq.gt[t], seq.ranges[t],
+                                   seq.hit[t])
+    return grid, db
+
+
+def make_localize_fixture(out, seq, params):
+    """The localization record (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.config import FeatureParams, MotionParams
+    from ndt_feature_graph_tpu.io import dataset
+    from ndt_feature_graph_tpu.localization import monitor, place_rec
+    from ndt_feature_graph_tpu.ops import d2d
+
+    mp = params.ndt
+    fp_db = FeatureParams(num_beams=params.features.num_beams,
+                          max_range=mp.sensor_range)
+    t_total = int(seq.gt.shape[0])
+    split = t_total // 2
+    grid, db = _loc_map(mp, fp_db, seq, split)
+    tgt = d2d.make_dense_target(grid, mp)
+
+    q = split // 3 * 2 + 1
+    key = jax.random.PRNGKey(LOCALIZE["reloc_seed"])
+    pose, best, n = place_rec.relocalize(
+        db, fp_db, seq.ranges[q], seq.hit[q], key,
+        min_num_matches=LOCALIZE["min_matches"])
+    if pose is None:
+        raise SystemExit(f"localize: scan {q} did not relocalize ({n})")
+    dmap = monitor.build_distance_map(grid.occ, grid.origin, mp.resolution)
+    pts_q, mask_q = dataset.scan_to_points(seq.ranges[q], seq.hit[q])
+    bad = float(monitor.badness(dmap, jnp.asarray(pose), pts_q, mask_q))
+    adj, adj_score = monitor.adjust_pose(dmap, jnp.asarray(pose), pts_q,
+                                         mask_q)
+
+    def track(eps):
+        rec = recording_mcl_class()(mp, MotionParams(), tgt,
+                                    n_particles=LOCALIZE["particles"],
+                                    seed=LOCALIZE["mcl_seed"])
+        rec.initialize(seq.gt[split], spread_xy=0.5, spread_theta=0.2)
+        for t in range(split + 1, t_total):
+            pts, mask = dataset.scan_to_points(seq.ranges[t], seq.hit[t])
+            rec.step(seq.odom[t] + eps, pts, mask)
+        return rec
+
+    rec = track(0.0)
+    recs_eps = [track(e) for e in EPS_RUNS]
+    est = np.stack(rec.estimates)
+    est_eps = np.stack([np.stack(r.estimates) for r in recs_eps])
+    gt = np.asarray(seq.gt)[split + 1:]
+    err = np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)
+    dr = mcl_draws(rec)
+    np.savez_compressed(
+        out, map_scans=np.arange(0, split, 2), split=np.int32(split),
+        query=np.int32(q), db_used=np.int32(int(jnp.sum(db.mask))),
+        dist=np.asarray(dmap.dist, np.float32),
+        reloc_u=relocalize_draws(key, LOCALIZE["capacity"],
+                                 fp_db.ransac_hypotheses),
+        reloc_best=np.int32(best), reloc_inliers=np.int32(n),
+        reloc_pose=np.asarray(pose, np.float32),
+        reloc_badness=np.float32(bad),
+        adjust_pose=np.asarray(adj, np.float32),
+        adjust_score=np.float32(adj_score),
+        **{f"mcl_{k}": v for k, v in dr.items()},
+        mcl_est=est.astype(np.float32),
+        mcl_est_eps=est_eps.astype(np.float32),
+        mcl_resampled_eps=np.asarray([r.resampled for r in recs_eps], bool),
+        mcl_err=err.astype(np.float32),
+        params_repr=np.str_(repr(mp)), features_repr=np.str_(repr(fp_db)),
+        particles=np.int32(LOCALIZE["particles"]),
+    )
+    dth = est_eps[..., 2] - est[:, 2]
+    n_dec = [int((np.asarray(r.resampled) != dr["resampled"]).sum())
+             for r in recs_eps]
+    print(f"wrote {out}: {int(jnp.sum(db.mask))} stored scans; scan {q} -> "
+          f"stored {best} with {n} inliers, badness {bad:.4f} m; MCL "
+          f"{len(est)} steps, {int(dr['resampled'].sum())} resampled, final "
+          f"error {err[-1]:.4f} m, mean {err.mean():.4f} m; the odometry moved "
+          f"by {EPS_RUNS} moves the estimates by "
+          f"{np.abs(est_eps[..., :2] - est[:, :2]).max():.2e} m / "
+          f"{np.abs(np.arctan2(np.sin(dth), np.cos(dth))).max():.2e} rad and "
+          f"{n_dec} resampling decisions")
+
+
+def hmt_sequence(seed, x_end, step, obstacles=16, num_beams=720,
+                 max_range=30.0):
+    """tests/test_hmt_driver.py's out-and-back corridor drive (the out
+    leg from -x_end to +x_end, then back), at the given sensor."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.io import dataset
+
+    n = int(round(2 * x_end / step)) + 1
+    xs = np.linspace(-x_end, x_end, n)
+    out = np.stack([xs, np.zeros(n), np.zeros(n)], -1)
+    traj = jnp.asarray(np.concatenate([out, out[-2::-1]]).astype(np.float32))
+    world = dataset.random_world(seed, half_x=x_end + 3.0, half_y=4.0,
+                                 n_obstacles=obstacles,
+                                 keepout=np.asarray(traj[:, :2]),
+                                 clearance=1.0)
+    return dataset.simulate_sequence(
+        jax.random.PRNGKey(seed), traj, num_beams=num_beams,
+        max_range=max_range, segments=world,
+        odom_noise=(0.004, 0.004, 0.002))
+
+
+def make_hmt_fixture(out, params):
+    """The HMT record (see the module docstring)."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_feature_graph_tpu.fusion.hmt_driver import HMTFuser
+    from ndt_feature_graph_tpu.io import dataset
+
+    h = HMT
+    seq = hmt_sequence(h["seed"], h["x_end"], h["step"], h["obstacles"],
+                       params.features.num_beams, params.ndt.sensor_range)
+    pts, mask = jax.vmap(dataset.scan_to_points)(seq.ranges, seq.hit)
+    a, c = h["save_at"], h["chunk"]
+
+    def run(eps, save_dir=None):
+        offs = []
+
+        class Recording(HMTFuser):
+            def maybe_recenter(self):
+                pose = np.asarray(self.state.Tnow, np.float64)
+                offs.append(float(np.hypot(*(pose[:2] - self._center()))))
+                return super().maybe_recenter()
+
+        hf = Recording(params, seq.gt[0], jnp.zeros(3), pts[0], mask[0],
+                       recenter_margin=h["margin"],
+                       tile_cells=h["tile_cells"])
+        odom = seq.odom + eps
+        first = hf.run_sequence(odom[1:a + 1], pts[1:a + 1],
+                                mask[1:a + 1], chunk=c)
+        if save_dir is not None:
+            hf.save(save_dir)
+        rest = hf.run_sequence(odom[a + 1:], pts[a + 1:], mask[a + 1:],
+                               chunk=c)
+        return hf, np.concatenate([first, rest]), np.asarray(offs)
+
+    with tempfile.TemporaryDirectory() as d:
+        hf, traj, offs = run(0.0, d)
+        files = {f"dir/{name}": np.frombuffer(
+            open(os.path.join(d, name), "rb").read(), np.uint8)
+            for name in sorted(os.listdir(d))}
+        hf2 = HMTFuser.load(d, params)
+        sl = slice(a + 1, a + 1 + h["resume"])
+        resume = hf2.run_sequence(seq.odom[sl], pts[sl], mask[sl], chunk=c)
+    def n_gauss(f):
+        f.hmt.grid = f.state.grid
+        return f.hmt.global_gaussians()[0].shape[0]
+
+    eps_runs = [run(e)[:2] for e in EPS_RUNS]
+    traj_eps = np.stack([t for _, t in eps_runs])
+    means = np.zeros((n_gauss(hf), 2))
+    dth = traj_eps[..., 2] - traj[:, 2]
+    np.savez_compressed(
+        out, ranges=np.asarray(seq.ranges, np.float32),
+        hit=np.asarray(seq.hit, bool), odom=np.asarray(seq.odom, np.float32),
+        gt=np.asarray(seq.gt, np.float32), traj=traj.astype(np.float32),
+        n_recenters=np.int32(hf.n_recenters),
+        stored_cells=np.int32(hf.stored_cell_count()),
+        n_gauss=np.int32(means.shape[0]),
+        traj_eps=traj_eps.astype(np.float32),
+        n_recenters_eps=np.int32([f.n_recenters for f, _ in eps_runs]),
+        stored_cells_eps=np.int32([f.stored_cell_count()
+                                   for f, _ in eps_runs]),
+        n_gauss_eps=np.int32([n_gauss(f) for f, _ in eps_runs]),
+        check_off=offs.astype(np.float32),
+        resume_traj=np.asarray(resume, np.float32),
+        params_repr=np.str_(repr(params)),
+        **{k: np.int32(v) if isinstance(v, int) else np.float32(v)
+           for k, v in h.items()}, **files)
+    print(f"wrote {out}: {traj.shape[0]} poses, {hf.n_recenters} recentres, "
+          f"{hf.stored_cell_count()} stored cells, {means.shape[0]} "
+          f"gaussians, {len(files)} files; checks "
+          f"{np.abs(offs - h['margin']).min():.3f} m from the margin at the "
+          f"closest; the odometry moved by {EPS_RUNS}: recentres "
+          f"{[f.n_recenters for f, _ in eps_runs]}, stored cells "
+          f"{[f.stored_cell_count() for f, _ in eps_runs]}, gaussians "
+          f"{[n_gauss(f) for f, _ in eps_runs]}, the trajectory moves by "
+          f"{np.abs(traj_eps[..., :2] - traj[:, :2]).max():.2e} m / "
+          f"{np.abs(np.arctan2(np.sin(dth), np.cos(dth))).max():.2e} rad")
+
+
 def replay_fleet_draws(seed, n_streams, t_steps, m_hyp):
     """The RANSAC draws of scaling.build_fleet_feature_inputs' streams
     over `t_steps` scans: stream b's key is the b-th split of
@@ -633,6 +944,10 @@ def main():
                     help="write the offline-at-scale record")
     ap.add_argument("--fleet", action="store_true",
                     help="write the fleet record")
+    ap.add_argument("--localize", action="store_true",
+                    help="write the localization record")
+    ap.add_argument("--hmt", action="store_true",
+                    help="write the HMT record")
     args = ap.parse_args()
 
     import jax
@@ -649,6 +964,12 @@ def main():
     if args.fleet:
         return make_fleet_fixture(args.out or FLEET_OUT,
                                   bench.canonical_params())
+    if args.hmt:
+        return make_hmt_fixture(args.out or HMT_OUT, bench.canonical_params())
+    if args.localize:
+        return make_localize_fixture(args.out or LOCALIZE_OUT,
+                                     bench.make_sequence(),
+                                     bench.canonical_params())
     seq = bench.make_sequence()
     max_cells, fp = bench.verify_cell_budget(bench.canonical_params(), seq)
     if fp.match_cell_budget != bench.MATCH_CELL_BUDGET:

@@ -5,6 +5,8 @@
     python3 examples/profile_torch_port.py --wall-only [--runs 5] [--tree DIR]
     python3 examples/profile_torch_port.py --fleet B [--full] [--out DIR]
     python3 examples/profile_torch_port.py --solver [--out DIR]
+    python3 examples/profile_torch_port.py --localize [--out DIR]
+    python3 examples/profile_torch_port.py --map-update [--scans 80] [--tree DIR]
 
 Runs the main path of chip_smoke.py (NDTFeatureGraphSLAM.initialize +
 run_sequence_device over the first `--scans` scans of the canonical
@@ -38,6 +40,22 @@ the 4,000-node two-lap graph of the solver record and the 10,000-node
 two-lap recipe): per graph the unprofiled wall of a solve, the device
 operations per LM iteration, the busy share and the device time by
 operation.
+
+With --localize it profiles the MCL tracking of chip_smoke.py's phase
+10 (512 particles over the canonical sequence's second half, on the
+localization record's draws): device operations per step, the busy
+share, steps/s of the unprofiled run and the device time by operation.
+
+With --map-update it times the map update's fixed-order scatter
+(ndt_map.scatter_add_rows) against the atomic `index_add` it replaced,
+in turns (fixed, atomic, atomic, fixed) inside one process: the device
+time of one scan's map update (chip_smoke.py phase 3e's case) and the
+main path's scans/s over `--scans` scans (the median of 3 runs after a
+warm-up per turn), then the same for the fleet at B = 64: one fleet
+step's map update over the stack of 64 grids and the points-only
+fleet's aggregate scans/s (chip_smoke.py phase 7), with
+ndt_map.scatter_add_rows swapped for the atomic version on the atomic
+turns.
 
 With --offline it does the same for optimize_offline on chip_smoke.py's
 offline graph (phase 5), and first times its stages one by one, each
@@ -259,6 +277,127 @@ def solver(dev, gpu, out):
                {"nodes": len(init), "edges": len(i)})
 
 
+def localize(dev, gpu, fx, out):
+    """The profile of phase 10's MCL tracking run."""
+    from ndt_feature_graph_tpu_torch.config import MotionParams
+    from ndt_feature_graph_tpu_torch.io import dataset
+    from ndt_feature_graph_tpu_torch.localization import mcl
+    from ndt_feature_graph_tpu_torch.ops import d2d, ndt_map
+
+    lx = dict(np.load(chip_smoke.LOCALIZE_FIXTURE))
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    ranges, hit = T(fx["ranges"]), T(fx["hit"], torch.bool)
+    odom, gt = T(fx["odom"]), T(fx["gt"])
+    grid = ndt_map.empty_grid(mp, torch.zeros(2, device=dev))
+    for t in lx["map_scans"]:
+        pts, mask = dataset.scan_to_points(ranges[t], hit[t])
+        world = chip_smoke.se2.transform_points(gt[t], pts)
+        grid = ndt_map.add_points(grid, mp, world, mask)
+        grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world, mask)
+    tgt = d2d.make_dense_target(grid, mp)
+    draws = mcl.recorded_draws(T(lx["mcl_init_xy"]), T(lx["mcl_init_theta"]),
+                               T(lx["mcl_noise"]), lx["mcl_resampled"],
+                               T(lx["mcl_u0"]))
+    split = int(lx["split"])
+    steps = ranges.shape[0] - split - 1
+
+    def track():
+        import time
+
+        chip_smoke.sync(dev)
+        t0 = time.perf_counter()
+        loc = mcl.MCL(mp, MotionParams(), tgt,
+                      n_particles=int(lx["particles"]), draws=draws)
+        loc.initialize(gt[split], spread_xy=0.5, spread_theta=0.2)
+        for t in range(split + 1, ranges.shape[0]):
+            loc.step(odom[t], *dataset.scan_to_points(ranges[t], hit[t]))
+        chip_smoke.sync(dev)
+        return time.perf_counter() - t0
+
+    track()                                                # warm-up
+    wall = track()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = track()
+    report(prof, gpu, wall, wall_prof, "steps", steps, out,
+           "torch_port_localize_profile.txt",
+           {"particles": int(lx["particles"]), "steps_per_s": steps / wall})
+
+
+def map_update(dev, gpu, sp, fx):
+    """The fixed-order map scatter against the atomic index_add, in
+    turns: one scan's map update and the main path, then one fleet
+    step's map update over the stack of B = 64 grids and the points-only
+    fleet's aggregate scans/s at B = 64 (chip_smoke.py phase 7)."""
+    from ndt_feature_graph_tpu_torch.core import se2
+    from ndt_feature_graph_tpu_torch.fusion import scan_driver
+    from ndt_feature_graph_tpu_torch.io import dataset
+    from ndt_feature_graph_tpu_torch.models import presets
+    from ndt_feature_graph_tpu_torch.ops import ndt_map
+    from ndt_feature_graph_tpu_torch.parallel import scaling
+
+    scatters = (("fixed", ndt_map.scatter_add_rows),
+                ("atomic", chip_smoke.atomic_scatter),
+                ("atomic", chip_smoke.atomic_scatter),
+                ("fixed", ndt_map.scatter_add_rows))
+    unit = chip_smoke.map_update_phase(sp, fx, dev)
+    scans = fx["ranges"].shape[0] - 1
+    turns = []
+    for name, fn in scatters:
+        with chip_smoke.scatter_swapped(fn):
+            chip_smoke.run_main_path(sp, fx, dev)          # warm-up
+            walls = [chip_smoke.run_main_path(sp, fx, dev)[1]
+                     for _ in range(3)]
+        turns.append((name, scans / sorted(walls)[1], walls))
+        print(f"  main path, {name} scatter: {turns[-1][1]:.2f} scans/s "
+              f"(median of {', '.join(f'{w:.3f}' for w in walls)} s)")
+
+    fl = dict(np.load(chip_smoke.FLEET_FIXTURE))
+    fp = presets.fleet_serving()
+    b = chip_smoke.FLEET_SIZES[-1]
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    pts, mask = dataset.scan_to_points(T(fl["ranges"][2]),
+                                       T(fl["hit"][2], torch.bool))
+    world = se2.transform_points(T(fl["gt"][2]), pts)
+    world = torch.stack([world + 0.37 * k for k in range(b)])
+    mask, sensor = mask.expand(b, -1), T(fl["gt"][2][:2]).expand(b, 2)
+    grid = ndt_map.empty_grid(fp.ndt, sensor)
+
+    def ordered():
+        g, _ = ndt_map.add_points_touched(grid, fp.ndt, world, mask)
+        return ndt_map.update_occupancy(g, fp.ndt, sensor, world, mask)
+
+    def atomic():
+        with chip_smoke.scatter_swapped(chip_smoke.atomic_scatter):
+            return ordered()
+
+    print(f"  one fleet step's map update over {b} grids of "
+          f"{fp.ndt.grid_h}x{fp.ndt.grid_w} cells, fixed order vs the "
+          "atomic index_add:")
+    t = chip_smoke.time_turns(ordered, atomic, 20, 20)
+    fleet_unit = {"ordered_us": t["ms"] * 1e3,
+                  "atomic_us": t["plain_ms"] * 1e3}
+    seq = chip_smoke.sequence(fl, dev)
+    inputs = scaling.build_fleet_inputs(fp, seq, b)
+    drv = scan_driver.run_sequence_batch
+    fleet_turns = []
+    for name, fn in scatters:
+        with chip_smoke.scatter_swapped(fn):
+            chip_smoke.run_fleet(drv, fp, inputs, dev)     # warm-up
+            rate, walls = chip_smoke.fleet_rate(drv, fp, inputs, dev)
+        fleet_turns.append((name, rate, walls))
+        print(f"  fleet B={b}, {name} scatter: {rate:.1f} aggregate "
+              f"scans/s (median of {', '.join(f'{w:.3f}' for w in walls)}"
+              " s)")
+    print(json.dumps({"gpu": gpu, "tree": ROOT, "scans": scans,
+                      "map_update": unit, "main_path_turns": turns,
+                      f"fleet_b{b}_map_update": fleet_unit,
+                      f"fleet_b{b}_turns": fleet_turns}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=80)
@@ -276,6 +415,11 @@ def main():
                     help="timed runs of --wall-only")
     ap.add_argument("--tree", help="checkout to take chip_smoke.py and "
                     "the port from (default: this one)")
+    ap.add_argument("--localize", action="store_true",
+                    help="profile phase 10's MCL tracking instead")
+    ap.add_argument("--map-update", action="store_true",
+                    help="time the fixed-order map scatter against the "
+                    "atomic one, in turns")
     ap.add_argument("--out", help="directory for the profile files")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -289,12 +433,16 @@ def main():
     fx = dict(np.load(chip_smoke.FIXTURE))
     if args.offline:
         return offline(dev, gpu, fx, args.out)
+    if args.localize:
+        return localize(dev, gpu, fx, args.out)
     sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
                                           int(fx["max_nodes"]))
     for k in ("ranges", "hit", "odom", "gt"):
         fx[k] = fx[k][:args.scans]
     fx["ransac_u"] = fx["ransac_u"][:args.scans - 1]
     scans = fx["ranges"].shape[0] - 1
+    if args.map_update:
+        return map_update(dev, gpu, sp, fx)
 
     if args.wall_only:
         chip_smoke.run_main_path(sp, fx, dev)              # warm-up

@@ -4,13 +4,16 @@
               by the offline optimization (--optimize)
   optimize    offline loop closure on a graph checkpoint (flags mirror
               graph_opt.cpp:38-56)
+  fuse        scan-to-map NDT odometry, optionally over the HMT tile
+              store (--hmt-dir, --resume)
+  localize    MCL tracking, or kidnapped-robot recovery (--kidnapped)
   export-map  stitched occupancy PGM from a graph checkpoint
   eval        ATE between two TUM trajectory files
 
-Checkpoints and sequences are the reference's files: a graph.npz either
-package wrote loads in both.  The subcommands simulate, fuse, localize
-and calibrate, and .clf / .bag inputs, belong to later slices of the
-port and exit with a message saying which.
+Checkpoints, sequences and HMT directories are the reference's files: a
+graph.npz or tile directory either package wrote loads in both.  The
+subcommands simulate and calibrate, and .clf / .bag inputs, belong to
+later slices of the port and exit with a message saying which.
 
 Run:  python -m ndt_feature_graph_tpu_torch.cli [--device cpu] <cmd> --help
 """
@@ -26,8 +29,6 @@ import sys
 # (ROADMAP.md, queue 1).
 NOT_PORTED = {
     "simulate": "the simulator and I/O slice (ROADMAP queue 1, item 3)",
-    "fuse": "the HMT slice (ROADMAP queue 1, item 2)",
-    "localize": "the localization slice (ROADMAP queue 1, item 1)",
     "calibrate": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
                  "utils/pairwise.py)",
     ".clf": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
@@ -155,6 +156,135 @@ def cmd_optimize(a):
     print(f"wrote {a.out}")
 
 
+def cmd_fuse(a):
+    """Scan-to-submap NDT odometry (the NDTFuserHMT node); --hmt-dir
+    keeps the live map in the HMT tile store (recentres spill evicted
+    cells to it and recall revisited ground) and saves it there at the
+    end; --resume continues from that directory."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from ndt_feature_graph_tpu_torch.fusion import fuser, scan_driver
+    from ndt_feature_graph_tpu_torch.fusion.hmt_driver import HMTFuser
+    from ndt_feature_graph_tpu_torch.io import dataset, tum
+
+    seq = _load_sequence(a.dataset, a.device)
+    _sync_beams(a, seq)
+    params = _params_from_args(a).fuser
+    pts_all, mask_all = dataset.scan_to_points(seq.ranges, seq.hit)
+    zero = torch.zeros(3, device=a.device)
+    t0 = time.perf_counter()
+    if a.hmt_dir:
+        if a.resume and os.path.exists(os.path.join(a.hmt_dir, "hmt.json")):
+            hf = HMTFuser.load(a.hmt_dir, params, device=a.device)
+        else:
+            hf = HMTFuser(params, seq.gt[0], zero, pts_all[0], mask_all[0],
+                          recenter_margin=a.recenter_margin)
+        traj = hf.run_sequence(seq.odom[1:], pts_all[1:], mask_all[1:],
+                               chunk=a.chunk)
+        hf.save(a.hmt_dir)
+        extra = {"n_recenters": hf.n_recenters,
+                 "stored_cells": hf.stored_cell_count(),
+                 "recenter_s": [round(x, 3) for x in hf.recenter_times]}
+    else:
+        state = fuser.initialize(params, seq.gt[0], zero, pts_all[0],
+                                 mask_all[0])
+        _, traj, _ = scan_driver.run_sequence(
+            params, state, seq.odom[1:], pts_all[1:], mask_all[1:])
+        traj = traj.cpu().numpy()
+        extra = {}
+    wall = time.perf_counter() - t0
+    n = traj.shape[0]
+    gt = seq.gt[1:n + 1].cpu().numpy()
+    ate = float(np.sqrt(np.mean(np.sum((traj[:, :2] - gt[:, :2]) ** 2,
+                                       -1))))
+    os.makedirs(a.out, exist_ok=True)
+    tum.write_tum(os.path.join(a.out, "est.tum"), list(range(1, n + 1)),
+                  traj)
+    print(json.dumps({"n_scans": n, "wall_s": round(wall, 3),
+                      "scans_per_sec": round(n / max(wall, 1e-9), 2),
+                      "ate_rmse_m": round(ate, 4), **extra}))
+    print(f"outputs in {a.out}")
+
+
+def cmd_localize(a):
+    """MCL tracking over the second half of a sequence, or (--kidnapped)
+    relocalization by place recognition gated on scan-pose badness,
+    against the map of the first half at ground-truth poses — the
+    MCL-node and localization-monitor roles.  Draws come from
+    torch.Generators seeded with 0 (MCL) and 1 (RANSAC), the constants
+    of the reference's fixed keys."""
+    import numpy as np
+    import torch
+
+    from ndt_feature_graph_tpu_torch.config import FeatureParams, MotionParams
+    from ndt_feature_graph_tpu_torch.core import se2
+    from ndt_feature_graph_tpu_torch.io import dataset
+    from ndt_feature_graph_tpu_torch.localization import mcl, place_rec
+    from ndt_feature_graph_tpu_torch.ops import d2d, ndt_map
+
+    seq = _load_sequence(a.dataset, a.device)
+    _sync_beams(a, seq)
+    mp = _params_from_args(a).fuser.ndt
+    t_total = int(seq.gt.shape[0])
+    split = t_total // 2
+
+    # The map of the first half at ground-truth poses.
+    grid = ndt_map.empty_grid(mp, torch.zeros(2, device=a.device))
+    fp = FeatureParams(num_beams=a.num_beams, max_range=a.sensor_range)
+    db = place_rec.empty_database(fp, 32, a.device)
+    for t in range(0, split, 2):
+        pts, mask = dataset.scan_to_points(seq.ranges[t], seq.hit[t])
+        world = se2.transform_points(seq.gt[t], pts)
+        grid = ndt_map.add_points(grid, mp, world, mask)
+        grid = ndt_map.update_occupancy(grid, mp, seq.gt[t][:2], world, mask)
+        db = place_rec.insert_scan(db, fp, seq.gt[t], seq.ranges[t],
+                                   seq.hit[t])
+
+    if a.kidnapped:
+        from ndt_feature_graph_tpu_torch.localization import monitor
+
+        # The robot wakes up inside the mapped area, at a scan the
+        # database does not hold (odd index).
+        q = split // 3 * 2 + 1
+        gen = torch.Generator(a.device)
+        gen.manual_seed(1)
+        u = torch.rand((db.poses.shape[0], fp.ransac_hypotheses, 2),
+                       generator=gen, device=a.device)
+        pose, _, n = place_rec.relocalize(db, fp, seq.ranges[q], seq.hit[q],
+                                          u, min_num_matches=a.min_matches)
+        badness = float("nan")
+        if pose is not None:
+            # Gate on scan-pose badness, as the localization monitor does
+            # before publishing (localization_monitor_node.cpp:376-396).
+            dmap = monitor.build_distance_map(grid.occ, grid.origin,
+                                              mp.resolution)
+            pts_q, mask_q = dataset.scan_to_points(seq.ranges[q],
+                                                   seq.hit[q])
+            badness = float(monitor.badness(
+                dmap, torch.as_tensor(pose, device=a.device), pts_q, mask_q))
+            if badness > a.max_badness:
+                pose = None
+        err = (float(np.linalg.norm(pose[:2] - seq.gt[q, :2].cpu().numpy()))
+               if pose is not None else float("nan"))
+        print(json.dumps({"relocalized": pose is not None, "inliers": n,
+                          "badness_m": badness, "position_error_m": err}))
+        return
+
+    loc = mcl.MCL(mp, MotionParams(), d2d.make_dense_target(grid, mp),
+                  n_particles=a.particles, seed=0)
+    loc.initialize(seq.gt[split], spread_xy=0.5, spread_theta=0.2)
+    errs = []
+    for t in range(split + 1, t_total):
+        pts, mask = dataset.scan_to_points(seq.ranges[t], seq.hit[t])
+        est = loc.step(seq.odom[t], pts, mask)
+        errs.append(float(torch.linalg.vector_norm(est[:2] - seq.gt[t][:2])))
+    print(json.dumps({"steps": len(errs),
+                      "mean_error_m": float(np.mean(errs)),
+                      "final_error_m": errs[-1] if errs else None}))
+
 def cmd_export_map(a):
     """Stitched occupancy export from a graph checkpoint."""
     from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
@@ -204,6 +334,30 @@ def main(argv=None):
     _add_common(p)
     p.set_defaults(fn=cmd_optimize)
 
+    p = sub.add_parser(
+        "fuse", help="scan-to-submap NDT odometry (NDTFuserHMT node); "
+        "--hmt-dir keeps the live map in the HMT tile store")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--hmt-dir", default=None,
+                   help="HMT tile-store directory (beHMT + hmt_map_dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from an existing --hmt-dir")
+    p.add_argument("--recenter-margin", type=float, default=10.0)
+    p.add_argument("--chunk", type=int, default=16)
+    _add_common(p)
+    p.set_defaults(fn=cmd_fuse)
+
+    p = sub.add_parser("localize",
+                       help="MCL tracking / kidnapped-robot recovery")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--kidnapped", action="store_true")
+    p.add_argument("--particles", type=int, default=512)
+    p.add_argument("--min-matches", type=int, default=8)
+    p.add_argument("--max-badness", type=float, default=0.5)
+    _add_common(p)
+    p.set_defaults(fn=cmd_localize)
+
     p = sub.add_parser("export-map",
                        help="stitched occupancy PGM from a checkpoint")
     p.add_argument("--graph", required=True)
@@ -216,7 +370,7 @@ def main(argv=None):
     p.add_argument("--gt", required=True)
     p.set_defaults(fn=cmd_eval)
 
-    for name in ("simulate", "fuse", "localize", "calibrate"):
+    for name in ("simulate", "calibrate"):
         sub.add_parser(name, add_help=False,
                        help=f"not ported yet ({NOT_PORTED[name]})")
 
@@ -225,7 +379,7 @@ def main(argv=None):
         _not_ported(a.cmd)
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
-    if a.cmd in ("slam", "optimize", "export-map"):
+    if a.cmd in ("slam", "optimize", "export-map", "fuse", "localize"):
         from ndt_feature_graph_tpu_torch import resolve_device
 
         # The card unless --device cpu; raises where there is none.

@@ -1,7 +1,8 @@
 """NDT distribution-to-distribution registration core (port of
 ndt_feature_graph_tpu/ops/d2d.py: the packed registration table, the
-flat window gather, the damped-Newton minimizer, and plain D2D
-registration with its covariance: match_d2d, covariance_d2d).
+flat window gather, the damped-Newton minimizer, plain D2D
+registration with its covariance: match_d2d, covariance_d2d, and the
+dense target that localization reads).
 
 The registration target is the (H*W, 8) channel-packed table
 [mean_x, mean_y, c00, c01, c11, valid, 0, 0] — one 32-byte row per
@@ -26,6 +27,46 @@ class PackedTarget:
 
     origin: torch.Tensor   # (2,)
     packed: torch.Tensor   # (H * W, 8)
+
+
+@dataclasses.dataclass
+class DenseTarget:
+    """Finalized target fields as dense grids beside the packed table
+    (MCL's `weight` and the scan-pose monitor read the grids)."""
+
+    origin: torch.Tensor   # (2,)
+    means: torch.Tensor    # (H, W, 2)
+    covs: torch.Tensor     # (H, W, 2, 2)
+    valid: torch.Tensor    # (H, W) bool
+    packed: torch.Tensor   # (H * W, 8)
+
+
+def unpack_fields(packed, h: int, w: int):
+    """Inverse of _pack_fields: (means (H,W,2), covs (H,W,2,2),
+    valid (H,W)) sliced out of the packed channels."""
+    g = packed.reshape(h, w, 8)
+    c00, c01, c11 = g[..., 2], g[..., 3], g[..., 4]
+    covs = torch.stack([torch.stack([c00, c01], -1),
+                        torch.stack([c01, c11], -1)], -2)
+    return g[..., 0:2], covs, g[..., 5] > 0.5
+
+
+def dense_from_packed(pt: PackedTarget, h: int, w: int) -> DenseTarget:
+    """The DenseTarget view of a PackedTarget."""
+    means, covs, valid = unpack_fields(pt.packed, h, w)
+    return DenseTarget(pt.origin, means, covs, valid, pt.packed)
+
+
+def _pack_fields(means, covs, valid):
+    """(H, W) fields -> the (H*W, 8) packed table."""
+    return pack_rows(means, covs, valid).flatten(0, 1)
+
+
+def make_dense_target(grid: ndt_map.NDTGrid,
+                      params: NDTMapParams) -> DenseTarget:
+    means, covs, valid = ndt_map.finalize(grid, params)
+    return DenseTarget(grid.origin, means, covs, valid,
+                       _pack_fields(means, covs, valid))
 
 
 def pack_rows(mean, cov, valid):

@@ -18,6 +18,10 @@ Differences from the JAX reference, by construction:
     not one per stream.  Per stream the additions keep their order.
   * `recenter` shifts by a device integer with an index gather
     (`torch.roll` takes host integers, which would cost a host read).
+  * The scatter-adds sum each cell's contributions one after another
+    onto its old value, in the order of the points, on the CPU and on
+    the card alike (`scatter_add_rows`): a map update repeats bit for
+    bit, and the card's equals the CPU's.
 """
 
 from __future__ import annotations
@@ -116,6 +120,54 @@ def in_bounds(params: NDTMapParams, iy, ix):
     )
 
 
+def scatter_add_rows(bases, idx, vals):
+    """[base + the rows of val added at `idx`] for each (base (N, c),
+    val (M, c)) pair, one shared index (M,) in [0, N).  Every cell sums
+    its contributions one after another onto its old value, in the
+    order of `idx` — XLA's and the CPU's order — so a map update repeats
+    bit for bit and the card gives the CPU's bits.
+
+    On the CPU that is `index_add` (a serial loop).  On the card
+    `index_add` adds with atomics, in an order that changes between
+    runs; there the old row of each touched cell goes first in the list
+    of entries, then the contributions, and the list is summed onto
+    zero rows by `index_put_(accumulate=True)`: it stable-sorts the
+    indices and, for rows of 2 to 32 floats, adds each cell's entries
+    sequentially (torch 2.11; a single float would take a warp
+    reduction instead, so one channel is padded to two).  Exact because
+    0 + old = old."""
+    if idx.device.type != "cuda":
+        return [b.index_add(0, idx, v) for b, v in zip(bases, vals)]
+    return _scatter_add_rows_sorted(bases, idx, vals)
+
+
+def _scatter_add_rows_sorted(bases, idx, vals):
+    """The card's branch of scatter_add_rows (any device; on the CPU it
+    is sequential only on one thread).  Its list holds 2M entries, not
+    N + M, so its cost follows the points, not the grid stack: each
+    touched cell sums in the slot of its first entry (an integer min
+    over positions, exact in any order), where that entry's old row goes
+    first; the other entries' old rows go to rows of their own past M,
+    so no cell's run of entries grows."""
+    m = idx.shape[0]
+    widths = [b.shape[1] for b in bases]
+    old = torch.cat(bases, 1)
+    new = torch.cat(vals, 1)
+    if old.shape[1] == 1:
+        old = torch.cat([old, torch.zeros_like(old)], 1)
+        new = torch.cat([new, torch.zeros_like(new)], 1)
+    pos = torch.arange(m, device=idx.device)
+    slot = torch.full((old.shape[0],), m, dtype=pos.dtype,
+                      device=idx.device).scatter_reduce_(
+                          0, idx, pos, "amin")[idx]
+    acc = old.new_zeros((2 * m, old.shape[1])).index_put_(
+        (torch.cat([torch.where(slot == pos, slot, m + pos), slot]),),
+        torch.cat([old[idx], new]), accumulate=True)
+    # Entries of one cell write the same summed row.
+    rows = old.index_put((idx,), acc[slot])
+    return list(rows[:, :sum(widths)].split(widths, 1))
+
+
 def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
     """Scatter a masked point batch (..., P, 2) into the sufficient
     statistics of a grid (or a stack of grids, one per leading index)
@@ -133,14 +185,15 @@ def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
     # real cell instead of the reference's mode="drop".
     fi = (flat.clamp(max=h * w - 1) + _stream_offsets(
         pts.shape[:-2], h * w, pts.device)).reshape(-1)
-    count = grid.count.reshape(-1).index_add(
-        0, fi, ok.reshape(-1).to(grid.count.dtype)
-    ).reshape(grid.count.shape)
-    psum = grid.psum.reshape(-1, 2).index_add(
-        0, fi, ptsm.reshape(-1, 2)).reshape(grid.psum.shape)
     op = ptsm[..., :, None] * ptsm[..., None, :]
-    outer = grid.outer.reshape(-1, 2, 2).index_add(
-        0, fi, op.reshape(-1, 2, 2)).reshape(grid.outer.shape)
+    count, psum, outer = scatter_add_rows(
+        [grid.count.reshape(-1, 1), grid.psum.reshape(-1, 2),
+         grid.outer.reshape(-1, 4)],
+        fi, [ok.reshape(-1, 1).to(grid.count.dtype), ptsm.reshape(-1, 2),
+             op.reshape(-1, 4)])
+    count = count.reshape(grid.count.shape)
+    psum = psum.reshape(grid.psum.shape)
+    outer = outer.reshape(grid.outer.shape)
     return dataclasses.replace(grid, count=count, psum=psum,
                                outer=outer), flat
 
@@ -173,14 +226,14 @@ def update_occupancy(grid: NDTGrid, params: NDTMapParams, sensor_origin,
         torch.int64
     )
     offs = _stream_offsets(pts.shape[:-2], h * w, pts.device)
-    # Masked entries add exactly zero onto a clamped index.
-    occ = grid.occ.reshape(-1).index_add(
-        0, (flat + offs).reshape(-1),
-        torch.where(ok, params.occ_hit, 0.0).reshape(-1)
-    ).index_add(
-        0, (rflat + offs).reshape(-1),
-        torch.where(rok, params.occ_miss, 0.0).reshape(-1)
-    )
+    # Masked entries add exactly zero onto a clamped index; each cell
+    # takes its hits, then its misses, in point order.
+    occ, = scatter_add_rows(
+        [grid.occ.reshape(-1, 1)],
+        torch.cat([(flat + offs).reshape(-1), (rflat + offs).reshape(-1)]),
+        [torch.cat([torch.where(ok, params.occ_hit, 0.0).reshape(-1),
+                    torch.where(rok, params.occ_miss, 0.0).reshape(-1)])[
+                        :, None]])
     occ = occ.reshape(grid.occ.shape).clamp(-params.occ_clamp,
                                             params.occ_clamp)
     return dataclasses.replace(grid, occ=occ)

@@ -327,3 +327,27 @@ def test_solvers_on_the_card_match_the_cpu(cuda_device):
     scale = np.abs(x64).max()
     for x in (x_cpu, x_gpu):
         assert np.abs(x - x64).max() <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [0, 3])
+def test_map_update_repeats_and_equals_the_cpu(cuda_device, streams):
+    """The fixed-order map scatter (ops/ndt_map.scatter_add_rows): the
+    same canonical scans added to one grid (or a stack of three) twice on
+    the card give identical bits, and the CPU's."""
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    a = chip_smoke.map_update_case(mp, fx, cuda_device, streams)
+    b = chip_smoke.map_update_case(mp, fx, cuda_device, streams)
+    c = chip_smoke.map_update_case(mp, fx, torch.device("cpu"), streams)
+    for k in a:
+        assert np.array_equal(chip_smoke._bits(a[k]), chip_smoke._bits(b[k]))
+        assert np.array_equal(chip_smoke._bits(a[k]), chip_smoke._bits(c[k]))
+
+
+@pytest.mark.cuda
+def test_sqrt_on_the_card_is_correctly_rounded(cuda_device):
+    x = torch.rand(1 << 20, device=cuda_device) * 100.0
+    assert np.array_equal(torch.sqrt(x).cpu().numpy(),
+                          np.sqrt(x.cpu().numpy()))

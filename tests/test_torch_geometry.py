@@ -210,7 +210,10 @@ def test_port_imports_without_jax():
         "import chip_smoke\n"
         "for m in ('models.presets', 'parallel.scaling', 'graph.sparse',\n"
         "          'graph.sparse_direct', 'graph.schur', 'io.serialize',\n"
-        "          'utils.occupancy', 'cli'):\n"
+        "          'utils.occupancy', 'cli', 'ops.distance_field',\n"
+        "          'ops.hmt', 'io.native', 'fusion.hmt_driver',\n"
+        "          'localization.mcl', 'localization.monitor',\n"
+        "          'localization.place_rec'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'ndt_feature_graph_tpu'))\n"

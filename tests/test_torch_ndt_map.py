@@ -180,3 +180,92 @@ def test_unique_fixed_matches_jnp(n_vals):
         ref = jnp.unique(jnp.asarray(vals), size=size, fill_value=1600)
         got = tnm.unique_fixed(torch.tensor(vals), size, 1600)
         np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def _index_add_update(g, params, pts, mask, sensor):
+    """The map update as written before the fixed-order scatter: one
+    `index_add` per field (hits, then misses, for the occupancy), the
+    serial CPU loop whose bits the port must keep."""
+    h, w = params.grid_h, params.grid_w
+    iy, ix = tnm.cell_index(params, g.origin[..., None, :], pts)
+    ok = mask & torch.isfinite(pts).all(-1) & tnm.in_bounds(params, iy, ix)
+    offs = tnm._stream_offsets(pts.shape[:-2], h * w, pts.device)
+    fi = (torch.where(ok, iy * w + ix, h * w - 1).to(torch.int64)
+          + offs).reshape(-1)
+    ptsm = torch.where(ok[..., None], pts, 0.0)
+    op = ptsm[..., :, None] * ptsm[..., None, :]
+    count = g.count.reshape(-1).index_add(0, fi, ok.reshape(-1).float())
+    psum = g.psum.reshape(-1, 2).index_add(0, fi, ptsm.reshape(-1, 2))
+    outer = g.outer.reshape(-1, 2, 2).index_add(0, fi, op.reshape(-1, 2, 2))
+    g = tnm.NDTGrid(g.origin, count.reshape(g.count.shape),
+                    psum.reshape(g.psum.shape), outer.reshape(g.outer.shape),
+                    g.occ)
+    s = (torch.arange(params.ray_samples, dtype=torch.float32) + 0.5
+         ) / params.ray_samples
+    so = sensor[..., None, None, :]
+    ray = so + s[:, None] * (pts[..., :, None, :] - so)
+    riy, rix = tnm.cell_index(params, g.origin[..., None, None, :], ray)
+    rok = mask[..., None] & tnm.in_bounds(params, riy, rix)
+    rok = rok & ~((riy == iy[..., None]) & (rix == ix[..., None]))
+    rflat = torch.where(rok, riy * w + rix, h * w - 1).flatten(-2)
+    occ = g.occ.reshape(-1).index_add(
+        0, fi, torch.where(ok, params.occ_hit, 0.0).reshape(-1)
+    ).index_add(0, (rflat + offs).reshape(-1),
+                torch.where(rok, params.occ_miss, 0.0).reshape(-1))
+    occ = occ.reshape(g.occ.shape).clamp(-params.occ_clamp,
+                                         params.occ_clamp)
+    return tnm.NDTGrid(g.origin, g.count, g.psum, g.outer, occ)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("streams", [0, 3])
+def test_fixed_order_scatter_keeps_the_cpu_bits(streams):
+    """The fixed-order map update (ops/ndt_map.scatter_add_rows) gives
+    the CPU bits of the earlier one-`index_add`-per-field update, bit
+    for bit, over five scans into one grid and into a stack of three
+    (the fleet's flat scatter with per-stream offsets)."""
+    lead = (streams,) if streams else ()
+    center = torch.zeros(lead + (2,))
+    g = tnm.empty_grid(TPARAMS, center)
+    ref = tnm.empty_grid(TPARAMS, center)
+    for t in range(1, 6):
+        pts, mask = _scan(seed=2, t=t, nan=t == 3)
+        pts, mask = torch.tensor(pts), torch.tensor(mask)
+        sensor = torch.tensor([0.2, -0.1])
+        if streams:
+            pts = torch.stack([pts + 0.37 * k for k in range(streams)])
+            mask = mask.expand(streams, -1)
+            sensor = sensor.expand(streams, 2)
+        g = tnm.add_points(g, TPARAMS, pts, mask)
+        g = tnm.update_occupancy(g, TPARAMS, sensor, pts, mask)
+        ref = _index_add_update(ref, TPARAMS, pts, mask, sensor)
+    for k in ("count", "psum", "outer", "occ"):
+        assert torch.equal(_bits(getattr(g, k)), _bits(getattr(ref, k))), k
+    assert float(g.count.sum()) > 100 and float(g.occ.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("widths", [(1,), (1, 2, 4)])
+def test_sorted_scatter_branch_matches_index_add(widths):
+    """The card's branch of scatter_add_rows (each touched cell's old row
+    first, then the entries, summed by a stable sort; untouched cells
+    keep their rows) gives index_add's bits where its accumulating
+    `index_put_` is sequential, as it is on one CPU thread: one channel
+    (padded to two) and the map's 1 + 2 + 4."""
+    rng = np.random.default_rng(3)
+    n, m = 300, 5000
+    idx = torch.tensor(rng.integers(0, 40, m))
+    bases = [torch.tensor(rng.standard_normal((n, c)), dtype=torch.float32)
+             for c in widths]
+    vals = [torch.tensor(rng.standard_normal((m, c)), dtype=torch.float32)
+            for c in widths]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = tnm._scatter_add_rows_sorted(bases, idx, vals)
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in zip(got, tnm.scatter_add_rows(bases, idx, vals)):
+        assert torch.equal(_bits(a), _bits(b))
