@@ -146,7 +146,33 @@ Runs on a machine with a CUDA card and no JAX:
      11b. the CLI's `localize` (tracking and --kidnapped) and `fuse`
      (plain, --hmt-dir, --resume) in this process on the canonical
      sequence;
- 12. prints one JSON line of all kernel entries and, last, the result
+ 12. the simulator and the inputs (canonical_io.npz, made from the JAX
+     package by make_torch_port_fixture.py --io):
+     12a. bench.make_sequence()'s 200 x 720 corridor simulated on the card
+          with the reference's recorded draws against canonical_200.npz:
+          ground truth identical, odometry within 1e-6, ranges within
+          2e-5 m and hits identical but on grazing and oblique beams
+          (grazing_beams, counts printed); then the main path on it,
+          within 1 cm / 5 mrad of the JAX trajectory, launching only
+          `newton_objective`;
+     12b. bench_offline_570's 7,040-scan multi-loop at 720 beams: the
+          noise-free raycast at 64 recorded poses under the same rule;
+          the simulator's scans/s (median of 3) and peak memory;
+     12c. cli simulate -> cli slam, and the canonical sequence written
+          as .clf and .bag by the port's writers through cli slam,
+          within 1 cm / 5 mrad of the npz run;
+ 13. P2D registration and the calibration:
+     13a. match_p2d of scan 20's 720 points against build_from_scan of
+          scan 0 from the composed odometry: within 1 mm / 1 mrad of
+          JAX's pose, both converged, `fgh_dense_flat` launched once per
+          trial and no other entry; the entry at N = 720 x K = 25
+          against its plain twin (identical bits on repeat, all-masked
+          zero), timed in turns beside its bound;
+     13b. cli calibrate at its defaults: the 343 scores within rtol
+          1e-5 of JAX's and the best offset JAX's up to the candidates
+          its scores cannot tell apart (the corridor leaves x and y
+          unobservable: 49 tie); the ms of one calibration;
+ 14. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -193,7 +219,9 @@ from ndt_feature_graph_tpu_torch.graph import node as node_mod
 from ndt_feature_graph_tpu_torch.graph import optimize as opt_mod
 from ndt_feature_graph_tpu_torch.graph import sparse_direct
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
-from ndt_feature_graph_tpu_torch.io import dataset, serialize, tum
+from ndt_feature_graph_tpu_torch.io import (
+    carmen, dataset, rosbag, serialize, tum,
+)
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
 from ndt_feature_graph_tpu_torch.models import presets
 from ndt_feature_graph_tpu_torch.fusion.hmt_driver import HMTFuser
@@ -204,6 +232,7 @@ from ndt_feature_graph_tpu_torch.ops import (
 from ndt_feature_graph_tpu_torch.ops.hmt import HMTMap
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 from ndt_feature_graph_tpu_torch.parallel import scaling
+from ndt_feature_graph_tpu_torch.utils import pairwise
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_200.npz"
@@ -241,6 +270,24 @@ HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
 # ~165 multiplies and adds of the algebra and the sums, one divide and
 # one exp counted as ~17 each.
 FLOPS_PER_PAIR = 200
+# Phases 12-13 (examples/make_torch_port_fixture.py --io): the simulator,
+# the inputs, P2D registration and the extrinsic calibration.
+IO_FIXTURE = os.path.join(ROOT, "ndt_feature_graph_tpu_torch/data/canonical_io.npz")
+ML570 = dict(n_loops=10, steps_per_loop=704, radius=2.8)  # bench_offline_570
+P2D_SOURCE = 20               # scan 20's points against the map of scan 0
+P2D_TOL = 1e-3                # metres and radians, against JAX's pose
+CALIB_RTOL = 1e-5             # the calibration's summed scores
+# The simulator against the reference (phase 12, tests/test_torch_simulator.py):
+# ranges within RANGE_TOL metres and hits equal on every beam but the
+# grazing and the oblique ones (grazing_beams), odometry within ODOM_TOL;
+# under MAX_DIFFER of the beams may differ.
+RANGE_TOL, ODOM_TOL, MAX_DIFFER = 2e-5, 1e-6, 1e-3
+GRAZE_U, GRAZE_T = 1e-5, 1e-4
+# An oblique beam's range moves beyond RANGE_TOL when its direction turns
+# by this many ulps of its float32 angle (the frameworks' linspace differs
+# by one at a few beams of a scan, as dataset.beam_angles says) and one of
+# sin / cos.
+ANGLE_ULPS = 2
 CELL_BYTES = 8 + 16 + 1       # a cell's mean, covariance and mask
 
 
@@ -457,6 +504,82 @@ def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb):
     valid = (packed[flat][..., 5] > 0.5) & inb & live
     n_bytes = 32 * rows.numel() + CELL_BYTES * src.mask.numel()
     return n_bytes, int(valid.sum())
+
+
+def grazing_beams(segments, poses, num_beams, max_range):
+    """(..., B) int8, by a float64 recomputation of dataset.raycast at
+    the same float32 beam angles: 1 where the beam grazes (the nearest
+    segment it reaches, u within GRAZE_U outside [0, 1] counting as
+    reached, is met within GRAZE_U of an end; or its two nearest hits lie
+    within GRAZE_T of each other; or its nearest hit lies within GRAZE_T
+    of max_range); 2 where it is oblique (it meets its segment so
+    obliquely that its range moves by more than RANGE_TOL when its
+    direction turns by ANGLE_ULPS ulps of its float32 angle plus one of
+    sin / cos, which the frameworks' linspace and trigonometry differ
+    by); 0 elsewhere."""
+    f64 = torch.float64
+    host = lambda x: torch.tensor(np.asarray(  # noqa: E731
+        x.cpu() if isinstance(x, torch.Tensor) else x))
+    seg = host(segments).to(f64)
+    P = host(poses).to(torch.float32)
+    lead = P.shape[:-1]
+    P = P.reshape(-1, 3)
+    ang32 = P[:, 2:3] + dataset.beam_angles(num_beams, device="cpu")
+    ang = ang32.to(f64)
+    dx, dy = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
+    x0, y0, x1, y1 = seg.unbind(-1)
+    ex, ey = x1 - x0, y1 - y0
+    denom = dx * -ey + dy * ex
+    ok = denom.abs() > 1e-12
+    safe = torch.where(ok, denom, 1.0)
+    rx = (x0 - P[:, 0:1].to(f64))[:, None, :]
+    ry = (y0 - P[:, 1:2].to(f64))[:, None, :]
+    t = (rx * -ey + ry * ex) / safe
+    u = (dx * ry - dy * rx) / safe
+    reach = ok & (u >= -GRAZE_U) & (u <= 1 + GRAZE_U) & (t > 1e-6)
+    near = torch.where(reach, t, torch.inf).topk(2, dim=-1, largest=False)
+    t1, t2 = near.values[..., 0], near.values[..., 1]
+    first = near.indices[..., :1]
+    u1 = u.gather(-1, first)[..., 0]
+    edge = (u1.abs() <= GRAZE_U) | ((u1 - 1).abs() <= GRAZE_U)
+    hit = torch.isfinite(t1)
+    graze = hit & (edge | (t2 - t1 <= GRAZE_T)
+                   | ((t1 - max_range).abs() <= GRAZE_T))
+    # dt/dangle = t (d . e) / (d x e) for the nearest segment.
+    along = (dx * ex + dy * ey).gather(-1, first)[..., 0]
+    across = denom.gather(-1, first)[..., 0].abs()
+    turn = (ANGLE_ULPS * torch.from_numpy(
+        np.spacing(np.abs(ang32.numpy()))).to(f64) + 2.0 ** -24)
+    oblique = hit & (t1 < max_range) & (
+        t1 * along.abs() * turn > RANGE_TOL * across)
+    kind = torch.where(graze, 1, torch.where(oblique, 2, 0)).to(torch.int8)
+    return kind.reshape(*lead, num_beams).numpy()
+
+
+def check_beams(name, rng, hit, ref_rng, ref_hit, kind):
+    """Every beam that differs from the reference (the hit flag, or the
+    range beyond RANGE_TOL) grazes or is oblique (grazing_beams' `kind`),
+    and under MAX_DIFFER of the beams differ.  Returns {"differ",
+    "grazing", "oblique"}: the differing beams, and how many of them are
+    of each kind."""
+    rng, hit, ref_rng, ref_hit = (np.asarray(torch.as_tensor(x).cpu())
+                                  for x in (rng, hit, ref_rng, ref_hit))
+    differ = (hit != ref_hit) | (np.abs(rng - ref_rng) > RANGE_TOL)
+    out = {"differ": int(differ.sum()),
+           "grazing": int((differ & (kind == 1)).sum()),
+           "oblique": int((differ & (kind == 2)).sum())}
+    print(f"  {name}: {out['differ']} of {differ.size} beams differ from "
+          f"the reference (ranges beyond {RANGE_TOL} m or hits): "
+          f"{out['grazing']} grazing, {out['oblique']} oblique; "
+          f"{int((kind == 1).sum())} grazing and {int((kind == 2).sum())} "
+          f"oblique beams in all")
+    unexplained = int((differ & (kind == 0)).sum())
+    check(unexplained == 0,
+          f"{name}: {unexplained} beams that neither graze nor are "
+          f"oblique differ")
+    check(out["differ"] < MAX_DIFFER * differ.size,
+          f"{name}: {out['differ']} of {differ.size} beams differ")
+    return out
 
 
 def compare(name, got, ref, quiet=False, cancel=0.0, f_atol=1e-6):
@@ -2374,6 +2497,15 @@ def hmt_phase(dev):
             "launches": launches}
 
 
+def _cli_json(argv):
+    """Run the port's CLI in this process; its last JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads([ln for ln in buf.getvalue().splitlines()
+                       if ln.startswith("{")][-1])
+
+
 def cli_localize_fuse_case(dev):
     """Phase 11b: the CLI's `localize` (tracking, --kidnapped) and `fuse`
     (plain, --hmt-dir, --resume) in this process on the canonical
@@ -2397,11 +2529,8 @@ def cli_localize_fuse_case(dev):
                               "--hmt-dir", hmt]),
                 ("fuse_resume", ["fuse", "--out", f"{tmp}/resume",
                                  "--hmt-dir", hmt, "--resume"])):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                cli.main(pre + argv + ["--dataset", FIXTURE] + flags)
-            runs[name] = json.loads([ln for ln in buf.getvalue().splitlines()
-                                     if ln.startswith("{")][-1])
+            runs[name] = _cli_json(pre + argv + ["--dataset", FIXTURE]
+                                   + flags)
         wall = time.perf_counter() - t0
     n = cuda_kernels.LAUNCHES["newton_objective"]
     print(f"  {wall:.1f} s for the five commands; newton_objective "
@@ -2419,6 +2548,312 @@ def cli_localize_fuse_case(dev):
     if dev.type == "cuda":
         check(n > 0, "cli fuse launched no newton_objective")
     return {"wall_s": wall, **runs, "newton_objective_launches": n}
+
+def simulator_phase(sp, fx, io_fx, dev):
+    """Phases 12a and 12b: the simulator on the card against the JAX
+    package.  12a: bench.make_sequence()'s 200-scan corridor with the
+    reference's recorded draws equals canonical_200.npz (ground truth
+    exactly, odometry within ODOM_TOL, ranges and hits but for grazing and
+    oblique beams), and the main path on the simulated sequence stays
+    within 1 cm / 5 mrad of the JAX trajectory, launching only
+    `newton_objective`.  12b: bench_offline_570's 7,040-scan multi-loop
+    at 720 beams with a seeded generator: the noise-free raycast at the
+    64 recorded poses against the reference's, the simulator's scans/s
+    (median of 3, each ending in a synchronisation) and its peak
+    memory."""
+    t_steps = fx["gt"].shape[0]
+    traj = dataset.corridor_trajectory(t_steps, x0=-2.5, x1=2.5, y=-4.5,
+                                       device=dev)
+    check(np.array_equal(traj.cpu().numpy(), fx["gt"]),
+          "the corridor trajectory is not canonical_200.npz's")
+    T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    sim = dataset.simulate_sequence(traj, 720, 30.0,
+                                    range_draws=T(io_fx["range_u"]),
+                                    odom_draws=T(io_fx["odom_u"]), device=dev)
+    check(np.array_equal(sim.gt.cpu().numpy(), fx["gt"]),
+          "simulated ground truth differs from the reference's")
+    odom_dev = float(np.abs(sim.odom.cpu().numpy() - fx["odom"]).max())
+    print(f"  odometry within {odom_dev:.2e} of the reference's")
+    check(odom_dev <= ODOM_TOL, "simulated odometry differs beyond 1e-6")
+    kind = grazing_beams(dataset.default_world("cpu"), fx["gt"], 720, 30.0)
+    beams = check_beams("canonical corridor, 200 x 720", sim.ranges, sim.hit,
+                        fx["ranges"], fx["hit"], kind)
+    sim_fx = dict(fx, ranges=sim.ranges, hit=sim.hit, odom=sim.odom)
+    cuda_kernels.reset_launch_counts()
+    slam, sec = run_main_path(sp, sim_fx, dev)
+    launches = dict(cuda_kernels.LAUNCHES)
+    traj_out = np.stack(slam.trajectory)
+    xy, th = max_dev(traj_out, fx["traj"])
+    print(f"  main path on the simulated sequence: {len(slam.nodes)} nodes "
+          f"(JAX {fx['node_T'].shape[0]}), {xy * 100:.4f} cm / "
+          f"{th * 1e3:.4f} mrad from the JAX trajectory, "
+          f"{(t_steps - 1) / sec:.2f} scans/s, launches {launches}")
+    check(traj_out.shape == fx["traj"].shape and xy <= XY_TOL
+          and th <= TH_TOL, "the main path on the simulated sequence "
+          "deviates from JAX's beyond 1 cm / 5 mrad")
+    check(dev.type != "cuda" or launches["newton_objective"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "newton_objective"),
+        "the main path on the simulated sequence launched another entry")
+
+    print("phase 12b: the simulator at bench_offline_570's scale")
+    ml = dataset.multi_loop_trajectory(ML570["n_loops"],
+                                       ML570["steps_per_loop"],
+                                       radius=ML570["radius"], device=dev)
+    world = dataset.default_world(dev)
+    idx = io_fx["ray_idx"]
+    rr, rh = dataset.raycast(world, ml[T(idx).long()], 720, 30.0)
+    kind = grazing_beams(world, ml[T(idx).long()], 720, 30.0)
+    beams_570 = check_beams(f"noise-free raycast at {len(idx)} of "
+                            f"{ml.shape[0]} poses", rr, rh,
+                            io_fx["ray_ranges"], io_fx["ray_hit"], kind)
+    gen = torch.Generator(dev)
+    times = []
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev) if on_card else 0
+    for _ in range(4):                      # a warm-up, then 3 timed
+        gen.manual_seed(0)
+        sync(dev)
+        t0 = time.perf_counter()
+        big = dataset.simulate_sequence(ml, 720, 30.0, generator=gen,
+                                        device=dev)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated(dev) if on_card else 0) - base_mem
+    check(tuple(big.ranges.shape) == (ml.shape[0], 720)
+          and bool(torch.isfinite(big.ranges).all())
+          and bool(torch.isfinite(big.odom).all()),
+          "the 7,040-scan simulation is not finite or of the wrong shape")
+    med = sorted(times[1:])[1]
+    print(f"  simulate_sequence, {ml.shape[0]} scans x 720 beams: "
+          f"{ml.shape[0] / med:.0f} scans/s (median of 3: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms), peak "
+          f"memory {peak / 2**20:.1f} MiB above the {base_mem / 2**20:.1f} "
+          f"MiB held before")
+    return {"canonical_beams": beams, "odom_dev": odom_dev,
+            "main_path_dev_xy_m": xy, "main_path_dev_theta_rad": th,
+            "main_path_launches": launches, "raycast_570_beams": beams_570,
+            "sim_570_scans_per_s": ml.shape[0] / med, "sim_570_s": times[1:],
+            "sim_570_peak_mib": peak / 2**20}
+
+
+def inputs_phase(fx, dev):
+    """Phase 12c: the inputs end to end in this process.  `cli simulate`
+    then `cli slam` on what it wrote; the canonical sequence written as a
+    CARMEN log and a bag by the port's writers, and `cli slam` on each
+    and on the npz, at the canonical widths: the same node counts, and
+    trajectories within 1 cm / 5 mrad of the npz run (CARMEN rounds
+    ranges to 0.1 mm and the odometry chain to 1e-6)."""
+    flags = ["--map-size", "100", "--sensor-range", "30", "--num-beams",
+             "720", "--max-cells", "1024", "--new-node-dist", "2.0"]
+    pre = [] if dev.type == "cuda" else ["--device", "cpu"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = sequence(fx, dev)
+        carmen.write_carmen(f"{tmp}/c.clf", seq, max_range=30.0)
+        rosbag.write_bag(f"{tmp}/c.bag", seq, max_range=30.0)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(pre + ["simulate", "--out", f"{tmp}/sim.npz", "--steps",
+                            "100", "--num-beams", "720", "--sensor-range",
+                            "30"])
+        out["simulate_s"] = time.perf_counter() - t0
+        runs = {}
+        for name, f in (("npz", FIXTURE), ("clf", f"{tmp}/c.clf"),
+                        ("bag", f"{tmp}/c.bag"), ("sim", f"{tmp}/sim.npz")):
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = _cli_json(pre + ["slam", "--dataset", f, "--out",
+                                     f"{tmp}/{name}", *flags])
+            wall = time.perf_counter() - t0
+            _, est = tum.read_tum(f"{tmp}/{name}/est.tum")
+            runs[name] = est
+            launches = cuda_kernels.LAUNCHES["newton_objective"]
+            out[name] = {**stats, "wall_s": wall, "launches": launches}
+            print(f"  cli slam on {name}: {stats['n_updates']} updates, "
+                  f"{stats['n_nodes']} nodes, ATE {stats['ate_rmse_m']:.4f} m, "
+                  f"{wall:.1f} s, {launches} newton_objective launches")
+            check(np.isfinite(est).all()
+                  and (dev.type != "cuda" or launches > 0),
+                  f"cli slam on {name}: not finite or no kernel launched")
+        check(out["sim"]["n_updates"] == 99 and out["sim"]["ate_rmse_m"] < 0.5,
+              "cli slam did not track the sequence cli simulate wrote")
+        for name in ("clf", "bag"):
+            xy, th = max_dev(runs[name], runs["npz"])
+            out[name]["dev_xy_m"], out[name]["dev_theta_rad"] = xy, th
+            print(f"  {name} run vs the npz run: {xy * 100:.4f} cm / "
+                  f"{th * 1e3:.4f} mrad")
+            check(out[name]["n_nodes"] == out["npz"]["n_nodes"]
+                  and runs[name].shape == runs["npz"].shape
+                  and xy <= XY_TOL and th <= TH_TOL,
+                  f"cli slam on the {name} file deviates from the npz run")
+    return out
+
+
+def p2d_phase(sp, fx, io_fx, dev):
+    """Phase 13a: P2D registration (BASELINE.md configs[0]) at the
+    canonical parameters.  Target: build_from_scan of scan 0 in its own
+    frame (200 x 200 cells); source: scan 20's 720 points; start: the
+    composed odometry of scans 1-20.  match_p2d within P2D_TOL of the
+    reference's pose, both converged, `fgh_dense_flat` launched once per
+    trial and no other entry; then the entry at N = 720 x K = 25 against
+    its plain twin on the card (two calls identical bits; an all-masked
+    source exactly zero), timed in turns beside its bound.  Returns
+    (record, the entry's checks at this shape)."""
+    p = sp.fuser
+    m = p.matcher
+    T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
+    r, h = T(fx["ranges"]), T(fx["hit"], torch.bool)
+    pts0, m0 = dataset.scan_to_points(r[0], h[0])
+    pts1, m1 = dataset.scan_to_points(r[P2D_SOURCE], h[P2D_SOURCE])
+    zero2 = torch.zeros(2, device=dev)
+    grid = ndt_map.build_from_scan(p.ndt, zero2, zero2, pts0, m0)
+    tgt = d2d.make_dense_target(grid, p.ndt)
+    T_init = T(io_fx["p2d_T_init"])
+    pairwise.match_p2d(tgt, pts1, m1, T_init, p.ndt, m)     # warm-up
+    times = []
+    for k in range(3):
+        if k == 0:
+            cuda_kernels.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = pairwise.match_p2d(tgt, pts1, m1, T_init, p.ndt, m)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        if k == 0:
+            launches = dict(cuda_kernels.LAUNCHES)
+    ms = sorted(times)[1] * 1e3
+    trials = int(res.iterations)
+    xy, th = max_dev(res.T.cpu().numpy()[None], io_fx["p2d_T"][None])
+    print(f"  grid {tuple(tgt.valid.shape)}, {int(m1.sum())} of 720 points; "
+          f"{trials} trials (JAX {int(io_fx['p2d_trials'])}), converged "
+          f"{bool(res.converged)} (JAX {bool(io_fx['p2d_converged'])}), "
+          f"score {float(res.score):.3f} (JAX {float(io_fx['p2d_score']):.3f})"
+          f", {xy * 1e3:.4f} mm / {th * 1e3:.4f} mrad from JAX's pose; "
+          f"{ms:.1f} ms (median of 3 after a warm-up: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}); launches in the "
+          f"first {launches}")
+    eps_tr, eps_T = io_fx["p2d_eps_trials"], io_fx["p2d_eps_T"]
+    moved = eps_tr > 1
+    print(f"  the reference from starts moved by k * 1e-6: trials "
+          f"{eps_tr.tolist()}; {int((~moved).sum())} of {len(eps_tr)} stop "
+          f"at the start (an indefinite projected Hessian, which the "
+          f"port's guarded projection avoids), the others within "
+          f"{max_dev(eps_T[moved], io_fx['p2d_T'][None])[0] * 1e3:.4f} mm "
+          f"of the record")
+    check(bool(res.converged) and bool(io_fx["p2d_converged"]),
+          "match_p2d did not converge")
+    check(xy <= P2D_TOL and th <= P2D_TOL,
+          "match_p2d deviates from JAX's pose beyond 1 mm / 1 mrad")
+    # One launch for the start, then one per trial of every 6-trial chunk
+    # the Newton loop ran.
+    n_trials_run = 6 * -(-trials // 6)
+    check(dev.type != "cuda" or launches["fgh_dense_flat"] == 1 + n_trials_run
+          and all(
+        v == 0 for k, v in launches.items() if k != "fgh_dense_flat"),
+        f"match_p2d launched {launches}, not fgh_dense_flat once per trial "
+        f"({1 + n_trials_run})")
+
+    src = pairwise.points_as_cells(pts1, m1)
+    hh, ww = tgt.valid.shape
+    d = T([0.004, -0.003, 0.001])
+
+    def kernel(src_=src):
+        return cuda_kernels.fgh_dense_flat(
+            d, T_init, src_, tgt.packed, tgt.origin, hh, ww,
+            p.ndt.resolution, m.n_neighbours, m.lfd1, m.lfd2)
+
+    def plain(src_=src):
+        return d2d_analytic.fgh_dense_flat(
+            d, T_init, src_, tgt.packed, tgt.origin, 0, hh, ww,
+            p.ndt.resolution, m)
+
+    err = compare(f"fgh_dense_flat N={src.mask.numel()} K=25 (P2D)",
+                  kernel(), plain())
+    a, b = kernel(), kernel()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "fgh_dense_flat at N=720 is not deterministic")
+    masked = dataclasses.replace(src, mask=torch.zeros_like(src.mask))
+    got = kernel(masked)
+    check(all(float(x.abs().max()) == 0.0 for x in got),
+          "all-masked fgh_dense_flat at N=720 is not exactly zero")
+    compare("fgh_dense_flat N=720 all masked", got, plain(masked))
+    win_bytes, win_pairs = window_work(d, T_init, src, tgt.packed,
+                                       tgt.origin, None, hh, ww,
+                                       p.ndt.resolution, m.n_neighbours)
+    entry = {"max_abs_err": err, "launches": launches["fgh_dense_flat"],
+             "cells": int(src.mask.numel()), "window_pairs": win_pairs,
+             **bound(win_bytes + 4 * 8 + 4 * 13, win_pairs)}
+    if dev.type == "cuda":          # a CPU rehearsal takes no times
+        entry.update(time_turns(kernel, plain))
+        print(f"  N=720: {entry['ms'] * 1e3:.2f} us against plain "
+              f"{entry['plain_ms'] * 1e3:.2f} us, bound "
+              f"{entry['bound_ms'] * 1e3:.4f} us ({entry['bound_by']}; "
+              f"{win_pairs} valid pairs)")
+    record = {"trials": trials, "converged": bool(res.converged),
+              "dev_m": xy, "dev_rad": th, "ms": ms, "times_s": times,
+              "launches": launches,
+              "score": float(res.score), "jax_eps_trials":
+              io_fx["p2d_eps_trials"].tolist()}
+    return record, entry
+
+
+def calibration_phase(fx, io_fx, dev):
+    """Phase 13b: `cli calibrate` at its defaults (3 pairs, a 7^3 grid of
+    343 candidates over +-0.4 m, +-0.25 rad) on the canonical sequence at
+    720 beams.  The 343 summed scores within CALIB_RTOL of the JAX record
+    and the best offset the reference's up to its ties: on this straight
+    corridor the base motion is a translation, which leaves the
+    extrinsic's x and y unobservable, so 49 candidates tie within 1e-7
+    and the reference's own best moves among them under a 1e-6 change of
+    the motions (the record's calib_eps_idx).  So the port's best must
+    be among the candidates the JAX scores cannot tell from their best
+    at CALIB_RTOL, and the JAX best among the port's; the ms of one
+    calibration (median of 3)."""
+    seq = sequence(fx, dev)
+    pairs, rels = [], []
+    for a, b in cli.calibration_pairs(seq.gt.shape[0], 3):
+        pairs.append((dataset.scan_to_points(seq.ranges[a], seq.hit[a]),
+                      dataset.scan_to_points(seq.ranges[b], seq.hit[b])))
+        rels.append(se2.sub(seq.gt[a], seq.gt[b]))
+    times = []
+    for _ in range(4):
+        sync(dev)
+        t0 = time.perf_counter()
+        best, scores = pairwise.calibrate_extrinsic(pairs, rels, 0.4, 0.25, 7)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    ms = sorted(times[1:])[1] * 1e3
+    got = scores.cpu().numpy()
+    ref = io_fx["calib_scores"]
+    rel_err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    ties_ref = np.flatnonzero(ref <= ref.min() * (1 + CALIB_RTOL))
+    ties_got = np.flatnonzero(got <= got.min() * (1 + CALIB_RTOL))
+    best_idx, ref_idx = int(np.argmin(got)), int(np.argmin(ref))
+    pre = [] if dev.type == "cuda" else ["--device", "cpu"]
+    cli_out = _cli_json(pre + ["calibrate", "--dataset", FIXTURE,
+                               "--num-beams", "720"])
+    print(f"  343 scores within {rel_err:.2e} of JAX's (rtol {CALIB_RTOL}); "
+          f"best candidate {best_idx} {best.cpu().numpy()} (JAX {ref_idx} "
+          f"{io_fx['calib_best']}); {len(ties_ref)} candidates tie with "
+          f"JAX's best at that tolerance, {len(ties_got)} with the port's; "
+          f"JAX's own best under 1e-6 changes: "
+          f"{io_fx['calib_eps_idx'].tolist()}; cli calibrate "
+          f"{cli_out['extrinsic']}; one calibration {ms:.1f} ms (median of 3)")
+    check(rel_err <= CALIB_RTOL, "calibration scores differ from JAX's "
+          "beyond rtol 1e-5")
+    check(best_idx in ties_ref and ref_idx in ties_got,
+          "the best offset is not JAX's, up to the candidates its scores "
+          "cannot tell apart")
+    check(np.allclose(cli_out["extrinsic"], best.cpu().numpy(), atol=0)
+          and cli_out["candidates"] == 343,
+          "cli calibrate does not report the calibration's best offset")
+    return {"ms": ms, "times_s": times[1:], "score_rel_err": rel_err,
+            "best_idx": best_idx, "jax_best_idx": ref_idx,
+            "ties_jax": len(ties_ref), "ties_port": len(ties_got),
+            "cli": cli_out}
+
 
 def fleet_phases(dev):
     """Phases 3d, 7, 7b, 7c.  Returns (record, the batch entry's checks,
@@ -2553,13 +2988,29 @@ def main():
     print("phase 11b: the CLI's localize and fuse on the canonical sequence")
     hmt["cli"] = cli_localize_fuse_case(dev)
 
+    io_fx = dict(np.load(IO_FIXTURE))
+    check(str(io_fx["params_repr"]) == repr(sp.fuser),
+          "canonical_io.npz was made at other parameters than "
+          "canonical_slam_params().fuser")
+    print("phase 12a: the simulator against JAX (bench.make_sequence, "
+          "200 x 720, the reference's draws)")
+    simulator = simulator_phase(sp, fx, io_fx, dev)
+    print("phase 12c: the inputs end to end (cli simulate, .clf, .bag)")
+    inputs = inputs_phase(fx, dev)
+    print("phase 13a: P2D registration (match_p2d, scan 20 on the map of "
+          "scan 0)")
+    p2d, checks["fgh_dense_flat"]["p2d"] = p2d_phase(sp, fx, io_fx, dev)
+    print("phase 13b: extrinsic calibration (cli calibrate at its defaults)")
+    calibration = calibration_phase(fx, io_fx, dev)
+
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
-    # (match_d2d + covariance_d2d; fgh_paired), optimize_offline and the
-    # B = 8 fleet run.
+    # (match_d2d + covariance_d2d, and P2D's match_p2d; fgh_paired),
+    # optimize_offline and the B = 8 fleet run.
     path_launches = {
         "newton_objective": launches["newton_objective"],
-        "fgh_dense_flat": reg_launches["fgh_dense_flat"],
+        "fgh_dense_flat": (reg_launches["fgh_dense_flat"]
+                           + p2d["launches"]["fgh_dense_flat"]),
         "pair_fgh_reduce": reg_launches["pair_fgh_reduce"],
         "fgh_dense_flat_batch": off_launches["fgh_dense_flat_batch"],
         "newton_objective_batch": fleet_launches,
@@ -2581,6 +3032,8 @@ def main():
         "map_update": map_update, "localization": localization, "hmt": hmt,
         "offline": offline, "online_lc": online, "fleet": fleet,
         "rolling_map": rolling, "offline_scale": scale,
+        "simulator": simulator, "inputs": inputs, "p2d": p2d,
+        "calibration": calibration,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
                      "online_lc": on_launches,

@@ -119,6 +119,36 @@ canonical parameters (margin 10 m, 64-cell tiles, chunks of 16):
   resume_traj             a fuser loaded from it, over the next `resume`
                           scans
 
+With --io it writes the simulator, P2D and calibration record
+(ndt_feature_graph_tpu_torch/data/canonical_io.npz; it checks that the
+sequence it replays is canonical_200.npz's):
+
+  range_u, odom_u         the draws of bench.make_sequence()'s
+                          simulate_sequence (key 0): the range normals
+                          (200, 720) and the odometry normals (199, 3)
+  ray_idx, ray_ranges,    the noise-free raycast, 720 beams at 30 m, at
+  ray_hit                 64 evenly sampled poses of bench_offline_570's
+                          trajectory (multi_loop_trajectory(10, 704,
+                          radius=2.8), 7,040 poses)
+  p2d_*                   match_p2d at the canonical parameters: scan
+                          20's points against build_from_scan of scan 0
+                          (centred on its sensor, in its frame) from the
+                          composed odometry of scans 1-20 (p2d_T_init):
+                          the pose, score, trials and converged flag;
+                          p2d_eps_T, p2d_eps_trials: the same from starts
+                          moved by +-k * 1e-6, k = 1..4 (the reference
+                          stops at its start in some of them)
+  calib_scores,           cli.py cmd_calibrate at its defaults (3 pairs,
+  calib_best              a 7^3 grid over +-0.4 m, +-0.25 rad) on the
+                          sequence: the 343 summed scores and the best
+                          offset
+  calib_eps_idx           the best candidate's index with the base
+                          motions moved by +-k * 1e-6, k = 1..4 (the
+                          corridor's motion is a translation, so x and y
+                          of the extrinsic are unobservable: 49
+                          candidates tie to 1e-7 and the reference's own
+                          best moves among them)
+
 `replay_ransac_draws` is the replay of the JAX key chain, shared with
 the port's parity tests; `recording_slam_class` logs the keys a JAX run
 really takes, against which the replay is checked.
@@ -141,6 +171,12 @@ FLEET_OUT = os.path.join(DATA, "canonical_fleet.npz")
 SOLVER_OUT = os.path.join(DATA, "canonical_solver.npz")
 LOCALIZE_OUT = os.path.join(DATA, "canonical_localize.npz")
 HMT_OUT = os.path.join(DATA, "canonical_hmt.npz")
+IO_OUT = os.path.join(DATA, "canonical_io.npz")
+# The --io record: bench_offline_570's trajectory, the raycast's poses, the
+# P2D scans and cmd_calibrate's defaults.
+IO = dict(ml_loops=10, ml_steps=704, ml_radius=2.8, ray_poses=64,
+          p2d_target=0, p2d_source=20, calib_pairs=3, calib_xy=0.4,
+          calib_theta=0.25, calib_grid=7)
 LOCALIZE = dict(particles=512, capacity=32, min_matches=8, reloc_seed=1,
                 mcl_seed=0)
 # The odometry offsets of a record's perturbed runs (the reference's own
@@ -856,6 +892,110 @@ def make_hmt_fixture(out, params):
           f"{np.abs(np.arctan2(np.sin(dth), np.cos(dth))).max():.2e} rad")
 
 
+def simulator_draws(key, t_steps, num_beams):
+    """The standard normals dataset.simulate_sequence draws under `key`:
+    (range draws (T, B), odometry draws (T-1, 3)), float32."""
+    import jax
+
+    k1, k2 = jax.random.split(key)
+    keys = jax.random.split(k1, t_steps)
+    rng = jax.vmap(lambda k: jax.random.normal(k, (num_beams,)))(keys)
+    return (np.asarray(rng, np.float32),
+            np.asarray(jax.random.normal(k2, (t_steps - 1, 3)), np.float32))
+
+
+def calibration_pairs(seq, n_pairs):
+    """cli.py cmd_calibrate's scan pairs: (k, k + step) for the first
+    `n_pairs` multiples k of step = T // (n_pairs + 1)."""
+    t_total = int(seq.gt.shape[0])
+    step = max(1, t_total // (n_pairs + 1))
+    return [(k, k + step) for k in range(
+        0, min(n_pairs * step, t_total - step), step)]
+
+
+def make_io_fixture(out, params):
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from ndt_feature_graph_tpu.core import se2
+    from ndt_feature_graph_tpu.io import dataset
+    from ndt_feature_graph_tpu.ops import d2d, ndt_map
+    from ndt_feature_graph_tpu.utils import pairwise
+
+    seq = bench.make_sequence()
+    with np.load(DEFAULT_OUT) as ref:
+        for k in ("ranges", "hit", "odom", "gt"):
+            if not np.array_equal(np.asarray(getattr(seq, k)), ref[k]):
+                raise SystemExit(f"io: bench.make_sequence's {k} is not "
+                                 "canonical_200.npz's")
+    t_steps, nb = seq.ranges.shape
+    range_u, odom_u = simulator_draws(jax.random.PRNGKey(0), t_steps, nb)
+
+    traj = dataset.multi_loop_trajectory(
+        IO["ml_loops"], IO["ml_steps"], radius=IO["ml_radius"])
+    ray_idx = np.linspace(0, traj.shape[0] - 1, IO["ray_poses"]).round(
+    ).astype(np.int32)
+    world = dataset.default_world()
+    ray_r, ray_h = jax.vmap(
+        lambda p: dataset.raycast(world, p, nb, params.ndt.sensor_range)
+    )(traj[ray_idx])
+
+    i0, i1 = IO["p2d_target"], IO["p2d_source"]
+    pts0, m0 = dataset.scan_to_points(seq.ranges[i0], seq.hit[i0])
+    grid = ndt_map.build_from_scan(params.ndt, jnp.zeros(2), jnp.zeros(2),
+                                   pts0, m0)
+    tgt = d2d.make_dense_target(grid, params.ndt)
+    T_init = jnp.zeros(3)
+    for t in range(i0 + 1, i1 + 1):
+        T_init = se2.compose(T_init, seq.odom[t])
+    pts1, m1 = dataset.scan_to_points(seq.ranges[i1], seq.hit[i1])
+    p2d = pairwise.match_p2d(tgt, pts1, m1, T_init, params.ndt,
+                             params.matcher)
+    # The reference's own spread: from a start moved by k * 1e-6 it
+    # either converges or stops at the start (an indefinite projected
+    # Hessian, the port's d2d._psd_project says how).
+    p2d_eps = [pairwise.match_p2d(tgt, pts1, m1, T_init + e, params.ndt,
+                                  params.matcher) for e in EPS_RUNS[:8]]
+
+    pairs, rels = [], []
+    for a, b in calibration_pairs(seq, IO["calib_pairs"]):
+        pairs.append((dataset.scan_to_points(seq.ranges[a], seq.hit[a]),
+                      dataset.scan_to_points(seq.ranges[b], seq.hit[b])))
+        rels.append(np.asarray(se2.sub(seq.gt[a], seq.gt[b])))
+    calib = lambda rs: pairwise.calibrate_extrinsic(  # noqa: E731
+        pairs, rs, search_xy=IO["calib_xy"], search_theta=IO["calib_theta"],
+        n=IO["calib_grid"])
+    best, scores = calib(rels)
+    # On this straight corridor the base motion is a translation, which
+    # leaves the extrinsic's x, y unobservable: the reference's own best
+    # moves among the tied candidates under a 1e-6 change of the motions.
+    eps_idx = [int(np.argmin(np.asarray(calib([r + e for r in rels])[1])))
+               for e in EPS_RUNS[:8]]
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, range_u=range_u, odom_u=odom_u, ray_idx=ray_idx,
+        ray_ranges=np.asarray(ray_r, np.float32),
+        ray_hit=np.asarray(ray_h, bool),
+        p2d_T_init=np.asarray(T_init, np.float32),
+        p2d_T=np.asarray(p2d.T, np.float32),
+        p2d_score=np.float32(p2d.score),
+        p2d_trials=np.int32(p2d.iterations),
+        p2d_converged=np.bool_(p2d.converged),
+        p2d_eps_T=np.stack([np.asarray(r.T, np.float32) for r in p2d_eps]),
+        p2d_eps_trials=np.asarray([int(r.iterations) for r in p2d_eps],
+                                  np.int32),
+        calib_scores=np.asarray(scores, np.float32),
+        calib_best=np.asarray(best, np.float32),
+        calib_eps_idx=np.asarray(eps_idx, np.int32),
+        params_repr=np.str_(repr(params)),
+    )
+    print(f"wrote {out}: P2D {int(p2d.iterations)} trials, converged "
+          f"{bool(p2d.converged)}, score {float(p2d.score):.4f}; best "
+          f"offset {np.asarray(best)}, under 1e-6 changes {eps_idx}")
+
+
 def replay_fleet_draws(seed, n_streams, t_steps, m_hyp):
     """The RANSAC draws of scaling.build_fleet_feature_inputs' streams
     over `t_steps` scans: stream b's key is the b-th split of
@@ -948,6 +1088,8 @@ def main():
                     help="write the localization record")
     ap.add_argument("--hmt", action="store_true",
                     help="write the HMT record")
+    ap.add_argument("--io", action="store_true",
+                    help="write the simulator, P2D and calibration record")
     args = ap.parse_args()
 
     import jax
@@ -966,6 +1108,8 @@ def main():
                                   bench.canonical_params())
     if args.hmt:
         return make_hmt_fixture(args.out or HMT_OUT, bench.canonical_params())
+    if args.io:
+        return make_io_fixture(args.out or IO_OUT, bench.canonical_params())
     if args.localize:
         return make_localize_fixture(args.out or LOCALIZE_OUT,
                                      bench.make_sequence(),

@@ -1,19 +1,22 @@
 """Command-line interface of the port (ndt_feature_graph_tpu/cli.py):
 
-  slam        online graph SLAM over a sequence npz, optionally followed
-              by the offline optimization (--optimize)
+  simulate    a synthetic sequence (raycast lidar in the segment world),
+              written as a sequence npz or a .bag
+  slam        online graph SLAM over a sequence, optionally followed by
+              the offline optimization (--optimize)
   optimize    offline loop closure on a graph checkpoint (flags mirror
               graph_opt.cpp:38-56)
   fuse        scan-to-map NDT odometry, optionally over the HMT tile
               store (--hmt-dir, --resume)
   localize    MCL tracking, or kidnapped-robot recovery (--kidnapped)
+  calibrate   laser->base extrinsic grid search over scan pairs
   export-map  stitched occupancy PGM from a graph checkpoint
   eval        ATE between two TUM trajectory files
 
-Checkpoints, sequences and HMT directories are the reference's files: a
-graph.npz or tile directory either package wrote loads in both.  The
-subcommands simulate and calibrate, and .clf / .bag inputs, belong to
-later slices of the port and exit with a message saying which.
+Sequences are a sequence npz, a CARMEN log (.clf / .log) or a ROS bag
+(.bag); checkpoints, sequences and HMT directories are the reference's
+files, and load in both packages.  `slam --plot` / `--html` belong to a
+later slice of the port and exit with a message saying which.
 
 Run:  python -m ndt_feature_graph_tpu_torch.cli [--device cpu] <cmd> --help
 """
@@ -25,18 +28,13 @@ import json
 import os
 import sys
 
-# What each subcommand or input the port does not run yet waits for
-# (ROADMAP.md, queue 1).
+# What each option the port does not run yet waits for (ROADMAP.md,
+# queue 1).
 NOT_PORTED = {
-    "simulate": "the simulator and I/O slice (ROADMAP queue 1, item 3)",
-    "calibrate": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
-                 "utils/pairwise.py)",
-    ".clf": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
-            "io/carmen.py)",
-    ".log": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
-            "io/carmen.py)",
-    ".bag": "the simulator and I/O slice (ROADMAP queue 1, item 3: "
-            "io/rosbag.py)",
+    "--plot": "the utilities and plots of ROADMAP queue 1, item 3 "
+              "(viz/plot.py)",
+    "--html": "the utilities and plots of ROADMAP queue 1, item 3 "
+              "(viz/html.py)",
 }
 
 
@@ -95,13 +93,52 @@ def _add_common(p):
     )
 
 
-def _load_sequence(path, device):
+def _load_sequence(path, device, max_range=30.0):
+    """A sequence npz, CARMEN log (.clf / .log) or bag (.bag) on
+    `device`; the logs' ranges are clipped at `max_range`."""
     from ndt_feature_graph_tpu_torch.io import dataset
 
-    for ext in (".clf", ".log", ".bag"):
-        if path.endswith(ext):
-            _not_ported(ext)
+    if path.endswith((".clf", ".log")):
+        from ndt_feature_graph_tpu_torch.io import carmen
+
+        return carmen.read_carmen_sequence(path, max_range=max_range,
+                                           device=device)
+    if path.endswith(".bag"):
+        from ndt_feature_graph_tpu_torch.io import rosbag
+
+        return rosbag.read_bag_sequence(path, max_range=max_range,
+                                        device=device)[0]
     return dataset.load_sequence(path, device=device)
+
+
+def cmd_simulate(a):
+    """A synthetic sequence: the loop or corridor trajectory through the
+    default world, its noise drawn on the device from a torch.Generator
+    seeded with --seed (the reference draws from jax.random, so the same
+    seed gives other noise)."""
+    import torch
+
+    from ndt_feature_graph_tpu_torch.io import dataset
+
+    if a.trajectory == "loop":
+        traj = dataset.loop_trajectory(a.steps, radius=a.radius,
+                                       device=a.device)
+    else:
+        traj = dataset.corridor_trajectory(a.steps, device=a.device)
+    gen = torch.Generator(a.device)
+    gen.manual_seed(a.seed)
+    seq = dataset.simulate_sequence(
+        traj, num_beams=a.num_beams, max_range=a.sensor_range,
+        odom_noise=(a.odom_noise, a.odom_noise, a.odom_noise / 2.5),
+        generator=gen, device=a.device,
+    )
+    if a.out.endswith(".bag"):
+        from ndt_feature_graph_tpu_torch.io import rosbag
+
+        rosbag.write_bag(a.out, seq, max_range=a.sensor_range)
+    else:
+        dataset.save_sequence(a.out, seq)
+    print(f"wrote {a.out}: {traj.shape[0]} steps, {a.num_beams} beams")
 
 
 def _sync_beams(a, seq):
@@ -118,7 +155,7 @@ def cmd_slam(a):
     from ndt_feature_graph_tpu_torch import pipeline
     from ndt_feature_graph_tpu_torch.io import tum
 
-    seq = _load_sequence(a.dataset, a.device)
+    seq = _load_sequence(a.dataset, a.device, a.sensor_range)
     _sync_beams(a, seq)
     slam, stats = pipeline.run_slam(_params_from_args(a), seq, verbose=True)
     stats["ate_rmse_m"] = pipeline.evaluate(slam, seq)
@@ -170,7 +207,7 @@ def cmd_fuse(a):
     from ndt_feature_graph_tpu_torch.fusion.hmt_driver import HMTFuser
     from ndt_feature_graph_tpu_torch.io import dataset, tum
 
-    seq = _load_sequence(a.dataset, a.device)
+    seq = _load_sequence(a.dataset, a.device, a.sensor_range)
     _sync_beams(a, seq)
     params = _params_from_args(a).fuser
     pts_all, mask_all = dataset.scan_to_points(seq.ranges, seq.hit)
@@ -225,7 +262,7 @@ def cmd_localize(a):
     from ndt_feature_graph_tpu_torch.localization import mcl, place_rec
     from ndt_feature_graph_tpu_torch.ops import d2d, ndt_map
 
-    seq = _load_sequence(a.dataset, a.device)
+    seq = _load_sequence(a.dataset, a.device, a.sensor_range)
     _sync_beams(a, seq)
     mp = _params_from_args(a).fuser.ndt
     t_total = int(seq.gt.shape[0])
@@ -285,6 +322,35 @@ def cmd_localize(a):
                       "mean_error_m": float(np.mean(errs)),
                       "final_error_m": errs[-1] if errs else None}))
 
+
+def calibration_pairs(t_total: int, n_pairs: int):
+    """The scan pairs `calibrate` scores: (k, k + step) for the first
+    `n_pairs` multiples k of step = t_total // (n_pairs + 1)."""
+    step = max(1, t_total // (n_pairs + 1))
+    return [(k, k + step) for k in range(
+        0, min(n_pairs * step, t_total - step), step)]
+
+
+def cmd_calibrate(a):
+    """Laser->base extrinsic grid search over scan pairs (the
+    laser2d_extrinsic_calibration role)."""
+    from ndt_feature_graph_tpu_torch.core import se2
+    from ndt_feature_graph_tpu_torch.io import dataset
+    from ndt_feature_graph_tpu_torch.utils import pairwise
+
+    seq = _load_sequence(a.dataset, a.device, a.sensor_range)
+    pairs, rels = [], []
+    for i, j in calibration_pairs(int(seq.gt.shape[0]), a.pairs):
+        pairs.append((dataset.scan_to_points(seq.ranges[i], seq.hit[i]),
+                      dataset.scan_to_points(seq.ranges[j], seq.hit[j])))
+        rels.append(se2.sub(seq.gt[i], seq.gt[j]))
+    best, scores = pairwise.calibrate_extrinsic(
+        pairs, rels, search_xy=a.search_xy, search_theta=a.search_theta,
+        n=a.grid)
+    print(json.dumps({"extrinsic": [float(x) for x in best.cpu()],
+                      "candidates": int(scores.shape[0])}))
+
+
 def cmd_export_map(a):
     """Stitched occupancy export from a graph checkpoint."""
     from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
@@ -321,10 +387,28 @@ def main(argv=None):
                     help="where the port runs (default: the CUDA card)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("simulate", help="generate a synthetic sequence")
+    p.add_argument("--out", required=True,
+                   help="sequence npz, or a .bag")
+    p.add_argument("--trajectory", choices=["loop", "corridor"],
+                   default="loop")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--num-beams", type=int, default=360)
+    p.add_argument("--sensor-range", type=float, default=15.0)
+    p.add_argument("--odom-noise", type=float, default=0.02)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_simulate)
+
     p = sub.add_parser("slam", help="run online graph SLAM")
-    p.add_argument("--dataset", required=True, help="sequence npz")
+    p.add_argument("--dataset", required=True,
+                   help="sequence npz, .clf / .log or .bag")
     p.add_argument("--out", required=True)
     p.add_argument("--optimize", action="store_true")
+    p.add_argument("--plot", action="store_true",
+                   help=f"not ported yet ({NOT_PORTED['--plot']})")
+    p.add_argument("--html", action="store_true",
+                   help=f"not ported yet ({NOT_PORTED['--html']})")
     _add_common(p)
     p.set_defaults(fn=cmd_slam)
 
@@ -358,6 +442,15 @@ def main(argv=None):
     _add_common(p)
     p.set_defaults(fn=cmd_localize)
 
+    p = sub.add_parser("calibrate", help="laser extrinsic grid search")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--pairs", type=int, default=3)
+    p.add_argument("--search-xy", type=float, default=0.4)
+    p.add_argument("--search-theta", type=float, default=0.25)
+    p.add_argument("--grid", type=int, default=7)
+    _add_common(p)
+    p.set_defaults(fn=cmd_calibrate)
+
     p = sub.add_parser("export-map",
                        help="stitched occupancy PGM from a checkpoint")
     p.add_argument("--graph", required=True)
@@ -370,16 +463,11 @@ def main(argv=None):
     p.add_argument("--gt", required=True)
     p.set_defaults(fn=cmd_eval)
 
-    for name in ("simulate", "calibrate"):
-        sub.add_parser(name, add_help=False,
-                       help=f"not ported yet ({NOT_PORTED[name]})")
-
-    a, extra = ap.parse_known_args(argv)
-    if a.cmd in NOT_PORTED:
-        _not_ported(a.cmd)
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
-    if a.cmd in ("slam", "optimize", "export-map", "fuse", "localize"):
+    a = ap.parse_args(argv)
+    for flag in NOT_PORTED:
+        if getattr(a, flag[2:], False):
+            _not_ported(flag)
+    if a.cmd != "eval":
         from ndt_feature_graph_tpu_torch import resolve_device
 
         # The card unless --device cpu; raises where there is none.

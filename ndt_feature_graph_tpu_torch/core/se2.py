@@ -15,6 +15,11 @@ def normalize_angle(a):
     return torch.atan2(torch.sin(a), torch.cos(a))
 
 
+def identity(shape=(), dtype=torch.float32, device=None):
+    """Identity pose(s) of leading shape `shape`."""
+    return torch.zeros(tuple(shape) + (3,), dtype=dtype, device=device)
+
+
 def rotmat(theta):
     """(...,) -> (..., 2, 2) rotation matrices."""
     c, s = torch.cos(theta), torch.sin(theta)
@@ -108,3 +113,48 @@ def adjoint_inverse(pose):
     row1 = torch.stack([-s, c, s * y + c * x], -1)
     row2 = torch.stack([z, z, o], -1)
     return torch.stack([row0, row1, row2], -2)
+
+
+def to_matrix3(pose):
+    """(..., 3) -> (..., 3, 3) homogeneous 2D transform."""
+    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    row0 = torch.stack([c, -s, pose[..., 0]], -1)
+    row1 = torch.stack([s, c, pose[..., 1]], -1)
+    row2 = torch.stack([z, z, o], -1)
+    return torch.stack([row0, row1, row2], -2)
+
+
+def from_matrix3(m):
+    theta = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    return torch.stack([m[..., 0, 2], m[..., 1, 2], theta], -1)
+
+
+def to_matrix4(pose):
+    """SE(3) lift: (..., 3) -> (..., 4, 4)."""
+    m3 = to_matrix3(pose)
+    m = torch.zeros(pose.shape[:-1] + (4, 4), dtype=pose.dtype,
+                    device=pose.device)
+    m[..., :2, :2] = m3[..., :2, :2]
+    m[..., :2, 3] = m3[..., :2, 2]
+    m[..., 2, 2] = 1.0
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def from_matrix4(m):
+    """SE(2) from a 4x4 transform: yaw from the rotated x-axis (the
+    reference's getRobustYawFromAffine3d, utils.h:30-40)."""
+    theta = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    return torch.stack([m[..., 0, 3], m[..., 1, 3], theta], -1)
+
+
+def to_tum(t, pose):
+    """TUM-format row `t x y z qx qy qz qw` (quaternion from yaw only)."""
+    half = pose[..., 2] * 0.5
+    qz, qw = torch.sin(half), torch.cos(half)
+    z = torch.zeros_like(qw)
+    t = torch.as_tensor(t, dtype=pose.dtype, device=pose.device).expand(
+        qw.shape)
+    return torch.stack([t, pose[..., 0], pose[..., 1], z, z, z, qz, qw], -1)

@@ -64,11 +64,36 @@ def _apply(T, pts):
     return torch.stack([x, y], -1)
 
 
+def _success_and_ratio(params: FeatureParams):
+    """(p, w): the success probability and inlier ratio, clipped."""
+    return (min(max(params.ransac_success_prob, 1e-6), 1.0 - 1e-9),
+            min(max(params.ransac_inlier_ratio, 1e-6), 1.0 - 1e-9))
+
+
 def hypothesis_budget(params: FeatureParams) -> int:
     """N = log(1-p) / log(1-w^2), the RANSAC stopping bound."""
-    p_succ = min(max(params.ransac_success_prob, 1e-6), 1.0 - 1e-9)
-    w0 = min(max(params.ransac_inlier_ratio, 1e-6), 1.0 - 1e-9)
+    p_succ, w0 = _success_and_ratio(params)
     return int(math.ceil(math.log1p(-p_succ) / math.log1p(-w0 * w0)))
+
+
+def adaptive_considered(params: FeatureParams, r2_raw, corr_mask, hyp_ok):
+    """The adaptive variant's mask of hypotheses (..., M): hypothesis i
+    counts only while i < N(best inlier ratio seen before i), a running
+    max over the hypotheses since N(w) does not increase with w.  The
+    bound is float32, as the reference's."""
+    p_succ, w0 = _success_and_ratio(params)
+    acc = params.ransac_acceptance
+    n_cand = torch.clamp(corr_mask.sum(-1), min=1).to(torch.float32)
+    inl_cnt = ((r2_raw < acc) & corr_mask[..., None, :]).sum(-1)
+    ratio = torch.where(hyp_ok, inl_cnt / n_cand[..., None], 0.0)
+    run = torch.cummax(torch.clamp(ratio, min=w0), -1).values
+    run_prev = torch.cat([torch.full_like(run[..., :1], w0),
+                          run[..., :-1]], -1)
+    w2 = torch.clamp(run_prev * run_prev, 1e-9, 1.0 - 1e-6)
+    bound = torch.tensor(math.log1p(-p_succ), dtype=torch.float32,
+                         device=w2.device) / torch.log1p(-w2)
+    m_hyp = r2_raw.shape[-2]
+    return torch.arange(m_hyp, device=w2.device) < torch.ceil(bound)
 
 
 def match_sets(params: FeatureParams, ref: FeatureSet, ref_desc,
@@ -78,10 +103,6 @@ def match_sets(params: FeatureParams, ref: FeatureSet, ref_desc,
     [0, 1).  Leading dims are a batch of independent set pairs (the
     reference vmaps this over link candidates): feature sets (..., F),
     descriptors (..., F, D); every result field gains the batch dims."""
-    if params.ransac_adaptive:
-        raise NotImplementedError(
-            "ransac_adaptive is not ported (off in every shipped config)"
-        )
     c_cap = params.max_correspondences
     m_hyp = params.ransac_hypotheses
     acc = params.ransac_acceptance
@@ -139,6 +160,9 @@ def match_sets(params: FeatureParams, ref: FeatureSet, ref_desc,
     n_budget = hypothesis_budget(params)
     considered = torch.arange(m_hyp, device=dev) < min(max(n_budget, 1),
                                                         m_hyp)
+    if params.ransac_adaptive:
+        considered = considered & adaptive_considered(params, r2_raw,
+                                                      corr_mask, hyp_ok)
     msac = torch.where(considered, msac, math.inf)
 
     best = torch.argmin(msac, -1)[..., None]

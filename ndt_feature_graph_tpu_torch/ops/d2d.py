@@ -1,8 +1,10 @@
 """NDT distribution-to-distribution registration core (port of
 ndt_feature_graph_tpu/ops/d2d.py: the packed registration table, the
 flat window gather, the damped-Newton minimizer, plain D2D
-registration with its covariance: match_d2d, covariance_d2d, and the
-dense target that localization reads).
+registration with its covariance: match_d2d, covariance_d2d, the dense
+target that localization and P2D registration read, and the score-only
+functions: pair_score, d2d_score_dense[_flat], d2d_score_paired,
+mahalanobis_score).
 
 The registration target is the (H*W, 8) channel-packed table
 [mean_x, mean_y, c00, c01, c11, valid, 0, 0] — one 32-byte row per
@@ -170,6 +172,78 @@ def _apply_increment(d, T0):
     return se2.compose(d, T0)
 
 
+def gather_windows(tgt: DenseTarget, iy0, ix0, n: int):
+    """Each source cell's (2n+1)^2 target window rows, in one gather of
+    the dense target's packed table (gather_windows_flat)."""
+    h, w = tgt.valid.shape
+    return gather_windows_flat(tgt.packed, h, w, iy0, ix0, n)
+
+
+def pair_score(mu_d, cov_sum, lfd1, lfd2):
+    """Gaussian-overlap score of one cell pair,
+    -d1 * exp(-d2/2 * mu^T (Sigma1 + Sigma2)^{-1} mu) (the Magnusson 2009
+    D2D cost); batched over leading dims, 2x2 inverse in closed form."""
+    a = cov_sum[..., 0, 0]
+    b = cov_sum[..., 0, 1]
+    c = cov_sum[..., 1, 1]
+    det = a * c - b * b
+    inv_det = 1.0 / torch.clamp(det, min=1e-12)
+    x, y = mu_d[..., 0], mu_d[..., 1]
+    mahal = (c * x * x - 2.0 * b * x * y + a * y * y) * inv_det
+    return -lfd1 * torch.exp(-0.5 * lfd2 * mahal)
+
+
+def _window_score(moved: ndt_map.CellList, t_means, t_covs, t_valid,
+                  m: MatcherParams):
+    mu_d = moved.means[:, None, :] - t_means
+    cov_sum = moved.covs[:, None, :, :] + t_covs
+    s = pair_score(mu_d, cov_sum, m.lfd1, m.lfd2)
+    ok = t_valid & moved.mask[:, None]
+    return torch.where(ok, s, 0.0).sum()
+
+
+def d2d_score_dense(d, T0, src: ndt_map.CellList, tgt: DenseTarget,
+                    map_params: NDTMapParams, m: MatcherParams):
+    """Total D2D score of the source cell list against the dense target
+    under pose `_apply_increment(d, T0)`."""
+    from ndt_feature_graph_tpu_torch.ops import d2d_analytic
+
+    moved, iy0, ix0 = d2d_analytic.window_cells(d, T0, src, tgt.origin,
+                                                map_params.resolution)
+    return _window_score(
+        moved, *gather_windows(tgt, iy0, ix0, m.n_neighbours), m)
+
+
+def d2d_score_dense_flat(d, T0, src: ndt_map.CellList, packed_flat, origin,
+                         row_offset, h: int, w: int, resolution: float,
+                         m: MatcherParams):
+    """d2d_score_dense against a target selected by `row_offset` out of a
+    flat packed table ((H*W, 8), or a stacked bank as (N*H*W, 8)): the
+    score-only counterpart of d2d_analytic.fgh_dense_flat."""
+    from ndt_feature_graph_tpu_torch.ops import d2d_analytic
+
+    moved, iy0, ix0 = d2d_analytic.window_cells(d, T0, src, origin,
+                                                resolution)
+    return _window_score(moved, *gather_windows_flat(
+        packed_flat, h, w, iy0, ix0, m.n_neighbours, row_offset), m)
+
+
+def d2d_score_paired(d, T0, src: ndt_map.CellList, tgt: ndt_map.CellList,
+                     m: MatcherParams):
+    """Correspondence-restricted D2D (NDTMatcherFeatureD2D semantics):
+    src[i] scores only against tgt[i]."""
+    moved = src.transform(_apply_increment(d, T0))
+    s = pair_score(moved.means - tgt.means, moved.covs + tgt.covs,
+                   m.lfd1, m.lfd2)
+    return torch.where(src.mask & tgt.mask, s, 0.0).sum()
+
+
+def mahalanobis_score(d, Q):
+    """Soft odometry constraint d^T Q d on the accumulated increment
+    (computeScoreMahalanobis, fusion.h:25-28; no 1/2 factor)."""
+    return d @ Q @ d
+
+
 def _det3(B):
     return (
         B[..., 0, 0] * (B[..., 1, 1] * B[..., 2, 2]
@@ -196,25 +270,50 @@ def _min_eig_sym3(H):
     return torch.where(p2 < 1e-28, q, lam_min)
 
 
-def _psd_project(H):
-    """Diagonal shift by the negative part of the smallest eigenvalue."""
-    shift = torch.clamp(-_min_eig_sym3(H), min=0.0)
-    return H + shift[..., None, None] * torch.eye(3, dtype=H.dtype,
-                                                  device=H.device)
+# The share of the largest shifted diagonal entry that a shift by
+# `_psd_project(H, guard=True)` adds: four float32 ulps, which cover the
+# rounding of the diagonal the shift is added to.
+PSD_ROUNDING = 4 * 2.0 ** -23
 
 
-def newton_match(fgh_fn, d_init, m: MatcherParams):
+def _psd_project(H, guard: bool = False):
+    """Diagonal shift by the negative part of the smallest eigenvalue.
+
+    As the reference takes it, the smallest eigenvalue of the float32
+    result lies within rounding of zero, on either side; where it falls
+    below minus the LM damping, the damped step climbs, the Armijo test
+    accepts it (the step's slope is positive) and the score test stops
+    the minimisation at once, at its start.  The reference does so too:
+    its P2D registration from the canonical odometry stops at the start
+    in 2 of 9 runs whose start moves by k * 1e-6.  `guard` makes the
+    result PSD in float32: the eigenvalue is taken in float64 and a shift
+    carries PSD_ROUNDING of the largest shifted diagonal entry."""
+    if not guard:
+        shift = torch.clamp(-_min_eig_sym3(H), min=0.0)
+        return H + shift[..., None, None] * torch.eye(3, dtype=H.dtype,
+                                                      device=H.device)
+    f64 = torch.float64
+    shift = torch.clamp(-_min_eig_sym3(H.to(f64)), min=0.0)
+    diag = torch.diagonal(H, dim1=-2, dim2=-1).to(f64).abs().amax(-1)
+    shift = torch.where(shift > 0, shift + PSD_ROUNDING * (diag + shift),
+                        shift)
+    return H + shift.to(H.dtype)[..., None, None] * torch.eye(
+        3, dtype=H.dtype, device=H.device)
+
+
+def newton_match(fgh_fn, d_init, m: MatcherParams, psd_guard: bool = False):
     """Damped-Newton (Levenberg-Marquardt) minimizer over one 3-DoF
     increment: newton_match_batch with one lane.  `fgh_fn((3,)) -> (f,
     g (3,), H (3, 3))`.  Returns (d, score_best, trials, converged) as
     device tensors."""
     d, f, itr, stop = newton_match_batch(
         d_init[None], m,
-        lambda d_b: tuple(x[None] for x in fgh_fn(d_b[0])))
+        lambda d_b: tuple(x[None] for x in fgh_fn(d_b[0])), psd_guard)
     return d[0], f[0], itr[0], stop[0]
 
 
-def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
+def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch,
+                       psd_guard: bool = False):
     """B independent damped-Newton (Levenberg-Marquardt) minimizations
     over 3-DoF increments, advancing in lockstep with per-lane masks —
     the reference's fixed-budget trial loop: 2*itr_max trials spent in
@@ -228,6 +327,8 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
     chunks are skipped once EVERY lane has stopped, as the reference's
     lax.cond does (a stopped lane's updates are masked, so results,
     trial counts and `converged` are those of the whole budget).
+
+    `psd_guard` projects the Hessians with _psd_project's guard.
 
     Returns (d (B, 3), score (B,), trials (B,), converged (B,))."""
     b = d_init_b.shape[0]
@@ -249,7 +350,7 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
         if c and bool(stop.all()):
             break
         for _ in range(trial_chunk):
-            Hp = _psd_project(H)
+            Hp = _psd_project(H, psd_guard)
             grad_vanished = torch.linalg.vector_norm(g, dim=-1) <= (
                 m.delta_score)
             delta = -torch.linalg.solve_ex(

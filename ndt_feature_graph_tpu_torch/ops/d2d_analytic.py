@@ -147,6 +147,21 @@ def window_cells(d, T0, src: CellList, origin, resolution: float):
     return moved, iy0, ix0
 
 
+def fgh_dense(d, T0, src: CellList, tgt: d2d.DenseTarget, map_params,
+              m: MatcherParams):
+    """Analytic (score, grad, Hessian) of the dense D2D cost of `src`
+    moved by d ∘ T0 against the dense target: d2d.d2d_score_dense's value
+    and derivatives in one pass.  On CUDA tensors one launch of the
+    `fgh_dense_flat` kernel entry on the target's packed rows (row offset
+    0); on the CPU that entry's plain twin (fgh_dense_flat)."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    h, w = tgt.valid.shape
+    return cuda_kernels.fgh_dense_flat(
+        d, T0, src, tgt.packed, tgt.origin, h, w, map_params.resolution,
+        m.n_neighbours, m.lfd1, m.lfd2)
+
+
 def fgh_dense_flat(d, T0, src: CellList, packed_flat, origin, row_offset,
                    h: int, w: int, resolution: float, m: MatcherParams,
                    bf16_rows: bool = False):

@@ -408,6 +408,22 @@ def recenter_with_aux(grid: NDTGrid, params: NDTMapParams, new_center,
     return g, None if aux is None else mv(aux, aux_fill)
 
 
+def occupancy_rescaled(grid: NDTGrid):
+    """Occupancy in [0, 1] (NDTCell::getOccupancyRescaled): 0.5 is no
+    information."""
+    return torch.sigmoid(grid.occ)
+
+
+def build_from_scan(params: NDTMapParams, center, sensor_origin, pts,
+                    mask) -> NDTGrid:
+    """One-shot: empty grid + points + occupancy (the per-scan local map
+    `ndglobal`, fuser_hmt.cpp:195-232), through the fixed-order
+    scatter."""
+    g = empty_grid(params, center)
+    g = add_points(g, params, pts, mask)
+    return update_occupancy(g, params, sensor_origin, pts, mask)
+
+
 def recenter(grid: NDTGrid, params: NDTMapParams, new_center) -> NDTGrid:
     """recenter_with_aux without a companion table."""
     return recenter_with_aux(grid, params, new_center)[0]

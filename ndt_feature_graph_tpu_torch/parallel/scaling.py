@@ -5,19 +5,22 @@ and the throughput measurement.
 
 A fleet is B independent scan streams whose state is one FuserState (or
 FeatureFuserState) with a leading (B,) on every field.  The inputs
-replicate one recorded sequence with a per-stream odometry jitter, as
-the reference's do; the sequence comes in loaded (io.dataset.Sequence)
-instead of being simulated here: the reference's simulator draws from
-its own random generator.  Sharding a fleet over several devices is not
-ported: `measure_fleet_throughput(n_devices > 1)` raises.
+replicate one sequence with a per-stream odometry jitter, as the
+reference's do: a loaded one (io.dataset.Sequence), or, without one, the
+reference's loop (`loop_trajectory(t_steps, radius=5.0)`) simulated with
+noise from a torch.Generator seeded with `seed` (the reference draws from
+jax.random, so the noise differs).  Sharding a fleet over several
+devices is not ported: `measure_fleet_throughput(n_devices > 1)` raises.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import torch
 
+from ndt_feature_graph_tpu_torch import resolve_device
 from ndt_feature_graph_tpu_torch.config import FuserParams
 from ndt_feature_graph_tpu_torch.fusion import (
     feature_fuser, fuser, scan_driver,
@@ -44,10 +47,32 @@ def _stream_inputs(seq: Sequence, n_streams: int, *per_scan):
                     for x in per_scan))
 
 
-def build_fleet_inputs(params: FuserParams, seq: Sequence, n_streams: int):
+def simulated_sequence(params: FuserParams, t_steps: int = 20,
+                       num_beams: int = 360, seed: int = 0,
+                       device=None) -> Sequence:
+    """The fleet's stream when no sequence is given: the reference's
+    `loop_trajectory(t_steps, radius=5.0)` through the default world at
+    the map's sensor range, its noise from a torch.Generator on `device`
+    (the card unless given) seeded with `seed`."""
+    device = resolve_device(device)
+    gen = torch.Generator(device)
+    gen.manual_seed(seed)
+    return dataset.simulate_sequence(
+        dataset.loop_trajectory(t_steps, radius=5.0, device=device),
+        num_beams=num_beams, max_range=params.ndt.sensor_range,
+        generator=gen, device=device)
+
+
+def build_fleet_inputs(params: FuserParams, seq: Optional[Sequence],
+                       n_streams: int, t_steps: int = 20,
+                       num_beams: int = 360, seed: int = 0, device=None):
     """Inputs of the points-only fleet driver from a (T, ...) sequence:
     (states, odom (B, T-1, 3), pts (B, T-1, P, 2), mask (B, T-1, P)),
-    every stream initialized on scan 0 at the sequence's first pose."""
+    every stream initialized on scan 0 at the sequence's first pose.
+    Without `seq`, the stream is `simulated_sequence(params, t_steps,
+    num_beams, seed, device)`."""
+    if seq is None:
+        seq = simulated_sequence(params, t_steps, num_beams, seed, device)
     pts_all, mask_all = dataset.scan_to_points(seq.ranges, seq.hit)
     zero = torch.zeros(3, device=seq.odom.device)
     state = fuser.initialize(params, seq.gt[0], zero, pts_all[0],
@@ -56,11 +81,16 @@ def build_fleet_inputs(params: FuserParams, seq: Sequence, n_streams: int):
             *_stream_inputs(seq, n_streams, pts_all, mask_all))
 
 
-def build_fleet_feature_inputs(params: FuserParams, seq: Sequence,
-                               n_streams: int):
+def build_fleet_feature_inputs(params: FuserParams, seq: Optional[Sequence],
+                               n_streams: int, t_steps: int = 20,
+                               num_beams: int = 360, seed: int = 0,
+                               device=None):
     """Inputs of the full-pipeline fleet driver: (states, odom (B, T-1,
-    3), ranges (B, T-1, beams), hit (B, T-1, beams)).  The streams'
-    RANSAC draws are an argument of run_sequence_features_batch."""
+    3), ranges (B, T-1, beams), hit (B, T-1, beams)); without `seq` as
+    build_fleet_inputs.  The streams' RANSAC draws are an argument of
+    run_sequence_features_batch."""
+    if seq is None:
+        seq = simulated_sequence(params, t_steps, num_beams, seed, device)
     zero = torch.zeros(3, device=seq.odom.device)
     state = feature_fuser.initialize(params, seq.gt[0], zero, seq.ranges[0],
                                      seq.hit[0])

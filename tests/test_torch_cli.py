@@ -13,7 +13,8 @@ degenerate registrations that move 4-11 cm under that change, and the
 optimized nodes of either framework 1-2 cm; the chaotic refinement of
 ROADMAP queue 3).  Tolerances: TUM poses within 1 cm / 5 mrad;
 occupancy probabilities of the stitched map within 1e-5; ATE within
-1 cm.  The subcommands of later slices exit naming their slice.
+1 cm.  The options of later slices (slam --plot / --html) exit naming
+their slice.
 
 `fuse` (plain, --hmt-dir, --resume) runs on the reference's test
 corridor (tests/test_io_cli.py); `localize` on a 60-scan loop where the
@@ -217,20 +218,17 @@ def test_cli_eval_matches_jax(outputs):
         assert abs(te[k] - je[k]) <= XY_TOL
 
 
-@pytest.mark.parametrize("argv", [["simulate", "--out", "x.npz"],
-                                  ["fuse", "--dataset", "run.clf",
-                                   "--out", "y"],
-                                  ["localize", "--dataset", "run.log"],
-                                  ["calibrate", "--dataset", "x"],
-                                  ["slam", "--dataset", "run.clf",
-                                   "--out", "o"],
-                                  ["slam", "--dataset", "run.bag",
-                                   "--out", "o"]])
-def test_cli_unported_subcommands_name_their_slice(argv):
+@pytest.mark.parametrize("flag", ["--plot", "--html"])
+def test_cli_unported_subcommands_name_their_slice(flag):
+    """slam's --plot and --html (the reference's viz/) are the options
+    the port does not run yet: they exit naming their slice, before any
+    input is read.  simulate, calibrate and .clf / .log / .bag inputs
+    run (tests/test_torch_cli_inputs.py)."""
     with pytest.raises(SystemExit) as e:
-        tcli.main(["--device", "cpu"] + argv)
-    assert "not ported yet" in str(e.value) and "ROADMAP queue 1" in str(
-        e.value)
+        tcli.main(["--device", "cpu", "slam", "--dataset", "none.npz",
+                   "--out", "o", flag])
+    assert "not ported yet" in str(e.value) and "ROADMAP queue 1, item 3" in (
+        str(e.value)) and "utilities and plots" in str(e.value)
 
 
 def test_cli_runs_as_a_module_and_defaults_to_the_card():

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -351,3 +352,68 @@ def test_sqrt_on_the_card_is_correctly_rounded(cuda_device):
     x = torch.rand(1 << 20, device=cuda_device) * 100.0
     assert np.array_equal(torch.sqrt(x).cpu().numpy(),
                           np.sqrt(x.cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_fgh_dense_flat_at_p2d_shape_matches_plain(cuda_device):
+    """The window entry at P2D's shape (chip_smoke.py phase 13a): 720
+    point-cells of canonical scan 20 against build_from_scan of scan 0,
+    K=25: kernel against plain, two calls identical, all masked zero."""
+    from ndt_feature_graph_tpu_torch.io import dataset
+    from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic, ndt_map
+    from ndt_feature_graph_tpu_torch.utils import pairwise
+
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    p = chip_smoke.canonical_slam_params().fuser
+    m = p.matcher
+    T = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    pts0, m0 = dataset.scan_to_points(T(fx["ranges"][0]), T(fx["hit"][0]))
+    pts1, m1 = dataset.scan_to_points(T(fx["ranges"][20]), T(fx["hit"][20]))
+    zero = torch.zeros(2, device=cuda_device)
+    tgt = d2d.make_dense_target(
+        ndt_map.build_from_scan(p.ndt, zero, zero, pts0, m0), p.ndt)
+    src = pairwise.points_as_cells(pts1, m1)
+    assert src.mask.numel() == 720
+    d, T0 = T([0.004, -0.003, 0.001]), T([0.49, 0.01, 0.002])
+    h, w = tgt.valid.shape
+    run = lambda s: cuda_kernels.fgh_dense_flat(  # noqa: E731
+        d, T0, s, tgt.packed, tgt.origin, h, w, p.ndt.resolution,
+        m.n_neighbours, m.lfd1, m.lfd2)
+    before = cuda_kernels.LAUNCHES["fgh_dense_flat"]
+    got, again = run(src), run(src)
+    assert cuda_kernels.LAUNCHES["fgh_dense_flat"] == before + 2
+    chip_smoke.compare("fgh_dense_flat N=720", got,
+                       d2d_analytic.fgh_dense_flat(
+                           d, T0, src, tgt.packed, tgt.origin, 0, h, w,
+                           p.ndt.resolution, m))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    masked = CellList(src.means, src.covs, torch.zeros_like(src.mask))
+    assert all(float(x.abs().max()) == 0.0 for x in run(masked))
+
+
+@pytest.mark.cuda
+def test_simulator_on_the_card_matches_the_cpu(cuda_device):
+    """The card's raycast and simulate_sequence (with given draws)
+    against the CPU's on a loop through the default room: the ground
+    truth and odometry's arithmetic is the same, the ranges within 2e-5 m
+    and the hits equal but for grazing and oblique beams
+    (chip_smoke.grazing_beams)."""
+    from ndt_feature_graph_tpu_torch.io import dataset
+
+    rng = np.random.default_rng(0)
+    traj = dataset.loop_trajectory(80, radius=4.5, device="cpu")
+    ru = torch.tensor(rng.standard_normal((80, 720)), dtype=torch.float32)
+    ou = torch.tensor(rng.standard_normal((79, 3)), dtype=torch.float32)
+    out = {dev: dataset.simulate_sequence(traj.to(dev), 720, 30.0,
+                                          range_draws=ru.to(dev),
+                                          odom_draws=ou.to(dev), device=dev)
+           for dev in ("cpu", cuda_device)}
+    cpu, card = out["cpu"], out[cuda_device]
+    assert torch.equal(card.gt.cpu(), cpu.gt)
+    np.testing.assert_allclose(card.odom.cpu().numpy(), cpu.odom.numpy(),
+                               rtol=0, atol=chip_smoke.ODOM_TOL)
+    kind = chip_smoke.grazing_beams(dataset.default_world("cpu"), traj, 720,
+                                    30.0)
+    chip_smoke.check_beams("card vs CPU", card.ranges, card.hit, cpu.ranges,
+                           cpu.hit, kind)

@@ -132,3 +132,43 @@ def test_canonical_lc_record_replays():
     np.testing.assert_array_equal(lc["on_scan_u"], on.scan_u)
     np.testing.assert_array_equal(lc["on_pair_u"], np.stack(on.pair_u))
     assert lc["on_traj"].shape == fx["traj"].shape
+
+
+def test_canonical_io_record_replays_the_canonical_sequence():
+    """The simulator record (data/canonical_io.npz): its range and
+    odometry draws, put through the reference's simulate_sequence
+    arithmetic on its own noise-free raycast, rebuild canonical_200.npz's
+    sequence bit for bit; its raycast at the 64 poses of bench_offline_570's
+    trajectory is the reference's; its P2D start is the composed
+    odometry of scans 1-20."""
+    from ndt_feature_graph_tpu.core import se2 as jse2
+
+    with np.load(chip_smoke.IO_FIXTURE) as f:
+        io = dict(f)
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    t_steps, nb = fx["ranges"].shape
+    traj = jds.corridor_trajectory(t_steps, x0=-2.5, x1=2.5, y=-4.5)
+    world = jds.default_world()
+    clean, hit = jax.vmap(lambda p: jds.raycast(world, p, nb, 30.0))(traj)
+    ranges = clean + 0.01 * jnp.asarray(io["range_u"]) * hit
+    rel = jse2.sub(traj[:-1], traj[1:])
+    odom = jnp.concatenate([jnp.zeros((1, 3)), rel + jnp.asarray(
+        io["odom_u"]) * jnp.asarray((0.01, 0.01, 0.004))], 0)
+    for got, want in ((ranges, fx["ranges"]), (hit, fx["hit"]),
+                      (odom, fx["odom"]), (traj, fx["gt"])):
+        np.testing.assert_array_equal(np.asarray(got), want)
+    ml = jds.multi_loop_trajectory(**{
+        "n_loops": chip_smoke.ML570["n_loops"],
+        "steps_per_loop": chip_smoke.ML570["steps_per_loop"],
+        "radius": chip_smoke.ML570["radius"]})
+    assert ml.shape[0] == 7040 and io["ray_idx"][-1] == 7039
+    rr, rh = jax.vmap(lambda p: jds.raycast(world, p, nb, 30.0))(
+        ml[io["ray_idx"]])
+    np.testing.assert_array_equal(np.asarray(rr), io["ray_ranges"])
+    np.testing.assert_array_equal(np.asarray(rh), io["ray_hit"])
+    T = jnp.zeros(3)
+    for t in range(1, chip_smoke.P2D_SOURCE + 1):
+        T = jse2.compose(T, jnp.asarray(fx["odom"][t]))
+    np.testing.assert_array_equal(np.asarray(T), io["p2d_T_init"])
+    assert io["calib_scores"].shape == (343,) and io["p2d_converged"]

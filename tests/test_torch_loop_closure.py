@@ -280,7 +280,8 @@ def test_unported_options_raise():
     """The options the port does not run raise instead of taking another
     path; those ported since run: the segment-Schur solve (solver="direct",
     and "auto" beyond solver_dense_max_nodes) and grouped link proposals
-    (tests/test_torch_sparse_solvers.py holds both to JAX)."""
+    (tests/test_torch_sparse_solvers.py holds both to JAX), adaptive
+    RANSAC (tests/test_torch_pairwise.py) and the rolling map."""
     tslam = _port_offline()[0]
     node_T = torch.tensor(np.stack(tslam.node_T))
     edges = tslam._edges_from(None, None)
@@ -308,13 +309,14 @@ def test_unported_options_raise():
         assert not (ls.mask & ~pairs[2]).any() and ls.mask.any()
     finally:
         tslam.params, tslam.pair_u = T_OFFLINE, pair_u
+    # ransac_adaptive is ported: the same two calls run.
     adaptive = T_OFFLINE.fuser.replace(
         features=T_OFFLINE.fuser.features.replace(ransac_adaptive=True))
     slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(fuser=adaptive))
     s = _tseq()
-    with pytest.raises(NotImplementedError):
-        slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
-        slam.update(s.odom[1], s.ranges[1], s.hit[1])
+    slam.initialize(s.gt[0], torch.zeros(3), s.ranges[0], s.hit[0])
+    slam.update(s.odom[1], s.ranges[1], s.hit[1])
+    assert np.isfinite(np.asarray(slam.trajectory[-1])).all()
     # rolling_map is ported: the same two calls run.
     slam = NDTFeatureGraphSLAM(T_OFFLINE.replace(
         fuser=T_OFFLINE.fuser.replace(rolling_map=True)))
