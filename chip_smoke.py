@@ -172,7 +172,35 @@ Runs on a machine with a CUDA card and no JAX:
           1e-5 of JAX's and the best offset JAX's up to the candidates
           its scores cannot tell apart (the corridor leaves x and y
           unobservable: 49 tie); the ms of one calibration;
- 14. prints one JSON line of all kernel entries and, last, the result
+ 14. the 6-DoF surface and the utilities (canonical_6dof.npz, made from
+     the JAX package by make_torch_port_fixture.py --6dof):
+     14a. se3 on the card against the CPU; match_d2d_3d, unclamped and
+          with force2d, of three links the reference kept in the LC
+          record's offline graph at their full padded cell lists (1,024
+          x 1,024 pairs, lifted to z = 0 with z variance 0.01): within 1
+          cm / 5 mrad of JAX's pose (or its own spread under a 1e-6
+          start change), its covariance within 2% of its largest entry,
+          the clamp within 2 cm / 20 mrad of the port's SE(2) D2D
+          matcher on the pair (with the guarded PSD projection); ms,
+          trials and peak memory of each registration;
+          no kernel entry launches;
+     14b. cli slam --plot --html on the canonical sequence (overview.png,
+          viewer.html); the viewer's payload of the reference's LC graph
+          and desc_string equal to the JAX record; a GraphLogger over 40
+          scans with the JAX draws (a line a scan, its trajectory's
+          poses, within 1 cm / 5 mrad of JAX's) and a device_trace;
+ 15. the multi-device programs in an NCCL world of one rank (NCCL refuses
+     two ranks on one card, so no reduction crosses cards here), each
+     equal bit for bit to the single-device program it shards: the
+     dense and Schur solves at 570 nodes and optimize_direct_sharded at
+     570, 4,000 and 10,000 nodes (its chi2 also within the reference's
+     range at the last two), the sharded link proposals of phase 9e's
+     bank (compute_links_batch on the same draws), the sharded fleet
+     (run_sequence_batch; measure_fleet_throughput at 64 streams through
+     the sharded path, whose newton_objective_batch launches are the
+     kernels line's `launches_sharded_fleet`), and
+     examples/multihost_worker_torch.py in an NCCL world of its own;
+ 16. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -197,6 +225,7 @@ import dataclasses
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -210,14 +239,14 @@ from ndt_feature_graph_tpu_torch.config import (
     SLAMParams,
 )
 from ndt_feature_graph_tpu_torch import cli, interop, pipeline
-from ndt_feature_graph_tpu_torch.core import se2
+from ndt_feature_graph_tpu_torch.core import se2, se3
 from ndt_feature_graph_tpu_torch.fusion import (
     feature_fuser, fuser, scan_driver,
 )
 from ndt_feature_graph_tpu_torch.graph import links as links_mod
 from ndt_feature_graph_tpu_torch.graph import node as node_mod
 from ndt_feature_graph_tpu_torch.graph import optimize as opt_mod
-from ndt_feature_graph_tpu_torch.graph import sparse_direct
+from ndt_feature_graph_tpu_torch.graph import schur, sparse_direct
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.io import (
     carmen, dataset, rosbag, serialize, tum,
@@ -227,12 +256,23 @@ from ndt_feature_graph_tpu_torch.models import presets
 from ndt_feature_graph_tpu_torch.fusion.hmt_driver import HMTFuser
 from ndt_feature_graph_tpu_torch.localization import mcl, monitor, place_rec
 from ndt_feature_graph_tpu_torch.ops import (
-    cuda_kernels, d2d, d2d_analytic, ndt_map,
+    cuda_kernels, d2d, d2d3d, d2d_analytic, ndt_map,
 )
 from ndt_feature_graph_tpu_torch.ops.hmt import HMTMap
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
-from ndt_feature_graph_tpu_torch.parallel import scaling
+from ndt_feature_graph_tpu_torch.parallel import (
+    links_sharded, scaling, schur_sharded, solver_sharded,
+    sparse_direct_sharded,
+)
+from ndt_feature_graph_tpu_torch.parallel import mesh as mesh_mod
 from ndt_feature_graph_tpu_torch.utils import pairwise
+from ndt_feature_graph_tpu_torch.utils.logging_ext import (
+    GraphLogger, desc_string,
+)
+from ndt_feature_graph_tpu_torch.utils.timers import (
+    StageTimers, device_trace,
+)
+from ndt_feature_graph_tpu_torch.viz import html as viz_html
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_200.npz"
@@ -319,6 +359,39 @@ DIRECT_TOL = 1e-3             # (d): the solve on JAX's links, metres
 # runs from initial poses moved by k * 1e-6, widened by this much (the
 # port's runs on the CPU reach 2.5% above the reference's highest chi2).
 TWO_LAP_RTOL = 0.05
+
+
+SIXDOF_FIXTURE_REL = "ndt_feature_graph_tpu_torch/data/canonical_6dof.npz"
+SIXDOF_FIXTURE = os.path.join(ROOT, SIXDOF_FIXTURE_REL)
+SIXDOF_LINKS = 3              # phase 14a: accepted links of the LC record
+SIXDOF_Z_VAR = 0.01           # the lift of a planar cell (test_d2d3d.py)
+PAYLOAD_MAX_CELLS = 50        # phase 14b: the viewer's subsampled payload
+LOGGER_SCANS = 40             # phase 14b: the GraphLogger's scans
+SCHUR_BLOCKS = 8              # phase 15: the Schur solve's blocks
+
+
+def lift_cells(means, covs, mask, compact=False):
+    """Planar gaussians (N, 2), (N, 2, 2), (N,) as 3D cells: z = 0, z
+    variance SIXDOF_Z_VAR (numpy, float32); `compact` drops the masked
+    padding (whose pairs add exactly zero to the 6-DoF score)."""
+    means, covs, mask = (np.asarray(x) for x in (means, covs, mask))
+    if compact:
+        means, covs, mask = means[mask], covs[mask], mask[mask]
+    n = len(mask)
+    m3 = np.zeros((n, 3), np.float32)
+    m3[:, :2] = means
+    c3 = np.zeros((n, 3, 3), np.float32)
+    c3[:, :2, :2] = covs
+    c3[:, 2, 2] = SIXDOF_Z_VAR
+    return {"means": m3, "covs": c3, "mask": mask.astype(bool)}
+
+
+def sixdof_links(lc):
+    """Phase 14a's links: the first, middle and last link the reference
+    kept in the LC record's offline graph."""
+    kept = np.nonzero(lc["off_keep"])[0]
+    return kept[np.linspace(0, len(kept) - 1, SIXDOF_LINKS).round().astype(
+        int)]
 
 
 def multi_loop_graph(n_nodes=570, seed=0):
@@ -2881,6 +2954,443 @@ def fleet_phases(dev):
     return record, checks, launches["newton_objective_batch"]
 
 
+def pose6_dev(a, b):
+    """Distance of two SE(3) poses (6,): translation (m), rotation angle
+    of a^-1 b's rotation (rad)."""
+    R = se3.rotmat(torch.as_tensor(a[3:])).T @ se3.rotmat(
+        torch.as_tensor(b[3:]))
+    cos_t = float(np.clip((float(torch.trace(R)) - 1) / 2, -1, 1))
+    return float(np.linalg.norm(np.asarray(a[:3]) - b[:3])), float(
+        np.arccos(cos_t))
+
+
+def sixdof_phase(lc, dev):
+    """Phase 14a: se3 on the card against the CPU, then match_d2d_3d of
+    three accepted links of the LC record's offline graph at their full
+    padded cell lists (1,024 x 1,024 pairs), unclamped and clamped
+    (force2d), against the JAX record (made on the same cells without
+    the padding, which adds exactly zero) within 1 cm / 5 mrad or the
+    reference's own spread where wider; the clamp against the port's
+    SE(2) D2D matcher on the same pair from the same start (its
+    grid-window association against the cutoff's all pairs: 2 cm / 20
+    mrad).  No kernel entry
+    launches.  Returns the summary."""
+    sx = dict(np.load(SIXDOF_FIXTURE))
+    sp = canonical_slam_params(OFFLINE_SPLIT_M, 64)
+    check(str(sx["params_repr"]) == repr(sp),
+          "canonical_6dof.npz was made at other parameters")
+    links = sixdof_links(lc)
+    check(np.array_equal(links, sx["links"]),
+          "phase 14a picks other links than the record")
+    rng = np.random.default_rng(0)
+    poses = np.concatenate([rng.normal(0, 3, (64, 3)),
+                            rng.normal(0, 1, (64, 3))], 1).astype(np.float32)
+    poses[0, 3:] = 0.0
+    poses[1, 3:] = [0.0, 0.0, np.pi - 5e-4]
+    errs = {"rotmat": 0.0, "compose": 0.0, "round_trip": 0.0}
+    for a, b in zip(poses, poses[::-1]):
+        ga, gb = (torch.as_tensor(x, device=dev) for x in (a, b))
+        ca, cb = torch.as_tensor(a), torch.as_tensor(b)
+        errs["rotmat"] = max(errs["rotmat"], float(
+            (se3.rotmat(ga[3:]).cpu() - se3.rotmat(ca[3:])).abs().max()))
+        errs["compose"] = max(errs["compose"], float(
+            (se3.compose(ga, gb).cpu() - se3.compose(ca, cb)).abs().max()))
+        back = se3.compose(se3.inverse(ga), se3.compose(ga, gb))
+        errs["round_trip"] = max(errs["round_trip"], pose6_dev(
+            back.cpu().numpy(), b)[0])
+    print(f"  se3 on the card vs the CPU over 64 poses: rotmat "
+          f"{errs['rotmat']:.2e}, compose {errs['compose']:.2e}; "
+          f"inverse(a) . (a . b) returns b within {errs['round_trip']:.2e} m")
+    check(errs["rotmat"] <= 1e-5 and errs["compose"] <= 1e-4
+          and errs["round_trip"] <= 1e-3, "se3 on the card departs from "
+          "the CPU")
+
+    m, ndt = sp.fuser.matcher, sp.fuser.ndt
+
+    def cells(k):
+        c = lift_cells(lc["off_bank.cells.means"][k],
+                       lc["off_bank.cells.covs"][k],
+                       lc["off_bank.cells.mask"][k])
+        return d2d3d.CellList3D(**{f: torch.as_tensor(v, device=dev)
+                                   for f, v in c.items()})
+
+    def se2_match(li):
+        """The port's SE(2) D2D matcher (match_d2d's window term and
+        Newton) on the pair from the same start, with the guarded PSD
+        projection: unguarded it stops at its start on link 94, the
+        reference fault of ROADMAP queue 3.  Its kernel launches (this
+        is a comparison) are not counted."""
+        r, mv = int(lc["off_link_ref"][li]), int(lc["off_link_mov"][li])
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        tgt = d2d.PackedTarget(origin=t(lc["off_bank.target.origin"][r]),
+                               packed=t(lc["off_bank.target.packed"][r]))
+        src = CellList(*(t(lc[f"off_bank.cells.{f}"][mv])
+                         for f in ("means", "covs", "mask")))
+        T0 = t(lc["off_ransac_T"][li])
+        d = d2d.newton_match(d2d._window_fgh(tgt, src, T0, ndt, m),
+                             torch.zeros(3, device=dev), m, psd_guard=True)[0]
+        return se2.compose(d, T0).cpu().numpy()
+
+    summary = {"links": links.tolist(), "runs": []}
+    # Warm-up: one derivative evaluation at the full shapes.
+    d2d3d.d2d_fgh_3d(torch.zeros(6, device=dev),
+                     torch.as_tensor(sx["T_init"][0], device=dev),
+                     cells(lc["off_link_mov"][links[0]]),
+                     cells(lc["off_link_ref"][links[0]]), m)
+    launched = 0
+    for k, li in enumerate(links):
+        ref_i, mov_i = int(lc["off_link_ref"][li]), int(lc["off_link_mov"][li])
+        tgt, src = cells(ref_i), cells(mov_i)
+        T0 = torch.as_tensor(sx["T_init"][k], device=dev)
+        for mode, force2d in (("6dof", False), ("2d", True)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            cuda_kernels.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            res = d2d3d.match_d2d_3d(tgt, src, T0, m, force2d=force2d)
+            T = res.T.cpu().numpy()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched += sum(cuda_kernels.LAUNCHES.values())
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            xy, th = pose6_dev(T, sx[f"{mode}_T"][k])
+            sxy, sth = (max(v) for v in zip(*(
+                pose6_dev(e, sx[f"{mode}_T"][k])
+                for e in sx[f"{mode}_eps_T"][k])))
+            cov_ref = sx[f"{mode}_cov"][k]
+            cov_dev = float(np.abs(res.cov.cpu().numpy() - cov_ref).max()
+                            / np.abs(cov_ref).max())
+            run = {"link": int(li), "mode": mode, "ms": ms,
+                   "trials": int(res.iterations),
+                   "trials_jax": int(sx[f"{mode}_trials"][k]),
+                   "converged": bool(res.converged), "peak_mib": peak,
+                   "dev_xy_m": xy, "dev_rot_rad": th, "jax_spread": [sxy, sth],
+                   "cov_rel_dev": cov_dev}
+            print(f"  link {li} ({ref_i} <- {mov_i}) {mode}: {ms:.1f} ms, "
+                  f"{run['trials']} trials (JAX {run['trials_jax']}), peak "
+                  f"{peak:.1f} MiB; {xy * 1e3:.4f} mm / {th * 1e3:.4f} mrad "
+                  f"from JAX (its own spread {sxy * 1e3:.4f} mm / "
+                  f"{sth * 1e3:.4f} mrad); covariance within {cov_dev:.2e} "
+                  "of its largest entry")
+            check(np.isfinite(T).all() and bool(res.converged)
+                  and xy <= max(XY_TOL, sxy) and th <= max(TH_TOL, sth),
+                  f"6-DoF link {li} {mode}: pose departs from JAX")
+            check(cov_dev <= 2e-2, f"6-DoF link {li} {mode}: covariance "
+                                   "departs from JAX")
+            if force2d:
+                check(bool((res.T[2:5] == 0).all()),
+                      "force2d left z / roll / pitch non-zero")
+                sxy2, sth2 = max_dev(se3.to_se2(res.T).cpu().numpy(),
+                                     se2_match(li))
+                run["se2_dev"] = [sxy2, sth2]
+                print(f"    the clamp vs the SE(2) matcher: "
+                      f"{sxy2 * 1e3:.3f} mm / {sth2 * 1e3:.3f} mrad")
+                check(sxy2 <= 0.02 and sth2 <= 0.02,
+                      f"link {li}: force2d departs from the SE(2) matcher")
+            summary["runs"].append(run)
+    print(f"  kernel launches of the 6-DoF registrations: {launched}")
+    check(launched == 0, "the 6-DoF path launched a kernel entry")
+    summary["se3_card_vs_cpu"] = errs
+    return summary
+
+
+def viewer_phase(fx, lc, dev):
+    """Phase 14b: `cli slam --plot --html` on the canonical sequence (the
+    main path's graph), the viewer's payload of the reference's LC graph
+    in the port against the JAX record (whole and subsampled), the
+    desc_string, a GraphLogger over the first LOGGER_SCANS scans with the
+    JAX draws (a line a scan, its poses the port's trajectory and within
+    1 cm / 5 mrad of the JAX trajectory) and a device_trace around one
+    update; StageTimers time the stages.  Returns the summary."""
+    sx = dict(np.load(SIXDOF_FIXTURE))
+    timers = StageTimers()
+    flags = ["--map-size", "100", "--sensor-range", "30", "--num-beams",
+             "720", "--max-cells", "1024"]
+    with tempfile.TemporaryDirectory() as tmp:
+        seqf = os.path.join(tmp, "seq.npz")
+        np.savez_compressed(seqf, **{k: fx[k] for k in
+                                     ("ranges", "hit", "odom", "gt")})
+        d = os.path.join(tmp, "out")
+        with timers.stage("cli slam --plot --html"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["slam", "--dataset", seqf, "--out", d, "--plot",
+                          "--html", *flags])
+        png = os.path.getsize(f"{d}/overview.png")
+        with open(f"{d}/viewer.html") as f:
+            text = f.read()
+        with open(f"{d}/overview.png", "rb") as f:
+            magic = f.read(4)
+        payload = json.loads(text.split("const D = ", 1)[1].split(";\n", 1)[0])
+        _, est = tum.read_tum(f"{d}/est.tum")
+        check(magic == b"\x89PNG" and png > 1000, "overview.png is no PNG")
+        check(len(payload["traj"]) == len(est)
+              and len(payload["nodes"]) > 1 and "https://" not in text,
+              "viewer.html does not describe the run")
+        print(f"  cli slam --plot --html: overview.png {png} bytes, "
+              f"viewer.html {len(text)} bytes ({len(payload['nodes'])} "
+              f"nodes, {len(payload['traj'])} poses)")
+
+        sp = canonical_slam_params(OFFLINE_SPLIT_M, 64)
+        edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
+                    lc["off_edge_rel"], lc["off_edge_cov"])
+        slam = interop.graph_from_jax(sp, interop.tree_from_flat(
+            lc, "off_bank"), lc["off_node_T_before"], edges, device=dev)
+        slam.trajectory = [t.copy() for t in lc["off_node_T_before"]]
+        dump = lambda p: json.dumps(p, separators=(",", ":"))  # noqa: E731
+        with timers.stage("payload"):
+            whole = dump(viz_html._graph_payload(slam))
+        sub = dump(viz_html._graph_payload(
+            slam, max_cells_per_node=PAYLOAD_MAX_CELLS))
+        same = (whole == str(sx["payload"]), sub == str(sx["payload_sub"]))
+        desc = desc_string(sp) == str(sx["desc_string"])
+        print(f"  the viewer's payload of the reference's LC graph: "
+              f"{len(whole)} characters, equal to the JAX record: "
+              f"{same[0]}; with {PAYLOAD_MAX_CELLS} cells a node: {same[1]}; "
+              f"desc_string equal: {desc}")
+        check(all(same) and desc, "the payload or desc_string differs from "
+                                  "the JAX record")
+
+        n = LOGGER_SCANS
+        seq = sequence(fx, dev)
+        log_path = os.path.join(tmp, "poses.log")
+        lg = GraphLogger(canonical_slam_params(float(fx["split_m"]),
+                                               int(fx["max_nodes"])),
+                         log_path)
+        u = torch.as_tensor(fx["ransac_u"], device=dev)
+        with timers.stage("GraphLogger", block_on=lg.trajectory):
+            lg.initialize(seq.gt[0], torch.zeros(3, device=dev),
+                          seq.ranges[0], seq.hit[0])
+            for t in range(1, n - 1):
+                lg.update(seq.odom[t], seq.ranges[t], seq.hit[t], t=float(t),
+                          u=u[t - 1])
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir):
+            lg.update(seq.odom[n - 1], seq.ranges[n - 1], seq.hit[n - 1],
+                      t=float(n - 1), u=u[n - 2])
+        lg.close()
+        rows = np.loadtxt(log_path)
+        traj = np.stack(lg.trajectory)
+        trace = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    log_dev = float(np.abs(rows[:, :3] - traj).max())
+    xy, th = max_dev(traj, fx["traj"][:n])
+    print(f"  GraphLogger over {n} scans: {rows.shape[0]} lines, poses "
+          f"within {log_dev:.1e} of its trajectory, {xy * 1e3:.4f} mm / "
+          f"{th * 1e3:.4f} mrad from JAX's; device_trace wrote {trace} "
+          "bytes")
+    check(rows.shape == (n, 4) and log_dev <= 1e-6 and xy <= XY_TOL
+          and th <= TH_TOL and np.array_equal(rows[:, 3], np.arange(n)),
+          "the GraphLogger's log departs from its run or from JAX")
+    check(trace > 0, "device_trace wrote no trace")
+    print("  " + timers.report().replace("\n", "\n  "))
+    return {"png_bytes": png, "html_bytes": len(text),
+            "payload_equal": list(same), "desc_string_equal": desc,
+            "logger_dev_xy_m": xy, "logger_dev_theta_rad": th,
+            "trace_bytes": trace,
+            "stage_ms": {k: timers.mean_ms(k) for k in timers.totals}}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed(fn, reps=3):
+    """fn's result and the wall seconds of `reps` more calls (each ending
+    in a synchronisation), after the first."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def median(times):
+    return sorted(times)[len(times) // 2]
+
+
+def multidevice_phase(fx, lc, dev):
+    """Phase 15: the multi-device programs in an NCCL world of one rank
+    (one card: NCCL refuses two ranks on one GPU), each against the
+    port's single-device program on the same inputs.  A sharded solver
+    is the single-device solver's own body with an all-reduce as its
+    reduction, so in a world of one rank it is held to it bit for bit:
+    the dense and Schur solves of the 570-node graph and the direct
+    solve at 570, 4,000 and 10,000 nodes (its chi2 also within the
+    reference's range at the last two), the sharded link proposals
+    of phase 9e's bank equal to compute_links_batch on the same draws,
+    run_sequence_batch_sharded of 8 fleet streams equal to
+    run_sequence_batch, and measure_fleet_throughput(n_devices=1,
+    streams_per_device=64) through the sharded path (its
+    newton_objective_batch launches are counted); then the multi-host
+    worker in an NCCL world of its own.  Returns (summary, the fleet's
+    launches)."""
+    mesh_mod.init_distributed(f"localhost:{_free_port()}", 1, 0, device=dev)
+    try:
+        return _multidevice(fx, lc, dev)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _multidevice(fx, lc, dev):
+    sv = dict(np.load(SOLVER_FIXTURE))
+    mesh = mesh_mod.make_mesh(1)
+    check(torch.distributed.get_backend() == "nccl", "the world is not NCCL")
+    summary = {}
+
+    def held(name, out, ref, chi=None, ref_chi=None):
+        dev_ = float(np.abs(out - ref).max())
+        line = f"  {name}: sharded vs single {dev_:.2e}"
+        if chi is not None:
+            line += f"; chi2 {chi:.5f} vs {ref_chi:.5f}"
+        print(line)
+        check(np.isfinite(out).all() and np.array_equal(out, ref)
+              and chi == ref_chi, f"{name}: in a world of one rank the "
+              "sharded solve is not the single-device one bit for bit")
+        return dev_
+
+    init, i, j, meas, info = multi_loop_graph(MULTI_LOOP["n_nodes"])
+    edges = solver_edges(i, j, meas, info, dev)
+    p0 = torch.as_tensor(init, device=dev)
+    its = MULTI_LOOP["iterations"]
+    single = opt_mod.optimize(p0, edges, iterations=its)[0].cpu().numpy()
+    out, ts = timed(lambda: solver_sharded.optimize_sharded(
+        mesh, p0, edges, iterations=its))
+    summary["dense_570"] = {"dev": held("optimize_sharded, 570 nodes",
+                                        out.cpu().numpy(), single),
+                            "solve_s": ts}
+    blocks = schur.make_partition(p0.shape[0], edges, SCHUR_BLOCKS)
+    single = schur.optimize_schur(p0, edges, blocks,
+                                  iterations=its).cpu().numpy()
+    out, ts = timed(lambda: schur_sharded.optimize_schur_sharded(
+        mesh, p0, edges, blocks, iterations=its))
+    summary["schur_570"] = {"dev": held("optimize_schur_sharded, 570 nodes",
+                                        out.cpu().numpy(), single),
+                            "solve_s": ts}
+
+    def direct(name, init, edges, seg, its):
+        p0 = torch.as_tensor(init, device=dev)
+        part = sparse_direct.make_segments(p0.shape[0], edges,
+                                           max_seg_len=seg)
+        (p1, c1), t1 = timed(lambda: sparse_direct.optimize_direct(
+            p0, edges, part, iterations=its))
+        (p2, c2), t2 = timed(lambda: sparse_direct_sharded
+                             .optimize_direct_sharded(mesh, p0, edges, part,
+                                                      iterations=its))
+        print(f"  optimize_direct_sharded, {name} nodes: "
+              f"{median(t2) * 1e3:.1f} ms (single "
+              f"{median(t1) * 1e3:.1f} ms, median of 3)")
+        return (p2.cpu().numpy(), float(c2), p1.cpu().numpy(), float(c1),
+                {"solve_s": t2, "single_solve_s": t1})
+
+    out, chi, ref, ref_chi, st = direct("570", init, edges,
+                                        MULTI_LOOP["max_seg_len"],
+                                        MULTI_LOOP["iterations"])
+    st["dev"] = held("optimize_direct_sharded, 570 nodes", out, ref, chi,
+                     ref_chi)
+    summary["direct_570"] = st
+    tl = [sv["tl_" + k] for k in ("gt", "init", "i", "j", "meas", "info")]
+    for name, (_, init, i, j, meas, info), chi_ref in (
+            ("4000", tl, np.append(sv["tl_eps_chi2"], sv["tl_chi2"])),
+            (str(TWO_LAP_BIG), two_lap_graph(TWO_LAP_BIG), sv["big_chi2"])):
+        out, chi, ref, ref_chi, st = direct(
+            name, init, solver_edges(i, j, meas, info, dev),
+            TWO_LAP["max_seg_len"], TWO_LAP["iterations"])
+        st["dev"] = held(f"optimize_direct_sharded, {name} nodes", out, ref,
+                         chi, ref_chi)
+        lo, hi = float(np.min(chi_ref)), float(np.max(chi_ref))
+        print(f"    chi2 {chi:.5f}; the reference's {lo:.5f}-{hi:.5f}")
+        check((1 - TWO_LAP_RTOL) * lo <= chi <= (1 + TWO_LAP_RTOL) * hi,
+              f"optimize_direct_sharded, {name} nodes: chi2 outside the "
+              "reference's range")
+        summary[f"direct_{name}"] = {**st, "chi2": chi}
+
+    sp_grp = canonical_slam_params(OFFLINE_SPLIT_M, 64, **GROUPED_GRAPH)
+    edges_lc = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
+                   lc["off_edge_rel"], lc["off_edge_cov"])
+    slam = interop.graph_from_jax(sp_grp, interop.tree_from_flat(
+        lc, "off_bank"), lc["off_node_T_before"], edges_lc, device=dev)
+    stacked = node_mod.stack_nodes(slam.nodes)
+    ref_i, mov_i, mask = slam.candidate_pairs()
+    # Each pair's draws as phase 9e's chunk gave them (chunk c holds the
+    # pairs grp_chunk_start[c] onwards, a row each).
+    starts = list(sv["grp_chunk_start"]) + [ref_i.shape[0]]
+    u = torch.as_tensor(np.concatenate([
+        sv["grp_pair_u"][c][:e - s] for c, (s, e) in enumerate(
+            zip(starts[:-1], starts[1:]))]), device=dev)
+    check(u.shape[0] == ref_i.shape[0], "phase 9e's draws do not cover "
+                                        "the candidate pairs")
+    fp = sp_grp.fuser
+    args = (fp.features, fp.ndt.resolution, stacked, ref_i, mov_i, mask, u)
+    cuda_kernels.reset_launch_counts()
+    one = links_mod.compute_links_batch(*args)
+    ls, tl_s = timed(lambda: links_sharded.compute_links_sharded(mesh, *args))
+    same = all(torch.equal(getattr(ls, f), getattr(one, f))
+               for f in ("ref", "mov", "T", "score", "mask", "cov"))
+    print(f"  compute_links_sharded over {ref_i.shape[0]} pairs of phase 9e's "
+          f"bank: {median(tl_s) * 1e3:.1f} ms (median of 3), "
+          f"{int(ls.mask.sum())} valid; equal to compute_links_batch: {same}")
+    check(same, "the sharded links differ from compute_links_batch")
+    check(not any(cuda_kernels.LAUNCHES.values()),
+          "the link proposals launched a kernel entry")
+    summary["links"] = {"pairs": int(ref_i.shape[0]), "equal": same,
+                        "wall_s": tl_s}
+
+    fl = dict(np.load(FLEET_FIXTURE))
+    fpf = presets.fleet_serving()
+    seq = sequence(fl, dev)
+    inputs = scaling.build_fleet_inputs(fpf, seq, 8)
+    _, traj1, sc1 = scan_driver.run_sequence_batch(fpf, *inputs)
+    _, traj2, sc2 = scaling.run_sequence_batch_sharded(mesh, fpf, *inputs)
+    same = torch.equal(traj1, traj2) and torch.equal(sc1, sc2)
+    print(f"  run_sequence_batch_sharded, 8 streams: equal to "
+          f"run_sequence_batch: {same}")
+    check(same, "the sharded fleet differs from run_sequence_batch")
+    cuda_kernels.reset_launch_counts()
+    sps, times = scaling.measure_fleet_throughput(
+        fpf, seq, n_devices=1, streams_per_device=FLEET_SIZES[-1], reps=3,
+        mesh=mesh)
+    launches = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    print(f"  measure_fleet_throughput(n_devices=1, streams_per_device="
+          f"{FLEET_SIZES[-1]}) through the sharded path: {sps:.1f} aggregate "
+          f"scans/s (runs {', '.join(f'{t:.3f}' for t in times)} s); "
+          f"newton_objective_batch launches {launches}")
+    check(np.isfinite(sps) and sps > 0 and launches > 0,
+          "the sharded fleet measured nothing or launched no kernel")
+    summary["fleet"] = {"scans_per_s": sps, "run_s": times,
+                        "launches": launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_npz = os.path.join(tmp, "rank0.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples",
+                                          "multihost_worker_torch.py"),
+             "--rank", "0", "--world", "1", "--port", str(_free_port()),
+             "--out", out_npz],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"the worker failed in an NCCL world:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        w = dict(np.load(out_npz))
+    devs = {k: float(np.abs(w[k] - w[k + "_single"]).max()) for k in (
+        "multi_loop48_dense", "multi_loop48_schur", "multi_loop48_direct",
+        "two_lap200_direct")}
+    fleet_same = np.array_equal(w["fleet_trajs"], w["fleet_single_trajs"])
+    print(f"  examples/multihost_worker_torch.py in an NCCL world of one "
+          f"rank: {wall:.1f} s; sharded vs single {devs}; fleet equal "
+          f"{fleet_same}; mesh refusals {int(w['mesh_refusals'])} of 2")
+    check(max(devs.values()) == 0.0 and fleet_same
+          and int(w["mesh_refusals"]) == 2, "the NCCL worker's sharded "
+                                            "programs depart")
+    summary["worker"] = {"wall_s": wall, "dev": devs}
+    return summary, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -3002,11 +3512,20 @@ def main():
     p2d, checks["fgh_dense_flat"]["p2d"] = p2d_phase(sp, fx, io_fx, dev)
     print("phase 13b: extrinsic calibration (cli calibrate at its defaults)")
     calibration = calibration_phase(fx, io_fx, dev)
+    print("phase 14a: 6-DoF registration (se3, match_d2d_3d on three "
+          "accepted links of the LC graph)")
+    sixdof = sixdof_phase(lc, dev)
+    print("phase 14b: the utilities and plots (cli slam --plot --html, the "
+          "viewer's payload, desc_string, GraphLogger, device_trace)")
+    viewer = viewer_phase(fx, lc, dev)
+    print("phase 15: the multi-device programs in an NCCL world of one rank")
+    multidevice, md_launches = multidevice_phase(fx, lc, dev)
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
     # (match_d2d + covariance_d2d, and P2D's match_p2d; fgh_paired),
-    # optimize_offline and the B = 8 fleet run.
+    # optimize_offline, and the B = 8 fleet run; the rank-sharded fleet
+    # of phase 15 (a path of its own) in a field of its own.
     path_launches = {
         "newton_objective": launches["newton_objective"],
         "fgh_dense_flat": (reg_launches["fgh_dense_flat"]
@@ -3021,6 +3540,7 @@ def main():
         "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": path_launches[k], **checks[k], "library_ms": None,
     } for k in path_launches]
+    kernels[-1]["launches_sharded_fleet"] = md_launches
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
@@ -3033,11 +3553,13 @@ def main():
         "offline": offline, "online_lc": online, "fleet": fleet,
         "rolling_map": rolling, "offline_scale": scale,
         "simulator": simulator, "inputs": inputs, "p2d": p2d,
-        "calibration": calibration,
+        "calibration": calibration, "sixdof": sixdof, "viewer": viewer,
+        "multidevice": multidevice,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
                      "online_lc": on_launches,
-                     "offline_scale_fgh_dense_flat_batch": scale_launches},
+                     "offline_scale_fgh_dense_flat_batch": scale_launches,
+                     "sharded_fleet_newton_objective_batch": md_launches},
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

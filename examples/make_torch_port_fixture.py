@@ -149,6 +149,27 @@ sequence it replays is canonical_200.npz's):
                           candidates tie to 1e-7 and the reference's own
                           best moves among them)
 
+With --6dof it writes the 6-DoF and viewer record
+(ndt_feature_graph_tpu_torch/data/canonical_6dof.npz), made on the
+loop-closure record's offline graph (canonical_lc.npz off_*):
+
+  links, T_init           chip_smoke.sixdof_links: three links the
+                          reference kept, and their RANSAC poses lifted to
+                          SE(3) (the registrations' start)
+  {6dof,2d}_T, _d,        ops/d2d3d.match_d2d_3d of each link's moving
+  _score, _trials,        node cells onto its reference node cells (both
+  _converged, _cov        lifted by chip_smoke.lift_cells, the masked
+                          padding dropped: it adds exactly zero), with
+                          force2d False and True
+  {6dof,2d}_eps_T         (3, 8, 6) the same from starts moved by
+                          +-k * 1e-6, k = 1..4 (the reference's own spread)
+  payload, payload_sub    viz/html._graph_payload of that graph (poses
+                          before the solve, as the trajectory too) as
+                          JSON, whole and with chip_smoke.PAYLOAD_MAX_CELLS
+                          cells a node
+  desc_string             utils/logging_ext.desc_string of its parameters
+  params_repr             repr() of those SLAMParams
+
 `replay_ransac_draws` is the replay of the JAX key chain, shared with
 the port's parity tests; `recording_slam_class` logs the keys a JAX run
 really takes, against which the replay is checked.
@@ -172,6 +193,7 @@ SOLVER_OUT = os.path.join(DATA, "canonical_solver.npz")
 LOCALIZE_OUT = os.path.join(DATA, "canonical_localize.npz")
 HMT_OUT = os.path.join(DATA, "canonical_hmt.npz")
 IO_OUT = os.path.join(DATA, "canonical_io.npz")
+SIXDOF_OUT = os.path.join(DATA, "canonical_6dof.npz")
 # The --io record: bench_offline_570's trajectory, the raycast's poses, the
 # P2D scans and cmd_calibrate's defaults.
 IO = dict(ml_loops=10, ml_steps=704, ml_radius=2.8, ray_poses=64,
@@ -996,6 +1018,69 @@ def make_io_fixture(out, params):
           f"offset {np.asarray(best)}, under 1e-6 changes {eps_idx}")
 
 
+def make_6dof_fixture(out, params):
+    """The 6-DoF and viewer record (see the module docstring)."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import (
+        OFFLINE_SPLIT_M, PAYLOAD_MAX_CELLS, lift_cells, sixdof_links,
+    )
+    from ndt_feature_graph_tpu.config import GraphParams, SLAMParams
+    from ndt_feature_graph_tpu.ops import d2d3d
+    from ndt_feature_graph_tpu.utils.logging_ext import desc_string
+    from ndt_feature_graph_tpu.viz import html
+
+    lc = dict(np.load(LC_OUT))
+    sparams = SLAMParams(fuser=params, graph=GraphParams(
+        new_node_transl_dist=OFFLINE_SPLIT_M, max_nodes=MAX_NODES))
+    if repr(sparams) != str(lc["off_params_repr"]):
+        raise SystemExit("6dof: canonical_lc.npz was made at other "
+                         "parameters")
+    links = sixdof_links(lc)
+    cells = lambda k: d2d3d.CellList3D(**{  # noqa: E731
+        f: jnp.asarray(v) for f, v in lift_cells(
+            lc["off_bank.cells.means"][k], lc["off_bank.cells.covs"][k],
+            lc["off_bank.cells.mask"][k], compact=True).items()})
+    T_init = np.zeros((len(links), 6), np.float32)
+    T_init[:, :2] = lc["off_ransac_T"][links, :2]
+    T_init[:, 5] = lc["off_ransac_T"][links, 2]
+    rec = {"links": links.astype(np.int32), "T_init": T_init}
+    m = params.matcher
+    for mode, force2d in (("6dof", False), ("2d", True)):
+        res, eps = [], []
+        for k, li in enumerate(links):
+            tgt, src = cells(lc["off_link_ref"][li]), cells(
+                lc["off_link_mov"][li])
+            run = lambda T0: d2d3d.match_d2d_3d(  # noqa: E731
+                tgt, src, jnp.asarray(T0), m, force2d=force2d)
+            res.append(jax.tree.map(np.asarray, run(T_init[k])))
+            eps.append([np.asarray(run(T_init[k] + e).T)
+                        for e in EPS_RUNS[:8]])
+            print(f"6dof: {mode} link {li}: {int(res[-1].iterations)} "
+                  f"trials, T {res[-1].T}")
+        for f, key in (("T", "T"), ("d", "d"), ("score", "score"),
+                       ("iterations", "trials"), ("converged", "converged"),
+                       ("cov", "cov")):
+            rec[f"{mode}_{key}"] = np.stack([getattr(r, f) for r in res])
+        rec[f"{mode}_eps_T"] = np.asarray(eps, np.float32)
+
+    slam = jax_graph_from_lc(lc, sparams)
+    slam.trajectory = [t.copy() for t in lc["off_node_T_before"]]
+    dump = lambda p: json.dumps(p, separators=(",", ":"))  # noqa: E731
+    rec["payload"] = np.str_(dump(html._graph_payload(slam)))
+    rec["payload_sub"] = np.str_(dump(html._graph_payload(
+        slam, max_cells_per_node=PAYLOAD_MAX_CELLS)))
+    rec["desc_string"] = np.str_(desc_string(sparams))
+    rec["params_repr"] = np.str_(repr(sparams))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **rec)
+    print(f"wrote {out}: links {links.tolist()}, payload "
+          f"{len(str(rec['payload']))} characters")
+
+
 def replay_fleet_draws(seed, n_streams, t_steps, m_hyp):
     """The RANSAC draws of scaling.build_fleet_feature_inputs' streams
     over `t_steps` scans: stream b's key is the b-th split of
@@ -1090,6 +1175,8 @@ def main():
                     help="write the HMT record")
     ap.add_argument("--io", action="store_true",
                     help="write the simulator, P2D and calibration record")
+    ap.add_argument("--6dof", dest="sixdof", action="store_true",
+                    help="write the 6-DoF registration and viewer record")
     args = ap.parse_args()
 
     import jax
@@ -1110,6 +1197,9 @@ def main():
         return make_hmt_fixture(args.out or HMT_OUT, bench.canonical_params())
     if args.io:
         return make_io_fixture(args.out or IO_OUT, bench.canonical_params())
+    if args.sixdof:
+        return make_6dof_fixture(args.out or SIXDOF_OUT,
+                                 bench.canonical_params())
     if args.localize:
         return make_localize_fixture(args.out or LOCALIZE_OUT,
                                      bench.make_sequence(),

@@ -7,6 +7,7 @@
     python3 examples/profile_torch_port.py --solver [--out DIR]
     python3 examples/profile_torch_port.py --localize [--out DIR]
     python3 examples/profile_torch_port.py --map-update [--scans 80] [--tree DIR]
+    python3 examples/profile_torch_port.py --sixdof [--out DIR]
 
 Runs the main path of chip_smoke.py (NDTFeatureGraphSLAM.initialize +
 run_sequence_device over the first `--scans` scans of the canonical
@@ -56,6 +57,13 @@ step's map update over the stack of 64 grids and the points-only
 fleet's aggregate scans/s (chip_smoke.py phase 7), with
 ndt_map.scatter_add_rows swapped for the atomic version on the atomic
 turns.
+
+With --sixdof it profiles one 6-DoF registration of chip_smoke.py's
+phase 14a (match_d2d_3d of the second of its links at the full padded
+cell lists, 1,024 x 1,024 pairs): the wall and peak memory of a
+registration in chunks of 2^18 pairs and in one chunk of 2^20 (the
+ops/d2d3d.py PAIR_CHUNK), in turns, then, at PAIR_CHUNK, the device
+operations per trial, the busy share and the device time by operation.
 
 With --offline it does the same for optimize_offline on chip_smoke.py's
 offline graph (phase 5), and first times its stages one by one, each
@@ -326,6 +334,60 @@ def localize(dev, gpu, fx, out):
            {"particles": int(lx["particles"]), "steps_per_s": steps / wall})
 
 
+def sixdof(dev, gpu, out):
+    """Phase 14a's second link: chunk sizes in turns, then a profile."""
+    import time
+
+    from ndt_feature_graph_tpu_torch.ops import d2d3d
+
+    lc = dict(np.load(chip_smoke.LC_FIXTURE))
+    sx = dict(np.load(chip_smoke.SIXDOF_FIXTURE))
+    k = 1
+    li = int(sx["links"][k])
+    m = chip_smoke.canonical_slam_params(chip_smoke.OFFLINE_SPLIT_M,
+                                         64).fuser.matcher
+
+    def cells(n):
+        c = chip_smoke.lift_cells(lc["off_bank.cells.means"][n],
+                                  lc["off_bank.cells.covs"][n],
+                                  lc["off_bank.cells.mask"][n])
+        return d2d3d.CellList3D(**{f: torch.as_tensor(v, device=dev)
+                                   for f, v in c.items()})
+
+    tgt, src = cells(lc["off_link_ref"][li]), cells(lc["off_link_mov"][li])
+    T0 = torch.as_tensor(sx["T_init"][k], device=dev)
+
+    def register():
+        chip_smoke.sync(dev)
+        t0 = time.perf_counter()
+        res = d2d3d.match_d2d_3d(tgt, src, T0, m)
+        chip_smoke.sync(dev)
+        return res, time.perf_counter() - t0
+
+    default = d2d3d.PAIR_CHUNK
+    register()                                             # warm-up
+    turns = []
+    for chunk in (1 << 18, 1 << 20, 1 << 20, 1 << 18):
+        d2d3d.PAIR_CHUNK = chunk
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, wall = register()
+        turns.append({"pair_chunk": chunk, "wall_s": wall,
+                      "peak_mib": torch.cuda.max_memory_allocated(dev)
+                      / 2 ** 20, "trials": int(res.iterations)})
+        print(json.dumps(turns[-1]))
+    d2d3d.PAIR_CHUNK = default
+    res, wall = register()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = register()
+    trials = int(res.iterations)
+    report(prof, gpu, wall, wall_prof, "trials", trials, out,
+           "torch_port_sixdof_profile.txt",
+           {"link": li, "pairs": src.means.shape[0] * tgt.means.shape[0],
+            "turns": turns, "note": "two derivative evaluations beyond "
+            "the trials: the start and the covariance's Hessian"})
+
+
 def map_update(dev, gpu, sp, fx):
     """The fixed-order map scatter against the atomic index_add, in
     turns: one scan's map update and the main path, then one fleet
@@ -420,6 +482,8 @@ def main():
     ap.add_argument("--map-update", action="store_true",
                     help="time the fixed-order map scatter against the "
                     "atomic one, in turns")
+    ap.add_argument("--sixdof", action="store_true",
+                    help="profile a 6-DoF registration of phase 14a")
     ap.add_argument("--out", help="directory for the profile files")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -430,6 +494,8 @@ def main():
         return fleet(dev, gpu, args.fleet, args.full, args.out)
     if args.solver:
         return solver(dev, gpu, args.out)
+    if args.sixdof:
+        return sixdof(dev, gpu, args.out)
     fx = dict(np.load(chip_smoke.FIXTURE))
     if args.offline:
         return offline(dev, gpu, fx, args.out)

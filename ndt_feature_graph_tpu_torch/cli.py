@@ -15,8 +15,8 @@
 
 Sequences are a sequence npz, a CARMEN log (.clf / .log) or a ROS bag
 (.bag); checkpoints, sequences and HMT directories are the reference's
-files, and load in both packages.  `slam --plot` / `--html` belong to a
-later slice of the port and exit with a message saying which.
+files, and load in both packages.  `slam --plot` writes overview.png,
+`slam --html` an interactive viewer.html.
 
 Run:  python -m ndt_feature_graph_tpu_torch.cli [--device cpu] <cmd> --help
 """
@@ -26,21 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
-
-# What each option the port does not run yet waits for (ROADMAP.md,
-# queue 1).
-NOT_PORTED = {
-    "--plot": "the utilities and plots of ROADMAP queue 1, item 3 "
-              "(viz/plot.py)",
-    "--html": "the utilities and plots of ROADMAP queue 1, item 3 "
-              "(viz/html.py)",
-}
-
-
-def _not_ported(what):
-    sys.exit(f"ndt_feature_graph_tpu_torch: {what} is not ported yet; it "
-             f"comes with {NOT_PORTED[what]}")
 
 
 def _params_from_args(a):
@@ -162,12 +147,20 @@ def cmd_slam(a):
     print(json.dumps(stats))
 
     os.makedirs(a.out, exist_ok=True)
-    t_idx = np.asarray(slam.times, int)
+    gt = seq.gt.cpu().numpy()[np.asarray(slam.times, int)]
     tum.write_tum(os.path.join(a.out, "est.tum"), slam.times,
                   np.stack(slam.trajectory))
-    tum.write_tum(os.path.join(a.out, "gt.tum"), slam.times,
-                  seq.gt.cpu().numpy()[t_idx])
+    tum.write_tum(os.path.join(a.out, "gt.tum"), slam.times, gt)
     slam.save(os.path.join(a.out, "graph.npz"))
+    if a.plot:
+        from ndt_feature_graph_tpu_torch.viz import plot
+
+        plot.save_slam_overview(os.path.join(a.out, "overview.png"), slam,
+                                gt=gt)
+    if a.html:
+        from ndt_feature_graph_tpu_torch.viz import html as viz_html
+
+        viz_html.export_html(os.path.join(a.out, "viewer.html"), slam, gt=gt)
     if a.optimize:
         slam.optimize_offline(verbose=True)
         tum.write_tum(os.path.join(a.out, "nodes_opt.tum"),
@@ -406,9 +399,9 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--optimize", action="store_true")
     p.add_argument("--plot", action="store_true",
-                   help=f"not ported yet ({NOT_PORTED['--plot']})")
+                   help="write an overview figure (overview.png)")
     p.add_argument("--html", action="store_true",
-                   help=f"not ported yet ({NOT_PORTED['--html']})")
+                   help="write an interactive viewer (viewer.html)")
     _add_common(p)
     p.set_defaults(fn=cmd_slam)
 
@@ -464,9 +457,6 @@ def main(argv=None):
     p.set_defaults(fn=cmd_eval)
 
     a = ap.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(a, flag[2:], False):
-            _not_ported(flag)
     if a.cmd != "eval":
         from ndt_feature_graph_tpu_torch import resolve_device
 

@@ -16,7 +16,7 @@ sum order varies from run to run there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -153,15 +153,47 @@ def _prior_residual(p, prior_pose):
     return torch.cat([rp[:2], se2.normalize_angle(rp[2:])])
 
 
+def _identity(x):
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Reduction:
+    """How the partial sums of a solver meet.  On one device the solver
+    holds every term already: `sum` is the identity and the device
+    leads.  A multi-device program (parallel/) runs the same body on
+    its shards with an all-reduce as `sum`, and only its `lead` device
+    adds the replicated terms into its partial sums before the sum, so
+    that they count once."""
+
+    sum: Callable = _identity
+    lead: bool = True
+
+
+ONE_DEVICE = Reduction()
+
+
+def check_reduction(reduce: Reduction, robust_kernel):
+    """A robust kernel's median loop-edge chi2 is a statistic of the
+    whole edge list: no shard of it can compute it."""
+    if reduce != ONE_DEVICE and robust_kernel != "none":
+        raise ValueError(f"robust kernel {robust_kernel!r} over a shard of "
+                         "the edges")
+
+
 def optimize(poses, edges: EdgeList, prior_information: float = 100.0,
              iterations: int = 20, damping: float = 1e-6,
-             robust_kernel: str = "none", robust_delta: float = 1.0):
+             robust_kernel: str = "none", robust_delta: float = 1.0,
+             reduce: Reduction = ONE_DEVICE):
     """Gauss-Newton over all node poses (N, 3).  Node 0 is softly pinned
     with `prior_information * I` at its initial value; loop-closure
     factors optionally get a robust kernel by IRLS each iteration.
     Unconstrained (inactive) nodes get a unit diagonal, tested on the
     UNDAMPED diagonal, before damping.  Returns (poses, final robust
-    chi2) as device tensors; no host sync (`solve_ex`)."""
+    chi2) as device tensors; no host sync (`solve_ex`).  Over several
+    devices `edges` is this device's shard of them and `reduce` sums
+    the partial sums (parallel/solver_sharded.py)."""
+    check_reduction(reduce, robust_kernel)
     n = poses.shape[0]
     dim = 3 * n
     dev, dt = poses.device, poses.dtype
@@ -171,7 +203,7 @@ def optimize(poses, edges: EdgeList, prior_information: float = 100.0,
     def chi2(p):
         r = edge_residual(p[edges.i], p[edges.j], edges.meas)
         _, rho = robust_edge_scale(r, edges, robust_kernel, robust_delta)
-        c = torch.where(edges.mask, rho, 0.0).sum()
+        c = reduce.sum(torch.where(edges.mask, rho, 0.0).sum())
         rp = _prior_residual(p, prior_pose)
         return c + prior_information * (rp * rp).sum()
 
@@ -183,6 +215,7 @@ def optimize(poses, edges: EdgeList, prior_information: float = 100.0,
             scale, _ = robust_edge_scale(r, edges, robust_kernel,
                                          robust_delta)
         H, b = assemble_normal_equations(p, edges, n, info_scale=scale)
+        H, b = reduce.sum(H), reduce.sum(b)
         H[0, 0] += prior_information * torch.eye(3, dtype=dt, device=dev)
         b[0] += prior_information * _prior_residual(p, prior_pose)
         Hd = H.permute(0, 2, 1, 3).reshape(dim, dim)

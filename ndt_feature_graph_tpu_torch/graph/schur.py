@@ -103,9 +103,13 @@ def block_eliminate(H, b_vec, part: Partition, damping):
 
 
 def optimize_schur(poses, edges: opt.EdgeList, part: Partition,
-                   prior_information=100.0, iterations=20, damping=1e-6):
+                   prior_information=100.0, iterations=20, damping=1e-6,
+                   reduce: opt.Reduction = opt.ONE_DEVICE):
     """Gauss-Newton with blocked Schur elimination; returns the poses
-    (N, 3) (the reference returns no chi2 here)."""
+    (N, 3) (the reference returns no chi2 here).  Over several devices
+    `edges` and the blocks of `part` (int_idx, int_mask) are this
+    device's shards and `reduce` sums the partial sums
+    (parallel/schur_sharded.py); the separator solve is replicated."""
     n = poses.shape[0]
     dev, dt = poses.device, poses.dtype
     prior_pose = poses[0].clone()
@@ -115,6 +119,7 @@ def optimize_schur(poses, edges: opt.EdgeList, part: Partition,
     p = poses
     for _ in range(iterations):
         H, b = opt.assemble_normal_equations(p, edges, n)
+        H, b = reduce.sum(H), reduce.sum(b)
         H[0, 0] += prior_information * eye3
         b[0] += prior_information * opt._prior_residual(p, prior_pose)
 
@@ -126,8 +131,8 @@ def optimize_schur(poses, edges: opt.EdgeList, part: Partition,
                            eye_s) + damping * eye_s
         b_S = torch.where(ms, b[sep].reshape(-1), 0.0)
 
-        S = H_SS - schur_c.sum(0)
-        r = b_S - rhs_c.sum(0)
+        S = H_SS - reduce.sum(schur_c.sum(0))
+        r = b_S - reduce.sum(rhs_c.sum(0))
         # Guard any unconstrained separator dof.
         S = S + torch.diag((torch.diagonal(S) < 1e-8).to(dt))
         dS = -torch.linalg.solve_ex(S, r)[0]
@@ -137,11 +142,12 @@ def optimize_schur(poses, edges: opt.EdgeList, part: Partition,
             H_II, (b_I + (H_IS @ dS[:, None])[..., 0])[..., None])[0][..., 0]
 
         delta = torch.zeros((n, 3), dtype=dt, device=dev)
-        delta.index_put_((sep,), torch.where(ms, dS, 0.0).reshape(-1, 3),
-                         accumulate=True)
         delta.index_put_((part.int_idx.reshape(-1),), torch.where(
             part.int_mask.reshape(-1, 1), dI.reshape(-1, 3), 0.0),
             accumulate=True)
+        delta = reduce.sum(delta)
+        delta.index_put_((sep,), torch.where(ms, dS, 0.0).reshape(-1, 3),
+                         accumulate=True)
         p = p + delta
         p = torch.cat([p[:, :2], se2.normalize_angle(p[:, 2:])], -1)
     return p

@@ -130,11 +130,14 @@ def finalize_blocks(p, D, b, Hii, Hjj, Hij, prior_information, damping,
 
 def linearize_edges(p, edges: opt.EdgeList, prior_information, damping,
                     prior_pose, p_lo=None, robust_kernel="none",
-                    robust_delta=1.0) -> EdgeBlocks:
+                    robust_delta=1.0,
+                    reduce: opt.Reduction = opt.ONE_DEVICE) -> EdgeBlocks:
     """Batched factor linearization kept in edge-block (sparse) form:
     the math of opt.assemble_normal_equations without the dense scatter.
     p_lo: (N, 2) compensated position corrections (edge_residual_hl);
-    robust_kernel: IRLS loop-closure reweighting."""
+    robust_kernel: IRLS loop-closure reweighting; reduce: the sum of the
+    node-scattered blocks over the devices when `edges` is a shard (the
+    per-edge blocks stay the shard's)."""
     n = p.shape[0]
     scale = None
     if robust_kernel != "none":
@@ -146,6 +149,7 @@ def linearize_edges(p, edges: opt.EdgeList, prior_information, damping,
                                          robust_delta)
     Hii, Hjj, Hij, D, b = linearize_edges_raw(p, edges, n, p_lo=p_lo,
                                               info_scale=scale)
+    D, b = reduce.sum(D), reduce.sum(b)
     return finalize_blocks(p, D, b, Hii, Hjj, Hij, prior_information,
                            damping, prior_pose)
 
@@ -260,16 +264,18 @@ def pcg(blocks: EdgeBlocks, edges: opt.EdgeList, rhs, cg_iterations,
 
 
 def robust_chi2(p, p_lo, edges: opt.EdgeList, prior_pose,
-                prior_information, robust_kernel, robust_delta):
+                prior_information, robust_kernel, robust_delta,
+                reduce: opt.Reduction = opt.ONE_DEVICE):
     """The robust objective: edge rho summed over the active edges plus
-    the prior term.  p_lo None: the plain residual."""
+    the prior term.  p_lo None: the plain residual.  reduce: the edge
+    sum over the devices when `edges` is a shard."""
     if p_lo is None:
         r = opt.edge_residual(p[edges.i], p[edges.j], edges.meas)
     else:
         r = edge_residual_hl(p, p_lo, edges)
     _, rho = opt.robust_edge_scale(r, edges, robust_kernel, robust_delta)
     rp = opt._prior_residual(p, prior_pose)
-    return (torch.where(edges.mask, rho, 0.0).sum()
+    return (reduce.sum(torch.where(edges.mask, rho, 0.0).sum())
             + prior_information * (rp * rp).sum())
 
 

@@ -245,49 +245,64 @@ def segment_backsub(z, Y_L, Y_R, xS, seg_left, seg_right):
 
 
 def solve_normal_equations(blocks: sparse.EdgeBlocks, edges: opt.EdgeList,
-                           part: SegPartition, n):
-    """Solve H x = b exactly (blocks carry H sparsely, b = blocks.b)."""
+                           part: SegPartition, n,
+                           reduce: opt.Reduction = opt.ONE_DEVICE):
+    """Solve H x = b exactly (blocks carry H sparsely, b = blocks.b).
+    Over several devices `edges` and the segments of `part` (idx, imask,
+    seg_len, seg_left, seg_right) are this device's shards, `reduce`
+    sums the partial sums, and blocks.D and blocks.b are the summed
+    ones."""
     S = part.sep_ids.shape[0]
-    C_chain = chain_coupling(blocks.Hij, edges, n)
+    C_chain = reduce.sum(chain_coupling(blocks.Hij, edges, n))
 
-    # Reduced system: separator-separator coupling plus their diagonals.
+    # Reduced system: separator-separator coupling plus their diagonals
+    # (the lead device's), less the segments' Schur contributions.
     H_SS = sep_coupling(blocks.Hij, edges, part.sep_of, S)
-    ar = torch.arange(S, device=H_SS.device)
-    H_SS.index_put_((ar, ar), blocks.D[part.sep_ids], accumulate=True)
-    b_S = blocks.b[part.sep_ids]
+    if reduce.lead:
+        ar = torch.arange(S, device=H_SS.device)
+        H_SS.index_put_((ar, ar), blocks.D[part.sep_ids], accumulate=True)
+        b_S = blocks.b[part.sep_ids]
+    else:
+        b_S = torch.zeros((S, 3), dtype=H_SS.dtype, device=H_SS.device)
 
     *contribs, z, Y_L, Y_R = segment_eliminate(
         blocks.D, blocks.b, C_chain, part.idx, part.imask, part.seg_len,
         part.seg_right, n)
     H_SS, b_S = scatter_segment_contribs(H_SS, b_S, contribs,
                                          part.seg_left, part.seg_right)
-    xS = reduced_solve(H_SS, b_S)
+    xS = reduced_solve(reduce.sum(H_SS), reduce.sum(b_S))
 
     x_I = segment_backsub(z, Y_L, Y_R, xS, part.seg_left, part.seg_right)
     x = torch.zeros((n, 3), dtype=xS.dtype, device=xS.device)
-    x[part.sep_ids] = xS
     x.index_put_((part.idx.reshape(-1),),
                  torch.where(part.imask.reshape(-1, 1), x_I.reshape(-1, 3),
                              0.0), accumulate=True)
+    x = reduce.sum(x)
+    x[part.sep_ids] = xS
     return x
 
 
 def optimize_direct(poses, edges: opt.EdgeList, part: SegPartition,
                     prior_information=100.0, iterations=20, damping=1e-6,
-                    robust_kernel="none", robust_delta=1.0):
+                    robust_kernel="none", robust_delta=1.0,
+                    reduce: opt.Reduction = opt.ONE_DEVICE):
     """Levenberg-Marquardt with the exact segment-Schur solve; the
     contract of opt.optimize: returns (poses, chi2) as device tensors.
     Positions carry a compensated (double-single) correction term, so
     edge residuals keep full relative accuracy on large maps.  A step is
     accepted when it does not raise chi2 (damping x0.3, floored at
-    `damping`), else rejected (damping x8, capped at 1e4)."""
+    `damping`), else rejected (damping x8, capped at 1e4).  Over
+    several devices `edges` and the segments of `part` are this device's
+    shards and `reduce` sums the partial sums
+    (parallel/sparse_direct_sharded.py); the decision runs replicated."""
+    opt.check_reduction(reduce, robust_kernel)
     n = poses.shape[0]
     prior_pose = poses[0].clone()
 
     def chi2(p, p_lo):
         return sparse.robust_chi2(p, p_lo, edges, prior_pose,
                                   prior_information, robust_kernel,
-                                  robust_delta)
+                                  robust_delta, reduce=reduce)
 
     p = poses
     p_lo = torch.zeros((n, 2), dtype=poses.dtype, device=poses.device)
@@ -296,8 +311,9 @@ def optimize_direct(poses, edges: opt.EdgeList, part: SegPartition,
     for _ in range(iterations):
         blocks = sparse.linearize_edges(
             p, edges, prior_information, lam, prior_pose, p_lo=p_lo,
-            robust_kernel=robust_kernel, robust_delta=robust_delta)
-        delta = -solve_normal_equations(blocks, edges, part, n)
+            robust_kernel=robust_kernel, robust_delta=robust_delta,
+            reduce=reduce)
+        delta = -solve_normal_equations(blocks, edges, part, n, reduce)
         xy, xy_lo = sparse.two_sum_update(p[:, :2], p_lo, delta[:, :2])
         th = se2.normalize_angle(p[:, 2] + delta[:, 2])
         trial = torch.cat([xy, th[:, None]], -1)

@@ -16,7 +16,11 @@ A stacked (N, ...) JAX node bank goes through `node_from_jax` as one
 node does; link and edge indices become int64.  `graph_from_jax` loads a
 whole frozen JAX graph (bank, node poses, odometry edges) into a port
 NDTFeatureGraphSLAM, and `tree_from_flat` reads such a bank back from an
-npz of dotted field paths.  `params_from_jax` turns the JAX package's
+npz of dotted field paths.  `cell_list3d_from_jax` takes the 6-DoF
+matcher's cell lists, `schur_partition_from_jax` and
+`seg_partition_from_jax` the solvers' host-made layouts (graph/schur.py
+Partition, graph/sparse_direct.py SegPartition), so that both packages
+solve on the same structure.  `params_from_jax` turns the JAX package's
 parameter dataclasses into the port's own (config.py).
 
 Nothing here imports jax or the JAX package: its objects come in as
@@ -42,8 +46,11 @@ from ndt_feature_graph_tpu_torch.graph.node import (
     FeatureMapBuffer, NodeData, map_tensors,
 )
 from ndt_feature_graph_tpu_torch.graph.optimize import EdgeList
+from ndt_feature_graph_tpu_torch.graph.schur import Partition
+from ndt_feature_graph_tpu_torch.graph.sparse_direct import SegPartition
 from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
 from ndt_feature_graph_tpu_torch.ops.d2d import PackedTarget
+from ndt_feature_graph_tpu_torch.ops.d2d3d import CellList3D
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList, NDTGrid
 
 
@@ -84,6 +91,10 @@ def grid_from_jax(g, device=None) -> NDTGrid:
 
 def cell_list_from_jax(c, device=None) -> CellList:
     return CellList(**_tensors(c, ("means", "covs", "mask"), device))
+
+
+def cell_list3d_from_jax(c, device=None) -> CellList3D:
+    return CellList3D(**_tensors(c, ("means", "covs", "mask"), device))
 
 
 def feature_set_from_jax(f, device=None) -> FeatureSet:
@@ -146,6 +157,19 @@ def edge_list_from_jax(e, device=None) -> EdgeList:
         is_odom=None if is_odom is None else torch.tensor(
             np.asarray(is_odom), device=device),
     )
+
+
+def schur_partition_from_jax(p, device=None) -> Partition:
+    return Partition(**_indices(p, ("assign", "sep_idx", "int_idx"), device),
+                     **_tensors(p, ("sep_mask", "int_mask"), device),
+                     n_blocks=int(_get(p, "n_blocks")))
+
+
+def seg_partition_from_jax(p, device=None) -> SegPartition:
+    return SegPartition(
+        **_indices(p, ("sep_ids", "sep_of", "idx", "seg_len", "seg_left",
+                       "seg_right"), device),
+        **_tensors(p, ("imask",), device))
 
 
 def tree_from_flat(flat: Mapping, prefix: str) -> dict:

@@ -9,8 +9,10 @@ replicate one sequence with a per-stream odometry jitter, as the
 reference's do: a loaded one (io.dataset.Sequence), or, without one, the
 reference's loop (`loop_trajectory(t_steps, radius=5.0)`) simulated with
 noise from a torch.Generator seeded with `seed` (the reference draws from
-jax.random, so the noise differs).  Sharding a fleet over several
-devices is not ported: `measure_fleet_throughput(n_devices > 1)` raises.
+jax.random, so the noise differs).  Over several devices the streams
+are sharded by rank (`run_sequence_batch_sharded`, parallel/mesh.py's
+contract): each rank runs its own streams, and the trajectories and
+scores are gathered.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from ndt_feature_graph_tpu_torch.fusion import (
 from ndt_feature_graph_tpu_torch.graph.node import map_tensors
 from ndt_feature_graph_tpu_torch.io import dataset
 from ndt_feature_graph_tpu_torch.io.dataset import Sequence
+from ndt_feature_graph_tpu_torch.parallel import mesh as mesh_mod
+from ndt_feature_graph_tpu_torch.utils.timers import digest
 
 
 def replicate(tree, n: int):
@@ -98,32 +102,53 @@ def build_fleet_feature_inputs(params: FuserParams, seq: Optional[Sequence],
             *_stream_inputs(seq, n_streams, seq.ranges, seq.hit))
 
 
-def _leaves(tree):
-    out = []
-    map_tensors(out.append, tree)
-    return out
+def _shard_streams(mesh, axis, *trees):
+    """This rank's streams of each tree (every tensor's leading axis)."""
+    n = mesh_mod.axis_size(mesh, axis)
+    b = trees[-1].shape[0]
+    if b % n:
+        raise ValueError(f"{b} streams do not divide {n} shards")
+    return tuple(map_tensors(lambda x: mesh_mod.shard_rows(mesh, x, axis), t)
+                 for t in trees)
 
 
-def digest(*trees):
-    """A scalar that depends on every tensor of `trees`: reading it back
-    forces all the work that produced them."""
-    return sum(x.to(torch.float32).sum() for t in trees for x in _leaves(t))
+def run_sequence_batch_sharded(mesh, params: FuserParams, states, odom, pts,
+                               mask, axis="dp"):
+    """scan_driver.run_sequence_batch with the B streams sharded over
+    mesh[axis] (B a multiple of the shard count): every rank passes the
+    whole fleet and runs its own streams.  Returns (this rank's final
+    states, trajectories (B, T, 3), scores (B, T)); the last two
+    gathered, so replicated."""
+    local = _shard_streams(mesh, axis, states, odom, pts, mask)
+    finals, trajs, scores = scan_driver.run_sequence_batch(params, *local)
+    return (finals, mesh_mod.gather_rows(mesh, trajs, axis),
+            mesh_mod.gather_rows(mesh, scores, axis))
 
 
 def measure_fleet_throughput(params: FuserParams, seq: Sequence,
                              n_devices: int = 1, streams_per_device: int = 4,
-                             reps: int = 5):
+                             reps: int = 5, mesh=None, axis="dp"):
     """Sustained aggregate scans/s of run_sequence_batch over
     n_devices * streams_per_device streams of `seq`.  Each repetition
     perturbs the odometry, ends in a readback of a digest of every
     output and a device synchronisation; one forced warm-up first.
-    Returns (scans_per_sec at the median time, sorted times)."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            "a fleet sharded over several devices is not ported "
-            "(ROADMAP.md queue 1, the multi-device item)")
+
+    With a mesh (default for n_devices > 1: make_mesh(n_devices) over the
+    initialized world), the streams are sharded by rank,
+    streams_per_device each, and n_devices must equal the shard count
+    along `axis`: every rank times its own streams, and the aggregate is
+    the all-reduced scan count over the slowest rank's median time.
+    Returns (scans_per_sec, this rank's sorted times)."""
+    if mesh is None and n_devices != 1:
+        mesh = mesh_mod.make_mesh(n_devices, axis)
+    if mesh is not None and mesh_mod.axis_size(mesh, axis) != n_devices:
+        raise ValueError(f"n_devices={n_devices} on a mesh of "
+                         f"{mesh_mod.axis_size(mesh, axis)} shards")
     n_streams = n_devices * streams_per_device
     states, odom, pts, mask = build_fleet_inputs(params, seq, n_streams)
+    if mesh is not None:
+        states, odom, pts, mask = _shard_streams(mesh, axis, states, odom,
+                                                 pts, mask)
 
     def run(odom_k):
         out = scan_driver.run_sequence_batch(params, states, odom_k, pts,
@@ -141,12 +166,23 @@ def measure_fleet_throughput(params: FuserParams, seq: Sequence,
         run(odom_k)
         times.append(time.perf_counter() - t0)
     times.sort()
-    return n_streams * odom.shape[1] / times[len(times) // 2], times
+    stats = torch.tensor([odom.shape[0] * odom.shape[1],
+                          times[len(times) // 2]], dtype=torch.float64)
+    if mesh is not None:
+        dev = odom.device
+        scans = mesh_mod.psum(mesh, stats[:1].to(dev), axis)
+        slowest = stats[1:].to(dev)
+        torch.distributed.all_reduce(slowest, torch.distributed.ReduceOp.MAX,
+                                     group=mesh_mod.axis_group(mesh, axis))
+        stats = torch.cat([scans, slowest]).cpu()
+    return float(stats[0] / stats[1]), times
 
 
 def scaling_report(params: FuserParams, seq: Sequence, device_counts=(1,),
                    **kw):
-    """Throughput + efficiency table over device counts."""
+    """Throughput + efficiency table over device counts: 1 runs on this
+    rank's device alone, any other count is the initialized world's
+    (make_mesh raises for a count that is not the world's size)."""
     rows = []
     base = None
     for n in device_counts:

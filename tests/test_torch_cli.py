@@ -13,8 +13,7 @@ degenerate registrations that move 4-11 cm under that change, and the
 optimized nodes of either framework 1-2 cm; the chaotic refinement of
 ROADMAP queue 3).  Tolerances: TUM poses within 1 cm / 5 mrad;
 occupancy probabilities of the stitched map within 1e-5; ATE within
-1 cm.  The options of later slices (slam --plot / --html) exit naming
-their slice.
+1 cm.  slam --plot / --html write their files.
 
 `fuse` (plain, --hmt-dir, --resume) runs on the reference's test
 corridor (tests/test_io_cli.py); `localize` on a 60-scan loop where the
@@ -219,16 +218,29 @@ def test_cli_eval_matches_jax(outputs):
 
 
 @pytest.mark.parametrize("flag", ["--plot", "--html"])
-def test_cli_unported_subcommands_name_their_slice(flag):
-    """slam's --plot and --html (the reference's viz/) are the options
-    the port does not run yet: they exit naming their slice, before any
-    input is read.  simulate, calibrate and .clf / .log / .bag inputs
-    run (tests/test_torch_cli_inputs.py)."""
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["--device", "cpu", "slam", "--dataset", "none.npz",
-                   "--out", "o", flag])
-    assert "not ported yet" in str(e.value) and "ROADMAP queue 1, item 3" in (
-        str(e.value)) and "utilities and plots" in str(e.value)
+def test_cli_unported_subcommands_name_their_slice(flag, tmp_path):
+    """slam's --plot and --html (the reference's viz/), once the options
+    of a later slice, now run: each writes its file (overview.png, a PNG;
+    viewer.html, a self-contained viewer of the run's 16 poses) beside
+    the run's other outputs, and nothing else of viz/."""
+    seq = str(tmp_path / "seq.npz")
+    small = ["--num-beams", "128", "--sensor-range", "6.0"]
+    _run(tcli.main, ["--device", "cpu", "simulate", "--out", seq, "--steps",
+                     "16", "--radius", "3.0", *small])
+    out = tmp_path / "o"
+    _run(tcli.main, ["--device", "cpu", "slam", "--dataset", seq, "--out",
+                     str(out), flag, *small, "--map-size", "16",
+                     "--max-cells", "128", "--new-node-dist", "1.5"])
+    written = {"--plot": "overview.png", "--html": "viewer.html"}
+    assert (out / written[flag]).stat().st_size > 1000
+    other = [f for k, f in written.items() if k != flag][0]
+    assert not (out / other).exists()
+    if flag == "--plot":
+        assert (out / "overview.png").read_bytes()[:4] == b"\x89PNG"
+    else:
+        text = (out / "viewer.html").read_text()
+        assert "https://" not in text and '"traj":[[' in text
+        assert text.count("],[") >= 15 and (out / "est.tum").exists()
 
 
 def test_cli_runs_as_a_module_and_defaults_to_the_card():

@@ -2,8 +2,10 @@
 PyTorch twins on the card: the whole Newton-trial objective
 (`newton_objective`, with the paired front end on its own), the window
 term, the batch entry, the fleet step's `newton_objective_batch` and the
-paired reduction.  Marked `cuda`: they skip without a CUDA card.  The file imports no JAX, so it also runs where JAX is not
-installed (skip the JAX-importing conftest there):
+paired reduction; and the sharded dense solve in an NCCL world of one
+rank.  Marked `cuda`: they skip without a CUDA card.  The file imports
+no JAX, so it also runs where JAX is not installed (skip the
+JAX-importing conftest there):
 
     python3 -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -417,3 +419,29 @@ def test_simulator_on_the_card_matches_the_cpu(cuda_device):
                                     30.0)
     chip_smoke.check_beams("card vs CPU", card.ranges, card.hit, cpu.ranges,
                            cpu.hit, kind)
+
+
+@pytest.mark.cuda
+def test_sharded_dense_solve_in_an_nccl_world(cuda_device):
+    """optimize_sharded in an NCCL world of one rank (NCCL takes one rank
+    a card) is optimize on the 48-node multi-loop graph, bit for bit:
+    the same body with an all-reduce as its reduction."""
+    import torch.distributed as dist
+
+    from ndt_feature_graph_tpu_torch.graph import optimize as opt
+    from ndt_feature_graph_tpu_torch.parallel import mesh as mesh_mod
+    from ndt_feature_graph_tpu_torch.parallel import solver_sharded
+
+    mesh_mod.init_distributed(f"localhost:{chip_smoke._free_port()}", 1, 0,
+                              device=cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = mesh_mod.make_mesh(1)
+        init, i, j, meas, info = chip_smoke.multi_loop_graph(48)
+        edges = chip_smoke.solver_edges(i, j, meas, info, cuda_device)
+        p0 = torch.as_tensor(init, device=cuda_device)
+        got = solver_sharded.optimize_sharded(mesh, p0, edges, iterations=15)
+        want = opt.optimize(p0, edges, iterations=15)[0]
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

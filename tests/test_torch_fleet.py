@@ -607,6 +607,9 @@ def test_interleaved_restarts_the_occupancy_cadence(fleet):
 
 
 def test_fleet_throughput_measurement(fleet):
+    """One device's measurement and report; n_devices=2 shards the fleet
+    over the process group's mesh, so without a group it asks for one
+    (tests/test_torch_parallel.py runs it in gloo worlds)."""
     seq = fleet["seq"]
     tseq = tds.Sequence(*(_t(x)[:4] for x in (seq.ranges, seq.hit, seq.odom,
                                               seq.gt)))
@@ -616,7 +619,7 @@ def test_fleet_throughput_measurement(fleet):
     rows = tscaling.scaling_report(_tp(P), tseq, streams_per_device=2,
                                    reps=1)
     assert rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         tscaling.measure_fleet_throughput(_tp(P), tseq, n_devices=2)
 
 

@@ -213,7 +213,12 @@ def test_port_imports_without_jax():
         "          'utils.occupancy', 'cli', 'ops.distance_field',\n"
         "          'ops.hmt', 'io.native', 'fusion.hmt_driver',\n"
         "          'localization.mcl', 'localization.monitor',\n"
-        "          'localization.place_rec'):\n"
+        "          'localization.place_rec', 'core.se3', 'ops.d2d3d',\n"
+        "          'parallel.mesh', 'parallel.solver_sharded',\n"
+        "          'parallel.schur_sharded',\n"
+        "          'parallel.sparse_direct_sharded',\n"
+        "          'parallel.links_sharded', 'utils.timers',\n"
+        "          'utils.logging_ext', 'viz.plot', 'viz.html'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'ndt_feature_graph_tpu'))\n"
