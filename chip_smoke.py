@@ -14,13 +14,23 @@ Runs on a machine with a CUDA card and no JAX:
      windows of 9 and 49 cells; windows crossing the grid edge; two
      calls, identical bits), and times kernel vs plain in turns (plain,
      kernel, kernel, plain) beside the bound of the run's own inputs;
+     then the whole registration `newton_solve` at that case against
+     its plain twin and against the per-trial path (d2d.newton_match
+     over `newton_objective`): each term off, step control off,
+     bfloat16 rows, two calls identical, |Δd| within SOLVE_TOL (see
+     held_to_all), times in turns beside the per-trial path's;
   4. drives the main path (NDTFeatureGraphSLAM.initialize +
      run_sequence_device) over the canonical 200-scan fixture with the
-     JAX reference's RANSAC draws, checks that `newton_objective` — and
-     no other entry — launched, once per Newton trial, that the
+     JAX reference's RANSAC draws, checks that `newton_solve` — and no
+     other entry — launched, once per registration, that the
      frozen-node count matches JAX and that the trajectory stays within
      1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
-     (one warm-up run, then the median of 3);
+     (one warm-up run, then the median of 3); the checked run counts
+     its synchronising calls (torch.cuda.set_sync_debug_mode("warn")),
+     none of them inside newton_solve, and records each registration's
+     inputs for phase 3's replay: every registration through the
+     kernel (the recorded bits again), the per-trial path and the plain
+     twin, the kernel held to the per-trial path scan by scan;
      3e. the fixed-order map update (add_points_touched +
          update_occupancy of three canonical scans, into one grid and a
          stack of three) on the card equals the CPU's bit for bit and
@@ -59,7 +69,7 @@ Runs on a machine with a CUDA card and no JAX:
   6. online loop closure (bench.py's bench_online_lc setting,
      run_sequence_chunked with chunk=64): trajectory and node poses
      within 1 cm / 5 mrad of JAX, the same node and loop-link counts,
-     `newton_objective` and `fgh_dense_flat_batch` launched; scans/s
+     `newton_solve` and `fgh_dense_flat_batch` launched; scans/s
      (median of 3);
   7. fleet serving at bench.py's fleet operating point (the canonical
      parameters with bfloat16 gather rows; 40 scans of a 720-beam loop per
@@ -70,6 +80,8 @@ Runs on a machine with a CUDA card and no JAX:
          off in turn, bfloat16 rows on and off, an all-masked lane, a
          lane with an empty feature list, a lane whose windows cross the
          grid's edge, two calls with identical bits, times in turns;
+         and `newton_solve_batch` on those lanes against its plain twin
+         and the per-trial lockstep path, lane by lane as phase 3;
      then the points-only driver run_sequence_batch at B = 8 against the
      JAX record (bfloat16 rows on and off: nine poses in ten within
      2 mm / 1 mrad, the tolerance the reference holds its own batch path
@@ -80,8 +92,8 @@ Runs on a machine with a CUDA card and no JAX:
      (streams 0-7 equal the B = 8 run's; at B = 32 a second run of the
      same inputs, and whether it repeats every trajectory, stream 21's
      with the reference's bistable scan among them) and at B = 32 with
-     occ_every=4 (the same poses): only `newton_objective_batch`
-     launches, once per Newton trial; aggregate scans/s at each B
+     occ_every=4 (the same poses): only `newton_solve_batch`
+     launches, once per fleet step; aggregate scans/s at each B
      (median of 3);
      7b. the full pipeline run_sequence_features_batch at B = 8 against
          the JAX record with its RANSAC draws, then B = 32;
@@ -154,7 +166,7 @@ Runs on a machine with a CUDA card and no JAX:
           2e-5 m and hits identical but on grazing and oblique beams
           (grazing_beams, counts printed); then the main path on it,
           within 1 cm / 5 mrad of the JAX trajectory, launching only
-          `newton_objective`;
+          `newton_solve`;
      12b. bench_offline_570's 7,040-scan multi-loop at 720 beams: the
           noise-free raycast at 64 recorded poses under the same rule;
           the simulator's scans/s (median of 3) and peak memory;
@@ -197,7 +209,7 @@ Runs on a machine with a CUDA card and no JAX:
      range at the last two), the sharded link proposals of phase 9e's
      bank (compute_links_batch on the same draws), the sharded fleet
      (run_sequence_batch; measure_fleet_throughput at 64 streams through
-     the sharded path, whose newton_objective_batch launches are the
+     the sharded path, whose newton_solve_batch launches are the
      kernels line's `launches_sharded_fleet`), and
      examples/multihost_worker_torch.py in an NCCL world of its own;
  16. prints one JSON line of all kernel entries and, last, the result
@@ -210,8 +222,13 @@ calls).  `bound_ms` is the larger of the bytes the call must move (each
 input read once: the distinct table rows its windows touch, its cell
 lists, its scalars; 13 floats written) over 3.35 TB/s and its
 operations (FLOPS_PER_PAIR for each unmasked, in-bounds, valid pair)
-over 67 TFLOP/s: NVIDIA's H100 SXM figures.  No single PyTorch call
-computes any entry, so `library_ms` is null.
+over 67 TFLOP/s: NVIDIA's H100 SXM figures; a solve's operations are
+those of every trial it evaluates, lane by lane.  No single PyTorch
+call computes any entry, so `library_ms` is null.  The per-trial
+objectives (`newton_objective[_batch]`) are the body of the solves and
+no path's own launch any more: their `launches` are 0, and the launches
+of the per-trial path that the script drives as the solves' yardstick
+(phase 3's replay, phase 3d) stand apart as `yardstick_launches`.
 
 Exits non-zero (and prints no result) without a CUDA card or if any
 phase fails.  With --out DIR the details also go to DIR/chip_smoke.json.
@@ -230,6 +247,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -329,6 +347,11 @@ GRAZE_U, GRAZE_T = 1e-5, 1e-4
 # sin / cos.
 ANGLE_ULPS = 2
 CELL_BYTES = 8 + 16 + 1       # a cell's mean, covariance and mask
+# newton_solve[_batch] against the per-trial path (the same objective
+# kernel, the LM step in eager ops): |Δd| in metres and radians, unless
+# the per-trial path itself moves that far when its start moves by
+# SOLVE_EPS.
+SOLVE_TOL, SOLVE_EPS = 1e-4, 1e-6
 
 
 # Phase 9, offline at scale.  (a) bench.py's 570-node multi-loop graph
@@ -531,17 +554,18 @@ def device_ms(fn, reps=50):
     return sum(e.self_device_time_total for e in on_dev) * 1e-3 / reps
 
 
-def time_turns(kernel, plain, reps=50, plain_reps=10):
+def time_turns(kernel, plain, reps=50, plain_reps=10, label="plain"):
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain) inside this one call.  Returns the means as {"ms",
     "plain_ms"} (device time) and {"events_ms", "plain_events_ms"}
-    (with the host), and prints every reading."""
+    (with the host), and prints every reading; `label` names the
+    other version."""
     dev_t = [device_ms(plain, plain_reps), device_ms(kernel, reps),
              device_ms(kernel, reps), device_ms(plain, plain_reps)]
     ev_t = [time_ms(plain, plain_reps), time_ms(kernel, reps),
             time_ms(kernel, reps), time_ms(plain, plain_reps)]
     fmt = lambda t: ", ".join(f"{x * 1e3:.2f}" for x in t)  # noqa: E731
-    print(f"    device time, us (plain, kernel, kernel, plain): "
+    print(f"    device time, us ({label}, kernel, kernel, {label}): "
           f"{fmt(dev_t)}; with the host (CUDA events): {fmt(ev_t)}")
     return {"ms": (dev_t[1] + dev_t[2]) / 2,
             "plain_ms": (dev_t[0] + dev_t[3]) / 2,
@@ -558,11 +582,13 @@ def bound(n_bytes, n_pairs):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb):
+def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb,
+                lanes=False):
     """What the window term of this call needs, for its bound: (bytes
     of the distinct table rows the unmasked source cells' windows read
     plus the cell lists, pairs that are unmasked, in bounds and valid).
-    Works for one lane or (B, ...) lanes."""
+    Works for one lane or (B, ...) lanes; `lanes` gives the pairs of
+    each lane, (B,)."""
     o = origins if origins.dim() == 1 else origins[:, None, :]
     _, iy0, ix0 = d2d_analytic.window_cells(d, T0, src, o, res)
     offs = torch.arange(-nb, nb + 1, device=d.device)
@@ -576,6 +602,8 @@ def window_work(d, T0, src, packed, origins, row_offsets, h, w, res, nb):
     rows = torch.unique(flat[live])
     valid = (packed[flat][..., 5] > 0.5) & inb & live
     n_bytes = 32 * rows.numel() + CELL_BYTES * src.mask.numel()
+    if lanes:
+        return n_bytes, valid.flatten(1).sum(1)
     return n_bytes, int(valid.sum())
 
 
@@ -1000,6 +1028,373 @@ def batch_kernel_checks(bank, pairs, T0, budget, sp, dev, times=True):
           f"{n_bytes / 1e6:.2f} MB, {n_pairs} pairs)")
     out.update(time_turns(kernel, plain, 50, 3))
     return out
+
+
+def solve_dev(a, b):
+    """Per lane, the largest |difference| of two registrations' d (m and
+    rad), (..., 3) tensors -> (...) numpy."""
+    return (a - b).abs().amax(-1).cpu().numpy()
+
+
+def start_spread(solve, d_init):
+    """How far `solve` (a function of the start increment returning
+    (d, score, trials, converged)) moves its d, lane by lane, when its
+    start moves by SOLVE_EPS in each of four sign patterns: the
+    reference registration's own sensitivity to rounding."""
+    base = solve(d_init)[0]
+    eps = torch.tensor([[1, 1, 1], [-1, -1, -1], [1, -1, 1], [-1, 1, -1]],
+                       dtype=torch.float32, device=d_init.device) * SOLVE_EPS
+    return np.max([solve(d_init + e)[0].sub(base).abs().amax(-1)
+                   .cpu().numpy() for e in eps], 0)
+
+
+def _near(got, other):
+    """Per lane: (|Δd| of `got` from `other`, score's relative
+    difference, whether both are within SOLVE_TOL / F_RTOL)."""
+    dev_ = np.atleast_1d(solve_dev(got[0], other[0]))
+    rel = np.atleast_1d(((got[1] - other[1]).abs()
+                         / other[1].abs().clamp(min=1e-30)).cpu().numpy())
+    return dev_, rel, (dev_ <= SOLVE_TOL) & (rel <= F_RTOL)
+
+
+def held_to(name, got, other, other_solve, d_init, what, label="lane"):
+    """Hold `newton_solve[_batch]`'s registrations `got` to `other`'s:
+    the per-trial path (d2d.newton_match[_batch] over
+    `newton_objective[_batch]`: the same objective kernel, the LM step
+    in eager ops) or the plain twin (the same loop over the objective's
+    plain version).  Every lane's d within SOLVE_TOL and its score
+    within F_RTOL, except lanes where `other` itself moves d beyond
+    SOLVE_TOL under a SOLVE_EPS change of its start (`other_solve`, from
+    `d_init`): those are named, with both results, and held_to_all
+    checks them against the other yardsticks.  `what` names `other` in
+    the messages.  Prints the largest |Δd| and the lanes whose trial
+    counts differ.  Returns {"max": the largest |Δd| over the lanes
+    held, "max_all": over every lane, "excepted": the excepted lanes,
+    "differ": the lanes whose trial counts differ}."""
+    dev_, rel, near = _near(got, other)
+    k_tr = np.atleast_1d(got[2].cpu().numpy())
+    o_tr = np.atleast_1d(other[2].cpu().numpy())
+    differ = [int(i) for i in np.nonzero(k_tr != o_tr)[0]]
+    over = np.nonzero(~near)[0]
+    excepted = []
+    if over.size:
+        spread = np.atleast_1d(start_spread(other_solve, d_init))
+        excepted = [int(i) for i in over if spread[i] > SOLVE_TOL]
+        bad = [int(i) for i in over if spread[i] <= SOLVE_TOL]
+        for i in over:
+            print(f"    {label} {i}: kernel {got[0].reshape(-1, 3)[i].tolist()}"
+                  f" ({k_tr[i]} trials), {what} "
+                  f"{other[0].reshape(-1, 3)[i].tolist()} ({o_tr[i]}); the "
+                  f"{what} moves {spread[i]:.2e} under a {SOLVE_EPS:g} start "
+                  "change")
+        check(not bad, f"{name}: {label}s {bad} deviate from the {what} "
+                       f"beyond {SOLVE_TOL:g} / rtol {F_RTOL:g} though it is "
+                       "stable there")
+    held = np.ones(dev_.shape, bool)
+    held[excepted] = False
+    out = {"max": float(dev_[held].max(initial=0.0)),
+           "max_all": float(dev_.max()), "excepted": excepted,
+           "differ": differ}
+    print(f"  {name}: max |Δd| vs the {what} {out['max']:.3e} (score rel "
+          f"{float(rel[held].max(initial=0.0)):.1e}); trial counts differ at "
+          f"{label}s {differ} (kernel {[int(k_tr[i]) for i in differ]}, "
+          f"{what} {[int(o_tr[i]) for i in differ]}); beyond {SOLVE_TOL:g} "
+          f"where the {what} is itself unstable: {excepted}"
+          + (f" (up to {out['max_all']:.3e})" if excepted else ""))
+    return out
+
+
+def held_to_all(name, got, yardsticks, d_init, label="lane", backups=()):
+    """Hold `got` to each of `yardsticks` ((what, result, solve)) by
+    held_to, then check every lane that some held_to excepted: it must
+    be within SOLVE_TOL / F_RTOL of another yardstick or of a result in
+    `backups` ((what, result), consulted for those lanes only), or else
+    reach a score no worse than every one of them (within F_RTOL): all
+    minimise the same objective, so a lane where each yardstick is
+    chaotic is still held to something.  Returns held_to's results."""
+    outs = [held_to(name, got, other, solve, d_init, what, label)
+            for what, other, solve in yardsticks]
+    others = [(what, other) for what, other, _ in yardsticks] + list(backups)
+    excepted = sorted(set().union(*(o["excepted"] for o in outs)))
+    if not excepted:
+        return outs
+    nears = [_near(got, other)[2] for _, other in others]
+    score = np.atleast_1d(got[1].cpu().numpy())
+    for i in excepted:
+        near = [what for (what, _), n in zip(others, nears) if n[i]]
+        if near:
+            print(f"    {label} {i}: within {SOLVE_TOL:g} of the "
+                  f"{', '.join(near)}")
+            continue
+        mine = float(score[i])
+        scores = {what: float(np.atleast_1d(other[1].cpu().numpy())[i])
+                  for what, other in others}
+        no_worse = all(mine <= s + F_RTOL * abs(s) for s in scores.values())
+        print(f"    {label} {i}: near no yardstick; score {mine!r} against "
+              f"{scores}")
+        check(no_worse, f"{name}: {label} {i} is near no yardstick and "
+                        f"scores worse than one ({mine!r}, {scores})")
+    return outs
+
+
+def solve_checks(sp, fx, dev, times=True):
+    """Phase 3: `newton_solve` at phase 3's trial case (N=256 x K=25, 64
+    feature pairs, the odometry term) against its plain twin on the card
+    and against the per-trial path (held_to_all), with each term switched
+    off in turn, step control off and bfloat16 rows; two calls give
+    identical bits.  Returns the entry's {"max_abs_err"} (|Δd| against
+    the plain twin, over the lanes held), "plain_unstable" (the cases
+    with lanes excepted) and, with `times` on a CUDA device, its times
+    in turns (and the per-trial path's as "per_trial_ms") and its
+    bound."""
+    p = sp.fuser
+    m = p.matcher
+    h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
+    state, src, T0, Q, _, fs, ft = trial_case(sp, fx, dev)
+    src = src.head(p.match_cell_budget)
+    zero = torch.zeros(3, device=dev)
+    base = (src, state.packed, state.grid.origin, h, w, res, m, fs, ft, Q)
+    cases = {
+        "all terms": base, "window off": (None, *base[1:]),
+        "features off": (*base[:7], None, None, Q),
+        "odometry off": (*base[:9], None),
+        "step control off": (*base[:6], m.replace(step_control=False),
+                             *base[7:]),
+        "bf16 rows": (*base, True)}
+    err, excepted = 0.0, []
+    for name, args in cases.items():
+        per_solve = per_trial_solve((zero, T0, *args))
+        got = cuda_kernels.newton_solve(zero, T0, *args)
+        again = cuda_kernels.newton_solve(zero, T0, *args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "newton_solve is not deterministic")
+
+        def plain_solve(d0, args=args):
+            return cuda_kernels.newton_solve_reference(d0, T0, *args)
+
+        _, vs = held_to_all(
+            f"newton_solve, {name}", got,
+            [("per-trial path", per_solve(zero), per_solve),
+             ("plain twin", plain_solve(zero), plain_solve)], zero)
+        err = max(err, vs["max"])
+        if vs["excepted"]:
+            excepted.append(f"{name}: |Δd| up to {vs['max_all']:.3e}")
+    out = {"max_abs_err": err, "plain_unstable": excepted}
+    if not times or dev.type != "cuda":
+        return out
+    got = cuda_kernels.newton_solve(zero, T0, *base)
+    evals = int(got[2]) + 1
+    win_bytes, win_pairs = window_work(got[0], T0, src, state.packed,
+                                       state.grid.origin, None, h, w, res,
+                                       m.n_neighbours)
+    n_feat = fs.mask.numel()
+    feat_live = int((fs.mask & ft.mask).sum())
+    # The start, T0, origin, Q in; d, score, trials and the flag out.
+    scalars = 4 * (3 + 3 + 2 + 9) + 4 * (3 + 1 + 1) + 1
+    out.update(bound(win_bytes + 2 * CELL_BYTES * n_feat + scalars,
+                     evals * (win_pairs + feat_live)), trials=evals - 1)
+    print(f"  newton_solve: {evals} evaluations; bound "
+          f"{out['bound_ms'] * 1e3:.4f} us ({out['bound_by']})")
+    kernel = lambda: cuda_kernels.newton_solve(zero, T0, *base)  # noqa
+    out.update(time_turns(
+        kernel, lambda: cuda_kernels.newton_solve_reference(zero, T0, *base),
+        100, 3))
+    per = time_turns(kernel, lambda: per_trial_solve((zero, T0, *base))(zero),
+                     100, 10, label="per-trial path")
+    out.update(per_trial_ms=per["plain_ms"],
+               per_trial_events_ms=per["plain_events_ms"])
+    return out
+
+
+def fleet_solve_checks(fp, seq, b, dev, times=True):
+    """Phase 3d: `newton_solve_batch` at a fleet step's shapes (b lanes of
+    fleet_trial_case, with its all-masked, featureless and edge lanes)
+    against its plain twin on the card (the masked lockstep over the
+    objective's plain version) and the per-trial lockstep path
+    (held_to_all, lane by lane), with bfloat16 rows on and off, each term
+    off in turn and step control off; two calls give identical bits.
+    Returns ({"max_abs_err", "plain_unstable"} as solve_checks and, with
+    `times`, its times, the per-trial path's and its bound; the
+    per-trial path's `newton_objective_batch` launches)."""
+    m = fp.matcher
+    h, w, res = fp.ndt.grid_h, fp.ndt.grid_w, fp.ndt.resolution
+    _, T0, src, packed, origins, offs, fs, ft, Q = fleet_trial_case(
+        fp, seq, b, dev)
+    zero = torch.zeros((b, 3), device=dev)
+    base = (T0, src, packed, origins, offs, h, w, res, m, fs, ft, Q)
+    cases = {"bf16 rows": (*base, True), "f32 rows": (*base, False),
+             "window off": (T0, None, *base[2:], True),
+             "features off": (*base[:9], None, None, Q, True),
+             "odometry off": (*base[:11], None, True),
+             "step control off": (*base[:8], m.replace(step_control=False),
+                                  *base[9:], True)}
+    err, per_launches, excepted = 0.0, 0, []
+    for name, args in cases.items():
+        def per_solve(d0, args=args):
+            return d2d.newton_match_batch(
+                d0, args[8],
+                lambda d: cuda_kernels.newton_objective_batch(d, *args))
+
+        got = cuda_kernels.newton_solve_batch(zero, *args)
+        again = cuda_kernels.newton_solve_batch(zero, *args)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              "newton_solve_batch is not deterministic")
+        before = cuda_kernels.LAUNCHES["newton_objective_batch"]
+        per = per_solve(zero)
+        per_launches += cuda_kernels.LAUNCHES["newton_objective_batch"] - (
+            before)
+        def plain_solve(d0, args=args):
+            return cuda_kernels.newton_solve_batch_reference(d0, *args)
+
+        _, vs = held_to_all(
+            f"newton_solve_batch B={b}, {name}", got,
+            [("per-trial path", per, per_solve),
+             ("plain twin", plain_solve(zero), plain_solve)], zero)
+        err = max(err, vs["max"])
+        if vs["excepted"]:
+            excepted.append(f"B={b}, {name}: lanes {vs['excepted']}, |Δd| "
+                            f"up to {vs['max_all']:.3e}")
+    out = {"max_abs_err": err, "plain_unstable": excepted}
+    if not times or dev.type != "cuda":
+        return out, per_launches
+    args = (*base, True)
+    got = cuda_kernels.newton_solve_batch(zero, *args)
+    n_bytes, lane_pairs = window_work(got[0], T0, src, packed, origins, offs,
+                                      h, w, res, m.n_neighbours, lanes=True)
+    lane_pairs = lane_pairs + (fs.mask & ft.mask).sum(-1)
+    evals = got[2].to(torch.int64) + 1
+    per_lane = 4 * (3 + 3 + 2 + 9) + 8 + 4 * (3 + 1 + 1) + 1
+    n_bytes += 2 * CELL_BYTES * fs.mask.numel() + b * per_lane
+    lib = cuda_kernels.build()
+    cluster = cuda_kernels._solve_cluster(lib, dev, b, src.mask.shape[-1],
+                                          fs.mask.shape[-1])
+    out.update(bound(n_bytes, int((evals * lane_pairs).sum())),
+               trials_max=int(got[2].max()), cluster=cluster,
+               resident_clusters=lib.ndtg_solve_max_clusters(
+                   src.mask.shape[-1], fs.mask.shape[-1], cluster))
+    print(f"  newton_solve_batch B={b}: {cluster} blocks a lane; the card "
+          f"holds {out['resident_clusters']} such clusters at once")
+    print(f"  newton_solve_batch B={b}: {int(evals.sum())} lane evaluations "
+          f"(the slowest lane {int(evals.max())}); bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']})")
+    kernel = lambda: cuda_kernels.newton_solve_batch(zero, *args)  # noqa
+    out.update(time_turns(kernel, lambda: cuda_kernels
+                          .newton_solve_batch_reference(zero, *args), 50, 2))
+    per = time_turns(kernel, lambda: d2d.newton_match_batch(
+        zero, m, lambda d: cuda_kernels.newton_objective_batch(d, *args)),
+        50, 5, label="per-trial path")
+    out.update(per_trial_ms=per["plain_ms"],
+               per_trial_events_ms=per["plain_events_ms"])
+    return out, per_launches
+
+
+def _copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, CellList):
+        return CellList(x.means.clone(), x.covs.clone(), x.mask.clone())
+    return x
+
+
+def _sync_warnings(caught):
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@contextlib.contextmanager
+def recorded_solves(entry="newton_solve", copy=True):
+    """Inside: every call of cuda_kernels.<entry> (`newton_solve` or
+    `newton_solve_batch`) is kept as (arguments, result), and the
+    synchronising calls made inside it under
+    torch.cuda.set_sync_debug_mode("warn") are counted.  With `copy`
+    the arguments and result are copies (the main path's registrations,
+    for the replay); without, the arguments are not kept and the result
+    is the entry's own tensors, unread.  Yields (calls, counts)."""
+    calls, counts = [], {"in_solve": 0}
+    inner = getattr(cuda_kernels, entry)
+
+    def solve(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = inner(*args)
+        counts["in_solve"] += _sync_warnings(caught)
+        if copy:
+            calls.append((tuple(_copy(a) for a in args),
+                          tuple(x.clone() for x in out)))
+        else:
+            calls.append((None, out))
+        return out
+
+    setattr(cuda_kernels, entry, solve)
+    try:
+        yield calls, counts
+    finally:
+        setattr(cuda_kernels, entry, inner)
+
+
+def replay_phase(calls, dev):
+    """Phase 3, the replay: the main path's registrations from their
+    recorded inputs, each through `newton_solve` (which repeats the
+    recorded bits), the per-trial path the fuser ran before (d2d.newton_match
+    over `newton_objective`) and the plain twin.  The kernel is held to
+    the per-trial path by held_to_all, scan by scan, with the plain twin
+    as the backup of any scan excepted there; the plain twin's
+    deviation is printed.  Counts the per-trial path's
+    `newton_objective` launches and its synchronising calls
+    (torch.cuda.set_sync_debug_mode("warn")).  Returns a summary."""
+    n = len(calls)
+    d0 = torch.stack([a[0] for a, _ in calls])
+    got, per, plain = [], [], []
+    cuda_kernels.reset_launch_counts()
+    per_syncs = 0
+    for args, rec in calls:
+        out = cuda_kernels.newton_solve(*args)
+        check(all(torch.equal(x, y) for x, y in zip(out, rec)),
+              "newton_solve does not repeat the main path's bits")
+        got.append(out)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                per.append(per_trial_solve(args)(args[0]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_syncs += _sync_warnings(caught)
+        plain.append(cuda_kernels.newton_solve_reference(*args))
+    launches = dict(cuda_kernels.LAUNCHES)
+    stack = lambda rs: tuple(torch.stack([r[k] for r in rs])  # noqa: E731
+                             for k in range(4))
+    got, per, plain = stack(got), stack(per), stack(plain)
+
+    def per_all(d_start):
+        return stack([per_trial_solve(args)(d_start[i])
+                      for i, (args, _) in enumerate(calls)])
+
+    held, = held_to_all(f"replay of the main path's {n} registrations", got,
+                        [("per-trial path", per, per_all)], d0,
+                        label="registration", backups=[("plain twin", plain)])
+    dev_plain = float(np.max(solve_dev(got[0], plain[0])))
+    plain_differ = int((got[2] != plain[2]).sum())
+    print(f"  vs the plain twin: max |Δd| {dev_plain:.3e}, trial counts "
+          f"differ at {plain_differ} of {n}; the per-trial path made "
+          f"{launches['newton_objective']} newton_objective launches and "
+          f"{per_syncs} synchronising calls ({per_syncs / n:.2f} a "
+          f"registration); the kernel's trials {int(got[2].sum())}, the "
+          f"per-trial path's {int(per[2].sum())}")
+    return {"registrations": n, "max_dd_per_trial": held["max_all"],
+            "scans_excepted": [i + 1 for i in held["excepted"]],
+            "scans_trials_differ": [i + 1 for i in held["differ"]],
+            "max_dd_plain": dev_plain, "plain_trials_differ": plain_differ,
+            "per_trial_launches": launches["newton_objective"],
+            "per_trial_syncs": per_syncs,
+            "trials": int(got[2].sum()), "per_trial_trials":
+            int(per[2].sum())}
+
+
+def per_trial_solve(args):
+    """The per-trial path of a recorded `newton_solve` call, as a
+    function of the start increment."""
+    return lambda d0: d2d.newton_match(
+        lambda d: cuda_kernels.newton_objective(d, *args[1:]), d0, args[8])
 
 
 def run_main_path(sp, fx, dev):
@@ -1432,7 +1827,7 @@ def online_phase(fx, lc, dev):
     slam, _ = online_lc_run(sp, fx, lc, dev)
     launches = dict(cuda_kernels.LAUNCHES)
     print(f"  launches in the online-LC run: {launches}")
-    for k in ("newton_objective", "fgh_dense_flat_batch"):
+    for k in ("newton_solve", "fgh_dense_flat_batch"):
         check(launches[k] > 0,
               f"kernel {k} was not launched by the online-LC run")
     traj = np.stack(slam.trajectory)
@@ -1971,11 +2366,11 @@ def fleet_dev(name, traj, scores, ref_traj, ref_scores, spread):
     return float(xy.max()), float(th.max())
 
 
-def only_batch_entry(launches, name):
-    check(launches["newton_objective_batch"] > 0
-          and sum(launches.values()) == launches["newton_objective_batch"],
-          f"{name} launched {launches}: expected newton_objective_batch "
-          "alone")
+def only_batch_entry(launches, name, steps):
+    check(launches["newton_solve_batch"] == steps
+          and sum(launches.values()) == steps,
+          f"{name} launched {launches}: expected newton_solve_batch alone, "
+          "once a fleet step")
 
 
 def fleet_points_phase(fp, fl, dev):
@@ -1995,11 +2390,10 @@ def fleet_points_phase(fp, fl, dev):
     (finals, traj8, sc8), _ = run_fleet(drv, fp, inputs, dev)
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
-        only_batch_entry(launches, "run_sequence_batch")
-    n = launches["newton_objective_batch"]
+        only_batch_entry(launches, "run_sequence_batch", steps)
+    n = launches["newton_solve_batch"]
     print(f"  launches in the B=8 run: {launches} ({n / steps:.2f} per fleet "
-          f"step: one per lockstep Newton trial, the first evaluation and "
-          f"whole chunks of 6)")
+          f"step: the step's registrations in one launch)")
     summary["dev_bf16"] = fleet_dev("B=8, bf16 rows, vs JAX", traj8, sc8,
                                     fl["pts_traj"], fl["pts_scores"], spread)
     table = d2d.packed_from_grid(finals.grid, fp.ndt)
@@ -2025,7 +2419,7 @@ def fleet_points_phase(fp, fl, dev):
             inputs = scaling.build_fleet_inputs(fp, seq, b)
             cuda_kernels.reset_launch_counts()
             (_, traj, sc), _ = run_fleet(drv, fp, inputs, dev)
-            n = cuda_kernels.LAUNCHES["newton_objective_batch"]
+            n = cuda_kernels.LAUNCHES["newton_solve_batch"]
             fleet_dev(f"B={b}, streams 0-7 vs the B=8 run", traj[:8],
                       sc[:8], *ref8, spread)
             if b == mid:
@@ -2079,7 +2473,8 @@ def fleet_full_phase(fp, fl, dev):
         if b == 8:
             launches = dict(cuda_kernels.LAUNCHES)
             if dev.type == "cuda":
-                only_batch_entry(launches, "run_sequence_features_batch")
+                only_batch_entry(launches, "run_sequence_features_batch",
+                                 steps)
             print(f"  launches in the B=8 run: {launches}")
             summary["dev"] = fleet_dev("B=8 vs JAX", traj, sc,
                                        fl["feat_traj"], fl["feat_scores"],
@@ -2150,9 +2545,10 @@ def rolling_phase(fx, dev):
     sync(dev)
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
-        check(launches["newton_objective"] > 0
-              and sum(launches.values()) == launches["newton_objective"],
-              f"run_sequence_features launched {launches}")
+        check(launches["newton_solve"] == n - 1
+              and sum(launches.values()) == launches["newton_solve"],
+              f"run_sequence_features launched {launches}: expected "
+              "newton_solve alone, once a scan")
     cells = (final.base.grid.origin - origin0) / fp.ndt.resolution
     moved = int(cells.abs().max().round())
     table = d2d.packed_from_grid(final.base.grid, fp.ndt)
@@ -2451,7 +2847,8 @@ def hmt_phase(dev):
     and the global_gaussians count equal, or within the reference's own
     spread where that is wider (the most its 31 runs with the odometry
     moved by +-k * 1e-6, k = 1..16, move from its run);
-    `newton_objective` alone launched, once per Newton trial; the port's directory saved after 240 scans loads
+    `newton_solve` alone launched, once a scan; the port's directory
+    saved after 240 scans loads
     back to the same window, which recentred away and back is recalled
     bit for bit; a fuser loaded from the directory JAX wrote resumes
     over 32 scans as JAX's did.  Prints scans/s and the recentre ms."""
@@ -2488,12 +2885,11 @@ def hmt_phase(dev):
         launches = dict(cuda_kernels.LAUNCHES)
         traj = np.concatenate([first, rest])
         scans = traj.shape[0]
-        n_obj = launches["newton_objective"]
+        n_obj = launches["newton_solve"]
         if dev.type == "cuda":
-            check(n_obj >= scans and (n_obj - scans) % 6 == 0
-                  and sum(launches.values()) == n_obj,
+            check(n_obj == scans and sum(launches.values()) == n_obj,
                   f"the HMT run launched {launches}: expected "
-                  "newton_objective alone, 1 + 6k a scan")
+                  "newton_solve alone, once a scan")
         spread = max_dev(hx["traj_eps"], hx["traj"])
         tol = (max(spread[0], XY_TOL), max(spread[1], TH_TOL))
         dxy, dth = max_dev(traj, hx["traj"])
@@ -2504,7 +2900,7 @@ def hmt_phase(dev):
         rt = np.asarray(hf.recenter_times) * 1e3
         print(f"  {scans} scans in {wall:.3f} s ({scans / wall:.1f} scans/s,"
               f" {hf.n_recenters} recentres of {np.median(rt):.1f} ms "
-              f"median, {rt.max():.1f} max); {n_obj} newton_objective "
+              f"median, {rt.max():.1f} max); {n_obj} newton_solve "
               f"launches ({n_obj / scans:.2f} a scan); trajectory within "
               f"{dxy * 1e3:.3f} mm / {dth * 1e3:.3f} mrad of JAX's (its "
               f"own 31 runs with the odometry moved by +-k * 1e-6: "
@@ -2585,7 +2981,7 @@ def cli_localize_fuse_case(dev):
     sequence, at the canonical map and scan widths; their draws are the
     card's own generators'.  Checks the outputs' sizes and finiteness,
     MCL's mean error under the reference test's 0.3 m, the kidnapped
-    scan relocalized within 0.5 m, `newton_objective` launched by fuse."""
+    scan relocalized within 0.5 m, `newton_solve` launched by fuse."""
     flags = ["--map-size", "100", "--sensor-range", "30", "--num-beams",
              "720", "--max-cells", "1024"]
     pre = [] if dev.type == "cuda" else ["--device", "cpu"]
@@ -2605,8 +3001,8 @@ def cli_localize_fuse_case(dev):
             runs[name] = _cli_json(pre + argv + ["--dataset", FIXTURE]
                                    + flags)
         wall = time.perf_counter() - t0
-    n = cuda_kernels.LAUNCHES["newton_objective"]
-    print(f"  {wall:.1f} s for the five commands; newton_objective "
+    n = cuda_kernels.LAUNCHES["newton_solve"]
+    print(f"  {wall:.1f} s for the five commands; newton_solve "
           f"launches {n}")
     for name, r in runs.items():
         print(f"  {name}: {json.dumps(r)[:240]}")
@@ -2619,8 +3015,8 @@ def cli_localize_fuse_case(dev):
         runs[k]["ate_rmse_m"]) for k in ("fuse", "fuse_hmt", "fuse_resume")),
         "cli fuse's outputs are not finite or of the wrong size")
     if dev.type == "cuda":
-        check(n > 0, "cli fuse launched no newton_objective")
-    return {"wall_s": wall, **runs, "newton_objective_launches": n}
+        check(n > 0, "cli fuse launched no newton_solve")
+    return {"wall_s": wall, **runs, "newton_solve_launches": n}
 
 def simulator_phase(sp, fx, io_fx, dev):
     """Phases 12a and 12b: the simulator on the card against the JAX
@@ -2629,7 +3025,7 @@ def simulator_phase(sp, fx, io_fx, dev):
     exactly, odometry within ODOM_TOL, ranges and hits but for grazing and
     oblique beams), and the main path on the simulated sequence stays
     within 1 cm / 5 mrad of the JAX trajectory, launching only
-    `newton_objective`.  12b: bench_offline_570's 7,040-scan multi-loop
+    `newton_solve`.  12b: bench_offline_570's 7,040-scan multi-loop
     at 720 beams with a seeded generator: the noise-free raycast at the
     64 recorded poses against the reference's, the simulator's scans/s
     (median of 3, each ending in a synchronisation) and its peak
@@ -2664,8 +3060,8 @@ def simulator_phase(sp, fx, io_fx, dev):
     check(traj_out.shape == fx["traj"].shape and xy <= XY_TOL
           and th <= TH_TOL, "the main path on the simulated sequence "
           "deviates from JAX's beyond 1 cm / 5 mrad")
-    check(dev.type != "cuda" or launches["newton_objective"] > 0 and all(
-        v == 0 for k, v in launches.items() if k != "newton_objective"),
+    check(dev.type != "cuda" or launches["newton_solve"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "newton_solve"),
         "the main path on the simulated sequence launched another entry")
 
     print("phase 12b: the simulator at bench_offline_570's scale")
@@ -2742,11 +3138,11 @@ def inputs_phase(fx, dev):
             wall = time.perf_counter() - t0
             _, est = tum.read_tum(f"{tmp}/{name}/est.tum")
             runs[name] = est
-            launches = cuda_kernels.LAUNCHES["newton_objective"]
+            launches = cuda_kernels.LAUNCHES["newton_solve"]
             out[name] = {**stats, "wall_s": wall, "launches": launches}
             print(f"  cli slam on {name}: {stats['n_updates']} updates, "
                   f"{stats['n_nodes']} nodes, ATE {stats['ate_rmse_m']:.4f} m, "
-                  f"{wall:.1f} s, {launches} newton_objective launches")
+                  f"{wall:.1f} s, {launches} newton_solve launches")
             check(np.isfinite(est).all()
                   and (dev.type != "cuda" or launches > 0),
                   f"cli slam on {name}: not finite or no kernel launched")
@@ -2929,8 +3325,10 @@ def calibration_phase(fx, io_fx, dev):
 
 
 def fleet_phases(dev):
-    """Phases 3d, 7, 7b, 7c.  Returns (record, the batch entry's checks,
-    its launches on the fleet path)."""
+    """Phases 3d, 7, 7b, 7c.  Returns (record, the checks of the
+    objective's batch entry and of the solve's, the objective's launches
+    on phase 3d's per-trial lockstep path, and every entry's launches in
+    the checked B = 8 fleet run)."""
     fl = dict(np.load(FLEET_FIXTURE))
     fp = presets.fleet_serving()
     check(repr(fp) == str(fl["params_repr"]),
@@ -2942,6 +3340,12 @@ def fleet_phases(dev):
     checks = fleet_kernel_checks(fp, seq, FLEET_SIZES[-1], dev)
     checks["max_abs_err"] = max(checks["max_abs_err"], small["max_abs_err"])
     checks["b8"] = {k: v for k, v in small.items() if k != "max_abs_err"}
+    print("phase 3d: newton_solve_batch vs plain and vs the per-trial path "
+          "on the card")
+    small, per8 = fleet_solve_checks(fp, seq, FLEET_SIZES[0], dev)
+    solve, per64 = fleet_solve_checks(fp, seq, FLEET_SIZES[-1], dev)
+    solve["max_abs_err"] = max(solve["max_abs_err"], small["max_abs_err"])
+    solve["b8"] = {k: v for k, v in small.items() if k != "max_abs_err"}
     print("phase 7: points-only fleet (run_sequence_batch)")
     points, launches, mid_run = fleet_points_phase(fp, fl, dev)
     print("phase 7b: full-pipeline fleet (run_sequence_features_batch)")
@@ -2951,7 +3355,7 @@ def fleet_phases(dev):
     serve = fleet_serve_phase(fp, fl, *mid_run, dev)
     record = {"points": points, "full": full, "serve": serve,
               "launches": {"points_b8": launches, "full_b8": full_launches}}
-    return record, checks, launches["newton_objective_batch"]
+    return record, checks, solve, per8 + per64, launches
 
 
 def pose6_dev(a, b):
@@ -3353,11 +3757,11 @@ def _multidevice(fx, lc, dev):
     sps, times = scaling.measure_fleet_throughput(
         fpf, seq, n_devices=1, streams_per_device=FLEET_SIZES[-1], reps=3,
         mesh=mesh)
-    launches = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    launches = cuda_kernels.LAUNCHES["newton_solve_batch"]
     print(f"  measure_fleet_throughput(n_devices=1, streams_per_device="
           f"{FLEET_SIZES[-1]}) through the sharded path: {sps:.1f} aggregate "
           f"scans/s (runs {', '.join(f'{t:.3f}' for t in times)} s); "
-          f"newton_objective_batch launches {launches}")
+          f"newton_solve_batch launches {launches}")
     check(np.isfinite(sps) and sps > 0 and launches > 0,
           "the sharded fleet measured nothing or launched no kernel")
     summary["fleet"] = {"scans_per_s": sps, "run_s": times,
@@ -3420,22 +3824,36 @@ def main():
           "the fixture was made at other parameters than canonical_slam_params")
     print("phase 3: kernels vs plain on the card")
     checks = kernel_checks(sp, fx, dev)
+    print("phase 3: newton_solve vs plain and vs the per-trial path on the "
+          "card")
+    checks["newton_solve"] = solve_checks(sp, fx, dev)
     print("phase 3e: the fixed-order map update, card vs CPU; float32 sqrt")
     map_update = map_update_phase(sp, fx, dev)
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
-    slam, _ = run_main_path(sp, fx, dev)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                recorded_solves() as (calls, in_solve):
+            warnings.simplefilter("always")
+            slam, _ = run_main_path(sp, fx, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     launches = dict(cuda_kernels.LAUNCHES)
     scans = fx["ranges"].shape[0] - 1
+    syncs = _sync_warnings(caught) + in_solve["in_solve"]
     print(f"  launches in the main-path run: {launches} "
-          f"({launches['newton_objective'] / scans:.2f} newton_objective "
-          f"per scan: one per Newton trial)")
-    check(launches["newton_objective"] > 0,
-          "newton_objective was not launched by the main path")
-    check(all(v == 0 for k, v in launches.items()
-              if k != "newton_objective"),
-          "the main path launched another entry than newton_objective")
+          f"({launches['newton_solve'] / scans:.2f} newton_solve per scan: "
+          f"one per registration)")
+    print(f"  synchronising calls in the main-path run "
+          f"(set_sync_debug_mode): {syncs} ({syncs / scans:.2f} a scan), "
+          f"{in_solve['in_solve']} of them inside newton_solve")
+    check(launches["newton_solve"] == scans == len(calls),
+          "newton_solve was not launched once per registration")
+    check(all(v == 0 for k, v in launches.items() if k != "newton_solve"),
+          "the main path launched another entry than newton_solve")
+    check(in_solve["in_solve"] == 0, "newton_solve synchronised")
     traj = np.stack(slam.trajectory)
     check(traj.shape == fx["traj"].shape and np.isfinite(traj).all(),
           f"trajectory {traj.shape} not finite / not {fx['traj'].shape}")
@@ -3470,6 +3888,12 @@ def main():
           f"bit for bit and its launch counts: {same}")
     check(same, "the main path does not repeat on the card")
 
+    print("phase 3: the main path's registrations replayed (kernel, "
+          "per-trial path, plain)")
+    replay = replay_phase(calls, dev)
+    replay["main_path_syncs"] = syncs
+    del calls
+
     print("phase 3c: plain registration on the main-path graph "
           "(match_d2d, covariance_d2d, fgh_paired)")
     reg_launches = registration_phase(sp, slam, dev)
@@ -3482,8 +3906,8 @@ def main():
     print("phase 6: online loop closure, canonical corridor "
           "(run_sequence_chunked, chunk=64)")
     online, on_launches = online_phase(fx, lc, dev)
-    fleet, checks["newton_objective_batch"], fleet_launches = fleet_phases(
-        dev)
+    (fleet, checks["newton_objective_batch"], checks["newton_solve_batch"],
+     per_trial_batch, fleet_run) = fleet_phases(dev)
     print("phase 8: rolling_map (run_sequence_features, "
           f"{ROLLING['size_m']:.0f} m window)")
     rolling = rolling_phase(fx, dev)
@@ -3525,25 +3949,44 @@ def main():
     # just before that path: the main path, plain registration
     # (match_d2d + covariance_d2d, and P2D's match_p2d; fgh_paired),
     # optimize_offline, and the B = 8 fleet run; the rank-sharded fleet
-    # of phase 15 (a path of its own) in a field of its own.
+    # of phase 15 (a path of its own) in a field of its own.  The
+    # per-trial objectives are the body of newton_solve[_batch] and no
+    # path launches them (0, as phase 4 and the fleet run check); the
+    # per-trial path that chip_smoke drives as the solves' yardstick
+    # (phase 3's replay, phase 3d) launches them, and those launches
+    # stand in `yardstick_launches`, apart.
     path_launches = {
         "newton_objective": launches["newton_objective"],
         "fgh_dense_flat": (reg_launches["fgh_dense_flat"]
                            + p2d["launches"]["fgh_dense_flat"]),
         "pair_fgh_reduce": reg_launches["pair_fgh_reduce"],
         "fgh_dense_flat_batch": off_launches["fgh_dense_flat_batch"],
-        "newton_objective_batch": fleet_launches,
+        "newton_objective_batch": fleet_run["newton_objective_batch"],
+        "newton_solve": launches["newton_solve"],
+        "newton_solve_batch": fleet_run["newton_solve_batch"],
     }
+    yardstick = {"newton_objective": replay["per_trial_launches"],
+                 "newton_objective_batch": per_trial_batch}
     for k, v in path_launches.items():
-        check(v > 0, f"kernel {k} was launched by no path")
+        if k not in yardstick:
+            check(v > 0, f"kernel {k} was launched by no path")
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": path_launches[k], **checks[k], "library_ms": None,
     } for k in path_launches]
-    kernels[-1]["launches_sharded_fleet"] = md_launches
+    by_name = {k["name"]: k for k in kernels}
+    for k, path in (("newton_objective", "none: the body of newton_solve; "
+                     "yardstick_launches are the per-trial path of phase "
+                     "3's replay"),
+                    ("newton_objective_batch", "none: the body of "
+                     "newton_solve_batch; yardstick_launches are phase "
+                     "3d's per-trial lockstep path")):
+        by_name[k].update(path=path, yardstick_launches=yardstick[k])
+    by_name["newton_solve_batch"]["launches_sharded_fleet"] = md_launches
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
+        "replay": replay,
         "main_path": {"scans_per_s": scans / med, "run_s": runs,
                       "nodes": n_nodes, "dev_xy_m": dev_xy,
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
@@ -3559,7 +4002,7 @@ def main():
                      "optimize_offline": off_launches,
                      "online_lc": on_launches,
                      "offline_scale_fgh_dense_flat_batch": scale_launches,
-                     "sharded_fleet_newton_objective_batch": md_launches},
+                     "sharded_fleet_newton_solve_batch": md_launches},
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

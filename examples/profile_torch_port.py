@@ -16,10 +16,12 @@ timed without the profiler, and once under torch.profiler.
 Prints the device operations ranked by device time, the host operations
 ranked by host time, the device busy share (summed kernel time over the
 profiled wall time), the device operations per scan, the Newton trials
-per scan (launches of `newton_objective`) and the device operations of
-one Newton trial (a profiled `d2d.newton_match` on the inputs of
-chip_smoke.py's phase 3, over its launches); writes the tables to
-DIR/torch_port_profile.txt with `--out DIR`.
+per scan (the `trials` that `newton_solve` returns: each registration
+is one launch) and one registration of chip_smoke.py's phase 3 timed in
+turns (the kernel, the per-trial path the fuser ran before — d2d.newton_match
+over `newton_objective` —, the per-trial path, the kernel): ms a
+registration with the host and the device operations of each; writes
+the tables to DIR/torch_port_profile.txt with `--out DIR`.
 
 With --wall-only it runs the main path `--runs` times after a warm-up
 without the profiler (which takes minutes over 200 scans) and prints the
@@ -31,9 +33,11 @@ that two versions can be timed in turns inside one call; only
 With --fleet B it profiles the fleet path of chip_smoke.py's phase 7:
 scan_driver.run_sequence_batch (with --full, run_sequence_features_batch)
 over B streams of the fleet record's 39 scans at presets.fleet_serving():
-device operations per fleet step, Newton trials (launches of
-`newton_objective_batch`) per step, the busy share, the aggregate
-scans/s of the unprofiled run and the device time by operation.
+device operations per fleet step, Newton trials per step (from the
+`trials` that `newton_solve_batch` returns: the slowest lane's, which
+the masked lockstep would run, and the lanes' mean), the busy share,
+the aggregate scans/s of the unprofiled run and the device time by
+operation.
 
 With --solver it profiles the segment-Schur solve of chip_smoke.py's
 phase 9 (sparse_direct.optimize_direct on the 570-node multi-loop graph,
@@ -78,6 +82,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -99,31 +104,52 @@ def device_ops(prof):
             sum(e.self_device_time_total for e in on_dev))
 
 
-def ops_per_trial(sp, fx, dev):
-    """Device operations of one Newton trial of the main path: a
-    profiled d2d.newton_match on the objective of chip_smoke.py's phase
-    3 (256 source cells, 64 feature pairs, odometry), over the trials it
-    ran.  Returns (operations per trial, trials)."""
+def registration_turns(sp, fx, dev, reps=50):
+    """One registration of chip_smoke.py's phase 3 case (256 source
+    cells, 64 feature pairs, odometry), the kernel (`newton_solve`) and
+    the per-trial path (d2d.newton_match over `newton_objective`) in
+    turns: kernel, per-trial, per-trial, kernel, each the mean ms of
+    `reps` registrations ending in a synchronisation; then the device
+    operations and device us of a registration of each (the means of
+    20 under the profiler)."""
     from ndt_feature_graph_tpu_torch.ops import cuda_kernels, d2d
 
     p = sp.fuser
     state, src, T0, Q, _, fs, ft = chip_smoke.trial_case(sp, fx, dev)
-    src = src.head(p.match_cell_budget)
-
-    def fgh(d):
-        return cuda_kernels.newton_objective(
-            d, T0, src, state.packed, state.grid.origin, p.ndt.grid_h,
-            p.ndt.grid_w, p.ndt.resolution, p.matcher, fs, ft, Q)
-
+    args = (src.head(p.match_cell_budget), state.packed, state.grid.origin,
+            p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution, p.matcher, fs, ft,
+            Q)
     zero = torch.zeros(3, device=dev)
-    d2d.newton_match(fgh, zero, p.matcher)                 # warm-up
-    torch.cuda.synchronize()
-    cuda_kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        d2d.newton_match(fgh, zero, p.matcher)
+    kernel = lambda: cuda_kernels.newton_solve(zero, T0, *args)  # noqa
+    per = lambda: d2d.newton_match(  # noqa: E731
+        lambda d: cuda_kernels.newton_objective(d, T0, *args), zero,
+        p.matcher)
+
+    def wall(fn):
+        fn()
         torch.cuda.synchronize()
-    trials = cuda_kernels.LAUNCHES["newton_objective"]
-    return device_ops(prof)[0] / trials, trials
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def ops(fn, n=20):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        launches, us = device_ops(prof)
+        return launches / n, us / n
+
+    turns = [wall(kernel), wall(per), wall(per), wall(kernel)]
+    (k_ops, k_us), (p_ops, p_us) = ops(kernel), ops(per)
+    out = {"turns_ms_kernel_per_per_kernel": turns,
+           "kernel_device_ops": k_ops, "kernel_device_us": k_us,
+           "per_trial_device_ops": p_ops, "per_trial_device_us": p_us,
+           "trials": int(kernel()[2]), "per_trial_trials": int(per()[2])}
+    print(json.dumps({"registration": out}))
+    return out
 
 
 def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
@@ -152,8 +178,6 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
 
 def offline(dev, gpu, fx, out):
     """Stage times and the profile of optimize_offline (phase 5)."""
-    import time
-
     from ndt_feature_graph_tpu_torch import pipeline
     from ndt_feature_graph_tpu_torch.graph import links as links_mod
     from ndt_feature_graph_tpu_torch.graph import node as node_mod
@@ -238,8 +262,11 @@ def fleet(dev, gpu, b, full, out):
     steps = inputs[1].shape[1]
     chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)       # warm-up
     cuda_kernels.reset_launch_counts()
-    _, wall = chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)
-    trials = cuda_kernels.LAUNCHES["newton_objective_batch"]
+    with chip_smoke.recorded_solves("newton_solve_batch",
+                                    copy=False) as (calls, _):
+        _, wall = chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)
+    trials = torch.stack([out[2] for _, out in calls]).double()
+    launches = cuda_kernels.LAUNCHES["newton_solve_batch"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = chip_smoke.run_fleet(drv, fp, inputs, dev, **kw)
@@ -247,13 +274,14 @@ def fleet(dev, gpu, b, full, out):
     report(prof, gpu, wall, wall_prof, "steps", steps, out, name,
            {"streams": b, "driver": drv.__name__,
             "aggregate_scans_per_s": b * steps / wall,
-            "newton_trials_per_step": trials / steps})
+            "newton_solve_batch_per_step": launches / steps,
+            "newton_trials_per_step_slowest_lane":
+                float(trials.amax(1).mean()),
+            "newton_trials_per_step_mean_lane": float(trials.mean())})
 
 
 def solver(dev, gpu, out):
     """The profile of one optimize_direct solve per phase-9 graph."""
-    import time
-
     sv = dict(np.load(chip_smoke.SOLVER_FIXTURE))
     ml = chip_smoke.multi_loop_graph(chip_smoke.MULTI_LOOP["n_nodes"])
     big = chip_smoke.two_lap_graph(chip_smoke.TWO_LAP_BIG)[1:]
@@ -312,8 +340,6 @@ def localize(dev, gpu, fx, out):
     steps = ranges.shape[0] - split - 1
 
     def track():
-        import time
-
         chip_smoke.sync(dev)
         t0 = time.perf_counter()
         loc = mcl.MCL(mp, MotionParams(), tgt,
@@ -336,8 +362,6 @@ def localize(dev, gpu, fx, out):
 
 def sixdof(dev, gpu, out):
     """Phase 14a's second link: chunk sizes in turns, then a profile."""
-    import time
-
     from ndt_feature_graph_tpu_torch.ops import d2d3d
 
     lc = dict(np.load(chip_smoke.LC_FIXTURE))
@@ -523,18 +547,20 @@ def main():
 
     chip_smoke.run_main_path(sp, fx, dev)                  # warm-up
     cuda_kernels.reset_launch_counts()
-    _, wall = chip_smoke.run_main_path(sp, fx, dev)
-    trials = cuda_kernels.LAUNCHES["newton_objective"]
+    with chip_smoke.recorded_solves("newton_solve", copy=False) as (calls, _):
+        _, wall = chip_smoke.run_main_path(sp, fx, dev)
+    trials = int(torch.stack([out[2] for _, out in calls]).sum())
+    launches = cuda_kernels.LAUNCHES["newton_solve"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = chip_smoke.run_main_path(sp, fx, dev)
 
-    per_trial, n = ops_per_trial(sp, fx, dev)
+    reg = registration_turns(sp, fx, dev)
     report(prof, gpu, wall, wall_prof, "scans", scans, args.out,
            "torch_port_profile.txt",
            {"scans_per_s": scans / wall, "newton_trials_per_scan":
-            trials / scans, "device_ops_per_newton_trial": per_trial,
-            "newton_trials_profiled": n})
+            trials / scans, "newton_solve_per_scan": launches / scans,
+            "registration": reg})
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Launch-shape sweep of the port's objective kernel on one CUDA card.
 
-    python3 examples/tune_torch_port_kernels.py [--out DIR] [--fleet]
+    python3 examples/tune_torch_port_kernels.py [--out DIR] [--fleet | --solve]
 
 Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
 (-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
@@ -15,6 +15,13 @@ shapes chip_smoke.py checks them at, with the cluster size forced to 1,
   * `newton_objective_batch` on 8, 32 and 64 lanes of 256 source cells
     and 64 feature pairs (a fleet step of chip_smoke.py's phase 3d,
     bfloat16 rows), at 256 threads; `--fleet` times this entry alone.
+
+`--solve` times `newton_solve_batch` alone, at the build's own block
+size, on phase 3d's fleet step of 8, 32 and 64 lanes (bfloat16 rows)
+with the cluster forced to 1-8 blocks per lane beside the wrapper's own
+choice, each held first against its plain twin (chip_smoke.held_to_all;
+a disagreement is recorded, not raised) and printed with the clusters
+of that size the card holds at once (`ndtg_solve_max_clusters`).
 
 Times are device times per call (torch.profiler, as chip_smoke.py's
 `ms`).  Every forced shape is first held against the plain version.
@@ -48,6 +55,7 @@ def rebuild(threads):
     """Load the library built at `threads` threads per block."""
     cuda_kernels._lib = None
     cuda_kernels._RESIDENT_BLOCKS.clear()
+    cuda_kernels._SOLVE_CLUSTER.clear()
     cuda_kernels.NVCC_FLAGS = [
         f for f in cuda_kernels.NVCC_FLAGS
         if not f.startswith("-DNDTG_OBJECTIVE_THREADS")
@@ -57,11 +65,54 @@ def rebuild(threads):
         raise RuntimeError(f"built {lib.ndtg_objective_threads()} threads")
 
 
+def solve_sweep(fp, seq, dev, emit):
+    """`newton_solve_batch` at each forced cluster size (see --solve)."""
+    own_choice = cuda_kernels._solve_cluster
+    lib = cuda_kernels.build()
+    m = fp.matcher
+    h, w, res = fp.ndt.grid_h, fp.ndt.grid_w, fp.ndt.resolution
+    for lanes in chip_smoke.FLEET_SIZES:
+        a = chip_smoke.fleet_trial_case(fp, seq, lanes, dev)
+        call = (*a[1:6], h, w, res, m, *a[6:], True)
+        zero = torch.zeros((lanes, 3), device=dev)
+        n_src, n_feat = a[2].mask.shape[-1], a[6].mask.shape[-1]
+
+        def plain(d0, call=call):
+            return cuda_kernels.newton_solve_batch_reference(d0, *call)
+
+        for cluster in (None, *range(1, lib.ndtg_max_cluster() + 1)):
+            force = own_choice(lib, dev, lanes, n_src, n_feat) \
+                if cluster is None else cluster
+            cuda_kernels._solve_cluster = lambda *_, c=force: c
+            try:
+                got = cuda_kernels.newton_solve_batch(zero, *call)
+                try:
+                    chip_smoke.held_to_all(
+                        f"B={lanes}, {force} blocks a lane", got,
+                        [("plain twin", plain(zero), plain)], zero)
+                    agrees = True
+                except chip_smoke.PhaseError as e:
+                    print(f"  disagrees: {e}")
+                    agrees = False
+                us = 1e3 * chip_smoke.device_ms(
+                    lambda: cuda_kernels.newton_solve_batch(zero, *call), 20)
+            finally:
+                cuda_kernels._solve_cluster = own_choice
+            emit(entry="newton_solve_batch", lanes=lanes, n_src=n_src,
+                 n_feat=n_feat, cluster=cluster, blocks_a_lane=force,
+                 agrees_with_plain=agrees,
+                 resident_clusters=lib.ndtg_solve_max_clusters(
+                     n_src, n_feat, force),
+                 trials_max=int(got[2].max()), device_us=us)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the JSON lines")
     ap.add_argument("--fleet", action="store_true",
                     help="sweep `newton_objective_batch` alone")
+    ap.add_argument("--solve", action="store_true",
+                    help="sweep `newton_solve_batch` alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_torch_port_kernels: no CUDA device")
@@ -86,7 +137,10 @@ def main():
         lines.append(rec)
         print(json.dumps(rec), flush=True)
 
-    for threads in THREADS[:1] if args.fleet else THREADS:
+    if args.solve:
+        solve_sweep(fleet_p, fleet_seq, dev, emit)
+    for threads in () if args.solve else THREADS[:1] if args.fleet \
+            else THREADS:
         rebuild(threads)
         for cluster in CLUSTERS:
             cuda_kernels._objective_cluster = own_choice if cluster is None \

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) kernels for the SE(2) D2D score / gradient / Hessian
 // of NDT registration: one launch evaluates a whole Newton trial's
-// objective.
+// objective, or runs a whole registration (newton_solve_kernel).
 //
 // Replaces: ndt_feature_graph_tpu/ops/pallas_kernels.py:pair_fgh_reduce
 // (body _kernel, pair algebra _fgh_components), and around it what the
@@ -8,7 +8,9 @@
 // d2d_analytic.fgh_dense_flat (ops/d2d.py:gather_windows_flat), the
 // pair inputs of d2d_analytic.fgh_paired, the odometry term
 // d2d_analytic.fgh_mahalanobis and the sum of the three terms
-// (fusion/fuser.py:fgh_fn).
+// (fusion/fuser.py:fgh_fn); the solve kernel also the damped-Newton
+// loop around them (ops/d2d.py:newton_match, the chunks of a lax.scan
+// under lax.cond that the reference runs inside one XLA program).
 //
 // What bounds it on the H100 (3.35 TB/s, 67 TFLOP/s f32).  The main
 // path's trial is N = 256 source cells x K = 25 window cells = 6,400
@@ -55,6 +57,22 @@
 //     and odometry information: a fleet step's whole Newton trial, all
 //     streams, is one launch.  The lanes' clusters share nothing, so a
 //     lane's sums are those of the same lane launched alone.
+//   * A whole registration in one launch (newton_solve_kernel).  Per
+//     trial the device work is a short dependent chain of a few
+//     microseconds; what bounded a registration was the host around it
+//     (~85 eager operations of the LM step and a read of the stop flag
+//     every 6 trials).  So a cluster per lane stays resident over its
+//     trials: the blocks evaluate a trial with objective_partials, the
+//     per-trial kernel's own body (the same instructions at the same
+//     cluster size, so the same bits); rank 0 sums the cluster into
+//     shared memory and one of its threads runs the LM step (the PSD
+//     shift by the closed-form smallest eigenvalue, the damped 3x3
+//     solve by pivoted LU, Armijo, λ, the best score, the stop test);
+//     every block reads the next increment and the go flag from rank
+//     0's shared memory after a cluster sync, so all leave together.
+//     A lane leaves at its own stop, which the lockstep's masks make
+//     exact.  The source cells and the feature pairs are read once into
+//     shared memory; the table rows stay __ldg reads served from L2.
 //   * A row mode for the reference's bfloat16 gather table: each row
 //     read has its two mean channels made relative to its cell's world
 //     centre (origin + (cell index + 0.5) * resolution), all channels
@@ -290,12 +308,28 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
   return acc;
 }
 
-// The finishing step of a cluster: block rank 0 adds the blocks' window
-// partials part[0..10) in rank order, then (paired) the paired partials
-// part[10..20) of the first `paired_blocks` ranks, then (Q != nullptr)
-// the odometry term, and writes the 13 outputs.  Every thread of every
-// block of the cluster must call it; `part` is each block's own shared
-// array, written by threads of the calling block before the call.
+// Output o (of the 13) of the cluster's sum: block rank 0 adds the
+// blocks' window partials part[0..10) in rank order, then (paired) the
+// paired partials part[10..20) of the first `paired_blocks` ranks, then
+// (Q != nullptr) the odometry term.  Called by threads o < kOut of rank
+// 0 after a cluster.sync() that follows every block's partials.
+__device__ __forceinline__ float cluster_output(cg::cluster_group& cluster,
+                                                float* part, int o,
+                                                bool paired,
+                                                unsigned paired_blocks,
+                                                const float* d,
+                                                const float* __restrict__ Q) {
+  const int c = comp_of_output(o);
+  float acc = cluster_sum(cluster, part, c, cluster.num_blocks());
+  if (paired) acc += cluster_sum(cluster, part, kComps + c, paired_blocks);
+  if (Q != nullptr) acc += odometry_output(o, d, Q);
+  return acc;
+}
+
+// The finishing step of a cluster: rank 0 writes the 13 outputs of
+// cluster_output.  Every thread of every block of the cluster must call
+// it; `part` is each block's own shared array, written by threads of the
+// calling block before the call.
 __device__ __forceinline__ void cluster_finish(float* part, bool paired,
                                                unsigned paired_blocks,
                                                const float* __restrict__ d,
@@ -304,19 +338,15 @@ __device__ __forceinline__ void cluster_finish(float* part, bool paired,
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                      // every block's partials are written
   if (cluster.block_rank() == 0 && threadIdx.x < kOut) {
-    const int o = threadIdx.x;
-    const int c = comp_of_output(o);
-    float acc = cluster_sum(cluster, part, c, cluster.num_blocks());
-    if (paired) acc += cluster_sum(cluster, part, kComps + c, paired_blocks);
-    if (Q != nullptr) acc += odometry_output(o, d, Q);
-    out[o] = acc;
+    out[threadIdx.x] = cluster_output(cluster, part, threadIdx.x, paired,
+                                      paired_blocks, d, Q);
   }
   cluster.sync();                      // peers stay until rank 0 has read
 }
 
 struct ObjectiveArgs {
   // Every term is per lane (lane = blockIdx.y, B lanes).
-  // Increment and initial pose (B, 3).
+  // Increment and initial pose (B, 3).  The solve kernel starts from d.
   const float* d;
   const float* T0;
   // Window term; packed == nullptr switches it off.  Source cells
@@ -341,7 +371,7 @@ struct ObjectiveArgs {
   // Odometry term, (B, 3, 3); nullptr: off.
   const float* Q;
   float lfd1, lfd2;
-  float* out;   // (B, 13)
+  float* out;   // (B, 13); the solve kernel writes SolveArgs' outputs
 };
 
 // A source cell as its owner lane holds it: raw, then moved.
@@ -366,35 +396,154 @@ __device__ __forceinline__ SourceCell load_cell(
   return s;
 }
 
-// One cluster per lane evaluates the lane's objective.  Window term: a
-// warp takes `g` source cells at a time (g <= 32, as many as spread the
-// list over the cluster's warps), every n_warps-th cell from its own
-// index on; lane j owns the j-th of them — loads it (before the pose is
-// ready), moves it and finds its window's base cell — and the g x K
-// (cell, window cell) pairs are laid flat over the
-// lanes, 32 per step, each lane fetching its pair's cell from the
-// owner by shuffle: every lane works whatever K is.  Paired term: one
-// thread per feature pair.  Then block sums and the cluster's finish.
-// BF16_ROWS reads the table in the bfloat16 row mode; it is a template
-// argument so that the f32 instantiation carries none of its registers.
-// At 256 threads the kernel is held to the registers of three blocks
-// per SM (85 a thread): the cluster-size rule of the wrapper counts the
-// blocks the card holds at once, and 174 lanes cost 13% more at two.
-template <int THREADS, bool BF16_ROWS>
-__global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
-    objective_kernel(ObjectiveArgs a) {
+// The source cells of a block, kept in shared memory over a whole solve:
+// slot t * kWarps + (local warp) holds cell (global warp) + t * n_warps
+// of the lane as two float4 (m0 m1 c00 c01) (c10 c11 ok 0), ok = 0 past
+// the list or masked.  slots_per_block(...) slots a block.
+__host__ __device__ __forceinline__ int slots_per_block(int n_src,
+                                                        int n_warps,
+                                                        int warps) {
+  return warps * ((n_src + n_warps - 1) / n_warps);
+}
+
+template <int THREADS>
+__device__ __forceinline__ void fill_slots(const float* __restrict__ means,
+                                           const float* __restrict__ covs,
+                                           const uint8_t* __restrict__ mask,
+                                           int n_src, int rank, int n_warps,
+                                           float4* slots) {
+  constexpr int kWarps = THREADS / 32;
+  const int n_slots = slots_per_block(n_src, n_warps, kWarps);
+  for (int s = threadIdx.x; s < n_slots; s += THREADS) {
+    const int i = rank * kWarps + s % kWarps + (s / kWarps) * n_warps;
+    const SourceCell c = load_cell(means, covs, mask, i, i < n_src);
+    slots[2 * s] = make_float4(c.m0, c.m1, c.c00, c.c01);
+    slots[2 * s + 1] = make_float4(c.c10, c.c11, c.ok ? 1.0f : 0.0f, 0.0f);
+  }
+}
+
+// Slot s as load_cell gives the cell; only a lane that owns a cell
+// (`mine`) reads, so no read passes the block's slots.
+__device__ __forceinline__ SourceCell slot_cell(const float4* slots, int s,
+                                                bool mine) {
+  SourceCell c;
+  const float4 a = mine ? slots[2 * s] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 b =
+      mine ? slots[2 * s + 1] : make_float4(0.f, 0.f, 0.f, 0.f);
+  c.ok = b.z > 0.5f;
+  c.m0 = a.x; c.m1 = a.y; c.c00 = a.z; c.c01 = a.w;
+  c.c10 = b.x; c.c11 = b.y;
+  return c;
+}
+
+// A feature pair as its thread holds it: the source feature (mean,
+// covariance), the target feature (mean, the covariance's (0,0) (0,1)
+// (1,1)) and whether both are unmasked.
+struct FeaturePair {
+  float sm0, sm1, sc0, sc1, sc2, sc3, tm0, tm1, tc0, tc1, tc3;
+  bool ok;
+};
+
+// Pair p of the flat (B * n_feat) lists; the rest is read only for an
+// unmasked pair.
+__device__ __forceinline__ FeaturePair load_pair(const ObjectiveArgs& a,
+                                                 long long p) {
+  FeaturePair q;
+  q.ok = a.fs_mask[p] && a.ft_mask[p];
+  if (q.ok) {
+    const float* sm = a.fs_means + 2 * p;
+    const float* sc = a.fs_covs + 4 * p;
+    const float* tm = a.ft_means + 2 * p;
+    const float* tc = a.ft_covs + 4 * p;
+    q.sm0 = sm[0]; q.sm1 = sm[1];
+    q.sc0 = sc[0]; q.sc1 = sc[1]; q.sc2 = sc[2]; q.sc3 = sc[3];
+    q.tm0 = tm[0]; q.tm1 = tm[1];
+    q.tc0 = tc[0]; q.tc1 = tc[1]; q.tc3 = tc[3];
+  }
+  return q;
+}
+
+// The feature pairs of a block, kept in shared memory over a whole
+// solve: the thread that evaluates the k-th of its pairs (pair rank *
+// THREADS + threadIdx.x + k * n_blocks * THREADS of the lane) keeps it in
+// slot threadIdx.x + k * THREADS as three float4, and alone reads it.
+// feature_slots_per_block(...) slots a block.
+__host__ __device__ __forceinline__ int feature_slots_per_block(
+    int n_feat, int n_blocks, int threads) {
+  const int per_thread = (n_feat + n_blocks * threads - 1) /
+                         (n_blocks * threads);
+  return (n_feat < threads ? n_feat : threads) * per_thread;
+}
+
+template <int THREADS>
+__device__ __forceinline__ void fill_feature_slots(const ObjectiveArgs& a,
+                                                   long long b, int rank,
+                                                   int n_blocks,
+                                                   float4* slots) {
+  int j = threadIdx.x;
+  for (int i = rank * THREADS + threadIdx.x; i < a.n_feat;
+       i += n_blocks * THREADS, j += THREADS) {
+    const FeaturePair q = load_pair(a, b * a.n_feat + i);
+    if (q.ok) {
+      slots[3 * j] = make_float4(q.sm0, q.sm1, q.sc0, q.sc1);
+      slots[3 * j + 1] = make_float4(q.sc2, q.sc3, q.tm0, q.tm1);
+      slots[3 * j + 2] = make_float4(q.tc0, q.tc1, q.tc3, 1.0f);
+    } else {
+      slots[3 * j + 2] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ FeaturePair slot_pair(const float4* slots, int j) {
+  FeaturePair q;
+  const float4 c = slots[3 * j + 2];
+  q.ok = c.w > 0.5f;
+  if (q.ok) {
+    const float4 x = slots[3 * j];
+    const float4 y = slots[3 * j + 1];
+    q.sm0 = x.x; q.sm1 = x.y; q.sc0 = x.z; q.sc1 = x.w;
+    q.sc2 = y.x; q.sc3 = y.y; q.tm0 = y.z; q.tm1 = y.w;
+    q.tc0 = c.x; q.tc1 = c.y; q.tc3 = c.z;
+  }
+  return q;
+}
+
+// Blocks of a lane's cluster that hold feature pairs: the first
+// ceil(n_feat / THREADS), the same for every lane (n_feat is the lists'
+// capacity).
+template <int THREADS>
+__device__ __forceinline__ unsigned paired_block_count(int n_feat,
+                                                       int n_blocks) {
+  return min(n_blocks, (n_feat + THREADS - 1) / THREADS);
+}
+
+// One block's share of lane b's objective at increment d (3 floats, in
+// device or shared memory), summed into the block's shared part[]: the
+// body of one Newton trial, shared by the per-trial kernel
+// (objective_kernel) and the whole-solve kernel (newton_solve_kernel),
+// so both evaluate a trial with the same instructions in the same order
+// at the same cluster size.
+//
+// Window term: a warp takes `g` source cells at a time (g <= 32, as
+// many as spread the list over the cluster's warps), every n_warps-th
+// cell from its own index on; lane j owns the j-th of them — loads it
+// (before the pose is ready), moves it and finds its window's base cell
+// — and the g x K (cell, window cell) pairs are laid flat over the
+// lanes, 32 per step, each lane fetching its pair's cell from the owner
+// by shuffle: every lane works whatever K is.  Paired term: one thread
+// per feature pair.  Then the block's fixed-order sums.  RESIDENT reads
+// the source cells and the feature pairs from the block's shared slots
+// (fill_slots, fill_feature_slots) instead of
+// device memory.  Every thread of the block must call it.
+template <int THREADS, bool BF16_ROWS, bool RESIDENT>
+__device__ __forceinline__ void objective_partials(
+    const ObjectiveArgs& a, long long b, const float* d, int rank,
+    int n_blocks, const float4* slots, const float4* feature_slots,
+    float* pose,
+    float (*warp_sums)[2 * kComps], float* part) {
   constexpr int kWarps = THREADS / 32;
   constexpr unsigned kFull = 0xffffffffu;
-  __shared__ float pose[4];
-  __shared__ float warp_sums[kWarps][2 * kComps];
-  __shared__ float part[2 * kComps];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int n_blocks = (int)cluster.num_blocks();
-  const long long b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const float* d = a.d + 3 * b;
   const bool window = a.packed != nullptr;
   const bool paired = a.fs_means != nullptr;
 
@@ -404,14 +553,17 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
   const float* covs = window ? a.covs + b * a.n_src * 4 : nullptr;
   const uint8_t* mask = window ? a.mask + b * a.n_src : nullptr;
   const int n_warps = n_blocks * kWarps;
-  const int warp = rank * kWarps + (threadIdx.x >> 5);
+  const int local_warp = threadIdx.x >> 5;
+  const int warp = rank * kWarps + local_warp;
   const int g = min(32, (a.n_src + n_warps - 1) / n_warps);
   int t0 = 0;   // the warp's cells are warp + t * n_warps, t = t0 + lane
   SourceCell cell;
   cell.ok = false;
   if (window) {
     const int i = warp + lane * n_warps;
-    cell = load_cell(means, covs, mask, i, lane < g && i < a.n_src);
+    const bool mine = lane < g && i < a.n_src;
+    cell = RESIDENT ? slot_cell(slots, lane * kWarps + local_warp, mine)
+                    : load_cell(means, covs, mask, i, mine);
   }
   if (threadIdx.x == 0) trial_pose(d, a.T0 + 3 * b, pose);
   __syncthreads();
@@ -423,19 +575,17 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
 
   if (paired) {
     const long long f0 = b * a.n_feat;      // the lane's feature lists
+    int j = threadIdx.x;                     // the pair's feature slot
     for (int i = rank * THREADS + threadIdx.x; i < a.n_feat;
-         i += n_blocks * THREADS) {
-      const long long p = f0 + i;
-      if (a.fs_mask[p] && a.ft_mask[p]) {
-        const float* sm = a.fs_means + 2 * p;
-        const float* sc = a.fs_covs + 4 * p;
+         i += n_blocks * THREADS, j += THREADS) {
+      const FeaturePair q =
+          RESIDENT ? slot_pair(feature_slots, j) : load_pair(a, f0 + i);
+      if (q.ok) {
         float mx, my, k00, k01, k11;
-        move_gaussian(pose, sm[0], sm[1], sc[0], sc[1], sc[2], sc[3], mx, my,
+        move_gaussian(pose, q.sm0, q.sm1, q.sc0, q.sc1, q.sc2, q.sc3, mx, my,
                       k00, k01, k11);
-        const float* tm = a.ft_means + 2 * p;
-        const float* tc = a.ft_covs + 4 * p;
-        pair_components(mx - tm[0], my - tm[1], k00 + tc[0], k01 + tc[1],
-                        k11 + tc[3], mx - d0, my - d1, k00, k01, k11, a.lfd1,
+        pair_components(mx - q.tm0, my - q.tm1, k00 + q.tc0, k01 + q.tc1,
+                        k11 + q.tc3, mx - d0, my - d1, k00, k01, k11, a.lfd1,
                         a.lfd2, v + kComps);
       }
     }
@@ -510,21 +660,45 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
       t0 += g;
       if (warp + t0 * n_warps < a.n_src) {
         const int i = warp + (t0 + lane) * n_warps;
-        cell = load_cell(means, covs, mask, i, lane < g && i < a.n_src);
+        const bool mine = lane < g && i < a.n_src;
+        cell = RESIDENT
+                   ? slot_cell(slots, (t0 + lane) * kWarps + local_warp, mine)
+                   : load_cell(means, covs, mask, i, mine);
       }
     }
   }
 
-  // Blocks that hold feature pairs: the first ceil(n_feat / THREADS),
-  // the same for every lane (n_feat is the lists' capacity).
-  const unsigned paired_blocks =
-      min(n_blocks, (a.n_feat + THREADS - 1) / THREADS);
-  if (paired && rank < (int)paired_blocks) {
+  if (paired && rank < (int)paired_block_count<THREADS>(a.n_feat, n_blocks)) {
     block_sum<THREADS, 2 * kComps>(v, warp_sums, part);
   } else {
     block_sum<THREADS, kComps>(v, warp_sums, part);
   }
-  cluster_finish(part, paired, paired_blocks, d,
+}
+
+// One cluster per lane evaluates the lane's objective once
+// (objective_partials from device memory, then the cluster's finish).
+// BF16_ROWS reads the table in the bfloat16 row mode; it is a template
+// argument so that the f32 instantiation carries none of its registers.
+// At 256 threads the kernel is held to the registers of three blocks
+// per SM (85 a thread): the cluster-size rule of the wrapper counts the
+// blocks the card holds at once, and 174 lanes cost 13% more at two.
+template <int THREADS, bool BF16_ROWS>
+__global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
+    objective_kernel(ObjectiveArgs a) {
+  __shared__ float pose[4];
+  __shared__ float warp_sums[THREADS / 32][2 * kComps];
+  __shared__ float part[2 * kComps];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_blocks = (int)cluster.num_blocks();
+  const long long b = blockIdx.y;
+  const float* d = a.d + 3 * b;
+  objective_partials<THREADS, BF16_ROWS, false>(a, b, d, rank, n_blocks,
+                                                nullptr, nullptr, pose,
+                                                warp_sums, part);
+  cluster_finish(part, a.fs_means != nullptr,
+                 paired_block_count<THREADS>(a.n_feat, n_blocks), d,
                  a.Q != nullptr ? a.Q + 9 * b : nullptr, a.out + kOut * b);
 }
 
@@ -554,18 +728,312 @@ __global__ void __launch_bounds__(THREADS) pair_fgh_kernel(
   cluster_finish(part, false, 0, nullptr, nullptr, out);
 }
 
+// ---------------------------------------------------------------------
+// The whole damped-Newton (Levenberg-Marquardt) minimisation of a lane
+// in one launch: d2d.newton_match_batch over the objective above.
+
+struct SolveArgs {
+  int max_trials;        // the lockstep budget, 6 * ceil(2 itr_max / 6)
+  float delta_score;
+  int step_control;
+  float* d_out;          // (B, 3)
+  float* score_out;      // (B,)
+  int* trials_out;       // (B,)
+  uint8_t* conv_out;     // (B,)
+};
+
+// A lane's LM state, in rank 0's shared memory; thread 0 of rank 0
+// alone reads and writes it.  trials < 0: the first evaluation is due.
+struct LMState {
+  float d[3], f, g[3], H[9], lam, best_d[3], best_f, delta[3];
+  int itr, trials, stop, grad_vanished;
+};
+
+// The LM step rounds each operation on its own, in the order of the
+// plain version's eager operations (ops/d2d.py): no contracted
+// multiply-add, so it is the float32 arithmetic that the plain version
+// and tests/test_torch_newton_solve.py's numpy mirror do.
+__device__ __forceinline__ float rn_add(float x, float y) {
+  return __fadd_rn(x, y);
+}
+__device__ __forceinline__ float rn_sub(float x, float y) {
+  return __fsub_rn(x, y);
+}
+__device__ __forceinline__ float rn_mul(float x, float y) {
+  return __fmul_rn(x, y);
+}
+__device__ __forceinline__ float rn_div(float x, float y) {
+  return __fdiv_rn(x, y);
+}
+// torch.clamp: a NaN passes through.
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return x > hi ? hi : x;
+}
+
+// d2d._min_eig_sym3: the smallest eigenvalue of a symmetric 3x3
+// (row-major), trigonometric method, determinant by cofactors.
+__device__ float min_eig_sym3(const float* H) {
+  const float q = rn_div(rn_add(rn_add(H[0], H[4]), H[8]), 3.0f);
+  const float qz = rn_mul(q, 0.0f);    // H - q * eye off the diagonal
+  float B[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    B[i] = rn_sub(H[i], (i % 4 == 0) ? q : qz);
+  }
+  float ss = rn_mul(B[0], B[0]);
+#pragma unroll
+  for (int i = 1; i < 9; ++i) ss = rn_add(ss, rn_mul(B[i], B[i]));
+  const float p2 = rn_div(ss, 6.0f);
+  const float p = sqrtf(clamp_min(p2, 1e-30f));
+  const float det = rn_add(
+      rn_sub(rn_mul(B[0], rn_sub(rn_mul(B[4], B[8]), rn_mul(B[5], B[7]))),
+             rn_mul(B[1], rn_sub(rn_mul(B[3], B[8]), rn_mul(B[5], B[6])))),
+      rn_mul(B[2], rn_sub(rn_mul(B[3], B[7]), rn_mul(B[4], B[6]))));
+  const float r = clamp_max(
+      clamp_min(rn_div(det, rn_mul(rn_mul(rn_mul(2.0f, p), p), p)), -1.0f),
+      1.0f);
+  const float phi = rn_div(acosf(r), 3.0f);
+  const float lam_min = rn_add(
+      q, rn_mul(rn_mul(2.0f, p), cosf(rn_add(phi, 2.0943951023931953f))));
+  return p2 < 1e-28f ? q : lam_min;
+}
+
+// x = A^-1 y for a 3x3 A (row-major, overwritten): LU with partial
+// pivoting in the order of an unblocked getrf (the largest |a| of the
+// column, the first on a tie; multipliers by division), then getrs's
+// two triangular solves column by column.
+__device__ void lu_solve3(float* A, const float* y, float* x) {
+  int perm[3] = {0, 1, 2};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int piv = k;
+    float best = fabsf(A[3 * k + k]);
+    for (int i = k + 1; i < 3; ++i) {
+      if (fabsf(A[3 * i + k]) > best) {
+        best = fabsf(A[3 * i + k]);
+        piv = i;
+      }
+    }
+    if (piv != k) {
+      for (int j = 0; j < 3; ++j) {
+        const float t = A[3 * k + j];
+        A[3 * k + j] = A[3 * piv + j];
+        A[3 * piv + j] = t;
+      }
+      const int t = perm[k];
+      perm[k] = perm[piv];
+      perm[piv] = t;
+    }
+    for (int i = k + 1; i < 3; ++i) {
+      const float l = rn_div(A[3 * i + k], A[3 * k + k]);
+      A[3 * i + k] = l;
+      for (int j = k + 1; j < 3; ++j) {
+        A[3 * i + j] = rn_sub(A[3 * i + j], rn_mul(l, A[3 * k + j]));
+      }
+    }
+  }
+  float z[3] = {y[perm[0]], y[perm[1]], y[perm[2]]};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {          // L z = P y, unit diagonal
+    for (int i = j + 1; i < 3; ++i) {
+      z[i] = rn_sub(z[i], rn_mul(z[j], A[3 * i + j]));
+    }
+  }
+#pragma unroll
+  for (int j = 2; j >= 0; --j) {         // U x = z
+    z[j] = rn_div(z[j], A[3 * j + j]);
+    for (int i = 0; i < j; ++i) {
+      z[i] = rn_sub(z[i], rn_mul(z[j], A[3 * i + j]));
+    }
+  }
+  x[0] = z[0];
+  x[1] = z[1];
+  x[2] = z[2];
+}
+
+// One LM step of a lane after an evaluation `fgh` (f, g, H row-major)
+// at trial_d, in the order of d2d.newton_match_batch: on the first
+// evaluation the state starts there; after a trial, accept (Armijo), λ,
+// the best score, the stop test and the count.  Then, unless the lane
+// stops or its budget is spent, the next trial: the Hessian shifted by
+// the negative part of its smallest eigenvalue (_psd_project,
+// unguarded), the damped solve, trial_d = d + delta.  Returns 1 when
+// trial_d is to be evaluated, 0 when the lane is done.  A lane that
+// stops leaves the loop: in the lockstep every later update of a
+// stopped lane is masked, so its result is the same.
+__device__ __noinline__ int lm_step(LMState& st, const float* fgh,
+                                    float* trial_d, const SolveArgs& s) {
+  if (st.trials < 0) {
+    for (int i = 0; i < 3; ++i) {
+      st.d[i] = trial_d[i];
+      st.best_d[i] = trial_d[i];
+      st.g[i] = fgh[1 + i];
+    }
+    for (int i = 0; i < 9; ++i) st.H[i] = fgh[4 + i];
+    st.f = fgh[0];
+    st.best_f = fgh[0];
+    st.lam = 1e-3f;
+    st.itr = 0;
+    st.trials = 0;
+    st.stop = 0;
+  } else {
+    const float f_new = fgh[0];
+    const float dg = rn_add(rn_add(rn_mul(st.delta[0], st.g[0]),
+                                   rn_mul(st.delta[1], st.g[1])),
+                            rn_mul(st.delta[2], st.g[2]));
+    const bool accept = f_new <= rn_add(st.f, rn_mul(1e-4f, dg));
+    const float lam =
+        !s.step_control ? 1e-6f
+        : accept        ? clamp_min(rn_mul(st.lam, 0.33f), 1e-6f)
+                        : rn_mul(st.lam, 6.0f);
+    const bool score_converged =
+        accept && rn_sub(st.f, f_new) <= s.delta_score;
+    if (accept) {
+      for (int i = 0; i < 3; ++i) {
+        st.d[i] = trial_d[i];
+        st.g[i] = fgh[1 + i];
+      }
+      for (int i = 0; i < 9; ++i) st.H[i] = fgh[4 + i];
+      st.f = f_new;
+    }
+    st.lam = lam;
+    if (st.f < st.best_f) {
+      st.best_f = st.f;
+      for (int i = 0; i < 3; ++i) st.best_d[i] = st.d[i];
+    }
+    st.stop = st.grad_vanished || lam > 1e7f || score_converged;
+    st.itr += 1;
+    st.trials += 1;
+  }
+  if (st.stop || st.trials >= s.max_trials) return 0;
+
+  const float shift = clamp_min(-min_eig_sym3(st.H), 0.0f);
+  const float sz = rn_mul(st.lam, 0.0f);
+  const float hz = rn_mul(shift, 0.0f);
+  float A[9];
+  for (int i = 0; i < 9; ++i) {     // (H + shift I) + lam I
+    const bool diag = i % 4 == 0;
+    A[i] = rn_add(rn_add(st.H[i], diag ? shift : hz), diag ? st.lam : sz);
+  }
+  const float gg = rn_add(rn_add(rn_mul(st.g[0], st.g[0]),
+                                 rn_mul(st.g[1], st.g[1])),
+                          rn_mul(st.g[2], st.g[2]));
+  st.grad_vanished = sqrtf(gg) <= s.delta_score;
+  float x[3];
+  lu_solve3(A, st.g, x);
+  for (int i = 0; i < 3; ++i) {
+    st.delta[i] = -x[i];
+    trial_d[i] = rn_add(st.d[i], st.delta[i]);
+  }
+  return 1;
+}
+
+// The lane's result: the best-score fallback, the trial count and the
+// stop flag.
+__device__ __noinline__ void lm_finish(const LMState& st, const SolveArgs& s,
+                                       long long b) {
+  const bool use_best = st.f > st.best_f;
+  for (int i = 0; i < 3; ++i) {
+    s.d_out[3 * b + i] = use_best ? st.best_d[i] : st.d[i];
+  }
+  s.score_out[b] = use_best ? st.best_f : st.f;
+  s.trials_out[b] = st.itr;
+  s.conv_out[b] = st.stop ? 1 : 0;
+}
+
+// One cluster per lane runs the lane's whole minimisation: a loop of
+// objective_partials (the per-trial kernel's body, on source cells held
+// in shared memory over the solve) and, in block rank 0, the cluster's
+// sum into shared memory and lm_step by one thread, which writes the
+// next increment and the go flag.  After a cluster.sync() every block
+// reads both from rank 0's shared memory; the flag is the same for all
+// the cluster's blocks, so they leave the loop together, and a lane
+// leaves at its own stop without waiting for another.  Two cluster
+// syncs a trial, as the per-trial kernel's finish has.
+template <int THREADS, bool BF16_ROWS>
+__global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
+    newton_solve_kernel(ObjectiveArgs a, SolveArgs s) {
+  constexpr int kWarps = THREADS / 32;
+  extern __shared__ float4 solve_slots[];
+  __shared__ float pose[4];
+  __shared__ float warp_sums[kWarps][2 * kComps];
+  __shared__ float part[2 * kComps];
+  __shared__ float trial_d[3];   // the increment this trial evaluates
+  __shared__ int go;             // 0: the lane is done
+  __shared__ float fgh[kOut];    // rank 0: the trial's (f, g, H)
+  __shared__ LMState st;         // rank 0: the lane's LM state
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_blocks = (int)cluster.num_blocks();
+  const long long b = blockIdx.y;
+  const bool paired = a.fs_means != nullptr;
+  const unsigned paired_blocks =
+      paired_block_count<THREADS>(a.n_feat, n_blocks);
+  const float* Q = a.Q != nullptr ? a.Q + 9 * b : nullptr;
+  // Dynamic shared memory: the source-cell slots, then the feature
+  // pairs' (ndtg_solve_smem).
+  const int n_cell_slots =
+      a.packed != nullptr ? slots_per_block(a.n_src, n_blocks * kWarps, kWarps)
+                          : 0;
+  float4* feature_slots = solve_slots + 2 * n_cell_slots;
+  if (a.packed != nullptr) {
+    fill_slots<THREADS>(a.means + b * a.n_src * 2, a.covs + b * a.n_src * 4,
+                        a.mask + b * a.n_src, a.n_src, rank,
+                        n_blocks * kWarps, solve_slots);
+  }
+  if (paired) {
+    fill_feature_slots<THREADS>(a, b, rank, n_blocks, feature_slots);
+  }
+  if (threadIdx.x < 3) trial_d[threadIdx.x] = a.d[3 * b + threadIdx.x];
+  if (threadIdx.x == 0) st.trials = -1;
+  __syncthreads();
+
+  for (;;) {
+    objective_partials<THREADS, BF16_ROWS, true>(
+        a, b, trial_d, rank, n_blocks, solve_slots, feature_slots, pose,
+        warp_sums, part);
+    cluster.sync();                    // every block's partials are written
+    if (rank == 0) {
+      if (threadIdx.x < kOut) {
+        fgh[threadIdx.x] = cluster_output(cluster, part, threadIdx.x, paired,
+                                          paired_blocks, trial_d, Q);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) go = lm_step(st, fgh, trial_d, s);
+    }
+    cluster.sync();                    // rank 0 has read and stepped
+    if (rank != 0) {
+      if (threadIdx.x < 3) {
+        trial_d[threadIdx.x] = cluster.map_shared_rank(trial_d, 0)[threadIdx.x];
+      } else if (threadIdx.x == 3) {
+        go = *cluster.map_shared_rank(&go, 0);
+      }
+    }
+    __syncthreads();
+    if (!go) break;                    // uniform over the cluster
+  }
+  if (rank == 0 && threadIdx.x == 0) lm_finish(st, s, b);
+  cluster.sync();                      // rank 0 stays until peers have read
+}
+
 // Launch `kernel` on a (cluster, n_lanes) grid whose x extent is one
 // thread-block cluster.  Returns the launch error (0 = success).
+// `smem`: dynamic shared memory bytes a block.
 template <typename... KArgs, typename... Args>
 int launch_clusters(void (*kernel)(KArgs...), int threads, int cluster,
-                    int n_lanes, cudaStream_t stream, Args... args) {
+                    int n_lanes, size_t smem, cudaStream_t stream,
+                    Args... args) {
   if (cluster < 1 || cluster > kMaxCluster || n_lanes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, n_lanes, 1);
   cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -617,36 +1085,115 @@ int ndtg_objective(const float* d, const float* T0, const float* means,
                    const uint8_t* ft_mask, int n_feat, const float* Q,
                    float lfd1, float lfd2, float* out, int cluster,
                    void* stream) {
-  ObjectiveArgs a;
-  a.d = d;
-  a.T0 = T0;
-  a.means = means;
-  a.covs = covs;
-  a.mask = mask;
-  a.packed = packed;
-  a.origins = origins;
-  a.row_offsets = row_offsets;
-  a.n_src = n_src;
-  a.h = h;
-  a.w = w;
-  a.nb = nb;
-  a.res = res;
-  a.fs_means = fs_means;
-  a.fs_covs = fs_covs;
-  a.fs_mask = fs_mask;
-  a.ft_means = ft_means;
-  a.ft_covs = ft_covs;
-  a.ft_mask = ft_mask;
-  a.n_feat = n_feat;
-  a.Q = Q;
-  a.lfd1 = lfd1;
-  a.lfd2 = lfd2;
-  a.out = out;
+  const ObjectiveArgs a = {d, T0, means, covs, mask, packed, origins,
+                           row_offsets, n_src, h, w, nb, res, fs_means,
+                           fs_covs, fs_mask, ft_means, ft_covs, ft_mask,
+                           n_feat, Q, lfd1, lfd2, out};
   void (*kernel)(ObjectiveArgs) =
       bf16_rows != 0 ? objective_kernel<kObjectiveThreads, true>
                      : objective_kernel<kObjectiveThreads, false>;
-  return launch_clusters(kernel, kObjectiveThreads, cluster, n_lanes,
+  return launch_clusters(kernel, kObjectiveThreads, cluster, n_lanes, 0,
                          static_cast<cudaStream_t>(stream), a);
+}
+
+// Dynamic shared memory of a newton_solve block at `cluster` blocks a
+// lane: its source-cell slots (two float4 each; n_src = 0 with the
+// window term off), then its feature-pair slots (three float4 each;
+// n_feat = 0 with the paired term off).
+int ndtg_solve_smem(int n_src, int n_feat, int cluster) {
+  constexpr int kWarps = kObjectiveThreads / 32;
+  const int cells =
+      n_src > 0 ? 32 * slots_per_block(n_src, cluster * kWarps, kWarps) : 0;
+  const int pairs =
+      n_feat > 0
+          ? 48 * feature_slots_per_block(n_feat, cluster, kObjectiveThreads)
+          : 0;
+  return cells + pairs;
+}
+
+// Thread-block clusters of the solve kernel the card holds at once at
+// `cluster` blocks a lane and the shared memory of ndtg_solve_smem,
+// the fewer of its two row modes.  cudaOccupancyMaxActiveClusters
+// counts where clusters can be placed within the GPCs, which SMs x
+// blocks an SM does not.  Returns 0 if such a cluster cannot launch.
+int ndtg_solve_max_clusters(int n_src, int n_feat, int cluster) {
+  const int smem = ndtg_solve_smem(n_src, n_feat, cluster);
+  void (*const kernels[2])(ObjectiveArgs, SolveArgs) = {
+      newton_solve_kernel<kObjectiveThreads, false>,
+      newton_solve_kernel<kObjectiveThreads, true>};
+  int least = -1;
+  for (auto kernel : kernels) {
+    if (smem > 48 * 1024 &&
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(kObjectiveThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    least = least < 0 || n < least ? n : least;
+  }
+  return least;
+}
+
+// The whole damped-Newton minimisation of n_lanes lanes from d_init
+// (n_lanes, 3) over the objective of ndtg_objective (the same arguments
+// and term switches), one cluster of `cluster` blocks per lane that
+// loops over the lane's trials: at most max_trials after the first
+// evaluation, stopping at delta_score as d2d.newton_match_batch does,
+// with λ adapted when step_control != 0.  Writes d_out (n_lanes, 3),
+// score_out (n_lanes,), trials_out (int32) and conv_out (uint8).
+// Returns the launch error (0 = success).
+int ndtg_newton_solve(const float* d_init, const float* T0,
+                      const float* means, const float* covs,
+                      const uint8_t* mask, const float* packed,
+                      const float* origins, const long long* row_offsets,
+                      int n_lanes, int n_src, int h, int w, float res,
+                      int nb, int bf16_rows, const float* fs_means,
+                      const float* fs_covs, const uint8_t* fs_mask,
+                      const float* ft_means, const float* ft_covs,
+                      const uint8_t* ft_mask, int n_feat, const float* Q,
+                      float lfd1, float lfd2, int max_trials,
+                      float delta_score, int step_control, float* d_out,
+                      float* score_out, int* trials_out, uint8_t* conv_out,
+                      int cluster, void* stream) {
+  const ObjectiveArgs a = {d_init, T0, means, covs, mask, packed, origins,
+                           row_offsets, n_src, h, w, nb, res, fs_means,
+                           fs_covs, fs_mask, ft_means, ft_covs, ft_mask,
+                           n_feat, Q, lfd1, lfd2, nullptr};
+  const SolveArgs s = {max_trials, delta_score, step_control, d_out,
+                       score_out, trials_out, conv_out};
+  void (*kernel)(ObjectiveArgs, SolveArgs) =
+      bf16_rows != 0 ? newton_solve_kernel<kObjectiveThreads, true>
+                     : newton_solve_kernel<kObjectiveThreads, false>;
+  if (cluster < 1 || cluster > kMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = ndtg_solve_smem(packed != nullptr ? n_src : 0,
+                                   fs_means != nullptr ? n_feat : 0, cluster);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch_clusters(kernel, kObjectiveThreads, cluster, n_lanes,
+                         static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(stream), a, s);
 }
 
 // out: (13,).  One cluster of `cluster` blocks x ndtg_pair_threads().
@@ -655,7 +1202,7 @@ int ndtg_pair_fgh_reduce(const float* mu, const float* sig,
                          const uint8_t* ok, long long n_pairs, float lfd1,
                          float lfd2, float* out, int cluster, void* stream) {
   return launch_clusters(pair_fgh_kernel<kPairThreads>, kPairThreads,
-                         cluster, 1, static_cast<cudaStream_t>(stream), mu,
+                         cluster, 1, 0, static_cast<cudaStream_t>(stream), mu,
                          sig, m_rot, crot, ok, n_pairs, lfd1, lfd2, out);
 }
 

@@ -7,11 +7,12 @@ one stream, `update_batch` B independent streams in one step (fleet
 serving): the same functions over a leading stream dimension, no loop
 over streams.
 
-Every Newton trial's objective — D2D window term, paired feature term
-and odometry term — is one launch of a CUDA kernel entry:
-`cuda_kernels.newton_objective` for one stream,
-`cuda_kernels.newton_objective_batch` for all B streams of a fleet step;
-on CPU tensors it is the sum of the plain terms.  The reference's TPU
+Each registration — the damped-Newton minimisation of the D2D window
+term, the paired feature term and the odometry term — is one launch of
+a CUDA kernel entry: `cuda_kernels.newton_solve` for one stream,
+`cuda_kernels.newton_solve_batch` for all B streams of a fleet step; on
+CPU tensors it is d2d.newton_match[_batch] over the sum of the plain
+terms.  The reference's TPU
 gather layouts (`gather_block`, `gather_window_cells`) select table
 shapes only; the port's kernel reads the packed table directly, which
 is what those layouts are exact to.  `gather_table_bf16` changes the
@@ -173,16 +174,11 @@ def update(state: FuserState, params: FuserParams, Tmotion, pts, mask,
     use_feat = m.use_feat and feat_src is not None and feat_tgt is not None
     bf16 = _bf16_rows(params, batch=False)
 
-    def fgh_fn(d):
-        return cuda_kernels.newton_objective(
-            d, T_pred, src if m.use_ndt else None, tgt_packed, tgt_origin,
-            h, w, res, m, feat_src if use_feat else None,
-            feat_tgt if use_feat else None, Q if m.use_odom else None, bf16,
-        )
-
-    d, score, itr, conv = d2d.newton_match(
-        fgh_fn, torch.zeros(3, dtype=torch.float32, device=pts.device), m
-    )
+    d, score, itr, conv = cuda_kernels.newton_solve(
+        torch.zeros(3, dtype=torch.float32, device=pts.device), T_pred,
+        src if m.use_ndt else None, tgt_packed, tgt_origin, h, w, res, m,
+        feat_src if use_feat else None, feat_tgt if use_feat else None,
+        Q if m.use_odom else None, bf16)
     return _finalize_update(state, params, Tmotion, T_pred, Todom, d,
                             score, itr, conv, pts, mask, update_map)
 
@@ -196,9 +192,9 @@ def update_batch(states: FuserState, params: FuserParams, Tmotion, pts,
     leading (B,) on every field; Tmotion (B, 3); pts (B, P, 2); mask
     (B, P); feat_src / feat_tgt: (B, C) paired pseudo-cell lists.
 
-    The B registrations advance in one lockstep Newton
-    (d2d.newton_match_batch), each trial ONE launch of
-    `cuda_kernels.newton_objective_batch`: lane b reads its own table at
+    The B registrations are ONE launch of
+    `cuda_kernels.newton_solve_batch` (d2d.newton_match_batch's result,
+    each lane leaving at its own stop): lane b reads its own table at
     row offset b*H*W of the flat (B*H*W, 8) stack of the streams' packed
     tables.  The map operations scatter once into the flattened stack.
 
@@ -223,17 +219,11 @@ def update_batch(states: FuserState, params: FuserParams, Tmotion, pts,
     use_feat = m.use_feat and feat_src is not None and feat_tgt is not None
     bf16 = _bf16_rows(params, batch=True)
 
-    def fgh_batch(d_b):
-        return cuda_kernels.newton_objective_batch(
-            d_b, T_pred, src_b if m.use_ndt else None, packed_flat, origins,
-            row_offsets, h, w, res, m, feat_src if use_feat else None,
-            feat_tgt if use_feat else None, Q_b if m.use_odom else None,
-            bf16,
-        )
-
-    d_b, score_b, itr_b, conv_b = d2d.newton_match_batch(
-        torch.zeros((b, 3), dtype=torch.float32, device=dev), m, fgh_batch
-    )
+    d_b, score_b, itr_b, conv_b = cuda_kernels.newton_solve_batch(
+        torch.zeros((b, 3), dtype=torch.float32, device=dev), T_pred,
+        src_b if m.use_ndt else None, packed_flat, origins, row_offsets, h,
+        w, res, m, feat_src if use_feat else None,
+        feat_tgt if use_feat else None, Q_b if m.use_odom else None, bf16)
 
     # Occupancy cadence: when gated, the ray scatter runs here, after
     # the map update, on the steps that are on the cadence only.

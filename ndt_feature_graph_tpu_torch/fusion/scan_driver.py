@@ -1,8 +1,8 @@
 """Sequence drivers (port of ndt_feature_graph_tpu/fusion/scan_driver.py):
-the online graph-SLAM drivers (run_graph_sequence, run_graph_chunk,
-unstack_bank), the single-stream drivers (run_sequence,
-run_sequence_features) and the fleet drivers over B independent streams
-(run_sequence_batch, run_sequence_features_batch).
+the online graph-SLAM drivers (run_graph_sequence, unstack_bank), the
+single-stream drivers (run_sequence, run_sequence_features) and the
+fleet drivers over B independent streams (run_sequence_batch,
+run_sequence_features_batch).
 
 The reference runs the whole sequence inside one XLA executable with
 the node splits under lax.cond.  Here the scan loop is a Python loop
@@ -11,9 +11,7 @@ device is decided on the host BEFORE the loop: whether a scan splits
 and whether it feeds the node feature map depend only on odometry and
 counters (`split_schedule`), so the loop issues no per-scan host read.
 Frozen nodes are written into a pre-allocated node bank.  The fleet
-drivers decide the occupancy cadence the same way (`_occ_flags`): the
-only host read of a fleet step is the Newton stop flag per 6-trial
-chunk (d2d.newton_match_batch).
+drivers decide the occupancy cadence the same way (`_occ_flags`).
 """
 
 from __future__ import annotations

@@ -1,16 +1,29 @@
 """Hand-written Hopper kernels of the registration hot path — the
 counterpart of ndt_feature_graph_tpu/ops/pallas_kernels.py.
 
-`csrc/pair_fgh.cu` holds two kernels that share one device function for
-the per-pair D2D algebra (pallas_kernels._fgh_components); every entry
-is ONE launch whose thread-block cluster reduces on the chip, in a fixed
-order, and writes (f, g, H) as 13 floats:
+`csrc/pair_fgh.cu` holds three kernels that share one device function
+for the per-pair D2D algebra (pallas_kernels._fgh_components); every
+entry is ONE launch whose thread-block clusters reduce on the chip, in a
+fixed order.  The two solve entries run a whole registration:
 
-  * `newton_objective` — the main path's whole Newton trial: the D2D
-    window term (trial pose, moved source cells, their (2n+1)^2 window
-    rows of the packed (H*W, 8) table, masks), the paired feature term
-    (its pair inputs formed in the kernel) and the odometry term, summed
-    in that order.  Plain twin: `newton_objective_reference`.
+  * `newton_solve` — the main path's registration (fuser.update): the
+    damped-Newton minimisation of d2d.newton_match over the objective of
+    `newton_objective`, a cluster that loops over its trials and runs
+    the LM step between them on the chip; (d, score, trials,
+    converged), no host read.  Plain twin: `newton_solve_reference`.
+  * `newton_solve_batch` — a fleet step's B registrations
+    (fuser.update_batch), a cluster per lane that leaves at the lane's
+    own stop.  Plain twin: `newton_solve_batch_reference`
+    (d2d.newton_match_batch's masked lockstep).
+
+The others write one evaluation's (f, g, H) as 13 floats:
+
+  * `newton_objective` — one Newton trial's objective, the body of
+    `newton_solve`: the D2D window term (trial pose, moved source
+    cells, their (2n+1)^2 window rows of the packed (H*W, 8) table,
+    masks), the paired feature term (its pair inputs formed in the
+    kernel) and the odometry term, summed in that order.  Plain twin:
+    `newton_objective_reference`.
   * `fgh_dense_flat` — the window term alone (plain registration,
     d2d.match_d2d / covariance_d2d).  Plain twin:
     d2d_analytic.fgh_dense_flat.
@@ -18,9 +31,9 @@ order, and writes (f, g, H) as 13 floats:
     flat (N*H*W, 8) node bank, each lane with its own row offset and its
     own cluster: the lockstep Newton of loop-closure link refinement.
     Plain twin: d2d_analytic.fgh_dense_flat_batch.
-  * `newton_objective_batch` — a fleet step's whole Newton trial: B
-    streams' objectives, every term per lane (its own source list, row
-    offset into the flat (B*H*W, 8) stack of the streams' tables,
+  * `newton_objective_batch` — one Newton trial of B streams, the body
+    of `newton_solve_batch`: every term per lane (its own source list,
+    row offset into the flat (B*H*W, 8) stack of the streams' tables,
     feature lists and odometry information), one launch for all B.
     Plain twin: `newton_objective_batch_reference`.
   * `pair_fgh_reduce` — the Pallas kernel's signature: masked sum of the
@@ -50,7 +63,7 @@ from typing import Optional
 import torch
 
 from ndt_feature_graph_tpu_torch.config import MatcherParams
-from ndt_feature_graph_tpu_torch.ops import d2d_analytic
+from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -64,7 +77,8 @@ NVCC_FLAGS = [
 # Launch counts per entry: incremented only where a kernel launches.
 LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
-            "newton_objective_batch": 0}
+            "newton_objective_batch": 0, "newton_solve": 0,
+            "newton_solve_batch": 0}
 
 
 _lib = None
@@ -123,6 +137,17 @@ def build():
         P, F, F, P, I, P,         # Q, lfd1, lfd2, out, cluster, stream
     ]
     lib.ndtg_objective.restype = I
+    lib.ndtg_newton_solve.argtypes = [
+        P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,  # window term
+        P, P, P, P, P, P, I,                          # paired term
+        P, F, F,                                      # Q, lfd1, lfd2
+        I, F, I,          # max_trials, delta_score, step_control
+        P, P, P, P, I, P,  # d, score, trials, converged, cluster, stream
+    ]
+    lib.ndtg_newton_solve.restype = I
+    for fn in (lib.ndtg_solve_smem, lib.ndtg_solve_max_clusters):
+        fn.argtypes = [I, I, I]
+        fn.restype = I
     lib.ndtg_pair_fgh_reduce.argtypes = [
         P, P, P, P, P, LL, F, F, P, I, P,
     ]
@@ -194,6 +219,15 @@ def _cluster_blocks(lib, n_items: int, per_block: int) -> int:
 
 
 _RESIDENT_BLOCKS = {}     # device -> objective-kernel blocks it holds
+_SMS = {}                 # device -> its multiprocessors
+
+
+def _sm_count(device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = sms
+    return sms
 
 
 def _objective_cluster(lib, device, n_lanes: int, n_src: int,
@@ -205,8 +239,7 @@ def _objective_cluster(lib, device, n_lanes: int, n_src: int,
     more than longer warps)."""
     resident = _RESIDENT_BLOCKS.get(device)
     if resident is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        resident = sms * lib.ndtg_objective_blocks_per_sm()
+        resident = _sm_count(device) * lib.ndtg_objective_blocks_per_sm()
         _RESIDENT_BLOCKS[device] = resident
     threads = lib.ndtg_objective_threads()
     wanted = max(_cluster_blocks(lib, n_src, threads // 32),
@@ -441,6 +474,191 @@ def newton_objective_batch(
         packed_flat if on else None, origins if on else None,
         row_offsets if on else None, h, w, res, m.n_neighbours, m.lfd1,
         m.lfd2, feat_src_b, feat_tgt_b, Q_b, bf16_rows))
+
+
+_SOLVE_CLUSTER = {}   # (device, n_lanes, n_src, n_feat) -> blocks a lane
+
+
+def _solve_cluster(lib, device, n_lanes: int, n_src: int,
+                   n_feat: int) -> int:
+    """Blocks per lane of the solve kernel: the objective kernel's rule,
+    so that a trial sums in the order `newton_objective[_batch]` sums
+    it; smaller only where that cluster cannot launch with the solve's
+    shared memory (ndtg_solve_max_clusters returns 0).  Where the card
+    holds fewer such clusters than lanes at once (the query counts their
+    placement in the GPCs), later lanes start as earlier ones retire:
+    no cluster waits on another, so this costs time and cannot
+    deadlock, and a smaller cluster would change the summation order.
+    Cached per shape."""
+    key = (device, n_lanes, n_src, n_feat)
+    cluster = _SOLVE_CLUSTER.get(key)
+    if cluster is None:
+        cluster = _objective_cluster(lib, device, n_lanes, n_src, n_feat)
+        with torch.cuda.device(device):
+            while cluster > 1 and lib.ndtg_solve_max_clusters(
+                    n_src, n_feat, cluster) == 0:
+                cluster -= 1
+        _SOLVE_CLUSTER[key] = cluster
+    return cluster
+
+
+def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
+                  h, w, res, m: MatcherParams, feat_src=None,
+                  feat_tgt=None, Q=None, bf16_rows=False):
+    """One launch of the solve kernel on checked CUDA tensors; None
+    switches a term off.  d_init (B, 3) or (3,): returns (d, score,
+    trials int32, converged bool) with its leading shape.  Counts the
+    launch under `entry`."""
+    dev = d_init.device
+    lib = build()
+    lead = d_init.shape[:-1]
+    n_lanes = d_init.shape[0] if d_init.dim() == 2 else 1
+    n_src = src.mask.shape[-1] if src is not None else 0
+    n_feat = feat_src.mask.shape[-1] if feat_src is not None else 0
+    d = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    score = torch.empty(lead, dtype=torch.float32, device=dev)
+    trials = torch.empty(lead, dtype=torch.int32, device=dev)
+    conv = torch.empty(lead, dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    cells = lambda c: (  # noqa: E731
+        (None, None, None) if c is None
+        else (c.means.data_ptr(), c.covs.data_ptr(), c.mask.data_ptr()))
+    cluster = _solve_cluster(lib, dev, n_lanes, n_src, n_feat)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_newton_solve(
+            d_init.data_ptr(), T0.data_ptr(), *cells(src), ptr(packed),
+            ptr(origins), ptr(row_offsets), n_lanes, n_src, h, w,
+            float(res), m.n_neighbours, int(bf16_rows), *cells(feat_src),
+            *cells(feat_tgt), n_feat, ptr(Q), float(m.lfd1), float(m.lfd2),
+            d2d.trial_budget(m), float(m.delta_score), int(m.step_control),
+            d.data_ptr(), score.data_ptr(), trials.data_ptr(),
+            conv.data_ptr(), cluster, stream,
+        )
+    _raise_on(err, entry)
+    LAUNCHES[entry] += 1
+    return d, score, trials, conv.view(torch.bool)
+
+
+def newton_solve_reference(d_init, T0, src: Optional[CellList], packed,
+                           origin, h: int, w: int, res: float,
+                           m: MatcherParams,
+                           feat_src: Optional[CellList] = None,
+                           feat_tgt: Optional[CellList] = None, Q=None,
+                           bf16_rows: bool = False):
+    """Plain PyTorch `newton_solve`: d2d.newton_match over
+    `newton_objective_reference` (the eager LM step, one objective a
+    trial, one host read of the stop flag a chunk of 6 trials)."""
+    return d2d.newton_match(
+        lambda d: newton_objective_reference(d, T0, src, packed, origin, h,
+                                             w, res, m, feat_src, feat_tgt,
+                                             Q, bf16_rows), d_init, m)
+
+
+def newton_solve(d_init, T0, src: Optional[CellList], packed, origin,
+                 h: int, w: int, res: float, m: MatcherParams,
+                 feat_src: Optional[CellList] = None,
+                 feat_tgt: Optional[CellList] = None, Q=None,
+                 bf16_rows: bool = False):
+    """A whole registration: the damped-Newton (LM) minimisation from
+    increment d_init (3,) over T0 of `newton_objective`'s objective (the
+    same arguments and term switches), as d2d.newton_match computes it —
+    one kernel launch on CUDA tensors, in which one thread-block cluster
+    evaluates trial after trial and runs the LM step between them until
+    the lane stops; no host read.  Returns (d (3,), score, trials
+    (int32), converged (bool)) as device tensors."""
+    if (feat_src is None) != (feat_tgt is None):
+        raise ValueError("newton_solve: feat_src and feat_tgt go together")
+    args = (d_init, T0, src, packed, origin, h, w, res, m, feat_src,
+            feat_tgt, Q, bf16_rows)
+    if d_init.device.type == "cpu":
+        return newton_solve_reference(*args)
+    if d_init.device.type != "cuda":
+        raise ValueError(f"newton_solve: unsupported device {d_init.device}")
+    dev = d_init.device
+    f32 = torch.float32
+    _check("d_init", d_init, f32, (3,), dev)
+    _check("T0", T0, f32, (3,), dev)
+    if src is not None:
+        _check_cells("src", src, (src.mask.shape[0],), dev)
+        _check_table("packed", packed, h * w, dev)
+        _check("origin", origin, f32, (2,), dev)
+    if feat_src is not None:
+        n_feat = feat_src.mask.shape[0]
+        _check_cells("feat_src", feat_src, (n_feat,), dev)
+        _check_cells("feat_tgt", feat_tgt, (n_feat,), dev)
+    if Q is not None:
+        _check("Q", Q, f32, (3, 3), dev)
+    on = src is not None
+    return _launch_solve(
+        "newton_solve", d_init, T0, src, packed if on else None,
+        origin if on else None, None, h, w, res, m, feat_src, feat_tgt, Q,
+        bf16_rows)
+
+
+def newton_solve_batch_reference(
+        d_init_b, T0_b, src_b: Optional[CellList], packed_flat, origins,
+        row_offsets, h: int, w: int, res: float, m: MatcherParams,
+        feat_src_b: Optional[CellList] = None,
+        feat_tgt_b: Optional[CellList] = None, Q_b=None,
+        bf16_rows: bool = False):
+    """Plain PyTorch `newton_solve_batch`: d2d.newton_match_batch (the
+    masked lockstep) over `newton_objective_batch_reference`."""
+    return d2d.newton_match_batch(
+        d_init_b, m, lambda d_b: newton_objective_batch_reference(
+            d_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w, res,
+            m, feat_src_b, feat_tgt_b, Q_b, bf16_rows))
+
+
+def newton_solve_batch(
+        d_init_b, T0_b, src_b: Optional[CellList], packed_flat, origins,
+        row_offsets, h: int, w: int, res: float, m: MatcherParams,
+        feat_src_b: Optional[CellList] = None,
+        feat_tgt_b: Optional[CellList] = None, Q_b=None,
+        bf16_rows: bool = False):
+    """B registrations of a fleet step: lane b minimises, from
+    d_init_b[b], `newton_objective_batch`'s objective of lane b (the same
+    arguments and term switches), as d2d.newton_match_batch computes it —
+    one kernel launch for all B lanes on CUDA tensors, a cluster per
+    lane that leaves at the lane's own stop (in the lockstep a stopped
+    lane's updates are masked, so its result is the same).  Returns
+    (d (B, 3), score (B,), trials (B,) int32, converged (B,) bool)."""
+    if (feat_src_b is None) != (feat_tgt_b is None):
+        raise ValueError("newton_solve_batch: feat_src_b and feat_tgt_b "
+                         "go together")
+    args = (d_init_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w,
+            res, m, feat_src_b, feat_tgt_b, Q_b, bf16_rows)
+    if d_init_b.device.type == "cpu":
+        return newton_solve_batch_reference(*args)
+    if d_init_b.device.type != "cuda":
+        raise ValueError(
+            f"newton_solve_batch: unsupported device {d_init_b.device}")
+    dev = d_init_b.device
+    f32 = torch.float32
+    if d_init_b.dim() != 2:
+        raise ValueError(f"d_init_b: shape {tuple(d_init_b.shape)}, "
+                         "expected (B, 3)")
+    b = d_init_b.shape[0]
+    _check_lanes("newton_solve_batch", b)
+    _check("d_init_b", d_init_b, f32, (b, 3), dev)
+    _check("T0_b", T0_b, f32, (b, 3), dev)
+    if src_b is not None:
+        _check_cells("src_b", src_b, (b, src_b.mask.shape[-1]), dev)
+        _check_table("packed_flat", packed_flat, packed_flat.shape[0], dev)
+        _check("origins", origins, f32, (b, 2), dev)
+        _check("row_offsets", row_offsets, torch.int64, (b,), dev)
+    if feat_src_b is not None:
+        lead = (b, feat_src_b.mask.shape[-1])
+        _check_cells("feat_src_b", feat_src_b, lead, dev)
+        _check_cells("feat_tgt_b", feat_tgt_b, lead, dev)
+    if Q_b is not None:
+        _check("Q_b", Q_b, f32, (b, 3, 3), dev)
+    on = src_b is not None
+    return _launch_solve(
+        "newton_solve_batch", d_init_b, T0_b, src_b,
+        packed_flat if on else None, origins if on else None,
+        row_offsets if on else None, h, w, res, m, feat_src_b, feat_tgt_b,
+        Q_b, bf16_rows)
 
 
 def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,

@@ -301,6 +301,15 @@ def _psd_project(H, guard: bool = False):
         3, dtype=H.dtype, device=H.device)
 
 
+TRIAL_CHUNK = 6       # trials a chunk of newton_match_batch runs whole
+
+
+def trial_budget(m: MatcherParams) -> int:
+    """Trials a lane that never stops runs: 2*itr_max rounded up to
+    whole chunks of TRIAL_CHUNK."""
+    return TRIAL_CHUNK * -(-2 * m.itr_max // TRIAL_CHUNK)
+
+
 def newton_match(fgh_fn, d_init, m: MatcherParams, psd_guard: bool = False):
     """Damped-Newton (Levenberg-Marquardt) minimizer over one 3-DoF
     increment: newton_match_batch with one lane.  `fgh_fn((3,)) -> (f,
@@ -326,13 +335,15 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch,
     Host sync: one read of `stop.all()` per 6-trial chunk; the remaining
     chunks are skipped once EVERY lane has stopped, as the reference's
     lax.cond does (a stopped lane's updates are masked, so results,
-    trial counts and `converged` are those of the whole budget).
+    trial counts and `converged` are those of the whole budget).  For
+    the same reason a lane may leave at its own stop:
+    cuda_kernels.newton_solve[_batch], which runs this loop over the
+    fuser's objective in one launch, gives the lockstep's result.
 
     `psd_guard` projects the Hessians with _psd_project's guard.
 
     Returns (d (B, 3), score (B,), trials (B,), converged (B,))."""
     b = d_init_b.shape[0]
-    max_trials = 2 * m.itr_max
     dev = d_init_b.device
     lam_min, lam_max = 1e-6, 1e7
     eye = torch.eye(3, dtype=torch.float32, device=dev)
@@ -344,12 +355,10 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch,
     itr = torch.zeros(b, dtype=torch.int32, device=dev)
     stop = torch.zeros(b, dtype=torch.bool, device=dev)
 
-    trial_chunk = 6
-    n_chunks = -(-max_trials // trial_chunk)
-    for c in range(n_chunks):
+    for c in range(trial_budget(m) // TRIAL_CHUNK):
         if c and bool(stop.all()):
             break
-        for _ in range(trial_chunk):
+        for _ in range(TRIAL_CHUNK):
             Hp = _psd_project(H, psd_guard)
             grad_vanished = torch.linalg.vector_norm(g, dim=-1) <= (
                 m.delta_score)

@@ -1,5 +1,7 @@
 """The CUDA kernel entries of ops/cuda_kernels.py against their plain
-PyTorch twins on the card: the whole Newton-trial objective
+PyTorch twins on the card: the whole registration (`newton_solve`, and
+the fleet step's `newton_solve_batch`, also against the per-trial path
+over the same objective kernel), the Newton-trial objective
 (`newton_objective`, with the paired front end on its own), the window
 term, the batch entry, the fleet step's `newton_objective_batch` and the
 paired reduction; and the sharded dense solve in an NCCL world of one
@@ -116,7 +118,8 @@ def test_newton_objective_matches_plain(cuda_device, n, n_src):
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES == {
         "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
-        "fgh_dense_flat_batch": 0, "newton_objective_batch": 0}
+        "fgh_dense_flat_batch": 0, "newton_objective_batch": 0,
+        "newton_solve": 0, "newton_solve_batch": 0}
     chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
                        got, cuda_kernels.newton_objective_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -142,10 +145,42 @@ def test_paired_front_end_matches_plain(cuda_device, n_pairs):
 
 
 @pytest.mark.cuda
+def test_newton_solve_matches_plain_and_the_per_trial_path(cuda_device):
+    """The whole registration at chip_smoke.py's phase 3 case (N=256 x
+    K=25, 64 feature pairs, odometry) against its plain twin and the
+    per-trial path, each term off in turn, step control off, bfloat16
+    rows; two calls give identical bits."""
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    cuda_kernels.reset_launch_counts()
+    out = chip_smoke.solve_checks(sp, fx, cuda_device, times=False)
+    assert out["max_abs_err"] <= chip_smoke.SOLVE_TOL
+    assert cuda_kernels.LAUNCHES["newton_solve"] == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 64])
+def test_newton_solve_batch_matches_plain_and_the_per_trial_path(
+        cuda_device, lanes):
+    """A fleet step's registrations at chip_smoke.py's phase 3d case
+    (the fleet record, with its all-masked, featureless and edge lanes)
+    against the plain lockstep and the per-trial lockstep path: each
+    term off in turn, f32 and bfloat16 rows, step control off;
+    identical bits on repeat."""
+    fp, seq = _fleet(cuda_device)
+    cuda_kernels.reset_launch_counts()
+    out, per = chip_smoke.fleet_solve_checks(fp, seq, lanes, cuda_device,
+                                             times=False)
+    assert out["max_abs_err"] <= chip_smoke.SOLVE_TOL and per > 0
+    assert cuda_kernels.LAUNCHES["newton_solve_batch"] == 12
+
+
+@pytest.mark.cuda
 def test_fuser_update_launches_one_objective_per_trial(cuda_device):
-    """fuser.update on CUDA tensors launches `newton_objective` once per
-    Newton trial (the first evaluation, then whole chunks of 6) and no
-    other entry."""
+    """fuser.update on CUDA tensors registers in one `newton_solve`
+    launch (the whole Newton loop on the card) and no other entry."""
     from ndt_feature_graph_tpu_torch.fusion import fuser
     from ndt_feature_graph_tpu_torch.io import dataset
 
@@ -158,9 +193,9 @@ def test_fuser_update_launches_one_objective_per_trial(cuda_device):
                                        t(fx["hit"][1], torch.bool))
     cuda_kernels.reset_launch_counts()
     _, info = fuser.update(state, p, t(fx["odom"][1]), pts, mask, fs, ft)
-    n = cuda_kernels.LAUNCHES["newton_objective"]
-    assert n >= 7 and (n - 1) % 6 == 0 and n - 1 >= int(info.iterations)
-    assert sum(cuda_kernels.LAUNCHES.values()) == n
+    assert cuda_kernels.LAUNCHES["newton_solve"] == 1
+    assert sum(cuda_kernels.LAUNCHES.values()) == 1
+    assert int(info.iterations) >= 1
 
 
 def _small_bank(dev):
@@ -219,9 +254,8 @@ def test_newton_objective_batch_matches_plain(cuda_device, lanes):
 @pytest.mark.parametrize("features", [False, True])
 def test_update_batch_launches_one_objective_per_trial(cuda_device,
                                                        features):
-    """A fleet step on CUDA tensors launches `newton_objective_batch`
-    once per lockstep Newton trial (the first evaluation, then whole
-    chunks of 6) and no other entry."""
+    """A fleet step on CUDA tensors registers its B streams in one
+    `newton_solve_batch` launch and no other entry."""
     from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
     from ndt_feature_graph_tpu_torch.parallel import scaling
 
@@ -238,10 +272,9 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
         states, odom, pts, mask = scaling.build_fleet_inputs(fp, seq, 8)
         _, info = fuser.update_batch(states, fp, odom[:, 0], pts[:, 0],
                                      mask[:, 0])
-    n = cuda_kernels.LAUNCHES["newton_objective_batch"]
-    assert n >= 7 and (n - 1) % 6 == 0
-    assert n - 1 >= int(info.iterations.max())
-    assert sum(cuda_kernels.LAUNCHES.values()) == n
+    assert cuda_kernels.LAUNCHES["newton_solve_batch"] == 1
+    assert sum(cuda_kernels.LAUNCHES.values()) == 1
+    assert int(info.iterations.min()) >= 1
 
 
 def _solver_graph(kind, dev):

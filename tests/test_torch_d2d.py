@@ -135,7 +135,9 @@ def test_cpu_wrappers_use_the_plain_twins():
                                      "fgh_dense_flat": 0,
                                      "pair_fgh_reduce": 0,
                                      "fgh_dense_flat_batch": 0,
-                                     "newton_objective_batch": 0}
+                                     "newton_objective_batch": 0,
+                                     "newton_solve": 0,
+                                     "newton_solve_batch": 0}
 
 
 def test_wrappers_reject_other_devices():
