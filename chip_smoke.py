@@ -210,9 +210,20 @@ Runs on a machine with a CUDA card and no JAX:
      bank (compute_links_batch on the same draws), the sharded fleet
      (run_sequence_batch; measure_fleet_throughput at 64 streams through
      the sharded path, whose newton_solve_batch launches are the
-     kernels line's `launches_sharded_fleet`), and
+     kernels line's `launches_sharded_fleet`), the mesh placement
+     names (global_put / global_get / sharded / replicated), and
      examples/multihost_worker_torch.py in an NCCL world of its own;
- 16. prints one JSON line of all kernel entries and, last, the result
+ 16. the reference's last public entry points: (a) run_graph_chunk over
+     the canonical 200 scans in chunks of 16, split_node between
+     chunks, against phase 4: the trajectory, frozen nodes and their
+     origins the same bits, one newton_solve launch a scan and no other
+     entry (the kernels line's `launches_chunked`), scans/s of both
+     paths in turns; (b) compute_link on each candidate pair of the
+     reference's LC node bank equal to its compute_links_batch rows at
+     batches of 4, 64 and 171 pairs; (c) HMTMap.add_scan over phase 11's
+     first 64 scans equal to the map HMTFuser builds; (d)
+     to_paired_cells and se2.dist / angular_dist, card against CPU;
+ 17. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -241,6 +252,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import socket
 import subprocess
@@ -391,6 +403,13 @@ SIXDOF_Z_VAR = 0.01           # the lift of a planar cell (test_d2d3d.py)
 PAYLOAD_MAX_CELLS = 50        # phase 14b: the viewer's subsampled payload
 LOGGER_SCANS = 40             # phase 14b: the GraphLogger's scans
 SCHUR_BLOCKS = 8              # phase 15: the Schur solve's blocks
+CHUNK = 16                    # phase 16: run_graph_chunk's chunk length
+CHUNK_TOL = 1e-5              # ... its poses past a scan that is not phase 4's
+CHUNK_LINK_PAIRS = 64         # phase 16: the wider compute_links_batch
+HMT_ADD_SCANS = 128           # phase 16: add_scan over phase 11's first scans
+LINK_SCORE_TOL = 1e-6         # phase 16: compute_link's score against its
+                              # batch row (torch.sum's order follows the
+                              # row count; the orders part by a few ulp)
 
 
 def lift_cells(means, covs, mask, compact=False):
@@ -3743,6 +3762,21 @@ def _multidevice(fx, lc, dev):
     summary["links"] = {"pairs": int(ref_i.shape[0]), "equal": same,
                         "wall_s": tl_s}
 
+    # The reference's placement names over this world's mesh.
+    rows = mesh_mod.global_put(mesh, lc["off_node_T_before"], ("dp",))
+    full = torch.as_tensor(lc["off_node_T_before"], device=dev)
+    names_ok = (
+        torch.equal(rows, mesh_mod.sharded(mesh, full))
+        and np.array_equal(mesh_mod.global_get(mesh, rows),
+                           lc["off_node_T_before"])
+        and np.array_equal(mesh_mod.global_get(
+            mesh, mesh_mod.global_put(mesh, lc["off_node_T_before"], ()), ()),
+            lc["off_node_T_before"])
+        and mesh_mod.replicated(mesh, full) is full)
+    print(f"  global_put / global_get / sharded / replicated of the LC "
+          f"graph's {full.shape[0]} node poses: read back equal {names_ok}")
+    check(names_ok, "the mesh placement names do not read back")
+
     fl = dict(np.load(FLEET_FIXTURE))
     fpf = presets.fleet_serving()
     seq = sequence(fl, dev)
@@ -3791,8 +3825,382 @@ def _multidevice(fx, lc, dev):
     check(max(devs.values()) == 0.0 and fleet_same
           and int(w["mesh_refusals"]) == 2, "the NCCL worker's sharded "
                                             "programs depart")
+    x = np.arange(36, dtype=np.float32).reshape(12, 3)   # the worker's
+    check(float(w["mesh_names_ok"][0]) == 1.0
+          and np.array_equal(w["mesh_names_get"], x)
+          and np.array_equal(w["mesh_names_shard"], x)
+          and np.array_equal(w["mesh_names_mask"], np.arange(12) % 3 == 0),
+          "the worker's mesh placement names do not read back")
     summary["worker"] = {"wall_s": wall, "dev": devs}
     return summary, launches
+
+
+def run_chunked(sp, fx, dev, chunk=CHUNK):
+    """The main path through scan_driver.run_graph_chunk, `chunk` scans a
+    call (the last call padded with inactive rows), with the host's part
+    between calls as the reference's run_sequence_chunked makes it
+    (graph/slam.py:183-225 of the JAX package): the chunk fuses the
+    split scan into the old node, then split_node freezes it and opens
+    the next.  Returns (trajectory (T, 3), frozen nodes, their origins
+    (n, 3), seconds)."""
+    T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt,  # noqa
+                                                    device=dev)
+    ranges, hit = T(fx["ranges"]), T(fx["hit"], torch.bool)
+    odom, u = T(fx["odom"]), T(fx["ransac_u"])
+    p, gp = sp.fuser, sp.graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = NDTFeatureGraphSLAM(sp, seed=0)
+    slam.initialize(T(fx["gt"][0]), torch.zeros(3, device=dev), ranges[0],
+                    hit[0])
+    st, fm, cur_T = slam.state, slam.fmap, T(slam.current_T)
+    dist, cnt = 0.0, 0
+    traj, nodes, node_T = [], [], []
+    t, t_total = 1, ranges.shape[0]
+    while t < t_total:
+        k = min(chunk, t_total - t)
+
+        def rows(x, start):
+            x = x[start:start + k]
+            return torch.cat([x, x.new_zeros((chunk - k,) + x.shape[1:])])
+
+        can_split = len(nodes) + 1 < gp.max_nodes
+        st, fm, ctraj, _, meta = scan_driver.run_graph_chunk(
+            p, st, fm, dist, cnt, rows(odom, t), rows(ranges, t),
+            rows(hit, t), np.arange(chunk) < k,
+            gp.new_node_transl_dist if can_split else math.inf,
+            fm_incr=p.feature_map_update_incr, ransac_u=rows(u, t - 1))
+        dist, cnt = float(meta[0]), int(meta[1])
+        n_proc, split_idx = int(meta[2]), int(meta[3])
+        traj += [se2.compose(cur_T, ctraj[i]) for i in range(n_proc)]
+        if split_idx >= 0:
+            s = t + split_idx
+            frozen, _, _, new_T, st, fm = scan_driver.split_node(
+                p, gp.incremental_link_source, cur_T, st, fm, ranges[s],
+                hit[s])
+            nodes.append(frozen)
+            node_T.append(cur_T)
+            cur_T, dist, cnt = new_T, 0.0, 0
+        t += n_proc
+    traj = np.concatenate([slam.current_T[None],
+                           torch.stack(traj).cpu().numpy()])
+    node_T = np.asarray([x.cpu().numpy() for x in node_T]).reshape(-1, 3)
+    torch.cuda.synchronize()
+    return traj, nodes, node_T, time.perf_counter() - t0
+
+
+def _leaves(obj):
+    out = []
+    node_mod.map_tensors(lambda x: out.append(x) or x, obj)
+    return out
+
+
+def chunked_case(sp, fx, main_slam, dev):
+    """Phase 16 (a): run_graph_chunk in chunks of CHUNK over the
+    canonical 200 scans against phase 4's run_graph_sequence: one
+    `newton_solve` launch a scan and no other entry; the trajectory,
+    the frozen nodes and their origins the same bits (the per-scan step
+    is the same code), or else the first scan that differs named and the
+    rest held within CHUNK_TOL; scans/s of both paths in turns, median
+    of 3 (the first chunked run is the checked one; the others repeat
+    its bits)."""
+    ref = np.stack(main_slam.trajectory)
+    scans = ref.shape[0] - 1
+    main_s, chunk_s, runs = [], [], []
+    for _ in range(3):
+        main_s.append(run_main_path(sp, fx, dev)[1])
+        cuda_kernels.reset_launch_counts()
+        runs.append(run_chunked(sp, fx, dev))
+        chunk_s.append(runs[-1][3])
+        if len(runs) == 1:
+            launches = dict(cuda_kernels.LAUNCHES)
+    traj, nodes, node_T, _ = runs[0]
+    repeat = all(np.array_equal(r[0], traj) for r in runs[1:])
+    print(f"  launches: {launches} ({launches['newton_solve'] / scans:.2f} "
+          f"newton_solve per scan)")
+    if dev.type == "cuda":
+        check(launches["newton_solve"] == scans and sum(launches.values())
+              == scans, "run_graph_chunk did not launch newton_solve alone, "
+              "once a scan")
+    check(traj.shape == ref.shape and np.isfinite(traj).all(),
+          "the chunked trajectory is not finite / of the wrong shape")
+    same_nodes = len(nodes) == len(main_slam.nodes) and all(
+        torch.equal(a, b) for n1, n2 in zip(nodes, main_slam.nodes)
+        for a, b in zip(_leaves(n1), _leaves(n2)))
+    same_T = np.array_equal(node_T, np.reshape(main_slam.node_T, (-1, 3)))
+    same = np.array_equal(traj, ref)
+    first, rest = None, 0.0
+    if not same:
+        first = int(np.argmax(np.any(traj != ref, -1)))
+        rest = max(max_dev(traj[first:], ref[first:]))
+    print(f"  {len(nodes)} frozen nodes (phase 4: {len(main_slam.nodes)}); "
+          f"trajectory equal to phase 4's bit for bit: {same}; frozen "
+          f"nodes {same_nodes}, their origins {same_T}; the later runs "
+          f"repeat it: {repeat}" + (
+              "" if same else f"; first differing scan {first}, the rest "
+              f"within {rest:.2e}"))
+    check(repeat, "the chunked path does not repeat on the card")
+    check(not same or (same_nodes and same_T),
+          "frozen nodes differ from phase 4's while the trajectory does not")
+    check(same or rest <= CHUNK_TOL,
+          f"the chunked trajectory departs from phase 4's from scan {first}")
+    print(f"  scans/s in turns, median of 3: run_graph_chunk "
+          f"{scans / median(chunk_s):.2f} ({', '.join(f'{r:.3f}' for r in chunk_s)}"
+          f" s), run_graph_sequence {scans / median(main_s):.2f} "
+          f"({', '.join(f'{r:.3f}' for r in main_s)} s) for {scans} scans")
+    return {"launches": launches, "same_bits": same,
+            "same_nodes": same_nodes, "first_diff": first, "rest_dev": rest,
+            "scans_per_s": scans / median(chunk_s), "run_s": chunk_s,
+            "main_scans_per_s": scans / median(main_s), "main_run_s": main_s}
+
+
+def link_case(lc, dev):
+    """Phase 16 (b): compute_link for each candidate pair of the
+    reference's offline loop-closure graph (phase 9e's node bank, 20
+    nodes: phase 6's online run freezes 2, one pair), against the rows
+    of compute_links_batch on the same draws over the online proposal's
+    batch (its first online_lc_max_candidates pairs), over
+    CHUNK_LINK_PAIRS pairs and over all of them: the same pose and
+    validity bits, the score within LINK_SCORE_TOL (its sum over the
+    cells is torch.sum's, whose order follows the batch; how many
+    scores keep their bits is printed).  Then the overlap sums' costs
+    (overlap_sum_case)."""
+    sp = canonical_slam_params(OFFLINE_SPLIT_M, 64, **GROUPED_GRAPH)
+    edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
+                lc["off_edge_rel"], lc["off_edge_cov"])
+    slam = interop.graph_from_jax(sp, interop.tree_from_flat(
+        lc, "off_bank"), lc["off_node_T_before"], edges, device=dev)
+    fp, res = sp.fuser.features, sp.fuser.ndt.resolution
+    ref_i, mov_i, _ = slam.candidate_pairs()
+    n = int(ref_i.shape[0])
+    ref_i, mov_i = ref_i.to(dev), mov_i.to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = torch.rand((n, fp.ransac_hypotheses, 2), generator=gen, device=dev)
+    stacked = node_mod.stack_nodes(slam.nodes)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    cuda_kernels.reset_launch_counts()
+    sizes = (sp.graph.online_lc_max_candidates, CHUNK_LINK_PAIRS, n)
+    batches = {p: links_mod.compute_links_batch(
+        fp, res, stacked, ref_i[:p], mov_i[:p], ones[:p], u[:p])
+        for p in sizes}
+    ri, mi = ref_i.tolist(), mov_i.tolist()
+    same_T = {p: True for p in sizes}
+    same_score = {p: 0 for p in sizes}
+    score_dev = {p: 0.0 for p in sizes}
+    for k in range(n):
+        T, score, valid, _ = links_mod.compute_link(
+            fp, res, slam.nodes[ri[k]], slam.nodes[mi[k]], u[k])
+        for p, b in batches.items():
+            if k < p:
+                same_T[p] &= (torch.equal(T, b.T[k])
+                              and bool(valid) == bool(b.mask[k]))
+                same_score[p] += int(torch.equal(score, b.score[k]))
+                score_dev[p] = max(score_dev[p],
+                                   float((score - b.score[k]).abs()))
+    print(f"  compute_link over the {n} candidate pairs of the "
+          f"{len(slam.nodes)}-node bank ({int(batches[n].mask.sum())} "
+          f"valid) against the rows of compute_links_batch: " + "; ".join(
+              f"{p} pairs: poses and validity equal {same_T[p]}, scores "
+              f"equal at {same_score[p]} of {p}, within "
+              f"{score_dev[p]:.2e}" for p in sizes))
+    check(all(same_T.values()) and max(score_dev.values()) <= LINK_SCORE_TOL,
+          "compute_link differs from its compute_links_batch row")
+    check(not any(cuda_kernels.LAUNCHES.values()),
+          "the link proposals launched a kernel entry")
+    sums = overlap_sum_case(lambda p: links_mod.compute_links_batch(
+        fp, res, stacked, ref_i[:p], mov_i[:p], ones[:p], u[:p]),
+        lambda ls: links_mod.rescore_links(res, stacked, ls),
+        (sizes[0], n))
+    return {"pairs": n, "poses_equal": {str(p): e for p, e in same_T.items()},
+            "scores_equal": {str(p): e for p, e in same_score.items()},
+            "score_dev": {str(p): e for p, e in score_dev.items()},
+            "overlap_sums": sums}
+
+
+def _halving_sum(x):
+    """Sum over the last dim by repeated halving (zero-padded to a power
+    of two): elementwise adds in one order whatever the number of rows,
+    the fixed-order candidate for links._row_sum."""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def overlap_sum_case(batch, rescore, sizes, rounds=5):
+    """The link paths' overlap sum (links._row_sum, torch.sum in float32)
+    against a sum in a fixed halving order (_halving_sum: with it
+    compute_link would equal its batch row at any batch size) and a
+    torch.sum in float64: compute_links_batch over each of `sizes`
+    pairs (the online proposal's batch, the whole bank) and
+    rescore_links over the last, each timed with every sum in turns,
+    median of `rounds`; and how far the other sums' scores part from
+    the halving sum's on the same poses."""
+    row_sum = links_mod._row_sum
+    sums = {"halving": _halving_sum, "torch.sum": row_sum,
+            "f64 sum": lambda x: x.sum(-1, dtype=torch.float64).float()}
+    ls = batch(sizes[-1])
+    calls = {f"compute_links_batch_{p}": (lambda p=p: batch(p))
+             for p in sizes}
+    calls[f"rescore_links_{sizes[-1]}"] = lambda: rescore(ls)
+    times = {k: {name: [] for name in sums} for k in calls}
+    scores = {}
+    try:
+        for _ in range(rounds + 1):          # the first round warms up
+            for name, fn in sums.items():
+                links_mod._row_sum = fn
+                for k, call in calls.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    times[k][name].append(time.perf_counter() - t0)
+                scores[name] = rescore(ls).score
+    finally:
+        links_mod._row_sum = row_sum
+    ms = {k: {name: median(t[1:]) * 1e3 for name, t in v.items()}
+          for k, v in times.items()}
+    diffs = {name: (scores[name] - scores["halving"]).abs()
+             for name in sums if name != "halving"}
+    print(f"  overlap sums ({' / '.join(sums)}), ms in turns (median of "
+          f"{rounds}): " + "; ".join(
+              f"{k} " + " / ".join(f"{t:.3f}" for t in v.values())
+              for k, v in ms.items())
+          + "; rescored scores against the halving sum's: " + ", ".join(
+              f"{name} differs at {int((d > 0).sum())} of {d.shape[0]} "
+              f"pairs, by up to {float(d.max()):.2e}"
+              for name, d in diffs.items()))
+    check(all(float(d.max()) <= 1e-5 for d in diffs.values()),
+          "the overlap sums part beyond 1e-5")
+    return {"ms": ms, "rows_differ": {n: int((d > 0).sum())
+                                      for n, d in diffs.items()},
+            "max_score_diff": {n: float(d.max()) for n, d in diffs.items()}}
+
+
+def hmt_add_scan_case(dev):
+    """Phase 16 (c): HMTMap.add_scan over phase 11's first HMT_ADD_SCANS
+    scans (the window first spills cells into the tile store after
+    scan 100), at the fuser's world poses, against the map HMTFuser
+    builds over them.  The two recentre at other scans (add_scan checks
+    every scan, the fuser every chunk), so HMTFuser's window is moved onto
+    add_scan's centre first: then window and tile store are the same
+    bits, since every scan's contribution lands inside both windows and
+    spill and recall only ever add to zeros."""
+    hx = dict(np.load(HMT_FIXTURE))
+    fp = canonical_slam_params().fuser
+    n, c = HMT_ADD_SCANS, int(hx["chunk"])
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    pts, mask = dataset.scan_to_points(T(hx["ranges"][:n]),
+                                       T(hx["hit"][:n], torch.bool))
+    odom, gt = T(hx["odom"][:n]), T(hx["gt"][:n])
+    margin, tc = float(hx["margin"]), int(hx["tile_cells"])
+    hf = HMTFuser(fp, gt[0], torch.zeros(3, device=dev), pts[0], mask[0],
+                  recenter_margin=margin, tile_cells=tc)
+    poses = torch.cat([gt[:1], T(hf.run_sequence(odom[1:], pts[1:], mask[1:],
+                                                 chunk=c))])
+    m = HMTMap(fp.ndt, gt[0][:2], tile_cells=tc)
+    origins = set()
+    for k in range(n):
+        world_T = se2.compose(poses[k], hf.state.sensor_pose)
+        m.add_scan(world_T[:2], se2.transform_points(world_T, pts[k]),
+                   mask[k], margin=margin)
+        origins.add(tuple(m.grid.origin.tolist()))
+    hf.hmt.grid = hf.state.grid
+    hf.hmt.recenter(m.center())
+    same_window = _same_grid(_grid_np(hf.hmt.grid), _grid_np(m.grid))
+    same_tiles = sorted(hf.hmt.tiles) == sorted(m.tiles) and all(
+        np.array_equal(_bits(hf.hmt.tiles[key][f]), _bits(m.tiles[key][f]))
+        for key in m.tiles for f in ("count", "psum", "outer", "occ"))
+    n_cells = int(m.cell_list().mask.sum())
+    stored = m.stored_cell_count()
+    print(f"  add_scan over {n} scans ({len(origins) - 1} recentres; the "
+          f"fuser's {hf.n_recenters}): window equal to HMTFuser's bit for "
+          f"bit {same_window}, tile store {same_tiles} "
+          f"({stored} stored cells); cell_list {n_cells} "
+          f"cells, grid shape {tuple(m.grid.shape)}")
+    check(stored > 0, "add_scan spilled no cell: the tile store is not "
+                      "compared")
+    check(same_window and same_tiles and n_cells > 0,
+          "HMTMap.add_scan differs from the map HMTFuser builds")
+    return {"scans": n, "recentres": len(origins) - 1,
+            "fuser_recentres": hf.n_recenters, "same_window": same_window,
+            "same_tiles": same_tiles, "stored_cells": stored,
+            "cells": n_cells}
+
+
+def helpers_case(fx, dev):
+    """Phase 16 (d): to_paired_cells of a RANSAC result between scans 0
+    and 1 and se2.dist / angular_dist on random poses: card against
+    CPU, bit for bit (gathers), within 2 ulp of the distance (the
+    card's norm rounds in another order) and 1e-6 rad."""
+    from ndt_feature_graph_tpu_torch.features import (
+        describe, detect, match_sets,
+    )
+    from ndt_feature_graph_tpu_torch.features.ransac import (
+        MatchResult, to_paired_cells,
+    )
+
+    fp = canonical_slam_params().fuser.features
+    cpu = torch.device("cpu")
+    ranges, hit = torch.as_tensor(fx["ranges"][:2]), torch.as_tensor(
+        fx["hit"][:2], dtype=torch.bool)
+    feats = detect(fp, ranges, hit)
+    desc = describe(fp, feats, ranges, hit)
+    one = lambda x, i: node_mod.map_tensors(lambda v: v[i], x)  # noqa
+    res = match_sets(fp, one(feats, 0), desc[0], one(feats, 1), desc[1],
+                     torch.as_tensor(fx["ransac_u"][0]))
+    on = lambda x: node_mod.map_tensors(lambda v: v.to(dev), x)  # noqa
+    want = to_paired_cells(res, one(feats, 0), one(feats, 1))
+    got = to_paired_cells(MatchResult(**{
+        f.name: getattr(res, f.name).to(dev)
+        for f in dataclasses.fields(MatchResult)}), on(one(feats, 0)),
+        on(one(feats, 1)))
+    paired = all(torch.equal(a.cpu(), b) for g, w in zip(got, want)
+                 for a, b in zip(_leaves(g), _leaves(w)))
+    rng = np.random.default_rng(0)
+    a, b = (np.concatenate([rng.normal(0, 20, (4096, 2)),
+                            rng.uniform(-np.pi, np.pi, (4096, 1))], -1)
+            .astype(np.float32) for _ in range(2))
+    devs = {}
+    for name, ulps in (("dist", 2), ("angular_dist", None)):
+        fn = getattr(se2, name)
+        want_v = fn(torch.as_tensor(a, device=cpu),
+                    torch.as_tensor(b, device=cpu))
+        diff = (fn(torch.as_tensor(a, device=dev),
+                   torch.as_tensor(b, device=dev)).cpu() - want_v).abs()
+        if ulps:   # in units of the CPU value's float32 spacing
+            diff = diff / torch.finfo(torch.float32).eps / want_v.abs().clamp(
+                min=1.0)
+        devs[name] = float(diff.max())
+    print(f"  to_paired_cells ({int(want[0].mask.sum())} inlier pairs): "
+          f"card equal to CPU {paired}; se2.dist card vs CPU "
+          f"{devs['dist']:.2f} ulp, angular_dist {devs['angular_dist']:.1e} "
+          f"rad")
+    check(paired and int(want[0].mask.sum()) > 0,
+          "to_paired_cells differs between card and CPU")
+    check(devs["dist"] <= 2 and devs["angular_dist"] <= 1e-6,
+          "se2.dist / angular_dist depart")
+    return {"paired_equal": paired, "se2_dev": devs}
+
+
+def entry_points_phase(sp, fx, main_slam, lc, dev):
+    """Phase 16: the reference's last public entry points on the card."""
+    print("phase 16a: run_graph_chunk, the canonical 200 scans in chunks "
+          f"of {CHUNK}, against phase 4")
+    chunked = chunked_case(sp, fx, main_slam, dev)
+    print("phase 16b: compute_link on the reference's LC node bank")
+    link = link_case(lc, dev)
+    print(f"phase 16c: HMTMap.add_scan over phase 11's first "
+          f"{HMT_ADD_SCANS} scans")
+    hmt_add = hmt_add_scan_case(dev)
+    print("phase 16d: to_paired_cells, se2.dist / angular_dist")
+    helpers = helpers_case(fx, dev)
+    return {"chunked": chunked, "compute_link": link, "hmt_add_scan": hmt_add,
+            "helpers": helpers}
 
 
 def main():
@@ -3944,6 +4352,7 @@ def main():
     viewer = viewer_phase(fx, lc, dev)
     print("phase 15: the multi-device programs in an NCCL world of one rank")
     multidevice, md_launches = multidevice_phase(fx, lc, dev)
+    entry_points = entry_points_phase(sp, fx, slam, lc, dev)
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
@@ -3983,6 +4392,8 @@ def main():
                      "3d's per-trial lockstep path")):
         by_name[k].update(path=path, yardstick_launches=yardstick[k])
     by_name["newton_solve_batch"]["launches_sharded_fleet"] = md_launches
+    by_name["newton_solve"]["launches_chunked"] = (
+        entry_points["chunked"]["launches"]["newton_solve"])
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
@@ -3997,12 +4408,13 @@ def main():
         "rolling_map": rolling, "offline_scale": scale,
         "simulator": simulator, "inputs": inputs, "p2d": p2d,
         "calibration": calibration, "sixdof": sixdof, "viewer": viewer,
-        "multidevice": multidevice,
+        "multidevice": multidevice, "entry_points": entry_points,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
                      "online_lc": on_launches,
                      "offline_scale_fgh_dense_flat_batch": scale_launches,
-                     "sharded_fleet_newton_solve_batch": md_launches},
+                     "sharded_fleet_newton_solve_batch": md_launches,
+                     "chunked": entry_points["chunked"]["launches"]},
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

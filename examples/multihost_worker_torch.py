@@ -18,7 +18,10 @@ shard contract asks (the full inputs everywhere, each rank its shard):
                          --draws npz (`u_<name>`, (P, M, 2));
   fleet                  run_sequence_batch_sharded over 8 simulated
                          streams (the 2-D mesh shards them over "dcn"
-                         only) and measure_fleet_throughput on them.
+                         only) and measure_fleet_throughput on them;
+  mesh names             global_put / global_get / sharded / replicated
+                         on a small array (and their refusal of rows
+                         the shard count does not divide).
 
 Rank 0 also runs the single-device programs on the same inputs and
 writes everything to --out (npz).  Every rank uses one CPU thread.
@@ -166,6 +169,51 @@ def run_fleet(mesh, axis, dev, single):
     return out
 
 
+def mesh_names_arrays():
+    """The placement names' inputs: a (12, 3) float32 array and a bool
+    mask of its rows."""
+    return (np.arange(36, dtype=np.float32).reshape(12, 3),
+            np.arange(12) % 3 == 0)
+
+
+def mesh_names(mesh, axis, dev):
+    """The reference's placement names over the mesh on mesh_names_arrays,
+    the same on every rank: global_put / global_get with a row spec and
+    an empty one, sharded, replicated; 11 rows, which no shard count of
+    2 to 4 divides, must raise ValueError as the reference's do (over
+    more than one shard).  Returns the number of ranks where every
+    placement read back as it should, the gathered array and mask, and
+    this rank's shard."""
+    from ndt_feature_graph_tpu_torch.parallel import mesh as mesh_mod
+
+    x, mask = mesh_names_arrays()
+    spec = (axis,)
+    rows = mesh_mod.global_put(mesh, x, spec)
+    t = torch.as_tensor(x, device=dev)
+    got = mesh_mod.global_get(mesh, rows, spec)
+    got_mask = mesh_mod.global_get(mesh, mesh_mod.global_put(mesh, mask,
+                                                             spec), spec)
+    refused = 0
+    for place in (lambda: mesh_mod.global_put(mesh, x[:11], spec),
+                  lambda: mesh_mod.sharded(mesh, t[:11], axis)):
+        try:
+            place()
+        except ValueError:
+            refused += 1
+    ok = (torch.equal(rows, mesh_mod.sharded(mesh, t, axis))
+          and torch.equal(rows, mesh_mod.shard_rows(mesh, t, axis))
+          and np.array_equal(got, x) and np.array_equal(got_mask, mask)
+          and np.array_equal(mesh_mod.global_get(
+              mesh, mesh_mod.global_put(mesh, x, ()), ()), x)
+          and mesh_mod.replicated(mesh, t) is t
+          and refused == (2 if mesh_mod.axis_size(mesh, axis) > 1 else 0))
+    flag = torch.tensor([float(ok)], device=dev)
+    return {"mesh_names_ok": mesh_mod.psum(mesh, flag, axis),
+            "mesh_names_get": torch.as_tensor(got),
+            "mesh_names_mask": torch.as_tensor(got_mask),
+            "mesh_names_shard": rows}
+
+
 def mesh_refusals(world):
     """How many of the two malformed meshes raise ValueError (a mesh
     smaller than the world; rows of 3 in a world of 4)."""
@@ -217,6 +265,7 @@ def main():
         single = args.rank == 0
         out = run_solvers(mesh, axis, dev, single)
         out["mesh_refusals"] = torch.tensor(mesh_refusals(args.world))
+        out.update(mesh_names(mesh, axis, dev))
         print(f"rank {args.rank} solvers done", flush=True)
         if args.graph:
             out.update(run_links(mesh, axis, dev, args.graph, args.draws,

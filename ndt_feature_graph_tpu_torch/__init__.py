@@ -22,6 +22,14 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+from ndt_feature_graph_tpu_torch.config import (  # noqa: E402
+    FuserParams,
+    GraphParams,
+    MatcherParams,
+    MotionParams,
+    NDTMapParams,
+)
+
 
 def resolve_device(device=None) -> torch.device:
     """The device a loader or constructor puts its tensors on: the one

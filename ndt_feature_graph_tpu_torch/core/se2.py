@@ -158,3 +158,13 @@ def to_tum(t, pose):
     t = torch.as_tensor(t, dtype=pose.dtype, device=pose.device).expand(
         qw.shape)
     return torch.stack([t, pose[..., 0], pose[..., 1], z, z, z, qz, qw], -1)
+
+
+def dist(a, b):
+    """Planar distance between poses (..., 3)."""
+    return torch.linalg.vector_norm(a[..., :2] - b[..., :2], dim=-1)
+
+
+def angular_dist(a, b):
+    """Heading difference of poses (..., 3), wrapped to (-pi, pi]."""
+    return normalize_angle(a[..., 2] - b[..., 2])

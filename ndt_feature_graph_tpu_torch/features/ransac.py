@@ -1,5 +1,5 @@
 """Batched RANSAC feature-set matcher (port of
-ndt_feature_graph_tpu/features/ransac.py: match_sets).
+ndt_feature_graph_tpu/features/ransac.py: match_sets, to_paired_cells).
 
 Fixed-budget parallel hypothesis fan-out: descriptor chi2 matrix ->
 one candidate per moving point -> M two-point SE(2) hypotheses -> MSAC
@@ -24,6 +24,7 @@ from ndt_feature_graph_tpu_torch.features.detector import (
 from ndt_feature_graph_tpu_torch.features.distance import (
     symmetric_chi2_matrix,
 )
+from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 from ndt_feature_graph_tpu_torch.ops.ndt_map import take_rows as _take
 
 
@@ -184,3 +185,18 @@ def match_sets(params: FeatureParams, ref: FeatureSet, ref_desc,
         corr_mov=corr_mov, corr_mask=corr_mask, inlier_mask=inlier,
         valid=any_hyp & (n_in >= 2),
     )
+
+
+def to_paired_cells(result: MatchResult, ref: FeatureSet, mov: FeatureSet,
+                    cov_xy: float = 2e-4):
+    """RANSAC correspondences as paired fixed-covariance pseudo-cell lists
+    for the fusion matcher: (src, tgt), the moving and the reference
+    points of each candidate, covariance cov_xy * I, masked to the
+    inliers.  Leading dims as match_sets'."""
+    covs = (torch.eye(2, dtype=torch.float32, device=result.T.device)
+            * cov_xy).expand(*result.corr_ref.shape, 2, 2).contiguous()
+    tgt = CellList(means=_take(ref.pts, result.corr_ref), covs=covs,
+                   mask=result.inlier_mask)
+    src = CellList(means=_take(mov.pts, result.corr_mov), covs=covs,
+                   mask=result.inlier_mask)
+    return src, tgt

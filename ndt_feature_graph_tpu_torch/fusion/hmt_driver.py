@@ -63,21 +63,14 @@ class HMTFuser:
 
     # ---------------- recentre event ----------------
 
-    def _center(self) -> np.ndarray:
-        origin = self.state.grid.origin.cpu().numpy().astype(np.float64)
-        p = self.params.ndt
-        return origin + np.asarray([p.size_x / 2.0, p.size_y / 2.0])
-
     def maybe_recenter(self) -> bool:
-        """Spill / recall recentre if the vehicle left the margin.
-        Returns True if one happened."""
+        """Spill / recall recentre if the vehicle left the margin
+        (HMTMap.follow).  Returns True if one happened."""
         pose = self.state.Tnow.cpu().numpy().astype(np.float64)
-        off = pose[:2] - self._center()
-        if float(np.hypot(off[0], off[1])) <= self.margin:
-            return False
         t0 = time.perf_counter()
         self.hmt.grid = self.state.grid
-        self.hmt.recenter(pose[:2])
+        if not self.hmt.follow(pose, self.margin):
+            return False
         self.state = dataclasses.replace(
             self.state, grid=self.hmt.grid,
             packed=d2d.packed_from_grid(self.hmt.grid, self.params.ndt))

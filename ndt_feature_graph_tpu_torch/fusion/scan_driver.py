@@ -1,8 +1,8 @@
 """Sequence drivers (port of ndt_feature_graph_tpu/fusion/scan_driver.py):
-the online graph-SLAM drivers (run_graph_sequence, unstack_bank), the
-single-stream drivers (run_sequence, run_sequence_features) and the
-fleet drivers over B independent streams (run_sequence_batch,
-run_sequence_features_batch).
+the online graph-SLAM drivers (run_graph_sequence, run_graph_chunk,
+unstack_bank), the single-stream drivers (run_sequence,
+run_sequence_features) and the fleet drivers over B independent streams
+(run_sequence_batch, run_sequence_features_batch).
 
 The reference runs the whole sequence inside one XLA executable with
 the node splits under lax.cond.  Here the scan loop is a Python loop
@@ -28,14 +28,18 @@ from ndt_feature_graph_tpu_torch.io import dataset
 
 
 def split_schedule(odom, dist_moved, update_count, split_dist,
-                   max_nodes: int, fm_incr: int):
+                   max_nodes: int, fm_incr: int, stop_at_split: bool = False):
     """Host replay of the reference's per-scan decisions, in float32 as
     it computes them: dist2 = dist + |odom[:2]|; a scan splits when
     dist2 > split_dist and the bank has room (then dist and the count
     restart at 0); otherwise it feeds the feature map when the node's
-    update count reaches a multiple of `fm_incr`.
+    update count reaches a multiple of `fm_incr`.  With `stop_at_split`
+    (run_graph_chunk's contract) the schedule ends at the first split,
+    and dist and the count are those after the split scan, before the
+    restart.
 
-    Returns (split (T,) bool, insert (T,) bool, dist, count, n_splits).
+    Returns (split (T,) bool, insert (T,) bool, dist, count, n_splits);
+    with `stop_at_split` the two arrays end at the split scan.
     """
     odom = np.asarray(odom, np.float32)
     t_len = odom.shape[0]
@@ -51,6 +55,8 @@ def split_schedule(odom, dist_moved, update_count, split_dist,
         cnt2 = cnt + 1
         if dist2 > split_dist and nn + 1 < max_nodes:
             split[t] = True
+            if stop_at_split:
+                return split[:t + 1], insert[:t + 1], float(dist2), cnt2, 1
             dist, cnt, nn = np.float32(0.0), 0, nn + 1
         else:
             insert[t] = cnt2 % fm_incr == 0
@@ -93,7 +99,6 @@ def run_graph_sequence(
     """
     dev = ranges.device
     t_len = ranges.shape[0]
-    sp = state.base.sensor_pose
     split, insert, dist, cnt, n_frozen = split_schedule(
         odom.cpu().numpy(), dist_moved, update_count, split_dist,
         max_nodes, fm_incr,
@@ -115,9 +120,8 @@ def run_graph_sequence(
     nn = 0
     traj = []
     for t in range(t_len):
-        ns, _info, _res = feature_fuser.update(
-            st, params, odom[t], ranges[t], hit[t], ransac_u[t]
-        )
+        ns, fm, _info = _graph_step(params, st, fm, odom[t], ranges[t],
+                                    hit[t], ransac_u[t], insert[t])
         traj.append(se2.compose(cur_T, ns.base.Tnow))
         if split[t]:
             frozen, rel, cov, new_T, st, fm = split_node(
@@ -130,15 +134,94 @@ def run_graph_sequence(
             nn += 1
         else:
             st = ns
-            if insert[t]:
-                fm = node_mod.insert_features(
-                    fm, ns.prev_feats, ns.prev_desc,
-                    se2.compose(ns.base.Tnow, sp),
-                )
     assert nn == n_frozen
     traj = torch.stack(traj) if traj else torch.zeros((0, 3), **z)
     return (st, fm, bank, node_T_bank, edge_rel, edge_cov, traj, cur_T,
             (dist, cnt, n_frozen))
+
+
+def _graph_step(params: FuserParams, st, fm, odom_t, ranges_t, hit_t, u_t,
+                insert: bool):
+    """One scan of the graph drivers: the feature pipeline, joint fusion
+    and map update (feature_fuser.update: one `newton_solve` launch on
+    the card), then, where the host schedule says so, the scan's
+    features into the node's feature map at its sensor pose.  Returns
+    (state, feature map, UpdateInfo)."""
+    ns, info, _res = feature_fuser.update(st, params, odom_t, ranges_t,
+                                          hit_t, u_t)
+    if insert:
+        fm = node_mod.insert_features(
+            fm, ns.prev_feats, ns.prev_desc,
+            se2.compose(ns.base.Tnow, ns.base.sensor_pose),
+        )
+    return ns, fm, info
+
+
+def run_graph_chunk(
+    params: FuserParams,
+    state: feature_fuser.FeatureFuserState,
+    fmap: node_mod.FeatureMapBuffer,
+    dist_moved,
+    update_count,
+    odom,
+    ranges,
+    hit,
+    active,
+    split_dist,
+    fm_incr: int = 4,
+    ransac_u=None,
+    generator=None,
+):
+    """The reference's chunk of the graph driver: up to K gated scans of
+    the feature pipeline, stopping at the first node split.  The scan
+    that trips `split_dist` is fused into the old node and does not feed
+    its feature map; the scans after it are untouched, and so is every
+    row from the first inactive one on (score 0, the trajectory row
+    holds the last pose).  The host makes the split itself (split_node).
+
+    Where the chunk stops depends on odometry only, so it is decided on
+    the host before the loop (split_schedule): the odometry is read to
+    the host once, the loop reads nothing back, and each
+    processed scan is the per-scan step of run_graph_sequence (one
+    `newton_solve` launch on the card).
+
+    state: FeatureFuserState; fmap: FeatureMapBuffer; dist_moved: the
+    distance moved in the active node; update_count: its updates so
+    far; odom (K, 3); ranges, hit (K, B); active (K,) bool, a host array
+    or tensor (padding flags of the last chunk); ransac_u (K, M, 2) RANSAC
+    draws, row t for scan t, or None to draw one row per processed scan
+    on the device from `generator`.
+
+    Returns (state, fmap, traj (K, 3) node-local poses, scores (K,),
+    meta): meta = [dist, count, processed, split_idx] float32 on the
+    host, split_idx -1 without a split.
+    """
+    act = np.asarray(active.cpu() if torch.is_tensor(active) else active,
+                     bool)
+    odom_np = np.asarray(odom.cpu() if torch.is_tensor(odom) else odom,
+                         np.float32)
+    n_active = int(np.argmin(act)) if not act.all() else act.shape[0]
+    # Two nodes: the chunk's one split always has room (the caller passes
+    # an infinite split_dist when the bank is full).
+    split, insert, dist, cnt, _ = split_schedule(
+        odom_np[:n_active], dist_moved, update_count, split_dist, 2, fm_incr,
+        stop_at_split=True)
+    n = split.shape[0]
+    split_idx = n - 1 if n and split[-1] else -1
+
+    k_len = ranges.shape[0]
+    u = _draws(ransac_u, (n,), params, generator, ranges.device)
+    st, fm = state, fmap
+    scores = torch.zeros(k_len, dtype=torch.float32, device=ranges.device)
+    traj = []
+    for t in range(n):
+        st, fm, info = _graph_step(params, st, fm, odom[t], ranges[t], hit[t],
+                                   u[t], insert[t])
+        scores[t] = info.score
+        traj.append(st.base.Tnow)
+    traj += [st.base.Tnow] * (k_len - n)
+    meta = torch.tensor([dist, cnt, n, split_idx], dtype=torch.float32)
+    return st, fm, torch.stack(traj), scores, meta
 
 
 def split_node(params: FuserParams, link_source: str, cur_T,

@@ -9,7 +9,8 @@ D2D window term is the `fgh_dense_flat_batch` kernel entry on CUDA
 tensors (its plain twin on the CPU).
 
 Randomness: `compute_links_batch` takes the RANSAC draws `u` (P, M, 2),
-one row of uniforms per pair, where the reference splits a key.
+one row of uniforms per pair, and `compute_link` one pair's (M, 2),
+where the reference splits a key.
 """
 
 from __future__ import annotations
@@ -74,8 +75,18 @@ def _overlap(mov_occ_raw, mov_origin, ref_lookup, ref_origin, T, h: int,
     both = mov_has & ref_has
     nb = both.sum(-1)
     diff2 = (mov_occ - ref_occ) ** 2
-    s = torch.where(both, diff2, 0.0).sum(-1) / torch.clamp(nb, min=1)
+    s = _row_sum(torch.where(both, diff2, 0.0)) / torch.clamp(nb, min=1)
     return torch.where(nb > 0, s, 1.0), nb
+
+
+def _row_sum(x):
+    """The overlap's sum over the cells (last dim): torch.sum, whose
+    order follows the number of rows (its CUDA reduction lays a row over
+    more threads when there are fewer rows; the CPU's splits one long
+    row across threads), so a pair alone can part from its batch row in
+    the last bits.  chip_smoke phase 16b times a fixed-order sum in its
+    place."""
+    return x.sum(-1)
 
 
 def occupancy_overlap_score(ref: NodeData, mov: NodeData, T,
@@ -86,6 +97,27 @@ def occupancy_overlap_score(ref: NodeData, mov: NodeData, T,
     return _overlap(mov.occ.reshape(-1), mov.occ_origin,
                     lambda flat: ref.occ.reshape(-1)[flat], ref.occ_origin,
                     T, h, w, resolution)
+
+
+def compute_link(fp: FeatureParams, resolution: float, ref: NodeData,
+                 mov: NodeData, u):
+    """One pair's link proposal (computeLink): feature-map RANSAC -> T,
+    then the occupancy-overlap score (1.0 without a valid RANSAC pose).
+    u (M, 2): the pair's RANSAC draws.  Returns (T (3,), score,
+    feat_valid, n_overlap).
+
+    The same computation as the pair's row of compute_links_batch under
+    the same draws.  The bits are the row's where torch computes a row
+    in one order alone and in the batch: on the CPU for grids under
+    32,768 cells (a longer single row is summed across threads) in
+    batches under 32 pairs (torch evaluates atan2 / sin / cos of 32 or
+    more values with vectorized routines, which round some RANSAC poses
+    in another last bit).  Elsewhere the overlap score may part in its
+    last bits (_row_sum); on the card the pose and validity keep theirs
+    (chip_smoke phase 16b)."""
+    res = ransac.match_sets(fp, ref.feats, ref.desc, mov.feats, mov.desc, u)
+    score, nb = occupancy_overlap_score(ref, mov, res.T, resolution)
+    return res.T, torch.where(res.valid, score, 1.0), res.valid, nb
 
 
 def _overlap_score_flat(occ_flat, occ_origins, ref_i, mov_i, T, h: int,

@@ -251,10 +251,13 @@ class NDTFeatureGraphSLAM:
         """Process a whole gated scan sequence at most `chunk` scans at
         a time, each piece ending at the first node split, which is
         followed by online loop closure (when enabled) — the semantics
-        of the reference's run_graph_chunk loop: those of update() per
+        of the reference's loop over its chunk driver (whose contract is
+        the port's scan_driver.run_graph_chunk): those of update() per
         scan, except that a split scan whose proposal is accepted is
         logged at its pose before the incremental solve.  Where a scan
-        splits depends only on odometry (scan_driver.split_schedule).
+        splits depends only on odometry (scan_driver.split_schedule), so
+        each piece runs through run_graph_sequence and no chunk's result
+        is read back to find it.
 
         odom (T, 3), ranges (T, B), hit (T, B), scan 0 consumed by
         initialize(); ransac_u optional (T-1, M, 2).  Returns the global

@@ -37,6 +37,7 @@ import torch
 
 from ndt_feature_graph_tpu_torch import config, resolve_device
 from ndt_feature_graph_tpu_torch.features.detector import FeatureSet
+from ndt_feature_graph_tpu_torch.features.ransac import MatchResult
 from ndt_feature_graph_tpu_torch.fusion.feature_fuser import (
     FeatureFuserState,
 )
@@ -141,6 +142,15 @@ def _indices(obj, names, device):
     device = resolve_device(device)
     return {n: torch.tensor(np.asarray(_get(obj, n)), dtype=torch.int64,
                             device=device) for n in names}
+
+
+def match_result_from_jax(r, device=None) -> MatchResult:
+    """A reference RANSAC result; its candidate indices as int64, the
+    port's index type."""
+    return MatchResult(
+        **_indices(r, ("corr_ref", "corr_mov"), device),
+        **_tensors(r, ("T", "score", "num_inliers", "corr_mask",
+                       "inlier_mask", "valid"), device))
 
 
 def link_set_from_jax(ls, device=None) -> LinkSet:

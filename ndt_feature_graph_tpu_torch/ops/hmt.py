@@ -73,10 +73,35 @@ class HMTMap:
         self.grid = ndt_map.update_occupancy(self.grid, self.params,
                                              sensor_origin, pts, mask)
 
+    def add_scan(self, sensor_origin, pts, mask, margin: float = 0.0):
+        """The per-scan map update with window follow: recentre onto the
+        sensor if it left the margin (margin > 0), then fuse the scan's
+        world points.  sensor_origin (2,) or (3,) on the window's device
+        (a host read when margin > 0)."""
+        if margin > 0.0:
+            self.follow(sensor_origin.cpu().numpy(), margin)
+        self.add_points(pts, mask)
+        self.update_occupancy(sensor_origin[:2], pts, mask)
+
+    def cell_list(self) -> ndt_map.CellList:
+        """The window's valid gaussians as a padded cell list."""
+        return ndt_map.to_cell_list(self.grid, self.params)
+
     def center(self):
         origin = self.grid.origin.cpu().numpy().astype(np.float64)
         return origin + np.asarray([self.params.size_x / 2.0,
                                     self.params.size_y / 2.0])
+
+    def follow(self, xy, margin: float) -> bool:
+        """Recentre onto the world point xy (host, (2,) or more) if it
+        lies more than `margin` from the window's centre (float64, as
+        the reference).  Returns True if it did."""
+        xy = np.asarray(xy)[:2]
+        off = xy.astype(np.float64) - self.center()
+        if float(np.hypot(off[0], off[1])) <= margin:
+            return False
+        self.recenter(xy)
+        return True
 
     # ---------------- spill / recall ----------------
 

@@ -46,6 +46,10 @@ class NDTGrid:
     outer: torch.Tensor      # (..., H, W, 2, 2)
     occ: torch.Tensor        # (..., H, W) log-odds occupancy
 
+    @property
+    def shape(self):
+        return self.count.shape
+
 
 @dataclasses.dataclass
 class CellList:

@@ -173,6 +173,59 @@ def gather_rows(mesh, x, axis="dp"):
     return out.bool() if flag else out
 
 
+def _spec_axis(spec):
+    """The row axis of a placement spec: a tuple of axis names standing
+    for the reference's P(...), the first entry naming the axis (or the
+    tuple of axes) that shards rows, trailing Nones for replicated
+    dimensions.  None for an empty spec (replicated).  A spec that
+    shards any other dimension raises."""
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    if not spec:
+        return None
+    if len(spec) > 1 or spec[0] is None:
+        raise ValueError(f"spec {spec}: the port shards rows only")
+    return spec[0]
+
+
+def replicated(mesh, x):
+    """x placed replicated over the mesh: every rank holds the whole
+    tensor, which is x itself (each rank passes the full value)."""
+    return x
+
+
+def sharded(mesh, x, axis="dp"):
+    """x's rows sharded over `axis`: this rank's block (shard_rows).  As
+    the reference's, a row count the shard count does not divide raises
+    ValueError; pad first (pad_to_multiple) to place it."""
+    n = axis_size(mesh, axis)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not divide into {n} "
+                         f"shards over {axis}")
+    return shard_rows(mesh, x, axis)
+
+
+def global_put(mesh, x, spec):
+    """The reference's placement of the full array x (every rank passes
+    the same) under `spec` (see _spec_axis): the whole tensor for an
+    empty spec, else this rank's rows (sharded: rows the shard count
+    does not divide raise).  x may be numpy; it lands on the mesh's
+    device type."""
+    x = torch.as_tensor(x, device=mesh.device_type)
+    axis = _spec_axis(spec)
+    return replicated(mesh, x) if axis is None else sharded(mesh, x, axis)
+
+
+def global_get(mesh, x, spec=("dp",)):
+    """The full value of a placed tensor on every rank, at its global
+    shape, as numpy: the shards gathered in order (gather_rows), or x
+    itself when `spec` is empty (replicated)."""
+    axis = _spec_axis(spec)
+    full = x if axis is None else gather_rows(mesh, x, axis)
+    return full.cpu().numpy()
+
+
 def psum(mesh, x, axis="dp"):
     """The sum of x over the shards of `axis`, on every rank (in place on
     x, which is also returned)."""

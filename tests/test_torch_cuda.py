@@ -4,10 +4,10 @@ the fleet step's `newton_solve_batch`, also against the per-trial path
 over the same objective kernel), the Newton-trial objective
 (`newton_objective`, with the paired front end on its own), the window
 term, the batch entry, the fleet step's `newton_objective_batch` and the
-paired reduction; and the sharded dense solve in an NCCL world of one
-rank.  Marked `cuda`: they skip without a CUDA card.  The file imports
-no JAX, so it also runs where JAX is not installed (skip the
-JAX-importing conftest there):
+paired reduction; the sharded dense solve in an NCCL world of one rank;
+and the chunked graph driver against its CPU twin.  Marked `cuda`: they
+skip without a CUDA card.  The file imports no JAX, so it also runs
+where JAX is not installed (skip the JAX-importing conftest there):
 
     python3 -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -478,3 +478,46 @@ def test_sharded_dense_solve_in_an_nccl_world(cuda_device):
         assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_run_graph_chunk_on_the_card_matches_the_cpu(cuda_device):
+    """run_graph_chunk over the canonical fixture's scans 1-16 (a split at
+    the fixture's node distance), on the card and on the CPU twin from
+    the same initial state and draws: one `newton_solve` launch a
+    processed scan and no other entry, the same meta, poses within
+    1e-3 m / rad (the kernel sums in another order than the plain
+    registration) and scores within rtol 5e-3 (measured on the H100:
+    1.5e-3)."""
+    from ndt_feature_graph_tpu_torch.fusion import scan_driver
+    from ndt_feature_graph_tpu_torch.graph.slam import NDTFeatureGraphSLAM
+
+    fx = dict(np.load(chip_smoke.FIXTURE))
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            x, dtype=dt, device=dev)
+        ranges, hit = T(fx["ranges"][:17]), T(fx["hit"][:17], torch.bool)
+        slam = NDTFeatureGraphSLAM(sp, seed=0)
+        slam.initialize(T(fx["gt"][0]), torch.zeros(3, device=dev), ranges[0],
+                        hit[0])
+        cuda_kernels.reset_launch_counts()
+        st, _, traj, scores, meta = scan_driver.run_graph_chunk(
+            sp.fuser, slam.state, slam.fmap, 0.0, 0, T(fx["odom"][1:17]),
+            ranges[1:], hit[1:], np.ones(16, bool),
+            sp.graph.new_node_transl_dist,
+            fm_incr=sp.fuser.feature_map_update_incr,
+            ransac_u=T(fx["ransac_u"][:16]))
+        out[str(dev)] = (traj.cpu().numpy(), scores.cpu().numpy(),
+                         meta.numpy(), dict(cuda_kernels.LAUNCHES))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    n_proc = int(card[2][2])
+    assert 1 <= n_proc <= 16
+    assert card[3]["newton_solve"] == n_proc == sum(card[3].values())
+    assert not any(cpu[3].values())
+    np.testing.assert_array_equal(card[2][1:], cpu[2][1:])
+    np.testing.assert_allclose(card[2][0], cpu[2][0], atol=1e-6)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=5e-3)

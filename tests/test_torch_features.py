@@ -128,3 +128,34 @@ def test_match_sets_with_injected_draws(pair):
                                atol=1e-5)
     np.testing.assert_allclose(float(jres.score), float(tres.score),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("pair", [(0, 1), (3, 20)])
+def test_to_paired_cells_matches_jax(pair):
+    """The paired pseudo-cells of a RANSAC result, from the port's own
+    result and from the reference's carried over by interop: the same
+    gathered points, the same fixed covariance, the inlier mask."""
+    (jref, jrd), (jmov, jmd) = _feats(pair[0]), _feats(pair[1])
+    key = jax.random.PRNGKey(sum(pair))
+    u = jax.random.uniform(jax.random.split(key)[0], (FP.ransac_hypotheses, 2))
+    jres = jr.match_sets(FP, jref, jrd, jmov, jmd, key)
+    want = jax.tree.map(np.asarray, jr.to_paired_cells(jres, jref, jmov))
+    to = lambda f: interop.feature_set_from_jax(  # noqa: E731
+        jax.tree.map(np.asarray, f), "cpu")
+    carried = interop.match_result_from_jax(jax.tree.map(np.asarray, jres),
+                                            "cpu")
+    for name in ("T", "score", "num_inliers", "corr_ref", "corr_mov",
+                 "corr_mask", "inlier_mask", "valid"):
+        np.testing.assert_array_equal(getattr(carried, name).numpy(),
+                                      np.asarray(getattr(jres, name)), name)
+    own = tr.match_sets(TFP, to(jref), torch.tensor(np.asarray(jrd)),
+                        to(jmov), torch.tensor(np.asarray(jmd)),
+                        torch.tensor(np.asarray(u)))
+    for res in (carried, own):
+        got = tr.to_paired_cells(res, to(jref), to(jmov))
+        for g, w in zip(got, want):
+            for name in ("means", "covs", "mask"):
+                np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                              getattr(w, name), name)
+    assert want[0].mask.sum() >= (2 if pair == (0, 1) else 0)
+

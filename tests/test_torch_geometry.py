@@ -39,11 +39,14 @@ def _close(j, t, atol=ATOL):
 
 
 @pytest.mark.parametrize(
-    "name", ["compose", "sub", "inverse", "normalize_angle", "adjoint"]
+    "name", ["compose", "sub", "inverse", "normalize_angle", "adjoint",
+             "dist", "angular_dist"]
 )
 def test_se2_pose_ops_match_jax(name):
     rng = np.random.default_rng(0)
     a, b = _poses(rng, 64), _poses(rng, 64)
+    if name == "angular_dist":   # heading differences beyond +-pi wrap
+        assert (np.abs(a[:, 2] - b[:, 2]) > np.pi).sum() >= 8
     if name == "inverse":
         _close(jse2.inverse(jnp.asarray(a)), tse2.inverse(torch.tensor(a)))
     elif name == "normalize_angle":
@@ -201,9 +204,22 @@ def test_params_from_jax_rejects_differing_fields():
 def test_port_imports_without_jax():
     """Importing every module of the port and chip_smoke leaves neither
     jax* nor the JAX package (ndt_feature_graph_tpu, any submodule) in
-    sys.modules."""
+    sys.modules, and starts no CUDA; the package exports and the chunked
+    graph driver import by their reference names."""
     code = (
         "import sys, importlib, pkgutil, torch\n"
+        "from ndt_feature_graph_tpu_torch import (FuserParams, GraphParams,\n"
+        "    MatcherParams, MotionParams, NDTMapParams)\n"
+        "from ndt_feature_graph_tpu_torch.core import se2, motion_model\n"
+        "from ndt_feature_graph_tpu_torch.features import (FeatureSet,\n"
+        "    detect, describe, symmetric_chi2_matrix, MatchResult,\n"
+        "    match_sets)\n"
+        "from ndt_feature_graph_tpu_torch.models import (canonical_slam,\n"
+        "    feature_graph_slam, mcl_localizer, ndt_odometry,\n"
+        "    offline_mapper, p2d_registration)\n"
+        "from ndt_feature_graph_tpu_torch.fusion.scan_driver import (\n"
+        "    run_graph_chunk)\n"
+        "assert not torch.cuda.is_initialized()\n"
         "import ndt_feature_graph_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -225,6 +241,7 @@ def test_port_imports_without_jax():
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
+        "assert not torch.cuda.is_initialized()\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

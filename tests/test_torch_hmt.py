@@ -110,6 +110,40 @@ def _stores_match(jm, tm):
 
 # ---- the seven cases of tests/test_hmt.py ----
 
+@pytest.mark.parametrize("margin", [0.0, 2.0], ids=["fixed", "follow"])
+def test_add_scan_and_cell_list_match_jax(margin):
+    """HMTMap.add_scan over five scans of a sensor moving 1.5 m a scan:
+    the window stays put without a margin and follows the sensor (two
+    recentres, spilling to the store) with one; then cell_list and the
+    grid's shape."""
+    rng = np.random.default_rng(3)
+    jm = jhmt.HMTMap(SMALL, (0.0, 0.0), tile_cells=16)
+    tm = hmt.HMTMap(TSMALL, torch.zeros(2), tile_cells=16)
+    origins = []
+    for k in range(5):
+        origin = np.asarray([1.5 * k, 0.2 * k], np.float32)
+        pts = (origin + rng.uniform(-8.0, 8.0, (256, 2))).astype(
+            np.float32)
+        mask = rng.random(256) < 0.9
+        jm.add_scan(jnp.asarray(origin), jnp.asarray(pts), jnp.asarray(mask),
+                    margin=margin)
+        tm.add_scan(t(origin), t(pts), t(mask, torch.bool), margin=margin)
+        origins.append(tuple(tm.grid.origin.tolist()))
+    assert len(set(origins)) == (3 if margin else 1)
+    _close(_arrays(tm.grid), _arrays(jm.grid))
+    _stores_match(jm, tm)
+    assert (tm.stored_cell_count() > 0) == (margin > 0)
+    assert tm.grid.shape == jm.grid.shape == (SMALL.grid_h, SMALL.grid_w)
+    jc, tc = jm.cell_list(), tm.cell_list()
+    np.testing.assert_array_equal(tc.mask.numpy(), np.asarray(jc.mask))
+    assert tc.mask.sum() > 50
+    ok = tc.mask.numpy()
+    np.testing.assert_allclose(tc.means.numpy()[ok], np.asarray(jc.means)[ok],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tc.covs.numpy()[ok], np.asarray(jc.covs)[ok],
+                               rtol=1e-4, atol=1e-5)
+
+
 def test_zero_shift_noop():
     jm, tm = _maps()
     before = _arrays(tm.grid)

@@ -50,6 +50,7 @@ from ndt_feature_graph_tpu.ops import d2d_analytic as jda
 from ndt_feature_graph_tpu.ops import ndt_map as jnm
 from ndt_feature_graph_tpu_torch import interop
 from ndt_feature_graph_tpu_torch.graph import links as tl
+from ndt_feature_graph_tpu_torch.graph.node import map_tensors
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels
 from ndt_feature_graph_tpu_torch.ops import d2d as td2d
 from ndt_feature_graph_tpu_torch.ops import d2d_analytic as tda
@@ -142,6 +143,36 @@ def test_compute_links_batch_matches_jax():
     np.testing.assert_allclose(ls_t.score.numpy(), np.asarray(ls_j.score),
                                atol=1e-5)
     np.testing.assert_array_equal(ls_t.cov.numpy(), np.asarray(ls_j.cov))
+
+
+def test_compute_link_equals_batch_row_and_matches_jax():
+    """One pair's proposal (compute_link) under that pair's draws: the
+    bits of its row of compute_links_batch over the bank's 15 pairs (on
+    the CPU a row of this grid's 6,400 cells is summed in one order
+    alone and in a batch; see links.compute_link), and the reference's
+    compute_link under the pair's key."""
+    stacked, pairs, _ = _bank()
+    bank = _tbank()
+    p = len(pairs)
+    u = _u(p)
+    r, m = torch.tensor(pairs[:, 0]), torch.tensor(pairs[:, 1])
+    batch = tl.compute_links_batch(TP.features, RES, bank, r, m,
+                                   torch.ones(p, dtype=torch.bool), u)
+    node = lambda i: map_tensors(lambda x: x[i], bank)  # noqa: E731
+    jnode_ = lambda i: jax.tree.map(lambda x: x[i], stacked)  # noqa: E731
+    keys = jax.random.split(KEY, p)
+    for k in range(p):
+        T, score, valid, nb = tl.compute_link(TP.features, RES, node(r[k]),
+                                              node(m[k]), u[k])
+        assert torch.equal(T, batch.T[k])
+        assert torch.equal(score, batch.score[k])
+        assert bool(valid) == bool(batch.mask[k])
+        jT, js, jv, jn = jl.compute_link(P.features, RES, jnode_(pairs[k, 0]),
+                                         jnode_(pairs[k, 1]), keys[k])
+        assert bool(valid) == bool(jv) and int(nb) == int(jn)
+        np.testing.assert_allclose(T.numpy(), np.asarray(jT), atol=1e-5)
+        np.testing.assert_allclose(float(score), float(js), atol=1e-5)
+    assert batch.mask.sum() >= 5
 
 
 def test_match_sets_batch_equals_per_pair():

@@ -7,12 +7,15 @@ Two spawns of examples/multihost_worker_torch.py, each computing every
 program in one go while this process computes the reference's results
 (module fixture): a 4-rank world on a 1-D "dp" mesh, and a 2x2 ("dcn",
 "ici") mesh whose programs shard over both axes (the fleet over "dcn"
-alone: measure_fleet_throughput(n_devices=2)).  The graphs are
-chip_smoke.multi_loop_graph(48) (87 edges, which no world of 2 or 4
-divides) and chip_smoke.two_lap_graph(200); the link leg runs on a small
-loop's graph, built by the port and saved as a checkpoint that both
-packages load, with the reference's draws for its single-device batch
-and for its shard_map (which splits its key over the padded pair
+alone: measure_fleet_throughput(n_devices=2)); each also runs the
+reference's placement names (global_put / global_get / sharded /
+replicated) on a small array, held to the reference's own on a mesh of
+4 virtual devices.  The graphs are chip_smoke.multi_loop_graph(48) (87
+edges, which no world of 2 or 4 divides) and
+chip_smoke.two_lap_graph(200); the link leg runs on a small loop's
+graph, built by the port and saved as a checkpoint that both packages
+load, with the reference's draws for its single-device batch and for
+its shard_map (which splits its key over the padded pair
 count).  The JAX shard_maps run on 4 of conftest.py's 8 virtual
 devices.  In a gloo world of one rank, formed in this process, each
 sharded solver is held to its single-device twin bit for bit: it is the
@@ -196,6 +199,42 @@ def _jax_references(slam, pair_count, key):
     ls = jlinks_sh.compute_links_sharded(mesh, *args, key)
     ref["links_padded"] = {f: np.asarray(getattr(ls, f))[:pair_count]
                            for f in ("T", "score", "mask")}
+    ref.update(_jax_mesh_names())
+    return ref
+
+
+def _jax_mesh_names():
+    """The reference's placement names on the worker's arrays over a mesh
+    of 4 devices laid out as each world's: global_get of global_put /
+    sharded / replicated, the first device's shard, and how many of
+    global_put and sharded refuse 11 rows."""
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    x, mask = worker.mesh_names_arrays()
+    meshes = {"dp4": (jmesh.make_mesh(N_SHARDS), "dp"),
+              "mesh2x2": (Mesh(np.asarray(jax.devices()[:N_SHARDS]).reshape(
+                  2, 2), ("dcn", "ici")), ("dcn", "ici"))}
+    ref = {}
+    for world, (mesh, axis) in meshes.items():
+        rows = jmesh.global_put(mesh, x, P(axis))
+        first = mesh.devices.flat[0]
+        refused = 0
+        for place in (lambda: jmesh.global_put(mesh, x[:11], P(axis)),
+                      lambda: jmesh.sharded(mesh, x[:11], axis)):
+            try:
+                place()
+            except ValueError:
+                refused += 1
+        ref[f"mesh_names_{world}"] = {
+            "get": jmesh.global_get(mesh, rows),
+            "mask": jmesh.global_get(mesh, jmesh.global_put(mesh, mask,
+                                                            P(axis))),
+            "sharded": jmesh.global_get(mesh, jmesh.sharded(mesh, x, axis)),
+            "replicated": jmesh.global_get(mesh, jmesh.replicated(mesh, x)),
+            "shard": next(np.asarray(s.data) for s in rows.addressable_shards
+                          if s.device == first),
+            "refused": refused}
     return ref
 
 
@@ -302,6 +341,26 @@ def test_mesh_refuses_a_part_of_the_world(runs, world):
     """make_mesh smaller than the world and make_mesh_2d with rows that do
     not divide it raise ValueError on every rank."""
     assert int(runs[0][world]["mesh_refusals"]) == 2
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_placement_names(runs, world):
+    """The reference's global_put / global_get / sharded / replicated over
+    the port's mesh against the reference's own on a mesh of 4 devices
+    laid out as the world's: the full value at its global shape, the
+    first shard, and both refusing rows the shard count does not
+    divide (checked on every rank)."""
+    out, ref, _ = runs
+    o, want = out[world], ref[f"mesh_names_{world}"]
+    assert float(o["mesh_names_ok"][0]) == 4.0
+    assert want["refused"] == 2
+    for f in ("sharded", "replicated"):
+        np.testing.assert_array_equal(want[f], want["get"])
+    np.testing.assert_array_equal(o["mesh_names_get"], want["get"])
+    np.testing.assert_array_equal(o["mesh_names_mask"], want["mask"])
+    np.testing.assert_array_equal(o["mesh_names_shard"], want["shard"])
+    assert o["mesh_names_get"].dtype == want["get"].dtype
+    assert o["mesh_names_mask"].dtype == want["mask"].dtype
 
 
 def test_mesh_helpers_without_a_process_group():
