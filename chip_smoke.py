@@ -17,8 +17,9 @@ Runs on a machine with a CUDA card and no JAX:
      then the whole registration `newton_solve` at that case against
      its plain twin and against the per-trial path (d2d.newton_match
      over `newton_objective`): each term off, step control off,
-     bfloat16 rows, two calls identical, |Δd| within SOLVE_TOL (see
-     held_to_all), times in turns beside the per-trial path's;
+     bfloat16 rows, two calls identical, the per-trial path's bits and
+     |Δd| within SOLVE_TOL of the plain twin (see held_to_all), times in
+     turns beside the per-trial path's;
   4. drives the main path (NDTFeatureGraphSLAM.initialize +
      run_sequence_device) over the canonical 200-scan fixture with the
      JAX reference's RANSAC draws, checks that `newton_solve` — and no
@@ -223,7 +224,26 @@ Runs on a machine with a CUDA card and no JAX:
      batches of 4, 64 and 171 pairs; (c) HMTMap.add_scan over phase 11's
      first 64 scans equal to the map HMTFuser builds; (d)
      to_paired_cells and se2.dist / angular_dist, card against CPU;
- 17. prints one JSON line of all kernel entries and, last, the result
+ 17. link refinement and the plain registrations in one launch:
+     (a) the refinements recorded in phases 5 (optimize_offline), 9e
+         (the grouped chunks) and 6 (the online proposals), each through
+         refine_links_d2d (one `newton_solve_batch` launch with the
+         Hessian at each lane's result, no synchronising call) and
+         through the per-trial lockstep it replaces (a
+         `fgh_dense_flat_batch` launch a trial, a stop read a 6-trial
+         chunk, a launch for the Hessian): the lanes whose T, cov and
+         mask keep the per-trial path's bits on every lane (the solve's
+         LM step rounds as the lockstep's eager operations), but for
+         lanes named where the lockstep itself is unstable, held as
+         phase 3 holds the solves (held_to_all); the Hessian written
+         the objective's at the result; the clusters the card holds at
+         once against the lanes, ms in turns;
+     (b) match_d2d (phase 3c's case) and match_p2d (phase 13a's, the
+         guarded projection in the kernel) in one `newton_solve` launch
+         against their per-trial loops (poses within MATCH_ONE_TOL, the
+         same trials), ms in turns; P2D within P2D_JAX_TOL of JAX's pose
+         and converged from the record's eight perturbed starts;
+ 18. prints one JSON line of all kernel entries and, last, the result
      line.
 
 A kernel's `ms` and `plain_ms` are device times (torch.profiler: the
@@ -330,6 +350,9 @@ BIG_B = 1024                  # the batch entry's widest check
 RATE_B = (256, 1024)          # pairs/s batch widths (bench_offline's)
 SOURCE = "ndt_feature_graph_tpu_torch/csrc/pair_fgh.cu"
 REPLACES = "ndt_feature_graph_tpu/ops/pallas_kernels.py:149"
+# The row-sum kernel ports no TPU kernel: the reference's overlap sum,
+# which it leaves to XLA.
+ROW_SUM_REPLACES = "ndt_feature_graph_tpu/graph/links.py:138"
 F_RTOL = 1e-4                 # tests/test_pallas_kernels.py tolerances
 GH_RTOL, G_ATOL, H_ATOL = 2e-3, 1e-4, 1e-3
 CANCEL_RTOL = 1e-3            # batch lanes: see compare()
@@ -346,6 +369,11 @@ IO_FIXTURE = os.path.join(ROOT, "ndt_feature_graph_tpu_torch/data/canonical_io.n
 ML570 = dict(n_loops=10, steps_per_loop=704, radius=2.8)  # bench_offline_570
 P2D_SOURCE = 20               # scan 20's points against the map of scan 0
 P2D_TOL = 1e-3                # metres and radians, against JAX's pose
+P2D_JAX_TOL = 1e-5            # phase 17b: P2D in one launch against JAX's
+P2D_EPS = tuple(s * k * 1e-6 for k in range(1, 5) for s in (1, -1))
+                              # ... the record's eight perturbed starts
+MATCH_ONE_TOL = 1e-6          # phase 17b: one launch vs the per-trial loop
+L2_FLUSH_BYTES = 256 << 20    # read before a cold-L2 time: 5x the H100's L2
 CALIB_RTOL = 1e-5             # the calibration's summed scores
 # The simulator against the reference (phase 12, tests/test_torch_simulator.py):
 # ranges within RANGE_TOL metres and hits equal on every beam but the
@@ -407,9 +435,6 @@ CHUNK = 16                    # phase 16: run_graph_chunk's chunk length
 CHUNK_TOL = 1e-5              # ... its poses past a scan that is not phase 4's
 CHUNK_LINK_PAIRS = 64         # phase 16: the wider compute_links_batch
 HMT_ADD_SCANS = 128           # phase 16: add_scan over phase 11's first scans
-LINK_SCORE_TOL = 1e-6         # phase 16: compute_link's score against its
-                              # batch row (torch.sum's order follows the
-                              # row count; the orders part by a few ulp)
 
 
 def lift_cells(means, covs, mask, compact=False):
@@ -571,6 +596,24 @@ def device_ms(fn, reps=50):
     on_dev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(e.self_device_time_total for e in on_dev) * 1e-3 / reps
+
+
+def cold_ms(fn, flush, reps=50):
+    """Mean device time per call of `fn` on a cold L2, ms: `flush` runs
+    before each call, and CUDA events bracket the call alone.  The flush
+    outlasts the host's enqueueing of the call, so no launch gap falls
+    between the events."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in marks) / reps
 
 
 def time_turns(kernel, plain, reps=50, plain_reps=10, label="plain"):
@@ -1086,14 +1129,17 @@ def held_to(name, got, other, other_solve, d_init, what, label="lane"):
     SOLVE_TOL under a SOLVE_EPS change of its start (`other_solve`, from
     `d_init`): those are named, with both results, and held_to_all
     checks them against the other yardsticks.  `what` names `other` in
-    the messages.  Prints the largest |Δd| and the lanes whose trial
-    counts differ.  Returns {"max": the largest |Δd| over the lanes
-    held, "max_all": over every lane, "excepted": the excepted lanes,
-    "differ": the lanes whose trial counts differ}."""
+    the messages.  Prints the lanes with the same d, score and trials,
+    the largest |Δd| and the lanes whose trial counts differ.  Returns
+    {"max": the largest |Δd| over the lanes held, "max_all": over every
+    lane, "excepted": the excepted lanes, "differ": the lanes whose
+    trial counts differ, "same": the count of lanes with the same
+    bits}."""
     dev_, rel, near = _near(got, other)
     k_tr = np.atleast_1d(got[2].cpu().numpy())
     o_tr = np.atleast_1d(other[2].cpu().numpy())
     differ = [int(i) for i in np.nonzero(k_tr != o_tr)[0]]
+    same = int(np.count_nonzero((dev_ == 0) & (rel == 0) & (k_tr == o_tr)))
     over = np.nonzero(~near)[0]
     excepted = []
     if over.size:
@@ -1113,8 +1159,10 @@ def held_to(name, got, other, other_solve, d_init, what, label="lane"):
     held[excepted] = False
     out = {"max": float(dev_[held].max(initial=0.0)),
            "max_all": float(dev_.max()), "excepted": excepted,
-           "differ": differ}
-    print(f"  {name}: max |Δd| vs the {what} {out['max']:.3e} (score rel "
+           "differ": differ, "same": same}
+    print(f"  {name}: d, score and trials the {what}'s bits at {same} of "
+          f"{dev_.size} {label}s; max |Δd| vs the {what} "
+          f"{out['max']:.3e} (score rel "
           f"{float(rel[held].max(initial=0.0)):.1e}); trial counts differ at "
           f"{label}s {differ} (kernel {[int(k_tr[i]) for i in differ]}, "
           f"{what} {[int(o_tr[i]) for i in differ]}); beyond {SOLVE_TOL:g} "
@@ -1159,13 +1207,14 @@ def held_to_all(name, got, yardsticks, d_init, label="lane", backups=()):
 def solve_checks(sp, fx, dev, times=True):
     """Phase 3: `newton_solve` at phase 3's trial case (N=256 x K=25, 64
     feature pairs, the odometry term) against its plain twin on the card
-    and against the per-trial path (held_to_all), with each term switched
-    off in turn, step control off and bfloat16 rows; two calls give
-    identical bits.  Returns the entry's {"max_abs_err"} (|Δd| against
-    the plain twin, over the lanes held), "plain_unstable" (the cases
-    with lanes excepted) and, with `times` on a CUDA device, its times
-    in turns (and the per-trial path's as "per_trial_ms") and its
-    bound."""
+    and against the per-trial path (held_to_all; the per-trial path's
+    bits required: its eager LM step rounds as the kernel's), with each
+    term switched off in turn, step control off and bfloat16 rows; two
+    calls give identical bits.  Returns the entry's {"max_abs_err"}
+    (|Δd| against the plain twin, over the lanes held),
+    "plain_unstable" (the cases with lanes excepted) and, with `times`
+    on a CUDA device, its times in turns (and the per-trial path's as
+    "per_trial_ms") and its bound."""
     p = sp.fuser
     m = p.matcher
     h, w, res = p.ndt.grid_h, p.ndt.grid_w, p.ndt.resolution
@@ -1191,10 +1240,12 @@ def solve_checks(sp, fx, dev, times=True):
         def plain_solve(d0, args=args):
             return cuda_kernels.newton_solve_reference(d0, T0, *args)
 
-        _, vs = held_to_all(
+        vs_per, vs = held_to_all(
             f"newton_solve, {name}", got,
             [("per-trial path", per_solve(zero), per_solve),
              ("plain twin", plain_solve(zero), plain_solve)], zero)
+        check(vs_per["same"] == 1, f"newton_solve, {name}: not the per-trial "
+                                "path's bits")
         err = max(err, vs["max"])
         if vs["excepted"]:
             excepted.append(f"{name}: |Δd| up to {vs['max_all']:.3e}")
@@ -1230,7 +1281,8 @@ def fleet_solve_checks(fp, seq, b, dev, times=True):
     fleet_trial_case, with its all-masked, featureless and edge lanes)
     against its plain twin on the card (the masked lockstep over the
     objective's plain version) and the per-trial lockstep path
-    (held_to_all, lane by lane), with bfloat16 rows on and off, each term
+    (held_to_all, lane by lane; its bits required on every lane), with
+    bfloat16 rows on and off, each term
     off in turn and step control off; two calls give identical bits.
     Returns ({"max_abs_err", "plain_unstable"} as solve_checks and, with
     `times`, its times, the per-trial path's and its bound; the
@@ -1265,10 +1317,12 @@ def fleet_solve_checks(fp, seq, b, dev, times=True):
         def plain_solve(d0, args=args):
             return cuda_kernels.newton_solve_batch_reference(d0, *args)
 
-        _, vs = held_to_all(
+        vs_per, vs = held_to_all(
             f"newton_solve_batch B={b}, {name}", got,
             [("per-trial path", per, per_solve),
              ("plain twin", plain_solve(zero), plain_solve)], zero)
+        check(vs_per["same"] == b, f"newton_solve_batch B={b}, {name}: "
+                                   "not the per-trial path's bits")
         err = max(err, vs["max"])
         if vs["excepted"]:
             excepted.append(f"B={b}, {name}: lanes {vs['excepted']}, |Δd| "
@@ -1350,13 +1404,38 @@ def recorded_solves(entry="newton_solve", copy=True):
         setattr(cuda_kernels, entry, inner)
 
 
+# The link refinements of phases 5 (optimize_offline's checked run), 6
+# (the online LC's checked run) and 9e (the grouped proposals), recorded
+# for phase 17: each call's arguments (fresh tensors the paths do not
+# write again, so no copy is taken).
+REFINEMENTS = {"offline": [], "online": [], "grouped": []}
+
+
+@contextlib.contextmanager
+def recorded_refinements(path):
+    """Inside: every call of links.refine_links_d2d is kept under
+    REFINEMENTS[path] as (args, kwargs)."""
+    inner = links_mod.refine_links_d2d
+
+    def refine(*args, **kwargs):
+        REFINEMENTS[path].append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    links_mod.refine_links_d2d = refine
+    try:
+        yield REFINEMENTS[path]
+    finally:
+        links_mod.refine_links_d2d = inner
+
+
 def replay_phase(calls, dev):
     """Phase 3, the replay: the main path's registrations from their
     recorded inputs, each through `newton_solve` (which repeats the
     recorded bits), the per-trial path the fuser ran before (d2d.newton_match
-    over `newton_objective`) and the plain twin.  The kernel is held to
-    the per-trial path by held_to_all, scan by scan, with the plain twin
-    as the backup of any scan excepted there; the plain twin's
+    over `newton_objective`) and the plain twin.  The kernel must give
+    the per-trial path's bits on every scan (held_to_all also holds it
+    there, with the plain twin as the backup of any scan excepted); the
+    plain twin's
     deviation is printed.  Counts the per-trial path's
     `newton_objective` launches and its synchronising calls
     (torch.cuda.set_sync_debug_mode("warn")).  Returns a summary."""
@@ -1391,6 +1470,8 @@ def replay_phase(calls, dev):
     held, = held_to_all(f"replay of the main path's {n} registrations", got,
                         [("per-trial path", per, per_all)], d0,
                         label="registration", backups=[("plain twin", plain)])
+    check(held["same"] == n, "the replayed registrations are not the "
+                             "per-trial path's bits")
     dev_plain = float(np.max(solve_dev(got[0], plain[0])))
     plain_differ = int((got[2] != plain[2]).sum())
     print(f"  vs the plain twin: max |Δd| {dev_plain:.3e}, trial counts "
@@ -1689,11 +1770,14 @@ def offline_phase(fx, lc, dev):
         return out, time.perf_counter() - t0
 
     cuda_kernels.reset_launch_counts()
-    out, _ = optimize()
+    with recorded_refinements("offline"):
+        out, _ = optimize()
     launches = dict(cuda_kernels.LAUNCHES)
     print(f"  launches in optimize_offline: {launches}")
-    check(launches["fgh_dense_flat_batch"] > 0,
-          "optimize_offline did not launch fgh_dense_flat_batch")
+    check(launches["newton_solve_batch"] == len(REFINEMENTS["offline"]) > 0
+          and launches["fgh_dense_flat_batch"] == 0,
+          "optimize_offline did not refine in one newton_solve_batch launch "
+          "a refinement")
     check(np.isfinite(out).all(), "optimized node poses are not finite")
     ls = slam.offline_links
     differ = check_kept_links(sp.graph, lc, slam.offline_keep,
@@ -1768,22 +1852,18 @@ def registration_phase(sp, slam, dev):
     two paths."""
     p = sp.fuser
     m = p.matcher
-    base = slam.state.base
-    tgt = d2d.PackedTarget(origin=base.grid.origin, packed=base.packed)
-    node = slam.nodes[-1]
     T = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device=dev)
-    # The node's frame in the final submap's frame, from the graph.
-    T_init = se2.sub(T(slam.current_T), T(slam.node_T[-1]))
-    cells = CellList(*(x.contiguous() for x in (
-        node.cells.means, node.cells.covs, node.cells.mask)))
+    tgt, cells, T_init = registration_inputs(sp, slam, dev)
 
     cuda_kernels.reset_launch_counts()
     got = d2d.match_d2d(tgt, cells, T_init, p.ndt, m)
     cov = d2d.covariance_d2d(tgt, cells, got.T, p.ndt, m)
     launches = dict(cuda_kernels.LAUNCHES)
-    check(launches["fgh_dense_flat"] > 0,
-          "match_d2d + covariance_d2d did not launch fgh_dense_flat")
+    check(launches["newton_solve"] == 1 and launches["fgh_dense_flat"] == 1
+          and sum(launches.values()) == 2,
+          f"match_d2d + covariance_d2d launched {launches}, not one "
+          "newton_solve and one fgh_dense_flat")
 
     def plain_fgh(T0):
         return lambda d: d2d_analytic.fgh_dense_flat(
@@ -1799,7 +1879,7 @@ def registration_phase(sp, slam, dev):
     print(f"  match_d2d of node {len(slam.nodes) - 1} "
           f"({int(cells.mask.sum())} cells) against the final submap: "
           f"{int(got.iterations)} trials (plain {int(itr_ref)}), "
-          f"{launches['fgh_dense_flat']} launches with covariance_d2d, "
+          f"launches with covariance_d2d {launches}, "
           f"moved {float(got.d[:2].norm()) * 100:.3f} cm; kernel vs plain "
           f"pose {xy:.2e} m / {th:.2e} rad, score {float(got.score):.4f} "
           f"vs {float(f_ref):.4f}; covariance_d2d within {cov_dev:.2e} of "
@@ -1843,12 +1923,17 @@ def online_phase(fx, lc, dev):
     check(repr(sp) == str(lc["on_params_repr"]),
           "canonical_lc.npz was made at other online-LC parameters")
     cuda_kernels.reset_launch_counts()
-    slam, _ = online_lc_run(sp, fx, lc, dev)
+    with recorded_refinements("online"):
+        slam, _ = online_lc_run(sp, fx, lc, dev)
     launches = dict(cuda_kernels.LAUNCHES)
-    print(f"  launches in the online-LC run: {launches}")
-    for k in ("newton_solve", "fgh_dense_flat_batch"):
+    print(f"  launches in the online-LC run: {launches} (newton_solve_batch: "
+          f"one a proposal's refinement, {len(REFINEMENTS['online'])})")
+    for k in ("newton_solve", "newton_solve_batch"):
         check(launches[k] > 0,
               f"kernel {k} was not launched by the online-LC run")
+    check(launches["newton_solve_batch"] == len(REFINEMENTS["online"])
+          and launches["fgh_dense_flat_batch"] == 0,
+          "the online LC's refinements are not one launch each")
     traj = np.stack(slam.trajectory)
     check(traj.shape == lc["on_traj"].shape and np.isfinite(traj).all(),
           "online-LC trajectory not finite / of the wrong shape")
@@ -2053,11 +2138,13 @@ def offline_scale_phase(fx, lc, dev):
     slam.pair_u = [lc["off_pair_u"][0]]
     cuda_kernels.reset_launch_counts()
     out = slam.optimize_offline().cpu().numpy()
-    launches["d"] = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+    launches["d"] = cuda_kernels.LAUNCHES["newton_solve_batch"]
+    check(cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == 0,
+          "phase 9d refined links a trial at a time")
     before = lc["off_node_T_before"]
     print(f"  optimize_offline: {int(slam.offline_keep.sum())} kept links, "
           f"node ATE {node_ate(before, fx, lc):.5f} m -> "
-          f"{node_ate(out, fx, lc):.5f} m; fgh_dense_flat_batch launches "
+          f"{node_ate(out, fx, lc):.5f} m; newton_solve_batch launches "
           f"{launches['d']}")
     check(np.isfinite(out).all() and launches["d"] > 0,
           "optimize_offline (direct) is not finite or launched no kernel")
@@ -2108,16 +2195,20 @@ def offline_scale_phase(fx, lc, dev):
     stacked = node_mod.stack_nodes(slam.nodes)
     cuda_kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    ls = slam._propose_links(stacked, *slam.candidate_pairs())
+    with recorded_refinements("grouped"):
+        ls = slam._propose_links(stacked, *slam.candidate_pairs())
     torch.cuda.synchronize()
     grp_s = time.perf_counter() - t0
-    launches["e"] = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+    launches["e"] = cuda_kernels.LAUNCHES["newton_solve_batch"]
     check(slam.pair_u == [], "the grouped proposals took another number "
           "of draws than JAX's chunks")
     moved, costs = check_grouped(ls, sv, stacked, sp_grp)
-    print(f"  {len(sv['grp_pair_u'])} chunks in {grp_s:.2f} s; "
-          f"fgh_dense_flat_batch launches {launches['e']}")
-    check(launches["e"] > 0, "grouped proposals launched no kernel")
+    print(f"  {len(sv['grp_pair_u'])} chunks in {grp_s:.2f} s (the wall "
+          f"includes recording each chunk's inputs for phase 17); "
+          f"newton_solve_batch launches {launches['e']}")
+    check(launches["e"] == len(sv["grp_pair_u"])
+          and cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == 0,
+          "grouped proposals did not refine in one launch a chunk")
     summary["e_grouped"] = {"moved": moved, "costs": costs, "wall_s": grp_s,
                             "launches": launches["e"]}
 
@@ -2125,7 +2216,7 @@ def offline_scale_phase(fx, lc, dev):
           "on the canonical 200-scan sequence")
     summary["g_cli"], launches["g"] = cli_case(fx, dev)
     for k, v in launches.items():
-        check(v > 0, f"phase 9{k} launched no fgh_dense_flat_batch")
+        check(v > 0, f"phase 9{k} launched no newton_solve_batch")
     return summary, launches
 
 
@@ -2160,7 +2251,9 @@ def cli_case(fx, dev):
                 cli.main(argv + (flags if name != "eval" else []))
             logs[name] = buf.getvalue()
         wall = time.perf_counter() - t0
-        n = cuda_kernels.LAUNCHES["fgh_dense_flat_batch"]
+        n = cuda_kernels.LAUNCHES["newton_solve_batch"]
+        check(cuda_kernels.LAUNCHES["fgh_dense_flat_batch"] == 0,
+              "the CLI refined links a trial at a time")
         _, opt = tum.read_tum(f"{d}/opt.tum")
         _, nodes_opt = tum.read_tum(f"{d}/nodes_opt.tum")
         ev = json.loads(logs["eval"].strip().splitlines()[-1])
@@ -2174,7 +2267,7 @@ def cli_case(fx, dev):
     xy, th = max_dev(opt, ref)
     print(f"  {wall:.1f} s for the four commands; {len(nodes_opt)} nodes; "
           f"eval ATE {ev['ate_rmse_m']:.4f} m; map {ex['cells']} cells "
-          f"({pgm} bytes); fgh_dense_flat_batch launches {n}; `optimize` "
+          f"({pgm} bytes); newton_solve_batch launches {n}; `optimize` "
           f"within {xy * 100:.4f} cm / {th * 1e3:.4f} mrad of the port's "
           "own optimize_offline of the same checkpoint")
     check(np.isfinite(opt).all() and np.isfinite(nodes_opt).all()
@@ -3192,13 +3285,7 @@ def p2d_phase(sp, fx, io_fx, dev):
     p = sp.fuser
     m = p.matcher
     T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
-    r, h = T(fx["ranges"]), T(fx["hit"], torch.bool)
-    pts0, m0 = dataset.scan_to_points(r[0], h[0])
-    pts1, m1 = dataset.scan_to_points(r[P2D_SOURCE], h[P2D_SOURCE])
-    zero2 = torch.zeros(2, device=dev)
-    grid = ndt_map.build_from_scan(p.ndt, zero2, zero2, pts0, m0)
-    tgt = d2d.make_dense_target(grid, p.ndt)
-    T_init = T(io_fx["p2d_T_init"])
+    tgt, pts1, m1, T_init = p2d_inputs(sp, fx, io_fx, dev)
     pairwise.match_p2d(tgt, pts1, m1, T_init, p.ndt, m)     # warm-up
     times = []
     for k in range(3):
@@ -3234,14 +3321,11 @@ def p2d_phase(sp, fx, io_fx, dev):
           "match_p2d did not converge")
     check(xy <= P2D_TOL and th <= P2D_TOL,
           "match_p2d deviates from JAX's pose beyond 1 mm / 1 mrad")
-    # One launch for the start, then one per trial of every 6-trial chunk
-    # the Newton loop ran.
-    n_trials_run = 6 * -(-trials // 6)
-    check(dev.type != "cuda" or launches["fgh_dense_flat"] == 1 + n_trials_run
-          and all(
-        v == 0 for k, v in launches.items() if k != "fgh_dense_flat"),
-        f"match_p2d launched {launches}, not fgh_dense_flat once per trial "
-        f"({1 + n_trials_run})")
+    # The whole registration, the guarded projection included, in one
+    # launch.
+    check(dev.type != "cuda" or launches["newton_solve"] == 1 and all(
+        v == 0 for k, v in launches.items() if k != "newton_solve"),
+        f"match_p2d launched {launches}, not one newton_solve")
 
     src = pairwise.points_as_cells(pts1, m1)
     hh, ww = tgt.valid.shape
@@ -3271,6 +3355,7 @@ def p2d_phase(sp, fx, io_fx, dev):
                                        tgt.origin, None, hh, ww,
                                        p.ndt.resolution, m.n_neighbours)
     entry = {"max_abs_err": err, "launches": launches["fgh_dense_flat"],
+             "launches_newton_solve": launches["newton_solve"],
              "cells": int(src.mask.numel()), "window_pairs": win_pairs,
              **bound(win_bytes + 4 * 8 + 4 * 13, win_pairs)}
     if dev.type == "cuda":          # a CPU rehearsal takes no times
@@ -3439,10 +3524,10 @@ def sixdof_phase(lc, dev):
 
     def se2_match(li):
         """The port's SE(2) D2D matcher (match_d2d's window term and
-        Newton) on the pair from the same start, with the guarded PSD
-        projection: unguarded it stops at its start on link 94, the
-        reference fault of ROADMAP queue 3.  Its kernel launches (this
-        is a comparison) are not counted."""
+        Newton, one `newton_solve` launch) on the pair from the same
+        start, with the guarded PSD projection: unguarded it stops at
+        its start on link 94, the reference fault of ROADMAP queue 3.
+        Its kernel launch (this is a comparison) is not counted."""
         r, mv = int(lc["off_link_ref"][li]), int(lc["off_link_mov"][li])
         t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
         tgt = d2d.PackedTarget(origin=t(lc["off_bank.target.origin"][r]),
@@ -3450,9 +3535,9 @@ def sixdof_phase(lc, dev):
         src = CellList(*(t(lc[f"off_bank.cells.{f}"][mv])
                          for f in ("means", "covs", "mask")))
         T0 = t(lc["off_ransac_T"][li])
-        d = d2d.newton_match(d2d._window_fgh(tgt, src, T0, ndt, m),
-                             torch.zeros(3, device=dev), m, psd_guard=True)[0]
-        return se2.compose(d, T0).cpu().numpy()
+        return d2d.match_window(tgt.packed, tgt.origin, ndt.grid_h,
+                                ndt.grid_w, ndt.resolution, src, T0, m,
+                                psd_guard=True).T.cpu().numpy()
 
     summary = {"links": links.tolist(), "runs": []}
     # Warm-up: one derivative evaluation at the full shapes.
@@ -3757,8 +3842,9 @@ def _multidevice(fx, lc, dev):
           f"bank: {median(tl_s) * 1e3:.1f} ms (median of 3), "
           f"{int(ls.mask.sum())} valid; equal to compute_links_batch: {same}")
     check(same, "the sharded links differ from compute_links_batch")
-    check(not any(cuda_kernels.LAUNCHES.values()),
-          "the link proposals launched a kernel entry")
+    check(cuda_kernels.LAUNCHES["row_sum"] > 0 and all(
+        v == 0 for k, v in cuda_kernels.LAUNCHES.items() if k != "row_sum"),
+          "the link proposals launched another entry than row_sum")
     summary["links"] = {"pairs": int(ref_i.shape[0]), "equal": same,
                         "wall_s": tl_s}
 
@@ -3960,10 +4046,9 @@ def link_case(lc, dev):
     nodes: phase 6's online run freezes 2, one pair), against the rows
     of compute_links_batch on the same draws over the online proposal's
     batch (its first online_lc_max_candidates pairs), over
-    CHUNK_LINK_PAIRS pairs and over all of them: the same pose and
-    validity bits, the score within LINK_SCORE_TOL (its sum over the
-    cells is torch.sum's, whose order follows the batch; how many
-    scores keep their bits is printed).  Then the overlap sums' costs
+    CHUNK_LINK_PAIRS pairs and over all of them: the same pose, validity
+    and score bits (the score's sum over the cells is the `row_sum`
+    kernel's fixed order).  Then the overlap sums' costs
     (overlap_sum_case)."""
     sp = canonical_slam_params(OFFLINE_SPLIT_M, 64, **GROUPED_GRAPH)
     edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
@@ -4004,10 +4089,12 @@ def link_case(lc, dev):
               f"{p} pairs: poses and validity equal {same_T[p]}, scores "
               f"equal at {same_score[p]} of {p}, within "
               f"{score_dev[p]:.2e}" for p in sizes))
-    check(all(same_T.values()) and max(score_dev.values()) <= LINK_SCORE_TOL,
+    check(all(same_T.values()) and all(
+        same_score[p] == p for p in sizes),
           "compute_link differs from its compute_links_batch row")
-    check(not any(cuda_kernels.LAUNCHES.values()),
-          "the link proposals launched a kernel entry")
+    check(cuda_kernels.LAUNCHES["row_sum"] > 0 and all(
+        v == 0 for k, v in cuda_kernels.LAUNCHES.items() if k != "row_sum"),
+          "the link proposals launched another entry than row_sum")
     sums = overlap_sum_case(lambda p: links_mod.compute_links_batch(
         fp, res, stacked, ref_i[:p], mov_i[:p], ones[:p], u[:p]),
         lambda ls: links_mod.rescore_links(res, stacked, ls),
@@ -4018,29 +4105,18 @@ def link_case(lc, dev):
             "overlap_sums": sums}
 
 
-def _halving_sum(x):
-    """Sum over the last dim by repeated halving (zero-padded to a power
-    of two): elementwise adds in one order whatever the number of rows,
-    the fixed-order candidate for links._row_sum."""
-    n = x.shape[-1]
-    x = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
-
-
 def overlap_sum_case(batch, rescore, sizes, rounds=5):
-    """The link paths' overlap sum (links._row_sum, torch.sum in float32)
-    against a sum in a fixed halving order (_halving_sum: with it
-    compute_link would equal its batch row at any batch size) and a
-    torch.sum in float64: compute_links_batch over each of `sizes`
-    pairs (the online proposal's batch, the whole bank) and
-    rescore_links over the last, each timed with every sum in turns,
-    median of `rounds`; and how far the other sums' scores part from
-    the halving sum's on the same poses."""
+    """The link paths' overlap sum (links._row_sum: the `row_sum` kernel,
+    one fixed order whatever the number of rows, so compute_link equals
+    its batch row) against torch.sum in float32 (the parent's sum, whose
+    order follows the number of rows) and in float64: compute_links_batch
+    over each of `sizes` pairs (the online proposal's batch, the whole
+    bank) and rescore_links over the last, each timed with every sum in
+    turns, median of `rounds`; and how far the other sums' scores part
+    from the kernel's on the same poses."""
     row_sum = links_mod._row_sum
-    sums = {"halving": _halving_sum, "torch.sum": row_sum,
+    sums = {"row_sum kernel": row_sum,
+            "torch.sum": lambda x: x.sum(-1),
             "f64 sum": lambda x: x.sum(-1, dtype=torch.float64).float()}
     ls = batch(sizes[-1])
     calls = {f"compute_links_batch_{p}": (lambda p=p: batch(p))
@@ -4063,13 +4139,20 @@ def overlap_sum_case(batch, rescore, sizes, rounds=5):
         links_mod._row_sum = row_sum
     ms = {k: {name: median(t[1:]) * 1e3 for name, t in v.items()}
           for k, v in times.items()}
-    diffs = {name: (scores[name] - scores["halving"]).abs()
-             for name in sums if name != "halving"}
+    seen = []
+    links_mod._row_sum = lambda x: seen.append(x) or row_sum(x)
+    try:
+        rescore(ls)
+    finally:
+        links_mod._row_sum = row_sum
+    kernel_checks_ = row_sum_checks(seen[0])
+    diffs = {name: (scores[name] - scores["row_sum kernel"]).abs()
+             for name in sums if name != "row_sum kernel"}
     print(f"  overlap sums ({' / '.join(sums)}), ms in turns (median of "
           f"{rounds}): " + "; ".join(
               f"{k} " + " / ".join(f"{t:.3f}" for t in v.values())
               for k, v in ms.items())
-          + "; rescored scores against the halving sum's: " + ", ".join(
+          + "; rescored scores against the kernel's: " + ", ".join(
               f"{name} differs at {int((d > 0).sum())} of {d.shape[0]} "
               f"pairs, by up to {float(d.max()):.2e}"
               for name, d in diffs.items()))
@@ -4077,7 +4160,55 @@ def overlap_sum_case(batch, rescore, sizes, rounds=5):
           "the overlap sums part beyond 1e-5")
     return {"ms": ms, "rows_differ": {n: int((d > 0).sum())
                                       for n, d in diffs.items()},
-            "max_score_diff": {n: float(d.max()) for n, d in diffs.items()}}
+            "max_score_diff": {n: float(d.max()) for n, d in diffs.items()},
+            "kernel": kernel_checks_}
+
+
+def row_sum_checks(x):
+    """The `row_sum` entry on rescore_links' overlap matrix (pairs x
+    H*W cells): against its plain twin torch.sum (the max |difference|;
+    the orders differ), identical bits on repeat and for a row alone,
+    times in turns beside the bound (each element read once from HBM).
+    The times are taken on a cold L2 (a read of L2_FLUSH_BYTES before
+    each call: cold_ms), so that the bound holds; the link paths call it
+    on a matrix they have just written, which 50 MB of L2 holds (171
+    pairs: 27 MB), and that time is "warm_ms".  torch.sum is also the
+    one PyTorch call of the same function (`library_ms`)."""
+    got, again = cuda_kernels.row_sum(x), cuda_kernels.row_sum(x)
+    plain = x.sum(-1)
+    err = float((got - plain).abs().max())
+    alone = torch.stack([cuda_kernels.row_sum(x[i]) for i in (0, -1)])
+    check(torch.equal(got, again) and torch.equal(alone, got[[0, -1]]),
+          "row_sum does not repeat its bits, or a row alone differs")
+    check(err <= 1e-5 * float(plain.abs().max()) + 1e-6,
+          "row_sum departs from torch.sum")
+    n_bytes = 4 * x.numel() + 4 * x.shape[0]
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, x.numel() / F32_FLOP_PER_S
+    out = {"max_abs_err": err, "rows": int(x.shape[0]),
+           "cols": int(x.shape[1]),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    kernel, plain = lambda: cuda_kernels.row_sum(x), lambda: x.sum(-1)
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=x.device)
+    cold = [cold_ms(f, buf.amax) for f in (plain, kernel, kernel, plain)]
+    del buf
+    readings = ", ".join(f"{t * 1e3:.2f}" for t in cold)
+    print("    device time on a cold L2, us (torch.sum, kernel, kernel, "
+          f"torch.sum; CUDA events): {readings}")
+    warm = time_turns(kernel, plain, 50, 50, label="torch.sum, warm L2")
+    out.update(ms=(cold[1] + cold[2]) / 2, plain_ms=(cold[0] + cold[3]) / 2,
+               events_ms=warm["events_ms"],
+               plain_events_ms=warm["plain_events_ms"],
+               warm_ms=warm["ms"], warm_plain_ms=warm["plain_ms"])
+    out["library_ms"] = out["plain_ms"]
+    print(f"  row_sum on {tuple(x.shape)}, cold L2: {out['ms'] * 1e3:.2f} us "
+          f"against torch.sum {out['plain_ms'] * 1e3:.2f} us, bound "
+          f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); warm L2 "
+          f"{out['warm_ms'] * 1e3:.2f} / {out['warm_plain_ms'] * 1e3:.2f} "
+          f"us; max |difference| {err:.2e}")
+    check(out["ms"] >= out["bound_ms"],
+          "row_sum's cold time lies below its bound")
+    return out
 
 
 def hmt_add_scan_case(dev):
@@ -4201,6 +4332,351 @@ def entry_points_phase(sp, fx, main_slam, lc, dev):
     helpers = helpers_case(fx, dev)
     return {"chunked": chunked, "compute_link": link, "hmt_add_scan": hmt_add,
             "helpers": helpers}
+
+
+
+# Phase 17: the refinements and the plain registrations in one launch
+# against the per-trial paths they replace.
+
+def refine_args(map_params, m, nodes, links, src_budget=0):
+    """The arguments of links.refine_links_d2d's solve: (T0, src_b,
+    packed_flat, origins, row_offsets, h, w, resolution, m), built as
+    refine_links_d2d builds them."""
+    h, w = map_params.grid_h, map_params.grid_w
+    nb = src_budget if src_budget > 0 else nodes.cells.means.shape[1]
+    mov = links.mov
+    src_b = CellList(means=nodes.cells.means[mov, :nb],
+                     covs=nodes.cells.covs[mov, :nb],
+                     mask=nodes.cells.mask[mov, :nb])
+    return (links.T.contiguous(), src_b, nodes.target.packed.reshape(-1, 8),
+            nodes.target.origin[links.ref],
+            links.ref.to(torch.int64) * (h * w), h, w,
+            map_params.resolution, m)
+
+
+def per_trial_refine(map_params, m, nodes, links, src_budget=0):
+    """The refinement as the port ran it before it was one launch: the
+    lockstep d2d.newton_match_batch over one `fgh_dense_flat_batch`
+    launch a trial (a read of the stop flag a 6-trial chunk), then one
+    more launch for the Hessian at the result.  Returns (LinkSet, (d,
+    score, trials, converged, H))."""
+    T0, src_b, packed, origins, offs, h, w, res, m = refine_args(
+        map_params, m, nodes, links, src_budget)
+
+    def fgh(d_b):
+        return cuda_kernels.fgh_dense_flat_batch(
+            d_b, T0, src_b, packed, origins, offs, h, w, res,
+            m.n_neighbours, m.lfd1, m.lfd2)
+
+    zero = torch.zeros((T0.shape[0], 3), dtype=torch.float32,
+                       device=T0.device)
+    d, score, itr, conv = d2d.newton_match_batch(zero, m, fgh)
+    H = fgh(d)[2]
+    out = dataclasses.replace(
+        links, T=se2.compose(d, T0), cov=d2d.cov_from_hessian(H, m),
+        mask=links.mask & conv)
+    return out, (d, score, itr, conv, H)
+
+
+def _lanes_equal(a, b):
+    """Per lane of (L, ...) tensors: equal bits (NaN equal to NaN)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return same.reshape(a.shape[0], -1).all(-1)
+
+
+def refinement_case(name, calls, dev, times=True):
+    """Phase 17a on the recorded refinements of one path: each call once
+    through links.refine_links_d2d (one `newton_solve_batch` launch, no
+    synchronising call) and once through the per-trial lockstep
+    (per_trial_refine).  The solve's LM step rounds as the lockstep's
+    eager operations do, over the same objective, so T, cov and mask
+    must keep the lockstep's bits on every lane, and the Hessian the
+    solve writes must be the bits of `fgh_dense_flat_batch` at the
+    returned increment.  A lane that parts is excused only where the
+    lockstep itself moves beyond SOLVE_TOL under a SOLVE_EPS change of
+    its start (start_spread): it is named and held by held_to_all (link
+    refinement is chaotic, PERF.md §6).  Also the summed score within 2%
+    of the lockstep's, and the lanes that stop at their start on each
+    side counted.  Prints the clusters the card holds at once against
+    the lanes.  Times the largest call in turns.  Returns a summary."""
+    lib = cuda_kernels.build()
+    out = {"calls": len(calls), "lanes": 0, "bits_equal": 0,
+           "hessian_equal": 0, "launches": 0, "per_trial_launches": 0,
+           "syncs": 0, "per_trial_syncs": 0, "excepted": [], "waves": [],
+           "score": 0.0, "per_trial_score": 0.0, "start_stopped": 0,
+           "per_trial_start_stopped": 0}
+    for k, (args, kwargs) in enumerate(calls):
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = links_mod.refine_links_d2d(*args, **kwargs)
+            syncs = _sync_warnings(caught)
+            launches = dict(cuda_kernels.LAUNCHES)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                per, per_out = per_trial_refine(*args, **kwargs)
+            per_syncs = _sync_warnings(caught)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(launches["newton_solve_batch"] == 1
+              and sum(launches.values()) == 1,
+              f"{name} refinement {k} launched {launches}, not one "
+              "newton_solve_batch")
+        out["launches"] += 1
+        out["per_trial_launches"] += cuda_kernels.LAUNCHES[
+            "fgh_dense_flat_batch"]
+        out["syncs"] += syncs
+        out["per_trial_syncs"] += per_syncs
+        check(syncs == 0, f"{name} refinement {k} synchronised {syncs} "
+                          "times")
+        sargs = refine_args(*args, **kwargs)
+        T0, src_b, packed, origins, offs, h, w, res, m = sargs
+        lanes = T0.shape[0]
+        zero = torch.zeros((lanes, 3), device=dev)
+        solve = cuda_kernels.newton_solve_batch(zero, *sargs,
+                                                with_hessian=True)
+        check(torch.equal(got.T, se2.compose(solve[0], T0))
+              and torch.equal(got.mask, args[3].mask & solve[3]),
+              f"{name} refinement {k} is not its newton_solve_batch launch")
+
+        def per_solve(d0, sargs=sargs):
+            T0, src_b, packed, origins, offs, h, w, res, m = sargs
+            return d2d.newton_match_batch(
+                d0, m, lambda d: cuda_kernels.fgh_dense_flat_batch(
+                    d, T0, src_b, packed, origins, offs, h, w, res,
+                    m.n_neighbours, m.lfd1, m.lfd2))
+
+        H_at = cuda_kernels.fgh_dense_flat_batch(
+            solve[0], T0, src_b, packed, origins, offs, h, w, res,
+            m.n_neighbours, m.lfd1, m.lfd2)[2]
+        h_same = _lanes_equal(solve[4], H_at)
+        out["hessian_equal"] += int(h_same.sum())
+        check(bool(h_same.all()),
+              f"{name} refinement {k}: the Hessian written at lanes "
+              f"{(~h_same).nonzero()[:, 0].tolist()} is not the "
+              "objective's at the returned increment")
+        same = (_lanes_equal(got.T, per.T) & _lanes_equal(got.cov, per.cov)
+                & (got.mask == per.mask))
+        out["lanes"] += lanes
+        out["bits_equal"] += int(same.sum())
+        n_src = src_b.mask.shape[-1]
+        cluster = cuda_kernels._solve_cluster(lib, dev, lanes, n_src, 0)
+        resident = lib.ndtg_solve_max_clusters(n_src, 0, cluster)
+        if lanes > resident:
+            out["waves"].append({"call": k, "lanes": lanes,
+                                 "resident": resident})
+        if k == 0 or lanes > resident:
+            objective = cuda_kernels._objective_cluster(lib, dev, lanes,
+                                                        n_src, 0)
+            print(f"    {name} refinement {k}: {lanes} lanes x {n_src} "
+                  f"source cells, {cluster} blocks a lane (the per-trial "
+                  f"objective's: {objective}); the card holds {resident} "
+                  "such clusters at once"
+                  + (" (a second wave)" if lanes > resident else ""))
+        if not bool(same.all()):
+            parted = (~same).nonzero()[:, 0].tolist()
+            spread = start_spread(per_solve, zero)
+            bad = [i for i in parted if spread[i] <= SOLVE_TOL]
+            print(f"    {name} refinement {k}: lanes {parted} part from "
+                  "the per-trial lockstep's bits; it moves "
+                  f"{[float(spread[i]) for i in parted]} under a "
+                  f"{SOLVE_EPS:g} start change")
+            check(not bad, f"{name} refinement {k}: lanes {bad} part from "
+                           "the per-trial lockstep's bits though it is "
+                           "stable there")
+            keep = torch.tensor(parted, device=dev)
+            held_to_all(
+                f"{name} refinement {k}", tuple(x[keep] for x in solve[:4]),
+                [("per-trial lockstep", tuple(x[keep] for x in per_out[:4]),
+                  lambda d0: tuple(x[keep] for x in per_solve(
+                      zero.index_put((keep,), d0))))], zero[keep])
+            out["excepted"] += [(k, i) for i in parted]
+        out["score"] += float(solve[1].sum())
+        out["per_trial_score"] += float(per_out[1].sum())
+        for side, r in (("start_stopped", solve),
+                        ("per_trial_start_stopped", per_out)):
+            out[side] += int(((r[2] == 1) & (r[0] == 0).all(-1)).sum())
+    print(f"  {name}: {out['calls']} refinements, {out['lanes']} lanes: "
+          f"T, cov and mask equal to the per-trial lockstep's bits at "
+          f"{out['bits_equal']} lanes; the Hessian written equal to the "
+          f"objective's at the result at {out['hessian_equal']}; parted "
+          f"where the lockstep is itself unstable: {out['excepted']}; "
+          f"lanes stopping at their start {out['start_stopped']} "
+          f"(per-trial: {out['per_trial_start_stopped']}); summed score "
+          f"{out['score']:.2f} (per-trial: {out['per_trial_score']:.2f}); "
+          f"launches {out['launches']} "
+          f"(per-trial: {out['per_trial_launches']} fgh_dense_flat_batch), "
+          f"synchronising calls {out['syncs']} (per-trial: "
+          f"{out['per_trial_syncs']})")
+    check(abs(out["score"] - out["per_trial_score"])
+          <= 0.02 * abs(out["per_trial_score"]),
+          f"{name}: the refinements' summed score departs from the "
+          "per-trial lockstep's beyond 2%")
+    if times and calls:
+        k = max(range(len(calls)),
+                key=lambda i: calls[i][0][3].ref.shape[0])
+        args, kwargs = calls[k]
+        out["timed_lanes"] = int(args[3].ref.shape[0])
+        t = time_turns(lambda: links_mod.refine_links_d2d(*args, **kwargs),
+                       lambda: per_trial_refine(*args, **kwargs), 20, 3,
+                       label="per-trial lockstep")
+        out.update(t)
+        print(f"    {name}, {out['timed_lanes']} lanes: one launch "
+              f"{t['ms'] * 1e3:.1f} us device / {t['events_ms'] * 1e3:.1f} "
+              f"us with the host, per-trial lockstep "
+              f"{t['plain_ms'] * 1e3:.1f} / {t['plain_events_ms'] * 1e3:.1f}")
+    return out
+
+
+def registration_inputs(sp, slam, dev):
+    """Phase 3c's match_d2d case (the last frozen node against the final
+    submap) from the main path's graph: (tgt, cells, T_init), the node's
+    frame in the final submap's frame from the graph."""
+    base = slam.state.base
+    tgt = d2d.PackedTarget(origin=base.grid.origin, packed=base.packed)
+    node = slam.nodes[-1]
+    T = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    T_init = se2.sub(T(slam.current_T), T(slam.node_T[-1]))
+    cells = CellList(*(x.contiguous() for x in (
+        node.cells.means, node.cells.covs, node.cells.mask)))
+    return tgt, cells, T_init
+
+
+def p2d_inputs(sp, fx, io_fx, dev):
+    """Phase 13a's P2D case: (target, scan 20's points, mask, T_init)."""
+    p = sp.fuser
+    T = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
+    r, h = T(fx["ranges"]), T(fx["hit"], torch.bool)
+    pts0, m0 = dataset.scan_to_points(r[0], h[0])
+    pts1, m1 = dataset.scan_to_points(r[P2D_SOURCE], h[P2D_SOURCE])
+    zero2 = torch.zeros(2, device=dev)
+    tgt = d2d.make_dense_target(
+        ndt_map.build_from_scan(p.ndt, zero2, zero2, pts0, m0), p.ndt)
+    return tgt, pts1, m1, T(io_fx["p2d_T_init"])
+
+
+def per_trial_match(packed, origin, h, w, res, src, T_init, m, guard,
+                    d0=None):
+    """A plain registration as the port ran it before it was one launch:
+    d2d.newton_match over one `fgh_dense_flat` launch a trial, from the
+    increment d0 (default zero).  Returns (T, score, trials,
+    converged)."""
+    d0 = torch.zeros(3, device=T_init.device) if d0 is None else d0
+    d, f, itr, conv = d2d.newton_match(
+        lambda d: cuda_kernels.fgh_dense_flat(
+            d, T_init, src, packed, origin, h, w, res, m.n_neighbours,
+            m.lfd1, m.lfd2), d0, m, guard)
+    return se2.compose(d, T_init), f, itr, conv
+
+
+def match_case(name, one, per, times=True):
+    """Phase 17b: a registration in one launch (`one`, returning a
+    NewtonResult) against its per-trial loop (`per(d0=None)`, returning
+    (T, score, trials, converged)), with one `newton_solve` launch: the
+    pose within MATCH_ONE_TOL of the per-trial loop's and the same
+    trials and convergence; or, where the per-trial loop itself is
+    unsteady — its pose moves beyond MATCH_ONE_TOL, or its trial count
+    changes, when its start moves by SOLVE_EPS in each of four sign
+    patterns (its LM stop test fires at rounding noise) — the pose
+    within twice that spread (at least MATCH_ONE_TOL) and the trials
+    within the counts it took.  Times in turns."""
+    cuda_kernels.reset_launch_counts()
+    got = one()
+    launches = dict(cuda_kernels.LAUNCHES)
+    ref = per()
+    dev_ = torch.device("cuda", 0) if got.T.is_cuda else got.T.device
+    xy, th = max_dev(got.T.cpu().numpy()[None], ref[0].cpu().numpy()[None])
+    out = {"trials": int(got.iterations), "per_trial_trials": int(ref[2]),
+           "dev_m": xy, "dev_rad": th}
+    print(f"  {name}: one launch {int(got.iterations)} trials (per-trial "
+          f"{int(ref[2])}), converged {bool(got.converged)} "
+          f"({bool(ref[3])}), pose {xy:.2e} m / {th:.2e} rad from the "
+          f"per-trial loop's; launches {launches}")
+    check(launches["newton_solve"] == 1 and sum(launches.values()) == 1,
+          f"{name}: not one newton_solve launch")
+    steady = (max(xy, th) <= MATCH_ONE_TOL
+              and int(got.iterations) == int(ref[2]))
+    if not steady:
+        eps = torch.tensor([[1, 1, 1], [-1, -1, -1], [1, -1, 1],
+                            [-1, 1, -1]], dtype=torch.float32,
+                           device=dev_) * SOLVE_EPS
+        moved = [per(e) for e in eps]
+        spread = max(max(max_dev(r[0].cpu().numpy()[None],
+                                 ref[0].cpu().numpy()[None]))
+                     for r in moved)
+        trials = sorted({int(r[2]) for r in moved} | {int(ref[2])})
+        out.update(per_trial_spread=spread, per_trial_trials_moved=trials)
+        print(f"    the per-trial loop from starts moved by {SOLVE_EPS:g}: "
+              f"pose within {spread:.2e}, trials {trials}")
+        check(max(xy, th) <= max(MATCH_ONE_TOL, 2 * spread)
+              and trials[0] <= int(got.iterations) <= trials[-1]
+              and (spread > MATCH_ONE_TOL or len(trials) > 1),
+              f"{name}: the one-launch registration departs from its "
+              "per-trial loop beyond the loop's own spread")
+    check(bool(got.converged) == bool(ref[3]),
+          f"{name}: converged differs from the per-trial loop")
+    if times:
+        out.update(time_turns(one, per, 20, 5, label="per-trial loop"))
+    return out
+
+
+def one_launch_phase(sp, slam, fx, io_fx, dev):
+    """Phase 17: (a) link refinement in one `newton_solve_batch` launch
+    against the per-trial lockstep on the recorded refinements of
+    phases 5, 9e and 6; (b) match_d2d (phase 3c's case) and match_p2d
+    (phase 13a's, with the guarded projection in the kernel) in one
+    `newton_solve` launch against their per-trial loops, P2D against
+    JAX's pose and from the record's eight perturbed starts."""
+    out = {}
+    print("phase 17a: link refinement in one launch against the per-trial "
+          "lockstep")
+    for path in ("offline", "grouped", "online"):
+        out[path] = refinement_case(path, REFINEMENTS[path], dev)
+    print("phase 17b: match_d2d and P2D in one launch against their "
+          "per-trial loops")
+    p = sp.fuser
+    m = p.matcher
+    tgt, cells, T_init = registration_inputs(sp, slam, dev)
+    args = (tgt.packed, tgt.origin, p.ndt.grid_h, p.ndt.grid_w,
+            p.ndt.resolution)
+    out["match_d2d"] = match_case(
+        "match_d2d", lambda: d2d.match_d2d(tgt, cells, T_init, p.ndt, m),
+        lambda d0=None: per_trial_match(*args, cells, T_init, m, False, d0))
+    ptgt, pts, mask, T0 = p2d_inputs(sp, fx, io_fx, dev)
+    src = pairwise.points_as_cells(pts, mask)
+    hh, ww = ptgt.valid.shape
+    pargs = (ptgt.packed, ptgt.origin, hh, ww, p.ndt.resolution)
+    lib = cuda_kernels.build()
+    n_src = src.mask.shape[0]
+    cluster = cuda_kernels._solve_cluster(lib, dev, 1, n_src, 0)
+    print(f"  P2D: {n_src} point-cells, {cluster} blocks, "
+          f"{lib.ndtg_solve_smem(n_src, 0, cluster)} bytes of dynamic "
+          "shared memory a block")
+    out["p2d"] = match_case(
+        "match_p2d", lambda: pairwise.match_p2d(ptgt, pts, mask, T0, p.ndt,
+                                                m),
+        lambda d0=None: per_trial_match(*pargs, src, T0, m, True, d0))
+    runs = []
+    for e in (0.0,) + P2D_EPS:
+        cuda_kernels.reset_launch_counts()
+        res = pairwise.match_p2d(ptgt, pts, mask, T0 + e, p.ndt, m)
+        runs.append((e, int(res.iterations), bool(res.converged),
+                     max_dev(res.T.cpu().numpy()[None],
+                             io_fx["p2d_T"][None])[0],
+                     dict(cuda_kernels.LAUNCHES)["newton_solve"]))
+    print("  P2D from the record's start + e: " + "; ".join(
+        f"e={e:+.0e}: {tr} trials, converged {c}, {xy * 1e3:.4f} mm from "
+        f"JAX's pose" for e, tr, c, xy, _ in runs))
+    check(all(c and n == 1 for _, _, c, _, n in runs),
+          "P2D does not converge in one launch from every perturbed start")
+    check(runs[0][3] <= P2D_JAX_TOL,
+          "P2D departs from JAX's pose beyond 0.01 mm")
+    out["p2d"]["runs"] = [{"e": e, "trials": tr, "converged": c,
+                           "dev_jax_m": xy} for e, tr, c, xy, _ in runs]
+    return out
 
 
 def main():
@@ -4353,35 +4829,47 @@ def main():
     print("phase 15: the multi-device programs in an NCCL world of one rank")
     multidevice, md_launches = multidevice_phase(fx, lc, dev)
     entry_points = entry_points_phase(sp, fx, slam, lc, dev)
+    print("phase 17: link refinement, match_d2d and P2D in one launch")
+    t17 = time.perf_counter()
+    one_launch = one_launch_phase(sp, slam, fx, io_fx, dev)
+    one_launch["wall_s"] = time.perf_counter() - t17
+    print(f"  phase 17 took {one_launch['wall_s']:.1f} s")
+    checks["row_sum"] = (
+        entry_points["compute_link"]["overlap_sums"]["kernel"])
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
-    # (match_d2d + covariance_d2d, and P2D's match_p2d; fgh_paired),
-    # optimize_offline, and the B = 8 fleet run; the rank-sharded fleet
-    # of phase 15 (a path of its own) in a field of its own.  The
-    # per-trial objectives are the body of newton_solve[_batch] and no
-    # path launches them (0, as phase 4 and the fleet run check); the
-    # per-trial path that chip_smoke drives as the solves' yardstick
-    # (phase 3's replay, phase 3d) launches them, and those launches
-    # stand in `yardstick_launches`, apart.
+    # (covariance_d2d; fgh_paired), optimize_offline's overlap sums, and
+    # the B = 8 fleet run; the other paths of an entry (match_d2d and
+    # P2D, link refinement offline, grouped and online, the rank-sharded
+    # fleet of phase 15, the chunked driver) in fields of their own.
+    # The per-trial entries (the objectives, the window batch) are the
+    # body of newton_solve[_batch] or its per-trial yardstick and no
+    # path launches them (0, as phases 4, 5, 6 and the fleet run
+    # check); the per-trial paths that chip_smoke drives as yardsticks
+    # (phase 3's replay, phase 3d, phase 17a) launch them, and those
+    # launches stand in `yardstick_launches`, apart.
     path_launches = {
         "newton_objective": launches["newton_objective"],
-        "fgh_dense_flat": (reg_launches["fgh_dense_flat"]
-                           + p2d["launches"]["fgh_dense_flat"]),
+        "fgh_dense_flat": reg_launches["fgh_dense_flat"],
         "pair_fgh_reduce": reg_launches["pair_fgh_reduce"],
         "fgh_dense_flat_batch": off_launches["fgh_dense_flat_batch"],
         "newton_objective_batch": fleet_run["newton_objective_batch"],
         "newton_solve": launches["newton_solve"],
         "newton_solve_batch": fleet_run["newton_solve_batch"],
+        "row_sum": off_launches["row_sum"],
     }
     yardstick = {"newton_objective": replay["per_trial_launches"],
-                 "newton_objective_batch": per_trial_batch}
+                 "newton_objective_batch": per_trial_batch,
+                 "fgh_dense_flat_batch": sum(
+                     one_launch[k]["per_trial_launches"]
+                     for k in ("offline", "grouped", "online"))}
     for k, v in path_launches.items():
         if k not in yardstick:
             check(v > 0, f"kernel {k} was launched by no path")
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": path_launches[k], **checks[k], "library_ms": None,
+        "launches": path_launches[k], "library_ms": None, **checks[k],
     } for k in path_launches]
     by_name = {k["name"]: k for k in kernels}
     for k, path in (("newton_objective", "none: the body of newton_solve; "
@@ -4389,11 +4877,26 @@ def main():
                      "3's replay"),
                     ("newton_objective_batch", "none: the body of "
                      "newton_solve_batch; yardstick_launches are phase "
-                     "3d's per-trial lockstep path")):
+                     "3d's per-trial lockstep path"),
+                    ("fgh_dense_flat_batch", "none: link refinement runs "
+                     "in newton_solve_batch; yardstick_launches are phase "
+                     "17a's per-trial lockstep path")):
         by_name[k].update(path=path, yardstick_launches=yardstick[k])
     by_name["newton_solve_batch"]["launches_sharded_fleet"] = md_launches
+    by_name["newton_solve_batch"]["launches_refinement"] = {
+        k: one_launch[k]["launches"] for k in ("offline", "grouped",
+                                                "online")}
     by_name["newton_solve"]["launches_chunked"] = (
         entry_points["chunked"]["launches"]["newton_solve"])
+    by_name["newton_solve"]["launches_match"] = {
+        "match_d2d": reg_launches["newton_solve"],
+        "match_p2d": p2d["launches"]["newton_solve"]}
+    by_name["fgh_dense_flat"]["path"] = (
+        "covariance_d2d (match_d2d and P2D run in newton_solve)")
+    by_name["row_sum"].update(
+        source=SOURCE, replaces=ROW_SUM_REPLACES,
+        path="the link paths' overlap sum (optimize_offline's "
+             "compute_links_batch and rescore_links)")
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
@@ -4409,6 +4912,7 @@ def main():
         "simulator": simulator, "inputs": inputs, "p2d": p2d,
         "calibration": calibration, "sixdof": sixdof, "viewer": viewer,
         "multidevice": multidevice, "entry_points": entry_points,
+        "one_launch": one_launch,
         "launches": {"main_path": launches, "registration": reg_launches,
                      "optimize_offline": off_launches,
                      "online_lc": on_launches,

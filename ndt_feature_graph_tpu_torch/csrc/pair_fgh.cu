@@ -67,7 +67,9 @@
 //     cluster size, so the same bits); rank 0 sums the cluster into
 //     shared memory and one of its threads runs the LM step (the PSD
 //     shift by the closed-form smallest eigenvalue, the damped 3x3
-//     solve by pivoted LU, Armijo, λ, the best score, the stop test);
+//     solve by pivoted LU, Armijo, λ, the best score, the stop test),
+//     rounding as d2d.newton_match_batch's eager operations round on
+//     the card, so a solve gives the per-trial path's bits;
 //     every block reads the next increment and the go flag from rank
 //     0's shared memory after a cluster sync, so all leave together.
 //     A lane leaves at its own stop, which the lockstep's masks make
@@ -80,6 +82,26 @@
 //     f32.  The centre depends on the absolute cell index alone, so the
 //     kernel rounds the f32 table's rows as it reads them and no second
 //     table is kept.
+//   * The solve serves the other registrations too: link refinement
+//     (the window term alone over a bank of nodes) writes, on request,
+//     the Hessian of the evaluation made at the increment it returns
+//     (the best one's where the best-score fallback returns that), so a
+//     link's covariance needs no second launch; P2D asks for the guarded
+//     PSD projection (d2d._psd_project(guard=True)): the smallest
+//     eigenvalue in double, a shift of PSD_ROUNDING of the largest
+//     shifted diagonal entry, rounded to f32.
+//   * No tensor cores: per pair the work is scalar algebra on 2x2 and
+//     3x3 matrices, with no matrix product to feed wgmma.
+//   * The table rows stay __ldg reads, the design measured faster.  A
+//     ring of window boxes copied into shared memory by the Tensor
+//     Memory Accelerator (a 3-D tensor map over the bank, one box of
+//     (2n+1) x (2n+1) cells a source cell, mbarrier completion, later
+//     cells' boxes in flight while earlier ones are read) gave the
+//     same bits but was slower at every shape timed on the H100
+//     (PERF.md §6): an 800-byte box a cell waits out a copy's round
+//     trip, where a step's __ldg reads issue together and hit L2.
+//   * row_sum_kernel: the link paths' overlap sum in one fixed order a
+//     row, so a pair scored alone keeps the bits of its row in a batch.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -shared -Xcompiler -fPIC (no --use_fast_math: expf, the divisions and
@@ -736,23 +758,30 @@ struct SolveArgs {
   int max_trials;        // the lockstep budget, 6 * ceil(2 itr_max / 6)
   float delta_score;
   int step_control;
+  int psd_guard;         // project as d2d._psd_project(guard=True)
   float* d_out;          // (B, 3)
   float* score_out;      // (B,)
   int* trials_out;       // (B,)
   uint8_t* conv_out;     // (B,)
+  float* h_out;          // (B, 9): H at d_out; nullptr: not written
 };
 
 // A lane's LM state, in rank 0's shared memory; thread 0 of rank 0
 // alone reads and writes it.  trials < 0: the first evaluation is due.
 struct LMState {
-  float d[3], f, g[3], H[9], lam, best_d[3], best_f, delta[3];
+  float d[3], f, g[3], H[9], lam, best_d[3], best_f, best_H[9], delta[3];
   int itr, trials, stop, grad_vanished;
 };
 
-// The LM step rounds each operation on its own, in the order of the
-// plain version's eager operations (ops/d2d.py): no contracted
-// multiply-add, so it is the float32 arithmetic that the plain version
-// and tests/test_torch_newton_solve.py's numpy mirror do.
+// The LM step rounds as the plain version's eager operations
+// (ops/d2d.py) round on a CUDA tensor, operation by operation, so a
+// solve gives the bits of the per-trial lockstep over the same
+// objective: each operation rounded on its own (no contracted
+// multiply-add) unless noted; a sum over a 3x3 or a 3-vector in the
+// order of torch's CUDA reduction (sum3, sum9); a division by a Python
+// scalar as a product with the scalar's reciprocal, as torch does it;
+// the damped solve as torch.linalg.solve_ex's LU (lu_solve3).
+// tests/test_torch_newton_solve.py mirrors it in numpy.
 __device__ __forceinline__ float rn_add(float x, float y) {
   return __fadd_rn(x, y);
 }
@@ -765,6 +794,25 @@ __device__ __forceinline__ float rn_mul(float x, float y) {
 __device__ __forceinline__ float rn_div(float x, float y) {
   return __fdiv_rn(x, y);
 }
+// torch's CUDA sum of three values a, b, c (one reduction thread holds
+// a and c, another b) and of nine e[0..8] (thread t < 8 holds e[t], and
+// thread 0 also e[8]; the warp then adds at offsets 4, 2, 1).
+__device__ __forceinline__ double rn_add(double x, double y) {
+  return __dadd_rn(x, y);
+}
+template <typename T>
+__device__ __forceinline__ T sum3(T a, T b, T c) {
+  return rn_add(rn_add(a, c), b);
+}
+template <typename T>
+__device__ __forceinline__ T sum9(const T* e) {
+  const T t0 = rn_add(rn_add(e[0], e[8]), e[4]);
+  const T t1 = rn_add(e[1], e[5]);
+  const T t2 = rn_add(e[2], e[6]);
+  const T t3 = rn_add(e[3], e[7]);
+  return rn_add(rn_add(t0, t2), rn_add(t1, t3));
+}
+
 // torch.clamp: a NaN passes through.
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
@@ -776,17 +824,16 @@ __device__ __forceinline__ float clamp_max(float x, float hi) {
 // d2d._min_eig_sym3: the smallest eigenvalue of a symmetric 3x3
 // (row-major), trigonometric method, determinant by cofactors.
 __device__ float min_eig_sym3(const float* H) {
-  const float q = rn_div(rn_add(rn_add(H[0], H[4]), H[8]), 3.0f);
+  constexpr float kThird = 1.0f / 3.0f, kSixth = 1.0f / 6.0f;
+  const float q = rn_mul(sum3(H[0], H[4], H[8]), kThird);
   const float qz = rn_mul(q, 0.0f);    // H - q * eye off the diagonal
-  float B[9];
+  float B[9], sq[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
     B[i] = rn_sub(H[i], (i % 4 == 0) ? q : qz);
+    sq[i] = rn_mul(B[i], B[i]);
   }
-  float ss = rn_mul(B[0], B[0]);
-#pragma unroll
-  for (int i = 1; i < 9; ++i) ss = rn_add(ss, rn_mul(B[i], B[i]));
-  const float p2 = rn_div(ss, 6.0f);
+  const float p2 = rn_mul(sum9(sq), kSixth);
   const float p = sqrtf(clamp_min(p2, 1e-30f));
   const float det = rn_add(
       rn_sub(rn_mul(B[0], rn_sub(rn_mul(B[4], B[8]), rn_mul(B[5], B[7]))),
@@ -795,16 +842,74 @@ __device__ float min_eig_sym3(const float* H) {
   const float r = clamp_max(
       clamp_min(rn_div(det, rn_mul(rn_mul(rn_mul(2.0f, p), p), p)), -1.0f),
       1.0f);
-  const float phi = rn_div(acosf(r), 3.0f);
+  const float phi = rn_mul(acosf(r), kThird);
   const float lam_min = rn_add(
       q, rn_mul(rn_mul(2.0f, p), cosf(rn_add(phi, 2.0943951023931953f))));
   return p2 < 1e-28f ? q : lam_min;
 }
 
-// x = A^-1 y for a 3x3 A (row-major, overwritten): LU with partial
-// pivoting in the order of an unblocked getrf (the largest |a| of the
-// column, the first on a tie; multipliers by division), then getrs's
-// two triangular solves column by column.
+// min_eig_sym3 on the float64 copy of H, as _psd_project(guard=True)
+// takes it (H.to(float64)); acos, cos and sqrt in double.
+__device__ double min_eig_sym3_f64(const float* Hf) {
+  constexpr double kThird = 1.0 / 3.0, kSixth = 1.0 / 6.0;
+  double H[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) H[i] = (double)Hf[i];
+  const double q = __dmul_rn(sum3(H[0], H[4], H[8]), kThird);
+  const double qz = __dmul_rn(q, 0.0);
+  double B[9], sq[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    B[i] = __dsub_rn(H[i], (i % 4 == 0) ? q : qz);
+    sq[i] = __dmul_rn(B[i], B[i]);
+  }
+  const double p2 = __dmul_rn(sum9(sq), kSixth);
+  const double p = sqrt(p2 < 1e-30 ? 1e-30 : p2);
+  const double det = __dadd_rn(
+      __dsub_rn(
+          __dmul_rn(B[0], __dsub_rn(__dmul_rn(B[4], B[8]),
+                                    __dmul_rn(B[5], B[7]))),
+          __dmul_rn(B[1], __dsub_rn(__dmul_rn(B[3], B[8]),
+                                    __dmul_rn(B[5], B[6])))),
+      __dmul_rn(B[2], __dsub_rn(__dmul_rn(B[3], B[7]),
+                                __dmul_rn(B[4], B[6]))));
+  double r = __ddiv_rn(det, __dmul_rn(__dmul_rn(__dmul_rn(2.0, p), p), p));
+  r = r < -1.0 ? -1.0 : r;
+  r = r > 1.0 ? 1.0 : r;
+  const double phi = __dmul_rn(acos(r), kThird);
+  const double lam_min = __dadd_rn(
+      q, __dmul_rn(__dmul_rn(2.0, p), cos(__dadd_rn(phi,
+                                                   2.0943951023931953))));
+  return p2 < 1e-28 ? q : lam_min;
+}
+
+// The shift of _psd_project: the negative part of the smallest
+// eigenvalue; with the guard taken in float64, plus PSD_ROUNDING (four
+// float32 ulps) of the largest shifted diagonal entry, rounded to f32.
+__device__ float psd_shift(const float* H, bool guard) {
+  if (!guard) return clamp_min(-min_eig_sym3(H), 0.0f);
+  const double lam = -min_eig_sym3_f64(H);
+  const double shift = lam < 0.0 ? 0.0 : lam;   // a NaN passes through
+  double diag = fabs((double)H[0]);
+  const double d1 = fabs((double)H[4]), d2 = fabs((double)H[8]);
+  // torch.amax: a NaN wins.
+  diag = (d1 > diag || d1 != d1) ? d1 : diag;
+  diag = (d2 > diag || d2 != d2) ? d2 : diag;
+  constexpr double kPsdRounding = 4.0 / 8388608.0;   // 4 * 2^-23
+  const double out =
+      shift > 0.0
+          ? __dadd_rn(shift, __dmul_rn(kPsdRounding, __dadd_rn(diag, shift)))
+          : shift;
+  return __double2float_rn(out);
+}
+
+// x = A^-1 y for a 3x3 A (row-major, overwritten), as
+// torch.linalg.solve_ex rounds it on the card (cuBLAS / cuSOLVER getrf
+// and getrs): LU with partial pivoting (the largest |a| of the column,
+// the first on a tie), the multipliers as products with the pivot's
+// reciprocal, the updates and both triangular solves, column by column,
+// as fused multiply-adds, the back substitution dividing by the
+// diagonal.
 __device__ void lu_solve3(float* A, const float* y, float* x) {
   int perm[3] = {0, 1, 2};
 #pragma unroll
@@ -827,11 +932,12 @@ __device__ void lu_solve3(float* A, const float* y, float* x) {
       perm[k] = perm[piv];
       perm[piv] = t;
     }
+    const float rcp = rn_div(1.0f, A[3 * k + k]);
     for (int i = k + 1; i < 3; ++i) {
-      const float l = rn_div(A[3 * i + k], A[3 * k + k]);
+      const float l = rn_mul(A[3 * i + k], rcp);
       A[3 * i + k] = l;
       for (int j = k + 1; j < 3; ++j) {
-        A[3 * i + j] = rn_sub(A[3 * i + j], rn_mul(l, A[3 * k + j]));
+        A[3 * i + j] = __fmaf_rn(-l, A[3 * k + j], A[3 * i + j]);
       }
     }
   }
@@ -839,14 +945,14 @@ __device__ void lu_solve3(float* A, const float* y, float* x) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {          // L z = P y, unit diagonal
     for (int i = j + 1; i < 3; ++i) {
-      z[i] = rn_sub(z[i], rn_mul(z[j], A[3 * i + j]));
+      z[i] = __fmaf_rn(-z[j], A[3 * i + j], z[i]);
     }
   }
 #pragma unroll
   for (int j = 2; j >= 0; --j) {         // U x = z
     z[j] = rn_div(z[j], A[3 * j + j]);
     for (int i = 0; i < j; ++i) {
-      z[i] = rn_sub(z[i], rn_mul(z[j], A[3 * i + j]));
+      z[i] = __fmaf_rn(-z[j], A[3 * i + j], z[i]);
     }
   }
   x[0] = z[0];
@@ -859,11 +965,11 @@ __device__ void lu_solve3(float* A, const float* y, float* x) {
 // evaluation the state starts there; after a trial, accept (Armijo), λ,
 // the best score, the stop test and the count.  Then, unless the lane
 // stops or its budget is spent, the next trial: the Hessian shifted by
-// the negative part of its smallest eigenvalue (_psd_project,
-// unguarded), the damped solve, trial_d = d + delta.  Returns 1 when
-// trial_d is to be evaluated, 0 when the lane is done.  A lane that
-// stops leaves the loop: in the lockstep every later update of a
-// stopped lane is masked, so its result is the same.
+// the negative part of its smallest eigenvalue (_psd_project, with its
+// guard where s.psd_guard), the damped solve, trial_d = d + delta.
+// Returns 1 when trial_d is to be evaluated, 0 when the lane is done.
+// A lane that stops leaves the loop: in the lockstep every later update
+// of a stopped lane is masked, so its result is the same.
 __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
                                     float* trial_d, const SolveArgs& s) {
   if (st.trials < 0) {
@@ -872,7 +978,10 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
       st.best_d[i] = trial_d[i];
       st.g[i] = fgh[1 + i];
     }
-    for (int i = 0; i < 9; ++i) st.H[i] = fgh[4 + i];
+    for (int i = 0; i < 9; ++i) {
+      st.H[i] = fgh[4 + i];
+      st.best_H[i] = fgh[4 + i];
+    }
     st.f = fgh[0];
     st.best_f = fgh[0];
     st.lam = 1e-3f;
@@ -881,9 +990,9 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
     st.stop = 0;
   } else {
     const float f_new = fgh[0];
-    const float dg = rn_add(rn_add(rn_mul(st.delta[0], st.g[0]),
-                                   rn_mul(st.delta[1], st.g[1])),
-                            rn_mul(st.delta[2], st.g[2]));
+    const float dg = sum3(rn_mul(st.delta[0], st.g[0]),
+                          rn_mul(st.delta[1], st.g[1]),
+                          rn_mul(st.delta[2], st.g[2]));
     const bool accept = f_new <= rn_add(st.f, rn_mul(1e-4f, dg));
     const float lam =
         !s.step_control ? 1e-6f
@@ -903,6 +1012,7 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
     if (st.f < st.best_f) {
       st.best_f = st.f;
       for (int i = 0; i < 3; ++i) st.best_d[i] = st.d[i];
+      for (int i = 0; i < 9; ++i) st.best_H[i] = st.H[i];
     }
     st.stop = st.grad_vanished || lam > 1e7f || score_converged;
     st.itr += 1;
@@ -910,7 +1020,7 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
   }
   if (st.stop || st.trials >= s.max_trials) return 0;
 
-  const float shift = clamp_min(-min_eig_sym3(st.H), 0.0f);
+  const float shift = psd_shift(st.H, s.psd_guard != 0);
   const float sz = rn_mul(st.lam, 0.0f);
   const float hz = rn_mul(shift, 0.0f);
   float A[9];
@@ -918,9 +1028,8 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
     const bool diag = i % 4 == 0;
     A[i] = rn_add(rn_add(st.H[i], diag ? shift : hz), diag ? st.lam : sz);
   }
-  const float gg = rn_add(rn_add(rn_mul(st.g[0], st.g[0]),
-                                 rn_mul(st.g[1], st.g[1])),
-                          rn_mul(st.g[2], st.g[2]));
+  const float gg = sum3(rn_mul(st.g[0], st.g[0]), rn_mul(st.g[1], st.g[1]),
+                        rn_mul(st.g[2], st.g[2]));
   st.grad_vanished = sqrtf(gg) <= s.delta_score;
   float x[3];
   lu_solve3(A, st.g, x);
@@ -932,12 +1041,18 @@ __device__ __noinline__ int lm_step(LMState& st, const float* fgh,
 }
 
 // The lane's result: the best-score fallback, the trial count and the
-// stop flag.
+// stop flag; with h_out, the Hessian of the evaluation made at the
+// returned increment (what a second evaluation there would give).
 __device__ __noinline__ void lm_finish(const LMState& st, const SolveArgs& s,
                                        long long b) {
   const bool use_best = st.f > st.best_f;
   for (int i = 0; i < 3; ++i) {
     s.d_out[3 * b + i] = use_best ? st.best_d[i] : st.d[i];
+  }
+  if (s.h_out != nullptr) {
+    for (int i = 0; i < 9; ++i) {
+      s.h_out[9 * b + i] = use_best ? st.best_H[i] : st.H[i];
+    }
   }
   s.score_out[b] = use_best ? st.best_f : st.f;
   s.trials_out[b] = st.itr;
@@ -1018,6 +1133,38 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
   }
   if (rank == 0 && threadIdx.x == 0) lm_finish(st, s, b);
   cluster.sync();                      // rank 0 stays until peers have read
+}
+
+// ---------------------------------------------------------------------
+// The link paths' overlap sum (graph/links.py _row_sum): each row of an
+// (n_rows, n_cols) f32 matrix summed in one fixed order, whatever the
+// number of rows, so a pair scored alone (compute_link) gets the bits
+// of its row in a batch (compute_links_batch, rescore_links).  Not a
+// port of a TPU kernel: the reference leaves this sum to XLA.  One block
+// a row; thread t adds columns t, t + kRowSumThreads, ... in turn, then
+// a fixed halving tree over the block in shared memory.  Bound by bytes
+// (each element read once: 27 MB at 171 pairs of 200 x 200 cells).
+constexpr int kRowSumThreads = 512;
+
+__global__ void __launch_bounds__(kRowSumThreads)
+    row_sum_kernel(const float* __restrict__ x, long long n_cols,
+                   float* __restrict__ out) {
+  __shared__ float part[kRowSumThreads];
+  const float* row = x + (long long)blockIdx.x * n_cols;
+  float acc = 0.0f;
+  for (long long c = threadIdx.x; c < n_cols; c += kRowSumThreads) {
+    acc += __ldg(row + c);
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int half = kRowSumThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+      part[threadIdx.x] += part[threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
 }
 
 // Launch `kernel` on a (cluster, n_lanes) grid whose x extent is one
@@ -1156,8 +1303,10 @@ int ndtg_solve_max_clusters(int n_src, int n_feat, int cluster) {
 // and term switches), one cluster of `cluster` blocks per lane that
 // loops over the lane's trials: at most max_trials after the first
 // evaluation, stopping at delta_score as d2d.newton_match_batch does,
-// with λ adapted when step_control != 0.  Writes d_out (n_lanes, 3),
-// score_out (n_lanes,), trials_out (int32) and conv_out (uint8).
+// with λ adapted when step_control != 0 and the Hessian projected with
+// d2d._psd_project's guard when psd_guard != 0.  Writes d_out (n_lanes,
+// 3), score_out (n_lanes,), trials_out (int32), conv_out (uint8) and,
+// unless h_out is null, h_out (n_lanes, 9): the Hessian at d_out.
 // Returns the launch error (0 = success).
 int ndtg_newton_solve(const float* d_init, const float* T0,
                       const float* means, const float* covs,
@@ -1169,15 +1318,16 @@ int ndtg_newton_solve(const float* d_init, const float* T0,
                       const float* ft_means, const float* ft_covs,
                       const uint8_t* ft_mask, int n_feat, const float* Q,
                       float lfd1, float lfd2, int max_trials,
-                      float delta_score, int step_control, float* d_out,
-                      float* score_out, int* trials_out, uint8_t* conv_out,
-                      int cluster, void* stream) {
+                      float delta_score, int step_control, int psd_guard,
+                      float* d_out, float* score_out, int* trials_out,
+                      uint8_t* conv_out, float* h_out, int cluster,
+                      void* stream) {
   const ObjectiveArgs a = {d_init, T0, means, covs, mask, packed, origins,
                            row_offsets, n_src, h, w, nb, res, fs_means,
                            fs_covs, fs_mask, ft_means, ft_covs, ft_mask,
                            n_feat, Q, lfd1, lfd2, nullptr};
-  const SolveArgs s = {max_trials, delta_score, step_control, d_out,
-                       score_out, trials_out, conv_out};
+  const SolveArgs s = {max_trials, delta_score, step_control, psd_guard,
+                       d_out, score_out, trials_out, conv_out, h_out};
   void (*kernel)(ObjectiveArgs, SolveArgs) =
       bf16_rows != 0 ? newton_solve_kernel<kObjectiveThreads, true>
                      : newton_solve_kernel<kObjectiveThreads, false>;
@@ -1204,6 +1354,18 @@ int ndtg_pair_fgh_reduce(const float* mu, const float* sig,
   return launch_clusters(pair_fgh_kernel<kPairThreads>, kPairThreads,
                          cluster, 1, 0, static_cast<cudaStream_t>(stream), mu,
                          sig, m_rot, crot, ok, n_pairs, lfd1, lfd2, out);
+}
+
+// out[r] = the sum of row r of x (n_rows, n_cols), in row_sum_kernel's
+// fixed order.  Returns the launch error (0 = success).
+int ndtg_row_sum(const float* x, long long n_rows, long long n_cols,
+                 float* out, void* stream) {
+  if (n_rows < 1 || n_rows > 2147483647LL || n_cols < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  row_sum_kernel<<<static_cast<unsigned>(n_rows), kRowSumThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, n_cols, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -4,9 +4,10 @@ ndt_feature_graph_tpu/graph/links.py).
 
 The reference's O(N^2) sequential pair loop is one batch over a padded
 pair list: feature RANSAC over a leading batch of pairs, the overlap
-score against the stacked node bank, and a lockstep batched Newton whose
-D2D window term is the `fgh_dense_flat_batch` kernel entry on CUDA
-tensors (its plain twin on the CPU).
+score against the stacked node bank (its sum over the cells the `row_sum`
+kernel entry on CUDA tensors), and the batched Newton of every pair's
+D2D refinement with its Hessian in one `newton_solve_batch` launch on
+CUDA tensors (their plain twins on the CPU).
 
 Randomness: `compute_links_batch` takes the RANSAC draws `u` (P, M, 2),
 one row of uniforms per pair, and `compute_link` one pair's (M, 2),
@@ -80,13 +81,13 @@ def _overlap(mov_occ_raw, mov_origin, ref_lookup, ref_origin, T, h: int,
 
 
 def _row_sum(x):
-    """The overlap's sum over the cells (last dim): torch.sum, whose
-    order follows the number of rows (its CUDA reduction lays a row over
-    more threads when there are fewer rows; the CPU's splits one long
-    row across threads), so a pair alone can part from its batch row in
-    the last bits.  chip_smoke phase 16b times a fixed-order sum in its
-    place."""
-    return x.sum(-1)
+    """The overlap's sum over the cells (last dim): on CUDA tensors the
+    `row_sum` kernel entry, one fixed order for a row whatever the
+    number of rows (torch.sum's CUDA reduction lays a row over more
+    threads when there are fewer rows), so a pair alone gets the bits
+    of its batch row; on the CPU torch.sum, whose order for one row of
+    more than 32,768 cells splits it across threads."""
+    return cuda_kernels.row_sum(x)
 
 
 def occupancy_overlap_score(ref: NodeData, mov: NodeData, T,
@@ -113,7 +114,7 @@ def compute_link(fp: FeatureParams, resolution: float, ref: NodeData,
     batches under 32 pairs (torch evaluates atan2 / sin / cos of 32 or
     more values with vectorized routines, which round some RANSAC poses
     in another last bit).  Elsewhere the overlap score may part in its
-    last bits (_row_sum); on the card the pose and validity keep theirs
+    last bits (_row_sum); on the card every output keeps its row's bits
     (chip_smoke phase 16b)."""
     res = ransac.match_sets(fp, ref.feats, ref.desc, mov.feats, mov.desc, u)
     score, nb = occupancy_overlap_score(ref, mov, res.T, resolution)
@@ -162,10 +163,12 @@ def refine_links_d2d(map_params: NDTMapParams, m: MatcherParams,
                      nodes: NodeData, links: LinkSet,
                      src_budget: int = 0) -> LinkSet:
     """NDT D2D refinement of every link + covariance from the Hessian
-    (updateLinksUsingNDTRegistration): one lockstep batched Newton
-    (d2d.newton_match_batch) whose window term reads the flat (N*H*W, 8)
-    packed bank at a per-pair row offset (the `fgh_dense_flat_batch`
-    kernel entry on CUDA tensors).
+    (updateLinksUsingNDTRegistration): the batched Newton
+    (d2d.newton_match_batch) of the window term against the flat
+    (N*H*W, 8) packed bank at a per-pair row offset, and each pair's
+    Hessian at its result — one `newton_solve_batch` launch on CUDA
+    tensors, a cluster a pair that leaves at the pair's own stop; on the
+    CPU its plain twin, the lockstep then one more evaluation.
 
     src_budget > 0 keeps each pair's first `src_budget` source cells
     (cell lists are compacted, so any budget >= the bank's valid-cell
@@ -181,20 +184,12 @@ def refine_links_d2d(map_params: NDTMapParams, m: MatcherParams,
     packed_flat = nodes.target.packed.reshape(-1, 8)
     row_offsets = links.ref.to(torch.int64) * (h * w)
     T0 = links.T.contiguous()
-
-    def fgh_batch(d_b):
-        return cuda_kernels.fgh_dense_flat_batch(
-            d_b, T0, src_b, packed_flat, origins, row_offsets,
-            h, w, map_params.resolution, m.n_neighbours, m.lfd1, m.lfd2,
-        )
-
     p_count = links.ref.shape[0]
-    d_b, _score, _itr, conv = d2d.newton_match_batch(
+    d_b, _score, _itr, conv, H_b = cuda_kernels.newton_solve_batch(
         torch.zeros((p_count, 3), dtype=torch.float32, device=T0.device),
-        m, fgh_batch,
-    )
+        T0, src_b, packed_flat, origins, row_offsets, h, w,
+        map_params.resolution, m, with_hessian=True)
     T = se2.compose(d_b, T0)
-    _, _, H_b = fgh_batch(d_b)
     cov = d2d.cov_from_hessian(H_b, m)
     return dataclasses.replace(links, T=T, cov=cov, mask=links.mask & conv)
 

@@ -6,14 +6,18 @@ for the per-pair D2D algebra (pallas_kernels._fgh_components); every
 entry is ONE launch whose thread-block clusters reduce on the chip, in a
 fixed order.  The two solve entries run a whole registration:
 
-  * `newton_solve` — the main path's registration (fuser.update): the
-    damped-Newton minimisation of d2d.newton_match over the objective of
-    `newton_objective`, a cluster that loops over its trials and runs
-    the LM step between them on the chip; (d, score, trials,
-    converged), no host read.  Plain twin: `newton_solve_reference`.
-  * `newton_solve_batch` — a fleet step's B registrations
-    (fuser.update_batch), a cluster per lane that leaves at the lane's
-    own stop.  Plain twin: `newton_solve_batch_reference`
+  * `newton_solve` — a registration: the damped-Newton minimisation of
+    d2d.newton_match over the objective of `newton_objective`, a cluster
+    that loops over its trials and runs the LM step between them on the
+    chip; (d, score, trials, converged), no host read.  The main path's
+    (fuser.update: every term), plain D2D (d2d.match_d2d) and P2D
+    (pairwise.match_p2d, with the guarded PSD projection) registrations.
+    Plain twin: `newton_solve_reference`.
+  * `newton_solve_batch` — B registrations, a cluster per lane that
+    leaves at the lane's own stop: a fleet step's (fuser.update_batch)
+    and a batch of links' D2D refinement (links.refine_links_d2d, the
+    window term alone, with the Hessian at each lane's result for its
+    covariance).  Plain twin: `newton_solve_batch_reference`
     (d2d.newton_match_batch's masked lockstep).
 
 The others write one evaluation's (f, g, H) as 13 floats:
@@ -24,13 +28,13 @@ The others write one evaluation's (f, g, H) as 13 floats:
     masks), the paired feature term (its pair inputs formed in the
     kernel) and the odometry term, summed in that order.  Plain twin:
     `newton_objective_reference`.
-  * `fgh_dense_flat` — the window term alone (plain registration,
-    d2d.match_d2d / covariance_d2d).  Plain twin:
-    d2d_analytic.fgh_dense_flat.
+  * `fgh_dense_flat` — the window term alone: d2d.covariance_d2d's one
+    evaluation.  Plain twin: d2d_analytic.fgh_dense_flat.
   * `fgh_dense_flat_batch` — the window term for B lanes against one
     flat (N*H*W, 8) node bank, each lane with its own row offset and its
-    own cluster: the lockstep Newton of loop-closure link refinement.
-    Plain twin: d2d_analytic.fgh_dense_flat_batch.
+    own cluster: one lockstep trial of link refinement, launched by no
+    path since refinement runs in `newton_solve_batch`.  Plain twin:
+    d2d_analytic.fgh_dense_flat_batch.
   * `newton_objective_batch` — one Newton trial of B streams, the body
     of `newton_solve_batch`: every term per lane (its own source list,
     row offset into the flat (B*H*W, 8) stack of the streams' tables,
@@ -39,6 +43,10 @@ The others write one evaluation's (f, g, H) as 13 floats:
   * `pair_fgh_reduce` — the Pallas kernel's signature: masked sum of the
     pair derivatives of given pairs (`fgh_paired` on its own).  Plain
     twin: `pair_fgh_reduce_reference`.
+
+`row_sum` (the link paths' overlap sum, links._row_sum) sums each row of
+a matrix in one fixed order, one block a row; its plain twin is
+torch.sum.
 
 The source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface at the first CUDA call (never at import: machines
@@ -78,7 +86,7 @@ NVCC_FLAGS = [
 LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
             "newton_objective_batch": 0, "newton_solve": 0,
-            "newton_solve_batch": 0}
+            "newton_solve_batch": 0, "row_sum": 0}
 
 
 _lib = None
@@ -141,8 +149,9 @@ def build():
         P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,  # window term
         P, P, P, P, P, P, I,                          # paired term
         P, F, F,                                      # Q, lfd1, lfd2
-        I, F, I,          # max_trials, delta_score, step_control
-        P, P, P, P, I, P,  # d, score, trials, converged, cluster, stream
+        I, F, I, I,  # max_trials, delta_score, step_control, psd_guard
+        P, P, P, P, P,     # d, score, trials, converged, H
+        I, P,              # cluster, stream
     ]
     lib.ndtg_newton_solve.restype = I
     for fn in (lib.ndtg_solve_smem, lib.ndtg_solve_max_clusters):
@@ -152,6 +161,8 @@ def build():
         P, P, P, P, P, LL, F, F, P, I, P,
     ]
     lib.ndtg_pair_fgh_reduce.restype = I
+    lib.ndtg_row_sum.argtypes = [P, LL, LL, P, P]
+    lib.ndtg_row_sum.restype = I
     _lib = lib
     return lib
 
@@ -504,11 +515,13 @@ def _solve_cluster(lib, device, n_lanes: int, n_src: int,
 
 def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
                   h, w, res, m: MatcherParams, feat_src=None,
-                  feat_tgt=None, Q=None, bf16_rows=False):
+                  feat_tgt=None, Q=None, bf16_rows=False, psd_guard=False,
+                  with_hessian=False):
     """One launch of the solve kernel on checked CUDA tensors; None
     switches a term off.  d_init (B, 3) or (3,): returns (d, score,
-    trials int32, converged bool) with its leading shape.  Counts the
-    launch under `entry`."""
+    trials int32, converged bool), and with `with_hessian` the Hessian
+    at d (..., 3, 3), with its leading shape.  Counts the launch under
+    `entry`."""
     dev = d_init.device
     lib = build()
     lead = d_init.shape[:-1]
@@ -519,6 +532,8 @@ def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
     score = torch.empty(lead, dtype=torch.float32, device=dev)
     trials = torch.empty(lead, dtype=torch.int32, device=dev)
     conv = torch.empty(lead, dtype=torch.uint8, device=dev)
+    hess = (torch.empty((*lead, 3, 3), dtype=torch.float32, device=dev)
+            if with_hessian else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     cells = lambda c: (  # noqa: E731
         (None, None, None) if c is None
@@ -532,12 +547,13 @@ def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
             float(res), m.n_neighbours, int(bf16_rows), *cells(feat_src),
             *cells(feat_tgt), n_feat, ptr(Q), float(m.lfd1), float(m.lfd2),
             d2d.trial_budget(m), float(m.delta_score), int(m.step_control),
-            d.data_ptr(), score.data_ptr(), trials.data_ptr(),
-            conv.data_ptr(), cluster, stream,
+            int(psd_guard), d.data_ptr(), score.data_ptr(), trials.data_ptr(),
+            conv.data_ptr(), ptr(hess), cluster, stream,
         )
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
-    return d, score, trials, conv.view(torch.bool)
+    out = (d, score, trials, conv.view(torch.bool))
+    return out + (hess,) if with_hessian else out
 
 
 def newton_solve_reference(d_init, T0, src: Optional[CellList], packed,
@@ -545,32 +561,34 @@ def newton_solve_reference(d_init, T0, src: Optional[CellList], packed,
                            m: MatcherParams,
                            feat_src: Optional[CellList] = None,
                            feat_tgt: Optional[CellList] = None, Q=None,
-                           bf16_rows: bool = False):
+                           bf16_rows: bool = False, psd_guard: bool = False):
     """Plain PyTorch `newton_solve`: d2d.newton_match over
     `newton_objective_reference` (the eager LM step, one objective a
     trial, one host read of the stop flag a chunk of 6 trials)."""
     return d2d.newton_match(
         lambda d: newton_objective_reference(d, T0, src, packed, origin, h,
                                              w, res, m, feat_src, feat_tgt,
-                                             Q, bf16_rows), d_init, m)
+                                             Q, bf16_rows), d_init, m,
+        psd_guard)
 
 
 def newton_solve(d_init, T0, src: Optional[CellList], packed, origin,
                  h: int, w: int, res: float, m: MatcherParams,
                  feat_src: Optional[CellList] = None,
                  feat_tgt: Optional[CellList] = None, Q=None,
-                 bf16_rows: bool = False):
+                 bf16_rows: bool = False, psd_guard: bool = False):
     """A whole registration: the damped-Newton (LM) minimisation from
     increment d_init (3,) over T0 of `newton_objective`'s objective (the
     same arguments and term switches), as d2d.newton_match computes it —
     one kernel launch on CUDA tensors, in which one thread-block cluster
     evaluates trial after trial and runs the LM step between them until
-    the lane stops; no host read.  Returns (d (3,), score, trials
-    (int32), converged (bool)) as device tensors."""
+    the lane stops; no host read.  `psd_guard` projects the Hessians
+    with d2d._psd_project's guard (P2D's).  Returns (d (3,), score,
+    trials (int32), converged (bool)) as device tensors."""
     if (feat_src is None) != (feat_tgt is None):
         raise ValueError("newton_solve: feat_src and feat_tgt go together")
     args = (d_init, T0, src, packed, origin, h, w, res, m, feat_src,
-            feat_tgt, Q, bf16_rows)
+            feat_tgt, Q, bf16_rows, psd_guard)
     if d_init.device.type == "cpu":
         return newton_solve_reference(*args)
     if d_init.device.type != "cuda":
@@ -593,7 +611,7 @@ def newton_solve(d_init, T0, src: Optional[CellList], packed, origin,
     return _launch_solve(
         "newton_solve", d_init, T0, src, packed if on else None,
         origin if on else None, None, h, w, res, m, feat_src, feat_tgt, Q,
-        bf16_rows)
+        bf16_rows, psd_guard)
 
 
 def newton_solve_batch_reference(
@@ -601,13 +619,17 @@ def newton_solve_batch_reference(
         row_offsets, h: int, w: int, res: float, m: MatcherParams,
         feat_src_b: Optional[CellList] = None,
         feat_tgt_b: Optional[CellList] = None, Q_b=None,
-        bf16_rows: bool = False):
+        bf16_rows: bool = False, with_hessian: bool = False):
     """Plain PyTorch `newton_solve_batch`: d2d.newton_match_batch (the
-    masked lockstep) over `newton_objective_batch_reference`."""
-    return d2d.newton_match_batch(
-        d_init_b, m, lambda d_b: newton_objective_batch_reference(
+    masked lockstep) over `newton_objective_batch_reference`, then with
+    `with_hessian` one more evaluation at the result for its Hessians."""
+    def fgh(d_b):
+        return newton_objective_batch_reference(
             d_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w, res,
-            m, feat_src_b, feat_tgt_b, Q_b, bf16_rows))
+            m, feat_src_b, feat_tgt_b, Q_b, bf16_rows)
+
+    out = d2d.newton_match_batch(d_init_b, m, fgh)
+    return out + (fgh(out[0])[2],) if with_hessian else out
 
 
 def newton_solve_batch(
@@ -615,19 +637,22 @@ def newton_solve_batch(
         row_offsets, h: int, w: int, res: float, m: MatcherParams,
         feat_src_b: Optional[CellList] = None,
         feat_tgt_b: Optional[CellList] = None, Q_b=None,
-        bf16_rows: bool = False):
-    """B registrations of a fleet step: lane b minimises, from
-    d_init_b[b], `newton_objective_batch`'s objective of lane b (the same
-    arguments and term switches), as d2d.newton_match_batch computes it —
-    one kernel launch for all B lanes on CUDA tensors, a cluster per
-    lane that leaves at the lane's own stop (in the lockstep a stopped
-    lane's updates are masked, so its result is the same).  Returns
-    (d (B, 3), score (B,), trials (B,) int32, converged (B,) bool)."""
+        bf16_rows: bool = False, with_hessian: bool = False):
+    """B registrations (a fleet step's, a batch of links'): lane b
+    minimises, from d_init_b[b], `newton_objective_batch`'s objective of
+    lane b (the same arguments and term switches), as
+    d2d.newton_match_batch computes it — one kernel launch for all B
+    lanes on CUDA tensors, a cluster per lane that leaves at the lane's
+    own stop (in the lockstep a stopped lane's updates are masked, so
+    its result is the same).  Returns (d (B, 3), score (B,), trials (B,)
+    int32, converged (B,) bool), and with `with_hessian` (link
+    refinement's covariances) the Hessians (B, 3, 3) of the objective at
+    d, written by the launch itself."""
     if (feat_src_b is None) != (feat_tgt_b is None):
         raise ValueError("newton_solve_batch: feat_src_b and feat_tgt_b "
                          "go together")
     args = (d_init_b, T0_b, src_b, packed_flat, origins, row_offsets, h, w,
-            res, m, feat_src_b, feat_tgt_b, Q_b, bf16_rows)
+            res, m, feat_src_b, feat_tgt_b, Q_b, bf16_rows, with_hessian)
     if d_init_b.device.type == "cpu":
         return newton_solve_batch_reference(*args)
     if d_init_b.device.type != "cuda":
@@ -658,7 +683,7 @@ def newton_solve_batch(
         "newton_solve_batch", d_init_b, T0_b, src_b,
         packed_flat if on else None, origins if on else None,
         row_offsets if on else None, h, w, res, m, feat_src_b, feat_tgt_b,
-        Q_b, bf16_rows)
+        Q_b, bf16_rows, with_hessian=with_hessian)
 
 
 def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
@@ -668,7 +693,9 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
     against one flat (R, 8) packed bank — d2d_analytic.
     fgh_dense_flat_batch in one launch, a cluster per lane, on CUDA
     tensors.  Lane b moves src_b[b] by d_b[b] ∘ T0_b[b] and reads the
-    bank rows from row_offsets[b] (int64) on, with origin origins[b]."""
+    bank rows from row_offsets[b] (int64) on, with origin origins[b].
+    One lockstep trial of link refinement, which runs whole in
+    `newton_solve_batch`: this entry is its per-trial yardstick."""
     if d_b.device.type == "cpu":
         m = MatcherParams(n_neighbours=n, lfd1=lfd1, lfd2=lfd2)
         return d2d_analytic.fgh_dense_flat_batch(
@@ -816,3 +843,31 @@ def fgh_paired(d, T0, src: CellList, tgt: CellList, m: MatcherParams):
     trial the paired term rides in `newton_objective` instead."""
     mu, Sig, m_rot, Crot, ok = d2d_analytic.paired_inputs(d, T0, src, tgt)
     return pair_fgh_reduce(mu, Sig, m_rot, Crot, ok, m.lfd1, m.lfd2)
+
+
+def row_sum(x):
+    """The sum over the last dim of a float32 tensor (..., C) in one
+    fixed order, whatever the leading shape: one launch of the row-sum
+    kernel (a block a row) on CUDA tensors, torch.sum on the CPU."""
+    if x.device.type == "cpu":
+        return x.sum(-1)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_sum: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"row_sum: dtype {x.dtype}, expected float32")
+    if x.dim() < 1 or x.shape[-1] == 0:
+        raise ValueError(f"row_sum: shape {tuple(x.shape)}, expected "
+                         "(..., C) with C > 0")
+    lead, n_cols = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, n_cols).contiguous()
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=x.device)
+    if rows.shape[0] == 0:
+        return out.reshape(lead)
+    lib = build()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ndtg_row_sum(rows.data_ptr(), rows.shape[0], n_cols,
+                               out.data_ptr(), stream)
+    _raise_on(err, "row_sum")
+    LAUNCHES["row_sum"] += 1
+    return out.reshape(lead)

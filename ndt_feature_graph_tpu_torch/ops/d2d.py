@@ -406,40 +406,47 @@ class NewtonResult:
     converged: torch.Tensor   # bool
 
 
-def _window_fgh(tgt: PackedTarget, src: ndt_map.CellList, T0,
-                map_params: NDTMapParams, m: MatcherParams):
-    """fgh_fn of the D2D window cost of `src` over initial pose T0
-    against `tgt`: the `fgh_dense_flat` kernel entry on CUDA tensors."""
+def match_window(packed, origin, h: int, w: int, resolution: float,
+                 src: ndt_map.CellList, T_init, m: MatcherParams,
+                 psd_guard: bool = False) -> NewtonResult:
+    """The damped-Newton registration of the cell list `src` from
+    initial pose T_init against a packed (H*W, 8) table with grid
+    origin `origin`, the window term alone: one `newton_solve` launch on
+    CUDA tensors (newton_match over the term's plain version on the
+    CPU).  `psd_guard` projects the Hessians with _psd_project's guard."""
     from ndt_feature_graph_tpu_torch.ops import cuda_kernels
 
-    def fgh_fn(d):
-        return cuda_kernels.fgh_dense_flat(
-            d, T0, src, tgt.packed, tgt.origin, map_params.grid_h,
-            map_params.grid_w, map_params.resolution, m.n_neighbours,
-            m.lfd1, m.lfd2)
-    return fgh_fn
+    T_init = T_init.to(torch.float32)
+    d, f, itr, conv = cuda_kernels.newton_solve(
+        torch.zeros(3, dtype=torch.float32, device=T_init.device), T_init,
+        src, packed, origin, h, w, resolution, m, psd_guard=psd_guard)
+    return NewtonResult(d=d, T=_apply_increment(d, T_init), score=f,
+                        iterations=itr, converged=conv)
 
 
 def match_d2d(tgt: PackedTarget, src: ndt_map.CellList, T_init,
               map_params: NDTMapParams, m: MatcherParams) -> NewtonResult:
     """Plain D2D registration of the cell list `src` from initial pose
     T_init against the packed table of `tgt` (the reference's match_d2d
-    on the DenseTarget of the same grid): the window term alone."""
-    T_init = T_init.to(torch.float32)
-    d, f, itr, conv = newton_match(
-        _window_fgh(tgt, src, T_init, map_params, m),
-        torch.zeros(3, dtype=torch.float32, device=T_init.device), m)
-    return NewtonResult(d=d, T=_apply_increment(d, T_init), score=f,
-                        iterations=itr, converged=conv)
+    on the DenseTarget of the same grid): the window term alone, one
+    `newton_solve` launch on the card (match_window)."""
+    return match_window(tgt.packed, tgt.origin, map_params.grid_h,
+                        map_params.grid_w, map_params.resolution, src,
+                        T_init, m)
 
 
 def covariance_d2d(tgt: PackedTarget, src: ndt_map.CellList, T,
                    map_params: NDTMapParams, m: MatcherParams):
     """Pose covariance (3, 3) from the inverse Hessian of the D2D window
-    cost at the estimate T (cov_from_hessian's convention)."""
+    cost at the estimate T (cov_from_hessian's convention): one
+    `fgh_dense_flat` launch on CUDA tensors."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
     T = T.to(torch.float32)
-    _, _, H = _window_fgh(tgt, src, T, map_params, m)(
-        torch.zeros(3, dtype=torch.float32, device=T.device))
+    _, _, H = cuda_kernels.fgh_dense_flat(
+        torch.zeros(3, dtype=torch.float32, device=T.device), T, src,
+        tgt.packed, tgt.origin, map_params.grid_h, map_params.grid_w,
+        map_params.resolution, m.n_neighbours, m.lfd1, m.lfd2)
     return cov_from_hessian(H, m)
 
 

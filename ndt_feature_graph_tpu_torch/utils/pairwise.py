@@ -8,8 +8,8 @@ Covers the reference's small-tool surface:
     (utils.h:115-165)
   - P2D registration (NDTMatcherP2D role): scan points as isotropic
     pseudo-cells against an NDT map, minimised by the damped Newton over
-    the analytic dense derivatives — one launch of the `fgh_dense_flat`
-    kernel entry a trial on the card
+    the analytic dense derivatives — one `newton_solve` launch a
+    registration on the card
   - laser-to-base extrinsic search (laser2d_extrinsic_calibration.cpp:
     43-449): scoring a sensor-offset grid over scan pairs, the
     nearest-neighbour distances written out and taken in chunks of
@@ -28,7 +28,7 @@ from ndt_feature_graph_tpu_torch.config import (
 from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features import descriptor, detector, ransac
 from ndt_feature_graph_tpu_torch.io import dataset
-from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic
+from ndt_feature_graph_tpu_torch.ops import d2d
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 # Elements of one chunk's (candidates, Nb, Na) distance block: 2^24
@@ -87,25 +87,20 @@ def match_p2d(tgt: d2d.DenseTarget, pts, mask, T_init,
     """Point-to-distribution registration (configs[0] of BASELINE.md):
     the points of one scan, as pseudo-cells, against the dense target
     from T_init.  The reference minimises d2d_score_dense with autodiff
-    derivatives; here the analytic fgh_dense gives the same derivatives
-    to rounding (one `fgh_dense_flat` launch a trial on the card).  The
-    Newton loop projects its Hessians with d2d._psd_project's guard: the
-    reference's projection can leave a Hessian indefinite by rounding,
-    and then stops at the start (2 of 9 of its runs from the canonical
-    odometry moved by k * 1e-6 do; the port's unguarded projection does
-    there too), where the guarded one converges to the reference's other
-    runs' pose."""
-    src = points_as_cells(pts, mask)
-    T_init = T_init.to(torch.float32)
-
-    def fgh_fn(dd):
-        return d2d_analytic.fgh_dense(dd, T_init, src, tgt, map_params, m)
-
-    dd, f, itr, conv = d2d.newton_match(
-        fgh_fn, torch.zeros(3, dtype=torch.float32, device=T_init.device), m,
-        psd_guard=True)
-    return d2d.NewtonResult(d=dd, T=se2.compose(dd, T_init), score=f,
-                            iterations=itr, converged=conv)
+    derivatives; here the analytic window term gives the same
+    derivatives to rounding, and the whole registration is one
+    `newton_solve` launch on the card (d2d.match_window).  The Newton
+    loop projects its Hessians with d2d._psd_project's guard, in the
+    kernel too: the reference's projection can leave a Hessian
+    indefinite by rounding, and then stops at the start (2 of 9 of its
+    runs from the canonical odometry moved by k * 1e-6 do; the port's
+    unguarded projection does there too), where the guarded one
+    converges to the reference's other runs' pose."""
+    src = points_as_cells(pts.contiguous(), mask.contiguous())
+    h, w = tgt.valid.shape
+    return d2d.match_window(tgt.packed, tgt.origin, h, w,
+                            map_params.resolution, src, T_init, m,
+                            psd_guard=True)
 
 
 def extrinsic_calibration_score(scan_a_pts, scan_a_mask, scan_b_pts,

@@ -137,7 +137,8 @@ def test_cpu_wrappers_use_the_plain_twins():
                                      "fgh_dense_flat_batch": 0,
                                      "newton_objective_batch": 0,
                                      "newton_solve": 0,
-                                     "newton_solve_batch": 0}
+                                     "newton_solve_batch": 0,
+                                     "row_sum": 0}
 
 
 def test_wrappers_reject_other_devices():

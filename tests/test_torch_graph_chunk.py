@@ -13,7 +13,9 @@ and a padded last chunk (five active rows, three zero rows).
 Tolerances: meta atol 1e-3; trajectory atol 1e-3 (test_graph_chunked.py's,
 as tests/test_torch_slam.py: reordered float32 sums move the chained
 poses by ~1e-4 m) and scores rtol 2e-4 (the port's score of scan 2 is
-1.10e-4 off while its pose is 1.5e-4 m off).  On the rows where the
+1.10e-4 off while its pose is 1.5e-4 m off; the reference's own score
+of scan 2 moves 3.1e-5 under +-1e-6 m of odometry, 4.2e-4 under -2e-6 m
+and 1.7e-4 under -3e-6 m: examples/measure_chunk_spread.py --reference).  On the rows where the
 reference itself moves by more than that under a +-1e-6 m change of
 the chunk's odometry, the row's tolerance gains twice that spread (two
 samples of it: twice covers a move in another direction).  Measured on

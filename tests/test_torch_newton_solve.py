@@ -24,14 +24,15 @@ references, the arithmetic the CPU ran before the entries existed.
     the two sides and land up to 9e-5 apart (measured), as
     tests/test_torch_fleet.py's drivers note.
 (d) A float32 numpy mirror of the kernel's LM step, written in the
-    kernel's operation order (each operation rounded on its own, the
-    3x3 solve by LU with partial pivoting), against the first two trial
-    points of d2d.newton_match_batch on random SPD and indefinite
-    Hessians.  Torch's CPU solve is LAPACK's (a blocked or recursive LU
-    that scales by the pivot's reciprocal), so the two differ by the
-    rounding of a 3x3 solve: the trial points are held to
-    1e-6 x cond(A) of their size, and the decisions (accept, λ) must
-    agree.
+    kernel's operation order, which is that of torch's eager operations
+    on the card (each operation rounded on its own, sums of 3 and 9 in
+    torch's CUDA order, a division by a Python scalar as a product with
+    its reciprocal, the 3x3 solve by an LU with reciprocal multipliers
+    and fused multiply-adds), against the first two trial points of
+    d2d.newton_match_batch on random SPD and indefinite Hessians.
+    Torch's CPU operations round otherwise (LAPACK's solve, vectorised
+    sums), so the trial points are held to 1e-6 x cond(A) of their size,
+    and the decisions (accept, λ) must agree.
 
 The kernel itself runs on the card: tests/test_torch_cuda.py.
 """
@@ -319,32 +320,79 @@ def test_newton_solve_matches_jax(step_control):
 F = np.float32
 
 
+def _sum3(a, b, c, t=F):
+    """csrc/pair_fgh.cu sum3: torch's CUDA order for three values."""
+    return t(t(a + c) + b)
+
+
+def _sum9(e, t=F):
+    """csrc/pair_fgh.cu sum9: torch's CUDA order for nine values."""
+    t0 = t(t(e[0] + e[8]) + e[4])
+    return t(t(t0 + t(e[2] + e[6])) + t(t(e[1] + e[5]) + t(e[3] + e[7])))
+
+
 def _min_eig_sym3(H):
     """csrc/pair_fgh.cu min_eig_sym3, operation by operation."""
-    q = F(F(F(H[0, 0] + H[1, 1]) + H[2, 2]) / F(3))
+    q = F(_sum3(H[0, 0], H[1, 1], H[2, 2]) * F(F(1) / F(3)))
     qz = F(q * F(0))
     B = np.empty((3, 3), F)
     for i in range(3):
         for j in range(3):
             B[i, j] = F(H[i, j] - (q if i == j else qz))
     flat = B.reshape(-1)
-    ss = F(flat[0] * flat[0])
-    for x in flat[1:]:
-        ss = F(ss + F(x * x))
-    p2 = F(ss / F(6))
+    p2 = F(_sum9([F(x * x) for x in flat]) * F(F(1) / F(6)))
     p = F(np.sqrt(max(p2, F(1e-30))))
     det = F(F(F(B[0, 0] * F(F(B[1, 1] * B[2, 2]) - F(B[1, 2] * B[2, 1])))
               - F(B[0, 1] * F(F(B[1, 0] * B[2, 2]) - F(B[1, 2] * B[2, 0]))))
             + F(B[0, 2] * F(F(B[1, 0] * B[2, 1]) - F(B[1, 1] * B[2, 0]))))
     r = F(min(max(F(det / F(F(F(F(2) * p) * p) * p)), F(-1)), F(1)))
-    phi = F(F(np.arccos(r)) / F(3))
+    phi = F(F(np.arccos(r)) * F(F(1) / F(3)))
     lam_min = F(q + F(F(F(2) * p) * F(np.cos(F(phi + F(2.0943951023931953))))))
     return q if p2 < F(1e-28) else lam_min
 
 
+def _min_eig_sym3_f64(H):
+    """csrc/pair_fgh.cu min_eig_sym3_f64: min_eig_sym3 on H's float64
+    copy, operation by operation."""
+    D = np.float64
+    H = H.astype(D)
+    q = _sum3(H[0, 0], H[1, 1], H[2, 2], D) * D(1.0 / 3.0)
+    B = H - np.diag([q, q, q]) - (1 - np.eye(3)) * D(q * 0.0)
+    p2 = _sum9([x * x for x in B.reshape(-1)], D) * D(1.0 / 6.0)
+    p = np.sqrt(max(p2, D(1e-30)))
+    det = ((B[0, 0] * (B[1, 1] * B[2, 2] - B[1, 2] * B[2, 1])
+            - B[0, 1] * (B[1, 0] * B[2, 2] - B[1, 2] * B[2, 0]))
+           + B[0, 2] * (B[1, 0] * B[2, 1] - B[1, 1] * B[2, 0]))
+    r = min(max(det / (((D(2) * p) * p) * p), D(-1)), D(1))
+    phi = np.arccos(r) * D(1.0 / 3.0)
+    lam_min = q + (D(2) * p) * np.cos(phi + D(2.0943951023931953))
+    return q if p2 < D(1e-28) else lam_min
+
+
+def _psd_shift(H, guard):
+    """csrc/pair_fgh.cu psd_shift: the negative part of the smallest
+    eigenvalue; with the guard in float64 plus td2d.PSD_ROUNDING of the
+    largest shifted diagonal entry, rounded to float32."""
+    if not guard:
+        return max(F(-_min_eig_sym3(H)), F(0))
+    shift = max(-_min_eig_sym3_f64(H), 0.0)
+    diag = float(np.abs(np.diag(H).astype(np.float64)).max())
+    if shift > 0:
+        shift = shift + td2d.PSD_ROUNDING * (diag + shift)
+    return F(shift)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (through float64: the product
+    is exact there, the sum is rounded twice, which changes the float32
+    result only in rare ties)."""
+    return F(np.float64(a) * np.float64(b) + np.float64(c))
+
+
 def _lu_solve3(A, y):
-    """csrc/pair_fgh.cu lu_solve3: getrf's pivoting by division, then
-    getrs's two triangular solves column by column."""
+    """csrc/pair_fgh.cu lu_solve3: getrf's pivoting, multipliers by the
+    pivot's reciprocal, fused multiply-add updates, then getrs's two
+    triangular solves column by column."""
     A = A.astype(F).copy()
     perm = [0, 1, 2]
     for k in range(3):
@@ -354,32 +402,33 @@ def _lu_solve3(A, y):
                 piv = i
         A[[k, piv]] = A[[piv, k]]
         perm[k], perm[piv] = perm[piv], perm[k]
+        rcp = F(F(1) / A[k, k])
         for i in range(k + 1, 3):
-            A[i, k] = F(A[i, k] / A[k, k])
+            A[i, k] = F(A[i, k] * rcp)
             for j in range(k + 1, 3):
-                A[i, j] = F(A[i, j] - F(A[i, k] * A[k, j]))
+                A[i, j] = _fma(-A[i, k], A[k, j], A[i, j])
     z = np.array([y[i] for i in perm], F)
     for j in range(3):
         for i in range(j + 1, 3):
-            z[i] = F(z[i] - F(z[j] * A[i, j]))
+            z[i] = _fma(-z[j], A[i, j], z[i])
     for j in (2, 1, 0):
         z[j] = F(z[j] / A[j, j])
         for i in range(j):
-            z[i] = F(z[i] - F(z[j] * A[i, j]))
+            z[i] = _fma(-z[j], A[i, j], z[i])
     return z
 
 
-def _trial_point(d, g, H, lam, delta_score):
+def _trial_point(d, g, H, lam, delta_score, guard=False):
     """The next trial point of the kernel's lm_step: (d + delta, delta,
-    grad_vanished, A)."""
-    shift = max(F(-_min_eig_sym3(H)), F(0))
+    grad_vanished, A); `guard` projects as psd_guard does."""
+    shift = _psd_shift(H, guard)
     A = np.empty((3, 3), F)
     for i in range(3):
         for j in range(3):
             diag = i == j
             A[i, j] = F(F(H[i, j] + (shift if diag else F(shift * F(0))))
                         + (lam if diag else F(lam * F(0))))
-    gg = F(F(F(g[0] * g[0]) + F(g[1] * g[1])) + F(g[2] * g[2]))
+    gg = _sum3(F(g[0] * g[0]), F(g[1] * g[1]), F(g[2] * g[2]))
     delta = -_lu_solve3(A, g)
     return (np.array([F(d[i] + delta[i]) for i in range(3)], F), delta,
             bool(F(np.sqrt(gg)) <= F(delta_score)), A)
@@ -387,7 +436,7 @@ def _trial_point(d, g, H, lam, delta_score):
 
 def _after_trial(f, g, delta, lam, f_new, step_control):
     """lm_step's accept and λ after a trial."""
-    dg = F(F(F(delta[0] * g[0]) + F(delta[1] * g[1])) + F(delta[2] * g[2]))
+    dg = _sum3(F(delta[0] * g[0]), F(delta[1] * g[1]), F(delta[2] * g[2]))
     accept = bool(f_new <= F(f + F(F(1e-4) * dg)))
     if not step_control:
         lam = F(1e-6)
@@ -456,5 +505,55 @@ def test_lm_step_mirror_matches_newton_match_batch(seed, kind, outcome,
     tol1 = tol(A, p1)
     np.testing.assert_allclose(seen[1], p1, rtol=0, atol=tol1)
     if not gv:                  # the lane went on to a second trial
+        np.testing.assert_allclose(seen[2], p2, rtol=0,
+                                   atol=tol1 + tol(A2, p2 - d1))
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite", "large"])
+@pytest.mark.parametrize("seed", range(4))
+def test_lm_step_mirror_with_the_guard_matches_newton_match_batch(seed,
+                                                                  kind):
+    """(d) with the guarded projection (P2D's, `psd_guard`): the mirror's
+    first two trial points against those of d2d.newton_match_batch(...,
+    psd_guard=True), from the same evaluations; "large" scales an
+    indefinite Hessian to entries ~1e6, where the float32 eigenvalue's
+    rounding exceeds the damping and the guard's float64 shift decides
+    the step.  The guarded shift itself against d2d._psd_project's to
+    one float32 ulp of the diagonal."""
+    f0, g0, H0, g1, H1 = _random_case(seed, "spd" if kind == "spd"
+                                      else "indefinite")
+    if kind == "large":
+        H0 = (H0 * F(1e6 / np.abs(H0).max())).astype(F)
+    m = interop.params_from_jax(MatcherParams())
+    got = td2d._psd_project(torch.tensor(H0)[None], guard=True)[0].numpy()
+    shift = _psd_shift(H0, True)
+    want = (H0 + shift * np.eye(3, dtype=F)).astype(F)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 ** -23 * np.abs(np.diag(H0)).max())
+    p1, delta, gv, A = _trial_point(np.zeros(3, F), g0, H0, F(1e-3),
+                                    m.delta_score, guard=True)
+    assert np.linalg.eigvalsh(A.astype(np.float64))[0] > 0
+    f1 = F(f0 - 1.0)
+    seen = []
+
+    def fgh(d):
+        seen.append(d[0].numpy().copy())
+        f, g, H = ((f0, g0, H0) if len(seen) == 1 else (f1, g1, H1)
+                   if len(seen) == 2 else (F(1e30), g1, H1))
+        return (torch.tensor([f]), torch.tensor(g)[None],
+                torch.tensor(H)[None])
+
+    td2d.newton_match_batch(torch.zeros((1, 3)), m, fgh, psd_guard=True)
+    accept, lam = _after_trial(f0, g0, delta, F(1e-3), f1, True)
+    d1 = p1 if accept else np.zeros(3, F)
+    g, H = (g1, H1) if accept else (g0, H0)
+    p2, _, _, A2 = _trial_point(d1, g, H, lam, m.delta_score, guard=True)
+
+    def tol(A_, x):
+        return 1e-6 * np.linalg.cond(A_.astype(np.float64)) * np.abs(x).max()
+
+    tol1 = tol(A, p1)
+    np.testing.assert_allclose(seen[1], p1, rtol=0, atol=tol1)
+    if not gv:
         np.testing.assert_allclose(seen[2], p2, rtol=0,
                                    atol=tol1 + tol(A2, p2 - d1))
