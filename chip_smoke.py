@@ -22,8 +22,9 @@ Runs on a machine with a CUDA card and no JAX:
      turns beside the per-trial path's;
   4. drives the main path (NDTFeatureGraphSLAM.initialize +
      run_sequence_device) over the canonical 200-scan fixture with the
-     JAX reference's RANSAC draws, checks that `newton_solve` — and no
-     other entry — launched, once per registration, that the
+     JAX reference's RANSAC draws, checks that `newton_solve` launched
+     once per registration and `segment_add_rows` once per map update
+     (counted by `map_updates`), and no other entry, that the
      frozen-node count matches JAX and that the trajectory stays within
      1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
      (one warm-up run, then the median of 3); the checked run counts
@@ -32,12 +33,17 @@ Runs on a machine with a CUDA card and no JAX:
      inputs for phase 3's replay: every registration through the
      kernel (the recorded bits again), the per-trial path and the plain
      twin, the kernel held to the per-trial path scan by scan;
-     3e. the fixed-order map update (add_points_touched +
-         update_occupancy of three canonical scans, into one grid and a
-         stack of three) on the card equals the CPU's bit for bit and
-         repeats; its device time beside the atomic index_add it
-         replaced, in turns; torch.sqrt of 2^20 float32 values on the
-         card equals numpy.sqrt (0 elements differ);
+     3e. the map update through the `segment_add_rows` kernel
+         (add_points_touched + update_occupancy of three canonical
+         scans, into one grid and stacks of 3 and 64; a scatter with
+         5,000 entries on one cell) on the card equals the CPU's bit
+         for bit, equals the sorted index_put_ path it replaced and
+         repeats, one launch a scatter; one scan's update and a B = 64
+         fleet step's timed in turns against the sorted path and the
+         atomic index_add, and the kernel entry on those scatters
+         beside its bound (segment_sum_checks); torch.sqrt of 2^20
+         float32 values on the card equals numpy.sqrt (0 elements
+         differ);
      the three timed runs repeat the first run's trajectory bit for bit
      and its launch counts;
      3c. plain registration on that graph: d2d.match_d2d +
@@ -255,7 +261,10 @@ lists, its scalars; 13 floats written) over 3.35 TB/s and its
 operations (FLOPS_PER_PAIR for each unmasked, in-bounds, valid pair)
 over 67 TFLOP/s: NVIDIA's H100 SXM figures; a solve's operations are
 those of every trial it evaluates, lane by lane.  No single PyTorch
-call computes any entry, so `library_ms` is null.  The per-trial
+call computes a D2D entry, so their `library_ms` is null; `row_sum`'s
+is torch.sum's, `segment_add_rows`'s index_add's (atomic on the card;
+its entry also carries the sorted index_put_ path's time,
+`sorted_ms`).  The per-trial
 objectives (`newton_objective[_batch]`) are the body of the solves and
 no path's own launch any more: their `launches` are 0, and the launches
 of the per-trial path that the script drives as the solves' yardstick
@@ -353,6 +362,10 @@ REPLACES = "ndt_feature_graph_tpu/ops/pallas_kernels.py:149"
 # The row-sum kernel ports no TPU kernel: the reference's overlap sum,
 # which it leaves to XLA.
 ROW_SUM_REPLACES = "ndt_feature_graph_tpu/graph/links.py:138"
+# Nor does the map update's fixed-order sum: the reference's scatter,
+# XLA's `.at[flat].add` (add_points_touched; update_occupancy at :166).
+SEGMENT_SOURCE = "ndt_feature_graph_tpu_torch/csrc/segment_sum.cu"
+SEGMENT_REPLACES = "ndt_feature_graph_tpu/ops/ndt_map.py:115"
 F_RTOL = 1e-4                 # tests/test_pallas_kernels.py tolerances
 GH_RTOL, G_ATOL, H_ATOL = 2e-3, 1e-4, 1e-3
 CANCEL_RTOL = 1e-3            # batch lanes: see compare()
@@ -1923,9 +1936,10 @@ def online_phase(fx, lc, dev):
     check(repr(sp) == str(lc["on_params_repr"]),
           "canonical_lc.npz was made at other online-LC parameters")
     cuda_kernels.reset_launch_counts()
-    with recorded_refinements("online"):
+    with recorded_refinements("online"), map_updates() as updates:
         slam, _ = online_lc_run(sp, fx, lc, dev)
     launches = dict(cuda_kernels.LAUNCHES)
+    check_map_launches(launches, updates, "the online-LC run")
     print(f"  launches in the online-LC run: {launches} (newton_solve_batch: "
           f"one a proposal's refinement, {len(REFINEMENTS['online'])})")
     for k in ("newton_solve", "newton_solve_batch"):
@@ -2478,11 +2492,14 @@ def fleet_dev(name, traj, scores, ref_traj, ref_scores, spread):
     return float(xy.max()), float(th.max())
 
 
-def only_batch_entry(launches, name, steps):
+def only_batch_entry(launches, name, steps, updates):
+    """newton_solve_batch once a fleet step, segment_add_rows once a map
+    update (each a whole stack of grids), and no other entry."""
+    check_map_launches(launches, updates, name)
     check(launches["newton_solve_batch"] == steps
-          and sum(launches.values()) == steps,
+          and sum(launches.values()) == steps + launches["segment_add_rows"],
           f"{name} launched {launches}: expected newton_solve_batch alone, "
-          "once a fleet step")
+          "once a fleet step, beside the map updates")
 
 
 def fleet_points_phase(fp, fl, dev):
@@ -2499,13 +2516,16 @@ def fleet_points_phase(fp, fl, dev):
 
     inputs = scaling.build_fleet_inputs(fp, seq, 8)
     cuda_kernels.reset_launch_counts()
-    (finals, traj8, sc8), _ = run_fleet(drv, fp, inputs, dev)
+    with map_updates() as updates:
+        (finals, traj8, sc8), _ = run_fleet(drv, fp, inputs, dev)
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
-        only_batch_entry(launches, "run_sequence_batch", steps)
+        only_batch_entry(launches, "run_sequence_batch", steps, updates)
     n = launches["newton_solve_batch"]
     print(f"  launches in the B=8 run: {launches} ({n / steps:.2f} per fleet "
-          f"step: the step's registrations in one launch)")
+          f"step: the step's registrations in one launch; "
+          f"{launches['segment_add_rows'] / steps:.2f} segment_add_rows a "
+          f"step for {updates['n']} map updates of the whole stack)")
     summary["dev_bf16"] = fleet_dev("B=8, bf16 rows, vs JAX", traj8, sc8,
                                     fl["pts_traj"], fl["pts_scores"], spread)
     table = d2d.packed_from_grid(finals.grid, fp.ndt)
@@ -2581,12 +2601,13 @@ def fleet_full_phase(fp, fl, dev):
         inputs = scaling.build_fleet_feature_inputs(fp, seq, b)
         u = u8.repeat(b // 8, 1, 1, 1)
         cuda_kernels.reset_launch_counts()
-        (_, traj, sc), _ = run_fleet(drv, fp, inputs, dev, ransac_u=u)
+        with map_updates() as updates:
+            (_, traj, sc), _ = run_fleet(drv, fp, inputs, dev, ransac_u=u)
         if b == 8:
             launches = dict(cuda_kernels.LAUNCHES)
             if dev.type == "cuda":
                 only_batch_entry(launches, "run_sequence_features_batch",
-                                 steps)
+                                 steps, updates)
             print(f"  launches in the B=8 run: {launches}")
             summary["dev"] = fleet_dev("B=8 vs JAX", traj, sc,
                                        fl["feat_traj"], fl["feat_scores"],
@@ -2653,14 +2674,17 @@ def rolling_phase(fx, dev):
         return final, traj, origin0
 
     cuda_kernels.reset_launch_counts()
-    final, traj, origin0 = run(dev)
+    with map_updates() as updates:
+        final, traj, origin0 = run(dev)
     sync(dev)
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
+        check_map_launches(launches, updates, "rolling_map")
         check(launches["newton_solve"] == n - 1
-              and sum(launches.values()) == launches["newton_solve"],
+              and sum(launches.values()) == launches["newton_solve"]
+              + launches["segment_add_rows"],
               f"run_sequence_features launched {launches}: expected "
-              "newton_solve alone, once a scan")
+              "newton_solve alone, once a scan, beside the map updates")
     cells = (final.base.grid.origin - origin0) / fp.ndt.resolution
     moved = int(cells.abs().max().round())
     table = d2d.packed_from_grid(final.base.grid, fp.ndt)
@@ -2702,54 +2726,273 @@ def scatter_swapped(fn):
         ndt_map.scatter_add_rows = fixed
 
 
-def map_update_case(mp, fx, device, streams=0, scans=(0, 2, 4)):
-    """The map update of canonical scans at their ground-truth poses:
-    add_points_touched, then update_occupancy, scan after scan into one
-    grid (or a stack of `streams` grids, stream k's points moved by
-    0.37 k m: the fleet's flat scatter).  The world points are made on
-    the CPU and copied to `device`, so every device scatters the same
-    inputs.  Returns the fields as numpy."""
+@contextlib.contextmanager
+def map_updates():
+    """Counts the map updates made inside the block, {"n": count}: the
+    calls of ndt_map.add_points_touched (add_points, build_from_scan and
+    the fuser's local cell lists reach it) and ndt_map.update_occupancy.
+    Each is one scatter, so one `segment_add_rows` launch on the card."""
+    count = {"n": 0}
+    saved = {k: getattr(ndt_map, k)
+             for k in ("add_points_touched", "update_occupancy")}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            count["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for k, fn in saved.items():
+        setattr(ndt_map, k, counted(fn))
+    try:
+        yield count
+    finally:
+        for k, fn in saved.items():
+            setattr(ndt_map, k, fn)
+
+
+def check_map_launches(launches, updates, what):
+    """`segment_add_rows` launched exactly once a map update of the run
+    (`updates`: map_updates' count), and at least once."""
+    check(launches["segment_add_rows"] == updates["n"] > 0,
+          f"{what}: {launches['segment_add_rows']} segment_add_rows "
+          f"launches for {updates['n']} map updates")
+
+
+def world_scan(fx, t, device, streams=0):
+    """Canonical scan `t` in the world at its ground-truth pose: (points,
+    mask, sensor position), made on the CPU and copied to `device`, so
+    every device scatters the same inputs; with `streams`, a stack in
+    which stream k's points are moved by 0.37 k m (the fleet's flat
+    scatter)."""
     cpu = torch.device("cpu")
     T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
         x, dtype=dt, device=cpu)
+    pts, mask = dataset.scan_to_points(T(fx["ranges"][t]),
+                                       T(fx["hit"][t], torch.bool))
+    world = se2.transform_points(T(fx["gt"][t]), pts)
+    sensor = T(fx["gt"][t][:2])
+    if streams:
+        world = torch.stack([world + 0.37 * k for k in range(streams)])
+        mask = mask.expand(streams, -1)
+        sensor = sensor.expand(streams, 2)
+    return tuple(x.to(device) for x in (world, mask, sensor))
+
+
+def map_update(grid, mp, world, mask, sensor):
+    """One scan's map update: add_points_touched, then update_occupancy."""
+    grid, _ = ndt_map.add_points_touched(grid, mp, world, mask)
+    return ndt_map.update_occupancy(grid, mp, sensor, world, mask)
+
+
+def map_update_case(mp, fx, device, streams=0, scans=(0, 2, 4)):
+    """The map update of canonical scans at their ground-truth poses,
+    scan after scan into one grid (or a stack of `streams` grids).
+    Returns the fields as numpy."""
     lead = (streams,) if streams else ()
     grid = ndt_map.empty_grid(mp, torch.zeros(lead + (2,), device=device))
     for t in scans:
-        pts, mask = dataset.scan_to_points(T(fx["ranges"][t]),
-                                           T(fx["hit"][t], torch.bool))
-        world = se2.transform_points(T(fx["gt"][t]), pts)
-        sensor = T(fx["gt"][t][:2])
-        if streams:
-            world = torch.stack([world + 0.37 * k for k in range(streams)])
-            mask = mask.expand(streams, -1)
-            sensor = sensor.expand(streams, 2)
-        world, mask, sensor = (x.to(device) for x in (world, mask, sensor))
-        grid, _ = ndt_map.add_points_touched(grid, mp, world, mask)
-        grid = ndt_map.update_occupancy(grid, mp, sensor, world, mask)
+        grid = map_update(grid, mp, *world_scan(fx, t, device, streams))
     return {k: getattr(grid, k).cpu().numpy()
             for k in ("count", "psum", "outer", "occ")}
 
 
+def long_run_case(dev, widths, n_rows=40_000, m=6_000, on_one=5_000,
+                  seed=11):
+    """A synthetic scatter in which one cell carries `on_one` of the `m`
+    entries (random values over six decades, so the order of the adds
+    shows in the bits): (bases, idx, vals) on the CPU and on `dev`."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_rows, m)
+    idx[rng.permutation(m)[:on_one]] = n_rows // 2 + 17
+    bases = [rng.standard_normal((n_rows, c)).astype(np.float32)
+             for c in widths]
+    vals = [(rng.standard_normal((m, c)) * 10.0 ** rng.integers(
+        -3, 3, (m, 1))).astype(np.float32) for c in widths]
+    cpu = ([torch.as_tensor(b) for b in bases], torch.as_tensor(idx),
+           [torch.as_tensor(v) for v in vals])
+    return cpu, ([b.to(dev) for b in cpu[0]], cpu[1].to(dev),
+                 [v.to(dev) for v in cpu[2]])
+
+
+def recorded_scatters(fn):
+    """The (bases, idx, vals) of every map scatter that `fn` makes."""
+    calls = []
+    fixed = ndt_map.scatter_add_rows
+    with scatter_swapped(lambda *a: calls.append(a) or fixed(*a)):
+        fn()
+    return calls
+
+
+def scatter_bytes(bases, idx, vals):
+    """Bytes a scatter must move: each base read and each output written
+    once, each entry's values and index read once."""
+    return (sum(2 * b.numel() * 4 + v.numel() * 4
+                for b, v in zip(bases, vals)) + idx.numel() * 8)
+
+
+def device_us_by_kernel(fn, reps=50):
+    """Mean device time per call of `fn`, us, by kernel name
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def segment_sum_checks(name, calls):
+    """The `segment_add_rows` entry on the scatters `calls` of one map
+    update (the main path's shapes, or a fleet step's): the CPU's
+    index_add bits (its plain version on the same inputs on the CPU:
+    tolerance 0), the parent's sorted index_put_ path's bits, identical
+    bits on repeat, one launch a scatter; device time and time with the
+    host in turns against the sorted path and against the plain version
+    on the card (index_add, atomic: the one PyTorch call of the same
+    function, `library_ms`), beside the bound of the bytes it must
+    move."""
+    before = cuda_kernels.LAUNCHES["segment_add_rows"]
+    got = [cuda_kernels.segment_add_rows(*c) for c in calls]
+    again = [cuda_kernels.segment_add_rows(*c) for c in calls]
+    check(cuda_kernels.LAUNCHES["segment_add_rows"] == before
+          + 2 * len(calls), f"{name}: not one launch a scatter")
+    srt = [ndt_map._scatter_add_rows_sorted(*c) for c in calls]
+    err, n_diff, n_sorted = 0.0, 0, 0
+    for c, g, a, o in zip(calls, got, again, srt):
+        cpu = cuda_kernels.segment_add_rows_reference(
+            [b.cpu() for b in c[0]], c[1].cpu(), [v.cpu() for v in c[2]])
+        for x, y, z, w in zip(g, a, o, cpu):
+            x = x.cpu()
+            err = max(err, float((x - w).abs().max()))
+            n_diff += int((_bits(x.numpy()) != _bits(w.numpy())).sum())
+            n_diff += int(not torch.equal(x, y.cpu()))
+            n_sorted += int((_bits(x.numpy()) != _bits(z.cpu().numpy())).sum())
+    print(f"  {name}: {len(calls)} scatters ("
+          + ", ".join(f"{c[1].shape[0]} entries x "
+                      f"{sum(b.shape[1] for b in c[0])} channels on "
+                      f"{c[0][0].shape[0]} rows" for c in calls)
+          + f"); elements off the CPU's bits or not repeating {n_diff}, off "
+          f"the sorted index_put_ path's {n_sorted}; max |kernel - CPU| "
+          f"{err:.1e}")
+    check(n_diff == 0 and n_sorted == 0,
+          f"{name}: segment_add_rows is not the CPU's and the sorted "
+          "path's bits")
+
+    def kernel():
+        return [cuda_kernels.segment_add_rows(*c) for c in calls]
+
+    def plain():
+        return [cuda_kernels.segment_add_rows_reference(*c) for c in calls]
+
+    def sorted_path():
+        return [ndt_map._scatter_add_rows_sorted(*c) for c in calls]
+
+    t_sorted = time_turns(kernel, sorted_path, 50, 50,
+                          label="sorted index_put_")
+    t_atomic = time_turns(kernel, plain, 50, 50, label="index_add")
+    by_kernel = device_us_by_kernel(kernel)
+    own = sum(v for k, v in by_kernel.items() if "segment_add_rows" in k)
+    n_bytes = sum(scatter_bytes(*c) for c in calls)
+    n_adds = sum(c[1].numel() * sum(b.shape[1] for b in c[0]) for c in calls)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_adds / F32_FLOP_PER_S
+    out = {"max_abs_err": err, "tolerance": "bits (0)",
+           "ms": (t_sorted["ms"] + t_atomic["ms"]) / 2,
+           "plain_ms": t_atomic["plain_ms"],
+           "events_ms": (t_sorted["events_ms"] + t_atomic["events_ms"]) / 2,
+           "plain_events_ms": t_atomic["plain_events_ms"],
+           "sorted_ms": t_sorted["plain_ms"],
+           "sorted_events_ms": t_sorted["plain_events_ms"],
+           "kernel_alone_ms": own * 1e-3,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "scatters": len(calls)}
+    out["library_ms"] = out["plain_ms"]
+    print(f"    device us: kernel + its sort {out['ms'] * 1e3:.2f} (the "
+          f"kernel alone {own:.2f}; by name: "
+          + ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(
+              by_kernel.items(), key=lambda kv: -kv[1]))
+          + f"), sorted index_put_ {out['sorted_ms'] * 1e3:.2f}, index_add "
+          f"{out['plain_ms'] * 1e3:.2f}; with the host "
+          f"{out['events_ms'] * 1e3:.2f} / "
+          f"{out['sorted_events_ms'] * 1e3:.2f} / "
+          f"{out['plain_events_ms'] * 1e3:.2f}; bound "
+          f"{out['bound_ms'] * 1e3:.3f} ({out['bound_by']}: "
+          f"{n_bytes / 1e6:.2f} MB)")
+    return out
+
+
 def map_update_phase(sp, fx, dev):
-    """Phase 3e: the fixed-order map update on the card equals the CPU's
-    bit for bit on the same points and repeats (one grid and a stack of
-    3); its device time
-    beside the atomic index_add it replaced (in turns); and torch's
+    """Phase 3e: the map update on the card (ndt_map.scatter_add_rows:
+    the `segment_add_rows` kernel) equals the CPU's bit for bit on the
+    same points, equals the parent's sorted index_put_ path, and
+    repeats: one grid, a stack of 3 and a stack of 64, three canonical
+    scans, one launch a scatter; a synthetic scatter with 5,000 entries
+    on one cell.  One scan's update and one B = 64 fleet step's, timed
+    in turns: the kernel, the sorted index_put_ path and the atomic
+    index_add (all three swapped in as the whole map scatter); the
+    kernel entry's own checks and times at both shapes.  And torch's
     float32 sqrt on the card is correctly rounded (numpy's)."""
     mp = sp.fuser.ndt
     out = {}
-    for streams in (0, 3):
+    for streams in (0, 3, 64):
         cpu = map_update_case(mp, fx, torch.device("cpu"), streams)
+        before = cuda_kernels.LAUNCHES["segment_add_rows"]
         card = map_update_case(mp, fx, dev, streams)
         again = map_update_case(mp, fx, dev, streams)
+        n_launch = cuda_kernels.LAUNCHES["segment_add_rows"] - before
         diff = {k: int((_bits(card[k]) != _bits(cpu[k])).sum()) for k in cpu}
+        off_sorted = {}
+        if dev.type == "cuda":      # sequential there; not on CPU threads
+            with scatter_swapped(ndt_map._scatter_add_rows_sorted):
+                srt = map_update_case(mp, fx, dev, streams)
+            off_sorted = {k: int((_bits(card[k]) != _bits(srt[k])).sum())
+                          for k in cpu}
         rep = all(np.array_equal(_bits(card[k]), _bits(again[k]))
                   for k in card)
         print(f"  {streams or 1} grid(s), 3 scans: elements differing from "
-              f"the CPU's bits {diff}; a second run identical: {rep}")
-        check(rep and not any(diff.values()),
+              f"the CPU's bits {diff}, from the sorted index_put_ path's "
+              f"{off_sorted}; a second run identical: {rep}; "
+              f"segment_add_rows launches {n_launch} (2 runs x 3 scans x 2 "
+              f"scatters)")
+        check(rep and not any(diff.values()) and not any(
+            off_sorted.values()),
               "the map update on the card is not the CPU's bit for bit")
+        check(dev.type != "cuda" or n_launch == 12,
+              "the map update did not launch segment_add_rows once a "
+              "scatter")
         out[f"differing_{streams or 1}"] = diff
+    if dev.type == "cuda":
+        for widths in ((1, 2, 4), (1,)):
+            (cb, ci, cv), (gb, gi, gv) = long_run_case(dev, widths)
+            want = cuda_kernels.segment_add_rows_reference(cb, ci, cv)
+            got = cuda_kernels.segment_add_rows(gb, gi, gv)
+            again = cuda_kernels.segment_add_rows(gb, gi, gv)
+            srt = ndt_map._scatter_add_rows_sorted(gb, gi, gv)
+            same = all(np.array_equal(_bits(a.cpu().numpy()),
+                                      _bits(b.numpy()))
+                       and torch.equal(a, c) and torch.equal(a, d)
+                       for a, b, c, d in zip(got, want, again, srt))
+            print(f"  5,000 of 6,000 entries on one cell, channels "
+                  f"{widths}: the CPU's bits, the sorted path's, repeats: "
+                  f"{same}")
+            check(same, "segment_add_rows departs from the CPU on a long run")
+            out[f"long_run_{sum(widths)}"] = same
+    r, h = torch.as_tensor(fx["ranges"]), torch.as_tensor(fx["hit"])
+    pts_cpu = dataset.scan_to_points(r, h)[0].numpy()
+    pts_card = dataset.scan_to_points(r.to(dev), h.to(dev))[0].cpu().numpy()
+    out["scan_points_differing"] = int(
+        (_bits(pts_card) != _bits(pts_cpu)).sum())
+    print(f"  scan_to_points of the {r.shape[0]} canonical scans on "
+          f"{dev.type}: {out['scan_points_differing']} coordinates differ "
+          "from the CPU's bits")
+    check(out["scan_points_differing"] == 0,
+          "scan_to_points on the card is not the CPU's bit for bit")
     x = torch.rand(SQRT_N, device=dev) * 100.0
     ref = np.sqrt(x.cpu().numpy())
     n_sqrt = int((torch.sqrt(x).cpu().numpy() != ref).sum())
@@ -2761,35 +3004,45 @@ def map_update_phase(sp, fx, dev):
     out["sqrt_cpu_differing"] = n_cpu
     out["sqrt_differing"] = n_sqrt
     if dev.type != "cuda":
-        return out
-    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
-        x, dtype=dt, device=dev)
-    state = fuser.initialize(sp.fuser, T(fx["gt"][0]),
-                             torch.zeros(3, device=dev),
-                             *dataset.scan_to_points(T(fx["ranges"][0]),
-                                                     T(fx["hit"][0],
-                                                       torch.bool)))
-    pts, mask = dataset.scan_to_points(T(fx["ranges"][2]),
-                                       T(fx["hit"][2], torch.bool))
-    world = se2.transform_points(T(fx["gt"][2]), pts)
-    sensor = T(fx["gt"][2][:2])
+        return out, None
+    checks = {}
+    for name, streams in (("one scan", 0), ("B=64 fleet step", 64)):
+        lead = (streams,) if streams else ()
+        grid = map_update(ndt_map.empty_grid(mp, torch.zeros(
+            lead + (2,), device=dev)), mp, *world_scan(fx, 0, dev, streams))
+        scan = world_scan(fx, 2, dev, streams)
 
-    def ordered():
-        g, _ = ndt_map.add_points_touched(state.grid, mp, world, mask)
-        return ndt_map.update_occupancy(g, mp, sensor, world, mask)
+        def ordered(grid=grid, scan=scan):
+            return map_update(grid, mp, *scan)
 
-    def atomic():
-        with scatter_swapped(atomic_scatter):
-            return ordered()
+        def sorted_path():
+            with scatter_swapped(ndt_map._scatter_add_rows_sorted):
+                return ordered()
 
-    print("  one scan's map update (add_points_touched + update_occupancy, "
-          "720 points, 720 x 49 occupancy entries), fixed order vs the "
-          "atomic index_add:")
-    t = time_turns(ordered, atomic, 50, 50)
-    out.update(ordered_us=t["ms"] * 1e3, atomic_us=t["plain_ms"] * 1e3,
-               ordered_events_us=t["events_ms"] * 1e3,
-               atomic_events_us=t["plain_events_ms"] * 1e3)
-    return out
+        def atomic():
+            with scatter_swapped(atomic_scatter):
+                return ordered()
+
+        print(f"  {name}'s map update (add_points_touched + "
+              f"update_occupancy, 720 points, 720 x 49 occupancy entries"
+              f"{f' a stream, {streams} streams' if streams else ''}), "
+              "segment_add_rows vs the sorted index_put_ path and vs the "
+              "atomic index_add:")
+        t_s = time_turns(ordered, sorted_path, 50, 50,
+                         label="sorted index_put_")
+        t_a = time_turns(ordered, atomic, 50, 50, label="index_add")
+        key = "fleet64_" if streams else ""
+        out.update({f"{key}ordered_us": (t_s["ms"] + t_a["ms"]) / 2 * 1e3,
+                    f"{key}sorted_us": t_s["plain_ms"] * 1e3,
+                    f"{key}atomic_us": t_a["plain_ms"] * 1e3,
+                    f"{key}ordered_events_us":
+                        (t_s["events_ms"] + t_a["events_ms"]) / 2 * 1e3,
+                    f"{key}sorted_events_us": t_s["plain_events_ms"] * 1e3,
+                    f"{key}atomic_events_us": t_a["plain_events_ms"] * 1e3})
+        checks[name] = segment_sum_checks(name, recorded_scatters(ordered))
+    main = dict(checks["one scan"])
+    main["fleet64"] = checks["B=64 fleet step"]
+    return out, main
 
 
 def localize_phase(sp, fx, dev):
@@ -2818,14 +3071,18 @@ def localize_phase(sp, fx, dev):
     odom, gt = T(fx["odom"]), T(fx["gt"])
     split, q = int(lx["split"]), int(lx["query"])
     cuda_kernels.reset_launch_counts()
+    updates = {"n": 0}
 
     grid = ndt_map.empty_grid(mp, torch.zeros(2, device=dev))
     db = place_rec.empty_database(fp_db, 32, dev)
     for t in lx["map_scans"]:
         pts, mask = dataset.scan_to_points(ranges[t], hit[t])
         world = se2.transform_points(gt[t], pts)
-        grid = ndt_map.add_points(grid, mp, world, mask)
-        grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world, mask)
+        with map_updates() as n_map:
+            grid = ndt_map.add_points(grid, mp, world, mask)
+            grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world,
+                                            mask)
+        updates["n"] += n_map["n"]
         db = place_rec.insert_scan(db, fp_db, gt[t], ranges[t], hit[t])
     check(int(db.mask.sum()) == int(lx["db_used"]),
           f"{int(db.mask.sum())} scans stored, JAX {int(lx['db_used'])}")
@@ -2903,8 +3160,11 @@ def localize_phase(sp, fx, dev):
         float(np.abs(err_eps[:, -1] - ref_err[-1]).max()), XY_TOL),
           "MCL final error beyond the reference's own spread")
     launches = dict(cuda_kernels.LAUNCHES)
-    check(sum(launches.values()) == 0,
-          f"localization launched kernel entries: {launches}")
+    if dev.type == "cuda":
+        check_map_launches(launches, updates, "the localization map")
+    check(sum(launches.values()) == launches["segment_add_rows"],
+          f"localization launched kernel entries beside the map "
+          f"updates: {launches}")
     out = {"mcl_dev": (dxy, dth), "jax_spread": spread,
            "resample_decisions_differing": n_dec,
            "final_error_m": float(err[-1]), "reloc": (best, n),
@@ -2980,28 +3240,32 @@ def hmt_phase(dev):
         own, jdir = os.path.join(tmp, "port"), os.path.join(tmp, "jax")
         cuda_kernels.reset_launch_counts()
         sync(dev)
-        t0 = time.perf_counter()
-        hf = HMTFuser(fp, gt[0], torch.zeros(3, device=dev), pts[0], mask[0],
-                      **kw)
-        first = hf.run_sequence(odom[1:a + 1], pts[1:a + 1], mask[1:a + 1],
-                                chunk=c)
-        sync(dev)
-        t1 = time.perf_counter()
-        hf.save(own)
-        saved = _grid_np(hf.state.grid)
-        t2 = time.perf_counter()
-        rest = hf.run_sequence(odom[a + 1:], pts[a + 1:], mask[a + 1:],
-                               chunk=c)
-        sync(dev)
-        wall = (t1 - t0) + (time.perf_counter() - t2)
+        with map_updates() as updates:
+            t0 = time.perf_counter()
+            hf = HMTFuser(fp, gt[0], torch.zeros(3, device=dev), pts[0],
+                          mask[0], **kw)
+            first = hf.run_sequence(odom[1:a + 1], pts[1:a + 1],
+                                    mask[1:a + 1], chunk=c)
+            sync(dev)
+            t1 = time.perf_counter()
+            hf.save(own)
+            saved = _grid_np(hf.state.grid)
+            t2 = time.perf_counter()
+            rest = hf.run_sequence(odom[a + 1:], pts[a + 1:], mask[a + 1:],
+                                   chunk=c)
+            sync(dev)
+            wall = (t1 - t0) + (time.perf_counter() - t2)
         launches = dict(cuda_kernels.LAUNCHES)
         traj = np.concatenate([first, rest])
         scans = traj.shape[0]
         n_obj = launches["newton_solve"]
         if dev.type == "cuda":
-            check(n_obj == scans and sum(launches.values()) == n_obj,
+            check_map_launches(launches, updates, "the HMT run")
+            check(n_obj == scans and sum(launches.values())
+                  == n_obj + launches["segment_add_rows"],
                   f"the HMT run launched {launches}: expected "
-                  "newton_solve alone, once a scan")
+                  "newton_solve alone, once a scan, beside the map "
+                  "updates")
         spread = max_dev(hx["traj_eps"], hx["traj"])
         tol = (max(spread[0], XY_TOL), max(spread[1], TH_TOL))
         dxy, dth = max_dev(traj, hx["traj"])
@@ -3161,7 +3425,8 @@ def simulator_phase(sp, fx, io_fx, dev):
                         fx["ranges"], fx["hit"], kind)
     sim_fx = dict(fx, ranges=sim.ranges, hit=sim.hit, odom=sim.odom)
     cuda_kernels.reset_launch_counts()
-    slam, sec = run_main_path(sp, sim_fx, dev)
+    with map_updates() as updates:
+        slam, sec = run_main_path(sp, sim_fx, dev)
     launches = dict(cuda_kernels.LAUNCHES)
     traj_out = np.stack(slam.trajectory)
     xy, th = max_dev(traj_out, fx["traj"])
@@ -3172,8 +3437,12 @@ def simulator_phase(sp, fx, io_fx, dev):
     check(traj_out.shape == fx["traj"].shape and xy <= XY_TOL
           and th <= TH_TOL, "the main path on the simulated sequence "
           "deviates from JAX's beyond 1 cm / 5 mrad")
+    if dev.type == "cuda":
+        check_map_launches(launches, updates,
+                           "the main path on the simulated sequence")
     check(dev.type != "cuda" or launches["newton_solve"] > 0 and all(
-        v == 0 for k, v in launches.items() if k != "newton_solve"),
+        v == 0 for k, v in launches.items()
+        if k not in ("newton_solve", "segment_add_rows")),
         "the main path on the simulated sequence launched another entry")
 
     print("phase 12b: the simulator at bench_offline_570's scale")
@@ -3996,18 +4265,21 @@ def chunked_case(sp, fx, main_slam, dev):
     for _ in range(3):
         main_s.append(run_main_path(sp, fx, dev)[1])
         cuda_kernels.reset_launch_counts()
-        runs.append(run_chunked(sp, fx, dev))
+        with map_updates() as n_map:
+            runs.append(run_chunked(sp, fx, dev))
         chunk_s.append(runs[-1][3])
         if len(runs) == 1:
-            launches = dict(cuda_kernels.LAUNCHES)
+            launches, updates = dict(cuda_kernels.LAUNCHES), n_map
     traj, nodes, node_T, _ = runs[0]
     repeat = all(np.array_equal(r[0], traj) for r in runs[1:])
     print(f"  launches: {launches} ({launches['newton_solve'] / scans:.2f} "
           f"newton_solve per scan)")
     if dev.type == "cuda":
+        check_map_launches(launches, updates, "run_graph_chunk")
         check(launches["newton_solve"] == scans and sum(launches.values())
-              == scans, "run_graph_chunk did not launch newton_solve alone, "
-              "once a scan")
+              == scans + launches["segment_add_rows"],
+              "run_graph_chunk did not launch newton_solve alone, once a "
+              "scan, beside the map updates")
     check(traj.shape == ref.shape and np.isfinite(traj).all(),
           "the chunked trajectory is not finite / of the wrong shape")
     same_nodes = len(nodes) == len(main_slam.nodes) and all(
@@ -4519,6 +4791,24 @@ def refinement_case(name, calls, dev, times=True):
                 key=lambda i: calls[i][0][3].ref.shape[0])
         args, kwargs = calls[k]
         out["timed_lanes"] = int(args[3].ref.shape[0])
+        # The bound: each lane's distinct table rows and source cells
+        # read once, its scalars and its Hessian; FLOPS_PER_PAIR for
+        # each valid pair at its result, in each of its evaluations.
+        sargs = refine_args(*args, **kwargs)
+        T0, src_b, packed, origins, offs, h, w, res, m = sargs
+        lanes = T0.shape[0]
+        solve = cuda_kernels.newton_solve_batch(
+            torch.zeros((lanes, 3), device=dev), *sargs, with_hessian=True)
+        n_bytes, lane_pairs = window_work(solve[0], T0, src_b, packed,
+                                          origins, offs, h, w, res,
+                                          m.n_neighbours, lanes=True)
+        evals = solve[2].to(torch.int64) + 1
+        out.update(bound(n_bytes + lanes * (4 * (3 + 3 + 2 + 9) + 8
+                                            + 4 * (3 + 1 + 1) + 1),
+                         int((evals * lane_pairs).sum())))
+        print(f"    {name}, {out['timed_lanes']} lanes: "
+              f"{int(evals.sum())} evaluations; bound "
+              f"{out['bound_ms'] * 1e3:.4f} us ({out['bound_by']})")
         t = time_turns(lambda: links_mod.refine_links_d2d(*args, **kwargs),
                        lambda: per_trial_refine(*args, **kwargs), 20, 3,
                        label="per-trial lockstep")
@@ -4623,6 +4913,23 @@ def match_case(name, one, per, times=True):
     return out
 
 
+def solve_bound(name, res, src, packed, origin, h, w, resol, m):
+    """The bound of one registration's `newton_solve` launch
+    (`res`: its MatchResult): the distinct table rows its windows touch
+    at the result and its source cells read once, its scalars; and
+    FLOPS_PER_PAIR for each valid pair at the result, in each of its
+    trials + 1 evaluations."""
+    zero = torch.zeros(3, device=res.T.device)
+    n_bytes, pairs = window_work(zero, res.T, src, packed, origin, None, h,
+                                 w, resol, m.n_neighbours)
+    evals = int(res.iterations) + 1
+    out = bound(n_bytes + 4 * (3 + 3 + 2) + 4 * (3 + 1 + 1) + 1,
+                evals * pairs)
+    print(f"    {name}: {evals} evaluations of {pairs} valid pairs; bound "
+          f"{out['bound_ms'] * 1e3:.4f} us ({out['bound_by']})")
+    return out
+
+
 def one_launch_phase(sp, slam, fx, io_fx, dev):
     """Phase 17: (a) link refinement in one `newton_solve_batch` launch
     against the per-trial lockstep on the recorded refinements of
@@ -4645,6 +4952,9 @@ def one_launch_phase(sp, slam, fx, io_fx, dev):
     out["match_d2d"] = match_case(
         "match_d2d", lambda: d2d.match_d2d(tgt, cells, T_init, p.ndt, m),
         lambda d0=None: per_trial_match(*args, cells, T_init, m, False, d0))
+    out["match_d2d"].update(solve_bound(
+        "match_d2d", d2d.match_d2d(tgt, cells, T_init, p.ndt, m), cells,
+        *args, m))
     ptgt, pts, mask, T0 = p2d_inputs(sp, fx, io_fx, dev)
     src = pairwise.points_as_cells(pts, mask)
     hh, ww = ptgt.valid.shape
@@ -4659,6 +4969,9 @@ def one_launch_phase(sp, slam, fx, io_fx, dev):
         "match_p2d", lambda: pairwise.match_p2d(ptgt, pts, mask, T0, p.ndt,
                                                 m),
         lambda d0=None: per_trial_match(*pargs, src, T0, m, True, d0))
+    out["p2d"].update(solve_bound(
+        "match_p2d", pairwise.match_p2d(ptgt, pts, mask, T0, p.ndt, m), src,
+        *pargs, m))
     runs = []
     for e in (0.0,) + P2D_EPS:
         cuda_kernels.reset_launch_counts()
@@ -4697,7 +5010,8 @@ def main():
     t0 = time.perf_counter()
     cuda_kernels.build()
     build_s = time.perf_counter() - t0
-    print(f"  built {SOURCE} for sm_90a in {build_s:.2f} s")
+    print(f"  built {SOURCE} and {SEGMENT_SOURCE} for sm_90a in "
+          f"{build_s:.2f} s")
     for line in cuda_kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -4711,15 +5025,17 @@ def main():
     print("phase 3: newton_solve vs plain and vs the per-trial path on the "
           "card")
     checks["newton_solve"] = solve_checks(sp, fx, dev)
-    print("phase 3e: the fixed-order map update, card vs CPU; float32 sqrt")
-    map_update = map_update_phase(sp, fx, dev)
+    print("phase 3e: the map update (segment_add_rows), card vs CPU and vs "
+          "the sorted index_put_ path; float32 sqrt")
+    map_update, checks["segment_add_rows"] = map_update_phase(sp, fx, dev)
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught, \
-                recorded_solves() as (calls, in_solve):
+                recorded_solves() as (calls, in_solve), \
+                map_updates() as updates:
             warnings.simplefilter("always")
             slam, _ = run_main_path(sp, fx, dev)
     finally:
@@ -4733,10 +5049,18 @@ def main():
     print(f"  synchronising calls in the main-path run "
           f"(set_sync_debug_mode): {syncs} ({syncs / scans:.2f} a scan), "
           f"{in_solve['in_solve']} of them inside newton_solve")
+    print(f"  segment_add_rows launches: {launches['segment_add_rows']} for "
+          f"{updates['n']} map updates ("
+          f"{launches['segment_add_rows'] / scans:.2f} a scan: the scan's "
+          f"cell list, its points, its occupancy; each new node's first "
+          f"scan)")
     check(launches["newton_solve"] == scans == len(calls),
           "newton_solve was not launched once per registration")
-    check(all(v == 0 for k, v in launches.items() if k != "newton_solve"),
-          "the main path launched another entry than newton_solve")
+    check_map_launches(launches, updates, "the main path")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("newton_solve", "segment_add_rows")),
+          "the main path launched another entry than newton_solve and the "
+          "map update's segment_add_rows")
     check(in_solve["in_solve"] == 0, "newton_solve synchronised")
     traj = np.stack(slam.trajectory)
     check(traj.shape == fx["traj"].shape and np.isfinite(traj).all(),
@@ -4858,6 +5182,7 @@ def main():
         "newton_solve": launches["newton_solve"],
         "newton_solve_batch": fleet_run["newton_solve_batch"],
         "row_sum": off_launches["row_sum"],
+        "segment_add_rows": launches["segment_add_rows"],
     }
     yardstick = {"newton_objective": replay["per_trial_launches"],
                  "newton_objective_batch": per_trial_batch,
@@ -4897,6 +5222,15 @@ def main():
         source=SOURCE, replaces=ROW_SUM_REPLACES,
         path="the link paths' overlap sum (optimize_offline's "
              "compute_links_batch and rescore_links)")
+    by_name["segment_add_rows"].update(
+        source=SEGMENT_SOURCE, replaces=SEGMENT_REPLACES,
+        path="every map update (add_points_touched, update_occupancy): "
+             "the main path's launches; the chunked driver's, the B = 8 "
+             "fleet run's and online LC's in fields of their own",
+        launches_chunked=entry_points["chunked"]["launches"][
+            "segment_add_rows"],
+        launches_fleet_b8=fleet_run["segment_add_rows"],
+        launches_online_lc=on_launches["segment_add_rows"])
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,

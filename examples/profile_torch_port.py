@@ -21,7 +21,12 @@ is one launch) and one registration of chip_smoke.py's phase 3 timed in
 turns (the kernel, the per-trial path the fuser ran before — d2d.newton_match
 over `newton_objective` —, the per-trial path, the kernel): ms a
 registration with the host and the device operations of each; writes
-the tables to DIR/torch_port_profile.txt with `--out DIR`.
+the tables to DIR/torch_port_profile.txt with `--out DIR`.  Every
+profile's summary also gives the map update's device time and share:
+the "map_update" range (ndt_map.add_points_touched, update_occupancy)
+and the "map_scatter" range (ndt_map.scatter_add_rows), each the
+device time of the operations inside it plus the segment-sum kernel's,
+which torch.profiler sees outside any operation (a ctypes launch).
 
 With --wall-only it runs the main path `--runs` times after a warm-up
 without the profiler (which takes minutes over 200 scans) and prints the
@@ -52,15 +57,16 @@ localization record's draws): device operations per step, the busy
 share, steps/s of the unprofiled run and the device time by operation.
 
 With --map-update it times the map update's fixed-order scatter
-(ndt_map.scatter_add_rows) against the atomic `index_add` it replaced,
-in turns (fixed, atomic, atomic, fixed) inside one process: the device
-time of one scan's map update (chip_smoke.py phase 3e's case) and the
-main path's scans/s over `--scans` scans (the median of 3 runs after a
-warm-up per turn), then the same for the fleet at B = 64: one fleet
-step's map update over the stack of 64 grids and the points-only
-fleet's aggregate scans/s (chip_smoke.py phase 7), with
-ndt_map.scatter_add_rows swapped for the atomic version on the atomic
-turns.
+(ndt_map.scatter_add_rows: the segment_add_rows kernel) against the
+sorted index_put_ path it replaced (ndt_map._scatter_add_rows_sorted)
+and the atomic `index_add`, in turns (kernel, sorted, atomic, atomic,
+sorted, kernel) inside one process: chip_smoke.py phase 3e (one scan's
+map update and a B = 64 step's, device time) and the main path's
+scans/s over `--scans` scans (the median of 3 runs after a warm-up per
+turn), then the same for the fleet at B = 64: one fleet step's map
+update over the stack of 64 grids and the points-only fleet's
+aggregate scans/s (chip_smoke.py phase 7), with ndt_map.scatter_add_rows
+swapped for the other version on its turns.
 
 With --sixdof it profiles one 6-DoF registration of chip_smoke.py's
 phase 14a (match_d2d_3d of the second of its links at the full padded
@@ -79,6 +85,7 @@ loop of validation and pose-graph solves.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -96,10 +103,47 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 
+RANGES = ("map_update", "map_scatter")   # annotated_map_update's ranges
+
+
+@contextlib.contextmanager
+def annotated_map_update():
+    """The map update's functions inside profiler ranges: "map_update"
+    around ndt_map.add_points_touched and update_occupancy, "map_scatter"
+    around ndt_map.scatter_add_rows (the fixed-order sum: the kernel and
+    its sort, or a parent tree's sorted index_put_ path), so a profile
+    reads their share of device time, whichever tree it runs."""
+    from torch.profiler import record_function
+
+    from ndt_feature_graph_tpu_torch.ops import ndt_map
+
+    names = {"add_points_touched": RANGES[0],
+             "update_occupancy": RANGES[0],
+             "scatter_add_rows": RANGES[1]}
+    saved = {k: getattr(ndt_map, k) for k in names}
+
+    def ranged(fn, name):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for k, name in names.items():
+        setattr(ndt_map, k, ranged(saved[k], name))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(ndt_map, k, fn)
+
+
 def device_ops(prof):
-    """(operations on the device, their summed time in us) of a profile."""
+    """(operations on the device, their summed time in us) of a profile;
+    the device-side spans of annotated_map_update's ranges are no
+    operations."""
     on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in RANGES]
     return (sum(e.count for e in on_dev),
             sum(e.self_device_time_total for e in on_dev))
 
@@ -166,6 +210,18 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
         f"device_ops_per_{per[:-1]}": launches / count,
         **(extra or {}),
     }
+    # The map update's device time: the device time of the operations
+    # inside its CPU-side ranges, plus the segment-sum kernel, which the
+    # profiler attributes to no operation (a ctypes launch).
+    seg = sum(e.self_device_time_total for e in events
+              if "segment_add_rows" in e.key
+              and e.device_type == torch.autograd.DeviceType.CUDA)
+    for e in events:
+        if (e.key in RANGES
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            us = e.device_time_total + seg
+            summary[f"{e.key}_device_us"] = us
+            summary[f"{e.key}_share"] = us / dev_us
     print(gpu)
     print(by_dev)
     print(by_cpu)
@@ -413,10 +469,11 @@ def sixdof(dev, gpu, out):
 
 
 def map_update(dev, gpu, sp, fx):
-    """The fixed-order map scatter against the atomic index_add, in
-    turns: one scan's map update and the main path, then one fleet
-    step's map update over the stack of B = 64 grids and the points-only
-    fleet's aggregate scans/s at B = 64 (chip_smoke.py phase 7)."""
+    """The map scatter (the segment_add_rows kernel) against the parent's
+    sorted index_put_ path and the atomic index_add, in turns: one
+    scan's map update (chip_smoke.py phase 3e) and the main path, then
+    one fleet step's map update over the stack of B = 64 grids and the
+    points-only fleet's aggregate scans/s at B = 64 (phase 7)."""
     from ndt_feature_graph_tpu_torch.core import se2
     from ndt_feature_graph_tpu_torch.fusion import scan_driver
     from ndt_feature_graph_tpu_torch.io import dataset
@@ -424,10 +481,12 @@ def map_update(dev, gpu, sp, fx):
     from ndt_feature_graph_tpu_torch.ops import ndt_map
     from ndt_feature_graph_tpu_torch.parallel import scaling
 
-    scatters = (("fixed", ndt_map.scatter_add_rows),
+    scatters = (("kernel", ndt_map.scatter_add_rows),
+                ("sorted", ndt_map._scatter_add_rows_sorted),
                 ("atomic", chip_smoke.atomic_scatter),
                 ("atomic", chip_smoke.atomic_scatter),
-                ("fixed", ndt_map.scatter_add_rows))
+                ("sorted", ndt_map._scatter_add_rows_sorted),
+                ("kernel", ndt_map.scatter_add_rows))
     unit = chip_smoke.map_update_phase(sp, fx, dev)
     scans = fx["ranges"].shape[0] - 1
     turns = []
@@ -460,11 +519,18 @@ def map_update(dev, gpu, sp, fx):
         with chip_smoke.scatter_swapped(chip_smoke.atomic_scatter):
             return ordered()
 
+    def sorted_path():
+        with chip_smoke.scatter_swapped(ndt_map._scatter_add_rows_sorted):
+            return ordered()
+
     print(f"  one fleet step's map update over {b} grids of "
-          f"{fp.ndt.grid_h}x{fp.ndt.grid_w} cells, fixed order vs the "
-          "atomic index_add:")
-    t = chip_smoke.time_turns(ordered, atomic, 20, 20)
-    fleet_unit = {"ordered_us": t["ms"] * 1e3,
+          f"{fp.ndt.grid_h}x{fp.ndt.grid_w} cells, the kernel vs the sorted "
+          "index_put_ path and vs the atomic index_add:")
+    t_s = chip_smoke.time_turns(ordered, sorted_path, 20, 20,
+                                label="sorted")
+    t = chip_smoke.time_turns(ordered, atomic, 20, 20, label="atomic")
+    fleet_unit = {"ordered_us": (t["ms"] + t_s["ms"]) / 2 * 1e3,
+                  "sorted_us": t_s["plain_ms"] * 1e3,
                   "atomic_us": t["plain_ms"] * 1e3}
     seq = chip_smoke.sequence(fl, dev)
     inputs = scaling.build_fleet_inputs(fp, seq, b)
@@ -512,6 +578,11 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: no CUDA device")
+    with annotated_map_update():
+        run(args)
+
+
+def run(args):
     dev = torch.device("cuda", 0)
     gpu = chip_smoke.gpu_line()
     if args.fleet:

@@ -71,12 +71,32 @@ def beam_angles(num_beams: int, fov: float = 2.0 * math.pi,
     return out
 
 
+_DIRECTIONS = {}   # (num_beams, fov, device) -> the beams' (cos, sin)
+
+
+def beam_directions(num_beams: int, fov: float = 2.0 * math.pi,
+                    device=None):
+    """(cos, sin) of `beam_angles` in float32 as the CPU computes them,
+    on `device`: every device takes the CPU's bits (the card's own
+    float32 cos / sin round otherwise, by an ulp).  Cached per device as
+    the angles are, so the scan loop makes no host-to-device copy.
+    `device=None` is the CUDA card (resolve_device)."""
+    key = (num_beams, float(fov), resolve_device(device))
+    out = _DIRECTIONS.get(key)
+    if out is None:
+        ang = beam_angles(num_beams, fov, "cpu")
+        out = tuple(x.to(key[2]) for x in (torch.cos(ang), torch.sin(ang)))
+        _DIRECTIONS[key] = out
+    return out
+
+
 def scan_to_points(ranges, hit, fov=2.0 * math.pi):
-    """Polar scan -> (B, 2) points in the sensor frame + mask."""
-    angles = beam_angles(ranges.shape[-1], fov, ranges.device)
-    pts = torch.stack(
-        [ranges * torch.cos(angles), ranges * torch.sin(angles)], -1
-    )
+    """Polar scan -> (B, 2) points in the sensor frame + mask: each
+    range times its beam's direction (`beam_directions`, the CPU's
+    float32 cos / sin), one float32 product a coordinate, so the card's
+    points are the CPU's bit for bit."""
+    cos, sin = beam_directions(ranges.shape[-1], fov, ranges.device)
+    pts = torch.stack([ranges * cos, ranges * sin], -1)
     return pts, hit
 
 

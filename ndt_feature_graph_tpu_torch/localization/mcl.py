@@ -8,7 +8,8 @@ over sorted uniforms.
 Randomness: each function takes its draws as tensors (init_uniform the
 uniforms in [-1, 1), predict standard normals, resample the offset u0),
 so a run can replay the reference's draws.  `MCL` takes them from its
-own `torch.Generator`, or step by step from a recorded run
+own seeded CPU `torch.Generator`, moved to its device (the same draws
+on the CPU and the card), or step by step from a recorded run
 (`recorded_draws` rebuilds the steps from the reference's key chain:
 one key at `initialize`, one per `predict`, one per `resample` on the
 steps that resample).
@@ -151,14 +152,17 @@ class MCL:
         self.tgt = tgt
         self.n = n_particles
         self.device = tgt.packed.device
-        self.generator = torch.Generator(self.device)
+        # A CPU generator, its draws moved to the device: a seed gives
+        # the same particles on every device (torch's CUDA generator
+        # draws other numbers than its CPU one).
+        self.generator = torch.Generator("cpu")
         self.generator.manual_seed(seed)
         self.draws = draws
         self.particles = None
         self.resampled = []      # the host's decision at each step
 
     def _uniform(self, *shape, lo=-1.0, hi=1.0):
-        u = torch.rand(shape, generator=self.generator, device=self.device)
+        u = torch.rand(shape, generator=self.generator).to(self.device)
         return lo + (hi - lo) * u
 
     def initialize(self, center, spread_xy=1.0, spread_theta=0.3):
@@ -174,8 +178,8 @@ class MCL:
     def step(self, Tmotion, pts, mask):
         s = len(self.resampled)
         if self.draws is None:
-            noise = torch.randn((self.n, 3), generator=self.generator,
-                                device=self.device)
+            noise = torch.randn((self.n, 3),
+                                generator=self.generator).to(self.device)
         else:
             noise = self.draws.noise[s]
         self.particles = predict(noise, self.particles, Tmotion, self.mp)

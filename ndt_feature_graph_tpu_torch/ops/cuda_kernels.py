@@ -48,10 +48,19 @@ The others write one evaluation's (f, g, H) as 13 floats:
 a matrix in one fixed order, one block a row; its plain twin is
 torch.sum.
 
-The source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface at the first CUDA call (never at import: machines
-without nvcc import this module fine), cached under build/kernels/ by a
-hash of the source, and loaded with ctypes.
+`csrc/segment_sum.cu` holds `segment_add_rows`, the map update's
+fixed-order sum (ndt_map.scatter_add_rows: every add_points_touched and
+update_occupancy on the card): each touched row summed in entry order
+onto its old value, the CPU's index_add bits, one launch after a stable
+sort of the indices (the launch stages the entries in sorted order in a
+scratch buffer the wrapper allocates).  Plain twin:
+`segment_add_rows_reference` (index_add).
+
+The sources are compiled with nvcc for sm_90a (one process a source,
+started together) into one shared library with a plain C interface at
+the first CUDA call (never at import: machines without nvcc import this
+module fine), cached under build/kernels/ by a hash of the sources and
+flags, and loaded with ctypes.
 
 Dispatch rule: CPU tensors go to the plain PyTorch twin; CUDA tensors
 launch the kernel or raise.  There is no fallback from the card.
@@ -75,18 +84,19 @@ from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "pair_fgh.cu"
+SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # Launch counts per entry: incremented only where a kernel launches.
 LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
             "newton_objective_batch": 0, "newton_solve": 0,
-            "newton_solve_batch": 0, "row_sum": 0}
+            "newton_solve_batch": 0, "row_sum": 0, "segment_add_rows": 0}
 
 
 _lib = None
@@ -111,27 +121,37 @@ def _nvcc():
 
 
 def build():
-    """Compile csrc/pair_fgh.cu (if this source hash is not built yet)
-    and load it.  Returns the ctypes library."""
+    """Compile csrc/pair_fgh.cu and csrc/segment_sum.cu into one library
+    (if this hash of the sources and flags is not built yet: editing
+    either rebuilds it) and load it.  Each source is compiled by its own
+    nvcc process, all started together, then linked.  Returns the
+    ctypes library."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / key[:16] / "libpair_fgh.so"
+    src = b"".join(p.read_bytes() for p in SOURCES)
+    key = hashlib.sha256(
+        src + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / key[:16] / "libndtg_kernels.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed:\n{build_log}")
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+            objs = [os.path.join(tmp_dir, p.stem + ".o") for p in SOURCES]
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for p, o in zip(SOURCES, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            build_log = "".join(logs)
+            if any(proc.returncode != 0 for proc in procs):
+                raise RuntimeError(f"nvcc failed:\n{build_log}")
+            tmp = os.path.join(tmp_dir, out.name)
+            proc = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            build_log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link:\n{build_log}")
+            os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
@@ -163,6 +183,10 @@ def build():
     lib.ndtg_pair_fgh_reduce.restype = I
     lib.ndtg_row_sum.argtypes = [P, LL, LL, P, P]
     lib.ndtg_row_sum.restype = I
+    lib.ndtg_segment_max_channels.argtypes = []
+    lib.ndtg_segment_max_channels.restype = I
+    lib.ndtg_segment_add_rows.argtypes = [P, P, LL, LL, I, P, P, P, P, P, P]
+    lib.ndtg_segment_add_rows.restype = I
     _lib = lib
     return lib
 
@@ -871,3 +895,67 @@ def row_sum(x):
     _raise_on(err, "row_sum")
     LAUNCHES["row_sum"] += 1
     return out.reshape(lead)
+
+
+def segment_add_rows_reference(bases, idx, vals):
+    """The plain version of segment_add_rows: index_add per field, a
+    serial loop over the entries on the CPU."""
+    return [b.index_add(0, idx, v) for b, v in zip(bases, vals)]
+
+
+def segment_add_rows(bases, idx, vals):
+    """[base + the rows of val added at `idx`] for each (base (N, c),
+    val (M, c)) float32 pair, one shared index idx (M,) int64 in
+    [0, N): each row is its old value plus its entries added one after
+    another in entry order, every add rounded once in float32 — the
+    CPU's index_add.  New tensors; the bases are not changed.
+
+    On CUDA tensors: a stable sort of `idx` (as int32:
+    torch.sort(stable=True), equal indices keep their entry order), then
+    ONE launch of the segment-sum kernel for all the pairs (up to 8
+    float channels in all), no float atomics; on the CPU,
+    segment_add_rows_reference."""
+    dev = idx.device
+    if dev.type == "cpu":
+        return segment_add_rows_reference(bases, idx, vals)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_add_rows: unsupported device {dev}")
+    n, m = len(bases), idx.shape[0]
+    lib = build()
+    n_rows = bases[0].shape[0] if bases else 0
+    if n < 1 or n != len(vals):
+        raise ValueError(f"segment_add_rows: {n} bases and {len(vals)} "
+                         "values, expected as many of each, at least one")
+    if m >= 2 ** 31 or n_rows >= 2 ** 31:
+        raise ValueError(f"segment_add_rows: {m} entries on {n_rows} rows, "
+                         "at most 2^31 - 1 of each")
+    _check("segment_add_rows idx", idx, torch.int64, (m,), dev)
+    for k, (b, v) in enumerate(zip(bases, vals)):
+        if b.dim() != 2 or b.shape[1] < 1:
+            raise ValueError(f"segment_add_rows: bases[{k}] of shape "
+                             f"{tuple(b.shape)}, expected (N, c), c >= 1")
+        _check(f"segment_add_rows bases[{k}]", b, torch.float32,
+               (n_rows, b.shape[1]), dev)
+        _check(f"segment_add_rows vals[{k}]", v, torch.float32,
+               (m, b.shape[1]), dev)
+    n_ch = sum(b.shape[1] for b in bases)
+    if n_ch > lib.ndtg_segment_max_channels():
+        raise ValueError(f"segment_add_rows: {n_ch} channels in all, at "
+                         f"most {lib.ndtg_segment_max_channels()}")
+    outs = [torch.empty(b.shape, dtype=torch.float32, device=dev)
+            for b in bases]
+    if n_rows == 0:
+        return outs
+    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
+    stage = torch.empty(max(m, 1) * n_ch, dtype=torch.float32, device=dev)
+    ptrs = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
+        *[t.data_ptr() for t in ts])
+    widths = (ctypes.c_int * n)(*[b.shape[1] for b in bases])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_segment_add_rows(
+            keys.data_ptr(), perm.data_ptr(), m, n_rows, n, ptrs(bases),
+            ptrs(vals), ptrs(outs), widths, stage.data_ptr(), stream)
+    _raise_on(err, "segment_add_rows")
+    LAUNCHES["segment_add_rows"] += 1
+    return outs

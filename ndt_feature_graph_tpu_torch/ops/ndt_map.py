@@ -6,8 +6,11 @@ padded cell-list view for registration sources.
 
 Differences from the JAX reference, by construction:
   * No `mode="drop"` scatter in torch: contributions of dropped points
-    are already zero, so their index is clamped onto a real cell and
-    the zero is added there (exact).
+    are already zero, so each is added at a real cell of its own (entry
+    k at cell k mod the stack's cells, `_drop_rows`), exact: x + 0.0 is
+    x for every x but -0.0, which no cell holds (its sums start at
+    +0.0, and x + y is -0.0 only when both are).  Spread so, they form
+    no long run on one cell for the card's ordered sum to walk.
   * No fixed-size `unique` / `nonzero`: both are rebuilt as sort +
     adjacent difference + cumsum-scatter compaction at the static
     capacity, with the reference's ascending order and fill values —
@@ -20,8 +23,9 @@ Differences from the JAX reference, by construction:
     (`torch.roll` takes host integers, which would cost a host read).
   * The scatter-adds sum each cell's contributions one after another
     onto its old value, in the order of the points, on the CPU and on
-    the card alike (`scatter_add_rows`): a map update repeats bit for
-    bit, and the card's equals the CPU's.
+    the card alike (`scatter_add_rows`: index_add on the CPU, the
+    hand-written segment-sum kernel on the card, one launch a scatter):
+    a map update repeats bit for bit, and the card's equals the CPU's.
 """
 
 from __future__ import annotations
@@ -131,23 +135,30 @@ def scatter_add_rows(bases, idx, vals):
     order of `idx` — XLA's and the CPU's order — so a map update repeats
     bit for bit and the card gives the CPU's bits.
 
-    On the CPU that is `index_add` (a serial loop).  On the card
-    `index_add` adds with atomics, in an order that changes between
-    runs; there the old row of each touched cell goes first in the list
-    of entries, then the contributions, and the list is summed onto
-    zero rows by `index_put_(accumulate=True)`: it stable-sorts the
-    indices and, for rows of 2 to 32 floats, adds each cell's entries
-    sequentially (torch 2.11; a single float would take a warp
-    reduction instead, so one channel is padded to two).  Exact because
-    0 + old = old."""
-    if idx.device.type != "cuda":
-        return [b.index_add(0, idx, v) for b, v in zip(bases, vals)]
-    return _scatter_add_rows_sorted(bases, idx, vals)
+    That is cuda_kernels.segment_add_rows: `index_add` (a serial loop)
+    on the CPU; on the card a stable sort of the indices and one launch
+    of the hand-written segment-sum kernel for all the pairs, which adds
+    each touched cell's entries in sorted (= entry) order onto its old
+    row.  Nothing rests on the order in which torch's own scatters add
+    (`index_add` adds with atomics on the card)."""
+    # cuda_kernels imports this module (CellList), so it is imported
+    # here, at the call.
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.segment_add_rows(
+        [b.contiguous() for b in bases], idx.contiguous(),
+        [v.contiguous() for v in vals])
 
 
 def _scatter_add_rows_sorted(bases, idx, vals):
-    """The card's branch of scatter_add_rows (any device; on the CPU it
-    is sequential only on one thread).  Its list holds 2M entries, not
+    """The card's branch of scatter_add_rows before the segment-sum
+    kernel, on no path now: kept as the yardstick the kernel is timed
+    and checked against (chip_smoke.py phase 3e).  It relies on torch
+    2.11's CUDA `index_put_(accumulate=True)` stable-sorting the indices
+    and adding each index's entries sequentially for rows of 2 to 32
+    floats (one channel is padded to two), which torch does not
+    document (any device; on the CPU it is sequential only on one
+    thread).  Its list holds 2M entries, not
     N + M, so its cost follows the points, not the grid stack: each
     touched cell sums in the slot of its first entry (an integer min
     over positions, exact in any order), where that entry's old row goes
@@ -172,6 +183,13 @@ def _scatter_add_rows_sorted(bases, idx, vals):
     return list(rows[:, :sum(widths)].split(widths, 1))
 
 
+def _drop_rows(shape, n_cells: int, device):
+    """Cells for the dropped entries of an index of `shape`: entry k
+    (flattened) at cell k mod n_cells."""
+    k = torch.arange(math.prod(shape), device=device)
+    return (k if k.numel() <= n_cells else k % n_cells).reshape(shape)
+
+
 def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
     """Scatter a masked point batch (..., P, 2) into the sufficient
     statistics of a grid (or a stack of grids, one per leading index)
@@ -185,10 +203,12 @@ def add_points_touched(grid: NDTGrid, params: NDTMapParams, pts, mask):
     h, w = params.grid_h, params.grid_w
     flat = torch.where(ok, iy * w + ix, h * w).to(torch.int64)
     ptsm = torch.where(ok[..., None], pts, 0.0)
-    # Dropped points carry zero contributions: clamp their index onto a
-    # real cell instead of the reference's mode="drop".
-    fi = (flat.clamp(max=h * w - 1) + _stream_offsets(
-        pts.shape[:-2], h * w, pts.device)).reshape(-1)
+    # Dropped points carry zero contributions: each adds them at a cell
+    # of its own instead of the reference's mode="drop".
+    lead = pts.shape[:-2]
+    fi = torch.where(ok, flat + _stream_offsets(lead, h * w, pts.device),
+                     _drop_rows(ok.shape, math.prod(lead) * h * w,
+                                pts.device)).reshape(-1)
     op = ptsm[..., :, None] * ptsm[..., None, :]
     count, psum, outer = scatter_add_rows(
         [grid.count.reshape(-1, 1), grid.psum.reshape(-1, 2),
@@ -217,7 +237,7 @@ def update_occupancy(grid: NDTGrid, params: NDTMapParams, sensor_origin,
     iy, ix = cell_index(params, grid.origin[..., None, :], pts)
     mask = mask & torch.isfinite(pts).all(-1)
     ok = mask & in_bounds(params, iy, ix)
-    flat = torch.where(ok, iy * w + ix, h * w - 1).to(torch.int64)
+    flat = (iy * w + ix).to(torch.int64)
 
     s = (torch.arange(params.ray_samples, device=pts.device,
                       dtype=torch.float32) + 0.5) / params.ray_samples
@@ -226,15 +246,18 @@ def update_occupancy(grid: NDTGrid, params: NDTMapParams, sensor_origin,
     riy, rix = cell_index(params, grid.origin[..., None, None, :], ray)
     rok = mask[..., None] & in_bounds(params, riy, rix)
     rok = rok & ~((riy == iy[..., None]) & (rix == ix[..., None]))
-    rflat = torch.where(rok, riy * w + rix, h * w - 1).flatten(-2).to(
-        torch.int64
-    )
-    offs = _stream_offsets(pts.shape[:-2], h * w, pts.device)
-    # Masked entries add exactly zero onto a clamped index; each cell
-    # takes its hits, then its misses, in point order.
+    rflat = (riy * w + rix).flatten(-2).to(torch.int64)
+    lead = pts.shape[:-2]
+    offs = _stream_offsets(lead, h * w, pts.device)
+    # Masked entries add exactly zero, each at a cell of its own; each
+    # cell takes its hits, then its misses, in point order.
+    keep = torch.cat([ok.reshape(-1), rok.reshape(-1)])
+    idx = torch.cat([(flat + offs).reshape(-1), (rflat + offs).reshape(-1)])
     occ, = scatter_add_rows(
         [grid.occ.reshape(-1, 1)],
-        torch.cat([(flat + offs).reshape(-1), (rflat + offs).reshape(-1)]),
+        torch.where(keep, idx, _drop_rows(keep.shape,
+                                          math.prod(lead) * h * w,
+                                          pts.device)),
         [torch.cat([torch.where(ok, params.occ_hit, 0.0).reshape(-1),
                     torch.where(rok, params.occ_miss, 0.0).reshape(-1)])[
                         :, None]])
