@@ -23,8 +23,9 @@ Runs on a machine with a CUDA card and no JAX:
   4. drives the main path (NDTFeatureGraphSLAM.initialize +
      run_sequence_device) over the canonical 200-scan fixture with the
      JAX reference's RANSAC draws, checks that `newton_solve` launched
-     once per registration and `segment_add_rows` once per map update
-     (counted by `map_updates`), and no other entry, that the
+     once per registration, `segment_add_rows` once per statistics
+     update and `occupancy_update` once per occupancy update (counted
+     by `map_updates`), and no other entry, that the
      frozen-node count matches JAX and that the trajectory stays within
      1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
      (one warm-up run, then the median of 3); the checked run counts
@@ -33,17 +34,21 @@ Runs on a machine with a CUDA card and no JAX:
      inputs for phase 3's replay: every registration through the
      kernel (the recorded bits again), the per-trial path and the plain
      twin, the kernel held to the per-trial path scan by scan;
-     3e. the map update through the `segment_add_rows` kernel
-         (add_points_touched + update_occupancy of three canonical
-         scans, into one grid and stacks of 3 and 64; a scatter with
-         5,000 entries on one cell) on the card equals the CPU's bit
-         for bit, equals the sorted index_put_ path it replaced and
-         repeats, one launch a scatter; one scan's update and a B = 64
-         fleet step's timed in turns against the sorted path and the
-         atomic index_add, and the kernel entry on those scatters
-         beside its bound (segment_sum_checks); torch.sqrt of 2^20
-         float32 values on the card equals numpy.sqrt (0 elements
-         differ);
+     3e. the map update through its kernels (`segment_add_rows` for
+         the statistics, `occupancy_update` for the occupancy;
+         add_points_touched + update_occupancy of three canonical
+         scans, into one grid and stacks of 3 and 64; the occupancy's
+         edge cases, occupancy_cases, at 1, 3 and 64 grids; a scatter
+         with 5,000 entries on one cell) on the card equals the CPU's
+         bit for bit, equals the parent's path (the sorted index_put_
+         statistics, the occupancy's plain twin through
+         segment_add_rows) and repeats, one launch of each a scan; one
+         scan's update and a B = 64 fleet step's timed in turns against
+         the parent's path and the atomic index_add, with their device
+         operations, and each kernel entry on those shapes beside its
+         bound (segment_sum_checks, occupancy_checks: the longest chain
+         of the occupancy's row pass); torch.sqrt of 2^20 float32
+         values on the card equals numpy.sqrt (0 elements differ);
      the three timed runs repeat the first run's trajectory bit for bit
      and its launch counts;
      3c. plain registration on that graph: d2d.match_d2d +
@@ -264,7 +269,9 @@ those of every trial it evaluates, lane by lane.  No single PyTorch
 call computes a D2D entry, so their `library_ms` is null; `row_sum`'s
 is torch.sum's, `segment_add_rows`'s index_add's (atomic on the card;
 its entry also carries the sorted index_put_ path's time,
-`sorted_ms`).  The per-trial
+`sorted_ms`), `occupancy_update`'s the index_add of its plain twin's
+entries (the scatter alone, not the ray build; its `plain_ms` is the
+plain twin on the card, the parent's path).  The per-trial
 objectives (`newton_objective[_batch]`) are the body of the solves and
 no path's own launch any more: their `launches` are 0, and the launches
 of the per-trial path that the script drives as the solves' yardstick
@@ -362,16 +369,23 @@ REPLACES = "ndt_feature_graph_tpu/ops/pallas_kernels.py:149"
 # The row-sum kernel ports no TPU kernel: the reference's overlap sum,
 # which it leaves to XLA.
 ROW_SUM_REPLACES = "ndt_feature_graph_tpu/graph/links.py:138"
-# Nor does the map update's fixed-order sum: the reference's scatter,
-# XLA's `.at[flat].add` (add_points_touched; update_occupancy at :166).
+# Nor does the map statistics' fixed-order sum: the reference's
+# scatter, XLA's `.at[flat].add` (add_points_touched).
 SEGMENT_SOURCE = "ndt_feature_graph_tpu_torch/csrc/segment_sum.cu"
 SEGMENT_REPLACES = "ndt_feature_graph_tpu/ops/ndt_map.py:115"
+# Nor does the occupancy update: the reference's ray scatter, XLA's
+# `.at[flat].add(...).at[rflat].add(...)` in update_occupancy.
+OCCUPANCY_SOURCE = "ndt_feature_graph_tpu_torch/csrc/occupancy.cu"
+OCCUPANCY_REPLACES = "ndt_feature_graph_tpu/ops/ndt_map.py:166"
 F_RTOL = 1e-4                 # tests/test_pallas_kernels.py tolerances
 GH_RTOL, G_ATOL, H_ATOL = 2e-3, 1e-4, 1e-3
 CANCEL_RTOL = 1e-3            # batch lanes: see compare()
 XY_TOL, TH_TOL = 0.01, 0.005  # trajectory vs the JAX reference
 MATCH_TOL, COV_RTOL = 1e-4, 1e-3   # match_d2d pose, covariance_d2d
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
+# A dependent float32 add takes 4 cycles; the H100 SXM's SM boost clock
+# is 1,980 MHz (data sheet): the occupancy kernel's chain bound.
+ADD_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 # Operations of one pair, counted from pair_components in the source:
 # ~165 multiplies and adds of the algebra and the sums, one divide and
 # one exp counted as ~17 each.
@@ -2493,11 +2507,12 @@ def fleet_dev(name, traj, scores, ref_traj, ref_scores, spread):
 
 
 def only_batch_entry(launches, name, steps, updates):
-    """newton_solve_batch once a fleet step, segment_add_rows once a map
-    update (each a whole stack of grids), and no other entry."""
+    """newton_solve_batch once a fleet step, segment_add_rows once a
+    statistics update and occupancy_update once an occupancy update
+    (each a whole stack of grids), and no other entry."""
     check_map_launches(launches, updates, name)
     check(launches["newton_solve_batch"] == steps
-          and sum(launches.values()) == steps + launches["segment_add_rows"],
+          and sum(launches.values()) == steps + map_launches(launches),
           f"{name} launched {launches}: expected newton_solve_batch alone, "
           "once a fleet step, beside the map updates")
 
@@ -2524,8 +2539,10 @@ def fleet_points_phase(fp, fl, dev):
     n = launches["newton_solve_batch"]
     print(f"  launches in the B=8 run: {launches} ({n / steps:.2f} per fleet "
           f"step: the step's registrations in one launch; "
-          f"{launches['segment_add_rows'] / steps:.2f} segment_add_rows a "
-          f"step for {updates['n']} map updates of the whole stack)")
+          f"{launches['segment_add_rows'] / steps:.2f} segment_add_rows and "
+          f"{launches['occupancy_update'] / steps:.2f} occupancy_update a "
+          f"step for {updates['stats']} statistics and {updates['occ']} "
+          f"occupancy updates of the whole stack)")
     summary["dev_bf16"] = fleet_dev("B=8, bf16 rows, vs JAX", traj8, sc8,
                                     fl["pts_traj"], fl["pts_scores"], spread)
     table = d2d.packed_from_grid(finals.grid, fp.ndt)
@@ -2682,7 +2699,7 @@ def rolling_phase(fx, dev):
         check_map_launches(launches, updates, "rolling_map")
         check(launches["newton_solve"] == n - 1
               and sum(launches.values()) == launches["newton_solve"]
-              + launches["segment_add_rows"],
+              + map_launches(launches),
               f"run_sequence_features launched {launches}: expected "
               "newton_solve alone, once a scan, beside the map updates")
     cells = (final.base.grid.origin - origin0) / fp.ndt.resolution
@@ -2728,22 +2745,25 @@ def scatter_swapped(fn):
 
 @contextlib.contextmanager
 def map_updates():
-    """Counts the map updates made inside the block, {"n": count}: the
-    calls of ndt_map.add_points_touched (add_points, build_from_scan and
-    the fuser's local cell lists reach it) and ndt_map.update_occupancy.
-    Each is one scatter, so one `segment_add_rows` launch on the card."""
-    count = {"n": 0}
-    saved = {k: getattr(ndt_map, k)
-             for k in ("add_points_touched", "update_occupancy")}
+    """Counts the map updates made inside the block, {"stats": the calls
+    of ndt_map.add_points_touched (add_points, build_from_scan and the
+    fuser's local cell lists reach it), "occ": those of
+    ndt_map.update_occupancy, "n": both}.  On the card each statistics
+    update is one `segment_add_rows` launch, each occupancy update one
+    `occupancy_update` call (its two passes)."""
+    count = {"n": 0, "stats": 0, "occ": 0}
+    kinds = {"add_points_touched": "stats", "update_occupancy": "occ"}
+    saved = {k: getattr(ndt_map, k) for k in kinds}
 
-    def counted(fn):
+    def counted(fn, kind):
         def call(*args, **kwargs):
             count["n"] += 1
+            count[kind] += 1
             return fn(*args, **kwargs)
         return call
 
     for k, fn in saved.items():
-        setattr(ndt_map, k, counted(fn))
+        setattr(ndt_map, k, counted(fn, kinds[k]))
     try:
         yield count
     finally:
@@ -2751,12 +2771,26 @@ def map_updates():
             setattr(ndt_map, k, fn)
 
 
+# The map update's kernel entries: the statistics' fixed-order sum and
+# the occupancy update.
+MAP_ENTRIES = ("segment_add_rows", "occupancy_update")
+
+
+def map_launches(launches):
+    return sum(launches[k] for k in MAP_ENTRIES)
+
+
 def check_map_launches(launches, updates, what):
-    """`segment_add_rows` launched exactly once a map update of the run
-    (`updates`: map_updates' count), and at least once."""
-    check(launches["segment_add_rows"] == updates["n"] > 0,
-          f"{what}: {launches['segment_add_rows']} segment_add_rows "
-          f"launches for {updates['n']} map updates")
+    """`segment_add_rows` launched exactly once a statistics update and
+    `occupancy_update` once an occupancy update of the run (`updates`:
+    map_updates' counts), and the run updated its map."""
+    check(launches["segment_add_rows"] == updates["stats"]
+          and launches["occupancy_update"] == updates["occ"]
+          and updates["n"] > 0,
+          f"{what}: {launches['segment_add_rows']} segment_add_rows and "
+          f"{launches['occupancy_update']} occupancy_update launches for "
+          f"{updates['stats']} statistics and {updates['occ']} occupancy "
+          "updates")
 
 
 def world_scan(fx, t, device, streams=0):
@@ -2797,6 +2831,62 @@ def map_update_case(mp, fx, device, streams=0, scans=(0, 2, 4)):
             for k in ("count", "psum", "outer", "occ")}
 
 
+def occupancy_cases(mp, fx, streams=0, seed=5):
+    """The occupancy update's cases, on the CPU: [(name, params, grid,
+    sensor, points, mask)], canonical scan 2 (or a stack of `streams`,
+    see world_scan) onto the map of scan 0, and around it each edge of
+    the kernel's design: a base near +-occ_clamp (the chain's stop), the
+    stop's other direction (occ_hit < 0 < occ_miss), no stop (occ_clamp
+    = inf), a base of -0.0 (the dropped entries' +0.0) with zero
+    constants, NaN points and points 1e11-1e12 m away (int32 casts out
+    of range), a sensor outside the grid, 64-bit counters (720 x 100
+    samples), and a 0.3 m grid of 25 x 30 cells with 7 samples a beam
+    (divisions that round; the entries wrap around the rows)."""
+    cpu = torch.device("cpu")
+    lead = (streams,) if streams else ()
+    grid = map_update(ndt_map.empty_grid(mp, torch.zeros(lead + (2,))), mp,
+                      *world_scan(fx, 0, cpu, streams))
+    world, mask, sensor = world_scan(fx, 2, cpu, streams)
+    rng = np.random.default_rng(seed)
+    c = np.float32(mp.occ_clamp)
+    near = np.where(rng.random(grid.occ.shape) < 0.5,
+                    np.sign(rng.standard_normal(grid.occ.shape)) * c,
+                    rng.uniform(-c - 1.0, c + 1.0, grid.occ.shape))
+    near = dataclasses.replace(
+        grid, occ=torch.as_tensor(near, dtype=torch.float32))
+    neg0 = dataclasses.replace(grid, occ=torch.full_like(grid.occ, -0.0))
+    far = world.clone()
+    far[..., 0::7, 0] = math.nan
+    far[..., 3::11, :] = 1e12
+    far[..., 5::13, 1] = -3e11
+    far_mask = mask.clone()
+    far_mask[..., 1::17] = False
+    small = dataclasses.replace(mp, resolution=0.3, size_x=9.0, size_y=7.5,
+                                ray_samples=7)
+    small_grid = dataclasses.replace(
+        ndt_map.empty_grid(small, sensor), occ=torch.full(
+            lead + (small.grid_h, small.grid_w), -0.0))
+    rp = dataclasses.replace
+    return [
+        ("canonical", mp, grid, sensor, world, mask),
+        ("near the clamp", mp, near, sensor, world, mask),
+        ("hit < 0 < miss", rp(mp, occ_hit=-0.3, occ_miss=0.55), near,
+         sensor, world, mask),
+        ("clamp inf", rp(mp, occ_clamp=math.inf), grid, sensor, world, mask),
+        ("-0.0 base", mp, neg0, sensor, world, far_mask),
+        ("-0.0 base, zero miss", rp(mp, occ_miss=0.0), neg0, sensor, world,
+         mask),
+        ("-0.0 base, -0.0 hit", rp(mp, occ_hit=-0.0), neg0, sensor, world,
+         far_mask),
+        ("NaN and far points", mp, grid, sensor, far, far_mask),
+        ("sensor outside", mp, grid, sensor + torch.tensor([60.0, -45.0]),
+         world, mask),
+        ("64-bit counters", rp(mp, ray_samples=100), near, sensor, world,
+         mask),
+        ("0.3 m, 7 samples", small, small_grid, sensor, world, far_mask),
+    ]
+
+
 def long_run_case(dev, widths, n_rows=40_000, m=6_000, on_one=5_000,
                   seed=11):
     """A synthetic scatter in which one cell carries `on_one` of the `m`
@@ -2831,6 +2921,21 @@ def scatter_bytes(bases, idx, vals):
                 for b, v in zip(bases, vals)) + idx.numel() * 8)
 
 
+def device_ops_per_call(fn, reps=20):
+    """Mean number of device operations (kernels, copies, memsets) a
+    call of `fn` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
 def device_us_by_kernel(fn, reps=50):
     """Mean device time per call of `fn`, us, by kernel name
     (torch.profiler)."""
@@ -2849,7 +2954,8 @@ def device_us_by_kernel(fn, reps=50):
 
 def segment_sum_checks(name, calls):
     """The `segment_add_rows` entry on the scatters `calls` of one map
-    update (the main path's shapes, or a fleet step's): the CPU's
+    update (its statistics: the main path's shapes, or a fleet step's;
+    the occupancy has a kernel of its own): the CPU's
     index_add bits (its plain version on the same inputs on the CPU:
     tolerance 0), the parent's sorted index_put_ path's bits, identical
     bits on repeat, one launch a scatter; device time and time with the
@@ -2927,46 +3033,201 @@ def segment_sum_checks(name, calls):
     return out
 
 
+@contextlib.contextmanager
+def occupancy_plain():
+    """ndt_map.update_occupancy replaced by its plain twin inside the
+    block: on the card the parent's path (the eager ray build, then
+    scatter_add_rows: segment_add_rows with its sort)."""
+    kernel = ndt_map.update_occupancy
+    ndt_map.update_occupancy = ndt_map._update_occupancy_plain
+    try:
+        yield
+    finally:
+        ndt_map.update_occupancy = kernel
+
+
+def occupancy_case_checks(mp, fx, dev, streams=0):
+    """Every case of occupancy_cases through ndt_map.update_occupancy on
+    `dev`, twice, against the plain twin on the CPU: {case: elements off
+    the CPU's bits, plus 1 if the second call differs}; on the card one
+    `occupancy_update` call each."""
+    out = {}
+    for name, p, grid, sensor, pts, mask in occupancy_cases(mp, fx,
+                                                            streams):
+        want = ndt_map.update_occupancy(grid, p, sensor, pts, mask).occ
+        args = (node_mod.map_tensors(lambda x: x.to(dev), grid), p,
+                sensor.to(dev), pts.to(dev), mask.to(dev))
+        before = cuda_kernels.LAUNCHES["occupancy_update"]
+        a = ndt_map.update_occupancy(*args).occ
+        b = ndt_map.update_occupancy(*args).occ
+        check(dev.type != "cuda"
+              or cuda_kernels.LAUNCHES["occupancy_update"] == before + 2,
+              f"{name}: not one occupancy_update a call")
+        out[name] = (int((_bits(a.cpu().numpy())
+                          != _bits(want.numpy())).sum())
+                     + int(not torch.equal(a, b)))
+    return out
+
+
+def occupancy_checks(name, mp, grid, scan):
+    """The `occupancy_update` entry on one map update's occupancy (grid:
+    a map on the card, scan: its (points, mask, sensor)): the CPU's
+    bits (its plain twin on the same inputs on the CPU: tolerance 0),
+    the parent's path's bits, identical bits on repeat, one call an
+    update; device time and time with the host in turns against the
+    parent's path (the plain twin on the card: the eager ray build, the
+    sort and segment_add_rows) and against the one PyTorch call of its
+    scatter, an atomic index_add of the plain twin's entries (the
+    scatter alone, not the ray build: `library_ms`), and against the
+    parent's path on a cold L2; the kernel's own device time beside the
+    bound of the bytes it must move, and its longest chain of adds (the
+    row pass's count of adds, read back)."""
+    world, mask, sensor = scan
+    dev = world.device
+
+    def kernel():
+        return ndt_map.update_occupancy(grid, mp, sensor, world, mask)
+
+    def parent():
+        return ndt_map._update_occupancy_plain(grid, mp, sensor, world, mask)
+
+    before = cuda_kernels.LAUNCHES["occupancy_update"]
+    got, again = kernel().occ, kernel().occ
+    check(cuda_kernels.LAUNCHES["occupancy_update"] == before + 2,
+          f"{name}: not one occupancy_update a call")
+    want = ndt_map.update_occupancy(
+        node_mod.map_tensors(torch.Tensor.cpu, grid), mp, sensor.cpu(),
+        world.cpu(), mask.cpu()).occ
+    x, w_, par = got.cpu(), want, parent().occ.cpu()
+    err = float((x - w_).abs().max())
+    n_diff = (int((_bits(x.numpy()) != _bits(w_.numpy())).sum())
+              + int(not torch.equal(got, again)))
+    n_parent = int((_bits(x.numpy()) != _bits(par.numpy())).sum())
+    chain = torch.zeros(grid.occ.numel(), dtype=torch.int32, device=dev)
+    cuda_kernels.update_occupancy(grid, mp, sensor, world, mask, chain=chain)
+    longest, adds = int(chain.max()), int(chain.sum())
+    entries = recorded_scatters(parent)
+    check(len(entries) == 1, f"{name}: the plain twin made "
+                             f"{len(entries)} scatters, expected 1")
+
+    def library():
+        return atomic_scatter(*entries[0])
+
+    print(f"  {name}: occupancy_update on {grid.occ.numel()} cells, "
+          f"{entries[0][1].numel()} entries: elements off the CPU's bits or "
+          f"not repeating {n_diff}, off the parent's path's {n_parent}; "
+          f"max |kernel - CPU| {err:.1e}; longest chain {longest} adds "
+          f"({adds} in all)")
+    check(n_diff == 0 and n_parent == 0,
+          f"{name}: occupancy_update is not the CPU's and the parent's bits")
+    t_p = time_turns(kernel, parent, 50, 50, label="parent's path")
+    t_l = time_turns(kernel, library, 50, 50, label="index_add alone")
+    # On a cold L2 full of dirty lines, as a fleet step's statistics and
+    # table refresh leave it: a read-modify-write of L2_FLUSH_BYTES before
+    # each call.
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+    cold = [cold_ms(f, lambda: buf.add_(1.0))
+            for f in (parent, kernel, kernel, parent)]
+    del buf
+    print("    device time on a cold, dirty L2, us (parent's path, kernel, "
+          "kernel, parent's path; CUDA events): "
+          + ", ".join(f"{t * 1e3:.2f}" for t in cold))
+    by_kernel = device_us_by_kernel(kernel)
+    own = sum(v for k, v in by_kernel.items() if "occupancy" in k)
+    n_streams = grid.occ.numel() // (mp.grid_h * mp.grid_w)
+    n_pts = mask.numel()
+    n_bytes = 8 * grid.occ.numel() + 9 * n_pts + 16 * n_streams
+    # Operations: a sample's cell 13 (its position 7, the division t 1,
+    # the cell 5), a hit's 4, a row's adds and its clamp (2).
+    n_ops = (13 * n_pts * mp.ray_samples + 4 * n_pts + adds
+             + 2 * grid.occ.numel())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
+    out = {"max_abs_err": err, "tolerance": "bits (0)",
+           "ms": (t_p["ms"] + t_l["ms"]) / 2,
+           "plain_ms": t_p["plain_ms"],
+           "events_ms": (t_p["events_ms"] + t_l["events_ms"]) / 2,
+           "plain_events_ms": t_p["plain_events_ms"],
+           "library_ms": t_l["plain_ms"],
+           "library_events_ms": t_l["plain_events_ms"],
+           "library_call": "index_add (atomic) of the plain twin's "
+                           "entries: the scatter alone, not the ray build",
+           "kernel_alone_ms": own * 1e-3,
+           "cold_ms": (cold[1] + cold[2]) / 2,
+           "plain_cold_ms": (cold[0] + cold[3]) / 2,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "longest_chain": longest, "chain_adds": adds,
+           "chain_ms": longest * ADD_CYCLES / SM_CLOCK_HZ * 1e3,
+           "entries": entries[0][1].numel()}
+    print(f"    device us: occupancy_update {out['ms'] * 1e3:.2f} (its "
+          f"kernels alone {own:.2f}; by name: "
+          + ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(
+              by_kernel.items(), key=lambda kv: -kv[1]))
+          + f"), the parent's path {out['plain_ms'] * 1e3:.2f}, index_add "
+          f"alone {out['library_ms'] * 1e3:.2f}; with the host "
+          f"{out['events_ms'] * 1e3:.2f} / "
+          f"{out['plain_events_ms'] * 1e3:.2f} / "
+          f"{out['library_events_ms'] * 1e3:.2f}; bound "
+          f"{out['bound_ms'] * 1e3:.3f} ({out['bound_by']}: "
+          f"{n_bytes / 1e6:.3f} MB); the longest chain's adds "
+          f"{out['chain_ms'] * 1e3:.3f}")
+    return out
+
+
 def map_update_phase(sp, fx, dev):
-    """Phase 3e: the map update on the card (ndt_map.scatter_add_rows:
-    the `segment_add_rows` kernel) equals the CPU's bit for bit on the
-    same points, equals the parent's sorted index_put_ path, and
-    repeats: one grid, a stack of 3 and a stack of 64, three canonical
-    scans, one launch a scatter; a synthetic scatter with 5,000 entries
-    on one cell.  One scan's update and one B = 64 fleet step's, timed
-    in turns: the kernel, the sorted index_put_ path and the atomic
-    index_add (all three swapped in as the whole map scatter); the
-    kernel entry's own checks and times at both shapes.  And torch's
-    float32 sqrt on the card is correctly rounded (numpy's)."""
+    """Phase 3e: the map update on the card (ndt_map.add_points_touched
+    through scatter_add_rows, the `segment_add_rows` kernel;
+    ndt_map.update_occupancy, the `occupancy_update` kernel) equals the
+    CPU's bit for bit on the same points, equals the parent's path (the
+    statistics through the sorted index_put_ path, the occupancy through
+    its plain twin) and repeats: one grid, a stack of 3 and a stack of
+    64, three canonical scans, one launch a statistics update and one
+    occupancy_update an occupancy update; every case of
+    occupancy_cases at 1, 3 and 64 grids; a synthetic scatter with
+    5,000 entries on one cell.  One scan's update and one B = 64 fleet
+    step's, timed in turns against the parent's path and the atomic
+    index_add (swapped in as the whole map scatter, the occupancy
+    through its plain twin); each kernel entry's own checks and times
+    at both shapes.  And torch's float32 sqrt on the card is correctly
+    rounded (numpy's)."""
     mp = sp.fuser.ndt
     out = {}
     for streams in (0, 3, 64):
         cpu = map_update_case(mp, fx, torch.device("cpu"), streams)
-        before = cuda_kernels.LAUNCHES["segment_add_rows"]
+        before = {k: cuda_kernels.LAUNCHES[k] for k in MAP_ENTRIES}
         card = map_update_case(mp, fx, dev, streams)
         again = map_update_case(mp, fx, dev, streams)
-        n_launch = cuda_kernels.LAUNCHES["segment_add_rows"] - before
+        n_launch = {k: cuda_kernels.LAUNCHES[k] - before[k]
+                    for k in MAP_ENTRIES}
         diff = {k: int((_bits(card[k]) != _bits(cpu[k])).sum()) for k in cpu}
-        off_sorted = {}
+        off_parent = {}
         if dev.type == "cuda":      # sequential there; not on CPU threads
-            with scatter_swapped(ndt_map._scatter_add_rows_sorted):
+            with scatter_swapped(ndt_map._scatter_add_rows_sorted), \
+                    occupancy_plain():
                 srt = map_update_case(mp, fx, dev, streams)
-            off_sorted = {k: int((_bits(card[k]) != _bits(srt[k])).sum())
+            off_parent = {k: int((_bits(card[k]) != _bits(srt[k])).sum())
                           for k in cpu}
         rep = all(np.array_equal(_bits(card[k]), _bits(again[k]))
                   for k in card)
         print(f"  {streams or 1} grid(s), 3 scans: elements differing from "
-              f"the CPU's bits {diff}, from the sorted index_put_ path's "
-              f"{off_sorted}; a second run identical: {rep}; "
-              f"segment_add_rows launches {n_launch} (2 runs x 3 scans x 2 "
-              f"scatters)")
+              f"the CPU's bits {diff}, from the parent's path's "
+              f"{off_parent}; a second run identical: {rep}; launches "
+              f"{n_launch} (2 runs x 3 scans, one of each a scan)")
         check(rep and not any(diff.values()) and not any(
-            off_sorted.values()),
+            off_parent.values()),
               "the map update on the card is not the CPU's bit for bit")
-        check(dev.type != "cuda" or n_launch == 12,
+        check(dev.type != "cuda" or n_launch == {"segment_add_rows": 6,
+                                                 "occupancy_update": 6},
               "the map update did not launch segment_add_rows once a "
-              "scatter")
+              "statistics update and occupancy_update once an occupancy "
+              "update")
         out[f"differing_{streams or 1}"] = diff
+        cases = occupancy_case_checks(mp, fx, dev, streams)
+        print(f"  {streams or 1} grid(s), the occupancy cases: elements off "
+              f"the CPU's bits or not repeating {cases}")
+        check(not any(cases.values()),
+              "occupancy_update departs from the CPU on a case")
+        out[f"occupancy_cases_{streams or 1}"] = cases
     if dev.type == "cuda":
         for widths in ((1, 2, 4), (1,)):
             (cb, ci, cv), (gb, gi, gv) = long_run_case(dev, widths)
@@ -3004,8 +3265,8 @@ def map_update_phase(sp, fx, dev):
     out["sqrt_cpu_differing"] = n_cpu
     out["sqrt_differing"] = n_sqrt
     if dev.type != "cuda":
-        return out, None
-    checks = {}
+        return out, None, None
+    checks, occ = {}, {}
     for name, streams in (("one scan", 0), ("B=64 fleet step", 64)):
         lead = (streams,) if streams else ()
         grid = map_update(ndt_map.empty_grid(mp, torch.zeros(
@@ -3015,34 +3276,41 @@ def map_update_phase(sp, fx, dev):
         def ordered(grid=grid, scan=scan):
             return map_update(grid, mp, *scan)
 
-        def sorted_path():
-            with scatter_swapped(ndt_map._scatter_add_rows_sorted):
+        def parent():
+            with occupancy_plain():
                 return ordered()
 
         def atomic():
-            with scatter_swapped(atomic_scatter):
+            with scatter_swapped(atomic_scatter), occupancy_plain():
                 return ordered()
 
         print(f"  {name}'s map update (add_points_touched + "
               f"update_occupancy, 720 points, 720 x 49 occupancy entries"
               f"{f' a stream, {streams} streams' if streams else ''}), "
-              "segment_add_rows vs the sorted index_put_ path and vs the "
-              "atomic index_add:")
-        t_s = time_turns(ordered, sorted_path, 50, 50,
-                         label="sorted index_put_")
+              "the kernels vs the parent's path (the occupancy through "
+              "segment_add_rows) and vs the atomic index_add:")
+        t_p = time_turns(ordered, parent, 50, 50, label="parent's path")
         t_a = time_turns(ordered, atomic, 50, 50, label="index_add")
         key = "fleet64_" if streams else ""
-        out.update({f"{key}ordered_us": (t_s["ms"] + t_a["ms"]) / 2 * 1e3,
-                    f"{key}sorted_us": t_s["plain_ms"] * 1e3,
+        out.update({f"{key}ordered_us": (t_p["ms"] + t_a["ms"]) / 2 * 1e3,
+                    f"{key}parent_us": t_p["plain_ms"] * 1e3,
                     f"{key}atomic_us": t_a["plain_ms"] * 1e3,
                     f"{key}ordered_events_us":
-                        (t_s["events_ms"] + t_a["events_ms"]) / 2 * 1e3,
-                    f"{key}sorted_events_us": t_s["plain_events_ms"] * 1e3,
-                    f"{key}atomic_events_us": t_a["plain_events_ms"] * 1e3})
+                        (t_p["events_ms"] + t_a["events_ms"]) / 2 * 1e3,
+                    f"{key}parent_events_us": t_p["plain_events_ms"] * 1e3,
+                    f"{key}atomic_events_us": t_a["plain_events_ms"] * 1e3,
+                    f"{key}device_ops": device_ops_per_call(ordered),
+                    f"{key}parent_device_ops": device_ops_per_call(parent)})
+        print(f"    device operations a map update: "
+              f"{out[f'{key}device_ops']:.1f} (the parent's path "
+              f"{out[f'{key}parent_device_ops']:.1f})")
         checks[name] = segment_sum_checks(name, recorded_scatters(ordered))
+        occ[name] = occupancy_checks(name, mp, grid, scan)
     main = dict(checks["one scan"])
     main["fleet64"] = checks["B=64 fleet step"]
-    return out, main
+    occ_main = dict(occ["one scan"])
+    occ_main["fleet64"] = occ["B=64 fleet step"]
+    return out, main, occ_main
 
 
 def localize_phase(sp, fx, dev):
@@ -3071,7 +3339,7 @@ def localize_phase(sp, fx, dev):
     odom, gt = T(fx["odom"]), T(fx["gt"])
     split, q = int(lx["split"]), int(lx["query"])
     cuda_kernels.reset_launch_counts()
-    updates = {"n": 0}
+    updates = {"n": 0, "stats": 0, "occ": 0}
 
     grid = ndt_map.empty_grid(mp, torch.zeros(2, device=dev))
     db = place_rec.empty_database(fp_db, 32, dev)
@@ -3082,7 +3350,8 @@ def localize_phase(sp, fx, dev):
             grid = ndt_map.add_points(grid, mp, world, mask)
             grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world,
                                             mask)
-        updates["n"] += n_map["n"]
+        for k in updates:
+            updates[k] += n_map[k]
         db = place_rec.insert_scan(db, fp_db, gt[t], ranges[t], hit[t])
     check(int(db.mask.sum()) == int(lx["db_used"]),
           f"{int(db.mask.sum())} scans stored, JAX {int(lx['db_used'])}")
@@ -3162,7 +3431,7 @@ def localize_phase(sp, fx, dev):
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
         check_map_launches(launches, updates, "the localization map")
-    check(sum(launches.values()) == launches["segment_add_rows"],
+    check(sum(launches.values()) == map_launches(launches),
           f"localization launched kernel entries beside the map "
           f"updates: {launches}")
     out = {"mcl_dev": (dxy, dth), "jax_spread": spread,
@@ -3262,7 +3531,7 @@ def hmt_phase(dev):
         if dev.type == "cuda":
             check_map_launches(launches, updates, "the HMT run")
             check(n_obj == scans and sum(launches.values())
-                  == n_obj + launches["segment_add_rows"],
+                  == n_obj + map_launches(launches),
                   f"the HMT run launched {launches}: expected "
                   "newton_solve alone, once a scan, beside the map "
                   "updates")
@@ -3442,7 +3711,7 @@ def simulator_phase(sp, fx, io_fx, dev):
                            "the main path on the simulated sequence")
     check(dev.type != "cuda" or launches["newton_solve"] > 0 and all(
         v == 0 for k, v in launches.items()
-        if k not in ("newton_solve", "segment_add_rows")),
+        if k not in ("newton_solve", *MAP_ENTRIES)),
         "the main path on the simulated sequence launched another entry")
 
     print("phase 12b: the simulator at bench_offline_570's scale")
@@ -4277,7 +4546,7 @@ def chunked_case(sp, fx, main_slam, dev):
     if dev.type == "cuda":
         check_map_launches(launches, updates, "run_graph_chunk")
         check(launches["newton_solve"] == scans and sum(launches.values())
-              == scans + launches["segment_add_rows"],
+              == scans + map_launches(launches),
               "run_graph_chunk did not launch newton_solve alone, once a "
               "scan, beside the map updates")
     check(traj.shape == ref.shape and np.isfinite(traj).all(),
@@ -5010,8 +5279,8 @@ def main():
     t0 = time.perf_counter()
     cuda_kernels.build()
     build_s = time.perf_counter() - t0
-    print(f"  built {SOURCE} and {SEGMENT_SOURCE} for sm_90a in "
-          f"{build_s:.2f} s")
+    print(f"  built {SOURCE}, {SEGMENT_SOURCE} and {OCCUPANCY_SOURCE} for "
+          f"sm_90a in {build_s:.2f} s")
     for line in cuda_kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -5025,9 +5294,10 @@ def main():
     print("phase 3: newton_solve vs plain and vs the per-trial path on the "
           "card")
     checks["newton_solve"] = solve_checks(sp, fx, dev)
-    print("phase 3e: the map update (segment_add_rows), card vs CPU and vs "
-          "the sorted index_put_ path; float32 sqrt")
-    map_update, checks["segment_add_rows"] = map_update_phase(sp, fx, dev)
+    print("phase 3e: the map update (segment_add_rows, occupancy_update), "
+          "card vs CPU and vs the parent's path; float32 sqrt")
+    (map_update, checks["segment_add_rows"],
+     checks["occupancy_update"]) = map_update_phase(sp, fx, dev)
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
@@ -5050,17 +5320,18 @@ def main():
           f"(set_sync_debug_mode): {syncs} ({syncs / scans:.2f} a scan), "
           f"{in_solve['in_solve']} of them inside newton_solve")
     print(f"  segment_add_rows launches: {launches['segment_add_rows']} for "
-          f"{updates['n']} map updates ("
+          f"{updates['stats']} statistics updates ("
           f"{launches['segment_add_rows'] / scans:.2f} a scan: the scan's "
-          f"cell list, its points, its occupancy; each new node's first "
-          f"scan)")
+          f"cell list, its points; each new node's first scan); "
+          f"occupancy_update: {launches['occupancy_update']} for "
+          f"{updates['occ']} occupancy updates")
     check(launches["newton_solve"] == scans == len(calls),
           "newton_solve was not launched once per registration")
     check_map_launches(launches, updates, "the main path")
     check(all(v == 0 for k, v in launches.items()
-              if k not in ("newton_solve", "segment_add_rows")),
+              if k not in ("newton_solve", *MAP_ENTRIES)),
           "the main path launched another entry than newton_solve and the "
-          "map update's segment_add_rows")
+          "map update's segment_add_rows and occupancy_update")
     check(in_solve["in_solve"] == 0, "newton_solve synchronised")
     traj = np.stack(slam.trajectory)
     check(traj.shape == fx["traj"].shape and np.isfinite(traj).all(),
@@ -5183,6 +5454,7 @@ def main():
         "newton_solve_batch": fleet_run["newton_solve_batch"],
         "row_sum": off_launches["row_sum"],
         "segment_add_rows": launches["segment_add_rows"],
+        "occupancy_update": launches["occupancy_update"],
     }
     yardstick = {"newton_objective": replay["per_trial_launches"],
                  "newton_objective_batch": per_trial_batch,
@@ -5222,15 +5494,20 @@ def main():
         source=SOURCE, replaces=ROW_SUM_REPLACES,
         path="the link paths' overlap sum (optimize_offline's "
              "compute_links_batch and rescore_links)")
-    by_name["segment_add_rows"].update(
-        source=SEGMENT_SOURCE, replaces=SEGMENT_REPLACES,
-        path="every map update (add_points_touched, update_occupancy): "
-             "the main path's launches; the chunked driver's, the B = 8 "
-             "fleet run's and online LC's in fields of their own",
-        launches_chunked=entry_points["chunked"]["launches"][
-            "segment_add_rows"],
-        launches_fleet_b8=fleet_run["segment_add_rows"],
-        launches_online_lc=on_launches["segment_add_rows"])
+    for k, src, where, what in (
+            ("segment_add_rows", SEGMENT_SOURCE, SEGMENT_REPLACES,
+             "every statistics update (add_points_touched)"),
+            ("occupancy_update", OCCUPANCY_SOURCE, OCCUPANCY_REPLACES,
+             "every occupancy update (update_occupancy), two passes a "
+             "launch counted")):
+        by_name[k].update(
+            source=src, replaces=where,
+            path=f"{what}: the main path's launches; the chunked "
+                 "driver's, the B = 8 fleet run's and online LC's in "
+                 "fields of their own",
+            launches_chunked=entry_points["chunked"]["launches"][k],
+            launches_fleet_b8=fleet_run[k],
+            launches_online_lc=on_launches[k])
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,

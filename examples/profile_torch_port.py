@@ -23,10 +23,12 @@ over `newton_objective` —, the per-trial path, the kernel): ms a
 registration with the host and the device operations of each; writes
 the tables to DIR/torch_port_profile.txt with `--out DIR`.  Every
 profile's summary also gives the map update's device time and share:
-the "map_update" range (ndt_map.add_points_touched, update_occupancy)
-and the "map_scatter" range (ndt_map.scatter_add_rows), each the
-device time of the operations inside it plus the segment-sum kernel's,
-which torch.profiler sees outside any operation (a ctypes launch).
+the "map_update" range (ndt_map.add_points_touched, update_occupancy),
+the "map_occupancy" range (update_occupancy alone) and the
+"map_scatter" range (ndt_map.scatter_add_rows), each the device time of
+the operations inside it plus the hand-written kernels' that it runs
+(the segment sum's, the occupancy kernel's two passes), which
+torch.profiler sees outside any operation (ctypes launches).
 
 With --wall-only it runs the main path `--runs` times after a warm-up
 without the profiler (which takes minutes over 200 scans) and prints the
@@ -56,17 +58,18 @@ With --localize it profiles the MCL tracking of chip_smoke.py's phase
 localization record's draws): device operations per step, the busy
 share, steps/s of the unprofiled run and the device time by operation.
 
-With --map-update it times the map update's fixed-order scatter
-(ndt_map.scatter_add_rows: the segment_add_rows kernel) against the
-sorted index_put_ path it replaced (ndt_map._scatter_add_rows_sorted)
-and the atomic `index_add`, in turns (kernel, sorted, atomic, atomic,
-sorted, kernel) inside one process: chip_smoke.py phase 3e (one scan's
-map update and a B = 64 step's, device time) and the main path's
-scans/s over `--scans` scans (the median of 3 runs after a warm-up per
-turn), then the same for the fleet at B = 64: one fleet step's map
-update over the stack of 64 grids and the points-only fleet's
-aggregate scans/s (chip_smoke.py phase 7), with ndt_map.scatter_add_rows
-swapped for the other version on its turns.
+With --map-update it times the map update's kernels (the statistics
+through ndt_map.scatter_add_rows, the segment_add_rows kernel; the
+occupancy through the occupancy_update kernel) against the parent's
+path (the occupancy through its plain twin,
+ndt_map._update_occupancy_plain, and so through segment_add_rows) and
+the atomic `index_add` (both scatters, the occupancy through its plain
+twin), in turns (kernel, parent, atomic, atomic, parent, kernel) inside
+one process: chip_smoke.py phase 3e (one scan's map update and a B = 64
+step's, device time) and the main path's scans/s over `--scans` scans
+(the median of 3 runs after a warm-up per turn), then the same for the
+fleet at B = 64: one fleet step's map update over the stack of 64 grids
+and the points-only fleet's aggregate scans/s (chip_smoke.py phase 7).
 
 With --sixdof it profiles one 6-DoF registration of chip_smoke.py's
 phase 14a (match_d2d_3d of the second of its links at the full padded
@@ -103,33 +106,38 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 
-RANGES = ("map_update", "map_scatter")   # annotated_map_update's ranges
+# annotated_map_update's ranges
+RANGES = ("map_update", "map_scatter", "map_occupancy")
 
 
 @contextlib.contextmanager
 def annotated_map_update():
     """The map update's functions inside profiler ranges: "map_update"
-    around ndt_map.add_points_touched and update_occupancy, "map_scatter"
-    around ndt_map.scatter_add_rows (the fixed-order sum: the kernel and
-    its sort, or a parent tree's sorted index_put_ path), so a profile
-    reads their share of device time, whichever tree it runs."""
+    around ndt_map.add_points_touched and update_occupancy,
+    "map_occupancy" around update_occupancy alone, "map_scatter" around
+    ndt_map.scatter_add_rows (the fixed-order sum: the kernel and its
+    sort, or a parent tree's sorted index_put_ path; since the occupancy
+    kernel only the statistics' on the card), so a profile reads their
+    share of device time, whichever tree it runs."""
     from torch.profiler import record_function
 
     from ndt_feature_graph_tpu_torch.ops import ndt_map
 
-    names = {"add_points_touched": RANGES[0],
-             "update_occupancy": RANGES[0],
-             "scatter_add_rows": RANGES[1]}
+    names = {"add_points_touched": RANGES[:1],
+             "update_occupancy": RANGES[::2],
+             "scatter_add_rows": RANGES[1:2]}
     saved = {k: getattr(ndt_map, k) for k in names}
 
-    def ranged(fn, name):
+    def ranged(fn, ranges):
         def call(*args, **kwargs):
-            with record_function(name):
+            with contextlib.ExitStack() as stack:
+                for name in ranges:
+                    stack.enter_context(record_function(name))
                 return fn(*args, **kwargs)
         return call
 
-    for k, name in names.items():
-        setattr(ndt_map, k, ranged(saved[k], name))
+    for k, ranges in names.items():
+        setattr(ndt_map, k, ranged(saved[k], ranges))
     try:
         yield
     finally:
@@ -211,15 +219,29 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
         **(extra or {}),
     }
     # The map update's device time: the device time of the operations
-    # inside its CPU-side ranges, plus the segment-sum kernel, which the
-    # profiler attributes to no operation (a ctypes launch).
-    seg = sum(e.self_device_time_total for e in events
-              if "segment_add_rows" in e.key
-              and e.device_type == torch.autograd.DeviceType.CUDA)
+    # inside its CPU-side ranges, plus the hand-written kernels inside
+    # it, which the profiler attributes to no operation (ctypes
+    # launches): the segment sum's (of one channel: a parent tree's
+    # occupancy scatter; of more: the statistics') and the occupancy
+    # kernel's two passes.
+    own = {"stats": 0.0, "occ": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "segment_add_rows" in e.key:
+            own["occ" if "kernel<1>" in e.key else "stats"] += (
+                e.self_device_time_total)
+        elif "occupancy_" in e.key:
+            own["occ"] += e.self_device_time_total
+    parts = {RANGES[0]: ("stats", "occ"), RANGES[1]: ("stats",),
+             RANGES[2]: ("occ",)}
+    # A parent tree's occupancy scatter runs inside "map_scatter" too.
+    if any("kernel<1>" in e.key for e in events):
+        parts[RANGES[1]] = ("stats", "occ")
     for e in events:
         if (e.key in RANGES
                 and e.device_type == torch.autograd.DeviceType.CPU):
-            us = e.device_time_total + seg
+            us = e.device_time_total + sum(own[k] for k in parts[e.key])
             summary[f"{e.key}_device_us"] = us
             summary[f"{e.key}_share"] = us / dev_us
     print(gpu)
@@ -469,8 +491,8 @@ def sixdof(dev, gpu, out):
 
 
 def map_update(dev, gpu, sp, fx):
-    """The map scatter (the segment_add_rows kernel) against the parent's
-    sorted index_put_ path and the atomic index_add, in turns: one
+    """The map update's kernels against the parent's path (the occupancy
+    through its plain twin) and the atomic index_add, in turns: one
     scan's map update (chip_smoke.py phase 3e) and the main path, then
     one fleet step's map update over the stack of B = 64 grids and the
     points-only fleet's aggregate scans/s at B = 64 (phase 7)."""
@@ -481,22 +503,27 @@ def map_update(dev, gpu, sp, fx):
     from ndt_feature_graph_tpu_torch.ops import ndt_map
     from ndt_feature_graph_tpu_torch.parallel import scaling
 
-    scatters = (("kernel", ndt_map.scatter_add_rows),
-                ("sorted", ndt_map._scatter_add_rows_sorted),
-                ("atomic", chip_smoke.atomic_scatter),
-                ("atomic", chip_smoke.atomic_scatter),
-                ("sorted", ndt_map._scatter_add_rows_sorted),
-                ("kernel", ndt_map.scatter_add_rows))
-    unit = chip_smoke.map_update_phase(sp, fx, dev)
+    def path(name):
+        """The map update's version `name`, swapped in by a context."""
+        stack = contextlib.ExitStack()
+        if name != "kernel":
+            stack.enter_context(chip_smoke.occupancy_plain())
+        if name == "atomic":
+            stack.enter_context(
+                chip_smoke.scatter_swapped(chip_smoke.atomic_scatter))
+        return stack
+
+    names = ("kernel", "parent", "atomic", "atomic", "parent", "kernel")
+    unit = chip_smoke.map_update_phase(sp, fx, dev)[0]
     scans = fx["ranges"].shape[0] - 1
     turns = []
-    for name, fn in scatters:
-        with chip_smoke.scatter_swapped(fn):
+    for name in names:
+        with path(name):
             chip_smoke.run_main_path(sp, fx, dev)          # warm-up
             walls = [chip_smoke.run_main_path(sp, fx, dev)[1]
                      for _ in range(3)]
         turns.append((name, scans / sorted(walls)[1], walls))
-        print(f"  main path, {name} scatter: {turns[-1][1]:.2f} scans/s "
+        print(f"  main path, {name} path: {turns[-1][1]:.2f} scans/s "
               f"(median of {', '.join(f'{w:.3f}' for w in walls)} s)")
 
     fl = dict(np.load(chip_smoke.FLEET_FIXTURE))
@@ -516,32 +543,31 @@ def map_update(dev, gpu, sp, fx):
         return ndt_map.update_occupancy(g, fp.ndt, sensor, world, mask)
 
     def atomic():
-        with chip_smoke.scatter_swapped(chip_smoke.atomic_scatter):
+        with path("atomic"):
             return ordered()
 
-    def sorted_path():
-        with chip_smoke.scatter_swapped(ndt_map._scatter_add_rows_sorted):
+    def parent():
+        with path("parent"):
             return ordered()
 
     print(f"  one fleet step's map update over {b} grids of "
-          f"{fp.ndt.grid_h}x{fp.ndt.grid_w} cells, the kernel vs the sorted "
-          "index_put_ path and vs the atomic index_add:")
-    t_s = chip_smoke.time_turns(ordered, sorted_path, 20, 20,
-                                label="sorted")
+          f"{fp.ndt.grid_h}x{fp.ndt.grid_w} cells, the kernels vs the "
+          "parent's path and vs the atomic index_add:")
+    t_p = chip_smoke.time_turns(ordered, parent, 20, 20, label="parent")
     t = chip_smoke.time_turns(ordered, atomic, 20, 20, label="atomic")
-    fleet_unit = {"ordered_us": (t["ms"] + t_s["ms"]) / 2 * 1e3,
-                  "sorted_us": t_s["plain_ms"] * 1e3,
+    fleet_unit = {"ordered_us": (t["ms"] + t_p["ms"]) / 2 * 1e3,
+                  "parent_us": t_p["plain_ms"] * 1e3,
                   "atomic_us": t["plain_ms"] * 1e3}
     seq = chip_smoke.sequence(fl, dev)
     inputs = scaling.build_fleet_inputs(fp, seq, b)
     drv = scan_driver.run_sequence_batch
     fleet_turns = []
-    for name, fn in scatters:
-        with chip_smoke.scatter_swapped(fn):
+    for name in names:
+        with path(name):
             chip_smoke.run_fleet(drv, fp, inputs, dev)     # warm-up
             rate, walls = chip_smoke.fleet_rate(drv, fp, inputs, dev)
         fleet_turns.append((name, rate, walls))
-        print(f"  fleet B={b}, {name} scatter: {rate:.1f} aggregate "
+        print(f"  fleet B={b}, {name} path: {rate:.1f} aggregate "
               f"scans/s (median of {', '.join(f'{w:.3f}' for w in walls)}"
               " s)")
     print(json.dumps({"gpu": gpu, "tree": ROOT, "scans": scans,

@@ -48,13 +48,20 @@ The others write one evaluation's (f, g, H) as 13 floats:
 a matrix in one fixed order, one block a row; its plain twin is
 torch.sum.
 
-`csrc/segment_sum.cu` holds `segment_add_rows`, the map update's
-fixed-order sum (ndt_map.scatter_add_rows: every add_points_touched and
-update_occupancy on the card): each touched row summed in entry order
-onto its old value, the CPU's index_add bits, one launch after a stable
-sort of the indices (the launch stages the entries in sorted order in a
-scratch buffer the wrapper allocates).  Plain twin:
-`segment_add_rows_reference` (index_add).
+`csrc/segment_sum.cu` holds `segment_add_rows`, the map statistics'
+fixed-order sum (ndt_map.scatter_add_rows: every add_points_touched on
+the card): each touched row summed in entry order onto its old value,
+the CPU's index_add bits, one launch after a stable sort of the indices
+(the launch stages the entries in sorted order in a scratch buffer the
+wrapper allocates).  Plain twin: `segment_add_rows_reference`
+(index_add).
+
+`csrc/occupancy.cu` holds `update_occupancy`, the map's occupancy
+update (ndt_map.update_occupancy on the card): integer hit and miss
+counts a cell in a count pass, then each cell's adds in entry order from
+registers and the clamp in a row pass, two launches, the CPU's bits.
+Plain twin: ndt_map._update_occupancy_plain (the eager ray build through
+scatter_add_rows).
 
 The sources are compiled with nvcc for sm_90a (one process a source,
 started together) into one shared library with a plain C interface at
@@ -69,7 +76,9 @@ launch the kernel or raise.  There is no fallback from the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -79,12 +88,13 @@ from typing import Optional
 
 import torch
 
-from ndt_feature_graph_tpu_torch.config import MatcherParams
-from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic
+from ndt_feature_graph_tpu_torch.config import MatcherParams, NDTMapParams
+from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic, ndt_map
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu")
+SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu",
+           _PKG / "csrc" / "occupancy.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -96,7 +106,8 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
             "newton_objective_batch": 0, "newton_solve": 0,
-            "newton_solve_batch": 0, "row_sum": 0, "segment_add_rows": 0}
+            "newton_solve_batch": 0, "row_sum": 0, "segment_add_rows": 0,
+            "occupancy_update": 0}
 
 
 _lib = None
@@ -121,9 +132,9 @@ def _nvcc():
 
 
 def build():
-    """Compile csrc/pair_fgh.cu and csrc/segment_sum.cu into one library
-    (if this hash of the sources and flags is not built yet: editing
-    either rebuilds it) and load it.  Each source is compiled by its own
+    """Compile the sources of csrc/ (SOURCES) into one library (if this
+    hash of the sources and flags is not built yet: editing any rebuilds
+    it) and load it.  Each source is compiled by its own
     nvcc process, all started together, then linked.  Returns the
     ctypes library."""
     global _lib, build_log
@@ -187,6 +198,13 @@ def build():
     lib.ndtg_segment_max_channels.restype = I
     lib.ndtg_segment_add_rows.argtypes = [P, P, LL, LL, I, P, P, P, P, P, P]
     lib.ndtg_segment_add_rows.restype = I
+    lib.ndtg_occupancy_update.argtypes = [
+        P, P, P, LL, P, LL, P, P, LL,  # occ, out, origin, sensor, points
+        I, I, I, F, I,                 # P, h, w, resolution, samples
+        F, F, F, F,                    # hit, miss, lo, hi
+        P, I, P, P,                    # counts, wide, chain, stream
+    ]
+    lib.ndtg_occupancy_update.restype = I
     _lib = lib
     return lib
 
@@ -959,3 +977,99 @@ def segment_add_rows(bases, idx, vals):
     _raise_on(err, "segment_add_rows")
     LAUNCHES["segment_add_rows"] += 1
     return outs
+
+
+_OCC_COUNTS = {}      # (device, stream) -> the occupancy counters, zero
+
+
+def _occupancy_counts(dev, stream, n_rows: int):
+    """The count pass's counters for `stream`: 8 bytes a row, all zero
+    (the row pass zeroes what it reads), grown as needed."""
+    key = (dev, stream)
+    buf = _OCC_COUNTS.get(key)
+    if buf is None or buf.numel() < n_rows:
+        buf = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+        _OCC_COUNTS[key] = buf
+    return buf
+
+
+def _rows_of(name, t, lead, dev):
+    """`t` broadcast to (*lead, 2) float32 as an (n, 2) view with unit
+    inner stride: (tensor, stride between rows)."""
+    if t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                         f"float32 on {dev}")
+    try:
+        rows = t.expand(*lead, 2).reshape(-1, 2)
+    except RuntimeError as e:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{(*lead, 2)}") from e
+    if rows.stride(1) != 1:
+        rows = rows.contiguous()
+    return rows, rows.stride(0)
+
+
+def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
+                     chain=None):
+    """ndt_map.update_occupancy: the grid (or stack of grids) with its
+    `occ` updated along the beams of pts (..., P, 2) / mask (..., P)
+    seen from sensor_origin (..., 2), then clamped.  A new tensor; the
+    grid's is not changed.
+
+    On CUDA tensors: TWO launches of the occupancy kernel
+    (csrc/occupancy.cu: integer hit / miss counts a cell, then each
+    row's adds in entry order and the clamp), the CPU's bits; with
+    `chain`, an int32 tensor of one element a row, it also writes the
+    number of adds each row's chain made.  On the CPU,
+    ndt_map._update_occupancy_plain."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return ndt_map._update_occupancy_plain(grid, params, sensor_origin,
+                                               pts, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"update_occupancy: unsupported device {dev}")
+    if pts.dim() < 2 or pts.shape[-1] != 2:
+        raise ValueError(f"update_occupancy: points of shape "
+                         f"{tuple(pts.shape)}, expected (..., P, 2)")
+    lead, n_pts = tuple(pts.shape[:-2]), pts.shape[-2]
+    h, w, samples = params.grid_h, params.grid_w, params.ray_samples
+    n = math.prod(lead)
+    n_rows = n * h * w
+    if n_rows >= 2 ** 31 or n_pts * samples >= 2 ** 32 or samples < 1:
+        raise ValueError(f"update_occupancy: {n_rows} cells, {n_pts} x "
+                         f"{samples} samples: at most 2^31 - 1 cells, 2^32 "
+                         "- 1 samples a stream, one sample a beam")
+    pts = pts.contiguous()
+    _check("update_occupancy pts", pts, torch.float32, (*lead, n_pts, 2),
+           dev)
+    mask = mask.contiguous()
+    _check("update_occupancy mask", mask, torch.bool, (*lead, n_pts), dev)
+    occ = grid.occ.contiguous()
+    _check("update_occupancy occ", occ, torch.float32, (*lead, h, w), dev)
+    origin, o_stride = _rows_of("update_occupancy origin", grid.origin,
+                                lead, dev)
+    sensor, s_stride = _rows_of("update_occupancy sensor_origin",
+                                sensor_origin, lead, dev)
+    if chain is not None:
+        _check("update_occupancy chain", chain, torch.int32, (n_rows,), dev)
+    out = torch.empty_like(occ)
+    if n_rows == 0:
+        return dataclasses.replace(grid, occ=out)
+    lib = build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counts = _occupancy_counts(dev, stream, n_rows)
+        err = lib.ndtg_occupancy_update(
+            occ.data_ptr(), out.data_ptr(), origin.data_ptr(),
+            o_stride, sensor.data_ptr(), s_stride, pts.data_ptr(),
+            mask.data_ptr(), n, n_pts, h, w, params.resolution, samples,
+            params.occ_hit, params.occ_miss, -params.occ_clamp,
+            params.occ_clamp, counts.data_ptr(),
+            int(n_pts >= 2 ** 16 or n_pts * samples >= 2 ** 16),
+            None if chain is None else chain.data_ptr(), stream)
+    if err != 0:
+        # A pass that did not run leaves its counters as they are.
+        _OCC_COUNTS.pop((dev, stream), None)
+    _raise_on(err, "update_occupancy")
+    LAUNCHES["occupancy_update"] += 1
+    return dataclasses.replace(grid, occ=out)

@@ -24,7 +24,9 @@ Differences from the JAX reference, by construction:
   * The scatter-adds sum each cell's contributions one after another
     onto its old value, in the order of the points, on the CPU and on
     the card alike (`scatter_add_rows`: index_add on the CPU, the
-    hand-written segment-sum kernel on the card, one launch a scatter):
+    hand-written segment-sum kernel on the card, one launch a scatter;
+    the occupancy update on the card is a kernel of its own, which
+    counts each cell's hits and misses and adds them in that order):
     a map update repeats bit for bit, and the card's equals the CPU's.
 """
 
@@ -231,8 +233,26 @@ def update_occupancy(grid: NDTGrid, params: NDTMapParams, sensor_origin,
                      pts, mask) -> NDTGrid:
     """Log-odds occupancy along beams: endpoint cells get `occ_hit`,
     cells sampled along the ray (`ray_samples` per beam) get
-    `occ_miss`.  sensor_origin (..., 2), pts (..., P, 2), mask (..., P):
-    leading dims index a stack of grids."""
+    `occ_miss`, then every cell is clamped to +-`occ_clamp`.
+    sensor_origin (..., 2), pts (..., P, 2), mask (..., P): leading dims
+    index a stack of grids.
+
+    cuda_kernels.update_occupancy: on the card the occupancy kernel (two
+    launches, integer counts a cell, no sort), on the CPU
+    _update_occupancy_plain; the same bits on both."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.update_occupancy(grid, params, sensor_origin, pts,
+                                         mask)
+
+
+def _update_occupancy_plain(grid: NDTGrid, params: NDTMapParams,
+                            sensor_origin, pts, mask) -> NDTGrid:
+    """The plain version of update_occupancy: the rays built eagerly,
+    each cell taking its hits, then its misses, in point order through
+    scatter_add_rows, then the clamp.  On the card it is the path the
+    occupancy kernel replaced, kept as its yardstick (chip_smoke.py
+    phase 3e)."""
     h, w = params.grid_h, params.grid_w
     iy, ix = cell_index(params, grid.origin[..., None, :], pts)
     mask = mask & torch.isfinite(pts).all(-1)

@@ -5,7 +5,8 @@ over the same objective kernel), the Newton-trial objective
 (`newton_objective`, with the paired front end on its own), the window
 term, the batch entry, the fleet step's `newton_objective_batch` and the
 paired reduction; the map update's `segment_add_rows` against the CPU's
-index_add bits and the sorted index_put_ path it replaced; the sharded
+index_add bits and the sorted index_put_ path it replaced, and its
+`occupancy_update` against the CPU's plain twin; the sharded
 dense solve in an NCCL world of one rank; and the chunked graph driver
 against its CPU twin.  Marked `cuda`: they
 skip without a CUDA card.  The file imports no JAX, so it also runs
@@ -122,7 +123,7 @@ def test_newton_objective_matches_plain(cuda_device, n, n_src):
         "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
         "fgh_dense_flat_batch": 0, "newton_objective_batch": 0,
         "newton_solve": 0, "newton_solve_batch": 0, "row_sum": 0,
-        "segment_add_rows": 0}
+        "segment_add_rows": 0, "occupancy_update": 0}
     chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
                        got, cuda_kernels.newton_objective_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -184,8 +185,9 @@ def test_newton_solve_batch_matches_plain_and_the_per_trial_path(
 def test_fuser_update_launches_one_objective_per_trial(cuda_device):
     """fuser.update on CUDA tensors registers in one `newton_solve`
     launch (the whole Newton loop on the card) and launches no other
-    entry but `segment_add_rows`, once a map update: the scan's cell
-    list, its points, its occupancy."""
+    entry but `segment_add_rows`, once a statistics update (the scan's
+    cell list, its points), and `occupancy_update`, once for its
+    occupancy."""
     from ndt_feature_graph_tpu_torch.fusion import fuser
     from ndt_feature_graph_tpu_torch.io import dataset
 
@@ -201,7 +203,8 @@ def test_fuser_update_launches_one_objective_per_trial(cuda_device):
         _, info = fuser.update(state, p, t(fx["odom"][1]), pts, mask, fs,
                                ft)
     assert cuda_kernels.LAUNCHES["newton_solve"] == 1
-    assert cuda_kernels.LAUNCHES["segment_add_rows"] == updates["n"] == 3
+    assert cuda_kernels.LAUNCHES["segment_add_rows"] == updates["stats"] == 2
+    assert cuda_kernels.LAUNCHES["occupancy_update"] == updates["occ"] == 1
     assert sum(cuda_kernels.LAUNCHES.values()) == 1 + 3
     assert int(info.iterations) >= 1
 
@@ -256,8 +259,8 @@ def test_newton_objective_batch_matches_plain(cuda_device, lanes):
     torch.cuda.synchronize()
     assert np.isfinite(out["max_abs_err"])
     n = cuda_kernels.LAUNCHES["newton_objective_batch"]
-    n_map = cuda_kernels.LAUNCHES["segment_add_rows"]
-    assert n_map == updates["n"]
+    chip_smoke.check_map_launches(cuda_kernels.LAUNCHES, updates, "3d")
+    n_map = chip_smoke.map_launches(cuda_kernels.LAUNCHES)
     assert n > 0 and sum(cuda_kernels.LAUNCHES.values()) == n + n_map
 
 
@@ -267,9 +270,9 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
                                                        features):
     """A fleet step on CUDA tensors registers its B streams in one
     `newton_solve_batch` launch and launches no other entry but
-    `segment_add_rows`, once a map update of the whole stack (the
-    streams' first scans, then the step's cell lists, points and
-    occupancy)."""
+    `segment_add_rows`, once a statistics update of the whole stack
+    (the streams' first scans, then the step's cell lists and points),
+    and `occupancy_update`, once an occupancy update of the stack."""
     from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
     from ndt_feature_graph_tpu_torch.parallel import scaling
 
@@ -287,7 +290,8 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
             states, odom, pts, mask = scaling.build_fleet_inputs(fp, seq, 8)
             _, info = fuser.update_batch(states, fp, odom[:, 0], pts[:, 0],
                                          mask[:, 0])
-    n_map = cuda_kernels.LAUNCHES["segment_add_rows"]
+    chip_smoke.check_map_launches(cuda_kernels.LAUNCHES, updates, "step")
+    n_map = chip_smoke.map_launches(cuda_kernels.LAUNCHES)
     assert n_map == updates["n"] >= 3
     assert cuda_kernels.LAUNCHES["newton_solve_batch"] == 1
     assert sum(cuda_kernels.LAUNCHES.values()) == 1 + n_map
@@ -385,21 +389,56 @@ def test_solvers_on_the_card_match_the_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("streams", [0, 3, 64])
 def test_map_update_repeats_and_equals_the_cpu(cuda_device, streams):
-    """The fixed-order map scatter (ops/ndt_map.scatter_add_rows, the
-    `segment_add_rows` kernel): the same canonical scans added to one
+    """The map update on the card (the statistics through the
+    fixed-order scatter, ops/ndt_map.scatter_add_rows: the
+    `segment_add_rows` kernel; the occupancy through the
+    `occupancy_update` kernel): the same canonical scans added to one
     grid (or a stack of 3 or 64) twice on the card give identical bits,
-    and the CPU's, one launch a scatter."""
+    and the CPU's, one launch of each a scan."""
     with np.load(chip_smoke.FIXTURE) as f:
         fx = dict(f)
     mp = chip_smoke.canonical_slam_params().fuser.ndt
-    before = cuda_kernels.LAUNCHES["segment_add_rows"]
+    before = {k: cuda_kernels.LAUNCHES[k] for k in chip_smoke.MAP_ENTRIES}
     a = chip_smoke.map_update_case(mp, fx, cuda_device, streams)
     b = chip_smoke.map_update_case(mp, fx, cuda_device, streams)
-    assert cuda_kernels.LAUNCHES["segment_add_rows"] == before + 12
+    assert cuda_kernels.LAUNCHES["segment_add_rows"] == (
+        before["segment_add_rows"] + 6)
+    assert cuda_kernels.LAUNCHES["occupancy_update"] == (
+        before["occupancy_update"] + 6)
     c = chip_smoke.map_update_case(mp, fx, torch.device("cpu"), streams)
     for k in a:
         assert np.array_equal(chip_smoke._bits(a[k]), chip_smoke._bits(b[k]))
         assert np.array_equal(chip_smoke._bits(a[k]), chip_smoke._bits(c[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [0, 3, 64])
+def test_occupancy_update_equals_the_cpu(cuda_device, streams):
+    """The occupancy kernel against its plain twin on the CPU, bit for
+    bit and on repeat, over chip_smoke.occupancy_cases (the cases of
+    tests/test_torch_occupancy.py's mirror: the chain's stop both ways
+    and none, -0.0 bases, NaN and far points, a sensor off the grid,
+    64-bit counters, a 0.3 m grid), one call a launch counted."""
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    off = chip_smoke.occupancy_case_checks(mp, fx, cuda_device, streams)
+    assert not any(off.values()), off
+
+
+@pytest.mark.cuda
+def test_occupancy_update_refuses_bad_inputs(cuda_device):
+    """float64 points and a mask of the wrong shape raise (no silent
+    plain version on the card)."""
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    grid = ndt_map.empty_grid(mp, torch.zeros(2, device=cuda_device))
+    pts = torch.zeros(8, 2, device=cuda_device)
+    mask = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    sensor = torch.zeros(2, device=cuda_device)
+    with pytest.raises(ValueError):
+        cuda_kernels.update_occupancy(grid, mp, sensor, pts.double(), mask)
+    with pytest.raises(ValueError):
+        cuda_kernels.update_occupancy(grid, mp, sensor, pts, mask[:4])
 
 
 def _segment_case(widths, dev, n_rows, idx, seed):
@@ -612,8 +651,8 @@ def test_run_graph_chunk_on_the_card_matches_the_cpu(cuda_device):
     """run_graph_chunk over the canonical fixture's scans 1-16 (a split at
     the fixture's node distance), on the card and on the CPU twin from
     the same initial state and draws: one `newton_solve` launch a
-    processed scan, one `segment_add_rows` launch a map update and no
-    other entry, the same meta, poses within 1e-3 m / rad (the kernel
+    processed scan, one `segment_add_rows` launch a statistics update,
+    one `occupancy_update` an occupancy update and no other entry, the same meta, poses within 1e-3 m / rad (the kernel
     sums in another order than the plain registration) and scores
     within rtol 1.4e-3.  Measured on the H100
     (examples/measure_chunk_spread.py --card and --inputs): the card's
@@ -647,12 +686,13 @@ def test_run_graph_chunk_on_the_card_matches_the_cpu(cuda_device):
                 ransac_u=T(fx["ransac_u"][:16]))
         out[str(dev)] = (traj.cpu().numpy(), scores.cpu().numpy(),
                          meta.numpy(), dict(cuda_kernels.LAUNCHES),
-                         updates["n"])
+                         updates)
     cpu, card = out["cpu"], out[str(cuda_device)]
     n_proc = int(card[2][2])
     assert 1 <= n_proc <= 16
-    n_map = card[3]["segment_add_rows"]
-    assert n_map == card[4] >= 3 * n_proc
+    chip_smoke.check_map_launches(card[3], card[4], "run_graph_chunk")
+    n_map = chip_smoke.map_launches(card[3])
+    assert n_map == card[4]["n"] >= 3 * n_proc
     assert card[3]["newton_solve"] == n_proc == sum(card[3].values()) - n_map
     assert not any(cpu[3].values())
     np.testing.assert_array_equal(card[2][1:], cpu[2][1:])
