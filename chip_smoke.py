@@ -39,14 +39,17 @@ Runs on a machine with a CUDA card and no JAX:
          add_points_touched + update_occupancy of three canonical
          scans, into one grid and stacks of 3 and 64; the occupancy's
          edge cases, occupancy_cases, at 1, 3 and 64 grids; a scatter
-         with 5,000 entries on one cell) on the card equals the CPU's
+         with 5,000 entries on one cell; the segment sum's layouts,
+         segment_layout_cases) on the card equals the CPU's
          bit for bit, equals the parent's path (the sorted index_put_
          statistics, the occupancy's plain twin through
          segment_add_rows) and repeats, one launch of each a scan; one
          scan's update and a B = 64 fleet step's timed in turns against
          the parent's path and the atomic index_add, with their device
          operations, and each kernel entry on those shapes beside its
-         bound (segment_sum_checks, occupancy_checks: the longest chain
+         bound (segment_sum_checks: by the profiler's names only its
+         two passes run, no sort, with each pass's time and a cold-L2
+         time; occupancy_checks: the longest chain
          of the occupancy's row pass); torch.sqrt of 2^20 float32
          values on the card equals numpy.sqrt (0 elements differ);
      the three timed runs repeat the first run's trajectory bit for bit
@@ -609,20 +612,16 @@ def time_ms(fn, reps=200):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps=50):
-    """Mean device time per call, ms: the summed time of the kernels
-    `fn` launches (torch.profiler), without the host's launch gaps."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_WARMUP_S = 0.02   # device_by_kernel: calls before the profiled ones
+SPIN_CYCLES = 20_000      # its spin kernels, ~10 us at 1,980 MHz
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in on_dev) * 1e-3 / reps
+
+def device_ms(fn, reps=50, launches=None):
+    """Mean device time per call, ms: the summed time of the kernels
+    `fn` launches (torch.profiler), without the host's launch gaps.
+    `launches`: as device_by_kernel's."""
+    return sum(us for _, us in device_by_kernel(fn, reps, launches)
+               .values()) * 1e-3
 
 
 def cold_ms(fn, flush, reps=50):
@@ -643,14 +642,18 @@ def cold_ms(fn, flush, reps=50):
     return sum(start.elapsed_time(end) for start, end in marks) / reps
 
 
-def time_turns(kernel, plain, reps=50, plain_reps=10, label="plain"):
+def time_turns(kernel, plain, reps=50, plain_reps=10, label="plain",
+               launches=None, plain_launches=None):
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain) inside this one call.  Returns the means as {"ms",
     "plain_ms"} (device time) and {"events_ms", "plain_events_ms"}
     (with the host), and prints every reading; `label` names the
-    other version."""
-    dev_t = [device_ms(plain, plain_reps), device_ms(kernel, reps),
-             device_ms(kernel, reps), device_ms(plain, plain_reps)]
+    other version; `launches` / `plain_launches`: the device operations
+    a call of each must show in its profiles (device_by_kernel)."""
+    dev_t = [device_ms(plain, plain_reps, plain_launches),
+             device_ms(kernel, reps, launches),
+             device_ms(kernel, reps, launches),
+             device_ms(plain, plain_reps, plain_launches)]
     ev_t = [time_ms(plain, plain_reps), time_ms(kernel, reps),
             time_ms(kernel, reps), time_ms(plain, plain_reps)]
     fmt = lambda t: ", ".join(f"{x * 1e3:.2f}" for x in t)  # noqa: E731
@@ -2924,32 +2927,62 @@ def scatter_bytes(bases, idx, vals):
 def device_ops_per_call(fn, reps=20):
     """Mean number of device operations (kernels, copies, memsets) a
     call of `fn` launches (torch.profiler)."""
+    return sum(n for n, _ in device_by_kernel(fn, reps).values())
+
+
+def device_by_kernel(fn, reps=50, launches=None, tries=5):
+    """{name: (launches, device us)} per call of `fn`, by the name of
+    each device operation it runs: kernels, copies and memsets
+    (torch.profiler).  The profiler can miss the first launches after
+    it starts (it missed one scan's first kernel, and a B = 64
+    scatter's first 40 calls): inside the profile, `fn` first runs for
+    PROFILE_WARMUP_S, then a spin kernel (torch.cuda._sleep), the `reps`
+    calls, and a second spin, and only what starts between the spins
+    counts.  A profile that misses a spin, or, with `launches` (the
+    device operations a call runs), sees another number between them,
+    is taken again, up to `tries` times, and the phase fails if none
+    does.  An operation's time is its start-to-end on the device: the
+    profiler's self_device_time_total reads 0 for an event it marks
+    asynchronous, which halved a kernel's mean in some profiles."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < PROFILE_WARMUP_S:
+                fn()
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        on_dev = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(on_dev) if "spin_kernel" in e.name]
+        calls = on_dev[spins[0] + 1:spins[1]] if len(spins) == 2 else None
+        if calls is not None and (launches is None
+                                  or len(calls) == launches * reps):
+            out = {}
+            for e in calls:
+                n, us = out.get(e.name, (0, 0.0))
+                out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            return {k: (n / reps, us / reps) for k, (n, us) in out.items()}
+        print(f"    the profiler saw {len(spins)} of 2 spins and "
+              f"{'no' if calls is None else len(calls)} device operations "
+              f"between them of {launches} x {reps}: taken again")
+    raise PhaseError(f"no profile of {tries} saw {launches} device "
+                     f"operations a call in {reps} calls between its spins")
 
 
-def device_us_by_kernel(fn, reps=50):
-    """Mean device time per call of `fn`, us, by kernel name
-    (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+def ops_per_call(fn, tries=3):
+    """The device operations one call of `fn` runs: the most that
+    `tries` profiles of one call see (the profiler can drop events,
+    never add them)."""
+    return max(round(sum(n for n, _ in device_by_kernel(fn, 1).values()))
+               for _ in range(tries))
 
 
 def segment_sum_checks(name, calls):
@@ -2957,17 +2990,23 @@ def segment_sum_checks(name, calls):
     update (its statistics: the main path's shapes, or a fleet step's;
     the occupancy has a kernel of its own): the CPU's
     index_add bits (its plain version on the same inputs on the CPU:
-    tolerance 0), the parent's sorted index_put_ path's bits, identical
-    bits on repeat, one launch a scatter; device time and time with the
+    tolerance 0), the sorted index_put_ path's bits, identical
+    bits on repeat, one counted launch a scatter; by the profiler's
+    names, no device operation but its two passes (no sort, no copy,
+    no memset), each once a scatter (the bucket pass where it has
+    entries), in a profile that saw every launch; device time and time with the
     host in turns against the sorted path and against the plain version
     on the card (index_add, atomic: the one PyTorch call of the same
-    function, `library_ms`), beside the bound of the bytes it must
-    move."""
+    function, `library_ms`), on a cold L2 against index_add, and each
+    pass's device time, beside the bound of the bytes it must move."""
     before = cuda_kernels.LAUNCHES["segment_add_rows"]
     got = [cuda_kernels.segment_add_rows(*c) for c in calls]
     again = [cuda_kernels.segment_add_rows(*c) for c in calls]
     check(cuda_kernels.LAUNCHES["segment_add_rows"] == before
           + 2 * len(calls), f"{name}: not one launch a scatter")
+    # Its passes a call: the bucket pass where a scatter has entries.
+    n_bucket = sum(int(c[1].numel() > 0) for c in calls)
+    n_launch = n_bucket + len(calls)
     srt = [ndt_map._scatter_add_rows_sorted(*c) for c in calls]
     err, n_diff, n_sorted = 0.0, 0, 0
     for c, g, a, o in zip(calls, got, again, srt):
@@ -2999,11 +3038,37 @@ def segment_sum_checks(name, calls):
     def sorted_path():
         return [ndt_map._scatter_add_rows_sorted(*c) for c in calls]
 
+    # Exactly its passes: the profile sees n_launch device operations a
+    # call, or is taken again (device_by_kernel).
+    ops = device_by_kernel(kernel, launches=n_launch)
+    n_ops = sum(n for n, _ in ops.values())
+    n_pass = lambda part: sum(  # noqa: E731
+        n for k, (n, _) in ops.items() if part in k)
+    print(f"    device operations a call of the {len(calls)} scatters: "
+          + ", ".join(f"{k[:60]} x {n:.1f}" for k, (n, _) in ops.items()))
+    check(all("segment_add_rows" in k for k in ops)
+          and n_pass("segment_add_rows_bucket_pass") == n_bucket
+          and n_pass("segment_add_rows_row_pass") == len(calls),
+          f"{name}: segment_add_rows ran another device operation than "
+          f"its two passes (a sort, a copy, a memset), or not each pass "
+          f"once a scatter: {sorted(ops)}")
     t_sorted = time_turns(kernel, sorted_path, 50, 50,
-                          label="sorted index_put_")
-    t_atomic = time_turns(kernel, plain, 50, 50, label="index_add")
-    by_kernel = device_us_by_kernel(kernel)
-    own = sum(v for k, v in by_kernel.items() if "segment_add_rows" in k)
+                          label="sorted index_put_", launches=n_launch,
+                          plain_launches=ops_per_call(sorted_path))
+    t_atomic = time_turns(kernel, plain, 50, 50, label="index_add",
+                          launches=n_launch,
+                          plain_launches=ops_per_call(plain))
+    # On a cold L2 full of dirty lines, as a fleet step's other work
+    # leaves it: a read-modify-write of L2_FLUSH_BYTES before each call.
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=calls[0][1].device)
+    cold = [cold_ms(f, lambda: buf.add_(1.0))
+            for f in (plain, kernel, kernel, plain)]
+    del buf
+    print("    device time on a cold, dirty L2, us (index_add, kernel, "
+          "kernel, index_add; CUDA events): "
+          + ", ".join(f"{t * 1e3:.2f}" for t in cold))
+    by_kernel = {k: us for k, (_, us) in ops.items()}
+    own = sum(by_kernel.values())
     n_bytes = sum(scatter_bytes(*c) for c in calls)
     n_adds = sum(c[1].numel() * sum(b.shape[1] for b in c[0]) for c in calls)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_adds / F32_FLOP_PER_S
@@ -3015,29 +3080,134 @@ def segment_sum_checks(name, calls):
            "sorted_ms": t_sorted["plain_ms"],
            "sorted_events_ms": t_sorted["plain_events_ms"],
            "kernel_alone_ms": own * 1e-3,
+           "bucket_pass_ms": sum(v for k, v in by_kernel.items()
+                                 if "bucket_pass" in k) * 1e-3,
+           "row_pass_ms": sum(v for k, v in by_kernel.items()
+                              if "row_pass" in k) * 1e-3,
+           "device_ops": n_ops,
+           "cold_ms": (cold[1] + cold[2]) / 2,
+           "library_cold_ms": (cold[0] + cold[3]) / 2,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": n_bytes, "scatters": len(calls)}
     out["library_ms"] = out["plain_ms"]
-    print(f"    device us: kernel + its sort {out['ms'] * 1e3:.2f} (the "
-          f"kernel alone {own:.2f}; by name: "
-          + ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(
+    print(f"    device us: the entry {out['ms'] * 1e3:.2f} (bucket pass "
+          f"{out['bucket_pass_ms'] * 1e3:.2f}, row pass "
+          f"{out['row_pass_ms'] * 1e3:.2f}; by name: "
+          + ", ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(
               by_kernel.items(), key=lambda kv: -kv[1]))
           + f"), sorted index_put_ {out['sorted_ms'] * 1e3:.2f}, index_add "
           f"{out['plain_ms'] * 1e3:.2f}; with the host "
           f"{out['events_ms'] * 1e3:.2f} / "
           f"{out['sorted_events_ms'] * 1e3:.2f} / "
-          f"{out['plain_events_ms'] * 1e3:.2f}; bound "
+          f"{out['plain_events_ms'] * 1e3:.2f}; cold L2 "
+          f"{out['cold_ms'] * 1e3:.2f} (index_add "
+          f"{out['library_cold_ms'] * 1e3:.2f}); bound "
           f"{out['bound_ms'] * 1e3:.3f} ({out['bound_by']}: "
           f"{n_bytes / 1e6:.2f} MB)")
     return out
 
 
+def segment_layout_cases(dev, widths):
+    """The segment sum's layouts beyond the map's own scatters, at the
+    map's 40,000 rows: [(name, (bases, idx, vals) on the CPU, the same
+    on `dev`)]: every entry on one row (3,000, three tiles and six row
+    chunks); a row block's entries in every one of five tiles; 1,300
+    entries in one row block (three chunks); no entry; one entry;
+    -0.0 bases with a third of the values -0.0; a stack of 8 grids' scan
+    with 40% of its points dropped, their zeros at k mod the cells
+    (ndt_map._drop_rows, the fleet's); rows past 16,384 row blocks of
+    256 rows (the kernel's kMaxBuckets), so a bucket holds two row
+    blocks (4,195,304 rows)."""
+    rng = np.random.default_rng(sum(widths))
+    n = 40_000
+    cases = {
+        "one row": (n, np.full(3_000, n // 2 + 17)),
+        "multi-tile": (n, np.where(np.arange(5_000) % 7 == 0,
+                                   rng.integers(512, 768, 5_000),
+                                   rng.integers(0, n, 5_000))),
+        "multi-chunk": (n, np.concatenate([rng.integers(256, 512, 1_300),
+                                           rng.integers(0, n, 400)])),
+        "M = 0": (n, np.zeros(0, np.int64)),
+        "M = 1": (n, np.array([n - 1])),
+        "-0.0 bases": (n, rng.integers(0, n // 4, 4_000)),
+        "wide buckets": (16_384 * 256 + 1_000, np.concatenate([
+            rng.integers(0, 16_384 * 256 + 1_000, 3_000),
+            np.full(300, 16_384 * 256 + 999), np.full(300, 300)])),
+    }
+    out = []
+    for name, (n_rows, idx) in cases.items():
+        m = len(idx)
+        bases = [rng.standard_normal((n_rows, c)).astype(np.float32)
+                 for c in widths]
+        vals = [(rng.standard_normal((m, c)) * 10.0 ** rng.integers(
+            -3, 3, (m, 1))).astype(np.float32) for c in widths]
+        if name == "-0.0 bases":
+            bases = [np.full_like(b, -0.0) for b in bases]
+            for v in vals:
+                v[::3] = -0.0
+        out.append((name, n_rows, idx, bases, vals))
+    lead, cells, pts = (8,), 40_000, 720
+    ok = torch.as_tensor(rng.random(lead + (pts,)) < 0.6)
+    flat = torch.as_tensor(rng.integers(0, cells, lead + (pts,)))
+    idx = torch.where(ok, flat + ndt_map._stream_offsets(lead, cells, "cpu"),
+                      ndt_map._drop_rows(ok.shape, 8 * cells, "cpu"))
+    vals = [(rng.standard_normal((8 * pts, c))
+             * ok.reshape(-1, 1).numpy()).astype(np.float32) for c in widths]
+    bases = [rng.standard_normal((8 * cells, c)).astype(np.float32)
+             for c in widths]
+    out.append(("dropped entries", 8 * cells, idx.reshape(-1).numpy(), bases,
+                vals))
+    cases = []
+    for name, n_rows, idx, bases, vals in out:
+        cpu = ([torch.as_tensor(b) for b in bases],
+               torch.as_tensor(np.asarray(idx, np.int64)),
+               [torch.as_tensor(v) for v in vals])
+        cases.append((name, cpu, ([b.to(dev) for b in cpu[0]],
+                                  cpu[1].to(dev),
+                                  [v.to(dev) for v in cpu[2]])))
+    return cases
+
+
+def segment_layout_checks(dev):
+    """segment_add_rows on every case of segment_layout_cases at the
+    map's 1 + 2 + 4 channels and at one: the CPU's bits, the sorted
+    path's (where there are entries, and where that path gives the
+    CPU's bits: its sums start from +0.0, so a -0.0 base whose entries
+    sum to a zero comes out +0.0 there), the same bits on repeat, one
+    launch a call.  ({case: elements off, plus 1 if a repeat differs},
+    {case: the sorted path's own elements off the CPU's bits})."""
+    out, sorted_own = {}, {}
+    for widths in ((1, 2, 4), (1,)):
+        for name, (cb, ci, cv), (gb, gi, gv) in segment_layout_cases(
+                dev, widths):
+            before = cuda_kernels.LAUNCHES["segment_add_rows"]
+            got = cuda_kernels.segment_add_rows(gb, gi, gv)
+            again = cuda_kernels.segment_add_rows(gb, gi, gv)
+            check(dev.type != "cuda"
+                  or cuda_kernels.LAUNCHES["segment_add_rows"] == before + 2,
+                  f"{name}: not one segment_add_rows launch a call")
+            want = cuda_kernels.segment_add_rows_reference(cb, ci, cv)
+            srt = (ndt_map._scatter_add_rows_sorted(gb, gi, gv)
+                   if ci.numel() else want)
+            off = own = 0
+            for a, b, c, d in zip(got, again, want, srt):
+                a_np, c_np = _bits(a.cpu().numpy()), _bits(c.numpy())
+                d_np = _bits(d.cpu().numpy())
+                off += int((a_np != c_np).sum())
+                off += int(((a_np != d_np) & (d_np == c_np)).sum())
+                off += int(not torch.equal(a, b))
+                own += int((d_np != c_np).sum())
+            out[f"{name}, channels {widths}"] = off
+            sorted_own[f"{name}, channels {widths}"] = own
+    return out, sorted_own
+
+
 @contextlib.contextmanager
 def occupancy_plain():
     """ndt_map.update_occupancy replaced by its plain twin inside the
-    block: on the card the parent's path (the eager ray build, then
-    scatter_add_rows: segment_add_rows with its sort)."""
+    block: on the card the path the occupancy kernel replaced (the eager
+    ray build, then scatter_add_rows: segment_add_rows)."""
     kernel = ndt_map.update_occupancy
     ndt_map.update_occupancy = ndt_map._update_occupancy_plain
     try:
@@ -3120,8 +3290,11 @@ def occupancy_checks(name, mp, grid, scan):
           f"({adds} in all)")
     check(n_diff == 0 and n_parent == 0,
           f"{name}: occupancy_update is not the CPU's and the parent's bits")
-    t_p = time_turns(kernel, parent, 50, 50, label="parent's path")
-    t_l = time_turns(kernel, library, 50, 50, label="index_add alone")
+    n_launch = ops_per_call(kernel)
+    t_p = time_turns(kernel, parent, 50, 50, label="parent's path",
+                     launches=n_launch, plain_launches=ops_per_call(parent))
+    t_l = time_turns(kernel, library, 50, 50, label="index_add alone",
+                     launches=n_launch, plain_launches=ops_per_call(library))
     # On a cold L2 full of dirty lines, as a fleet step's statistics and
     # table refresh leave it: a read-modify-write of L2_FLUSH_BYTES before
     # each call.
@@ -3132,7 +3305,8 @@ def occupancy_checks(name, mp, grid, scan):
     print("    device time on a cold, dirty L2, us (parent's path, kernel, "
           "kernel, parent's path; CUDA events): "
           + ", ".join(f"{t * 1e3:.2f}" for t in cold))
-    by_kernel = device_us_by_kernel(kernel)
+    by_kernel = {k: us for k, (_, us) in device_by_kernel(
+        kernel, launches=n_launch).items()}
     own = sum(v for k, v in by_kernel.items() if "occupancy" in k)
     n_streams = grid.occ.numel() // (mp.grid_h * mp.grid_w)
     n_pts = mask.numel()
@@ -3184,7 +3358,9 @@ def map_update_phase(sp, fx, dev):
     64, three canonical scans, one launch a statistics update and one
     occupancy_update an occupancy update; every case of
     occupancy_cases at 1, 3 and 64 grids; a synthetic scatter with
-    5,000 entries on one cell.  One scan's update and one B = 64 fleet
+    5,000 entries on one cell and the layouts of segment_layout_cases
+    (one row, several tiles, several chunks, no entry and one, -0.0
+    bases, dropped entries, wide buckets).  One scan's update and one B = 64 fleet
     step's, timed in turns against the parent's path and the atomic
     index_add (swapped in as the whole map scatter, the occupancy
     through its plain twin); each kernel entry's own checks and times
@@ -3244,6 +3420,15 @@ def map_update_phase(sp, fx, dev):
                   f"{same}")
             check(same, "segment_add_rows departs from the CPU on a long run")
             out[f"long_run_{sum(widths)}"] = same
+        layouts, sorted_own = segment_layout_checks(dev)
+        print(f"  segment_add_rows' layouts (segment_layout_cases): elements "
+              f"off the CPU's and the sorted path's bits or not repeating "
+              f"{layouts}; the sorted path's own elements off the CPU's "
+              f"bits {sorted_own}")
+        check(not any(layouts.values()),
+              "segment_add_rows departs from the CPU on a layout")
+        out["segment_layouts"] = layouts
+        out["segment_layouts_sorted_off_cpu"] = sorted_own
     r, h = torch.as_tensor(fx["ranges"]), torch.as_tensor(fx["hit"])
     pts_cpu = dataset.scan_to_points(r, h)[0].numpy()
     pts_card = dataset.scan_to_points(r.to(dev), h.to(dev))[0].cpu().numpy()

@@ -115,10 +115,11 @@ def annotated_map_update():
     """The map update's functions inside profiler ranges: "map_update"
     around ndt_map.add_points_touched and update_occupancy,
     "map_occupancy" around update_occupancy alone, "map_scatter" around
-    ndt_map.scatter_add_rows (the fixed-order sum: the kernel and its
-    sort, or a parent tree's sorted index_put_ path; since the occupancy
-    kernel only the statistics' on the card), so a profile reads their
-    share of device time, whichever tree it runs."""
+    ndt_map.scatter_add_rows (the fixed-order sum: the kernel's two
+    passes, an older tree's sort and kernel, or its sorted index_put_
+    path; since the occupancy kernel only the statistics' on the card),
+    so a profile reads their share of device time, whichever tree it
+    runs."""
     from torch.profiler import record_function
 
     from ndt_feature_graph_tpu_torch.ops import ndt_map

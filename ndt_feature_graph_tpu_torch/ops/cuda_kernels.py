@@ -51,10 +51,11 @@ torch.sum.
 `csrc/segment_sum.cu` holds `segment_add_rows`, the map statistics'
 fixed-order sum (ndt_map.scatter_add_rows: every add_points_touched on
 the card): each touched row summed in entry order onto its old value,
-the CPU's index_add bits, one launch after a stable sort of the indices
-(the launch stages the entries in sorted order in a scratch buffer the
-wrapper allocates).  Plain twin: `segment_add_rows_reference`
-(index_add).
+the CPU's index_add bits, in two launches and no sort: a bucket pass
+groups each tile of entries by row block, stably, with integer counts,
+and a row pass adds each row's run in entry order (its scratch is one
+buffer a device and stream; each call writes what it reads).  Plain twin:
+`segment_add_rows_reference` (index_add).
 
 `csrc/occupancy.cu` holds `update_occupancy`, the map's occupancy
 update (ndt_map.update_occupancy on the card): integer hit and miss
@@ -196,7 +197,9 @@ def build():
     lib.ndtg_row_sum.restype = I
     lib.ndtg_segment_max_channels.argtypes = []
     lib.ndtg_segment_max_channels.restype = I
-    lib.ndtg_segment_add_rows.argtypes = [P, P, LL, LL, I, P, P, P, P, P, P]
+    lib.ndtg_segment_scratch_words.argtypes = [LL, LL]
+    lib.ndtg_segment_scratch_words.restype = LL
+    lib.ndtg_segment_add_rows.argtypes = [P, LL, LL, I, P, P, P, P, P, P]
     lib.ndtg_segment_add_rows.restype = I
     lib.ndtg_occupancy_update.argtypes = [
         P, P, P, LL, P, LL, P, P, LL,  # occ, out, origin, sensor, points
@@ -928,11 +931,14 @@ def segment_add_rows(bases, idx, vals):
     another in entry order, every add rounded once in float32 — the
     CPU's index_add.  New tensors; the bases are not changed.
 
-    On CUDA tensors: a stable sort of `idx` (as int32:
-    torch.sort(stable=True), equal indices keep their entry order), then
-    ONE launch of the segment-sum kernel for all the pairs (up to 8
-    float channels in all), no float atomics; on the CPU,
-    segment_add_rows_reference."""
+    On CUDA tensors: TWO launches of the segment-sum kernel for all the
+    pairs (up to 8 float channels in all), no sort and no float atomics:
+    a bucket pass groups each tile of 1,024 entries by row block of 256
+    rows, stably, and a row pass adds each row's entries in entry order
+    onto its old row (csrc/segment_sum.cu); one launch when M = 0.  Its
+    scratch is one buffer a (device, stream), grown as needed
+    (`_stream_buffer`); nothing else is allocated but the outputs.  On
+    the CPU, segment_add_rows_reference."""
     dev = idx.device
     if dev.type == "cpu":
         return segment_add_rows_reference(bases, idx, vals)
@@ -964,32 +970,41 @@ def segment_add_rows(bases, idx, vals):
             for b in bases]
     if n_rows == 0:
         return outs
-    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
-    stage = torch.empty(max(m, 1) * n_ch, dtype=torch.float32, device=dev)
     ptrs = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
         *[t.data_ptr() for t in ts])
     widths = (ctypes.c_int * n)(*[b.shape[1] for b in bases])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # In any state: each call writes what it reads.
+        scratch = _stream_buffer(
+            _SEGMENT_SCRATCH, dev, stream,
+            max(lib.ndtg_segment_scratch_words(m, n_rows), 2), torch.int32,
+            zeroed=False)
         err = lib.ndtg_segment_add_rows(
-            keys.data_ptr(), perm.data_ptr(), m, n_rows, n, ptrs(bases),
-            ptrs(vals), ptrs(outs), widths, stage.data_ptr(), stream)
+            idx.data_ptr(), m, n_rows, n, ptrs(bases), ptrs(vals),
+            ptrs(outs), widths, scratch.data_ptr(), stream)
+    if err != 0:
+        _SEGMENT_SCRATCH.pop((dev, stream), None)
     _raise_on(err, "segment_add_rows")
     LAUNCHES["segment_add_rows"] += 1
     return outs
 
 
-_OCC_COUNTS = {}      # (device, stream) -> the occupancy counters, zero
+_SEGMENT_SCRATCH = {}   # (device, stream) -> the segment sum's scratch
+_OCC_COUNTS = {}        # (device, stream) -> the occupancy counters, zero
 
 
-def _occupancy_counts(dev, stream, n_rows: int):
-    """The count pass's counters for `stream`: 8 bytes a row, all zero
-    (the row pass zeroes what it reads), grown as needed."""
+def _stream_buffer(cache, dev, stream, n: int, dtype, zeroed: bool):
+    """`cache`'s buffer for `stream`: `n` elements of `dtype` or more,
+    grown as needed; a new one is zero where `zeroed` (its kernel leaves
+    it so), else in any state.  The caller drops it from `cache` after
+    a failed launch."""
     key = (dev, stream)
-    buf = _OCC_COUNTS.get(key)
-    if buf is None or buf.numel() < n_rows:
-        buf = torch.zeros(n_rows, dtype=torch.int64, device=dev)
-        _OCC_COUNTS[key] = buf
+    buf = cache.get(key)
+    if buf is None or buf.numel() < n:
+        buf = (torch.zeros if zeroed else torch.empty)(n, dtype=dtype,
+                                                       device=dev)
+        cache[key] = buf
     return buf
 
 
@@ -1058,7 +1073,9 @@ def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
     lib = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        counts = _occupancy_counts(dev, stream, n_rows)
+        # Zero: the row pass zeroes the counters it reads.
+        counts = _stream_buffer(_OCC_COUNTS, dev, stream, n_rows,
+                                torch.int64, zeroed=True)
         err = lib.ndtg_occupancy_update(
             occ.data_ptr(), out.data_ptr(), origin.data_ptr(),
             o_stride, sensor.data_ptr(), s_stride, pts.data_ptr(),

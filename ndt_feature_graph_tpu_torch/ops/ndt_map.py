@@ -24,10 +24,11 @@ Differences from the JAX reference, by construction:
   * The scatter-adds sum each cell's contributions one after another
     onto its old value, in the order of the points, on the CPU and on
     the card alike (`scatter_add_rows`: index_add on the CPU, the
-    hand-written segment-sum kernel on the card, one launch a scatter;
-    the occupancy update on the card is a kernel of its own, which
-    counts each cell's hits and misses and adds them in that order):
-    a map update repeats bit for bit, and the card's equals the CPU's.
+    hand-written segment-sum kernel on the card, a bucket pass and a
+    row pass a scatter, no sort; the occupancy update on the card is a
+    kernel of its own, which counts each cell's hits and misses and
+    adds them in that order): a map update repeats bit for bit, and
+    the card's equals the CPU's.
 """
 
 from __future__ import annotations
@@ -138,10 +139,11 @@ def scatter_add_rows(bases, idx, vals):
     bit for bit and the card gives the CPU's bits.
 
     That is cuda_kernels.segment_add_rows: `index_add` (a serial loop)
-    on the CPU; on the card a stable sort of the indices and one launch
-    of the hand-written segment-sum kernel for all the pairs, which adds
-    each touched cell's entries in sorted (= entry) order onto its old
-    row.  Nothing rests on the order in which torch's own scatters add
+    on the CPU; on the card the hand-written segment-sum kernel for all
+    the pairs, two launches and no sort: a bucket pass groups each tile
+    of entries by block of rows, keeping entry order, and a row pass
+    adds each touched cell's entries in entry order onto its old row.
+    Nothing rests on the order in which torch's own scatters add
     (`index_add` adds with atomics on the card)."""
     # cuda_kernels imports this module (CellList), so it is imported
     # here, at the call.
@@ -155,7 +157,9 @@ def scatter_add_rows(bases, idx, vals):
 def _scatter_add_rows_sorted(bases, idx, vals):
     """The card's branch of scatter_add_rows before the segment-sum
     kernel, on no path now: kept as the yardstick the kernel is timed
-    and checked against (chip_smoke.py phase 3e).  It relies on torch
+    and checked against (chip_smoke.py phase 3e).  Its sums start from
+    +0.0, so a -0.0 row whose entries sum to a zero comes out +0.0
+    where index_add keeps -0.0.  It relies on torch
     2.11's CUDA `index_put_(accumulate=True)` stable-sorting the indices
     and adding each index's entries sequentially for rows of 2 to 32
     floats (one channel is padded to two), which torch does not

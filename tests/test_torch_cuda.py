@@ -455,29 +455,44 @@ def _segment_case(widths, dev, n_rows, idx, seed):
                  [v.to(dev) for v in cpu[2]])
 
 
+SEGMENT_LAYOUTS = ("one row", "multi-tile", "multi-chunk", "M = 0", "M = 1",
+                   "-0.0 bases", "wide buckets", "dropped entries")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths", [(1,), (2,), (4,), (1, 2, 4)],
                          ids=["w1", "w2", "w4", "w7"])
-@pytest.mark.parametrize("n_rows,m", [(1, 5), (1023, 4000), (1025, 4000),
-                                      (40_000, 720), (40_000, 35_280),
-                                      (5000, 0)])
+@pytest.mark.parametrize("case", [(1, 5), (1023, 4000), (1025, 4000),
+                                  (40_000, 720), (40_000, 35_280),
+                                  (5000, 0), *SEGMENT_LAYOUTS])
 def test_segment_add_rows_is_index_add_on_the_cpu(cuda_device, widths,
-                                                  n_rows, m):
+                                                  case):
     """The kernel against index_add on the CPU, bit for bit, on repeat,
-    and against the sorted index_put_ path it replaced on the card: rows
-    around a block's 1,024, the map update's two scatters, no entries;
-    one launch a call."""
-    rng = np.random.default_rng(n_rows + m)
-    idx = np.clip(rng.normal(n_rows / 2, n_rows / 8 + 1, m).astype(np.int64),
-                  0, n_rows - 1)
-    (cb, ci, cv), (gb, gi, gv) = _segment_case(widths, cuda_device, n_rows,
-                                               idx, seed=m)
+    and against the sorted index_put_ path on the card: rows around a
+    row block's 1,024 and a bucket-pass tile's 1,024 entries, the map
+    update's scatters, no entries, and chip_smoke.segment_layout_cases
+    (every entry on one row, a row block's entries across tiles, more
+    than a chunk in one row block, one entry, -0.0 bases, rows past
+    4,096 row blocks, the fleet's dropped entries); one launch a
+    call."""
+    if isinstance(case, str):
+        (cb, ci, cv), (gb, gi, gv) = {
+            name: (c, g) for name, c, g in chip_smoke.segment_layout_cases(
+                cuda_device, widths)}[case]
+    else:
+        n_rows, m = case
+        rng = np.random.default_rng(n_rows + m)
+        idx = np.clip(rng.normal(n_rows / 2, n_rows / 8 + 1, m).astype(
+            np.int64), 0, n_rows - 1)
+        (cb, ci, cv), (gb, gi, gv) = _segment_case(widths, cuda_device,
+                                                   n_rows, idx, seed=m)
     before = cuda_kernels.LAUNCHES["segment_add_rows"]
     got = cuda_kernels.segment_add_rows(gb, gi, gv)
     again = cuda_kernels.segment_add_rows(gb, gi, gv)
     assert cuda_kernels.LAUNCHES["segment_add_rows"] == before + 2
     want = cuda_kernels.segment_add_rows_reference(cb, ci, cv)
-    srt = (ndt_map._scatter_add_rows_sorted(gb, gi, gv) if m else want)
+    srt = (ndt_map._scatter_add_rows_sorted(gb, gi, gv) if ci.numel()
+           else want)
     for a, b, c, d in zip(got, again, want, srt):
         assert torch.equal(a, b)
         assert np.array_equal(chip_smoke._bits(a.cpu().numpy()),

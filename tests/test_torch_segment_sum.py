@@ -6,15 +6,16 @@
   float32 ulp of the range (np.spacing) of JAX's jitted
   `scan_to_points`, with 10,357 of the 288,000 coordinates off JAX's
   bits, as before.
-* A Python mirror of the segment-sum kernel's bookkeeping
-  (csrc/segment_sum.cu: a stable sort, each block's span of sorted
-  positions by the warp's 32-way lower-bound search, the first and last
-  position of each row's run, the values staged in sorted order, the
-  run added in order onto the old row)
-  gives index_add's bits, over channel widths 1, 2, 4 and the map's
-  1 + 2 + 4, a stack of streams, and one cell with thousands of
-  entries.  The kernel itself runs only on the card
-  (tests/test_torch_cuda.py).
+* A numpy mirror of the segment-sum kernel's bookkeeping
+  (csrc/segment_sum.cu, no sort: the bucket pass's per-warp ranks of a
+  tile's entries by row block and its table of runs; the row pass's
+  runs read tile by tile, each chunk ranked stably by row, each row's
+  run added in entry order onto the old row) gives index_add's bits,
+  over channel widths 1, 2, 4 and the map's 1 + 2 + 4, a stack of
+  streams, one cell with thousands of entries, and the layouts of
+  tile, chunk and bucket edges; the bucket pass places each tile's
+  entries as a stable argsort by row block does.  The kernel itself
+  runs only on the card (tests/test_torch_cuda.py).
 """
 
 import math
@@ -32,7 +33,15 @@ from ndt_feature_graph_tpu_torch.ops import ndt_map as tnm
 
 torch.set_num_threads(2)
 FIXTURE = "ndt_feature_graph_tpu_torch/data/canonical_200.npz"
-SEG_ROWS = 1024        # csrc/segment_sum.cu kSegRows: rows of a block
+# csrc/segment_sum.cu's sizes.
+THREADS = 256          # kThreads: a block's threads
+ROW_BLOCK = 256        # kRowBlock: rows of a row-pass block, 1 a thread
+ROW_SHIFT = 8          # log2(ROW_BLOCK)
+TILE = 1024            # kTile: entries of a bucket-pass tile
+WARPS = 8              # kWarps
+WARP_SPAN = 128        # kWarpSpan: tile entries a warp ranks
+CHUNK = 512            # kChunk: entries of a row-pass chunk
+MAX_BUCKETS = 16384    # kMaxBuckets
 WARP = 32
 
 
@@ -88,61 +97,150 @@ def test_scan_to_points_within_one_ulp_of_jax():
     assert 0 < n_f64 < n_diff <= 10_357
 
 
-def warp_lower_bound(keys, v):
-    """Mirror of segment_sum.cu warp_lower_bound: the first position of
-    the ascending `keys` whose key is >= v, in 32-way steps."""
-    lo, hi = 0, len(keys)
+def bucket_shift(n_rows):
+    """segment_sum.cu bucket_shift: row buckets of ROW_BLOCK << shift
+    rows, at most MAX_BUCKETS of them."""
+    shift = 0
+    while ((n_rows - 1) >> (ROW_SHIFT + shift)) + 1 > MAX_BUCKETS:
+        shift += 1
+    return shift
+
+
+def warp_rank(counter, keys, n_keys, warp):
+    """Mirror of segment_sum.cu warp_rank for one warp's 32 lanes: each
+    key's lanes add their number to the warp's field counter[key, warp]
+    (keys >= n_keys are not counted); a lane's rank is the field before
+    the add plus its lower peers.  Returns the ranks (32,)."""
+    rank = np.zeros(WARP, np.int64)
+    for key in np.unique(keys):
+        lanes = np.nonzero(keys == key)[0]
+        if key < n_keys:
+            rank[lanes] = counter[key, warp] + np.arange(len(lanes))
+            counter[key, warp] += len(lanes)
+            assert counter[key, warp] <= 255      # an 8-bit field
+    return rank
+
+
+def bucket_pass_mirror(idx, n_rows):
+    """The bucket pass in numpy: (table (tiles, buckets + 1), range
+    (tiles, 2), ent (tiles * TILE, 2) of (entry position, row)); -1
+    where the kernel writes nothing.  Tile t's digits span [lo, hi]
+    (range[t]; (buckets, -1) for none), its counters are those digits'
+    minus lo, and its table row holds the starts of digits lo .. hi + 1.
+    Warp w of tile t ranks entries t TILE + w WARP_SPAN + ... in steps
+    of 32; the warps' fields are apart, so taking the warps in any
+    order gives the kernel's counters."""
+    idx = np.asarray(idx, np.int64)
+    m = len(idx)
+    shift = bucket_shift(n_rows)
+    n_buckets = ((n_rows - 1) >> (ROW_SHIFT + shift)) + 1
+    tiles = -(-m // TILE)
+    table = np.full((tiles, n_buckets + 1), -1, np.int64)
+    rng_ = np.zeros((tiles, 2), np.int64)
+    ent = np.full((tiles * TILE, 2), -1, np.int64)
     lanes = np.arange(WARP)
-    while lo < hi:
-        step = (hi - lo + WARP - 1) // WARP
-        q = lo + lanes * step
-        below = (q < hi) & (keys[np.minimum(q, len(keys) - 1)] < v)
-        k = int(below.sum())
-        assert below[:k].all()              # the ballot is a prefix
-        if k == 0:
-            hi = lo
-        else:
-            nxt = lo + k * step
-            if k < WARP and nxt < hi:
-                hi = nxt
-            lo += (k - 1) * step + 1
-    return lo
+    for t in range(tiles):
+        j = np.arange(t * TILE, min(m, (t + 1) * TILE))
+        ok = (idx[j] >= 0) & (idx[j] < n_rows)
+        digits = idx[j][ok] >> (ROW_SHIFT + shift)
+        lo = int(digits.min()) if ok.any() else n_buckets
+        hi = int(digits.max()) if ok.any() else -1
+        rng_[t] = lo, hi
+        n_digits = max(hi - lo + 2, 1)
+        counter = np.zeros((n_digits, WARPS), np.int64)
+        steps = []
+        for w in range(WARPS):
+            for s in range(WARP_SPAN // WARP):
+                j = t * TILE + w * WARP_SPAN + s * WARP + lanes
+                v = idx[np.minimum(j, m - 1)]
+                ok = (j < m) & (v >= 0) & (v < n_rows)
+                d = np.where(ok, (v >> (ROW_SHIFT + shift)) - lo, n_digits)
+                steps.append((w, j, v, d, warp_rank(counter, d, n_digits - 1,
+                                                    w)))
+        starts = np.concatenate([[0], np.cumsum(counter.sum(1))[:-1]])
+        if hi >= lo:
+            table[t, lo:hi + 2] = starts
+        for w, j, v, d, rank in steps:
+            on = d < n_digits - 1
+            below = counter[d[on], :w].sum(1)
+            ent[t * TILE + starts[d[on]] + below + rank[on]] = np.stack(
+                [j[on], v[on]], 1)
+    return table, rng_, ent
+
+
+def row_pass_mirror(bases, vals, table, rng_, ent, n_rows):
+    """The row pass in numpy / torch: block b's list of its bucket's runs
+    tile by tile (THREADS tiles a batch), in chunks of CHUNK entries,
+    each chunk ranked by local row as the kernel ranks it (warp w takes
+    span entries, span = the chunk over the threads, rounded up to 32),
+    the values staged at start[row] + rank (start: the counts' exclusive
+    sum in local-row order), then every row's run added in order onto
+    its accumulator (one float32 add a step, all rows of a step in one
+    vector add)."""
+    shift = bucket_shift(n_rows)
+    n_tiles = table.shape[0]
+    outs = [b.clone() for b in bases]
+    lanes = np.arange(WARP)
+    for blk in range(-(-n_rows // ROW_BLOCK)):
+        r0, q = blk * ROW_BLOCK, blk >> shift
+        rows = slice(r0, min(n_rows, r0 + ROW_BLOCK))
+        acc = [o[rows].clone() for o in outs]
+        for tb in range(0, n_tiles, THREADS):
+            tiles = np.arange(tb, min(n_tiles, tb + THREADS))
+            mine = (rng_[tiles, 0] <= q) & (q <= rng_[tiles, 1])
+            at = np.where(mine, table[tiles, q] + tiles * TILE, 0)
+            n = np.where(mine, table[tiles, q + 1] - table[tiles, q], 0)
+            pre = np.concatenate([[0], np.cumsum(n)[:-1]])
+            total = int(n.sum())
+            for j0 in range(0, total, CHUNK):
+                n_c = min(CHUNK, total - j0)
+                span = -(-n_c // THREADS) * WARP
+                counter = np.zeros((ROW_BLOCK + 2, WARPS), np.int64)
+                steps = []
+                for w in range(WARPS):
+                    for s in range(CHUNK // THREADS):
+                        i = w * span + s * WARP + lanes
+                        live = (s * WARP < span) & (i < n_c)
+                        j = j0 + np.minimum(i, n_c - 1)
+                        tile = np.searchsorted(pre, j, "right") - 1
+                        e = ent[at[tile] + j - pre[tile]]
+                        assert (e[live] >= 0).all()
+                        local = e[:, 1] - r0
+                        key = np.where(
+                            live, np.where((local >= 0)
+                                           & (local < ROW_BLOCK), local,
+                                           ROW_BLOCK), ROW_BLOCK + 1)
+                        steps.append((w, key, e[:, 0], warp_rank(
+                            counter, key, ROW_BLOCK, w)))
+                cnt = counter[:ROW_BLOCK].sum(1)
+                start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+                staged = [torch.zeros((n_c, v.shape[1])) for v in vals]
+                filled = np.zeros(n_c, bool)
+                for w, key, pos, rank in steps:
+                    on = key < ROW_BLOCK
+                    slot = (start[key[on]] + counter[key[on], :w].sum(1)
+                            + rank[on])
+                    assert not filled[slot].any()
+                    filled[slot] = True
+                    for st, v in zip(staged, vals):
+                        st[torch.as_tensor(slot)] = v[torch.as_tensor(
+                            pos[on])]
+                for k in range(int(cnt.max())):
+                    live = np.nonzero(cnt[:rows.stop - r0] > k)[0]
+                    at_k = torch.as_tensor(start[live] + k)
+                    live = torch.as_tensor(live)
+                    for a, st in zip(acc, staged):
+                        a[live] = a[live] + st[at_k]
+        for o, a in zip(outs, acc):
+            o[rows] = a
+    return outs
 
 
 def segment_sum_mirror(bases, idx, vals):
-    """The kernel's bookkeeping in Python: sort the int32 indices
-    stably, each block of SEG_ROWS rows finds its span of sorted
-    positions, marks each row's run (first, last) and stages the
-    entries' values in sorted order, and every touched row adds its
-    run's staged values in order onto its old row (one float32 add a
-    step, all rows of a step in one vector add)."""
+    """Both passes of the kernel's bookkeeping in numpy / torch."""
     n_rows = bases[0].shape[0]
-    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
-    k_np = keys.numpy()
-    staged = [v[perm] for v in vals]
-    first = np.zeros(n_rows, np.int64)
-    last = np.full(n_rows, -1, np.int64)
-    for r0 in range(0, n_rows, SEG_ROWS):
-        p0 = warp_lower_bound(k_np, r0)
-        p1 = warp_lower_bound(k_np, r0 + SEG_ROWS)
-        p = np.arange(p0, p1)
-        key = k_np[p0:p1]
-        start = (p == p0) | (k_np[np.maximum(p - 1, 0)] != key)
-        end = (p == p1 - 1) | (k_np[np.minimum(p + 1, len(k_np) - 1)] != key)
-        first[key[start]] = p[start]
-        last[key[end]] = p[end]
-    rows = np.nonzero(last >= first)[0]
-    length = last[rows] - first[rows] + 1
-    outs = [b.clone() for b in bases]
-    acc = [b[torch.as_tensor(rows)].clone() for b in bases]
-    for j in range(int(length.max()) if len(rows) else 0):
-        live = torch.as_tensor(np.nonzero(length > j)[0])
-        at = torch.as_tensor(first[rows] + j)[live]
-        for a, v in zip(acc, staged):
-            a[live] = a[live] + v[at]
-    for o, a in zip(outs, acc):
-        o[torch.as_tensor(rows)] = a
-    return outs
+    table, rng_, ent = bucket_pass_mirror(idx.numpy(), n_rows)
+    return row_pass_mirror(bases, vals, table, rng_, ent, n_rows)
 
 
 def _case(widths, n_rows, idx, seed):
@@ -155,16 +253,8 @@ def _case(widths, n_rows, idx, seed):
     return bases, torch.as_tensor(idx, dtype=torch.int64), vals
 
 
-@pytest.mark.parametrize("widths", [(1,), (2,), (4,), (1, 2, 4)],
-                         ids=["w1", "w2", "w4", "w7"])
-@pytest.mark.parametrize("layout", ["one_grid", "streams", "long_run"])
-def test_segment_sum_mirror_is_index_add(widths, layout):
-    """The mirror equals index_add bit for bit: one 40 x 40 grid with
-    clustered entries over several blocks; a stack of 3 streams whose
-    rows are kept apart by the stream offset (the fleet's flat
-    scatter); one cell carrying 5,000 of 6,000 entries.  Summing the
-    same runs in reverse would change the bits, so the order is what is
-    checked."""
+def _layout(layout, widths):
+    """(bases, idx, vals) of a named layout, on the CPU."""
     rng = np.random.default_rng(len(widths))
     if layout == "one_grid":
         n_rows = 1600
@@ -174,28 +264,134 @@ def test_segment_sum_mirror_is_index_add(widths, layout):
         n_rows = 3 * 1600
         idx = (rng.integers(0, 400, (3, 1500)) * 4
                + np.arange(3)[:, None] * 1600).ravel()
-    else:
+    elif layout == "long_run":
         n_rows = 2500
         idx = rng.integers(0, n_rows, 6000)
         idx[rng.permutation(6000)[:5000]] = 1234
+    elif layout == "one_row":          # every entry on one row
+        n_rows = 700
+        idx = np.full(1500, 300)
+    elif layout == "multi_tile":       # a row block's entries in 4 tiles
+        n_rows = 2000
+        idx = rng.integers(0, n_rows, 3500)
+        idx[::7] = rng.integers(512, 768, len(idx[::7]))
+    elif layout == "multi_chunk":      # 1,300 entries in one row block
+        n_rows = 1024
+        idx = rng.integers(256, 512, 1300)
+    elif layout == "m0":
+        n_rows = 300
+        idx = np.zeros(0, np.int64)
+    elif layout == "m1":
+        n_rows = 300
+        idx = np.array([257])
+    elif layout == "neg_zero":         # -0.0 bases, a third -0.0 values
+        n_rows = 1000
+        idx = rng.integers(0, n_rows, 3000)
+    if layout == "dropped":            # the fleet's dropped entries
+        lead, n_cells, n_pts = (3,), 30 * 20, 700
+        ok = torch.as_tensor(rng.random(lead + (n_pts,)) < 0.6)
+        flat = torch.as_tensor(rng.integers(0, n_cells, lead + (n_pts,)))
+        fi = torch.where(ok, flat + tnm._stream_offsets(lead, n_cells, "cpu"),
+                         tnm._drop_rows(ok.shape, 3 * n_cells, "cpu"))
+        bases, idx_t, vals = _case(widths, 3 * n_cells, fi.reshape(-1), 7)
+        vals = [v * ok.reshape(-1, 1) for v in vals]
+        return bases, idx_t, vals
     bases, idx_t, vals = _case(widths, n_rows, idx, seed=7)
+    if layout == "neg_zero":
+        bases = [torch.full_like(b, -0.0) for b in bases]
+        for v in vals:
+            v[::3] = -0.0
+    return bases, idx_t, vals
+
+
+LAYOUTS = ["one_grid", "streams", "long_run", "one_row", "multi_tile",
+           "multi_chunk", "m0", "m1", "neg_zero", "dropped"]
+
+
+@pytest.mark.parametrize("widths", [(1,), (2,), (4,), (1, 2, 4)],
+                         ids=["w1", "w2", "w4", "w7"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_segment_sum_mirror_is_index_add(widths, layout):
+    """The mirror equals index_add bit for bit: one 40 x 40 grid with
+    clustered entries over several blocks; a stack of 3 streams whose
+    rows are kept apart by the stream offset (the fleet's flat
+    scatter); one cell carrying 5,000 of 6,000 entries; every entry on
+    one row; a row block's entries across several tiles; more entries in
+    one row block than a chunk; no entry and one; -0.0 bases and values;
+    a stack's dropped entries at k mod the cells.  Where a row takes
+    more than one entry, summing the runs in reverse changes the bits,
+    so the order is what is checked."""
+    bases, idx_t, vals = _layout(layout, widths)
     got = segment_sum_mirror(bases, idx_t, vals)
     want = cuda_kernels.segment_add_rows_reference(bases, idx_t, vals)
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b))
-    rev = cuda_kernels.segment_add_rows_reference(
-        bases, idx_t.flip(0), [v.flip(0) for v in vals])
-    assert any(not torch.equal(_bits(a), _bits(b)) for a, b in zip(rev, want))
+    if layout not in ("m0", "m1"):
+        rev = cuda_kernels.segment_add_rows_reference(
+            bases, idx_t.flip(0), [v.flip(0) for v in vals])
+        assert any(not torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(rev, want))
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1023, 1024, 5000])
-def test_warp_lower_bound_mirror_is_searchsorted(n):
-    """The kernel's 32-way search against numpy's lower bound, for
-    values below, inside (with repeats) and above the keys."""
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, TILE - 1, TILE, TILE + 1,
+                               3 * TILE + 77])
+def test_bucket_pass_places_as_stable_argsort(n):
+    """The bucket pass's placement against numpy's stable argsort by row
+    block, tile by tile: each tile's slice holds its entries' positions
+    ordered by bucket, entry order within a bucket; its range is its
+    least and greatest bucket, and its table row holds, over that range
+    and one past it, the exclusive sum of the buckets' counts (nothing
+    elsewhere); entries off the rows take no slot.  Indices over
+    row-block edges (255, 256, 257, ...)."""
     rng = np.random.default_rng(n)
-    keys = np.sort(rng.integers(0, max(n // 3, 1), n))
-    for v in range(-2, max(n // 3, 1) + 3):
-        assert warp_lower_bound(keys, v) == np.searchsorted(keys, v, "left")
+    n_rows = 5 * ROW_BLOCK + 3
+    edges = np.array([0, ROW_BLOCK - 1, ROW_BLOCK, ROW_BLOCK + 1,
+                      2 * ROW_BLOCK - 1, 2 * ROW_BLOCK, n_rows - 1, -1,
+                      n_rows])
+    idx = np.where(rng.random(n) < 0.5, rng.choice(edges, n),
+                   rng.integers(0, n_rows, n))
+    table, rng_, ent = bucket_pass_mirror(idx, n_rows)
+    n_buckets = table.shape[1] - 1
+    assert table.shape[0] == -(-n // TILE)
+    for t in range(table.shape[0]):
+        j = np.arange(t * TILE, min(n, (t + 1) * TILE))
+        ok = (idx[j] >= 0) & (idx[j] < n_rows)
+        digit = idx[j][ok] >> ROW_SHIFT
+        want = j[ok][np.argsort(digit, kind="stable")]
+        counts = np.bincount(digit, minlength=n_buckets)
+        lo, hi = rng_[t]
+        assert (lo, hi) == ((digit.min(), digit.max()) if ok.any()
+                            else (n_buckets, -1))
+        assert (table[t, :max(lo, 0)] == -1).all()
+        assert (table[t, hi + 2:] == -1).all()
+        assert np.array_equal(table[t, lo:hi + 2], np.concatenate(
+            [[0], np.cumsum(counts)])[lo:hi + 2])
+        got = ent[t * TILE:t * TILE + len(want)]
+        assert np.array_equal(got[:, 0], want)
+        assert np.array_equal(got[:, 1], idx[want])
+        assert (ent[t * TILE + len(want):(t + 1) * TILE] == -1).all()
+
+
+def test_bucket_shift_widens_buckets_past_max():
+    """Up to MAX_BUCKETS row blocks a bucket is a row block; past it a
+    bucket is 2^s row blocks, and the row pass keeps only its own rows
+    of the bucket's run: the mirror at MAX_BUCKETS = 2 (a 4-block grid)
+    still gives index_add's bits."""
+    global MAX_BUCKETS
+    assert bucket_shift(MAX_BUCKETS * ROW_BLOCK) == 0
+    assert bucket_shift(MAX_BUCKETS * ROW_BLOCK + 1) == 1
+    saved, MAX_BUCKETS = MAX_BUCKETS, 2
+    try:
+        assert bucket_shift(4 * ROW_BLOCK) == 1
+        bases, idx_t, vals = _case((1, 2), 4 * ROW_BLOCK - 9, np.random.
+                                   default_rng(3).integers(
+                                       0, 4 * ROW_BLOCK - 9, 2500), seed=4)
+        got = segment_sum_mirror(bases, idx_t, vals)
+    finally:
+        MAX_BUCKETS = saved
+    want = cuda_kernels.segment_add_rows_reference(bases, idx_t, vals)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_map_update_goes_through_segment_add_rows(monkeypatch):
