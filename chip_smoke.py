@@ -235,7 +235,17 @@ Runs on a machine with a CUDA card and no JAX:
      entry (the kernels line's `launches_chunked`), scans/s of both
      paths in turns; (b) compute_link on each candidate pair of the
      reference's LC node bank equal to its compute_links_batch rows at
-     batches of 4, 64 and 171 pairs; (c) HMTMap.add_scan over phase 11's
+     batches of 4, 64 and 171 pairs (pose, validity, score and overlap
+     count), the proposals launching `overlap_score` alone; then the
+     overlap score at 1, 4, 64, 171 and 1,024 pairs: the kernel against
+     the eager path + `row_sum` (the parent's) and the eager path +
+     torch.sum, every cell index and count equal, the scores within
+     OVERLAP_SCORE_TOL, device time in turns on a warm and a cold L2
+     beside the bound; the kernel against its numpy mirror
+     (tests/test_torch_overlap.py) bit for bit on small grids and edge
+     cases; compute_links_batch and rescore_links with the kernel and
+     with the parent's path in turns, with their device operations; and
+     `row_sum` against torch.sum on the eager overlap matrix; (c) HMTMap.add_scan over phase 11's
      first 64 scans equal to the map HMTFuser builds; (d)
      to_paired_cells and se2.dist / angular_dist, card against CPU;
  17. link refinement and the plain registrations in one launch:
@@ -269,8 +279,11 @@ lists, its scalars; 13 floats written) over 3.35 TB/s and its
 operations (FLOPS_PER_PAIR for each unmasked, in-bounds, valid pair)
 over 67 TFLOP/s: NVIDIA's H100 SXM figures; a solve's operations are
 those of every trial it evaluates, lane by lane.  No single PyTorch
-call computes a D2D entry, so their `library_ms` is null; `row_sum`'s
-is torch.sum's, `segment_add_rows`'s index_add's (atomic on the card;
+call computes a D2D entry, nor the overlap score, so their `library_ms`
+is null (`overlap_score`'s `ms` / `plain_ms` are its and the eager path
++ `row_sum`'s on a cold L2, its `warm_ms` / `device_ms` beside them);
+`row_sum`'s is torch.sum's (no path launches it since `overlap_score`:
+its `yardstick_launches` are phase 16b's eager path), `segment_add_rows`'s index_add's (atomic on the card;
 its entry also carries the sorted index_put_ path's time,
 `sorted_ms`), `occupancy_update`'s the index_add of its plain twin's
 entries (the scatter alone, not the ray build; its `plain_ms` is the
@@ -380,6 +393,10 @@ SEGMENT_REPLACES = "ndt_feature_graph_tpu/ops/ndt_map.py:115"
 # `.at[flat].add(...).at[rflat].add(...)` in update_occupancy.
 OCCUPANCY_SOURCE = "ndt_feature_graph_tpu_torch/csrc/occupancy.cu"
 OCCUPANCY_REPLACES = "ndt_feature_graph_tpu/ops/ndt_map.py:166"
+# Nor does the overlap score: the reference's occupancy_overlap_score /
+# _overlap_score_flat, which it leaves to XLA (its sum: ROW_SUM_REPLACES).
+OVERLAP_SOURCE = "ndt_feature_graph_tpu_torch/csrc/overlap.cu"
+OVERLAP_REPLACES = "ndt_feature_graph_tpu/graph/links.py:99"
 F_RTOL = 1e-4                 # tests/test_pallas_kernels.py tolerances
 GH_RTOL, G_ATOL, H_ATOL = 2e-3, 1e-4, 1e-3
 CANCEL_RTOL = 1e-3            # batch lanes: see compare()
@@ -1808,6 +1825,9 @@ def offline_phase(fx, lc, dev):
           and launches["fgh_dense_flat_batch"] == 0,
           "optimize_offline did not refine in one newton_solve_batch launch "
           "a refinement")
+    check(launches["overlap_score"] > 0 and launches["row_sum"] == 0,
+          "optimize_offline did not score its links through overlap_score "
+          "alone")
     check(np.isfinite(out).all(), "optimized node poses are not finite")
     ls = slam.offline_links
     differ = check_kept_links(sp.graph, lc, slam.offline_keep,
@@ -1965,6 +1985,9 @@ def online_phase(fx, lc, dev):
     check(launches["newton_solve_batch"] == len(REFINEMENTS["online"])
           and launches["fgh_dense_flat_batch"] == 0,
           "the online LC's refinements are not one launch each")
+    check(launches["overlap_score"] > 0 and launches["row_sum"] == 0,
+          "the online LC did not score its proposals through overlap_score "
+          "alone")
     traj = np.stack(slam.trajectory)
     check(traj.shape == lc["on_traj"].shape and np.isfinite(traj).all(),
           "online-LC trajectory not finite / of the wrong shape")
@@ -4565,9 +4588,10 @@ def _multidevice(fx, lc, dev):
           f"bank: {median(tl_s) * 1e3:.1f} ms (median of 3), "
           f"{int(ls.mask.sum())} valid; equal to compute_links_batch: {same}")
     check(same, "the sharded links differ from compute_links_batch")
-    check(cuda_kernels.LAUNCHES["row_sum"] > 0 and all(
-        v == 0 for k, v in cuda_kernels.LAUNCHES.items() if k != "row_sum"),
-          "the link proposals launched another entry than row_sum")
+    check(cuda_kernels.LAUNCHES["overlap_score"] > 0 and all(
+        v == 0 for k, v in cuda_kernels.LAUNCHES.items()
+        if k != "overlap_score"),
+          "the link proposals launched another entry than overlap_score")
     summary["links"] = {"pairs": int(ref_i.shape[0]), "equal": same,
                         "wall_s": tl_s}
 
@@ -4766,139 +4790,335 @@ def chunked_case(sp, fx, main_slam, dev):
             "main_scans_per_s": scans / median(main_s), "main_run_s": main_s}
 
 
+def link_bank(lc, dev):
+    """Phase 16b's inputs: the reference's offline loop-closure graph
+    (phase 9e's 20-node bank) on `dev`, its candidate pairs and RANSAC
+    draws from a seeded generator.  Returns (params, slam, stacked bank,
+    ref_i, mov_i, u)."""
+    sp = canonical_slam_params(OFFLINE_SPLIT_M, 64, **GROUPED_GRAPH)
+    edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
+                lc["off_edge_rel"], lc["off_edge_cov"])
+    slam = interop.graph_from_jax(sp, interop.tree_from_flat(
+        lc, "off_bank"), lc["off_node_T_before"], edges, device=dev)
+    ref_i, mov_i, _ = slam.candidate_pairs()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = torch.rand((ref_i.shape[0], sp.fuser.features.ransac_hypotheses, 2),
+                   generator=gen, device=dev)
+    return (sp, slam, node_mod.stack_nodes(slam.nodes), ref_i.to(dev),
+            mov_i.to(dev), u)
+
+
 def link_case(lc, dev):
     """Phase 16 (b): compute_link for each candidate pair of the
     reference's offline loop-closure graph (phase 9e's node bank, 20
     nodes: phase 6's online run freezes 2, one pair), against the rows
     of compute_links_batch on the same draws over the online proposal's
     batch (its first online_lc_max_candidates pairs), over
-    CHUNK_LINK_PAIRS pairs and over all of them: the same pose, validity
-    and score bits (the score's sum over the cells is the `row_sum`
-    kernel's fixed order).  Then the overlap sums' costs
-    (overlap_sum_case)."""
-    sp = canonical_slam_params(OFFLINE_SPLIT_M, 64, **GROUPED_GRAPH)
-    edges = zip(lc["off_edge_ij"][:, 0], lc["off_edge_ij"][:, 1],
-                lc["off_edge_rel"], lc["off_edge_cov"])
-    slam = interop.graph_from_jax(sp, interop.tree_from_flat(
-        lc, "off_bank"), lc["off_node_T_before"], edges, device=dev)
+    CHUNK_LINK_PAIRS pairs and over all of them: the same pose,
+    validity, score and overlap-count bits (the score is the
+    `overlap_score` kernel's, its order a function of H*W alone), and
+    the proposals launch `overlap_score` and no other entry.  Then the
+    overlap score's costs (overlap_score_case)."""
+    sp, slam, stacked, ref_i, mov_i, u = link_bank(lc, dev)
     fp, res = sp.fuser.features, sp.fuser.ndt.resolution
-    ref_i, mov_i, _ = slam.candidate_pairs()
     n = int(ref_i.shape[0])
-    ref_i, mov_i = ref_i.to(dev), mov_i.to(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    u = torch.rand((n, fp.ransac_hypotheses, 2), generator=gen, device=dev)
-    stacked = node_mod.stack_nodes(slam.nodes)
+    h, w = stacked.occ.shape[1:]
     ones = torch.ones(n, dtype=torch.bool, device=dev)
     cuda_kernels.reset_launch_counts()
     sizes = (sp.graph.online_lc_max_candidates, CHUNK_LINK_PAIRS, n)
     batches = {p: links_mod.compute_links_batch(
         fp, res, stacked, ref_i[:p], mov_i[:p], ones[:p], u[:p])
         for p in sizes}
+    batch_nb = {p: links_mod._overlap_score_flat(
+        stacked.occ.reshape(-1), stacked.occ_origin, ref_i[:p], mov_i[:p],
+        b.T, h, w, res)[1] for p, b in batches.items()}
     ri, mi = ref_i.tolist(), mov_i.tolist()
     same_T = {p: True for p in sizes}
     same_score = {p: 0 for p in sizes}
     score_dev = {p: 0.0 for p in sizes}
     for k in range(n):
-        T, score, valid, _ = links_mod.compute_link(
+        T, score, valid, nb = links_mod.compute_link(
             fp, res, slam.nodes[ri[k]], slam.nodes[mi[k]], u[k])
         for p, b in batches.items():
             if k < p:
                 same_T[p] &= (torch.equal(T, b.T[k])
                               and bool(valid) == bool(b.mask[k]))
-                same_score[p] += int(torch.equal(score, b.score[k]))
+                same_score[p] += int(torch.equal(score, b.score[k])
+                                     and torch.equal(nb, batch_nb[p][k]))
                 score_dev[p] = max(score_dev[p],
                                    float((score - b.score[k]).abs()))
     print(f"  compute_link over the {n} candidate pairs of the "
           f"{len(slam.nodes)}-node bank ({int(batches[n].mask.sum())} "
           f"valid) against the rows of compute_links_batch: " + "; ".join(
               f"{p} pairs: poses and validity equal {same_T[p]}, scores "
-              f"equal at {same_score[p]} of {p}, within "
+              f"and overlap counts equal at {same_score[p]} of {p}, within "
               f"{score_dev[p]:.2e}" for p in sizes))
     check(all(same_T.values()) and all(
         same_score[p] == p for p in sizes),
           "compute_link differs from its compute_links_batch row")
-    check(cuda_kernels.LAUNCHES["row_sum"] > 0 and all(
-        v == 0 for k, v in cuda_kernels.LAUNCHES.items() if k != "row_sum"),
-          "the link proposals launched another entry than row_sum")
-    sums = overlap_sum_case(lambda p: links_mod.compute_links_batch(
-        fp, res, stacked, ref_i[:p], mov_i[:p], ones[:p], u[:p]),
-        lambda ls: links_mod.rescore_links(res, stacked, ls),
-        (sizes[0], n))
+    check(cuda_kernels.LAUNCHES["overlap_score"] > 0 and all(
+        v == 0 for k, v in cuda_kernels.LAUNCHES.items()
+        if k != "overlap_score"),
+          "the link proposals launched another entry than overlap_score")
+    launches = cuda_kernels.LAUNCHES["overlap_score"]
+    scores = overlap_score_case(
+        stacked, ref_i, mov_i, batches[n], res, fp, u, ones,
+        (1, sizes[0], CHUNK_LINK_PAIRS, n, BIG_B))
     return {"pairs": n, "poses_equal": {str(p): e for p, e in same_T.items()},
             "scores_equal": {str(p): e for p, e in same_score.items()},
             "score_dev": {str(p): e for p, e in score_dev.items()},
-            "overlap_sums": sums}
+            "launches": launches, "overlap_score": scores}
 
 
-def overlap_sum_case(batch, rescore, sizes, rounds=5):
-    """The link paths' overlap sum (links._row_sum: the `row_sum` kernel,
-    one fixed order whatever the number of rows, so compute_link equals
-    its batch row) against torch.sum in float32 (the parent's sum, whose
-    order follows the number of rows) and in float64: compute_links_batch
-    over each of `sizes` pairs (the online proposal's batch, the whole
-    bank) and rescore_links over the last, each timed with every sum in
-    turns, median of `rounds`; and how far the other sums' scores part
-    from the kernel's on the same poses."""
-    row_sum = links_mod._row_sum
-    sums = {"row_sum kernel": row_sum,
-            "torch.sum": lambda x: x.sum(-1),
-            "f64 sum": lambda x: x.sum(-1, dtype=torch.float64).float()}
-    ls = batch(sizes[-1])
-    calls = {f"compute_links_batch_{p}": (lambda p=p: batch(p))
-             for p in sizes}
-    calls[f"rescore_links_{sizes[-1]}"] = lambda: rescore(ls)
-    times = {k: {name: [] for name in sums} for k in calls}
-    scores = {}
-    try:
-        for _ in range(rounds + 1):          # the first round warms up
-            for name, fn in sums.items():
-                links_mod._row_sum = fn
-                for k, call in calls.items():
+# The overlap score's operations a cell, counted from csrc/overlap.cu:
+# every cell's known test; a cell the moving map knows: its centre (4),
+# move (6), rel (4), floors and bounds (6); a cell both maps know: two
+# sigmoids (an exp and a divide counted as ~17 each, FLOPS_PER_PAIR's
+# rule), the difference, its square and the add.
+OVERLAP_OPS_CELL, OVERLAP_OPS_KNOWN, OVERLAP_OPS_BOTH = 1, 20, 73
+
+
+def overlap_bound(stacked, ref_i, mov_i, nb):
+    """The least time of the overlap score of these pairs on this card:
+    the bytes of the distinct maps the pairs read (each node's H*W
+    log-odds and its origin once) plus the indices, poses and outputs,
+    against the operations this run's maps need (OVERLAP_OPS_*:
+    the known moving cells and the overlap counts `nb`).  Returns
+    bound()'s dict and the work."""
+    hw = stacked.occ[0].numel()
+    nodes = torch.unique(torch.cat([ref_i, mov_i]))
+    p = ref_i.shape[0]
+    n_bytes = nodes.numel() * (hw + 2) * 4 + p * (8 + 8 + 12 + 4 + 8)
+    known = (stacked.occ.reshape(-1, hw).abs() > 1e-6).sum(1)[mov_i]
+    ops = (p * hw * OVERLAP_OPS_CELL + int(known.sum()) * OVERLAP_OPS_KNOWN
+           + int(nb.sum()) * OVERLAP_OPS_BOTH)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": ops}
+
+
+def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
+                       sizes, rounds=5):
+    """The link paths' overlap score at each of `sizes` pairs (the
+    candidate pairs of the bank under their RANSAC poses, repeated to
+    BIG_B): the `overlap_score` kernel against the eager path it
+    replaced (cuda_kernels.overlap_score_reference with the `row_sum`
+    kernel, the parent's path on the card) and the eager path with
+    torch.sum: the differing cell indices (the kernel's `cells` against
+    the eager path's) and counts, the largest score difference of the
+    timed call (which must equal the `cells` call's bits), and the time of
+    one call of each, in turns, median of `rounds`: CUDA events around
+    the call after a synchronisation (what a call holds the card, the
+    host's launches and the wrapper's Python included), the same after
+    two reads of L2_FLUSH_BYTES (cold_ms: a cold L2; the eager path's
+    ~60 launches outlast the reads, so its cold time keeps host gaps),
+    and the device time by the profiler (the sum of the call's
+    operations, warm); beside the bound of the kernel's inputs.  Then the link paths themselves with the
+    kernel and with the eager path + `row_sum`, in turns (compute_links_batch at the
+    online batch, rescore_links at all pairs), with their device
+    operations; and `row_sum` on rescore_links' eager overlap matrix
+    (row_sum_checks: its warm comparison with torch.sum).  Returns the
+    numbers; the kernel's row of the `kernels` line from the 171-pair
+    case."""
+    h, w = stacked.occ.shape[1:]
+    occ_flat, origins = stacked.occ.reshape(-1), stacked.occ_origin
+    n = ref_i.shape[0]
+    row_sum = cuda_kernels.row_sum
+    torch_sum = lambda x: x.sum(-1)  # noqa: E731
+
+    def eager(rs):
+        return lambda r, m, T: cuda_kernels.overlap_score_reference(
+            occ_flat, origins, r, m, T, h, w, res, sum_rows=rs)
+
+    fns = {"kernel": lambda r, m, T: cuda_kernels.overlap_score(
+               occ_flat, origins, r, m, T, h, w, res),
+           "eager + row_sum": eager(row_sum),
+           "eager + torch.sum": eager(torch_sum)}
+    order = list(fns) + list(fns)[::-1]
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=occ_flat.device)
+    before = cuda_kernels.LAUNCHES["row_sum"]
+    out = {}
+    for p in sizes:
+        idx = torch.arange(p, device=ref_i.device) % n
+        r, m = ref_i[idx].contiguous(), mov_i[idx].contiguous()
+        T = links.T[idx].contiguous()
+        args = (r, m, T)
+        score, nb, cells = cuda_kernels.overlap_score(
+            occ_flat, origins, r, m, T, h, w, res, cells=True)
+        e_cells = overlap_cells_eager(origins, r, m, T, h, w, res)
+        outs = {k: fn(*args) for k, fn in fns.items()}
+        # The timed call (no cell indices, the kernel's early return for
+        # vectors the moving map does not know) against the eager paths,
+        # and against the call that wrote the cell indices.
+        k_score, k_nb = outs["kernel"]
+        same = torch.equal(k_score, score) and torch.equal(k_nb, nb)
+        diff = {k: float((o[0] - k_score).abs().max())
+                for k, o in outs.items() if k != "kernel"}
+        nb_off = {k: int((o[1] != k_nb).sum())
+                  for k, o in outs.items() if k != "kernel"}
+        cells_off = int((cells.long() != e_cells).sum())
+        del cells, e_cells
+        wall = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k in order:
+                fn = fns[k]
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(*args)
+                b.record()
+                torch.cuda.synchronize()
+                wall[k].append(a.elapsed_time(b))
+        warm = {k: median(v) for k, v in wall.items()}
+        cold = {k: [] for k in fns}
+        for k in order:
+            # Two reads: the kernel's wrapper takes ~0.1 ms of the host,
+            # longer than one read of the buffer.
+            cold[k].append(cold_ms(lambda k=k: fns[k](*args),
+                                   lambda: (buf.amax(), buf.amax()),
+                                   reps=rounds))
+        cold = {k: sum(v) / len(v) for k, v in cold.items()}
+        prof = {k: [] for k in fns}
+        for k in order:
+            prof[k].append(device_ms(lambda k=k: fns[k](*args), reps=rounds))
+        prof = {k: sum(v) / len(v) for k, v in prof.items()}
+        # The parent's sum alone on this size's eager overlap matrix.
+        seen = []
+        cuda_kernels.overlap_score_reference(
+            occ_flat, origins, r, m, T, h, w, res,
+            sum_rows=lambda x: seen.append(x) or row_sum(x))
+        sums = [device_ms(fn, reps=rounds) for fn in (
+            lambda: cuda_kernels.row_sum(seen[0]),
+            lambda: seen[0].sum(-1), lambda: seen[0].sum(-1),
+            lambda: cuda_kernels.row_sum(seen[0]))]
+        del seen
+        prof["row_sum alone"] = (sums[0] + sums[3]) / 2
+        prof["torch.sum alone"] = (sums[1] + sums[2]) / 2
+        bnd = overlap_bound(stacked, r, m, nb)
+        out[p] = {"warm_ms": warm, "cold_ms": cold, "device_ms": prof,
+                  "warm_readings_ms": wall, "score_diff": diff,
+                  "nb_off": nb_off, "cells_off": cells_off,
+                  "cells_call_equal": same,
+                  "overlap_cells": int(nb.sum()), **bnd}
+        print(f"  overlap score, {p} pairs of {h} x {w} cells: kernel / "
+              "eager + row_sum / eager + torch.sum, us: warm L2 (CUDA "
+              f"events, median of {rounds} in turns) " + " / ".join(
+                  f"{v * 1e3:.2f}" for v in warm.values())
+              + "; cold L2 " + " / ".join(f"{v * 1e3:.2f}"
+                                          for v in cold.values())
+              + "; profiler " + " / ".join(f"{v * 1e3:.2f}"
+                                           for v in prof.values())
+              + " (and row_sum / torch.sum alone on the eager matrix)"
+              + f"; bound {bnd['bound_ms'] * 1e3:.3f} ({bnd['bound_by']}: "
+              f"{bnd['bytes'] / 1e6:.2f} MB, {bnd['operations'] / 1e6:.1f} "
+              f"Mop); cell indices off the eager path's {cells_off} of "
+              f"{p * h * w}, counts off {nb_off}, scores within {diff}, "
+              f"the timed call = the cell indices' call: {same}")
+        check(same, "the overlap kernel's timed call and its call with "
+              "cell indices give different scores or counts")
+        check(cells_off == 0 and not any(nb_off.values()),
+              "the overlap kernel's cell indices or counts differ from the "
+              "eager path's")
+        check(all(d <= OVERLAP_SCORE_TOL for d in diff.values()),
+              "the overlap kernel's scores part from the eager path's "
+              "beyond 1e-6")
+        check(cold["kernel"] >= bnd["bound_ms"],
+              "the overlap kernel's cold time lies below its bound")
+    del buf
+
+    print("  the mirror of the kernel (tests/test_torch_overlap.py) on the "
+          "card at small grids and edge cases:")
+    mirror = {}
+    for (hh, ww), pp, edge in (((37, 53), 17, None), ((200, 200), 3, None),
+                               ((40, 40), 6, "cell edges"),
+                               ((40, 40), 6, "thresholds")):
+        key = f"{hh}x{ww} x {pp}" + (f" {edge}" if edge else "")
+        mirror[key] = overlap_case_checks(hh, ww, pp, 0, occ_flat.device,
+                                          edge)
+        print(f"    {key}: {mirror[key]}")
+        check(mirror[key]["mirror_off"] == 0 and mirror[key]["cells_off"]
+              == 0 and mirror[key]["repeat"] and mirror[key]["alone"],
+              f"the overlap kernel departs from its mirror ({key})")
+
+    # The link paths with the kernel and with the parent's eager path.
+    p_on = sizes[1]
+    paths = {"compute_links_batch_" + str(p_on): lambda: (
+        links_mod.compute_links_batch(fp, res, stacked, ref_i[:p_on],
+                                      mov_i[:p_on], ones[:p_on], u[:p_on])),
+             "rescore_links_" + str(n): lambda: links_mod.rescore_links(
+                 res, stacked, links)}
+    flat = links_mod._overlap_score_flat
+    plain_flat = lambda oc, og, r, m, T, hh, ww, rr: (  # noqa: E731
+        cuda_kernels.overlap_score_reference(oc, og, r.long(), m.long(), T,
+                                             hh, ww, rr))
+    path_ms = {k: {"kernel": [], "eager + row_sum": []} for k in paths}
+    path_ops = {}
+    for variant in ("kernel", "eager + row_sum", "eager + row_sum",
+                    "kernel"):
+        links_mod._overlap_score_flat = (flat if variant == "kernel"
+                                         else plain_flat)
+        try:
+            for k, call in paths.items():
+                for _ in range(rounds):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     call()
                     torch.cuda.synchronize()
-                    times[k][name].append(time.perf_counter() - t0)
-                scores[name] = rescore(ls).score
-    finally:
-        links_mod._row_sum = row_sum
-    ms = {k: {name: median(t[1:]) * 1e3 for name, t in v.items()}
-          for k, v in times.items()}
+                    path_ms[k][variant].append(
+                        (time.perf_counter() - t0) * 1e3)
+                if (k, variant) not in path_ops:
+                    path_ops[(k, variant)] = ops_per_call(call)
+        finally:
+            links_mod._overlap_score_flat = flat
+    path_ms = {k: {v: median(t) for v, t in d.items()}
+               for k, d in path_ms.items()}
+    print("  the link paths, ms with the host (median of "
+          f"{2 * rounds} in turns) and device operations a call, kernel / "
+          "eager + row_sum: " + "; ".join(
+              f"{k} {d['kernel']:.3f} / {d['eager + row_sum']:.3f} ms, "
+              f"{path_ops[(k, 'kernel')]} / "
+              f"{path_ops[(k, 'eager + row_sum')]} ops"
+              for k, d in path_ms.items()))
+
+    # row_sum's own verdict against torch.sum, on the eager path's
+    # overlap matrix of rescore_links (the parent's path).
     seen = []
-    links_mod._row_sum = lambda x: seen.append(x) or row_sum(x)
-    try:
-        rescore(ls)
-    finally:
-        links_mod._row_sum = row_sum
-    kernel_checks_ = row_sum_checks(seen[0])
-    diffs = {name: (scores[name] - scores["row_sum kernel"]).abs()
-             for name in sums if name != "row_sum kernel"}
-    print(f"  overlap sums ({' / '.join(sums)}), ms in turns (median of "
-          f"{rounds}): " + "; ".join(
-              f"{k} " + " / ".join(f"{t:.3f}" for t in v.values())
-              for k, v in ms.items())
-          + "; rescored scores against the kernel's: " + ", ".join(
-              f"{name} differs at {int((d > 0).sum())} of {d.shape[0]} "
-              f"pairs, by up to {float(d.max()):.2e}"
-              for name, d in diffs.items()))
-    check(all(float(d.max()) <= 1e-5 for d in diffs.values()),
-          "the overlap sums part beyond 1e-5")
-    return {"ms": ms, "rows_differ": {n: int((d > 0).sum())
-                                      for n, d in diffs.items()},
-            "max_score_diff": {n: float(d.max()) for n, d in diffs.items()},
-            "kernel": kernel_checks_}
+    cuda_kernels.overlap_score_reference(
+        occ_flat, origins, ref_i, mov_i, links.T.contiguous(), h, w, res,
+        sum_rows=lambda x: seen.append(x) or row_sum(x))
+    row = row_sum_checks(seen[0])
+    full = out[n]
+    kernel_row = {
+        "max_abs_err": full["score_diff"]["eager + row_sum"],
+        "ms": full["cold_ms"]["kernel"],
+        "plain_ms": full["cold_ms"]["eager + row_sum"],
+        "warm_ms": full["warm_ms"]["kernel"],
+        "warm_plain_ms": full["warm_ms"]["eager + row_sum"],
+        "device_ms": full["device_ms"]["kernel"],
+        "plain_device_ms": full["device_ms"]["eager + row_sum"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "pairs": int(n), "cells": int(h * w)}
+    return {"sizes": {str(k): v for k, v in out.items()}, "mirror": mirror,
+            "paths_ms": path_ms,
+            "path_ops": {f"{k} {v}": n_ops for (k, v), n_ops in
+                         path_ops.items()},
+            "kernel": kernel_row, "row_sum": row,
+            "row_sum_yardstick_launches":
+                cuda_kernels.LAUNCHES["row_sum"] - before}
 
 
 def row_sum_checks(x):
-    """The `row_sum` entry on rescore_links' overlap matrix (pairs x
-    H*W cells): against its plain twin torch.sum (the max |difference|;
-    the orders differ), identical bits on repeat and for a row alone,
-    times in turns beside the bound (each element read once from HBM).
-    The times are taken on a cold L2 (a read of L2_FLUSH_BYTES before
-    each call: cold_ms), so that the bound holds; the link paths call it
-    on a matrix they have just written, which 50 MB of L2 holds (171
-    pairs: 27 MB), and that time is "warm_ms".  torch.sum is also the
+    """The `row_sum` entry on the eager path's overlap matrix of
+    rescore_links (pairs x H*W cells): against its plain twin torch.sum
+    (the max |difference|; the orders differ), identical bits on repeat
+    and for a row alone, times in turns beside the bound (each element
+    read once from HBM).  The times are taken on a cold L2 (a read of
+    L2_FLUSH_BYTES before each call: cold_ms), so that the bound holds;
+    the eager path called it on a matrix it had just written, which 50
+    MB of L2 holds (171 pairs: 27 MB), and that time is "warm_ms".  torch.sum is also the
     one PyTorch call of the same function (`library_ms`)."""
     got, again = cuda_kernels.row_sum(x), cuda_kernels.row_sum(x)
     plain = x.sum(-1)
@@ -4935,6 +5155,231 @@ def row_sum_checks(x):
     check(out["ms"] >= out["bound_ms"],
           "row_sum's cold time lies below its bound")
     return out
+
+
+# csrc/overlap.cu's layout: threads a block, cells a vector, the portable
+# cluster size; and the threshold above which a map knows a cell.
+OVERLAP_THREADS, OVERLAP_VEC, OVERLAP_MAX_CLUSTER = 256, 4, 8
+OVERLAP_HAS = np.float32(1e-6)
+OVERLAP_SCORE_TOL = 1e-6      # the kernel's score against the eager path's
+
+
+def overlap_cluster(hw):
+    """Blocks of a pair's cluster at `hw` cells (overlap.cu cluster_of)."""
+    n_vec = -(-hw // OVERLAP_VEC)
+    return max(1, min(OVERLAP_MAX_CLUSTER, -(-n_vec // OVERLAP_THREADS)))
+
+
+def fma32(a, b, c):
+    """float32 a * b + c rounded once, elementwise: the product is exact
+    in float64, TwoSum gives the float64 sum's error, and where that sum
+    lies on a float32 midpoint the error decides the side."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    other = np.nextafter(r, np.where(s > r64, np.inf, -np.inf).astype(
+        np.float32))
+    tie = (s != r64) & (s == (r64 + other.astype(np.float64)) / 2) & (e != 0)
+    return np.where(tie & ((e > 0) == (other > r)), other, r)
+
+
+def _cell_index(x):
+    """floor(x) as the card's float -> int cast (cvt.rzi): NaN -> 0,
+    saturated to int32."""
+    f = np.floor(x).astype(np.float64)
+    f = np.where(np.isnan(f), 0.0, np.clip(f, -2.0 ** 31, 2.0 ** 31 - 1))
+    return f.astype(np.int64)
+
+
+def numpy_transcendentals():
+    f32 = np.float32
+    return (np.cos, np.sin, lambda x: f32(1) / (f32(1) + np.exp(-x)))
+
+
+def torch_transcendentals(dev):
+    """cos, sin and sigmoid of a float32 numpy array by torch on `dev`:
+    on the card ATen's cosf, sinf and 1 / (1 + expf(-x)), the calls the
+    overlap kernel makes."""
+    def on(fn):
+        return lambda x: fn(torch.as_tensor(np.asarray(x, np.float32),
+                                            device=dev)).cpu().numpy()
+    return on(torch.cos), on(torch.sin), on(torch.sigmoid)
+
+
+def overlap_mirror(occ, origins, ref_i, mov_i, T, h, w, res, fns=None):
+    """csrc/overlap.cu in numpy: every operation rounded as the kernel
+    rounds it and the adds in its order (each thread's four lanes over
+    its vectors, (a0 + a1) + (a2 + a3), the warp tree, the block's warps,
+    the cluster's blocks).  occ (N, H*W) float32 log-odds, origins (N,
+    2), ref_i / mov_i (P,), T (P, 3).  Returns (score (P,) float32,
+    nb (P,) int64, cells (P, H*W) int64: each moving cell's flat index
+    into the reference map, -1 out of bounds).  `fns`: (cos, sin,
+    sigmoid) of float32 arrays; torch_transcendentals(card) gives the
+    kernel's bits, numpy's are the default."""
+    f32 = np.float32
+    cos_fn, sin_fn, sigmoid = fns or numpy_transcendentals()
+    hw = h * w
+    occ = np.asarray(occ, f32).reshape(-1, hw)
+    origins = np.asarray(origins, f32).reshape(-1, 2)
+    T = np.asarray(T, f32).reshape(-1, 3)
+    res32 = f32(res)
+    inv = f32(1) / res32
+    sig = np.asarray(sigmoid(occ), f32)
+    cos, sin = (np.asarray(fn(T[:, 2]), f32) for fn in (cos_fn, sin_fn))
+    cx = (np.arange(w, dtype=f32) + f32(0.5)) * res32
+    cy = (np.arange(h, dtype=f32) + f32(0.5)) * res32
+    n_cl = overlap_cluster(hw)
+    threads = n_cl * OVERLAP_THREADS
+    n_vec = -(-hw // OVERLAP_VEC)
+    steps = -(-n_vec // threads)
+    p = T.shape[0]
+    score = np.empty(p, f32)
+    nb = np.empty(p, np.int64)
+    cells = np.empty((p, hw), np.int64)
+    for k in range(p):
+        mi, ri = int(mov_i[k]), int(ref_i[k])
+        x = np.broadcast_to((origins[mi, 0] + cx)[None, :], (h, w)).ravel()
+        y = np.broadcast_to((origins[mi, 1] + cy)[:, None], (h, w)).ravel()
+        c, s = cos[k], sin[k]
+        tx = fma32(-s, y, c * x) + T[k, 0]
+        ty = fma32(c, y, s * x) + T[k, 1]
+        ix = _cell_index((tx - origins[ri, 0]) * inv)
+        iy = _cell_index((ty - origins[ri, 1]) * inv)
+        inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        flat = np.where(inb, iy * w + ix, 0)
+        cells[k] = np.where(inb, flat, -1)
+        both = ((np.abs(occ[mi]) > OVERLAP_HAS) & inb
+                & (np.abs(occ[ri][flat]) > OVERLAP_HAS))
+        d = sig[mi] - sig[ri][flat]
+        v = np.zeros(steps * threads * OVERLAP_VEC, f32)
+        v[:hw] = np.where(both, d * d, f32(0))
+        v = v.reshape(steps, threads, OVERLAP_VEC)
+        acc = np.zeros((threads, OVERLAP_VEC), f32)
+        for j in range(steps):
+            acc = acc + v[j]
+        t = ((acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])).reshape(
+            n_cl, OVERLAP_THREADS // 32, 32)
+        for off in (16, 8, 4, 2, 1):
+            t[..., :off] = t[..., :off] + t[..., off:2 * off]
+        warps = t[..., 0]
+        block = warps[:, 0].copy()
+        for j in range(1, warps.shape[1]):
+            block = block + warps[:, j]
+        total = block[0]
+        for j in range(1, n_cl):
+            total = total + block[j]
+        nb[k] = int(both.sum())
+        score[k] = total / f32(nb[k]) if nb[k] > 0 else f32(1)
+    return score, nb, cells
+
+
+def overlap_cells_eager(origins, ref_i, mov_i, T, h, w, res):
+    """The eager score's (cuda_kernels.overlap_score_reference's) flat
+    reference index of each moving cell, -1 out of bounds, by its own
+    operations: what the kernel's `cells` output is held to."""
+    centers = origins[mov_i][..., None, :] + cuda_kernels._cell_centers(
+        h, w, res, T.device)
+    tp = se2.transform_points(T, centers)
+    rel = (tp - origins[ref_i][..., None, :]) / res
+    ix = torch.floor(rel[..., 0]).to(torch.int64)
+    iy = torch.floor(rel[..., 1]).to(torch.int64)
+    inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    return torch.where(inb, iy * w + ix, -1)
+
+
+OVERLAP_EDGE_CASES = ("no overlap", "out of bounds", "far out of bounds",
+                      "thresholds", "cell edges")
+
+
+def overlap_case(h, w, n_pairs, seed, edge=None, res=0.5):
+    """Inputs of the overlap score, numpy: (occ (N, H*W) float32, origins
+    (N, 2), ref_i (P,), mov_i (P,), T (P, 3), res).  A bank of nodes
+    whose maps know ~40% of their cells (log-odds in [-3, 3]), origins
+    near the grid's centre at the origin and poses within 3 m and 0.6
+    rad, so that most pairs overlap; `edge` one of OVERLAP_EDGE_CASES:
+    node 0's map all unknown (its pairs score 1.0 with no overlap),
+    every pose moving every cell off the map (by 1 km, or by 3e9 m,
+    beyond int32), log-odds at exactly +-1e-6 (unknown), the next float
+    above (known), and -0.0, or poses of half a cell on grids whose
+    origins are whole cells apart (every centre lands on a cell
+    edge)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n_nodes = max(2, min(n_pairs + 1, 6))
+    occ = np.where(rng.random((n_nodes, h * w)) < 0.4,
+                   rng.uniform(-3, 3, (n_nodes, h * w)), 0.0).astype(f32)
+    origins = (-np.array([w, h]) * res / 2 + rng.uniform(
+        -2, 2, (n_nodes, 2))).astype(f32)
+    ref_i = rng.integers(0, n_nodes, n_pairs)
+    mov_i = (ref_i + rng.integers(1, n_nodes, n_pairs)) % n_nodes
+    T = rng.uniform([-3, -3, -0.6], [3, 3, 0.6], (n_pairs, 3)).astype(f32)
+    if edge == "no overlap":
+        occ[0] = 0.0
+        ref_i[::2] = 0
+        mov_i[::2] = 1
+    elif edge == "out of bounds":
+        T[:, :2] = rng.choice([-1e3, 1e3], (n_pairs, 2))
+    elif edge == "far out of bounds":
+        T[:, :2] = rng.choice([-3e9, 3e9], (n_pairs, 2))
+    elif edge == "thresholds":
+        pick = rng.integers(0, 5, occ.shape)
+        lo = OVERLAP_HAS
+        vals = np.array([lo, -lo, np.nextafter(lo, f32(1)),
+                         -np.nextafter(lo, f32(1)), -0.0], f32)
+        occ = np.where(rng.random(occ.shape) < 0.5, vals[pick], occ)
+    elif edge == "cell edges":
+        origins = (np.round(origins / res) * res).astype(f32)
+        T[:, :2] = rng.choice([-0.5, 0.5], (n_pairs, 2)) * res
+        T[:, 2] = 0.0
+    elif edge is not None:
+        raise ValueError(f"no overlap edge case {edge!r}")
+    return occ, origins, ref_i, mov_i, T, res
+
+
+def overlap_case_checks(h, w, n_pairs, seed, dev, edge=None):
+    """The overlap kernel on one overlap_case on the card: against
+    overlap_mirror with the card's transcendentals (score bits, counts,
+    cell indices), against the eager path on the card
+    (cuda_kernels.overlap_score_reference: cell indices and counts; the
+    score's largest difference), on repeat, and the first and last pair scored
+    alone (occupancy_overlap_score's one-pair form) against their rows.
+    Returns the numbers of elements that differ ("mirror_off",
+    "cells_off", "nb_off"), "score_dev", "repeat", "alone" and
+    "launches" (kernel launches of the calls, five)."""
+    occ, origins, ref_i, mov_i, T, res = overlap_case(h, w, n_pairs, seed,
+                                                      edge)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    bank, o, r, m, tt = t(occ), t(origins), t(ref_i), t(mov_i), t(T)
+    args = (bank.reshape(-1), o, r, m, tt, h, w, res)
+    before = cuda_kernels.LAUNCHES["overlap_score"]
+    score, nb, cells = cuda_kernels.overlap_score(*args, cells=True)
+    again = cuda_kernels.overlap_score(*args)
+    alone = [cuda_kernels.overlap_score(
+        bank[ref_i[k]], o[ref_i[k]], None, None, tt[k], h, w, res,
+        mov_flat=bank[mov_i[k]], mov_origins=o[mov_i[k]])
+        for k in (0, n_pairs - 1)]
+    launches = cuda_kernels.LAUNCHES["overlap_score"] - before
+    m_score, m_nb, m_cells = overlap_mirror(
+        occ, origins, ref_i, mov_i, T, h, w, res,
+        fns=torch_transcendentals(dev))
+    e_score, e_nb = cuda_kernels.overlap_score_reference(*args)
+    e_cells = overlap_cells_eager(o, r, m, tt, h, w, res)
+    got = score.cpu().numpy()
+    return {
+        "mirror_off": int((got.view(np.uint32) != m_score.view(np.uint32))
+                          .sum() + (nb.cpu().numpy() != m_nb).sum()
+                          + (cells.cpu().numpy() != m_cells).sum()),
+        "cells_off": int((cells.long() != e_cells).sum()),
+        "nb_off": int((nb != e_nb).sum()),
+        "score_dev": float((score - e_score).abs().max()),
+        "repeat": torch.equal(score, again[0]) and torch.equal(nb, again[1]),
+        "alone": all(torch.equal(a[0], score[k]) and torch.equal(a[1], nb[k])
+                     for a, k in zip(alone, (0, n_pairs - 1))),
+        "launches": launches}
 
 
 def hmt_add_scan_case(dev):
@@ -5464,8 +5909,8 @@ def main():
     t0 = time.perf_counter()
     cuda_kernels.build()
     build_s = time.perf_counter() - t0
-    print(f"  built {SOURCE}, {SEGMENT_SOURCE} and {OCCUPANCY_SOURCE} for "
-          f"sm_90a in {build_s:.2f} s")
+    print(f"  built {SOURCE}, {SEGMENT_SOURCE}, {OCCUPANCY_SOURCE} and "
+          f"{OVERLAP_SOURCE} for sm_90a in {build_s:.2f} s")
     for line in cuda_kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -5614,8 +6059,9 @@ def main():
     one_launch = one_launch_phase(sp, slam, fx, io_fx, dev)
     one_launch["wall_s"] = time.perf_counter() - t17
     print(f"  phase 17 took {one_launch['wall_s']:.1f} s")
-    checks["row_sum"] = (
-        entry_points["compute_link"]["overlap_sums"]["kernel"])
+    link_scores = entry_points["compute_link"]["overlap_score"]
+    checks["overlap_score"] = link_scores["kernel"]
+    checks["row_sum"] = link_scores["row_sum"]
 
     # Each entry's launches on the path that uses it, counted from 0
     # just before that path: the main path, plain registration
@@ -5640,8 +6086,10 @@ def main():
         "row_sum": off_launches["row_sum"],
         "segment_add_rows": launches["segment_add_rows"],
         "occupancy_update": launches["occupancy_update"],
+        "overlap_score": off_launches["overlap_score"],
     }
     yardstick = {"newton_objective": replay["per_trial_launches"],
+                 "row_sum": link_scores["row_sum_yardstick_launches"],
                  "newton_objective_batch": per_trial_batch,
                  "fgh_dense_flat_batch": sum(
                      one_launch[k]["per_trial_launches"]
@@ -5662,7 +6110,10 @@ def main():
                      "3d's per-trial lockstep path"),
                     ("fgh_dense_flat_batch", "none: link refinement runs "
                      "in newton_solve_batch; yardstick_launches are phase "
-                     "17a's per-trial lockstep path")):
+                     "17a's per-trial lockstep path"),
+                    ("row_sum", "none: the link paths score through "
+                     "overlap_score; yardstick_launches are phase 16b's "
+                     "eager path + row_sum")):
         by_name[k].update(path=path, yardstick_launches=yardstick[k])
     by_name["newton_solve_batch"]["launches_sharded_fleet"] = md_launches
     by_name["newton_solve_batch"]["launches_refinement"] = {
@@ -5675,10 +6126,15 @@ def main():
         "match_p2d": p2d["launches"]["newton_solve"]}
     by_name["fgh_dense_flat"]["path"] = (
         "covariance_d2d (match_d2d and P2D run in newton_solve)")
-    by_name["row_sum"].update(
-        source=SOURCE, replaces=ROW_SUM_REPLACES,
-        path="the link paths' overlap sum (optimize_offline's "
-             "compute_links_batch and rescore_links)")
+    by_name["row_sum"].update(source=SOURCE, replaces=ROW_SUM_REPLACES)
+    by_name["overlap_score"].update(
+        source=OVERLAP_SOURCE, replaces=OVERLAP_REPLACES,
+        path="the link paths' overlap score: optimize_offline's launches "
+             "(compute_links_batch and rescore_links); online LC's and "
+             "phase 16b's compute_link / compute_links_batch in fields of "
+             "their own",
+        launches_online_lc=on_launches["overlap_score"],
+        launches_link_case=entry_points["compute_link"]["launches"])
     for k, src, where, what in (
             ("segment_add_rows", SEGMENT_SOURCE, SEGMENT_REPLACES,
              "every statistics update (add_points_touched)"),

@@ -4,10 +4,12 @@ ndt_feature_graph_tpu/graph/links.py).
 
 The reference's O(N^2) sequential pair loop is one batch over a padded
 pair list: feature RANSAC over a leading batch of pairs, the overlap
-score against the stacked node bank (its sum over the cells the `row_sum`
-kernel entry on CUDA tensors), and the batched Newton of every pair's
-D2D refinement with its Hessian in one `newton_solve_batch` launch on
-CUDA tensors (their plain twins on the CPU).
+score against the stacked node bank (one `overlap_score` launch on CUDA
+tensors: the transform, gather, masks and a fixed-order sum of every
+pair in one pass), and the batched Newton of every pair's D2D refinement
+with its Hessian in one `newton_solve_batch` launch on CUDA tensors
+(their plain twins on the CPU: the eager score
+`cuda_kernels.overlap_score_reference`, summed by torch.sum).
 
 Randomness: `compute_links_batch` takes the RANSAC draws `u` (P, M, 2),
 one row of uniforms per pair, and `compute_link` one pair's (M, 2),
@@ -42,62 +44,16 @@ class LinkSet:
     mask: torch.Tensor    # (L,) bool
 
 
-def _cell_centers(h: int, w: int, resolution: float, device):
-    """(H*W, 2) cell centres relative to the grid origin, row-major."""
-    ys = (torch.arange(h, device=device, dtype=torch.float32) + 0.5) * (
-        resolution)
-    xs = (torch.arange(w, device=device, dtype=torch.float32) + 0.5) * (
-        resolution)
-    return torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)],
-                       -1).reshape(-1, 2)
-
-
-def _overlap(mov_occ_raw, mov_origin, ref_lookup, ref_origin, T, h: int,
-             w: int, resolution: float):
-    """Mean squared difference of rescaled occupancy over the cells
-    where both maps carry information, 1.0 without overlap, batched over
-    leading dims.  mov_occ_raw (..., H*W); origins (..., 2); T (..., 3);
-    ref_lookup(flat (..., H*W)) -> the ref log-odds at those cells."""
-    rel_c = _cell_centers(h, w, resolution, T.device)
-    centers = mov_origin[..., None, :] + rel_c
-    mov_occ = torch.sigmoid(mov_occ_raw)
-    mov_has = mov_occ_raw.abs() > 1e-6
-
-    tp = se2.transform_points(T, centers)
-    rel = (tp - ref_origin[..., None, :]) / resolution
-    ix = torch.floor(rel[..., 0]).to(torch.int64)
-    iy = torch.floor(rel[..., 1]).to(torch.int64)
-    inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
-    flat = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
-    ref_occ_raw = ref_lookup(flat)
-    ref_has = (ref_occ_raw.abs() > 1e-6) & inb
-    ref_occ = torch.sigmoid(ref_occ_raw)
-
-    both = mov_has & ref_has
-    nb = both.sum(-1)
-    diff2 = (mov_occ - ref_occ) ** 2
-    s = _row_sum(torch.where(both, diff2, 0.0)) / torch.clamp(nb, min=1)
-    return torch.where(nb > 0, s, 1.0), nb
-
-
-def _row_sum(x):
-    """The overlap's sum over the cells (last dim): on CUDA tensors the
-    `row_sum` kernel entry, one fixed order for a row whatever the
-    number of rows (torch.sum's CUDA reduction lays a row over more
-    threads when there are fewer rows), so a pair alone gets the bits
-    of its batch row; on the CPU torch.sum, whose order for one row of
-    more than 32,768 cells splits it across threads."""
-    return cuda_kernels.row_sum(x)
-
-
 def occupancy_overlap_score(ref: NodeData, mov: NodeData, T,
                             resolution: float):
     """Overlap score of one node pair under T (overlapNDTOccupancyScore).
-    Returns (score, n_overlap)."""
+    Returns (score, n_overlap).  cuda_kernels.overlap_score on the two
+    maps (on the card the kernel of the batch, so the pair gets the bits
+    of its batch row)."""
     h, w = mov.occ.shape
-    return _overlap(mov.occ.reshape(-1), mov.occ_origin,
-                    lambda flat: ref.occ.reshape(-1)[flat], ref.occ_origin,
-                    T, h, w, resolution)
+    return cuda_kernels.overlap_score(
+        ref.occ.reshape(-1), ref.occ_origin, None, None, T, h, w,
+        resolution, mov_flat=mov.occ.reshape(-1), mov_origins=mov.occ_origin)
 
 
 def compute_link(fp: FeatureParams, resolution: float, ref: NodeData,
@@ -114,8 +70,9 @@ def compute_link(fp: FeatureParams, resolution: float, ref: NodeData,
     batches under 32 pairs (torch evaluates atan2 / sin / cos of 32 or
     more values with vectorized routines, which round some RANSAC poses
     in another last bit).  Elsewhere the overlap score may part in its
-    last bits (_row_sum); on the card every output keeps its row's bits
-    (chip_smoke phase 16b)."""
+    last bits (the plain score's torch.sum); on the card every output keeps its row's bits,
+    the overlap kernel's order being a function of H*W alone (chip_smoke
+    phase 16b)."""
     res = ransac.match_sets(fp, ref.feats, ref.desc, mov.feats, mov.desc, u)
     score, nb = occupancy_overlap_score(ref, mov, res.T, resolution)
     return res.T, torch.where(res.valid, score, 1.0), res.valid, nb
@@ -125,13 +82,11 @@ def _overlap_score_flat(occ_flat, occ_origins, ref_i, mov_i, T, h: int,
                         w: int, resolution: float):
     """occupancy_overlap_score for P pairs against the stacked bank:
     occ_flat (N*H*W,), occ_origins (N, 2), ref_i / mov_i (P,), T (P, 3).
-    Returns (score (P,), n_overlap (P,))."""
-    hw = h * w
-    mov_occ_raw = occ_flat.reshape(-1, hw)[mov_i]
-    ref_base = (ref_i.to(torch.int64) * hw)[:, None]
-    return _overlap(mov_occ_raw, occ_origins[mov_i],
-                    lambda flat: occ_flat[ref_base + flat],
-                    occ_origins[ref_i], T, h, w, resolution)
+    Returns (score (P,), n_overlap (P,)): cuda_kernels.overlap_score,
+    one launch on the card."""
+    return cuda_kernels.overlap_score(
+        occ_flat, occ_origins, ref_i.to(torch.int64), mov_i.to(torch.int64),
+        T.contiguous(), h, w, resolution)
 
 
 def compute_links_batch(fp: FeatureParams, resolution: float,

@@ -44,9 +44,17 @@ The others write one evaluation's (f, g, H) as 13 floats:
     pair derivatives of given pairs (`fgh_paired` on its own).  Plain
     twin: `pair_fgh_reduce_reference`.
 
-`row_sum` (the link paths' overlap sum, links._row_sum) sums each row of
-a matrix in one fixed order, one block a row; its plain twin is
-torch.sum.
+`row_sum` (the eager overlap score's sum, overlap_score_reference) sums
+each row of a matrix in one fixed order, one block a row; its plain twin
+is torch.sum.  No path launches it since `overlap_score`.
+
+`csrc/overlap.cu` holds `overlap_score`, the link paths' occupancy-
+overlap score (links._overlap_score_flat, occupancy_overlap_score): a
+thread-block cluster a pair moves each cell of the moving map, gathers
+the reference map's log-odds and sums the squared sigmoid differences
+where both maps know the cell, in one launch and one pass over the node
+bank, the order a function of H*W alone.  Plain twin: the eager score,
+`overlap_score_reference`.
 
 `csrc/segment_sum.cu` holds `segment_add_rows`, the map statistics'
 fixed-order sum (ndt_map.scatter_add_rows: every add_points_touched on
@@ -87,15 +95,17 @@ import subprocess
 import tempfile
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ndt_feature_graph_tpu_torch.config import MatcherParams, NDTMapParams
+from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic, ndt_map
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu",
-           _PKG / "csrc" / "occupancy.cu")
+           _PKG / "csrc" / "occupancy.cu", _PKG / "csrc" / "overlap.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,7 +118,7 @@ LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
             "newton_objective_batch": 0, "newton_solve": 0,
             "newton_solve_batch": 0, "row_sum": 0, "segment_add_rows": 0,
-            "occupancy_update": 0}
+            "occupancy_update": 0, "overlap_score": 0}
 
 
 _lib = None
@@ -208,6 +218,16 @@ def build():
         P, I, P, P,                    # counts, wide, chain, stream
     ]
     lib.ndtg_occupancy_update.restype = I
+    lib.ndtg_overlap_cluster.argtypes = [LL]
+    lib.ndtg_overlap_cluster.restype = I
+    lib.ndtg_overlap_threads.argtypes = []
+    lib.ndtg_overlap_threads.restype = I
+    lib.ndtg_overlap_score.argtypes = [
+        P, P, P, LL, P, P, P, LL,  # ref bank, origins, index, nodes; mov's
+        P, LL, I, I, F, F,         # T, pairs, h, w, res, 1 / res
+        P, P, P, P,                # score, nb, cells, stream
+    ]
+    lib.ndtg_overlap_score.restype = I
     _lib = lib
     return lib
 
@@ -916,6 +936,159 @@ def row_sum(x):
     _raise_on(err, "row_sum")
     LAUNCHES["row_sum"] += 1
     return out.reshape(lead)
+
+
+def _cell_centers(h: int, w: int, resolution: float, device):
+    """(H*W, 2) cell centres relative to the grid origin, row-major."""
+    ys = (torch.arange(h, device=device, dtype=torch.float32) + 0.5) * (
+        resolution)
+    xs = (torch.arange(w, device=device, dtype=torch.float32) + 0.5) * (
+        resolution)
+    return torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)],
+                       -1).reshape(-1, 2)
+
+
+def _overlap_eager(mov_occ_raw, mov_origin, ref_lookup, ref_origin, T,
+                   h: int, w: int, resolution: float, sum_rows):
+    """Mean squared difference of rescaled occupancy over the cells
+    where both maps carry information, 1.0 without overlap, batched over
+    leading dims.  mov_occ_raw (..., H*W); origins (..., 2); T (..., 3);
+    ref_lookup(flat (..., H*W)) -> the ref log-odds at those cells;
+    sum_rows: the sum over the cells (last dim)."""
+    rel_c = _cell_centers(h, w, resolution, T.device)
+    centers = mov_origin[..., None, :] + rel_c
+    mov_occ = torch.sigmoid(mov_occ_raw)
+    mov_has = mov_occ_raw.abs() > 1e-6
+
+    tp = se2.transform_points(T, centers)
+    rel = (tp - ref_origin[..., None, :]) / resolution
+    ix = torch.floor(rel[..., 0]).to(torch.int64)
+    iy = torch.floor(rel[..., 1]).to(torch.int64)
+    inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    flat = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    ref_occ_raw = ref_lookup(flat)
+    ref_has = (ref_occ_raw.abs() > 1e-6) & inb
+    ref_occ = torch.sigmoid(ref_occ_raw)
+
+    both = mov_has & ref_has
+    nb = both.sum(-1)
+    diff2 = (mov_occ - ref_occ) ** 2
+    s = sum_rows(torch.where(both, diff2, 0.0)) / torch.clamp(nb, min=1)
+    return torch.where(nb > 0, s, 1.0), nb
+
+
+def overlap_score_reference(occ_flat, occ_origins, ref_i, mov_i, T, h: int,
+                            w: int, resolution: float, mov_flat=None,
+                            mov_origins=None, sum_rows=None):
+    """The plain version of overlap_score (its arguments): the eager
+    score over (P, H*W) tensors, its sum over the cells `sum_rows`
+    (default `row_sum`: torch.sum on the CPU, whose order for one row of
+    more than 32,768 cells splits it across threads; the row-sum kernel
+    on the card).  The CPU's path; on the card the kernel's yardstick
+    (chip_smoke phase 16b), on no path."""
+    if sum_rows is None:
+        sum_rows = row_sum
+    if mov_flat is None:
+        mov_flat, mov_origins = occ_flat, occ_origins
+    if ref_i is None:
+        return _overlap_eager(mov_flat, mov_origins,
+                              lambda flat: occ_flat[flat], occ_origins, T, h,
+                              w, resolution, sum_rows)
+    hw = h * w
+    mov_occ_raw = mov_flat.reshape(-1, hw)[mov_i]
+    ref_base = (ref_i.to(torch.int64) * hw)[:, None]
+    return _overlap_eager(mov_occ_raw, mov_origins[mov_i],
+                          lambda flat: occ_flat[ref_base + flat],
+                          occ_origins[ref_i], T, h, w, resolution, sum_rows)
+
+
+def overlap_score(occ_flat, occ_origins, ref_i, mov_i, T, h: int, w: int,
+                  resolution: float, mov_flat=None, mov_origins=None,
+                  cells: bool = False):
+    """The link paths' occupancy-overlap score (links._overlap_score_flat,
+    links.occupancy_overlap_score): for pair k, the mean squared
+    difference of the sigmoid occupancies of node mov_i[k]'s map, moved
+    by T[k], and node ref_i[k]'s, over the cells both know; 1.0 without
+    overlap.  occ_flat (N*H*W,) float32 and occ_origins (N, 2): the bank;
+    ref_i / mov_i (P,) int64; T (P, 3).  `mov_flat` / `mov_origins`: the
+    moving maps from a bank of their own (else the same bank).  With
+    ref_i = mov_i = None, one pair: occ_flat / mov_flat (H*W,) its two
+    maps, the origins (2,), T (3,), and 0-d outputs.  Returns (score
+    float32, n_overlap int64).
+
+    On CUDA tensors: ONE launch of the overlap kernel (csrc/overlap.cu: a
+    thread-block cluster a pair; the transform, the gather, the masks,
+    the squared difference and a fixed-order sum in one pass, no
+    intermediate; the order a function of H*W alone, so a pair alone
+    gets the bits of its row in a batch); a pair whose index lies outside
+    its bank gets score NaN and n_overlap -1.  `cells`: also return each
+    moving cell's flat index into the reference map (P, H*W) int32, -1
+    out of bounds, for a check against the eager path; CUDA only.  On
+    the CPU the plain version, overlap_score_reference (the eager score,
+    its sum torch.sum)."""
+    dev = T.device
+    if dev.type == "cpu":
+        if cells:
+            raise ValueError("overlap_score: cells= needs CUDA tensors")
+        return overlap_score_reference(
+            occ_flat, occ_origins, ref_i, mov_i, T, h, w, resolution,
+            mov_flat, mov_origins)
+    if dev.type != "cuda":
+        raise ValueError(f"overlap_score: unsupported device {dev}")
+    one = ref_i is None and mov_i is None
+    if (ref_i is None) != (mov_i is None):
+        raise ValueError("overlap_score: ref_i and mov_i are both given "
+                         "or both None")
+    if mov_flat is None:
+        mov_flat, mov_origins = occ_flat, occ_origins
+    elif mov_origins is None:
+        raise ValueError("overlap_score: mov_flat without mov_origins")
+    hw = h * w
+    if h < 1 or w < 1 or hw >= 2 ** 31:
+        raise ValueError(f"overlap_score: a {h} x {w} grid, expected 1 to "
+                         "2^31 - 1 cells")
+    f32 = torch.float32
+    banks = {}
+    for name, flat, origins in (("occ", occ_flat, occ_origins),
+                                ("mov", mov_flat, mov_origins)):
+        n = 1 if one else flat.numel() // hw
+        _check(f"overlap_score {name}_flat", flat, f32,
+               (hw,) if one else (n * hw,), dev)
+        _check(f"overlap_score {name}_origins", origins, f32,
+               (2,) if one else (n, 2), dev)
+        banks[name] = n
+    n_pairs = 1 if one else ref_i.shape[0]
+    _check("overlap_score T", T, f32, (3,) if one else (n_pairs, 3), dev)
+    if not one:
+        _check("overlap_score ref_i", ref_i, torch.int64, (n_pairs,), dev)
+        _check("overlap_score mov_i", mov_i, torch.int64, (n_pairs,), dev)
+    lead = () if one else (n_pairs,)
+    score = torch.empty(lead, dtype=f32, device=dev)
+    nb = torch.empty(lead, dtype=torch.int64, device=dev)
+    idx = (torch.empty((n_pairs, hw), dtype=torch.int32, device=dev)
+           if cells else None)
+    if n_pairs == 0:
+        return (score, nb, idx) if cells else (score, nb)
+    lib = build()
+    if n_pairs * lib.ndtg_overlap_cluster(hw) >= 2 ** 31:
+        raise ValueError(f"overlap_score: {n_pairs} pairs of {hw} cells, "
+                         "too many blocks for one launch")
+    res32 = np.float32(resolution)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_overlap_score(
+            occ_flat.data_ptr(), occ_origins.data_ptr(),
+            None if one else ref_i.data_ptr(), banks["occ"],
+            mov_flat.data_ptr(), mov_origins.data_ptr(),
+            None if one else mov_i.data_ptr(), banks["mov"],
+            T.data_ptr(), n_pairs, h, w, float(res32),
+            # ATen divides by a Python float on the card as a product
+            # with its float32 reciprocal.
+            float(np.float32(1.0) / res32), score.data_ptr(),
+            nb.data_ptr(), None if idx is None else idx.data_ptr(), stream)
+    _raise_on(err, "overlap_score")
+    LAUNCHES["overlap_score"] += 1
+    return (score, nb, idx) if cells else (score, nb)
 
 
 def segment_add_rows_reference(bases, idx, vals):

@@ -6,7 +6,9 @@ over the same objective kernel), the Newton-trial objective
 term, the batch entry, the fleet step's `newton_objective_batch` and the
 paired reduction; the map update's `segment_add_rows` against the CPU's
 index_add bits and the sorted index_put_ path it replaced, and its
-`occupancy_update` against the CPU's plain twin; the sharded
+`occupancy_update` against the CPU's plain twin; the link paths'
+`overlap_score` against tests/test_torch_overlap.py's numpy mirror (bit
+for bit) and the eager path (cell by cell); the sharded
 dense solve in an NCCL world of one rank; and the chunked graph driver
 against its CPU twin.  Marked `cuda`: they
 skip without a CUDA card.  The file imports no JAX, so it also runs
@@ -123,7 +125,7 @@ def test_newton_objective_matches_plain(cuda_device, n, n_src):
         "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
         "fgh_dense_flat_batch": 0, "newton_objective_batch": 0,
         "newton_solve": 0, "newton_solve_batch": 0, "row_sum": 0,
-        "segment_add_rows": 0, "occupancy_update": 0}
+        "segment_add_rows": 0, "occupancy_update": 0, "overlap_score": 0}
     chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
                        got, cuda_kernels.newton_objective_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -805,3 +807,74 @@ def test_row_sum_repeats_and_a_row_alone_keeps_its_bits(cuda_device, shape):
     assert torch.equal(alone, got.reshape(-1)[[0, -1]])
     want = x.double().sum(-1)
     assert float((got.double() - want).abs().max()) <= 1e-6 * shape[-1]
+
+
+OVERLAP_SHAPES = [(20, 20), (40, 40), (37, 53), (200, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [None, *chip_smoke.OVERLAP_EDGE_CASES])
+@pytest.mark.parametrize("n_pairs", [1, 3, 17])
+@pytest.mark.parametrize("shape", OVERLAP_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_overlap_score_is_its_mirror_and_the_eager_path(cuda_device, shape,
+                                                        n_pairs, edge):
+    """The overlap kernel against tests/test_torch_overlap.py's numpy
+    mirror (with the card's cosf, sinf and sigmoid) bit for bit, in score,
+    count and every cell index; against the eager path on the card the
+    same cell indices and counts, the score within OVERLAP_SCORE_TOL; the
+    same bits on repeat and for the first and last pair alone; one launch
+    a call."""
+    h, w = shape
+    out = chip_smoke.overlap_case_checks(h, w, n_pairs, h * 7 + n_pairs,
+                                         cuda_device, edge)
+    assert out["mirror_off"] == 0, out
+    assert out["cells_off"] == 0 and out["nb_off"] == 0, out
+    assert out["score_dev"] <= chip_smoke.OVERLAP_SCORE_TOL, out
+    assert out["repeat"] and out["alone"] and out["launches"] == 4, out
+
+
+@pytest.mark.cuda
+def test_overlap_score_rows_are_the_pairs_alone_at_scale(cuda_device):
+    """1,024 pairs of 200 x 200 cells (eight blocks a pair): every tenth
+    pair scored alone equals its row bit for bit."""
+    occ, origins, ref_i, mov_i, T, res = chip_smoke.overlap_case(
+        200, 200, 1024, seed=1)
+    t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    bank, o = t(occ), t(origins)
+    score, nb = cuda_kernels.overlap_score(
+        bank.reshape(-1), o, t(ref_i), t(mov_i), t(T), 200, 200, res)
+    assert (nb > 0).any()
+    for k in range(0, 1024, 10):
+        s1, n1 = cuda_kernels.overlap_score(
+            bank[ref_i[k]], o[ref_i[k]], None, None, t(T[k]), 200, 200, res,
+            mov_flat=bank[mov_i[k]], mov_origins=o[mov_i[k]])
+        assert torch.equal(s1, score[k]) and torch.equal(n1, nb[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [1, 400, 1024, 1028, 1961, 8192, 40000])
+def test_overlap_cluster_is_the_mirrors(cuda_device, hw):
+    lib = cuda_kernels.build()
+    assert lib.ndtg_overlap_threads() == chip_smoke.OVERLAP_THREADS
+    assert lib.ndtg_overlap_cluster(hw) == chip_smoke.overlap_cluster(hw)
+
+
+@pytest.mark.cuda
+def test_overlap_score_refuses_bad_inputs(cuda_device):
+    """A float64 pose, int32 indices, a pose of the wrong shape, a bank
+    on the CPU and a strided bank raise (no plain version on the card)."""
+    occ, origins, ref_i, mov_i, T, res = chip_smoke.overlap_case(
+        20, 20, 3, seed=0)
+    t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    args = [t(occ.reshape(-1)), t(origins), t(ref_i), t(mov_i), t(T)]
+    bad = [(4, args[4].double()), (2, args[2].int()), (4, args[4][:, :2]),
+           (0, args[0].cpu()), (0, t(np.repeat(occ.reshape(-1), 2))[::2])]
+    for k, x in bad:
+        a = list(args)
+        a[k] = x
+        with pytest.raises(ValueError):
+            cuda_kernels.overlap_score(*a, 20, 20, res)
+    before = cuda_kernels.LAUNCHES["overlap_score"]
+    cuda_kernels.overlap_score(*args, 20, 20, res)
+    assert cuda_kernels.LAUNCHES["overlap_score"] == before + 1

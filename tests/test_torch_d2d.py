@@ -140,7 +140,8 @@ def test_cpu_wrappers_use_the_plain_twins():
                                      "newton_solve_batch": 0,
                                      "row_sum": 0,
                                      "segment_add_rows": 0,
-                                     "occupancy_update": 0}
+                                     "occupancy_update": 0,
+                                     "overlap_score": 0}
 
 
 def test_wrappers_reject_other_devices():

@@ -284,11 +284,11 @@ def test_newton_solve_on_cpu_takes_the_guard(guard):
 @pytest.mark.parametrize("shape", [(1, 40000), (6, 1600), (2, 3, 7)])
 def test_row_sum_on_cpu_is_torch_sum(shape):
     """(c): the overlap sum's entry on a CPU tensor is torch.sum over the
-    last dim, bit for bit, and counts no launch; links._row_sum is it."""
+    last dim, bit for bit, and counts no launch; the eager overlap score
+    (cuda_kernels.overlap_score_reference) sums through it."""
     x = torch.tensor(np.random.default_rng(0).random(shape, np.float32))
     cuda_kernels.reset_launch_counts()
     assert torch.equal(cuda_kernels.row_sum(x), x.sum(-1))
-    assert torch.equal(tl._row_sum(x), x.sum(-1))
     assert not any(cuda_kernels.LAUNCHES.values())
 
 
