@@ -25,7 +25,11 @@ Runs on a machine with a CUDA card and no JAX:
      JAX reference's RANSAC draws, checks that `newton_solve` launched
      once per registration, `segment_add_rows` once per statistics
      update and `occupancy_update` once per occupancy update (counted
-     by `map_updates`), and no other entry, that the
+     by `map_updates`), each feature kernel once a scan (detect and
+     describe also at initialize: 200, 200 and 199 launches; each
+     launch a call of its function, counted by `map_updates`, a check
+     every phase that runs the map update or the features makes), and
+     no other entry, that the
      frozen-node count matches JAX and that the trajectory stays within
      1 cm / 5 mrad of the JAX trajectory, and reports ATE and scans/s
      (one warm-up run, then the median of 3); the checked run counts
@@ -52,6 +56,30 @@ Runs on a machine with a CUDA card and no JAX:
          time; occupancy_checks: the longest chain
          of the occupancy's row pass); torch.sqrt of 2^20 float32
          values on the card equals numpy.sqrt (0 elements differ);
+     3f. the feature front end's kernels (csrc/features.cu:
+         `detect_features`, `describe_features`, `match_features`)
+         against their plain twins (detector._detect_plain,
+         descriptor._describe_plain, ransac._match_sets_plain and
+         _gate_plain) on the card: detect and describe on the 200
+         canonical scans in one call and scan by scan (a scan alone =
+         its row), the hitmiss statistic, describe of the kernel's own
+         features; match on the 199 consecutive pairs with the fixture's
+         draws (a pair alone = its row), with the adaptive budget, and
+         on the 171 candidate pairs of phase 9e's bank (128 features a
+         node); the gate on the 199 pairs; a B = 64 fleet step through
+         feature_fuser._prepare_features against the twins' path; a
+         second call's bits.  Selected beams, masks, scales,
+         correspondences, inliers, counts and validity equal (a
+         differing choice is named with the twin's own margin and must
+         lie within FEATURE_ULPS); points and angles within 2e-5,
+         responses rtol 1e-4, descriptors rtol 1e-5 / atol 1e-6, T
+         within 1e-5, scores rtol 1e-5, the pseudo-cells within 1e-5.
+         How ATen rounds on the card what the kernels mirror (a pair's
+         vector_norm; exp, cos, sin, atan2, log1p against the kernels'
+         CUDA library functions: rounding_probe).
+         Device time in turns with the twins at the main path's shapes
+         (one scan; one pair with the gate: the kernels line's times)
+         and batched, beside each bound;
      the three timed runs repeat the first run's trajectory bit for bit
      and its launch counts;
      3c. plain registration on that graph: d2d.match_d2d +
@@ -322,6 +350,12 @@ from ndt_feature_graph_tpu_torch.config import (
 )
 from ndt_feature_graph_tpu_torch import cli, interop, pipeline
 from ndt_feature_graph_tpu_torch.core import se2, se3
+from ndt_feature_graph_tpu_torch.features import (
+    descriptor, detector, ransac,
+)
+from ndt_feature_graph_tpu_torch.features import (
+    distance as features_distance,
+)
 from ndt_feature_graph_tpu_torch.fusion import (
     feature_fuser, fuser, scan_driver,
 )
@@ -1667,11 +1701,11 @@ def check_refinement(slam, lc, sp):
                              lc["off_link_" + k]),
               f"proposed links: {k} differs from JAX")
     bank = node_mod.stack_nodes(slam.nodes)
-    ransac = links_mod.compute_links_batch(
+    ransac_T = links_mod.compute_links_batch(
         p.features, p.ndt.resolution, bank, *slam.candidate_pairs(),
         torch.as_tensor(lc["off_pair_u"][0], device=slam.device),
     ).T.cpu().numpy()
-    r_dev = float(np.abs(ransac - lc["off_ransac_T"]).max())
+    r_dev = float(np.abs(ransac_T - lc["off_ransac_T"]).max())
     port_T = ls.T.cpu().numpy()
     valid = lc["off_link_mask"]
     ref_T = lc["off_link_T"]
@@ -1780,8 +1814,13 @@ def offline_phase(fx, lc, dev):
     check(repr(sp) == str(lc["off_params_repr"]),
           "canonical_lc.npz was made at other offline parameters")
     T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    slam, stats = pipeline.run_slam(sp, sequence(fx, dev), seed=0,
-                                    ransac_u=T(lc["off_scan_u"]))
+    cuda_kernels.reset_launch_counts()
+    with map_updates() as updates:
+        slam, stats = pipeline.run_slam(sp, sequence(fx, dev), seed=0,
+                                        ransac_u=T(lc["off_scan_u"]))
+    if dev.type == "cuda":
+        check_map_launches(dict(cuda_kernels.LAUNCHES), updates,
+                           "run_slam")
     n_nodes, n_ref = len(slam.nodes), lc["off_node_T"].shape[0]
     check(n_nodes == n_ref, f"{n_nodes} nodes, JAX built {n_ref}")
     before = np.stack(slam.node_T)
@@ -1828,6 +1867,11 @@ def offline_phase(fx, lc, dev):
     check(launches["overlap_score"] > 0 and launches["row_sum"] == 0,
           "optimize_offline did not score its links through overlap_score "
           "alone")
+    check(launches["match_features"] > 0
+          and launches["detect_features"] == 0
+          and launches["describe_features"] == 0,
+          "optimize_offline did not propose its links through "
+          "match_features")
     check(np.isfinite(out).all(), "optimized node poses are not finite")
     ls = slam.offline_links
     differ = check_kept_links(sp.graph, lc, slam.offline_keep,
@@ -2538,7 +2582,7 @@ def only_batch_entry(launches, name, steps, updates):
     (each a whole stack of grids), and no other entry."""
     check_map_launches(launches, updates, name)
     check(launches["newton_solve_batch"] == steps
-          and sum(launches.values()) == steps + map_launches(launches),
+          and sum(launches.values()) == steps + counted_launches(launches),
           f"{name} launched {launches}: expected newton_solve_batch alone, "
           "once a fleet step, beside the map updates")
 
@@ -2725,7 +2769,7 @@ def rolling_phase(fx, dev):
         check_map_launches(launches, updates, "rolling_map")
         check(launches["newton_solve"] == n - 1
               and sum(launches.values()) == launches["newton_solve"]
-              + map_launches(launches),
+              + counted_launches(launches),
               f"run_sequence_features launched {launches}: expected "
               "newton_solve alone, once a scan, beside the map updates")
     cells = (final.base.grid.origin - origin0) / fp.ndt.resolution
@@ -2771,30 +2815,39 @@ def scatter_swapped(fn):
 
 @contextlib.contextmanager
 def map_updates():
-    """Counts the map updates made inside the block, {"stats": the calls
-    of ndt_map.add_points_touched (add_points, build_from_scan and the
-    fuser's local cell lists reach it), "occ": those of
-    ndt_map.update_occupancy, "n": both}.  On the card each statistics
-    update is one `segment_add_rows` launch, each occupancy update one
-    `occupancy_update` call (its two passes)."""
-    count = {"n": 0, "stats": 0, "occ": 0}
-    kinds = {"add_points_touched": "stats", "update_occupancy": "occ"}
-    saved = {k: getattr(ndt_map, k) for k in kinds}
+    """Counts the map updates and the feature front end's calls made
+    inside the block, {"stats": the calls of ndt_map.add_points_touched
+    (add_points, build_from_scan and the fuser's local cell lists reach
+    it), "occ": those of ndt_map.update_occupancy, "n": both; "detect",
+    "describe", "match": those of detector.detect, descriptor.describe
+    and ransac.match_sets / match_sets_gated}.  On the card each
+    statistics update is one `segment_add_rows` launch, each occupancy
+    update one `occupancy_update` call (its two passes), and each
+    feature call one launch of its kernel."""
+    count = {"n": 0, "stats": 0, "occ": 0, "detect": 0, "describe": 0,
+             "match": 0}
+    sites = [(ndt_map, "add_points_touched", "stats", True),
+             (ndt_map, "update_occupancy", "occ", True),
+             (detector, "detect", "detect", False),
+             (descriptor, "describe", "describe", False),
+             (ransac, "match_sets", "match", False),
+             (ransac, "match_sets_gated", "match", False)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in sites]
 
-    def counted(fn, kind):
+    def counted(fn, kind, is_map):
         def call(*args, **kwargs):
-            count["n"] += 1
+            count["n"] += is_map
             count[kind] += 1
             return fn(*args, **kwargs)
         return call
 
-    for k, fn in saved.items():
-        setattr(ndt_map, k, counted(fn, kinds[k]))
+    for (mod, name, kind, is_map), (_, _, fn) in zip(sites, saved):
+        setattr(mod, name, counted(fn, kind, is_map))
     try:
         yield count
     finally:
-        for k, fn in saved.items():
-            setattr(ndt_map, k, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # The map update's kernel entries: the statistics' fixed-order sum and
@@ -2806,10 +2859,17 @@ def map_launches(launches):
     return sum(launches[k] for k in MAP_ENTRIES)
 
 
+def counted_launches(launches):
+    """The launches `map_updates` accounts for: the map update's kernels
+    and the feature front end's."""
+    return map_launches(launches) + sum(launches[k] for k in FEATURE_ENTRIES)
+
+
 def check_map_launches(launches, updates, what):
-    """`segment_add_rows` launched exactly once a statistics update and
-    `occupancy_update` once an occupancy update of the run (`updates`:
-    map_updates' counts), and the run updated its map."""
+    """`segment_add_rows` launched exactly once a statistics update,
+    `occupancy_update` once an occupancy update and each feature kernel
+    once a call of its function in the run (`updates`: map_updates'
+    counts), and the run updated its map."""
     check(launches["segment_add_rows"] == updates["stats"]
           and launches["occupancy_update"] == updates["occ"]
           and updates["n"] > 0,
@@ -2817,6 +2877,12 @@ def check_map_launches(launches, updates, what):
           f"{launches['occupancy_update']} occupancy_update launches for "
           f"{updates['stats']} statistics and {updates['occ']} occupancy "
           "updates")
+    check(all(launches[k] == updates[c] for k, c in zip(
+        FEATURE_ENTRIES, ("detect", "describe", "match"))),
+          f"{what}: feature kernel launches "
+          f"{ {k: launches[k] for k in FEATURE_ENTRIES} } for "
+          f"{updates['detect']} detect, {updates['describe']} describe and "
+          f"{updates['match']} match calls")
 
 
 def world_scan(fx, t, device, streams=0):
@@ -3547,7 +3613,8 @@ def localize_phase(sp, fx, dev):
     odom, gt = T(fx["odom"]), T(fx["gt"])
     split, q = int(lx["split"]), int(lx["query"])
     cuda_kernels.reset_launch_counts()
-    updates = {"n": 0, "stats": 0, "occ": 0}
+    updates = {"n": 0, "stats": 0, "occ": 0, "detect": 0, "describe": 0,
+               "match": 0}
 
     grid = ndt_map.empty_grid(mp, torch.zeros(2, device=dev))
     db = place_rec.empty_database(fp_db, 32, dev)
@@ -3558,9 +3625,9 @@ def localize_phase(sp, fx, dev):
             grid = ndt_map.add_points(grid, mp, world, mask)
             grid = ndt_map.update_occupancy(grid, mp, gt[t][:2], world,
                                             mask)
+            db = place_rec.insert_scan(db, fp_db, gt[t], ranges[t], hit[t])
         for k in updates:
             updates[k] += n_map[k]
-        db = place_rec.insert_scan(db, fp_db, gt[t], ranges[t], hit[t])
     check(int(db.mask.sum()) == int(lx["db_used"]),
           f"{int(db.mask.sum())} scans stored, JAX {int(lx['db_used'])}")
     tgt = d2d.make_dense_target(grid, mp)
@@ -3571,8 +3638,11 @@ def localize_phase(sp, fx, dev):
           f"{tuple(dmap.dist.shape)}: {n_bad} cells differ from JAX's")
     check(n_bad == 0, "the distance field is not JAX's")
     u = T(lx["reloc_u"])
-    pose, best, n = place_rec.relocalize(db, fp_db, ranges[q], hit[q], u,
-                                         min_num_matches=8)
+    with map_updates() as n_map:
+        pose, best, n = place_rec.relocalize(db, fp_db, ranges[q], hit[q], u,
+                                             min_num_matches=8)
+    for k in updates:
+        updates[k] += n_map[k]
     check(pose is not None and best == int(lx["reloc_best"])
           and n == int(lx["reloc_inliers"]),
           f"relocalize: stored scan {best}, {n} inliers; JAX "
@@ -3639,7 +3709,7 @@ def localize_phase(sp, fx, dev):
     launches = dict(cuda_kernels.LAUNCHES)
     if dev.type == "cuda":
         check_map_launches(launches, updates, "the localization map")
-    check(sum(launches.values()) == map_launches(launches),
+    check(sum(launches.values()) == counted_launches(launches),
           f"localization launched kernel entries beside the map "
           f"updates: {launches}")
     out = {"mcl_dev": (dxy, dth), "jax_spread": spread,
@@ -3739,7 +3809,7 @@ def hmt_phase(dev):
         if dev.type == "cuda":
             check_map_launches(launches, updates, "the HMT run")
             check(n_obj == scans and sum(launches.values())
-                  == n_obj + map_launches(launches),
+                  == n_obj + counted_launches(launches),
                   f"the HMT run launched {launches}: expected "
                   "newton_solve alone, once a scan, beside the map "
                   "updates")
@@ -3919,7 +3989,7 @@ def simulator_phase(sp, fx, io_fx, dev):
                            "the main path on the simulated sequence")
     check(dev.type != "cuda" or launches["newton_solve"] > 0 and all(
         v == 0 for k, v in launches.items()
-        if k not in ("newton_solve", *MAP_ENTRIES)),
+        if k not in ("newton_solve", *MAP_ENTRIES, *FEATURE_ENTRIES)),
         "the main path on the simulated sequence launched another entry")
 
     print("phase 12b: the simulator at bench_offline_570's scale")
@@ -4588,10 +4658,12 @@ def _multidevice(fx, lc, dev):
           f"bank: {median(tl_s) * 1e3:.1f} ms (median of 3), "
           f"{int(ls.mask.sum())} valid; equal to compute_links_batch: {same}")
     check(same, "the sharded links differ from compute_links_batch")
-    check(cuda_kernels.LAUNCHES["overlap_score"] > 0 and all(
-        v == 0 for k, v in cuda_kernels.LAUNCHES.items()
-        if k != "overlap_score"),
-          "the link proposals launched another entry than overlap_score")
+    check(cuda_kernels.LAUNCHES["overlap_score"] > 0
+          and cuda_kernels.LAUNCHES["match_features"] > 0 and all(
+              v == 0 for k, v in cuda_kernels.LAUNCHES.items()
+              if k not in ("overlap_score", "match_features")),
+          "the link proposals launched another entry than match_features "
+          "and overlap_score")
     summary["links"] = {"pairs": int(ref_i.shape[0]), "equal": same,
                         "wall_s": tl_s}
 
@@ -4755,7 +4827,7 @@ def chunked_case(sp, fx, main_slam, dev):
     if dev.type == "cuda":
         check_map_launches(launches, updates, "run_graph_chunk")
         check(launches["newton_solve"] == scans and sum(launches.values())
-              == scans + map_launches(launches),
+              == scans + counted_launches(launches),
               "run_graph_chunk did not launch newton_solve alone, once a "
               "scan, beside the map updates")
     check(traj.shape == ref.shape and np.isfinite(traj).all(),
@@ -4857,10 +4929,12 @@ def link_case(lc, dev):
     check(all(same_T.values()) and all(
         same_score[p] == p for p in sizes),
           "compute_link differs from its compute_links_batch row")
-    check(cuda_kernels.LAUNCHES["overlap_score"] > 0 and all(
-        v == 0 for k, v in cuda_kernels.LAUNCHES.items()
-        if k != "overlap_score"),
-          "the link proposals launched another entry than overlap_score")
+    check(cuda_kernels.LAUNCHES["overlap_score"] > 0
+          and cuda_kernels.LAUNCHES["match_features"] > 0 and all(
+              v == 0 for k, v in cuda_kernels.LAUNCHES.items()
+              if k not in ("overlap_score", "match_features")),
+          "the link proposals launched another entry than match_features "
+          "and overlap_score")
     launches = cuda_kernels.LAUNCHES["overlap_score"]
     scores = overlap_score_case(
         stacked, ref_i, mov_i, batches[n], res, fp, u, ones,
@@ -5891,6 +5965,500 @@ def one_launch_phase(sp, slam, fx, io_fx, dev):
     return out
 
 
+# Phase 3f: the feature front end's kernels (csrc/features.cu) against
+# their plain twins.
+FEATURES_SOURCE = "ndt_feature_graph_tpu_torch/csrc/features.cu"
+# The reference's functions, which it leaves to XLA (no TPU kernel).
+FEATURE_REPLACES = {
+    "detect_features": "ndt_feature_graph_tpu/features/detector.py:50",
+    "describe_features": "ndt_feature_graph_tpu/features/descriptor.py:24",
+    "match_features": "ndt_feature_graph_tpu/features/ransac.py:67",
+}
+FEATURE_ENTRIES = tuple(FEATURE_REPLACES)
+FEATURE_ULPS = 4              # a differing discrete choice's margin
+F64_FLOP_PER_S = 34e12        # H100 SXM data sheet, float64 outside MMA
+
+
+def feature_rows(fs, idx):
+    """The FeatureSet's rows `idx` (an index or a slice of the batch)."""
+    return detector.FeatureSet(**{f.name: getattr(fs, f.name)[idx]
+                                  for f in dataclasses.fields(fs)})
+
+
+def ulps(a, b):
+    """|a - b| in float32 units in the last place of the larger."""
+    a, b = np.float32(a), np.float32(b)
+    return float(abs(np.float64(a) - np.float64(b))
+                 / np.spacing(max(abs(a), abs(b), np.float32(1e-30))))
+
+
+def compare_detect(name, got, want):
+    """The kernel's FeatureSet against the twin's: the selected beams
+    (their points' bits), masks and scales equal, or else each differing
+    slot named with the twin's own margin (the gap between its response
+    and its neighbour's in the twin's order, in ulps), which must be
+    within FEATURE_ULPS; points and angles within 2e-5, responses rtol
+    1e-4.  Returns (summary, max abs error)."""
+    g = {f.name: getattr(got, f.name).cpu() for f in dataclasses.fields(got)}
+    w = {f.name: getattr(want, f.name).cpu()
+         for f in dataclasses.fields(want)}
+    slot_diff = ((g["pts"] != w["pts"]).any(-1) | (g["mask"] != w["mask"])
+                 | (g["scales"] != w["scales"]))
+    named = []
+    for idx in torch.nonzero(slot_diff).tolist():
+        *scan, s = idx
+        resp = w["response"][tuple(scan)]
+        gaps = [ulps(resp[s], resp[k]) for k in (s - 1, s + 1)
+                if 0 <= k < resp.shape[-1]]
+        named.append({"scan": scan, "slot": s, "margin_ulps": min(gaps)})
+    m = w["mask"] & g["mask"]
+    err_pts = float((g["pts"] - w["pts"]).abs()[m].max()) if m.any() else 0.0
+    err_ang = float((g["angles"] - w["angles"]).abs()[m].max()) \
+        if m.any() else 0.0
+    rel = ((g["response"] - w["response"]).abs()
+           / w["response"].abs().clamp(min=1e-6))
+    err_resp = float(rel.max())
+    bits = {k: int((g[k] != w[k]).sum()) for k in g}
+    print(f"    {name}: {int(slot_diff.sum())} slots differ in beam, mask or "
+          f"scale {named[:4]}; points within {err_pts:.2e}, angles "
+          f"{err_ang:.2e}, responses rtol {err_resp:.2e}; entries off the "
+          f"twin's bits {bits}")
+    check(all(d["margin_ulps"] <= FEATURE_ULPS for d in named),
+          f"{name}: a selection differs from the twin's beyond "
+          f"{FEATURE_ULPS} ulps: {named[:8]}")
+    check(err_pts <= 2e-5 and err_ang <= 2e-5 and err_resp <= 1e-4,
+          f"{name}: points / angles / responses beyond 2e-5 / 2e-5 / rtol "
+          "1e-4 of the twin's")
+    return ({"slots_differing": named, "pts_err": err_pts,
+             "angle_err": err_ang, "response_rtol": err_resp,
+             "entries_off_bits": bits},
+            max(err_pts, err_ang, float((g["response"] - w["response"])
+                                        .abs().max())))
+
+
+def compare_desc(name, got, want):
+    """Descriptors within rtol 1e-5 / atol 1e-6 of the twin's."""
+    g, w = got.cpu(), want.cpu()
+    err = float((g - w).abs().max())
+    ok = bool(((g - w).abs() <= 1e-6 + 1e-5 * w.abs()).all())
+    off = int((g != w).sum())
+    print(f"    {name}: max |diff| {err:.2e}, {off} of {w.numel()} entries "
+          "off the twin's bits")
+    check(ok, f"{name}: beyond rtol 1e-5 / atol 1e-6 of the twin's")
+    return {"max_abs_err": err, "entries_off_bits": off}, err
+
+
+def match_margins(fp, ref, ref_desc, mov, mov_desc, want, pairs, kind):
+    """The twin's own margin (ulps) at each differing pair: for the
+    correspondences the least gap between two candidate distances of the
+    pair (a column's two nearest, two moving features' nearest), for the
+    inliers the least |r2 - acceptance| under the twin's pose."""
+    out = []
+    for p in pairs:
+        if kind == "corr":
+            d = features_distance.symmetric_chi2_matrix(ref_desc[p],
+                                                        mov_desc[p])
+            good = ref.mask[p][:, None] & mov.mask[p][None, :]
+            d = torch.where(good, d, math.inf).cpu().numpy()
+            col = np.sort(d, 0)
+            best = np.sort(col[0][np.isfinite(col[0])])
+            gaps = [ulps(a, b) for a, b in zip(best[:-1], best[1:])]
+            gaps += [ulps(col[0, j], col[1, j]) for j in range(d.shape[1])
+                     if np.isfinite(col[1, j])]
+        else:
+            a = ref.pts[p][want.corr_ref[p]]
+            b = mov.pts[p][want.corr_mov[p]]
+            r2 = ((a - ransac._apply(want.T[p][None], b)) ** 2).sum(-1)
+            gaps = [ulps(x, fp.ransac_acceptance) for x in r2.cpu().numpy()]
+        out.append({"pair": int(p), "margin_ulps": min(gaps)})
+    return out
+
+
+def compare_match(name, fp, got, want, inputs):
+    """The kernel's MatchResult against the twin's on the same inputs:
+    correspondences, masks, inliers, counts and validity equal (or each
+    differing pair named with the twin's own margin, within
+    FEATURE_ULPS); T within 1e-5, the score rtol 1e-5.  Returns
+    (summary, max abs error)."""
+    disc = ("corr_ref", "corr_mov", "corr_mask", "inlier_mask",
+            "num_inliers", "valid")
+    diff = {}
+    for k in disc:
+        d = getattr(got, k) != getattr(want, k)
+        diff[k] = (d.reshape(d.shape[0], -1).any(-1) if d.dim() > 1
+                   else d.reshape(-1))
+    corr = diff["corr_ref"] | diff["corr_mov"] | diff["corr_mask"]
+    inl = (diff["inlier_mask"] | diff["num_inliers"] | diff["valid"]) & ~corr
+    named = (match_margins(fp, *inputs, want, torch.nonzero(corr).flatten()
+                           .tolist(), "corr")
+             + match_margins(fp, *inputs, want, torch.nonzero(inl).flatten()
+                             .tolist(), "inliers"))
+    err_T = float((got.T - want.T).abs().max())
+    rel = float(((got.score - want.score).abs()
+                 / want.score.abs().clamp(min=1e-6)).max())
+    bits = {k: int((getattr(got, k) != getattr(want, k)).sum())
+            for k in ("T", "score", *disc)}
+    print(f"    {name}: {int(corr.sum())} pairs differ in correspondences, "
+          f"{int(inl.sum())} in inliers {named[:4]}; T within {err_T:.2e}, "
+          f"score rtol {rel:.2e}; entries off the twin's bits {bits}")
+    check(all(d["margin_ulps"] <= FEATURE_ULPS for d in named),
+          f"{name}: a discrete choice differs from the twin's beyond "
+          f"{FEATURE_ULPS} ulps: {named[:8]}")
+    check(err_T <= 1e-5 and rel <= 1e-5,
+          f"{name}: T / score beyond 1e-5 / rtol 1e-5 of the twin's")
+    return ({"pairs_differing": named, "T_err": err_T, "score_rtol": rel,
+             "entries_off_bits": bits},
+            max(err_T, float((got.score - want.score).abs().max())))
+
+
+def prepare_plain(state, params, Tmotion, ranges, hit, u):
+    """feature_fuser._prepare_features through the plain twins (the
+    parent's path): (feats, desc, res, src, tgt)."""
+    fp = params.features
+    feats = detector._detect_plain(fp, ranges, hit)
+    desc = descriptor._describe_plain(fp, feats, ranges, hit)
+    res = ransac._match_sets_plain(fp, state.prev_feats, state.prev_desc,
+                                   feats, desc, u)
+    gate = fuser_gate(state, params, Tmotion)
+    return (feats, desc, res, *ransac._gate_plain(res, state.prev_feats,
+                                                  feats, gate))
+
+
+def fuser_gate(state, params, Tmotion):
+    return ransac.OdometryGate(
+        sensor_pose=state.base.sensor_pose, motion=Tmotion,
+        prev_pose=state.prev_pose,
+        max_translation=params.max_translation_norm / 10.0,
+        max_rotation=params.max_rotation_norm / 4.0,
+        check=params.check_consistency, cov_xy=params.feature_cov_xy)
+
+
+def compare_gate(name, got, want):
+    """The gate's pseudo-cells against the twin's: masks equal, means
+    within 1e-5, covariances equal."""
+    (gs, gt), (ws, wt) = got, want
+    err = max(float((gs.means - ws.means).abs().max()),
+              float((gt.means - wt.means).abs().max()))
+    off = int((gs.means != ws.means).sum() + (gt.means != wt.means).sum())
+    masks = int((gs.mask != ws.mask).sum())
+    print(f"    {name}: pair masks differ at {masks}, {int(ws.mask.sum())} "
+          f"kept; means within {err:.2e} ({off} entries off the twin's "
+          "bits)")
+    check(masks == 0 and torch.equal(gs.covs, ws.covs) and err <= 1e-5,
+          f"{name}: the pseudo-cells differ from the twin's")
+    return {"mask_differ": masks, "means_err": err, "entries_off_bits": off}
+
+
+def window_entries(fp, ranges, hit):
+    """The detector's (beam, window beam) pairs on one polyline piece of
+    hit beams, summed over the scans: its exps and float64 sums."""
+    b, half = fp.num_beams, fp.smooth_half_beams
+    jump = (ranges - torch.roll(ranges, 1, -1)).abs() > 0.5
+    jump[..., 0] = False
+    jump = jump | ~hit | ~torch.roll(hit, 1, -1)
+    sid = torch.cumsum(jump.to(torch.int32), -1)
+    ar = torch.arange(b, device=ranges.device)
+    nidx = (ar[:, None] + torch.arange(-half, half + 1, device=ranges.device)
+            ).clamp(0, b - 1)
+    return int(((sid[..., nidx] == sid[..., None]) & hit[..., nidx]).sum())
+
+
+def detect_bound(fp, ranges, hit):
+    """The detector's least time on the card for these scans: per window
+    entry and scale an exp and three float32 products (f32) and three
+    float64 fused multiply-adds; per (scale, beam) ~40 float32 operations
+    (two searches, the turning angle, the peak test); the bytes of the
+    scans, the beam directions and the outputs."""
+    n = ranges.numel() // fp.num_beams
+    e = window_entries(fp, ranges, hit)
+    s = fp.num_scales
+    t_ops = (e * s * 4 + n * s * fp.num_beams * 40) / F32_FLOP_PER_S \
+        + e * s * 6 / F64_FLOP_PER_S
+    n_bytes = n * fp.num_beams * 5 + fp.num_beams * 8 \
+        + n * fp.max_features * 21
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "window_entries": e}
+
+
+def describe_bound(fp, feats, ranges, hit):
+    """The descriptor's: per valid feature, ~25 operations a hit beam
+    (its rotation, radius, angle, bin) and ~20 a beam (its chord), ~25 a
+    chord sample; the bytes of the scans, features and descriptors."""
+    valid = int(feats.mask.sum())
+    hits = int((feats.mask[..., None] & hit[..., None, :]).sum())
+    beams = valid * fp.num_beams
+    ops = hits * 25 + beams * 20 + beams * 8 * 25
+    n_f = feats.mask.numel()
+    n = ranges.numel() // fp.num_beams
+    n_bytes = n * fp.num_beams * 5 + n_f * 17 + n_f * fp.rho_bins \
+        * fp.phi_bins * 4
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes}
+
+
+def match_bound(fp, n_pairs, f1, f2, d, gate=False):
+    """The matcher's: per pair ~6 operations a descriptor entry of the
+    chi2 matrix, ~14 a hypothesis residual; the bytes of the two sets,
+    the draws and the result (and the pseudo-cells)."""
+    c, m = fp.max_correspondences, fp.ransac_hypotheses
+    ops = n_pairs * (f1 * f2 * d * 6 + m * c * 14)
+    n_bytes = n_pairs * ((f1 + f2) * (d * 4 + 9) + m * 8 + c * 18 + 21
+                         + (c * 33 + 36 if gate else 0))
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes}
+
+
+def rounding_probe(dev):
+    """How ATen rounds on the card what the feature kernels mirror: the
+    count of 2^17 values where a pair's vector_norm differs from each
+    candidate formula, and of 2^20 where ATen's exp, cos, sin, atan2 and
+    log1p differ from the CUDA library's functions in the kernels'
+    library (ndtg_features_math_probe)."""
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((1 << 17, 2)).astype(np.float32)
+    card = torch.linalg.vector_norm(torch.as_tensor(d, device=dev),
+                                    dim=-1).cpu().numpy()
+    x, y = d[:, 0], d[:, 1]
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    f32 = lambda v: np.sqrt(v.astype(np.float32))  # noqa: E731
+    out = {"vector_norm": {
+        "sqrt(fma(y, y, x * x))": int((f32((x * x).astype(np.float64)
+                                           + y64 * y64) != card).sum()),
+        "sqrt(fma(x, x, y * y))": int((f32((y * y).astype(np.float64)
+                                           + x64 * x64) != card).sum()),
+        "sqrt(x * x + y * y)": int((np.sqrt(x * x + y * y) != card).sum())}}
+    lib = cuda_kernels.build()
+    n = 1 << 20
+    a = torch.as_tensor((rng.standard_normal(n) * 3).astype(np.float32),
+                        device=dev)
+    b = torch.as_tensor((rng.standard_normal(n) * 3).astype(np.float32),
+                        device=dev)
+    tails = -torch.as_tensor(rng.uniform(0, 110, n).astype(np.float32),
+                             device=dev)      # the window's exp arguments
+    lp = -torch.as_tensor(rng.uniform(0, 0.99, n).astype(np.float32),
+                          device=dev)
+    for name, f, x_, aten in (("exp", 0, tails, torch.exp(tails)),
+                              ("cos", 1, a, torch.cos(a)),
+                              ("sin", 2, a, torch.sin(a)),
+                              ("atan2", 3, a, torch.atan2(a, b)),
+                              ("log1p", 4, lp, torch.log1p(lp))):
+        got = torch.empty_like(x_)
+        with torch.cuda.device(dev):
+            err = lib.ndtg_features_math_probe(
+                x_.data_ptr(), b.data_ptr(), got.data_ptr(), n, f,
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the maths probe did not launch: {err}")
+        out[name] = int((got != aten).sum())
+    return out
+
+
+def feature_phase(sp, fx, lc, fl, dev):
+    """Phase 3f (see the module docstring).  Returns (summary, {entry:
+    kernels-line fields})."""
+    fp = sp.fuser.features
+    T = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    R, H, U = T(fx["ranges"]), T(fx["hit"], torch.bool), T(fx["ransac_u"])
+    n = R.shape[0]
+    out, err = {}, {k: 0.0 for k in FEATURE_ENTRIES}
+    if dev.type == "cuda":
+        out["rounding_probe"] = rounding_probe(dev)
+        print(f"    ATen on the card: a pair's vector_norm off each formula, "
+              f"and its exp, cos, sin, atan2, log1p off the kernels' CUDA "
+              f"library functions: {out['rounding_probe']}")
+    before = dict(cuda_kernels.LAUNCHES)
+
+    def keep(entry, res):
+        err[entry] = max(err[entry], res[1])
+        return res[0]
+
+    # Detect and describe: the 200 scans as one batch and one by one.
+    fk = detector.detect(fp, R, H)
+    ft = detector._detect_plain(fp, R, H)
+    out["detect_batch"] = keep("detect_features", compare_detect(
+        f"detect, {n} scans in one call", fk, ft))
+    if dev.type == "cuda":
+        _, arcs, smoothed = cuda_kernels.detect_features(fp, R, H,
+                                                         intermediates=True)
+        _, arc_t, _, sms_t = detector._smoothing_plain(fp, R, H)
+        sm_t = torch.stack(sms_t, -3)
+        out["detect_intermediates"] = {
+            "arc_entries_off_bits": int((arcs != arc_t).sum()),
+            "smoothed_entries_off_bits": int((smoothed != sm_t).sum()),
+            "smoothed_max_abs_diff": float((smoothed - sm_t).abs().max())}
+        print(f"    the kernel's cumulative arc and smoothed points against "
+              f"the twin's: {out['detect_intermediates']} of {arcs.numel()} "
+              f"and {smoothed.numel()}")
+    one_k = [detector.detect(fp, R[i], H[i]) for i in range(n)]
+    one_t = [detector._detect_plain(fp, R[i], H[i]) for i in range(n)]
+    stack = lambda sets: detector.FeatureSet(**{  # noqa: E731
+        f.name: torch.stack([getattr(s, f.name) for s in sets])
+        for f in dataclasses.fields(detector.FeatureSet)})
+    out["detect_per_scan"] = keep("detect_features", compare_detect(
+        "detect, scan by scan", stack(one_k), stack(one_t)))
+    same = all(torch.equal(getattr(stack(one_k), f.name),
+                           getattr(fk, f.name))
+               for f in dataclasses.fields(fk))
+    print(f"    the kernel's scan alone = its row of the batch: {same}")
+    check(same, "detect: a scan's bits depend on its batch")
+    dk = descriptor.describe(fp, ft, R, H)
+    dt = descriptor._describe_plain(fp, ft, R, H)
+    out["describe_batch"] = keep("describe_features", compare_desc(
+        f"describe, {n} scans' twin features in one call", dk, dt))
+    dk1 = torch.stack([descriptor.describe(fp, feature_rows(ft, i), R[i],
+                                           H[i]) for i in range(n)])
+    dt1 = torch.stack([descriptor._describe_plain(fp, feature_rows(ft, i),
+                                                  R[i], H[i])
+                       for i in range(n)])
+    out["describe_per_scan"] = keep("describe_features", compare_desc(
+        "describe, scan by scan", dk1, dt1))
+    check(torch.equal(dk1, dk), "describe: a scan's bits depend on its "
+                                "batch")
+    hm = dataclasses.replace(fp, descriptor_stat="hitmiss")
+    out["describe_hitmiss"] = keep("describe_features", compare_desc(
+        "describe, hitmiss statistic", descriptor.describe(hm, ft, R, H),
+        descriptor._describe_plain(hm, ft, R, H)))
+    out["describe_end_to_end"] = keep("describe_features", compare_desc(
+        "describe of the kernel's own features", descriptor.describe(
+            fp, fk, R, H), dt))
+
+    # Match: the 199 consecutive pairs with the fixture's draws, then the
+    # 171 candidate pairs of phase 9e's bank, on the twin's sets.
+    ref, mov = feature_rows(ft, slice(0, n - 1)), feature_rows(ft,
+                                                               slice(1, n))
+    inputs = (ref, dt[:-1], mov, dt[1:])
+    mk = ransac.match_sets(fp, *inputs, U)
+    mt = ransac._match_sets_plain(fp, *inputs, U)
+    out["match_consecutive"] = keep("match_features", compare_match(
+        f"match, {n - 1} consecutive pairs", fp, mk, mt, inputs))
+    m1 = [ransac.match_sets(fp, feature_rows(ft, i), dt[i],
+                            feature_rows(ft, i + 1), dt[i + 1], U[i])
+          for i in range(n - 1)]
+    same = all(torch.equal(getattr(r, f.name), getattr(mk, f.name)[i])
+               for i, r in enumerate(m1)
+               for f in dataclasses.fields(ransac.MatchResult))
+    print(f"    a pair alone = its row of the batch: {same}")
+    check(same, "match: a pair's bits depend on its batch")
+    ap = dataclasses.replace(fp, ransac_adaptive=True)
+    out["match_adaptive"] = keep("match_features", compare_match(
+        "match, the adaptive budget", ap, ransac.match_sets(ap, *inputs, U),
+        ransac._match_sets_plain(ap, *inputs, U), inputs))
+    lsp, _, bank, ref_i, mov_i, lu = link_bank(lc, dev)
+    lfp = lsp.fuser.features
+    lin = (feature_rows(bank.feats, ref_i), bank.desc[ref_i],
+           feature_rows(bank.feats, mov_i), bank.desc[mov_i])
+    out["match_lc_bank"] = keep("match_features", compare_match(
+        f"match, {ref_i.shape[0]} candidate pairs of the LC bank "
+        f"({lin[0].mask.shape[-1]} features a node)", lfp,
+        ransac.match_sets(lfp, *lin, lu),
+        ransac._match_sets_plain(lfp, *lin, lu), lin))
+
+    # The main path's gated call on each consecutive pair, and a B = 64
+    # fleet step through feature_fuser._prepare_features.
+    prev = T(fx["traj"][:-1])
+    motion = se2.sub(prev, T(fx["traj"][1:]))
+    gate = ransac.OdometryGate(
+        sensor_pose=torch.zeros(3, device=dev), motion=motion,
+        prev_pose=prev, max_translation=sp.fuser.max_translation_norm / 10,
+        max_rotation=sp.fuser.max_rotation_norm / 4,
+        check=sp.fuser.check_consistency, cov_xy=sp.fuser.feature_cov_xy)
+    gk = ransac.match_sets_gated(fp, *inputs, U, gate)
+    out["gate_consecutive"] = compare_gate(
+        f"gate, {n - 1} consecutive pairs", gk[1:], ransac._gate_plain(
+            mt, ref, mov, gate))
+    fleet_fp = presets.fleet_serving()
+    seq = sequence(fl, dev)
+    states, odom, fr, fh = scaling.build_fleet_feature_inputs(fleet_fp, seq,
+                                                              64)
+    fu = T(np.resize(fl["ransac_u"], (64,) + fl["ransac_u"].shape[1:])
+           [:, 0])
+    step = (states, fleet_fp, odom[:, 0], fr[:, 0], fh[:, 0], fu)
+    got = feature_fuser._prepare_features(*step)
+    want = prepare_plain(*step)
+    out["fleet_b64"] = {
+        "detect": keep("detect_features", compare_detect(
+            "B = 64 fleet step: detect", got[2], want[0]))}
+    out["fleet_b64"]["describe"] = keep("describe_features", compare_desc(
+        "B = 64 fleet step: describe", got[3], want[1]))
+    out["fleet_b64"]["match"] = keep("match_features", compare_match(
+        "B = 64 fleet step: match", fleet_fp.features, got[6], want[2],
+        (states.prev_feats, states.prev_desc, want[0], want[1])))
+    out["fleet_b64"]["gate"] = compare_gate(
+        "B = 64 fleet step: gate", got[4:6], want[3:5])
+    again = feature_fuser._prepare_features(*step)
+    rep = all(torch.equal(a, b) for x, y in zip(got[2:], again[2:])
+              for a, b in zip(_leaves(x), _leaves(y)))
+    print(f"    a second call repeats the first's bits: {rep}")
+    check(rep, "the feature kernels do not repeat their bits")
+    out["repeat_bits"] = rep
+    launched = {k: cuda_kernels.LAUNCHES[k] - before[k]
+                for k in FEATURE_ENTRIES}
+    print(f"    kernel launches of these checks: {launched}")
+
+    # Device time in turns (twin, kernel, kernel, twin) at the main
+    # path's shapes (one scan, one gated pair) and batched.
+    print("    times at the main path's shapes (one scan; one pair with "
+          "the gate):")
+    k0 = 5
+    one_gate = dataclasses.replace(gate, motion=motion[k0], prev_pose=prev[k0])
+    f0, d0 = feature_rows(ft, k0), dt[k0]
+    f1, d1 = feature_rows(ft, k0 + 1), dt[k0 + 1]
+    cases = {
+        "detect_features": (
+            lambda: detector.detect(fp, R[k0 + 1], H[k0 + 1]),
+            lambda: detector._detect_plain(fp, R[k0 + 1], H[k0 + 1]),
+            detect_bound(fp, R[k0 + 1], H[k0 + 1])),
+        "describe_features": (
+            lambda: descriptor.describe(fp, f1, R[k0 + 1], H[k0 + 1]),
+            lambda: descriptor._describe_plain(fp, f1, R[k0 + 1], H[k0 + 1]),
+            describe_bound(fp, f1, R[k0 + 1], H[k0 + 1])),
+        "match_features": (
+            lambda: ransac.match_sets_gated(fp, f0, d0, f1, d1, U[k0],
+                                            one_gate),
+            lambda: ransac._gate_plain(ransac._match_sets_plain(
+                fp, f0, d0, f1, d1, U[k0]), f0, f1, one_gate),
+            match_bound(fp, 1, 32, 32, d0.shape[-1], gate=True)),
+    }
+    lines = {}
+    for k, (kern, plain, bnd) in cases.items():
+        print(f"    {k}:")
+        t = time_turns(kern, plain, label="plain twin", launches=1)
+        lines[k] = {"max_abs_err": err[k], **t, **bnd,
+                    "path": "the main path's feature front end "
+                            "(feature_fuser._prepare_features; "
+                            "feature_fuser.initialize)"}
+    print(f"    batched ({n} scans; {n - 1} pairs; the LC bank's pairs):")
+    batched = {
+        "detect_200": (lambda: detector.detect(fp, R, H),
+                       lambda: detector._detect_plain(fp, R, H),
+                       detect_bound(fp, R, H)),
+        "describe_200": (lambda: descriptor.describe(fp, ft, R, H),
+                         lambda: descriptor._describe_plain(fp, ft, R, H),
+                         describe_bound(fp, ft, R, H)),
+        "match_199": (lambda: ransac.match_sets(fp, *inputs, U),
+                      lambda: ransac._match_sets_plain(fp, *inputs, U),
+                      match_bound(fp, n - 1, 32, 32, d0.shape[-1])),
+        "match_lc_bank": (
+            lambda: ransac.match_sets(lfp, *lin, lu),
+            lambda: ransac._match_sets_plain(lfp, *lin, lu),
+            match_bound(lfp, ref_i.shape[0], lin[0].mask.shape[-1],
+                        lin[2].mask.shape[-1], lin[1].shape[-1])),
+    }
+    for k, (kern, plain, bnd) in batched.items():
+        print(f"    {k}:")
+        out[f"time_{k}"] = {**time_turns(kern, plain, reps=20, plain_reps=3,
+                                         label="plain twin", launches=1),
+                            **bnd}
+    out["launches_of_checks"] = launched
+    return out, lines
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -5909,8 +6477,9 @@ def main():
     t0 = time.perf_counter()
     cuda_kernels.build()
     build_s = time.perf_counter() - t0
-    print(f"  built {SOURCE}, {SEGMENT_SOURCE}, {OCCUPANCY_SOURCE} and "
-          f"{OVERLAP_SOURCE} for sm_90a in {build_s:.2f} s")
+    print(f"  built {SOURCE}, {SEGMENT_SOURCE}, {OCCUPANCY_SOURCE}, "
+          f"{OVERLAP_SOURCE} and {FEATURES_SOURCE} for sm_90a in "
+          f"{build_s:.2f} s")
     for line in cuda_kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -5928,6 +6497,15 @@ def main():
           "card vs CPU and vs the parent's path; float32 sqrt")
     (map_update, checks["segment_add_rows"],
      checks["occupancy_update"]) = map_update_phase(sp, fx, dev)
+    lc = dict(np.load(LC_FIXTURE))
+    print("phase 3f: the feature front end (detect_features, "
+          "describe_features, match_features) vs the plain twins")
+    t3f = time.perf_counter()
+    features, feature_lines = feature_phase(
+        sp, fx, lc, dict(np.load(FLEET_FIXTURE)), dev)
+    checks.update(feature_lines)
+    features["wall_s"] = time.perf_counter() - t3f
+    print(f"  phase 3f took {features['wall_s']:.1f} s")
 
     print("phase 4: main path, canonical 200-scan fixture")
     cuda_kernels.reset_launch_counts()
@@ -5955,13 +6533,22 @@ def main():
           f"cell list, its points; each new node's first scan); "
           f"occupancy_update: {launches['occupancy_update']} for "
           f"{updates['occ']} occupancy updates")
+    print(f"  feature kernels: detect_features "
+          f"{launches['detect_features']}, describe_features "
+          f"{launches['describe_features']}, match_features "
+          f"{launches['match_features']} (one each a scan, the first scan's "
+          f"detect and describe in initialize)")
     check(launches["newton_solve"] == scans == len(calls),
           "newton_solve was not launched once per registration")
     check_map_launches(launches, updates, "the main path")
+    check(launches["detect_features"] == launches["describe_features"]
+          == scans + 1 and launches["match_features"] == scans,
+          "the feature kernels did not launch once a scan")
     check(all(v == 0 for k, v in launches.items()
-              if k not in ("newton_solve", *MAP_ENTRIES)),
-          "the main path launched another entry than newton_solve and the "
-          "map update's segment_add_rows and occupancy_update")
+              if k not in ("newton_solve", *MAP_ENTRIES, *FEATURE_ENTRIES)),
+          "the main path launched another entry than newton_solve, the "
+          "map update's segment_add_rows and occupancy_update and the "
+          "feature kernels")
     check(in_solve["in_solve"] == 0, "newton_solve synchronised")
     traj = np.stack(slam.trajectory)
     check(traj.shape == fx["traj"].shape and np.isfinite(traj).all(),
@@ -6007,7 +6594,6 @@ def main():
           "(match_d2d, covariance_d2d, fgh_paired)")
     reg_launches = registration_phase(sp, slam, dev)
 
-    lc = dict(np.load(LC_FIXTURE))
     print("phase 5: offline graph, canonical corridor, a node every "
           f"{OFFLINE_SPLIT_M} m (pipeline.run_slam)")
     offline, off_launches, checks["fgh_dense_flat_batch"] = offline_phase(
@@ -6087,6 +6673,7 @@ def main():
         "segment_add_rows": launches["segment_add_rows"],
         "occupancy_update": launches["occupancy_update"],
         "overlap_score": off_launches["overlap_score"],
+        **{k: launches[k] for k in FEATURE_ENTRIES},
     }
     yardstick = {"newton_objective": replay["per_trial_launches"],
                  "row_sum": link_scores["row_sum_yardstick_launches"],
@@ -6149,6 +6736,13 @@ def main():
             launches_chunked=entry_points["chunked"]["launches"][k],
             launches_fleet_b8=fleet_run[k],
             launches_online_lc=on_launches[k])
+    for k in FEATURE_ENTRIES:
+        by_name[k].update(
+            source=FEATURES_SOURCE, replaces=FEATURE_REPLACES[k],
+            launches_chunked=entry_points["chunked"]["launches"][k],
+            launches_fleet_full_b8=fleet["launches"]["full_b8"][k],
+            launches_online_lc=on_launches[k],
+            launches_optimize_offline=off_launches[k])
     record = {
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernels": kernels,
@@ -6158,7 +6752,8 @@ def main():
                       "dev_theta_rad": dev_th, "node_T_dev": node_dev,
                       "ate_m": ate, "ate_jax_m": ate_ref,
                       "runs_repeat": same},
-        "map_update": map_update, "localization": localization, "hmt": hmt,
+        "map_update": map_update, "features": features,
+        "localization": localization, "hmt": hmt,
         "offline": offline, "online_lc": online, "fleet": fleet,
         "rolling_map": rolling, "offline_scale": scale,
         "simulator": simulator, "inputs": inputs, "p2d": p2d,

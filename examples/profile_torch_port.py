@@ -28,7 +28,10 @@ the "map_occupancy" range (update_occupancy alone) and the
 "map_scatter" range (ndt_map.scatter_add_rows), each the device time of
 the operations inside it plus the hand-written kernels' that it runs
 (the segment sum's, the occupancy kernel's two passes), which
-torch.profiler sees outside any operation (ctypes launches).
+torch.profiler sees outside any operation (ctypes launches); and the
+"features" range (feature_fuser._prepare_features: a scan's, or a fleet
+step's, feature front end), its device time and share with the three
+feature kernels, and its device operations a scan (or step).
 
 With --wall-only it runs the main path `--runs` times after a warm-up
 without the profiler (which takes minutes over 200 scans) and prints the
@@ -107,7 +110,7 @@ import chip_smoke  # noqa: E402
 
 
 # annotated_map_update's ranges
-RANGES = ("map_update", "map_scatter", "map_occupancy")
+RANGES = ("map_update", "map_scatter", "map_occupancy", "features")
 
 
 @contextlib.contextmanager
@@ -119,15 +122,22 @@ def annotated_map_update():
     passes, an older tree's sort and kernel, or its sorted index_put_
     path; since the occupancy kernel only the statistics' on the card),
     so a profile reads their share of device time, whichever tree it
-    runs."""
+    runs; and "features" around feature_fuser._prepare_features, a
+    scan's feature front end (the scan's points, detect, describe, RANSAC,
+    the odometry gate and the pseudo-cells: the three feature kernels,
+    or a parent tree's eager operations)."""
     from torch.profiler import record_function
 
+    from ndt_feature_graph_tpu_torch.fusion import feature_fuser
     from ndt_feature_graph_tpu_torch.ops import ndt_map
 
-    names = {"add_points_touched": RANGES[:1],
-             "update_occupancy": RANGES[::2],
-             "scatter_add_rows": RANGES[1:2]}
-    saved = {k: getattr(ndt_map, k) for k in names}
+    names = {"add_points_touched": ("map_update",),
+             "update_occupancy": ("map_update", "map_occupancy"),
+             "scatter_add_rows": ("map_scatter",),
+             "_prepare_features": ("features",)}
+    saved = {(mod, k): getattr(mod, k)
+             for mod in (ndt_map, feature_fuser) for k in names
+             if hasattr(mod, k)}
 
     def ranged(fn, ranges):
         def call(*args, **kwargs):
@@ -137,13 +147,13 @@ def annotated_map_update():
                 return fn(*args, **kwargs)
         return call
 
-    for k, ranges in names.items():
-        setattr(ndt_map, k, ranged(saved[k], ranges))
+    for (mod, k), fn in saved.items():
+        setattr(mod, k, ranged(fn, names[k]))
     try:
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(ndt_map, k, fn)
+        for (mod, k), fn in saved.items():
+            setattr(mod, k, fn)
 
 
 def device_ops(prof):
@@ -155,6 +165,22 @@ def device_ops(prof):
               and e.key not in RANGES]
     return (sum(e.count for e in on_dev),
             sum(e.self_device_time_total for e in on_dev))
+
+
+def range_ops(prof, name):
+    """Device operations launched by the operations inside the CPU range
+    `name` (ATen's kernels, copies and memsets; the hand-written kernels,
+    which no operation owns, are counted apart)."""
+    n = 0
+    for e in prof.events():
+        if e.name != name or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            n += len(c.kernels)
+            stack.extend(c.cpu_children)
+    return n
 
 
 def registration_turns(sp, fx, dev, reps=50):
@@ -224,8 +250,11 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
     # it, which the profiler attributes to no operation (ctypes
     # launches): the segment sum's (of one channel: a parent tree's
     # occupancy scatter; of more: the statistics') and the occupancy
-    # kernel's two passes.
-    own = {"stats": 0.0, "occ": 0.0}
+    # kernel's two passes; the feature kernels' (by name, wherever they
+    # ran: the first scan's detect and describe run in initialize) belong
+    # to "features".
+    own = {"stats": 0.0, "occ": 0.0, "feat": 0.0}
+    feat_launches = 0
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -234,8 +263,11 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
                 e.self_device_time_total)
         elif "occupancy_" in e.key:
             own["occ"] += e.self_device_time_total
+        elif "features_" in e.key:
+            own["feat"] += e.self_device_time_total
+            feat_launches += e.count
     parts = {RANGES[0]: ("stats", "occ"), RANGES[1]: ("stats",),
-             RANGES[2]: ("occ",)}
+             RANGES[2]: ("occ",), RANGES[3]: ("feat",)}
     # A parent tree's occupancy scatter runs inside "map_scatter" too.
     if any("kernel<1>" in e.key for e in events):
         parts[RANGES[1]] = ("stats", "occ")
@@ -245,6 +277,8 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
             us = e.device_time_total + sum(own[k] for k in parts[e.key])
             summary[f"{e.key}_device_us"] = us
             summary[f"{e.key}_share"] = us / dev_us
+    summary[f"features_device_ops_per_{per[:-1]}"] = (
+        range_ops(prof, "features") + feat_launches) / count
     print(gpu)
     print(by_dev)
     print(by_cpu)

@@ -6,6 +6,11 @@ support count as hits in their polar bin; length-weighted free-space
 samples along each beam chord inside the support count as misses.  The
 bins are accumulated as one-hot contractions (matmuls — run in full
 float32, TF32 off), as the reference does.
+
+On CUDA tensors `describe` is one launch of the descriptor kernel
+(ops/cuda_kernels.py describe_features, csrc/features.cu: per-thread bins
+and a fixed tree, no one-hot tensor); on the CPU it is the plain twin,
+`_describe_plain`, the kernel's yardstick on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +27,16 @@ from ndt_feature_graph_tpu_torch.io.dataset import beam_angles
 def describe(params: FeatureParams, feats: FeatureSet, ranges, hit):
     """(..., F, descriptor_dim) descriptors; `feats` (..., F) in the
     sensor frame of the scan (`ranges`, `hit`) (..., B) with the same
-    leading dims (independent scans)."""
+    leading dims (independent scans).  CUDA tensors:
+    cuda_kernels.describe_features (one launch); CPU: the plain twin."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.describe_features(params, feats, ranges, hit)
+
+
+def _describe_plain(params: FeatureParams, feats: FeatureSet, ranges, hit):
+    """The plain twin of `describe`: the polar bins of every hit and
+    chord sample, summed through (..., F, B, 8, bins) one-hot tensors."""
     r_bins, p_bins = params.rho_bins, params.phi_bins
     nbins = r_bins * p_bins
     dev = ranges.device

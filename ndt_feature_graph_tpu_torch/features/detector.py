@@ -10,6 +10,13 @@ beam competes in a global top-K.
 `lax.top_k` puts the lower index first among equal values, and zero
 responses tie en masse; `torch.topk` promises no order for ties, so the
 top-K is a stable descending sort, sliced.
+
+On CUDA tensors `detect` is one launch of the detector kernel
+(ops/cuda_kernels.py detect_features, csrc/features.cu); on the CPU it is
+the plain twin, `_detect_plain`, the kernel's yardstick on the card.  The
+twin takes the cumulative arc and the window's Gaussian sums in float64
+(the CPU's own cumsum accumulates in float64), so their float32 results
+do not depend on the order of the adds, on the card or in the kernel.
 """
 
 from __future__ import annotations
@@ -52,7 +59,18 @@ def top_k_stable(x, k: int):
 
 def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
     """Detect up to `max_features` interest points per scan (ranges
-    (..., B), hit (..., B) bool; leading dims are independent scans)."""
+    (..., B), hit (..., B) bool; leading dims are independent scans).
+    CUDA tensors: cuda_kernels.detect_features (one launch); CPU: the
+    plain twin."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.detect_features(params, ranges, hit)
+
+
+def _smoothing_plain(params: FeatureParams, ranges, hit):
+    """The plain twin's points (..., B, 2), cumulative arc (..., B),
+    polyline pieces (..., B) and smoothed points at each scale, a list
+    of (..., B, 2)."""
     b = params.num_beams
     dev = ranges.device
     angles = beam_angles(b, device=dev)
@@ -63,7 +81,7 @@ def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
 
     seg = torch.linalg.vector_norm(pts - torch.roll(pts, 1, -2), dim=-1)
     seg = torch.cat([torch.zeros_like(seg[..., :1]), seg[..., 1:]], -1)
-    cumarc = torch.cumsum(seg, -1)
+    cumarc = torch.cumsum(seg.double(), -1).float()
 
     jump = torch.abs(ranges - torch.roll(ranges, 1, -1)) > 0.5
     jump = torch.cat([torch.zeros_like(jump[..., :1]), jump[..., 1:]], -1)
@@ -75,15 +93,28 @@ def detect(params: FeatureParams, ranges, hit) -> FeatureSet:
     nidx = (ar[:, None] + offs[None, :]).clamp(0, b - 1)
     darc = torch.abs(cumarc[..., nidx] - cumarc[..., None])   # (..., B, W)
     same_piece = (seg_id[..., nidx] == seg_id[..., None]) & hit[..., nidx]
-    pts_n = pts[..., nidx, :]                                 # (..., B, W, 2)
+    pts_n = pts[..., nidx, :].double()                        # (..., B, W, 2)
 
-    responses, tangents, sigmas = [], [], []
+    sms = []
     for i in range(params.num_scales):
         sigma = params.base_sigma * params.sigma_step**i
-        w = torch.exp(-0.5 * (darc / sigma) ** 2) * same_piece
+        w = (torch.exp(-0.5 * (darc / sigma) ** 2) * same_piece).double()
         wsum = torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        sm = torch.einsum("...bw,...bwc->...bc", w / wsum, pts_n)
+        sms.append(
+            (torch.einsum("...bw,...bwc->...bc", w, pts_n) / wsum).float())
+    return pts, cumarc, seg_id, sms
 
+
+def _detect_plain(params: FeatureParams, ranges, hit) -> FeatureSet:
+    """The plain twin of `detect`: eager operations over (..., S, B, W)
+    tensors."""
+    b = params.num_beams
+    ar = torch.arange(b, device=ranges.device)
+    pts, cumarc, seg_id, sms = _smoothing_plain(params, ranges, hit)
+
+    responses, tangents, sigmas = [], [], []
+    for i, sm in enumerate(sms):
+        sigma = params.base_sigma * params.sigma_step**i
         fwd = torch.searchsorted(cumarc, cumarc + sigma).clamp(0, b - 1)
         bwd = torch.searchsorted(cumarc, cumarc - sigma).clamp(0, b - 1)
         sm_f, sm_b = take_rows(sm, fwd), take_rows(sm, bwd)

@@ -8,6 +8,13 @@ scoring -> two Procrustes refinements on the winner's inliers.
 Randomness: the reference draws the (M, 2) hypothesis uniforms from
 `jax.random.uniform` under a key split per scan; torch cannot reproduce
 that stream, so `match_sets` takes the draws `u` as an argument.
+
+On CUDA tensors `match_sets` is one launch of the matcher kernel
+(ops/cuda_kernels.py match_features, csrc/features.cu), and
+`match_sets_gated` the same launch with the feature fuser's odometry gate
+and paired pseudo-cells in its epilogue; on the CPU they are the plain
+twins, `_match_sets_plain` and `_gate_plain`, the kernel's yardstick on
+the card.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import math
 import torch
 
 from ndt_feature_graph_tpu_torch.config import FeatureParams
+from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features.detector import (
     FeatureSet, top_k_stable,
 )
@@ -97,13 +105,81 @@ def adaptive_considered(params: FeatureParams, r2_raw, corr_mask, hyp_ok):
     return torch.arange(m_hyp, device=w2.device) < torch.ceil(bound)
 
 
+@dataclasses.dataclass
+class OdometryGate:
+    """The feature fuser's check of a RANSAC pose against odometry and
+    its pseudo-cells (fusion/feature_fuser.py): poses (..., 3) over the
+    pair batch (or shared by it)."""
+
+    sensor_pose: torch.Tensor   # laser in the vehicle frame
+    motion: torch.Tensor        # the odometry motion, Tmotion
+    prev_pose: torch.Tensor     # the previous scan's Tnow
+    max_translation: float      # FuserParams.max_translation_norm / 10
+    max_rotation: float         # FuserParams.max_rotation_norm / 4
+    check: bool                 # FuserParams.check_consistency
+    cov_xy: float               # the pseudo-cells' covariance, cov_xy * I
+
+
 def match_sets(params: FeatureParams, ref: FeatureSet, ref_desc,
                mov: FeatureSet, mov_desc, u) -> MatchResult:
     """Estimate the SE(2) transform carrying `mov` features onto `ref`
     features.  `u` (..., M, 2) are the hypothesis draws, uniform in
     [0, 1).  Leading dims are a batch of independent set pairs (the
     reference vmaps this over link candidates): feature sets (..., F),
-    descriptors (..., F, D); every result field gains the batch dims."""
+    descriptors (..., F, D); every result field gains the batch dims.
+    CUDA tensors: cuda_kernels.match_features (one launch); CPU: the
+    plain twin."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.match_features(params, ref, ref_desc, mov, mov_desc,
+                                       u)
+
+
+def match_sets_gated(params: FeatureParams, ref: FeatureSet, ref_desc,
+                     mov: FeatureSet, mov_desc, u, gate: OdometryGate):
+    """match_sets, then the feature fuser's odometry gate: the RANSAC
+    pose (current sensor frame -> previous one) against the odometry in
+    the vehicle frame, and the correspondences as paired fixed-covariance
+    pseudo-cells in the world (`tgt`: the previous scan's points under
+    prev_pose o sensor_pose) and vehicle (`src`) frames, masked to the
+    inliers of a consistent, valid pose.  Returns (MatchResult, src,
+    tgt).  CUDA tensors: ONE launch of the matcher kernel with the gate
+    in its epilogue; CPU: the plain twins."""
+    from ndt_feature_graph_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.match_features(params, ref, ref_desc, mov, mov_desc,
+                                       u, gate=gate)
+
+
+def _gate_plain(res: MatchResult, ref: FeatureSet, mov: FeatureSet,
+                gate: OdometryGate):
+    """The plain twin of match_sets_gated's gate: (src, tgt)."""
+    sp = gate.sensor_pose
+    T_feat_vehicle = se2.compose(se2.compose(sp, res.T), se2.inverse(sp))
+    diff = se2.sub(T_feat_vehicle, gate.motion)
+    consistent = (
+        (torch.linalg.vector_norm(diff[..., :2], dim=-1)
+         <= gate.max_translation)
+        & (torch.abs(diff[..., 2]) <= gate.max_rotation)
+    ) | (not gate.check)
+    feats_ok = res.valid & consistent
+
+    world_prev = se2.compose(gate.prev_pose, sp)
+    tgt_pts = se2.transform_points(world_prev, _take(ref.pts, res.corr_ref))
+    src_pts = se2.transform_points(sp, _take(mov.pts, res.corr_mov))
+    # Materialised once per scan: the objective kernel reads the lists
+    # of every Newton trial through plain pointers.
+    covs = (torch.eye(2, dtype=torch.float32, device=res.T.device)
+            * gate.cov_xy).expand(*res.corr_ref.shape, 2, 2).contiguous()
+    pair_mask = res.inlier_mask & feats_ok[..., None]
+    return (CellList(means=src_pts, covs=covs, mask=pair_mask),
+            CellList(means=tgt_pts, covs=covs, mask=pair_mask))
+
+
+def _match_sets_plain(params: FeatureParams, ref: FeatureSet, ref_desc,
+                      mov: FeatureSet, mov_desc, u) -> MatchResult:
+    """The plain twin of match_sets: eager operations over (..., M, C)
+    tensors."""
     c_cap = params.max_correspondences
     m_hyp = params.ransac_hypotheses
     acc = params.ransac_acceptance

@@ -17,11 +17,9 @@ import dataclasses
 import torch
 
 from ndt_feature_graph_tpu_torch.config import FuserParams
-from ndt_feature_graph_tpu_torch.core import se2
 from ndt_feature_graph_tpu_torch.features import descriptor, detector, ransac
 from ndt_feature_graph_tpu_torch.fusion import fuser
 from ndt_feature_graph_tpu_torch.io import dataset
-from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList, take_rows
 
 
 @dataclasses.dataclass
@@ -46,40 +44,25 @@ def _prepare_features(state: FeatureFuserState, params: FuserParams,
                       Tmotion, ranges, hit, u):
     """Scan projection + detect + describe + RANSAC + odometry-
     consistency gate + paired pseudo-cells, for one stream or over a
-    leading stream dimension (u then (..., M, 2)).
+    leading stream dimension (u then (..., M, 2)).  On the card the
+    feature front end is three launches: the detector, the descriptor,
+    and the matcher with the gate in its epilogue.
 
     Returns (pts, mask, feats, desc, feat_src, feat_tgt, res)."""
     fp = params.features
     pts, mask = dataset.scan_to_points(ranges, hit)
     feats = detector.detect(fp, ranges, hit)
     desc = descriptor.describe(fp, feats, ranges, hit)
-    res = ransac.match_sets(fp, state.prev_feats, state.prev_desc, feats,
-                            desc, u)
-
     # RANSAC's T maps current sensor frame -> previous sensor frame;
-    # compare it with odometry in the vehicle frame.
-    sp = state.base.sensor_pose
-    T_feat_vehicle = se2.compose(se2.compose(sp, res.T), se2.inverse(sp))
-    diff = se2.sub(T_feat_vehicle, Tmotion)
-    consistent = (
-        (torch.linalg.vector_norm(diff[..., :2], dim=-1)
-         <= params.max_translation_norm / 10.0)
-        & (torch.abs(diff[..., 2]) <= params.max_rotation_norm / 4.0)
-    ) | (not params.check_consistency)
-    feats_ok = res.valid & consistent
-
-    world_prev = se2.compose(state.prev_pose, sp)
-    tgt_pts = se2.transform_points(
-        world_prev, take_rows(state.prev_feats.pts, res.corr_ref))
-    src_pts = se2.transform_points(sp, take_rows(feats.pts, res.corr_mov))
-    # Materialised once per scan: the objective kernel reads the lists
-    # of every Newton trial through plain pointers.
-    covs = (torch.eye(2, dtype=torch.float32, device=pts.device)
-            * params.feature_cov_xy).expand(
-                *res.corr_ref.shape, 2, 2).contiguous()
-    pair_mask = res.inlier_mask & feats_ok[..., None]
-    feat_tgt = CellList(means=tgt_pts, covs=covs, mask=pair_mask)
-    feat_src = CellList(means=src_pts, covs=covs, mask=pair_mask)
+    # the gate compares it with odometry in the vehicle frame.
+    gate = ransac.OdometryGate(
+        sensor_pose=state.base.sensor_pose, motion=Tmotion,
+        prev_pose=state.prev_pose,
+        max_translation=params.max_translation_norm / 10.0,
+        max_rotation=params.max_rotation_norm / 4.0,
+        check=params.check_consistency, cov_xy=params.feature_cov_xy)
+    res, feat_src, feat_tgt = ransac.match_sets_gated(
+        fp, state.prev_feats, state.prev_desc, feats, desc, u, gate)
     return pts, mask, feats, desc, feat_src, feat_tgt, res
 
 

@@ -72,6 +72,17 @@ registers and the clamp in a row pass, two launches, the CPU's bits.
 Plain twin: ndt_map._update_occupancy_plain (the eager ray build through
 scatter_add_rows).
 
+`csrc/features.cu` holds the scan's feature front end in three kernels,
+one launch each for a scan or a batch of scans / pairs:
+`detect_features` (features/detector.py detect: one block a scan),
+`describe_features` (features/descriptor.py describe: one block a
+feature, per-thread bins and a fixed tree) and `match_features`
+(features/ransac.py match_sets: one block a pair; with an
+`OdometryGate`, match_sets_gated, the feature fuser's gate and paired
+pseudo-cells in the same launch).  Plain twins: detector._detect_plain,
+descriptor._describe_plain, ransac._match_sets_plain and
+ransac._gate_plain.
+
 The sources are compiled with nvcc for sm_90a (one process a source,
 started together) into one shared library with a plain C interface at
 the first CUDA call (never at import: machines without nvcc import this
@@ -99,13 +110,17 @@ import numpy as np
 import torch
 
 from ndt_feature_graph_tpu_torch.config import MatcherParams, NDTMapParams
+from ndt_feature_graph_tpu_torch.config import FeatureParams
 from ndt_feature_graph_tpu_torch.core import se2
+from ndt_feature_graph_tpu_torch.features import descriptor, detector, ransac
+from ndt_feature_graph_tpu_torch.io import dataset
 from ndt_feature_graph_tpu_torch.ops import d2d, d2d_analytic, ndt_map
 from ndt_feature_graph_tpu_torch.ops.ndt_map import CellList
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu",
-           _PKG / "csrc" / "occupancy.cu", _PKG / "csrc" / "overlap.cu")
+           _PKG / "csrc" / "occupancy.cu", _PKG / "csrc" / "overlap.cu",
+           _PKG / "csrc" / "features.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -118,7 +133,9 @@ LAUNCHES = {"newton_objective": 0, "fgh_dense_flat": 0,
             "pair_fgh_reduce": 0, "fgh_dense_flat_batch": 0,
             "newton_objective_batch": 0, "newton_solve": 0,
             "newton_solve_batch": 0, "row_sum": 0, "segment_add_rows": 0,
-            "occupancy_update": 0, "overlap_score": 0}
+            "occupancy_update": 0, "overlap_score": 0,
+            "detect_features": 0, "describe_features": 0,
+            "match_features": 0}
 
 
 _lib = None
@@ -228,6 +245,39 @@ def build():
         P, P, P, P,                # score, nb, cells, stream
     ]
     lib.ndtg_overlap_score.restype = I
+    for fn in (lib.ndtg_features_max_scales, lib.ndtg_features_max_bins):
+        fn.argtypes = []
+        fn.restype = I
+    lib.ndtg_features_max_smem.argtypes = []
+    lib.ndtg_features_max_smem.restype = LL
+    lib.ndtg_detect_smem.argtypes = [I, I]
+    lib.ndtg_detect_smem.restype = LL
+    lib.ndtg_match_smem.argtypes = [I, I, I, I, I]
+    lib.ndtg_match_smem.restype = LL
+    lib.ndtg_detect_features.argtypes = [
+        P, P, P, P, LL, I, I, I, I, P,  # ranges, hit, cos, sin; n, b, s, ...
+        F, F, P, P, P, P, P, P, P, P,   # peaks; pts, ..., mask, arcs,
+                                        # smoothed, stream
+    ]
+    lib.ndtg_detect_features.restype = I
+    lib.ndtg_describe_features.argtypes = [
+        P, P, P, P, P, P, P, P,         # scan, trig, the features
+        LL, I, I, I, I, I,              # n, b, f, bins, hitmiss
+        F, F, F, F, F, P, P,            # rho, 1 / sigma, 1 / bins, out
+    ]
+    lib.ndtg_describe_features.restype = I
+    lib.ndtg_match_features.argtypes = [
+        P, P, P, P, P, P, P,             # the two sets, the draws
+        LL, LL, LL, LL, LL, LL, LL, LL,  # their strides a pair; pairs
+        I, I, I, I, I, I, I,             # f1, f2, d, c, m, budget, adaptive
+        F, F, F, F, F, F,                # acceptance ... eps
+        P, P, P, LL, LL, LL, I, I, F, F, F,  # the gate
+        P, P, P, P, P, P, P, P,          # the result
+        P, P, P, P, P,                   # the pseudo-cells, stream
+    ]
+    lib.ndtg_match_features.restype = I
+    lib.ndtg_features_math_probe.argtypes = [P, P, P, LL, I, P]
+    lib.ndtg_features_math_probe.restype = I
     _lib = lib
     return lib
 
@@ -1263,3 +1313,311 @@ def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
     _raise_on(err, "update_occupancy")
     LAUNCHES["occupancy_update"] += 1
     return dataclasses.replace(grid, occ=out)
+
+
+_BEAM_TRIG = {}         # (beams, device) -> torch.cos / sin of the beam angles
+
+
+def _beam_trig(num_beams: int, dev):
+    """torch.cos and torch.sin of dataset.beam_angles on `dev`: the plain
+    twins' own beam directions, made once a device (no copy a scan)."""
+    key = (num_beams, dev)
+    out = _BEAM_TRIG.get(key)
+    if out is None:
+        ang = dataset.beam_angles(num_beams, device=dev)
+        out = (torch.cos(ang), torch.sin(ang))
+        _BEAM_TRIG[key] = out
+    return out
+
+
+def _scan_inputs(entry, params: FeatureParams, ranges, hit):
+    """(ranges, hit, leading shape, scans) of a CUDA call, contiguous."""
+    dev = ranges.device
+    b = params.num_beams
+    if ranges.dim() < 1 or ranges.shape[-1] != b:
+        raise ValueError(f"{entry}: ranges of shape {tuple(ranges.shape)}, "
+                         f"expected (..., {b}) (FeatureParams.num_beams)")
+    lead = tuple(ranges.shape[:-1])
+    ranges = ranges.contiguous()
+    _check(f"{entry} ranges", ranges, torch.float32, (*lead, b), dev)
+    hit = hit.contiguous()
+    _check(f"{entry} hit", hit, torch.bool, (*lead, b), dev)
+    return ranges, hit, lead, math.prod(lead)
+
+
+def detect_features(params: FeatureParams, ranges, hit,
+                    intermediates: bool = False):
+    """features/detector.py detect: up to `max_features` interest points
+    of each scan of ranges / hit (..., B) (B = params.num_beams), a
+    FeatureSet with leading dims (...).
+
+    On CUDA tensors: ONE launch of the detector kernel (csrc/features.cu:
+    one block a scan; the float64 arc and Gaussian sums, the searches,
+    responses and peaks in shared memory, the top-K by counting ranks).
+    Limits: 1 to 8 scales (num_scales), 1 <= max_features <= B,
+    smooth_half_beams >= 0, and B * (30 + 12 num_scales) + 256 bytes of
+    shared memory within a block's 226 KB (2,580 beams at 5 scales);
+    other parameters raise ValueError.  `intermediates`: also return the
+    cumulative arc (..., B) and the smoothed points (..., S, B, 2), for a
+    check against the plain twin's; CUDA only.  On the CPU the plain
+    twin, detector._detect_plain."""
+    dev = ranges.device
+    if dev.type == "cpu":
+        if intermediates:
+            raise ValueError("detect_features: intermediates= needs CUDA "
+                             "tensors")
+        return detector._detect_plain(params, ranges, hit)
+    if dev.type != "cuda":
+        raise ValueError(f"detect_features: unsupported device {dev}")
+    lib = build()
+    b, s, f = params.num_beams, params.num_scales, params.max_features
+    half = int(params.smooth_half_beams)
+    if not 1 <= s <= lib.ndtg_features_max_scales():
+        raise ValueError(f"detect_features: {s} scales, expected 1 to "
+                         f"{lib.ndtg_features_max_scales()}")
+    if not 1 <= f <= b or half < 0 or b >= 2 ** 31:
+        raise ValueError(f"detect_features: {f} features of {b} beams, a "
+                         f"half window of {half}: expected 1 <= features "
+                         "<= beams and a half window >= 0")
+    smem = lib.ndtg_detect_smem(b, s)
+    if smem > lib.ndtg_features_max_smem():
+        raise ValueError(f"detect_features: {b} beams at {s} scales need "
+                         f"{smem} bytes of shared memory, at most "
+                         f"{lib.ndtg_features_max_smem()}")
+    ranges, hit, lead, n = _scan_inputs("detect_features", params, ranges,
+                                        hit)
+    if n >= 2 ** 31:
+        raise ValueError(f"detect_features: {n} scans, at most 2^31 - 1")
+    f32 = torch.float32
+    out = detector.FeatureSet(
+        pts=torch.empty((*lead, f, 2), dtype=f32, device=dev),
+        angles=torch.empty((*lead, f), dtype=f32, device=dev),
+        scales=torch.empty((*lead, f), dtype=f32, device=dev),
+        response=torch.empty((*lead, f), dtype=f32, device=dev),
+        mask=torch.empty((*lead, f), dtype=torch.bool, device=dev))
+    arcs = smoothed = None
+    if intermediates:
+        arcs = torch.empty((*lead, b), dtype=f32, device=dev)
+        smoothed = torch.empty((*lead, s, b, 2), dtype=f32, device=dev)
+    if n == 0:
+        return (out, arcs, smoothed) if intermediates else out
+    cos, sin = _beam_trig(b, dev)
+    # The twin's Python-float sigmas: the kernel rounds them to float32
+    # and their reciprocals, taken in float64, too, as ATen does.
+    sigmas = (ctypes.c_double * s)(
+        *[params.base_sigma * params.sigma_step ** i for i in range(s)])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_detect_features(
+            ranges.data_ptr(), hit.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), n, b, s, half, f, sigmas, params.peak_min_diff,
+            params.peak_min_value, out.pts.data_ptr(), out.angles.data_ptr(),
+            out.scales.data_ptr(), out.response.data_ptr(),
+            out.mask.data_ptr(), None if arcs is None else arcs.data_ptr(),
+            None if smoothed is None else smoothed.data_ptr(), stream)
+    _raise_on(err, "detect_features")
+    LAUNCHES["detect_features"] += 1
+    return (out, arcs, smoothed) if intermediates else out
+
+
+def describe_features(params: FeatureParams, feats, ranges, hit):
+    """features/descriptor.py describe: the (..., F, D) descriptors of
+    the features `feats` (..., F) of the scans ranges / hit (..., B),
+    with the same leading dims.
+
+    On CUDA tensors: ONE launch of the descriptor kernel
+    (csrc/features.cu: one block a feature; its hits and chord samples
+    binned by each thread into its own bins, integer hit counts, then a
+    fixed tree over the threads; no one-hot tensor).  Limits: at most 64
+    bins (rho_bins * phi_bins).  On the CPU the plain twin,
+    descriptor._describe_plain."""
+    dev = ranges.device
+    if dev.type == "cpu":
+        return descriptor._describe_plain(params, feats, ranges, hit)
+    if dev.type != "cuda":
+        raise ValueError(f"describe_features: unsupported device {dev}")
+    lib = build()
+    nb = params.rho_bins * params.phi_bins
+    if params.rho_bins < 1 or params.phi_bins < 1 or (
+            nb > lib.ndtg_features_max_bins()):
+        raise ValueError(f"describe_features: {params.rho_bins} x "
+                         f"{params.phi_bins} bins, at most "
+                         f"{lib.ndtg_features_max_bins()}")
+    if params.descriptor_stat not in ("beta_mean", "hitmiss"):
+        raise ValueError(f"describe_features: descriptor_stat "
+                         f"{params.descriptor_stat!r}")
+    hitmiss = params.descriptor_stat == "hitmiss"
+    ranges, hit, lead, n = _scan_inputs("describe_features", params,
+                                        ranges, hit)
+    f = feats.mask.shape[-1]
+    f32 = torch.float32
+    fpts = feats.pts.contiguous()
+    _check("describe_features feats.pts", fpts, f32, (*lead, f, 2), dev)
+    fang = feats.angles.contiguous()
+    _check("describe_features feats.angles", fang, f32, (*lead, f), dev)
+    fscale = feats.scales.contiguous()
+    _check("describe_features feats.scales", fscale, f32, (*lead, f), dev)
+    fmask = feats.mask.contiguous()
+    _check("describe_features feats.mask", fmask, torch.bool, (*lead, f),
+           dev)
+    if n * f >= 2 ** 31:
+        raise ValueError(f"describe_features: {n} x {f} features, at most "
+                         "2^31 - 1")
+    out = torch.empty((*lead, f, 2 * nb if hitmiss else nb), dtype=f32,
+                      device=dev)
+    if n * f == 0:
+        return out
+    cos, sin = _beam_trig(params.num_beams, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_describe_features(
+            ranges.data_ptr(), hit.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), fpts.data_ptr(), fang.data_ptr(),
+            fscale.data_ptr(), fmask.data_ptr(), n, params.num_beams, f,
+            params.rho_bins, params.phi_bins, int(hitmiss), params.min_rho,
+            params.max_rho,
+            # ATen divides by a Python number on the card as a product
+            # with its reciprocal, taken in float64, rounded to float32.
+            float(np.float32(1.0 / params.base_sigma)),
+            float(np.float32(1.0 / params.rho_bins)),
+            float(np.float32(1.0 / (2 * math.pi))), out.data_ptr(), stream)
+    _raise_on(err, "describe_features")
+    LAUNCHES["describe_features"] += 1
+    return out
+
+
+def _pair_rows(name, t, lead, inner, dtype, dev):
+    """`t` (..., *inner) broadcast to (*lead, *inner), as a tensor whose
+    pairs are `stride` elements apart (0 where `t` is shared) over one
+    contiguous inner block: (tensor, stride).  A broadcast costs no
+    copy."""
+    if t.device != dev or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {dtype} "
+                         f"on {dev}")
+    if t.shape == (*lead, *inner) and t.is_contiguous():
+        return t, math.prod(inner)
+    try:
+        rows = t.expand(*lead, *inner).reshape(math.prod(lead), *inner)
+    except RuntimeError as e:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{(*lead, *inner)}") from e
+    if not rows[0].is_contiguous():
+        rows = rows.contiguous()
+    return rows, rows.stride(0)
+
+
+def match_features(params: FeatureParams, ref, ref_desc, mov, mov_desc, u,
+                   gate=None):
+    """features/ransac.py match_sets over a batch of pairs (ref set ->
+    mov set: FeatureSets (..., F1) / (..., F2), descriptors (..., F, D),
+    draws u (..., M, 2); the leading dims broadcast): a MatchResult; with
+    `gate` (a ransac.OdometryGate) also the odometry gate's paired
+    pseudo-cells, (MatchResult, src, tgt), match_sets_gated's result.
+
+    On CUDA tensors: ONE launch of the matcher kernel (csrc/features.cu:
+    one block a pair; the chi2 matrix, the first-minimum correspondences,
+    the stable top-C, the M hypotheses and their MSAC scores, the first
+    minimum, two Procrustes fits and, with `gate`, the gate and the
+    pseudo-cells); a set or a pose shared by the batch is read in place.
+    Limits: F1, F2, D, C, M >= 1 and their shared memory within a
+    block's 226 KB.  On the CPU the plain twins, ransac._match_sets_plain
+    and ransac._gate_plain."""
+    dev = u.device
+    if dev.type == "cpu":
+        res = ransac._match_sets_plain(params, ref, ref_desc, mov, mov_desc,
+                                       u)
+        if gate is None:
+            return res
+        return (res, *ransac._gate_plain(res, ref, mov, gate))
+    if dev.type != "cuda":
+        raise ValueError(f"match_features: unsupported device {dev}")
+    lib = build()
+    f1, f2 = ref.mask.shape[-1], mov.mask.shape[-1]
+    d = ref_desc.shape[-1]
+    c, m = params.max_correspondences, params.ransac_hypotheses
+    if min(f1, f2, d, c, m) < 1 or mov_desc.shape[-1] != d:
+        raise ValueError(f"match_features: {f1} and {f2} features, "
+                         f"descriptors of {d} and {mov_desc.shape[-1]}, "
+                         f"{c} correspondences, {m} hypotheses")
+    smem = lib.ndtg_match_smem(f1, f2, d, c, m)
+    if smem > lib.ndtg_features_max_smem():
+        raise ValueError(f"match_features: {smem} bytes of shared memory, "
+                         f"at most {lib.ndtg_features_max_smem()}")
+    try:
+        lead = torch.broadcast_shapes(
+            ref.mask.shape[:-1], ref_desc.shape[:-2], mov.mask.shape[:-1],
+            mov_desc.shape[:-2], u.shape[:-2])
+    except RuntimeError as e:
+        raise ValueError(f"match_features: leading dims do not broadcast: "
+                         f"{e}") from e
+    n = math.prod(lead)
+    if n >= 2 ** 31:
+        raise ValueError(f"match_features: {n} pairs, at most 2^31 - 1")
+    f32, b8 = torch.float32, torch.bool
+    res = ransac.MatchResult(
+        T=torch.empty((*lead, 3), dtype=f32, device=dev),
+        score=torch.empty(lead, dtype=f32, device=dev),
+        num_inliers=torch.empty(lead, dtype=torch.int32, device=dev),
+        corr_ref=torch.empty((*lead, c), dtype=torch.int64, device=dev),
+        corr_mov=torch.empty((*lead, c), dtype=torch.int64, device=dev),
+        corr_mask=torch.empty((*lead, c), dtype=b8, device=dev),
+        inlier_mask=torch.empty((*lead, c), dtype=b8, device=dev),
+        valid=torch.empty(lead, dtype=b8, device=dev))
+    if gate is not None:
+        mask = torch.empty((*lead, c), dtype=b8, device=dev)
+        covs = torch.empty((*lead, c, 2, 2), dtype=f32, device=dev)
+        src = CellList(means=torch.empty((*lead, c, 2), dtype=f32,
+                                         device=dev), covs=covs, mask=mask)
+        tgt = CellList(means=torch.empty((*lead, c, 2), dtype=f32,
+                                         device=dev), covs=covs, mask=mask)
+    if n == 0:
+        return res if gate is None else (res, src, tgt)
+    rows = [
+        _pair_rows("match_features ref.pts", ref.pts, lead, (f1, 2), f32,
+                   dev),
+        _pair_rows("match_features ref.mask", ref.mask, lead, (f1,), b8,
+                   dev),
+        _pair_rows("match_features ref_desc", ref_desc, lead, (f1, d), f32,
+                   dev),
+        _pair_rows("match_features mov.pts", mov.pts, lead, (f2, 2), f32,
+                   dev),
+        _pair_rows("match_features mov.mask", mov.mask, lead, (f2,), b8,
+                   dev),
+        _pair_rows("match_features mov_desc", mov_desc, lead, (f2, d), f32,
+                   dev),
+        _pair_rows("match_features u", u, lead, (m, 2), f32, dev),
+    ]
+    if gate is not None:
+        poses = [_pair_rows(f"match_features gate.{k}", getattr(gate, k),
+                            lead, (3,), f32, dev)
+                 for k in ("sensor_pose", "motion", "prev_pose")]
+    p_succ, w0 = ransac._success_and_ratio(params)
+    budget = min(max(ransac.hypothesis_budget(params), 1), m)
+    if gate is None:
+        g_ptrs, g_strides, g_on = [None] * 3, [0] * 3, 0
+        outs = [None] * 4
+    else:
+        g_ptrs = [t.data_ptr() for t, _ in poses]
+        g_strides = [s for _, s in poses]
+        g_on = 1
+        outs = [src.means.data_ptr(), tgt.means.data_ptr(),
+                covs.data_ptr(), mask.data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ndtg_match_features(
+            *[t.data_ptr() for t, _ in rows], *[s for _, s in rows], n, f1,
+            f2, d, c, m, budget, int(params.ransac_adaptive),
+            params.ransac_acceptance, params.ransac_dist_threshold,
+            params.ransac_rigidity * 4.0, w0, math.log1p(-p_succ), 1e-9,
+            *g_ptrs, *g_strides, g_on,
+            int(gate is None or bool(gate.check)),
+            0.0 if gate is None else gate.max_translation,
+            0.0 if gate is None else gate.max_rotation,
+            0.0 if gate is None else gate.cov_xy,
+            res.T.data_ptr(), res.score.data_ptr(),
+            res.num_inliers.data_ptr(), res.corr_ref.data_ptr(),
+            res.corr_mov.data_ptr(), res.corr_mask.data_ptr(),
+            res.inlier_mask.data_ptr(), res.valid.data_ptr(), *outs, stream)
+    _raise_on(err, "match_features")
+    LAUNCHES["match_features"] += 1
+    return res if gate is None else (res, src, tgt)

@@ -125,7 +125,8 @@ def test_newton_objective_matches_plain(cuda_device, n, n_src):
         "newton_objective": 2, "fgh_dense_flat": 0, "pair_fgh_reduce": 0,
         "fgh_dense_flat_batch": 0, "newton_objective_batch": 0,
         "newton_solve": 0, "newton_solve_batch": 0, "row_sum": 0,
-        "segment_add_rows": 0, "occupancy_update": 0, "overlap_score": 0}
+        "segment_add_rows": 0, "occupancy_update": 0, "overlap_score": 0,
+        "detect_features": 0, "describe_features": 0, "match_features": 0}
     chip_smoke.compare(f"newton_objective K={(2 * n + 1) ** 2} N={n_src}",
                        got, cuda_kernels.newton_objective_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -274,7 +275,9 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
     `newton_solve_batch` launch and launches no other entry but
     `segment_add_rows`, once a statistics update of the whole stack
     (the streams' first scans, then the step's cell lists and points),
-    and `occupancy_update`, once an occupancy update of the stack."""
+    `occupancy_update`, once an occupancy update of the stack, and with
+    features each feature kernel once a call of its function (the first
+    scans' detect and describe, then the step's three)."""
     from ndt_feature_graph_tpu_torch.fusion import feature_fuser, fuser
     from ndt_feature_graph_tpu_torch.parallel import scaling
 
@@ -296,7 +299,8 @@ def test_update_batch_launches_one_objective_per_trial(cuda_device,
     n_map = chip_smoke.map_launches(cuda_kernels.LAUNCHES)
     assert n_map == updates["n"] >= 3
     assert cuda_kernels.LAUNCHES["newton_solve_batch"] == 1
-    assert sum(cuda_kernels.LAUNCHES.values()) == 1 + n_map
+    assert sum(cuda_kernels.LAUNCHES.values()) == 1 + \
+        chip_smoke.counted_launches(cuda_kernels.LAUNCHES)
     assert int(info.iterations.min()) >= 1
 
 
@@ -669,7 +673,8 @@ def test_run_graph_chunk_on_the_card_matches_the_cpu(cuda_device):
     the fixture's node distance), on the card and on the CPU twin from
     the same initial state and draws: one `newton_solve` launch a
     processed scan, one `segment_add_rows` launch a statistics update,
-    one `occupancy_update` an occupancy update and no other entry, the same meta, poses within 1e-3 m / rad (the kernel
+    one `occupancy_update` an occupancy update, each feature kernel once
+    a call of its function and no other entry, the same meta, poses within 1e-3 m / rad (the kernel
     sums in another order than the plain registration) and scores
     within rtol 1.4e-3.  Measured on the H100
     (examples/measure_chunk_spread.py --card and --inputs): the card's
@@ -710,7 +715,8 @@ def test_run_graph_chunk_on_the_card_matches_the_cpu(cuda_device):
     chip_smoke.check_map_launches(card[3], card[4], "run_graph_chunk")
     n_map = chip_smoke.map_launches(card[3])
     assert n_map == card[4]["n"] >= 3 * n_proc
-    assert card[3]["newton_solve"] == n_proc == sum(card[3].values()) - n_map
+    assert card[3]["newton_solve"] == n_proc == sum(
+        card[3].values()) - chip_smoke.counted_launches(card[3])
     assert not any(cpu[3].values())
     np.testing.assert_array_equal(card[2][1:], cpu[2][1:])
     np.testing.assert_allclose(card[2][0], cpu[2][0], atol=1e-6)
@@ -878,3 +884,120 @@ def test_overlap_score_refuses_bad_inputs(cuda_device):
     before = cuda_kernels.LAUNCHES["overlap_score"]
     cuda_kernels.overlap_score(*args, 20, 20, res)
     assert cuda_kernels.LAUNCHES["overlap_score"] == before + 1
+
+
+def _feature_inputs(dev, scans=slice(0, 8)):
+    from ndt_feature_graph_tpu_torch.features import descriptor, detector
+
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    sp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"]))
+    fp = sp.fuser.features
+    r = torch.as_tensor(fx["ranges"][scans], device=dev)
+    h = torch.as_tensor(fx["hit"][scans], device=dev)
+    u = torch.as_tensor(fx["ransac_u"][scans], device=dev)
+    feats = detector._detect_plain(fp, r, h)
+    desc = descriptor._describe_plain(fp, feats, r, h)
+    return sp, fp, r, h, u, feats, desc
+
+
+@pytest.mark.cuda
+def test_detect_features_matches_plain(cuda_device):
+    """The detector kernel on canonical scans against its plain twin
+    (chip_smoke.compare_detect's tolerances), a scan alone = its row,
+    one launch a call, the same bits on repeat."""
+    from ndt_feature_graph_tpu_torch.features import detector
+
+    _, fp, r, h, _, want, _ = _feature_inputs(cuda_device)
+    before = cuda_kernels.LAUNCHES["detect_features"]
+    got = detector.detect(fp, r, h)
+    again = detector.detect(fp, r, h)
+    one = detector.detect(fp, r[3], h[3])
+    assert cuda_kernels.LAUNCHES["detect_features"] == before + 3
+    chip_smoke.compare_detect("detect", got, want)
+    for f in ("pts", "angles", "scales", "response", "mask"):
+        assert torch.equal(getattr(got, f), getattr(again, f))
+        assert torch.equal(getattr(one, f), getattr(got, f)[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stat", ["beta_mean", "hitmiss"])
+def test_describe_features_matches_plain(cuda_device, stat):
+    import dataclasses
+
+    from ndt_feature_graph_tpu_torch.features import descriptor
+
+    _, fp, r, h, _, feats, _ = _feature_inputs(cuda_device)
+    fp = dataclasses.replace(fp, descriptor_stat=stat)
+    got = descriptor.describe(fp, feats, r, h)
+    chip_smoke.compare_desc(f"describe {stat}", got,
+                            descriptor._describe_plain(fp, feats, r, h))
+    assert torch.equal(got, descriptor.describe(fp, feats, r, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_match_features_matches_plain(cuda_device, adaptive):
+    """Consecutive canonical pairs, batched, against the plain twin; the
+    gated call's pseudo-cells against the plain gate."""
+    import dataclasses
+
+    from ndt_feature_graph_tpu_torch.features import ransac
+
+    _, fp, _, _, u, feats, desc = _feature_inputs(cuda_device)
+    fp = dataclasses.replace(fp, ransac_adaptive=adaptive)
+    ref = chip_smoke.feature_rows(feats, slice(0, 7))
+    mov = chip_smoke.feature_rows(feats, slice(1, 8))
+    inputs = (ref, desc[:7], mov, desc[1:])
+    got = ransac.match_sets(fp, *inputs, u[:7])
+    want = ransac._match_sets_plain(fp, *inputs, u[:7])
+    chip_smoke.compare_match("match", fp, got, want, inputs)
+    gate = ransac.OdometryGate(
+        sensor_pose=torch.zeros(3, device=cuda_device), motion=want.T,
+        prev_pose=torch.zeros(7, 3, device=cuda_device),
+        max_translation=0.1, max_rotation=0.19634954084936207, check=True,
+        cov_xy=2e-4)
+    res, src, tgt = ransac.match_sets_gated(fp, *inputs, u[:7], gate)
+    chip_smoke.compare_gate("gate", (src, tgt),
+                            ransac._gate_plain(want, ref, mov, gate))
+    assert torch.equal(res.T, got.T)
+
+
+@pytest.mark.cuda
+def test_feature_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Nine scales, 65 bins, a float64 scan and a scan of the wrong
+    width raise ValueError (no plain version on the card)."""
+    import dataclasses
+
+    from ndt_feature_graph_tpu_torch.features import descriptor, detector
+
+    _, fp, r, h, _, feats, _ = _feature_inputs(cuda_device)
+    with pytest.raises(ValueError):
+        detector.detect(dataclasses.replace(fp, num_scales=9), r, h)
+    with pytest.raises(ValueError):
+        detector.detect(fp, r.double(), h)
+    with pytest.raises(ValueError):
+        detector.detect(fp, r[:, :700], h[:, :700])
+    with pytest.raises(ValueError):
+        descriptor.describe(dataclasses.replace(fp, rho_bins=5, phi_bins=13),
+                            feats, r, h)
+
+
+@pytest.mark.cuda
+def test_feature_fuser_front_end_is_three_launches(cuda_device):
+    """One full-pipeline scan update on the card: the detector, the
+    descriptor and the matcher with its gate, one launch each."""
+    from ndt_feature_graph_tpu_torch.fusion import feature_fuser
+
+    sp, fp, r, h, u, _, _ = _feature_inputs(cuda_device)
+    state = feature_fuser.initialize(sp.fuser, torch.zeros(3, device=r.device),
+                                     torch.zeros(3, device=r.device), r[0],
+                                     h[0])
+    cuda_kernels.reset_launch_counts()
+    feature_fuser._prepare_features(state, sp.fuser,
+                                    torch.zeros(3, device=r.device), r[1],
+                                    h[1], u[0])
+    assert {k: cuda_kernels.LAUNCHES[k] for k in chip_smoke.FEATURE_ENTRIES} \
+        == {k: 1 for k in chip_smoke.FEATURE_ENTRIES}
+    assert sum(cuda_kernels.LAUNCHES.values()) == 3

@@ -141,7 +141,10 @@ def test_cpu_wrappers_use_the_plain_twins():
                                      "row_sum": 0,
                                      "segment_add_rows": 0,
                                      "occupancy_update": 0,
-                                     "overlap_score": 0}
+                                     "overlap_score": 0,
+                                     "detect_features": 0,
+                                     "describe_features": 0,
+                                     "match_features": 0}
 
 
 def test_wrappers_reject_other_devices():
