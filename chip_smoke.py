@@ -68,7 +68,11 @@ Runs on a machine with a CUDA card and no JAX:
          on the 171 candidate pairs of phase 9e's bank (128 features a
          node); the gate on the 199 pairs; a B = 64 fleet step through
          feature_fuser._prepare_features against the twins' path; a
-         second call's bits.  Selected beams, masks, scales,
+         second call's bits; the same bits at every cluster size the
+         wrappers choose (detect on 1, 32, 64, 100 and 200 scans a call,
+         its arc and smoothed points too; match on 1, 20, 40 and 199
+         pairs a call and the LC bank pair by pair), each scan and pair
+         equal to its row.  Selected beams, masks, scales,
          correspondences, inliers, counts and validity equal (a
          differing choice is named with the twin's own margin and must
          lie within FEATURE_ULPS); points and angles within 2e-5,
@@ -79,7 +83,10 @@ Runs on a machine with a CUDA card and no JAX:
          CUDA library functions: rounding_probe).
          Device time in turns with the twins at the main path's shapes
          (one scan; one pair with the gate: the kernels line's times)
-         and batched, beside each bound;
+         and batched (200 scans, 32 and 64 as a fleet step's, 199 pairs,
+         the LC bank), beside each bound; the stage split of the
+         detector and the matcher at those shapes, from a probe build
+         (examples/probe_feature_stages.py --stages, its own process);
      the three timed runs repeat the first run's trajectory bit for bit
      and its launch counts;
      3c. plain registration on that graph: d2d.match_d2d +
@@ -6307,6 +6314,29 @@ def feature_phase(sp, fx, lc, fl, dev):
                for f in dataclasses.fields(fk))
     print(f"    the kernel's scan alone = its row of the batch: {same}")
     check(same, "detect: a scan's bits depend on its batch")
+    if dev.type == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sizes = {}
+        for m in (1, 32, 64, 100, n):
+            parts = [cuda_kernels.detect_features(fp, R[i:i + m], H[i:i + m],
+                                                  intermediates=True)
+                     for i in range(0, n, m)]
+            rows = all(torch.equal(torch.cat([getattr(p[0], f.name)
+                                              for p in parts]),
+                                   getattr(fk, f.name))
+                       for f in dataclasses.fields(fk))
+            inter = (torch.equal(torch.cat([p[1] for p in parts]), arcs)
+                     and torch.equal(torch.cat([p[2] for p in parts]),
+                                     smoothed))
+            sizes[m] = {"cluster": cuda_kernels.detect_cluster(m, sms),
+                        "rows_equal": rows, "intermediates_equal": inter}
+        print(f"    detect at every cluster size (scans a call: blocks a "
+              f"scan, each scan and its arc and smoothed points equal to "
+              f"its row): {sizes}")
+        check(all(v["rows_equal"] and v["intermediates_equal"]
+                  for v in sizes.values()),
+              "detect: a scan's bits depend on the cluster size")
+        out["detect_cluster_sizes"] = sizes
     dk = descriptor.describe(fp, ft, R, H)
     dt = descriptor._describe_plain(fp, ft, R, H)
     out["describe_batch"] = keep("describe_features", compare_desc(
@@ -6345,6 +6375,27 @@ def feature_phase(sp, fx, lc, fl, dev):
                for f in dataclasses.fields(ransac.MatchResult))
     print(f"    a pair alone = its row of the batch: {same}")
     check(same, "match: a pair's bits depend on its batch")
+    if dev.type == "cuda":
+        sizes = {}
+        for m in (1, 20, 40, n - 1):
+            parts = [ransac.match_sets(
+                fp, feature_rows(ft, slice(i, min(i + m, n - 1))),
+                dt[i:min(i + m, n - 1)],
+                feature_rows(ft, slice(i + 1, min(i + m, n - 1) + 1)),
+                dt[i + 1:min(i + m, n - 1) + 1], U[i:min(i + m, n - 1)])
+                for i in range(0, n - 1, m)]
+            sizes[m] = {
+                "cluster": cuda_kernels.match_cluster(m, sms),
+                "rows_equal": all(
+                    torch.equal(torch.cat([getattr(p, f.name)
+                                           for p in parts]),
+                                getattr(mk, f.name))
+                    for f in dataclasses.fields(ransac.MatchResult))}
+        print(f"    match at every cluster size (pairs a call: blocks a "
+              f"pair, each pair equal to its row): {sizes}")
+        check(all(v["rows_equal"] for v in sizes.values()),
+              "match: a pair's bits depend on the cluster size")
+        out["match_cluster_sizes"] = sizes
     ap = dataclasses.replace(fp, ransac_adaptive=True)
     out["match_adaptive"] = keep("match_features", compare_match(
         "match, the adaptive budget", ap, ransac.match_sets(ap, *inputs, U),
@@ -6353,11 +6404,27 @@ def feature_phase(sp, fx, lc, fl, dev):
     lfp = lsp.fuser.features
     lin = (feature_rows(bank.feats, ref_i), bank.desc[ref_i],
            feature_rows(bank.feats, mov_i), bank.desc[mov_i])
+    lk = ransac.match_sets(lfp, *lin, lu)
     out["match_lc_bank"] = keep("match_features", compare_match(
         f"match, {ref_i.shape[0]} candidate pairs of the LC bank "
-        f"({lin[0].mask.shape[-1]} features a node)", lfp,
-        ransac.match_sets(lfp, *lin, lu),
+        f"({lin[0].mask.shape[-1]} features a node)", lfp, lk,
         ransac._match_sets_plain(lfp, *lin, lu), lin))
+    if dev.type == "cuda":
+        one = [ransac.match_sets(lfp, *[
+            feature_rows(x, slice(i, i + 1)) if isinstance(
+                x, detector.FeatureSet) else x[i:i + 1] for x in lin],
+            lu[i:i + 1]) for i in range(ref_i.shape[0])]
+        lc_sizes = {
+            "batch_cluster": cuda_kernels.match_cluster(ref_i.shape[0], sms),
+            "alone_cluster": cuda_kernels.match_cluster(1, sms),
+            "rows_equal": all(
+                torch.equal(torch.cat([getattr(o, k.name) for o in one]),
+                            getattr(lk, k.name))
+                for k in dataclasses.fields(ransac.MatchResult))}
+        print(f"    the LC bank pair by pair against its batch: {lc_sizes}")
+        check(lc_sizes["rows_equal"],
+              "match: an LC pair's bits depend on the cluster size")
+        out["match_cluster_sizes"]["lc_bank"] = lc_sizes
 
     # The main path's gated call on each consecutive pair, and a B = 64
     # fleet step through feature_fuser._prepare_features.
@@ -6438,6 +6505,12 @@ def feature_phase(sp, fx, lc, fl, dev):
         "detect_200": (lambda: detector.detect(fp, R, H),
                        lambda: detector._detect_plain(fp, R, H),
                        detect_bound(fp, R, H)),
+        "detect_32": (lambda: detector.detect(fp, R[:32], H[:32]),
+                      lambda: detector._detect_plain(fp, R[:32], H[:32]),
+                      detect_bound(fp, R[:32], H[:32])),
+        "detect_64": (lambda: detector.detect(fp, R[:64], H[:64]),
+                      lambda: detector._detect_plain(fp, R[:64], H[:64]),
+                      detect_bound(fp, R[:64], H[:64])),
         "describe_200": (lambda: descriptor.describe(fp, ft, R, H),
                          lambda: descriptor._describe_plain(fp, ft, R, H),
                          describe_bound(fp, ft, R, H)),
@@ -6456,7 +6529,35 @@ def feature_phase(sp, fx, lc, fl, dev):
                                          label="plain twin", launches=1),
                             **bnd}
     out["launches_of_checks"] = launched
+    if dev.type == "cuda":
+        split = stage_split()
+        out["stage_split"] = split
+        for k, case in (("detect_features", "detect one scan"),
+                        ("match_features", "match one pair with the gate")):
+            lines[k]["stages_us"] = split[case]
     return out, lines
+
+
+def stage_split():
+    """The detector's and the matcher's stage split at phase 3f's shapes:
+    examples/probe_feature_stages.py --stages in a process of its own (a
+    probe build of the kernels' library).  {case: {stage: mean µs over
+    the blocks}}."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "probe_feature_stages.py"),
+         "--stages"], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"the stage probe failed: {proc.stderr[-2000:]}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            out[rec["case"]] = {st["stage"]: st["mean_us"]
+                                for st in rec["stages"]}
+            print(f"    stages of {rec['case']}, µs (mean over "
+                  f"{rec['blocks']} blocks): {out[rec['case']]}")
+    return out
 
 
 def main():

@@ -1,6 +1,7 @@
 """Launch-shape sweep of the port's objective kernel on one CUDA card.
 
-    python3 examples/tune_torch_port_kernels.py [--out DIR] [--fleet | --solve]
+    python3 examples/tune_torch_port_kernels.py [--out DIR]
+                                                [--fleet | --solve | --features]
 
 Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
 (-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
@@ -23,16 +24,25 @@ choice, each held first against its plain twin (chip_smoke.held_to_all;
 a disagreement is recorded, not raised) and printed with the clusters
 of that size the card holds at once (`ndtg_solve_max_clusters`).
 
+`--features` times `detect_features` alone with its cluster forced to
+1, 2, 4 and 8 blocks a scan on 1, 32, 64 and 200 canonical scans a call,
+and `match_features` with 1, 2 and 4 blocks a pair on one consecutive
+pair with the odometry gate (the main path's call), the 199 pairs and
+the LC bank's 171 pairs of 128 features; the sizes in turns, three
+rounds, each forced size's result held bit for bit against the wrapper's
+own choice's (`detect_cluster`, `match_cluster`).
+
 Times are device times per call (torch.profiler, as chip_smoke.py's
 `ms`).  Every forced shape is first held against the plain version.
 One JSON line per reading; with --out DIR they also go to
 DIR/tune_torch_port_kernels.jsonl.  It is how the block size in the
-source and the cluster-size rule in ops/cuda_kernels.py were chosen.
+source and the cluster-size rules in ops/cuda_kernels.py were chosen.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -44,6 +54,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+import probe_feature_stages  # noqa: E402  (beside this script)
+from ndt_feature_graph_tpu_torch.features import detector  # noqa: E402
 from ndt_feature_graph_tpu_torch.ops import cuda_kernels  # noqa: E402
 
 THREADS = (256, 512, 1024)
@@ -106,6 +118,45 @@ def solve_sweep(fp, seq, dev, emit):
                  trials_max=int(got[2].max()), device_us=us)
 
 
+def features_sweep(dev, emit, rounds=3):
+    """`detect_features` and `match_features` at each forced cluster size
+    (see --features)."""
+    fx = dict(np.load(chip_smoke.FIXTURE))
+    fp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"])).fuser.features
+    R = torch.as_tensor(fx["ranges"], dtype=torch.float32, device=dev)
+    H = torch.as_tensor(fx["hit"], dtype=torch.bool, device=dev)
+    cases = probe_feature_stages.inputs(dev)
+    sweeps = [("detect_features", "detect_cluster", (1, 2, 4, 8), f"{n} scans",
+               lambda n=n: detector.detect(fp, R[:n], H[:n]))
+              for n in (1, 32, 64, R.shape[0])]
+    sweeps += [("match_features", "match_cluster", (1, 2, 4), name, fn)
+               for name, (kind, fn) in cases.items() if kind == "match"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def fields(x):
+        x = x[0] if isinstance(x, tuple) else x
+        return [getattr(x, f.name) for f in dataclasses.fields(x)]
+
+    for entry, rule, sizes, case, fn in sweeps:
+        own = fields(fn())
+        seen = {}
+        times = {k: [] for k in sizes}
+        for _ in range(rounds):
+            for k in sizes:
+                rule_fn = getattr(cuda_kernels, rule)
+                setattr(cuda_kernels, rule, lambda *_, k=k: k)
+                try:
+                    seen[k] = all(torch.equal(a, b)
+                                  for a, b in zip(fields(fn()), own))
+                    times[k].append(1e3 * chip_smoke.device_ms(fn, 20))
+                finally:
+                    setattr(cuda_kernels, rule, rule_fn)
+        for k in sizes:
+            emit(entry=entry, case=case, blocks=k, sms=sms,
+                 equal_to_own_choice=seen[k], device_us=times[k])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the JSON lines")
@@ -113,6 +164,9 @@ def main():
                     help="sweep `newton_objective_batch` alone")
     ap.add_argument("--solve", action="store_true",
                     help="sweep `newton_solve_batch` alone")
+    ap.add_argument("--features", action="store_true",
+                    help="sweep the feature detector's and matcher's "
+                         "cluster sizes alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_torch_port_kernels: no CUDA device")
@@ -139,7 +193,9 @@ def main():
 
     if args.solve:
         solve_sweep(fleet_p, fleet_seq, dev, emit)
-    for threads in () if args.solve else THREADS[:1] if args.fleet \
+    if args.features:
+        features_sweep(dev, emit)
+    for threads in () if args.solve or args.features else THREADS[:1] if args.fleet \
             else THREADS:
         rebuild(threads)
         for cluster in CLUSTERS:

@@ -4,15 +4,15 @@
 // ops/cuda_kernels.py detect_features, describe_features and
 // match_features):
 //
-//   * features_detect_kernel: the multi-scale curvature detector, one
-//     block a scan;
+//   * features_detect_kernel: the multi-scale curvature detector, a
+//     thread-block cluster of up to 8 blocks a scan;
 //   * features_describe_kernel: the beta-grid descriptor, one block a
 //     (scan, feature);
 //   * features_match_kernel: the descriptor chi2 matrix, the
 //     correspondences, the two-point RANSAC hypotheses with their MSAC
 //     scores, the winner's two Procrustes refinements and, where asked,
 //     the odometry-consistency gate and the paired pseudo-cells of the
-//     joint registration, one block a pair.
+//     joint registration, a cluster of up to 4 blocks a pair.
 //
 // Replaces no TPU kernel: the reference leaves this region to XLA, fused
 // inside its jitted scan step (ndt_feature_graph_tpu/features/detector.py
@@ -47,21 +47,73 @@
 // 5,760 chord samples; the matcher 48 x ~5 for each of its 1,024
 // descriptor pairs and ~20 for each of its 256 x 64 hypothesis
 // residuals.  Their bytes (ranges, masks, descriptors, draws) are a few
-// KB a scan.  chip_smoke.py prints the bound of each run's inputs.
+// KB a scan.  chip_smoke.py prints the bound of each run's inputs.  On
+// one SM a scan's window sums and its O(B^2) rank count, and a pair's
+// chi2 matrix and serial epilogue, were latency chains (PERF.md §6, the
+// stage split of examples/probe_feature_stages.py): the detector now
+// spreads a scan's beams over a cluster, one thread a (beam, scale) and
+// a warp a beam's rank, exchanging the smoothed points and the best
+// responses through distributed shared memory; the matcher spreads a
+// pair's chi2 rows over a cluster, divides the descriptor rows with
+// every thread, gives a warp to each first minimum and rank, and moves
+// the gate's pseudo-cells beside the hypotheses.  Each sum keeps the
+// order it had in one block, so the bits do not depend on the cluster.
 //
 // Built with the other sources into one library (ops/cuda_kernels.py
 // build): nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // fast math; bound through the plain C interface at the bottom.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+
+namespace cg = cooperative_groups;
+
+#ifdef NDTG_STAGE_PROBE
+// A probe build (examples/probe_feature_stages.py): NDTG_STAGE(k, name)
+// stamps each block's SM clock at the end of stage k, and the global
+// timer at its first and last stamp, for the first kProbeBlocks blocks.
+constexpr int kProbeBlocks = 4096, kProbeStages = 16;
+__device__ long long ndtg_probe_clock[kProbeBlocks * kProbeStages];
+__device__ long long ndtg_probe_ns[kProbeBlocks * 2];
+__device__ __forceinline__ void probe_stamp(int k) {
+  if (threadIdx.x != 0 || blockIdx.x >= kProbeBlocks) return;
+  long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  ndtg_probe_clock[blockIdx.x * kProbeStages + k] = clock64();
+  if (k == 0) ndtg_probe_ns[2 * blockIdx.x] = ns;
+  ndtg_probe_ns[2 * blockIdx.x + 1] = ns;
+}
+// Copies the stamps to host memory and clears them.
+extern "C" int ndtg_features_probe_read(long long* clock, long long* ns) {
+  void* p = nullptr;
+  cudaError_t e = cudaMemcpyFromSymbol(clock, ndtg_probe_clock,
+                                       sizeof(ndtg_probe_clock));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(ns, ndtg_probe_ns, sizeof(ndtg_probe_ns));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, ndtg_probe_clock);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(ndtg_probe_clock));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, ndtg_probe_ns);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(ndtg_probe_ns));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+#define NDTG_STAGE(k, name) probe_stamp(k)
+#else
+#define NDTG_STAGE(k, name) ((void)0)
+#endif
+
 namespace {
 
-constexpr int kDetectThreads = 256;
+constexpr int kDetectThreads = 512;
+constexpr int kScanRuns = 256;        // the arc's and counts' runs
+constexpr int kMaxDetectCluster = 8;  // cuda_kernels.DETECT_MAX_CLUSTER
 constexpr int kDescribeThreads = 128;
-constexpr int kMatchThreads = 256;
+constexpr int kMatchThreads = 512;
+constexpr int kMaxMatchCluster = 4;   // cuda_kernels.MATCH_MAX_CLUSTER
 constexpr int kMaxScales = 8;
 constexpr int kMaxBins = 64;
 // A block's dynamic shared memory at most: 227 KB less room for the
@@ -145,18 +197,6 @@ __device__ T block_exclusive_scan(T v, T* buf, T* total) {
   return before + excl;
 }
 
-// The first index k in [0, n) with arc[k] >= v, else n: searchsorted's
-// left side (ATen's and jnp's lower bound).
-__device__ __forceinline__ int lower_bound(const float* arc, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (!(arc[mid] >= v)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 // ------------------------------------------------------------------ detect
 
 struct DetectArgs {
@@ -164,7 +204,7 @@ struct DetectArgs {
   const uint8_t* hit;      // (N, B)
   const float* cosb;       // (B,) torch.cos of the beam angles
   const float* sinb;
-  int b, s, half, f;
+  int b, s, half, f, cluster;
   float sigma[kMaxScales];  // float32 of base_sigma * sigma_step ** i
   float inv_sigma[kMaxScales];  // float32 of its float64 reciprocal
   float peak_min_diff, peak_min_value;
@@ -177,55 +217,106 @@ struct DetectArgs {
   float* smoothed;          // null, or (N, S, B, 2): the smoothed points
 };
 
+// A beam's cumulative arc and its key: its polyline piece where it is a
+// hit, else -1 (a window beam weighs in where its key is the centre's
+// piece).
+struct ArcKey {
+  float cum;
+  int key;
+};
+
 __host__ __device__ inline long long detect_smem(int b, int s) {
-  return 32 * 8 + (long long)b * (8 + 8 + 8LL * s + 4LL * s + 4 + 4 + 4 + 2);
+  return 32 * 8 + (long long)b * (16 + 8 + 4 + 4 + 12LL * s + 2);
 }
 
-// One block a scan (blockIdx.x).  Shared memory, per beam: the point as
-// two float64 (the window sums' operands), the smoothed point and the
-// response of every scale, the cumulative arc, the polyline piece, the
-// best peak response, the hit bit and the best scale.
+// The first index k in [0, n) with arc[k].cum >= v, else n.
+__device__ __forceinline__ int lower_bound(const ArcKey* arc, int n,
+                                           float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (!(arc[mid].cum >= v)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// One cluster of `cluster` blocks a scan (blockIdx.x / cluster); block
+// rank r owns the beams [r ceil(B / cluster), ...).  Every block loads
+// the whole scan and takes the points, the arc and the pieces of all
+// beams in one order (the same bits in each block); it smooths its own
+// beams, one thread a (beam, scale) with the window in offset order (a
+// beam's sums do not depend on the cluster size), and writes each
+// smoothed point into every block's shared memory (stores, which need no
+// round trip).  After a cluster barrier it takes the responses of its
+// beams and of the two beams beside them, its beams' peaks and best
+// scale, written to every block too; after a second barrier a warp a
+// beam ranks its own beams among all B, and a thread a selected beam
+// writes its feature.
+//
+// Shared memory, per beam: the point as two float64 (the window sums'
+// operands), the arc and key, the smoothed point and the response of
+// every scale, the piece id (then the zeros' prefix count), the best
+// peak response, the hit bit and the best scale.
 __global__ void __launch_bounds__(kDetectThreads)
 features_detect_kernel(DetectArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int B = a.b, S = a.s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int B = a.b, S = a.s, K = a.cluster;
   double* dbuf = reinterpret_cast<double*>(smem);
-  double* pxd = dbuf + 32;
-  double* pyd = pxd + B;
-  float2* smv = reinterpret_cast<float2*>(pyd + B);      // (S, B)
-  float* resp = reinterpret_cast<float*>(smv + (size_t)S * B);  // (S, B)
-  float* cum = resp + (size_t)S * B;
-  int* sid = reinterpret_cast<int*>(cum + B);
+  double2* pxy = reinterpret_cast<double2*>(dbuf + 32);
+  ArcKey* arc = reinterpret_cast<ArcKey*>(pxy + B);
+  float2* smv = reinterpret_cast<float2*>(arc + B);               // (S, B)
+  float* resp = reinterpret_cast<float*>(smv + (size_t)S * B);    // (S, B)
+  int* sid = reinterpret_cast<int*>(resp + (size_t)S * B);
   float* best = reinterpret_cast<float*>(sid + B);
   uint8_t* hitv = reinterpret_cast<uint8_t*>(best + B);
   uint8_t* bsc = hitv + B;
   int* ibuf = reinterpret_cast<int*>(dbuf);
+  __shared__ float sig[kMaxScales], inv_sig[kMaxScales];
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t scan = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cluster.block_rank();
+  const size_t scan = blockIdx.x / K;
+  const int per_block = (B + K - 1) / K;
+  const int own_lo = min(rank * per_block, B);
+  const int own_hi = min(own_lo + per_block, B), own = own_hi - own_lo;
   const float* rng = a.ranges + scan * B;
   const uint8_t* hg = a.hit + scan * B;
+  NDTG_STAGE(0, "detect: start");
+  // Every block of the cluster has started before any writes to
+  // another's shared memory (the wait is before the first).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
+  if (tid < kMaxScales) {
+    sig[tid] = a.sigma[tid];
+    inv_sig[tid] = a.inv_sigma[tid];
+  }
+  float* rs = resp;        // the ranges, until the responses are taken
   for (int i = tid; i < B; i += nt) {
     const float r = rng[i];
-    pxd[i] = (double)mul(r, a.cosb[i]);
-    pyd[i] = (double)mul(r, a.sinb[i]);
+    pxy[i] = make_double2((double)mul(r, a.cosb[i]),
+                          (double)mul(r, a.sinb[i]));
+    rs[i] = r;
     hitv[i] = hg[i] != 0;
   }
   __syncthreads();
+  NDTG_STAGE(1, "detect: load the scan");
 
-  // The segment lengths and the jumps, then both prefix sums: each
-  // thread a contiguous run of beams, the runs' totals scanned over the
-  // block.
-  const int per = (B + nt - 1) / nt;
-  const int lo = min(tid * per, B), hi = min(lo + per, B);
+  // The segment lengths and the jumps, then both prefix sums: each of
+  // the first kScanRuns threads a contiguous run of beams, the runs'
+  // totals scanned over the block.
+  const int per = (B + kScanRuns - 1) / kScanRuns;
+  const int lo = tid < kScanRuns ? min(tid * per, B) : B;
+  const int hi = min(lo + per, B);
   auto seg_of = [&](int i) -> float {
     if (i == 0) return 0.0f;
-    return norm2(sub((float)pxd[i], (float)pxd[i - 1]),
-                 sub((float)pyd[i], (float)pyd[i - 1]));
+    return norm2(sub((float)pxy[i].x, (float)pxy[i - 1].x),
+                 sub((float)pxy[i].y, (float)pxy[i - 1].y));
   };
   auto jump_of = [&](int i) -> int {
-    const bool far = i > 0 && fabsf(sub(rng[i], rng[i - 1])) > 0.5f;
+    const bool far = i > 0 && fabsf(sub(rs[i], rs[i - 1])) > 0.5f;
     return (far || !hitv[i] || !hitv[(i + B - 1) % B]) ? 1 : 0;
   };
   double dsum = 0.0;
@@ -241,79 +332,88 @@ features_detect_kernel(DetectArgs a) {
   for (int i = lo; i < hi; ++i) {
     doff += (double)seg_of(i);
     joff += jump_of(i);
-    cum[i] = (float)doff;
+    arc[i] = ArcKey{(float)doff, hitv[i] ? joff : -1};
     sid[i] = joff;
   }
   __syncthreads();
+  NDTG_STAGE(2, "detect: arc and piece prefix sums");
 
-  // Gaussian smoothing over the arc, every scale in one pass over the
-  // window: w = exp(-0.5 (darc / sigma)^2) on the same piece, the sums
-  // of w, w x and w y in float64, then (sum w p) / max(sum w, 1e-9).
-  for (int i = tid; i < B; i += nt) {
-    const float ci = cum[i];
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  // Gaussian smoothing over the arc, a thread a (scale, own beam):
+  // w = exp(-0.5 (darc / sigma)^2) on the same piece, the sums of w, w x
+  // and w y in float64 in offset order, then (sum w p) / max(sum w, 1e-9).
+  // A window beam off the piece adds w = 0 and p = 0, which leave the
+  // sums' bits as they are.  Each smoothed point goes to every block.
+  for (int it = tid; it < S * own; it += nt) {
+    const int k = it / own, i = own_lo + (it - k * own);
+    const float ci = arc[i].cum, iv = inv_sig[k];
     const int si = sid[i];
-    double ws[kMaxScales], sx[kMaxScales], sy[kMaxScales];
-#pragma unroll
-    for (int k = 0; k < kMaxScales; ++k) ws[k] = sx[k] = sy[k] = 0.0;
+    double ws = 0.0, sx = 0.0, sy = 0.0;
+#pragma unroll 4
     for (int off = -a.half; off <= a.half; ++off) {
       const int j = min(max(i + off, 0), B - 1);
-      if (sid[j] != si || !hitv[j]) continue;     // weight 0
-      const float d = fabsf(sub(cum[j], ci));
-      const double xj = pxd[j], yj = pyd[j];
-#pragma unroll
-      for (int k = 0; k < kMaxScales; ++k) {
-        if (k < S) {
-          const float q = mul(d, a.inv_sigma[k]);
-          const double w = (double)expf(mul(mul(q, q), -0.5f));
-          ws[k] += w;
-          sx[k] = fma(w, xj, sx[k]);
-          sy[k] = fma(w, yj, sy[k]);
-        }
-      }
+      const ArcKey aj = arc[j];
+      const bool on = aj.key == si;
+      const float q = mul(fabsf(sub(aj.cum, ci)), iv);
+      const float e = expf(mul(mul(q, q), -0.5f));
+      const double w = on ? (double)e : 0.0;
+      const double2 p = on ? pxy[j] : make_double2(0.0, 0.0);
+      ws += w;
+      sx = fma(w, p.x, sx);
+      sy = fma(w, p.y, sy);
     }
-#pragma unroll
-    for (int k = 0; k < kMaxScales; ++k) {
-      if (k < S) {
-        const double wsum = ws[k] < 1e-9 ? 1e-9 : ws[k];
-        smv[(size_t)k * B + i] = make_float2((float)(sx[k] / wsum),
-                                             (float)(sy[k] / wsum));
-      }
+    const double wsum = ws < 1e-9 ? 1e-9 : ws;
+    const float2 m = make_float2((float)(sx / wsum), (float)(sy / wsum));
+    const size_t o = (size_t)k * B + i;
+    smv[o] = m;
+    for (int q = 1; q < K; ++q) {
+      cluster.map_shared_rank(smv, (rank + q) % K)[o] = m;
+    }
+    if (a.smoothed) {
+      float* g = a.smoothed + ((scan * S + k) * B + i) * 2;
+      g[0] = m.x;
+      g[1] = m.y;
     }
   }
-  __syncthreads();
-  if (a.smoothed) {
-    for (int it = tid; it < S * B; it += nt) {
-      a.smoothed[(scan * S * B + it) * 2] = smv[it].x;
-      a.smoothed[(scan * S * B + it) * 2 + 1] = smv[it].y;
+  if (a.arcs) {
+    for (int i = own_lo + tid; i < own_hi; i += nt) {
+      a.arcs[scan * B + i] = arc[i].cum;
     }
-    for (int i = tid; i < B; i += nt) a.arcs[scan * B + i] = cum[i];
   }
+  cluster.sync();                      // every block's points are here
+  NDTG_STAGE(3, "detect: smoothing (window sums, sent to every block)");
 
   // The turning angle between the smoothed points one sigma of arc
-  // ahead and behind, and its validity.
-  for (int it = tid; it < S * B; it += nt) {
-    const int k = it / B, i = it - k * B;
-    const float ci = cum[i];
-    const int fwd = min(lower_bound(cum, B, add(ci, a.sigma[k])), B - 1);
-    const int bwd = min(lower_bound(cum, B, sub(ci, a.sigma[k])), B - 1);
-    const float2* sm = smv + (size_t)k * B;
-    const float2 m = sm[i], mf = sm[fwd], mb = sm[bwd];
-    const float fx = sub(mf.x, m.x), fy = sub(mf.y, m.y);
-    const float bx = sub(m.x, mb.x), by = sub(m.y, mb.y);
-    const float dot = add(mul(fx, bx), mul(fy, by));
-    const float cross = sub(mul(bx, fy), mul(by, fx));
-    const float curv = fabsf(atan2f(cross, add(dot, 1e-12f)));
-    const int si = sid[i];
-    const bool ok = hitv[i] && hitv[fwd] && hitv[bwd] && sid[fwd] == si &&
-                    sid[bwd] == si && fwd > i && bwd < i;
-    resp[it] = ok ? curv : 0.0f;
+  // ahead and behind, and its validity: the own beams and the beam
+  // before and after them (the peaks' neighbours), circularly.
+  const int span = K == 1 ? B : min(own + 2, B);
+  const int first = K == 1 ? 0 : own_lo - 1 + B;
+  if (own > 0) {
+    for (int it = tid; it < S * span; it += nt) {
+      const int k = it / span, i = (first + it - k * span) % B;
+      const float ci = arc[i].cum;
+      const int fwd = min(lower_bound(arc, B, add(ci, sig[k])), B - 1);
+      const int bwd = min(lower_bound(arc, B, sub(ci, sig[k])), B - 1);
+      const float2* sm = smv + (size_t)k * B;
+      const float2 m = sm[i], mf = sm[fwd], mb = sm[bwd];
+      const float fx = sub(mf.x, m.x), fy = sub(mf.y, m.y);
+      const float bx = sub(m.x, mb.x), by = sub(m.y, mb.y);
+      const float dot = add(mul(fx, bx), mul(fy, by));
+      const float cross = sub(mul(bx, fy), mul(by, fx));
+      const float curv = fabsf(atan2f(cross, add(dot, 1e-12f)));
+      const int si = sid[i];
+      const bool ok = hitv[i] && hitv[fwd] && hitv[bwd] && sid[fwd] == si &&
+                      sid[bwd] == si && fwd > i && bwd < i;
+      resp[(size_t)k * B + i] = ok ? curv : 0.0f;
+    }
   }
   __syncthreads();
+  NDTG_STAGE(4, "detect: responses (searches, turning angle)");
 
   // Strict peaks (the neighbours wrap around the scan), then the best
   // scale: the first maximum.
-  int npos = 0;
-  for (int i = tid; i < B; i += nt) {
+  for (int i = own_lo + tid; i < own_hi; i += nt) {
     const int l = i == 0 ? B - 1 : i - 1, r = i == B - 1 ? 0 : i + 1;
     float bv = 0.0f;
     int bs = 0;
@@ -329,59 +429,75 @@ features_detect_kernel(DetectArgs a) {
         bs = k;
       }
     }
-    best[i] = bv;
-    bsc[i] = (uint8_t)bs;
+    for (int q = 0; q < K; ++q) {
+      float* qb = q == rank ? best : cluster.map_shared_rank(best, q);
+      uint8_t* qs = q == rank ? bsc : cluster.map_shared_rank(bsc, q);
+      qb[i] = bv;
+      qs[i] = (uint8_t)bs;
+    }
   }
-  __syncthreads();
+  cluster.sync();   // every best response is here; no block's memory is
+                    // touched by another after this
+  NDTG_STAGE(5, "detect: peaks, best scale (sent to every block)");
 
   // The top `f` beams, in a stable descending order (a lower index first
   // among equal values): a positive response's rank is the count of
-  // larger values and of equal ones before it; the zeros follow every
-  // positive one in beam order (their rank: the positives' count and the
-  // zeros before them, a prefix count over the block).
-  int zsum = 0;
+  // larger values and of equal ones before it, over all B (a warp a
+  // beam); the zeros follow every positive one in beam order (their
+  // rank: the positives' count and the zeros before them, a prefix
+  // count over the runs, the same in every block).
+  // (Both counts in one scan: the zeros' in the low 16 bits, the
+  // positives' above; B < 2^16.)
+  int both = 0;
+  for (int i = lo; i < hi; ++i) both += best[i] > 0.0f ? 1 << 16 : 1;
+  int total;
+  int zoff = block_exclusive_scan(both, ibuf, &total) & 0xffff;
+  const int ptotal = total >> 16;
   for (int i = lo; i < hi; ++i) {
-    zsum += best[i] > 0.0f ? 0 : 1;
-    npos += best[i] > 0.0f ? 1 : 0;
+    if (!(best[i] > 0.0f)) sid[i] = zoff++;
   }
-  int ztotal, ptotal;
-  int zoff = block_exclusive_scan(zsum, ibuf, &ztotal);
-  block_exclusive_scan(npos, ibuf, &ptotal);
-  for (int i = lo; i < hi; ++i) {
+  __syncthreads();
+  for (int i = own_lo + warp; i < own_hi; i += nt >> 5) {
     const float v = best[i];
-    int rank;
     if (v > 0.0f) {
-      rank = 0;
-      for (int j = 0; j < B; ++j) {
+      int cnt = 0;
+      for (int j = lane; j < B; j += 32) {
         const float w = best[j];
-        rank += (w > v || (w == v && j < i)) ? 1 : 0;
+        cnt += (w > v || (w == v && j < i)) ? 1 : 0;
       }
-    } else {
-      rank = ptotal + zoff;
-      ++zoff;
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) sid[i] = cnt;
+    } else if (lane == 0) {
+      sid[i] = ptotal + sid[i];
     }
-    if (rank >= a.f) continue;
+  }
+  __syncthreads();                     // sid: the own beams' ranks
+  for (int i = own_lo + tid; i < own_hi; i += nt) {
+    const int rank_i = sid[i];
+    if (rank_i >= a.f) continue;
+    const float v = best[i];
     // The selected beam's tangent at its best scale, its normal facing
     // the sensor, and the wrapped orientation.
     const int k = bsc[i];
-    const float ci = cum[i];
-    const int fwd = min(lower_bound(cum, B, add(ci, a.sigma[k])), B - 1);
-    const int bwd = min(lower_bound(cum, B, sub(ci, a.sigma[k])), B - 1);
+    const float ci = arc[i].cum;
+    const int fwd = min(lower_bound(arc, B, add(ci, sig[k])), B - 1);
+    const int bwd = min(lower_bound(arc, B, sub(ci, sig[k])), B - 1);
     const float2* sm = smv + (size_t)k * B;
     const float tx = sub(sm[fwd].x, sm[bwd].x);
     const float ty = sub(sm[fwd].y, sm[bwd].y);
     float na = atan2f(tx, -ty);
-    const float px = (float)pxd[i], py = (float)pyd[i];
+    const float px = (float)pxy[i].x, py = (float)pxy[i].y;
     const float toward = add(mul(cosf(na), -px), mul(sinf(na), -py));
     if (toward < 0.0f) na = add(na, kPi);
-    const size_t o = scan * a.f + rank;
+    const size_t o = scan * a.f + rank_i;
     a.pts[2 * o] = px;
     a.pts[2 * o + 1] = py;
     a.angles[o] = wrap_angle(na);
-    a.scales[o] = a.sigma[k];
+    a.scales[o] = sig[k];
     a.response[o] = v;
     a.mask[o] = v > 0.0f;
   }
+  NDTG_STAGE(6, "detect: top-K ranks, features");
 }
 
 // ---------------------------------------------------------------- describe
@@ -525,7 +641,7 @@ struct MatchArgs {
   const float* u;
   long long s_ref_pts, s_ref_mask, s_ref_desc;     // elements a pair
   long long s_mov_pts, s_mov_mask, s_mov_desc, s_u;
-  int f1, f2, d, c, m, budget, adaptive;
+  int f1, f2, d, c, m, budget, adaptive, cluster;
   float acc, dist_thr, rig4, w0, log1mp, eps;
   // the odometry gate (gate != 0): the sensor pose, the odometry motion
   // and the previous pose, (3,) a pair with these strides (0: shared).
@@ -539,11 +655,24 @@ struct MatchArgs {
   float* src;  float* tgt;  float* covs;  uint8_t* pair_mask;
 };
 
+// The descriptor rows' stride in shared memory: whole 16-byte words, an
+// odd number of them, so that eight threads reading eight rows' words
+// (a quarter warp's 16-byte loads) meet no bank twice.
+__host__ __device__ inline int desc_stride(int d) {
+  const int w = (d + 3) / 4;
+  return 4 * (w % 2 ? w : w + 1);
+}
+
+// A block's shared memory at `k` blocks a pair: its ceil(f1 / k)
+// reference rows of descriptors and distances.
 __host__ __device__ inline long long match_smem(int f1, int f2, int d, int c,
-                                                int m) {
-  return 4LL * ((long long)(f1 + f2) * d + (long long)f1 * f2 + 2 * f2 +
-                2 * (f1 + f2) + 2 * c + 5 * c + 5 * m) +
-         (f1 + f2) + c + 64;
+                                                int m, int k) {
+  const long long r1 = (f1 + k - 1) / k;
+  return 16LL * c +
+         4LL * ((r1 + f2) * desc_stride(d) + r1 * f2 + (r1 + f2) +
+                (2LL * k + 2) * f2 +
+                2LL * (f1 + f2) + 2LL * c + 9LL * m) +
+         f1 + f2 + c + 64;
 }
 
 struct Pose { float x, y, t; };
@@ -565,18 +694,19 @@ __device__ __forceinline__ Pose relative(Pose o, Pose p) {
   return {add(mul(dx, co), mul(dy, so)), add(mul(-dx, so), mul(dy, co)),
           wrap_angle(sub(p.t, o.t))};
 }
-// se2.transform_points: the rotation as torch's einsum, then the shift.
-__device__ __forceinline__ float2 transform(Pose p, float x, float y) {
-  const float c = cosf(p.t), s = sinf(p.t);
+// se2.transform_points with the pose's cosine and sine: the rotation as
+// torch's einsum, then the shift.
+__device__ __forceinline__ float2 transform(Pose p, float c, float s, float x,
+                                            float y) {
   return make_float2(add(dot2(c, x, -s, y), p.x), add(dot2(s, x, c, y), p.y));
 }
-// ransac._apply: c x - s y + t0, s x + c y + t1.
+// ransac._apply: c x - s y + t0, s x + c y + t1, against the
+// correspondence's reference point.
 __device__ __forceinline__ float residual2(float c, float s, float tx,
-                                           float ty, float ax, float ay,
-                                           float bx, float by) {
-  const float px = add(sub(mul(c, bx), mul(s, by)), tx);
-  const float py = add(add(mul(s, bx), mul(c, by)), ty);
-  const float dx = sub(ax, px), dy = sub(ay, py);
+                                           float ty, float4 p) {
+  const float px = add(sub(mul(c, p.z), mul(s, p.w)), tx);
+  const float py = add(add(mul(s, p.z), mul(c, p.w)), ty);
+  const float dx = sub(p.x, px), dy = sub(p.y, py);
   return add(mul(dx, dx), mul(dy, dy));
 }
 // The warp's sum of one value a lane: a butterfly (offsets 16 .. 1),
@@ -586,108 +716,231 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v = add(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
+// (v, i) is before (w, j) in a first-minimum scan.
+__device__ __forceinline__ bool before(float v, int i, float w, int j) {
+  return v < w || (v == w && i < j);
+}
 
-// One block a pair (blockIdx.x).  Thread m scores hypothesis m (and
-// m + blockDim.x, ...); warp 0 refines the winner and writes the result.
+// One cluster of `cluster` blocks a pair (blockIdx.x / cluster).  Block
+// rank r normalises its reference rows [r ceil(F1 / cluster), ...) and
+// every moving row (a thread a row's sum, every thread some quotients),
+// takes their chi2 distances (a thread an entry, the D terms in order)
+// and each moving feature's first minimum over its rows (a warp a
+// column), which it writes into rank 0's shared memory; after a cluster
+// barrier rank 0 takes the first minimum over the ranks in order (the
+// lowest row among equals, as one scan over all rows) and goes on alone:
+// the stable top-C by counting ranks (a warp a feature), the
+// correspondences, the hypotheses (a thread each, the C residuals in
+// order), the winner; warp 0 refines
+// it, scores it and, with the gate, decides it and writes the pair
+// masks, while the other warps move the gate's pseudo-cells (they do
+// not depend on the pose).
 __global__ void __launch_bounds__(kMatchThreads)
 features_match_kernel(MatchArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int F1 = a.f1, F2 = a.f2, D = a.d, C = a.c, M = a.m;
-  float* an = reinterpret_cast<float*>(smem);        // (F1, D)
-  float* bn = an + (size_t)F1 * D;                   // (F2, D)
-  float* dist = bn + (size_t)F2 * D;                 // (F1, F2)
-  float* bd = dist + (size_t)F1 * F2;                // (F2,)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F1 = a.f1, F2 = a.f2, D = a.d, C = a.c, M = a.m, K = a.cluster;
+  const int r1 = (F1 + K - 1) / K, Dp = desc_stride(D);
+  float4* corr = reinterpret_cast<float4*>(smem);    // (C,) a, b points
+  float* an = reinterpret_cast<float*>(corr + C);    // (r1, Dp)
+  float* bn = an + (size_t)r1 * Dp;                  // (F2, Dp)
+  float* dist = bn + (size_t)F2 * Dp;                // (r1, F2)
+  float* rsum = dist + (size_t)r1 * F2;              // (r1 + F2,)
+  float* pv = rsum + r1 + F2;                        // (K, F2) ranks' minima
+  int* pi = reinterpret_cast<int*>(pv + (size_t)K * F2);   // (K, F2)
+  float* bd = reinterpret_cast<float*>(pi + (size_t)K * F2);  // (F2,)
   int* bref = reinterpret_cast<int*>(bd + F2);       // (F2,)
   float* rp = reinterpret_cast<float*>(bref + F2);   // (F1, 2)
   float* mp = rp + 2 * F1;                           // (F2, 2)
-  float* ca = mp + 2 * F2;                           // (C, 2)
-  float* cb = ca + 2 * C;                            // (C, 2)
-  float* cd = cb + 2 * C;                            // (C,)
+  float* cd = mp + 2 * F2;                           // (C,)
   int* cmov = reinterpret_cast<int*>(cd + C);        // (C,)
   float* msac = reinterpret_cast<float*>(cmov + C);  // (M,)
-  float* hyp = msac + M;                             // (M, 3)
-  float* ratio = hyp + 3 * M;                        // (M,)
-  uint8_t* rm = reinterpret_cast<uint8_t*>(ratio + M);
+  float* hyp = msac + M;               // (M, 5): the pose, its cos, sin
+  float* ratio = hyp + 5 * M;                        // (M,)
+  float* us = ratio + M;                             // (M, 2) the draws
+  uint8_t* rm = reinterpret_cast<uint8_t*>(us + 2 * M);
   uint8_t* mm = rm + F1;
   uint8_t* cm = mm + F2;
   __shared__ float red_v[32];
   __shared__ int red_i[32];
   __shared__ int n_valid;
+  __shared__ float gate_v[11];   // sp, cos and sin of sp.t, inverse(sp), tm
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t pair = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int rank = (int)cluster.block_rank();
+  const size_t pair = blockIdx.x / K;
+  const int i_lo = min(rank * r1, F1), nr = min(i_lo + r1, F1) - i_lo;
   const float inf = __int_as_float(0x7f800000);
+  NDTG_STAGE(0, "match: start");
+  // Every block of the cluster has started before one writes to rank
+  // 0's shared memory (the wait is before that).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   {
-    const float* g = a.ref_pts + pair * a.s_ref_pts;
-    for (int i = tid; i < 2 * F1; i += nt) rp[i] = g[i];
-    g = a.mov_pts + pair * a.s_mov_pts;
-    for (int i = tid; i < 2 * F2; i += nt) mp[i] = g[i];
     const uint8_t* k = a.ref_mask + pair * a.s_ref_mask;
-    for (int i = tid; i < F1; i += nt) rm[i] = k[i] != 0;
+    for (int i = tid; i < F1; i += nt) rm[i] = __ldg(k + i) != 0;
     k = a.mov_mask + pair * a.s_mov_mask;
-    for (int i = tid; i < F2; i += nt) mm[i] = k[i] != 0;
-    g = a.ref_desc + pair * a.s_ref_desc;
-    for (int i = tid; i < F1 * D; i += nt) an[i] = g[i];
+    for (int i = tid; i < F2; i += nt) mm[i] = __ldg(k + i) != 0;
+    const float* g = a.ref_desc + pair * a.s_ref_desc + (size_t)i_lo * D;
+#pragma unroll 4
+    for (int i = tid; i < nr * D; i += nt) {
+      an[(i / D) * Dp + i % D] = __ldg(g + i);
+    }
     g = a.mov_desc + pair * a.s_mov_desc;
-    for (int i = tid; i < F2 * D; i += nt) bn[i] = g[i];
+#pragma unroll 4
+    for (int i = tid; i < F2 * D; i += nt) {
+      bn[(i / D) * Dp + i % D] = __ldg(g + i);
+    }
+    if (rank == 0) {
+      g = a.u + pair * a.s_u;
+      for (int i = tid; i < 2 * M; i += nt) us[i] = __ldg(g + i);
+      g = a.ref_pts + pair * a.s_ref_pts;
+      for (int i = tid; i < 2 * F1; i += nt) rp[i] = __ldg(g + i);
+      g = a.mov_pts + pair * a.s_mov_pts;
+      for (int i = tid; i < 2 * F2; i += nt) mp[i] = __ldg(g + i);
+      if (a.gate && tid == nt - 1) {   // the gate's poses, off the path
+        g = a.sp + pair * a.s_sp;
+        const Pose sp{g[0], g[1], g[2]};
+        g = a.tm + pair * a.s_tm;
+        const Pose inv = inverse(sp);
+        const float v[11] = {sp.x, sp.y, sp.t, cosf(sp.t), sinf(sp.t),
+                             inv.x, inv.y, inv.t, g[0], g[1], g[2]};
+        for (int k = 0; k < 11; ++k) gate_v[k] = v[k];
+      }
+    }
   }
   __syncthreads();
-  // Each descriptor row over its sum (in order), clamped at eps.
-  for (int r = tid; r < F1 + F2; r += nt) {
-    float* row = r < F1 ? an + (size_t)r * D : bn + (size_t)(r - F1) * D;
+  NDTG_STAGE(1, "match: load");
+  // Each descriptor row over its sum (in order), clamped at eps: a
+  // thread a row's sum (16-byte words), then every thread some entries'
+  // quotients.
+  for (int r = tid; r < nr + F2; r += nt) {
+    const float* row = r < nr ? an + (size_t)r * Dp
+                              : bn + (size_t)(r - nr) * Dp;
     float s = 0.0f;
-    for (int k = 0; k < D; ++k) s = add(s, row[k]);
-    s = clamp_min(s, a.eps);
-    for (int k = 0; k < D; ++k) row[k] = fdiv(row[k], s);
+    int k = 0;
+    if ((D & 3) == 0) {
+#pragma unroll 4
+      for (; k < D; k += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(row + k);
+        s = add(add(add(add(s, x.x), x.y), x.z), x.w);
+      }
+    }
+    for (; k < D; ++k) s = add(s, row[k]);
+    rsum[r] = clamp_min(s, a.eps);
   }
   __syncthreads();
-  // The symmetric chi2 distances, inf where either feature is padding.
-  for (int it = tid; it < F1 * F2; it += nt) {
+  for (int it = tid; it < (nr + F2) * D; it += nt) {
+    const int r = it / D;
+    float* x = (r < nr ? an + (size_t)r * Dp : bn + (size_t)(r - nr) * Dp) +
+               (it - r * D);
+    *x = fdiv(*x, rsum[r]);
+  }
+  __syncthreads();
+  NDTG_STAGE(2, "match: normalise");
+  // The symmetric chi2 distances of the rank's rows, inf where either
+  // feature is padding.
+  for (int it = tid; it < nr * F2; it += nt) {
     const int i = it / F2, j = it - i * F2;
     float v = inf;
-    if (rm[i] && mm[j]) {
-      const float* p = an + (size_t)i * D;
-      const float* q = bn + (size_t)j * D;
+    if (rm[i_lo + i] && mm[j]) {
+      const float* p = an + (size_t)i * Dp;
+      const float* q = bn + (size_t)j * Dp;
+      auto num = [&](float x, float y) {
+        const float df = sub(x, y);
+        return mul(df, df);
+      };
+      auto den = [&](float x, float y) { return add(add(x, y), a.eps); };
       float s = 0.0f;
-      for (int k = 0; k < D; ++k) {
-        const float df = sub(p[k], q[k]);
-        s = add(s, fdiv(mul(df, df), add(add(p[k], q[k]), a.eps)));
+      int k = 0;
+      if ((D & 3) == 0) {            // rows 16-byte aligned: 4 terms a step
+        for (; k < D; k += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(p + k);
+          const float4 y = *reinterpret_cast<const float4*>(q + k);
+          const float n0 = num(x.x, y.x), n1 = num(x.y, y.y);
+          const float n2 = num(x.z, y.z), n3 = num(x.w, y.w);
+          const float d0 = den(x.x, y.x), d1 = den(x.y, y.y);
+          const float d2 = den(x.z, y.z), d3 = den(x.w, y.w);
+          const float t0 = fdiv(n0, d0), t1 = fdiv(n1, d1);
+          const float t2 = fdiv(n2, d2), t3 = fdiv(n3, d3);
+          s = add(add(add(add(s, t0), t1), t2), t3);
+        }
       }
+      for (; k < D; ++k) s = add(s, fdiv(num(p[k], q[k]), den(p[k], q[k])));
       v = mul(0.5f, s);
     }
     dist[it] = v;
   }
   __syncthreads();
-  // Each moving feature's nearest reference feature (the first minimum).
-  for (int j = tid; j < F2; j += nt) {
-    float bv = dist[j];
-    int bi = 0;
-    for (int i = 1; i < F1; ++i) {
+  NDTG_STAGE(3, "match: chi2 matrix");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // Each moving feature's first minimum over the rank's rows: a warp a
+  // column, each lane its rows in order, then a butterfly that keeps
+  // the lower row among equal values.
+  for (int j = warp; j < F2; j += nwarps) {
+    float bv = inf;
+    int bi = 0x7fffffff;
+    for (int i = lane; i < nr; i += 32) {
       const float v = dist[(size_t)i * F2 + j];
+      if (before(v, i_lo + i, bv, bi)) {
+        bv = v;
+        bi = i_lo + i;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, o);
+      const int oi = __shfl_xor_sync(kFull, bi, o);
+      if (before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {               // into rank 0's row `rank`
+      const size_t o = (size_t)rank * F2 + j;
+      if (rank == 0) {
+        pv[o] = bv;
+        pi[o] = bi;
+      } else {
+        cluster.map_shared_rank(pv, 0)[o] = bv;
+        cluster.map_shared_rank(pi, 0)[o] = bi;
+      }
+    }
+  }
+  cluster.sync();                  // every rank's minima are in rank 0
+  if (rank != 0) return;
+  // Over the ranks in order: a later rank's rows win only below.
+  for (int j = tid; j < F2; j += nt) {
+    float bv = pv[j];
+    int bi = pi[j];
+    for (int r = 1; r < K; ++r) {
+      const float v = pv[(size_t)r * F2 + j];
       if (v < bv) {
         bv = v;
-        bi = i;
+        bi = pi[(size_t)r * F2 + j];
       }
     }
     bd[j] = bv;
     bref[j] = bi;
   }
   __syncthreads();
+  NDTG_STAGE(4, "match: nearest neighbour");
   // The C nearest, in a stable ascending order (padded with feature 0 at
-  // distance inf when F2 < C).
+  // distance inf when F2 < C): a warp a moving feature counts the ones
+  // before it.
   const int cs = min(C, F2);
-  for (int j = tid; j < F2; j += nt) {
+  for (int j = warp; j < F2; j += nwarps) {
     const float v = bd[j];
-    int rank = 0;
-    for (int k = 0; k < F2; ++k) {
-      const float w = bd[k];
-      rank += (w < v || (w == v && k < j)) ? 1 : 0;
+    int cnt = 0;
+    for (int k0 = 0; k0 < F2; k0 += 32) {
+      const int k = k0 + lane;
+      const bool b = k < F2 && before(bd[k], k, v, j);
+      cnt += __popc(__ballot_sync(kFull, b));
     }
-    if (rank < cs) {
-      cmov[rank] = j;
-      cd[rank] = v;
+    if (lane == 0 && cnt < cs) {
+      cmov[cnt] = j;
+      cd[cnt] = v;
     }
   }
   for (int c = cs + tid; c < C; c += nt) {
@@ -695,13 +948,11 @@ features_match_kernel(MatchArgs a) {
     cd[c] = inf;
   }
   __syncthreads();
+  NDTG_STAGE(5, "match: top-C ranks");
   for (int c = tid; c < C; c += nt) {
     const int j = cmov[c], i = bref[j];
     cm[c] = cd[c] < a.dist_thr;
-    ca[2 * c] = rp[2 * i];
-    ca[2 * c + 1] = rp[2 * i + 1];
-    cb[2 * c] = mp[2 * j];
-    cb[2 * c + 1] = mp[2 * j + 1];
+    corr[c] = make_float4(rp[2 * i], rp[2 * i + 1], mp[2 * j], mp[2 * j + 1]);
     a.corr_ref[pair * C + c] = i;
     a.corr_mov[pair * C + c] = j;
     a.corr_mask[pair * C + c] = cm[c];
@@ -709,49 +960,53 @@ features_match_kernel(MatchArgs a) {
   if (warp == 0) {
     int n = 0;
     for (int c = lane; c < C; c += 32) n += (cd[c] < a.dist_thr) ? 1 : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(kFull, n, o);
+    n = __reduce_add_sync(kFull, n);
     if (lane == 0) n_valid = n;
   }
   __syncthreads();
+  NDTG_STAGE(6, "match: correspondences");
 
-  // The hypotheses: a pair of correspondences from the draws, the
-  // two-point fit, its rigidity and validity, the MSAC score over the C
-  // correspondences in order.
-  const float nvf = clamp_min((float)n_valid, 1.0f);
-  const float* ug = a.u + pair * a.s_u;
-  for (int m = tid; m < M; m += nt) {
-    long long i0 = floor_i64(mul(ug[2 * m], nvf));
-    long long i1 = floor_i64(mul(ug[2 * m + 1], nvf));
-    i0 = i0 < 0 ? 0 : (i0 > C - 1 ? C - 1 : i0);
-    i1 = i1 < 0 ? 0 : (i1 > C - 1 ? C - 1 : i1);
-    const float a0x = ca[2 * i0], a0y = ca[2 * i0 + 1];
-    const float b0x = cb[2 * i0], b0y = cb[2 * i0 + 1];
-    const float dax = sub(ca[2 * i1], a0x), day = sub(ca[2 * i1 + 1], a0y);
-    const float dbx = sub(cb[2 * i1], b0x), dby = sub(cb[2 * i1 + 1], b0y);
-    const float seg_len = norm2(dbx, dby);
-    const float theta = sub(atan2f(day, dax), atan2f(dby, dbx));
-    const float ch = cosf(theta), sh = sinf(theta);
-    const float tx = sub(a0x, sub(mul(ch, b0x), mul(sh, b0y)));
-    const float ty = sub(a0y, add(mul(sh, b0x), mul(ch, b0y)));
-    const float ld = sub(seg_len, norm2(dax, day));
-    const bool ok = seg_len > 0.2f && mul(ld, ld) < a.rig4 && cm[i0] &&
-                    cm[i1] && i0 != i1;
-    float s = 0.0f;
-    int inl = 0;
-    for (int c = 0; c < C; ++c) {
-      const float r2 = residual2(ch, sh, tx, ty, ca[2 * c], ca[2 * c + 1],
-                                 cb[2 * c], cb[2 * c + 1]);
-      s = add(s, clamp_max(cm[c] ? r2 : a.acc, a.acc));
-      inl += (r2 < a.acc && cm[c]) ? 1 : 0;
+  {
+    // The hypotheses, a thread each: a pair of correspondences from the
+    // draws, the two-point fit, its rigidity and validity, the MSAC
+    // score over the C correspondences in order.
+    const float nvf = clamp_min((float)n_valid, 1.0f);
+    const float* ug = us;
+    for (int m = tid; m < M; m += nt) {
+      long long i0 = floor_i64(mul(ug[2 * m], nvf));
+      long long i1 = floor_i64(mul(ug[2 * m + 1], nvf));
+      i0 = i0 < 0 ? 0 : (i0 > C - 1 ? C - 1 : i0);
+      i1 = i1 < 0 ? 0 : (i1 > C - 1 ? C - 1 : i1);
+      const float4 c0 = corr[i0], c1 = corr[i1];
+      const float dax = sub(c1.x, c0.x), day = sub(c1.y, c0.y);
+      const float dbx = sub(c1.z, c0.z), dby = sub(c1.w, c0.w);
+      const float seg_len = norm2(dbx, dby);
+      const float theta = sub(atan2f(day, dax), atan2f(dby, dbx));
+      const float ch = cosf(theta), sh = sinf(theta);
+      const float tx = sub(c0.x, sub(mul(ch, c0.z), mul(sh, c0.w)));
+      const float ty = sub(c0.y, add(mul(sh, c0.z), mul(ch, c0.w)));
+      const float ld = sub(seg_len, norm2(dax, day));
+      const bool ok = seg_len > 0.2f && mul(ld, ld) < a.rig4 && cm[i0] &&
+                      cm[i1] && i0 != i1;
+      float s = 0.0f;
+      int inl = 0;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) {
+        const float r2 = residual2(ch, sh, tx, ty, corr[c]);
+        s = add(s, clamp_max(cm[c] ? r2 : a.acc, a.acc));
+        inl += (r2 < a.acc && cm[c]) ? 1 : 0;
+      }
+      msac[m] = (ok && m < a.budget) ? s : inf;
+      hyp[5 * m] = tx;
+      hyp[5 * m + 1] = ty;
+      hyp[5 * m + 2] = theta;
+      hyp[5 * m + 3] = ch;
+      hyp[5 * m + 4] = sh;
+      ratio[m] = ok ? fdiv((float)inl, nvf) : 0.0f;
     }
-    msac[m] = (ok && m < a.budget) ? s : inf;
-    hyp[3 * m] = tx;
-    hyp[3 * m + 1] = ty;
-    hyp[3 * m + 2] = theta;
-    ratio[m] = ok ? fdiv((float)inl, nvf) : 0.0f;
   }
   __syncthreads();
+  NDTG_STAGE(7, "match: hypotheses, MSAC");
   if (a.adaptive && tid == 0) {
     // Hypothesis m counts while m < N(the best inlier ratio before it).
     float run = a.w0;
@@ -768,7 +1023,7 @@ features_match_kernel(MatchArgs a) {
     float bv = inf;
     int bi = 0x7fffffff;
     for (int m = tid; m < M; m += nt) {
-      if (msac[m] < bv || (msac[m] == bv && m < bi)) {
+      if (before(msac[m], m, bv, bi)) {
         bv = msac[m];
         bi = m;
       }
@@ -777,7 +1032,7 @@ features_match_kernel(MatchArgs a) {
     for (int o = 16; o > 0; o >>= 1) {
       const float ov = __shfl_xor_sync(kFull, bv, o);
       const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (ov < bv || (ov == bv && oi < bi)) {
+      if (before(ov, oi, bv, bi)) {
         bv = ov;
         bi = oi;
       }
@@ -788,34 +1043,60 @@ features_match_kernel(MatchArgs a) {
     }
   }
   __syncthreads();
-  if (warp != 0) return;
+  NDTG_STAGE(8, "match: winner");
+  if (warp != 0) {
+    if (!a.gate) return;
+    // The gate's pseudo-cells, beside warp 0's fits: the reference points
+    // in the world under the previous pose and the sensor pose, the
+    // moving points in the vehicle frame (warp 0 writes the pair masks).
+    const Pose sp{gate_v[0], gate_v[1], gate_v[2]};
+    const float* g = a.prev + pair * a.s_prev;
+    const Pose wp = compose(Pose{g[0], g[1], g[2]}, sp);
+    const float wc = cosf(wp.t), ws = sinf(wp.t);
+    for (int c = tid - 32; c < C; c += nt - 32) {
+      const size_t o = pair * C + c;
+      const float4 p = corr[c];
+      const float2 t = transform(wp, wc, ws, p.x, p.y);
+      const float2 s = transform(sp, gate_v[3], gate_v[4], p.z, p.w);
+      a.tgt[2 * o] = t.x;
+      a.tgt[2 * o + 1] = t.y;
+      a.src[2 * o] = s.x;
+      a.src[2 * o + 1] = s.y;
+      a.covs[4 * o] = a.cov_xy;
+      a.covs[4 * o + 1] = 0.0f;
+      a.covs[4 * o + 2] = 0.0f;
+      a.covs[4 * o + 3] = a.cov_xy;
+    }
+    return;
+  }
   int win = red_i[0];
   float wv = red_v[0];
-  for (int w = 1; w < (nt + 31) / 32; ++w) {
-    if (red_v[w] < wv || (red_v[w] == wv && red_i[w] < win)) {
+  for (int w = 1; w < nwarps; ++w) {
+    if (before(red_v[w], red_i[w], wv, win)) {
       wv = red_v[w];
       win = red_i[w];
     }
   }
   if (win >= M) win = 0;
   const bool any_hyp = fabsf(msac[win]) < inf;
-  float T0 = hyp[3 * win], T1 = hyp[3 * win + 1], T2 = hyp[3 * win + 2];
+  float T0 = hyp[5 * win], T1 = hyp[5 * win + 1], T2 = hyp[5 * win + 2];
+  // cosf and sinf of T2, carried with it (each taken once).
+  float cT = hyp[5 * win + 3], sT = hyp[5 * win + 4];
 
   // Two weighted Procrustes fits on the inliers under the current pose.
   for (int rep = 0; rep < 2; ++rep) {
-    const float c0 = cosf(T2), s0 = sinf(T2);
+    const float c0 = cT, s0 = sT;
     float sw = 0.0f, sax = 0.0f, say = 0.0f, sbx = 0.0f, sby = 0.0f;
     for (int c = lane; c < C; c += 32) {
-      const float ax = ca[2 * c], ay = ca[2 * c + 1];
-      const float bx = cb[2 * c], by = cb[2 * c + 1];
-      const float r2 = residual2(c0, s0, T0, T1, ax, ay, bx, by);
+      const float4 p = corr[c];
+      const float r2 = residual2(c0, s0, T0, T1, p);
       const float w = (r2 < a.acc && cm[c]) ? 1.0f : 0.0f;
       cd[c] = w;
       sw = add(sw, w);
-      sax = add(sax, mul(ax, w));
-      say = add(say, mul(ay, w));
-      sbx = add(sbx, mul(bx, w));
-      sby = add(sby, mul(by, w));
+      sax = add(sax, mul(p.x, w));
+      say = add(say, mul(p.y, w));
+      sbx = add(sbx, mul(p.z, w));
+      sby = add(sby, mul(p.w, w));
     }
     sw = warp_sum(sw);
     sax = warp_sum(sax);
@@ -830,8 +1111,9 @@ features_match_kernel(MatchArgs a) {
     float sxx = 0.0f, sxy = 0.0f;
     for (int c = lane; c < C; c += 32) {
       const float w = cd[c];
-      const float a0x = sub(ca[2 * c], cax), a0y = sub(ca[2 * c + 1], cay);
-      const float b0x = sub(cb[2 * c], cbx), b0y = sub(cb[2 * c + 1], cby);
+      const float4 p = corr[c];
+      const float a0x = sub(p.x, cax), a0y = sub(p.y, cay);
+      const float b0x = sub(p.z, cbx), b0y = sub(p.w, cby);
       sxx = add(sxx, mul(w, add(mul(b0x, a0x), mul(b0y, a0y))));
       sxy = add(sxy, mul(w, sub(mul(b0x, a0y), mul(b0y, a0x))));
     }
@@ -843,64 +1125,63 @@ features_match_kernel(MatchArgs a) {
     T0 = sub(cax, sub(mul(c1, cbx), mul(s1, cby)));
     T1 = sub(cay, add(mul(s1, cbx), mul(c1, cby)));
     T2 = th;
+    cT = c1;
+    sT = s1;
   }
-  if (!any_hyp) T0 = T1 = T2 = 0.0f;
+  if (!any_hyp) {
+    T0 = T1 = T2 = 0.0f;
+    cT = 1.0f;                         // cosf(0), sinf(0)
+    sT = 0.0f;
+  }
+  NDTG_STAGE(9, "match: two Procrustes fits");
 
   // The result under the fitted pose, then the gate.
-  const float c0 = cosf(T2), s0 = sinf(T2);
-  float sc = 0.0f;
+  const float c0 = cT, s0 = sT;
+  float sco = 0.0f;
   int n_in = 0;
   for (int c = lane; c < C; c += 32) {
-    const float r2 = residual2(c0, s0, T0, T1, ca[2 * c], ca[2 * c + 1],
-                               cb[2 * c], cb[2 * c + 1]);
+    const float r2 = residual2(c0, s0, T0, T1, corr[c]);
     const bool in = r2 < a.acc && cm[c] && any_hyp;
     cd[c] = in ? 1.0f : 0.0f;
     a.inlier[pair * C + c] = in;
     n_in += in ? 1 : 0;
-    sc = add(sc, cm[c] ? clamp_max(r2, a.acc) : a.acc);
+    sco = add(sco, cm[c] ? clamp_max(r2, a.acc) : a.acc);
   }
-  sc = warp_sum(sc);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) n_in += __shfl_xor_sync(kFull, n_in, o);
+  sco = warp_sum(sco);
+  n_in = __reduce_add_sync(kFull, n_in);
   const bool valid = any_hyp && n_in >= 2;
   if (lane == 0) {
     a.T[3 * pair] = T0;
     a.T[3 * pair + 1] = T1;
     a.T[3 * pair + 2] = T2;
-    a.score[pair] = sc;
+    a.score[pair] = sco;
     a.n_in[pair] = n_in;
     a.valid[pair] = valid;
   }
-  if (!a.gate) return;
-  const float* g = a.sp + pair * a.s_sp;
-  const Pose sp{g[0], g[1], g[2]};
-  g = a.tm + pair * a.s_tm;
-  const Pose tm{g[0], g[1], g[2]};
-  g = a.prev + pair * a.s_prev;
-  const Pose prev{g[0], g[1], g[2]};
+  NDTG_STAGE(10, "match: final score, result");
+  if (!a.gate) {
+    NDTG_STAGE(11, "match: gate, pair masks");
+    return;
+  }
   // RANSAC's T maps the current sensor frame onto the previous one:
-  // compare it with the odometry in the vehicle frame.
-  const Pose diff =
-      relative(compose(compose(sp, Pose{T0, T1, T2}), inverse(sp)), tm);
+  // compare it with the odometry in the vehicle frame.  compose(sp, T)
+  // with sp's cosine and sine, taken beside the hypotheses.
+  const Pose sp{gate_v[0], gate_v[1], gate_v[2]};
+  const float sc = gate_v[3], ss = gate_v[4];
+  const Pose inv_sp{gate_v[5], gate_v[6], gate_v[7]};
+  const Pose tm{gate_v[8], gate_v[9], gate_v[10]};
+  const Pose st{sub(add(sp.x, mul(T0, sc)), mul(T1, ss)),
+                add(add(sp.y, mul(T0, ss)), mul(T1, sc)),
+                wrap_angle(add(sp.t, T2))};
+  const Pose diff = relative(compose(st, inv_sp), tm);
   const bool consistent =
       (norm2(diff.x, diff.y) <= a.max_t && fabsf(diff.t) <= a.max_r) ||
       !a.check;
   const bool feats_ok = valid && consistent;
-  const Pose world_prev = compose(prev, sp);
   for (int c = lane; c < C; c += 32) {
-    const size_t o = pair * C + c;
-    const float2 t = transform(world_prev, ca[2 * c], ca[2 * c + 1]);
-    const float2 s = transform(sp, cb[2 * c], cb[2 * c + 1]);
-    a.tgt[2 * o] = t.x;
-    a.tgt[2 * o + 1] = t.y;
-    a.src[2 * o] = s.x;
-    a.src[2 * o + 1] = s.y;
-    a.covs[4 * o] = a.cov_xy;
-    a.covs[4 * o + 1] = 0.0f;
-    a.covs[4 * o + 2] = 0.0f;
-    a.covs[4 * o + 3] = a.cov_xy;
-    a.pair_mask[o] = cd[c] != 0.0f && feats_ok;
+    a.pair_mask[pair * C + c] = cd[c] != 0.0f && feats_ok;
   }
+  NDTG_STAGE(11, "match: gate, pair masks");
 }
 
 // The CUDA maths library's functions the kernels call, elementwise, for
@@ -944,24 +1225,28 @@ int ndtg_features_max_scales() { return kMaxScales; }
 int ndtg_features_max_bins() { return kMaxBins; }
 long long ndtg_features_max_smem() { return kMaxDynamicSmem; }
 long long ndtg_detect_smem(int b, int s) { return detect_smem(b, s); }
-long long ndtg_match_smem(int f1, int f2, int d, int c, int m) {
-  return match_smem(f1, f2, d, c, m);
+long long ndtg_match_smem(int f1, int f2, int d, int c, int m, int k) {
+  return match_smem(f1, f2, d, c, m, k);
 }
 
 // pts (N, F, 2), angles / scales / response (N, F), mask (N, F): the top
 // f interest points of each of the n scans (ranges, hit (N, B)).
 // sigmas: the s scales as float64 (host memory).  arcs (N, B) and smoothed
 // (N, S, B, 2): null, or the cumulative arc and the smoothed points.
+// cluster: blocks a scan (1 to kMaxDetectCluster; the bits do not
+// depend on it).
 int ndtg_detect_features(const float* ranges, const uint8_t* hit,
                          const float* cosb, const float* sinb, long long n,
                          int b, int s, int half, int f, const double* sigmas,
                          float peak_min_diff, float peak_min_value,
                          float* pts, float* angles, float* scales,
                          float* response, uint8_t* mask, float* arcs,
-                         float* smoothed, void* stream) {
-  if (s < 1 || s > kMaxScales || b < 1 || f < 1 || f > b || half < 0)
+                         float* smoothed, int cluster, void* stream) {
+  if (s < 1 || s > kMaxScales || b < 1 || f < 1 || f > b || half < 0 ||
+      cluster < 1 || cluster > kMaxDetectCluster || n < 1 ||
+      n * cluster > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  DetectArgs a{ranges, hit, cosb, sinb, b, s, half, f, {}, {},
+  DetectArgs a{ranges, hit, cosb, sinb, b, s, half, f, cluster, {}, {},
                peak_min_diff, peak_min_value, pts, angles, scales, response,
                mask, arcs, smoothed};
   for (int k = 0; k < s; ++k) {
@@ -971,9 +1256,9 @@ int ndtg_detect_features(const float* ranges, const uint8_t* hit,
   const long long bytes = detect_smem(b, s);
   int err = set_smem((const void*)features_detect_kernel, bytes, g_detect_smem);
   if (err) return err;
-  features_detect_kernel<<<(unsigned)n, kDetectThreads, bytes,
-                           (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return ndtg::launch_cluster(features_detect_kernel,
+                              dim3((unsigned)(n * cluster)), kDetectThreads,
+                              cluster, (size_t)bytes, (cudaStream_t)stream, a);
 }
 
 // out (N, F, D): the descriptor of each feature of each of the n scans.
@@ -1000,7 +1285,8 @@ int ndtg_describe_features(const float* ranges, const uint8_t* hit,
 }
 
 // The match of p pairs (ref set -> mov set, hypotheses from u), and with
-// gate != 0 the odometry gate and the paired pseudo-cells.
+// gate != 0 the odometry gate and the paired pseudo-cells.  cluster:
+// blocks a pair (1 to kMaxMatchCluster; the bits do not depend on it).
 int ndtg_match_features(
     const float* ref_pts, const uint8_t* ref_mask, const float* ref_desc,
     const float* mov_pts, const uint8_t* mov_mask, const float* mov_desc,
@@ -1013,22 +1299,24 @@ int ndtg_match_features(
     long long s_prev, int gate, int check, float max_t, float max_r,
     float cov_xy, float* T, float* score, int* n_in, long long* corr_ref,
     long long* corr_mov, uint8_t* corr_mask, uint8_t* inlier, uint8_t* valid,
-    float* src, float* tgt, float* covs, uint8_t* pair_mask, void* stream) {
-  if (f1 < 1 || f2 < 1 || d < 1 || c < 1 || m < 1)
+    float* src, float* tgt, float* covs, uint8_t* pair_mask, int cluster,
+    void* stream) {
+  if (f1 < 1 || f2 < 1 || d < 1 || c < 1 || m < 1 || cluster < 1 ||
+      cluster > kMaxMatchCluster || p < 1 || p * cluster > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   MatchArgs a{ref_pts, ref_mask, ref_desc, mov_pts, mov_mask, mov_desc, u,
               s_ref_pts, s_ref_mask, s_ref_desc, s_mov_pts, s_mov_mask,
-              s_mov_desc, s_u, f1, f2, d, c, m, budget, adaptive, acc,
+              s_mov_desc, s_u, f1, f2, d, c, m, budget, adaptive, cluster, acc,
               dist_thr, rig4, w0, log1mp, eps, sp, tm, prev, s_sp, s_tm,
               s_prev, gate, check, max_t, max_r, cov_xy, T, score, n_in,
               corr_ref, corr_mov, corr_mask, inlier, valid, src, tgt, covs,
               pair_mask};
-  const long long bytes = match_smem(f1, f2, d, c, m);
+  const long long bytes = match_smem(f1, f2, d, c, m, cluster);
   int err = set_smem((const void*)features_match_kernel, bytes, g_match_smem);
   if (err) return err;
-  features_match_kernel<<<(unsigned)p, kMatchThreads, bytes,
-                          (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return ndtg::launch_cluster(features_match_kernel,
+                              dim3((unsigned)(p * cluster)), kMatchThreads,
+                              cluster, (size_t)bytes, (cudaStream_t)stream, a);
 }
 
 int ndtg_features_math_probe(const float* a, const float* b, float* out,

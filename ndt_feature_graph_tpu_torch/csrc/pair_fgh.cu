@@ -113,6 +113,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1177,21 +1179,8 @@ int launch_clusters(void (*kernel)(KArgs...), int threads, int cluster,
   if (cluster < 1 || cluster > kMaxCluster || n_lanes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, n_lanes, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return ndtg::launch_cluster(kernel, dim3(cluster, n_lanes, 1), threads,
+                              cluster, smem, stream, args...);
 }
 
 }  // namespace

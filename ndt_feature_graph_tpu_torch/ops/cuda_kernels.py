@@ -74,14 +74,17 @@ scatter_add_rows).
 
 `csrc/features.cu` holds the scan's feature front end in three kernels,
 one launch each for a scan or a batch of scans / pairs:
-`detect_features` (features/detector.py detect: one block a scan),
+`detect_features` (features/detector.py detect: a thread-block cluster
+of up to 8 blocks a scan, `detect_cluster`, exchanging its smoothed
+points and best responses through distributed shared memory),
 `describe_features` (features/descriptor.py describe: one block a
 feature, per-thread bins and a fixed tree) and `match_features`
-(features/ransac.py match_sets: one block a pair; with an
-`OdometryGate`, match_sets_gated, the feature fuser's gate and paired
-pseudo-cells in the same launch).  Plain twins: detector._detect_plain,
-descriptor._describe_plain, ransac._match_sets_plain and
-ransac._gate_plain.
+(features/ransac.py match_sets: a cluster of up to 4 blocks a pair,
+`match_cluster`, splitting the chi2 rows; with an `OdometryGate`,
+match_sets_gated, the feature fuser's gate and paired pseudo-cells in
+the same launch).  Their bits do not depend on the cluster size.  Plain
+twins: detector._detect_plain, descriptor._describe_plain,
+ransac._match_sets_plain and ransac._gate_plain.
 
 The sources are compiled with nvcc for sm_90a (one process a source,
 started together) into one shared library with a plain C interface at
@@ -95,6 +98,7 @@ launch the kernel or raise.  There is no fallback from the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -121,6 +125,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu",
            _PKG / "csrc" / "occupancy.cu", _PKG / "csrc" / "overlap.cu",
            _PKG / "csrc" / "features.cu")
+HEADERS = (_PKG / "csrc" / "cluster_launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -168,7 +173,7 @@ def build():
     global _lib, build_log
     if _lib is not None:
         return _lib
-    src = b"".join(p.read_bytes() for p in SOURCES)
+    src = b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS))
     key = hashlib.sha256(
         src + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / key[:16] / "libndtg_kernels.so"
@@ -252,12 +257,12 @@ def build():
     lib.ndtg_features_max_smem.restype = LL
     lib.ndtg_detect_smem.argtypes = [I, I]
     lib.ndtg_detect_smem.restype = LL
-    lib.ndtg_match_smem.argtypes = [I, I, I, I, I]
+    lib.ndtg_match_smem.argtypes = [I, I, I, I, I, I]
     lib.ndtg_match_smem.restype = LL
     lib.ndtg_detect_features.argtypes = [
         P, P, P, P, LL, I, I, I, I, P,  # ranges, hit, cos, sin; n, b, s, ...
-        F, F, P, P, P, P, P, P, P, P,   # peaks; pts, ..., mask, arcs,
-                                        # smoothed, stream
+        F, F, P, P, P, P, P, P, P,      # peaks; pts, ..., mask, arcs,
+        I, P,                           # smoothed; cluster, stream
     ]
     lib.ndtg_detect_features.restype = I
     lib.ndtg_describe_features.argtypes = [
@@ -273,7 +278,7 @@ def build():
         F, F, F, F, F, F,                # acceptance ... eps
         P, P, P, LL, LL, LL, I, I, F, F, F,  # the gate
         P, P, P, P, P, P, P, P,          # the result
-        P, P, P, P, P,                   # the pseudo-cells, stream
+        P, P, P, P, I, P,                # the pseudo-cells; cluster, stream
     ]
     lib.ndtg_match_features.restype = I
     lib.ndtg_features_math_probe.argtypes = [P, P, P, LL, I, P]
@@ -1345,6 +1350,43 @@ def _scan_inputs(entry, params: FeatureParams, ranges, hit):
     return ranges, hit, lead, math.prod(lead)
 
 
+def _on(dev):
+    """torch.cuda.device(dev), or nothing where `dev` is already the
+    current device (the context costs host time every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+DETECT_MAX_CLUSTER = 8   # csrc/features.cu kMaxDetectCluster
+MATCH_MAX_CLUSTER = 4    # csrc/features.cu kMaxMatchCluster
+
+
+def _one_wave(n: int, most: int, sms: int) -> int:
+    """The largest power of two up to `most` that keeps n x blocks within
+    the card's `sms` SMs (one block an SM), else 1."""
+    k = most
+    while k > 1 and n * k > sms:
+        k //= 2
+    return k
+
+
+def detect_cluster(n_scans: int, sms: int) -> int:
+    """Blocks of the detector's cluster a scan on a card of `sms` SMs: up
+    to 8 while the call fills the SMs once (on an H100: 8 at one scan, 4
+    at 32, 2 at 64, 1 from 67; examples/tune_torch_port_kernels.py
+    --features, PERF.md §6).  A scan's bits do not depend on it."""
+    return _one_wave(n_scans, DETECT_MAX_CLUSTER, sms)
+
+
+def match_cluster(n_pairs: int, sms: int) -> int:
+    """Blocks of the matcher's cluster a pair on a card of `sms` SMs: up
+    to 4 while the call fills the SMs once (4 at one pair, 1 at 199 and
+    at the LC bank's 171 pairs; the same sweep).  The bits do not depend
+    on it."""
+    return _one_wave(n_pairs, MATCH_MAX_CLUSTER, sms)
+
+
 def detect_features(params: FeatureParams, ranges, hit,
                     intermediates: bool = False):
     """features/detector.py detect: up to `max_features` interest points
@@ -1352,11 +1394,13 @@ def detect_features(params: FeatureParams, ranges, hit,
     FeatureSet with leading dims (...).
 
     On CUDA tensors: ONE launch of the detector kernel (csrc/features.cu:
-    one block a scan; the float64 arc and Gaussian sums, the searches,
-    responses and peaks in shared memory, the top-K by counting ranks).
-    Limits: 1 to 8 scales (num_scales), 1 <= max_features <= B,
-    smooth_half_beams >= 0, and B * (30 + 12 num_scales) + 256 bytes of
-    shared memory within a block's 226 KB (2,580 beams at 5 scales);
+    a thread-block cluster a scan, `detect_cluster` blocks each owning a
+    share of the beams; the float64 arc and Gaussian sums, the searches,
+    responses and peaks in shared memory, exchanged between the blocks,
+    the top-K by counting ranks).  Limits: 1 to 8 scales (num_scales),
+    1 <= max_features <= B, smooth_half_beams >= 0, and B * (34 + 12
+    num_scales) + 256 bytes of shared memory within a block's 226 KB
+    (2,459 beams at 5 scales);
     other parameters raise ValueError.  `intermediates`: also return the
     cumulative arc (..., B) and the smoothed points (..., S, B, 2), for a
     check against the plain twin's; CUDA only.  On the CPU the plain
@@ -1406,7 +1450,8 @@ def detect_features(params: FeatureParams, ranges, hit,
     # and their reciprocals, taken in float64, too, as ATen does.
     sigmas = (ctypes.c_double * s)(
         *[params.base_sigma * params.sigma_step ** i for i in range(s)])
-    with torch.cuda.device(dev):
+    cluster = detect_cluster(n, _sm_count(dev))
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndtg_detect_features(
             ranges.data_ptr(), hit.data_ptr(), cos.data_ptr(),
@@ -1414,7 +1459,8 @@ def detect_features(params: FeatureParams, ranges, hit,
             params.peak_min_value, out.pts.data_ptr(), out.angles.data_ptr(),
             out.scales.data_ptr(), out.response.data_ptr(),
             out.mask.data_ptr(), None if arcs is None else arcs.data_ptr(),
-            None if smoothed is None else smoothed.data_ptr(), stream)
+            None if smoothed is None else smoothed.data_ptr(), cluster,
+            stream)
     _raise_on(err, "detect_features")
     LAUNCHES["detect_features"] += 1
     return (out, arcs, smoothed) if intermediates else out
@@ -1468,7 +1514,7 @@ def describe_features(params: FeatureParams, feats, ranges, hit):
     if n * f == 0:
         return out
     cos, sin = _beam_trig(params.num_beams, dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndtg_describe_features(
             ranges.data_ptr(), hit.data_ptr(), cos.data_ptr(),
@@ -1515,9 +1561,10 @@ def match_features(params: FeatureParams, ref, ref_desc, mov, mov_desc, u,
     pseudo-cells, (MatchResult, src, tgt), match_sets_gated's result.
 
     On CUDA tensors: ONE launch of the matcher kernel (csrc/features.cu:
-    one block a pair; the chi2 matrix, the first-minimum correspondences,
-    the stable top-C, the M hypotheses and their MSAC scores, the first
-    minimum, two Procrustes fits and, with `gate`, the gate and the
+    a cluster of `match_cluster` blocks a pair, each the chi2 distances
+    and first minima of its share of the reference features; then one
+    block: the stable top-C, the M hypotheses and their MSAC scores, the
+    first minimum, two Procrustes fits and, with `gate`, the gate and the
     pseudo-cells); a set or a pose shared by the batch is read in place.
     Limits: F1, F2, D, C, M >= 1 and their shared memory within a
     block's 226 KB.  On the CPU the plain twins, ransac._match_sets_plain
@@ -1539,10 +1586,6 @@ def match_features(params: FeatureParams, ref, ref_desc, mov, mov_desc, u,
         raise ValueError(f"match_features: {f1} and {f2} features, "
                          f"descriptors of {d} and {mov_desc.shape[-1]}, "
                          f"{c} correspondences, {m} hypotheses")
-    smem = lib.ndtg_match_smem(f1, f2, d, c, m)
-    if smem > lib.ndtg_features_max_smem():
-        raise ValueError(f"match_features: {smem} bytes of shared memory, "
-                         f"at most {lib.ndtg_features_max_smem()}")
     try:
         lead = torch.broadcast_shapes(
             ref.mask.shape[:-1], ref_desc.shape[:-2], mov.mask.shape[:-1],
@@ -1551,8 +1594,14 @@ def match_features(params: FeatureParams, ref, ref_desc, mov, mov_desc, u,
         raise ValueError(f"match_features: leading dims do not broadcast: "
                          f"{e}") from e
     n = math.prod(lead)
-    if n >= 2 ** 31:
-        raise ValueError(f"match_features: {n} pairs, at most 2^31 - 1")
+    if n >= 2 ** 31 // MATCH_MAX_CLUSTER:
+        raise ValueError(f"match_features: {n} pairs, at most "
+                         f"{2 ** 31 // MATCH_MAX_CLUSTER - 1}")
+    cluster = match_cluster(n, _sm_count(dev))
+    smem = lib.ndtg_match_smem(f1, f2, d, c, m, cluster)
+    if smem > lib.ndtg_features_max_smem():
+        raise ValueError(f"match_features: {smem} bytes of shared memory, "
+                         f"at most {lib.ndtg_features_max_smem()}")
     f32, b8 = torch.float32, torch.bool
     res = ransac.MatchResult(
         T=torch.empty((*lead, 3), dtype=f32, device=dev),
@@ -1587,37 +1636,31 @@ def match_features(params: FeatureParams, ref, ref_desc, mov, mov_desc, u,
                    dev),
         _pair_rows("match_features u", u, lead, (m, 2), f32, dev),
     ]
-    if gate is not None:
+    if gate is None:
+        g_args = (None, None, None, 0, 0, 0, 0, 1, 0.0, 0.0, 0.0)
+        outs = (None, None, None, None)
+    else:
         poses = [_pair_rows(f"match_features gate.{k}", getattr(gate, k),
                             lead, (3,), f32, dev)
                  for k in ("sensor_pose", "motion", "prev_pose")]
+        g_args = (*[t.data_ptr() for t, _ in poses],
+                  *[st for _, st in poses], 1, int(bool(gate.check)),
+                  gate.max_translation, gate.max_rotation, gate.cov_xy)
+        outs = (src.means.data_ptr(), tgt.means.data_ptr(),
+                covs.data_ptr(), mask.data_ptr())
     p_succ, w0 = ransac._success_and_ratio(params)
     budget = min(max(ransac.hypothesis_budget(params), 1), m)
-    if gate is None:
-        g_ptrs, g_strides, g_on = [None] * 3, [0] * 3, 0
-        outs = [None] * 4
-    else:
-        g_ptrs = [t.data_ptr() for t, _ in poses]
-        g_strides = [s for _, s in poses]
-        g_on = 1
-        outs = [src.means.data_ptr(), tgt.means.data_ptr(),
-                covs.data_ptr(), mask.data_ptr()]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
         err = lib.ndtg_match_features(
-            *[t.data_ptr() for t, _ in rows], *[s for _, s in rows], n, f1,
-            f2, d, c, m, budget, int(params.ransac_adaptive),
+            *[t.data_ptr() for t, _ in rows], *[st for _, st in rows], n,
+            f1, f2, d, c, m, budget, int(params.ransac_adaptive),
             params.ransac_acceptance, params.ransac_dist_threshold,
             params.ransac_rigidity * 4.0, w0, math.log1p(-p_succ), 1e-9,
-            *g_ptrs, *g_strides, g_on,
-            int(gate is None or bool(gate.check)),
-            0.0 if gate is None else gate.max_translation,
-            0.0 if gate is None else gate.max_rotation,
-            0.0 if gate is None else gate.cov_xy,
-            res.T.data_ptr(), res.score.data_ptr(),
+            *g_args, res.T.data_ptr(), res.score.data_ptr(),
             res.num_inliers.data_ptr(), res.corr_ref.data_ptr(),
             res.corr_mov.data_ptr(), res.corr_mask.data_ptr(),
-            res.inlier_mask.data_ptr(), res.valid.data_ptr(), *outs, stream)
+            res.inlier_mask.data_ptr(), res.valid.data_ptr(), *outs, cluster,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "match_features")
     LAUNCHES["match_features"] += 1
     return res if gate is None else (res, src, tgt)

@@ -1001,3 +1001,73 @@ def test_feature_fuser_front_end_is_three_launches(cuda_device):
     assert {k: cuda_kernels.LAUNCHES[k] for k in chip_smoke.FEATURE_ENTRIES} \
         == {k: 1 for k in chip_smoke.FEATURE_ENTRIES}
     assert sum(cuda_kernels.LAUNCHES.values()) == 3
+
+
+@pytest.mark.cuda
+def test_detect_features_same_bits_at_every_cluster_size(cuda_device):
+    """The 200 canonical scans in calls of 1, 32, 64, 100 and 200 scans
+    (8, 4, 2, 1 and 1 blocks a scan on an H100): every scan, its arc and
+    its smoothed points equal their rows of the one-call batch, and the
+    plain twin's arc and smoothed points bit for bit."""
+    from ndt_feature_graph_tpu_torch.features import detector
+
+    _, fp, r, h, _, _, _ = _feature_inputs(cuda_device, slice(0, 200))
+    n = r.shape[0]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    want = cuda_kernels.detect_features(fp, r, h, intermediates=True)
+    _, arc_t, _, sms_t = detector._smoothing_plain(fp, r, h)
+    assert torch.equal(want[1], arc_t)
+    assert torch.equal(want[2], torch.stack(sms_t, -3))
+    clusters = set()
+    for m in (1, 32, 64, 100):
+        clusters.add(cuda_kernels.detect_cluster(m, sms))
+        parts = [cuda_kernels.detect_features(fp, r[i:i + m], h[i:i + m],
+                                              intermediates=True)
+                 for i in range(0, n, m)]
+        for f in ("pts", "angles", "scales", "response", "mask"):
+            assert torch.equal(torch.cat([getattr(p[0], f) for p in parts]),
+                               getattr(want[0], f)), (m, f)
+        assert torch.equal(torch.cat([p[1] for p in parts]), want[1]), m
+        assert torch.equal(torch.cat([p[2] for p in parts]), want[2]), m
+    assert len(clusters | {cuda_kernels.detect_cluster(n, sms)}) >= 3
+
+
+@pytest.mark.cuda
+def test_match_features_same_bits_at_every_cluster_size(cuda_device):
+    """The 199 canonical pairs in calls of 1, 20, 40 and 199 pairs (4, 4,
+    2 and 1 blocks a pair on an H100), gated and not: every pair equal to
+    its row of the one-call batch."""
+    import dataclasses
+
+    from ndt_feature_graph_tpu_torch.features import ransac
+
+    _, fp, _, _, u, feats, desc = _feature_inputs(cuda_device,
+                                                  slice(0, 200))
+    n = desc.shape[0]
+    rows = lambda a, b: chip_smoke.feature_rows(feats, slice(a, b))  # noqa
+    gate = ransac.OdometryGate(
+        sensor_pose=torch.tensor([0.1, -0.05, 0.02], device=cuda_device),
+        motion=torch.zeros(n - 1, 3, device=cuda_device),
+        prev_pose=torch.zeros(n - 1, 3, device=cuda_device),
+        max_translation=0.1, max_rotation=0.19634954084936207, check=True,
+        cov_xy=2e-4)
+    want = ransac.match_sets_gated(fp, rows(0, n - 1), desc[:-1],
+                                   rows(1, n), desc[1:], u[:n - 1], gate)
+    for m in (1, 20, 40):
+        parts = []
+        for i in range(0, n - 1, m):
+            j = min(i + m, n - 1)
+            g = dataclasses.replace(gate, motion=gate.motion[i:j],
+                                    prev_pose=gate.prev_pose[i:j])
+            parts.append(ransac.match_sets_gated(
+                fp, rows(i, j), desc[i:j], rows(i + 1, j + 1),
+                desc[i + 1:j + 1], u[i:j], g))
+        for f in dataclasses.fields(ransac.MatchResult):
+            assert torch.equal(torch.cat([getattr(p[0], f.name)
+                                          for p in parts]),
+                               getattr(want[0], f.name)), (m, f.name)
+        for k in (1, 2):
+            for f in ("means", "covs", "mask"):
+                assert torch.equal(torch.cat([getattr(p[k], f)
+                                              for p in parts]),
+                                   getattr(want[k], f)), (m, k, f)

@@ -8,18 +8,29 @@ gate epilogue against the reference's feature_fuser._prepare_features.
 The card tests (tests/test_torch_cuda.py, chip_smoke.py) hold each
 kernel to its plain twin.
 
-The mirrors follow the kernels: the detector's cumulative arc and
-window sums in float64 (each window summed in offset order), the
+The mirrors follow the kernels: the detector's cumulative arc in float64
+(runs of three beams, a scan over the runs: `arc_runs`) and its window
+sums in float64, each window in offset order, taken block by block of
+the scan's cluster (`window_sums` over each block's beams), the
 searches as a left binary search (torch.searchsorted), the responses,
 peaks and the first-maximum scale, the top-K by counting ranks (a lower
 index first among ties); the descriptor's bins per thread (beam t, t +
 128, ... and the chord's 8 samples in order) and a fixed tree over the
 128 threads; the matcher's row sums and chi2 sums in order, the first
-minimum, the stable top-C by rank, the MSAC sums over the C
-correspondences in order, the first-minimum winner, the Procrustes sums
-as 32 lane partials and a butterfly, the gate's poses.  Each product
-and sum rounds once, as the kernels' (a division by a Python float as a
-product with its reciprocal rounded to float32, as ATen's on the card).
+minimum as the kernel's cluster takes it (each block's rows, 32 lanes
+and a butterfly, then the blocks in order: `first_min_split`), the
+stable top-C by rank, the MSAC sums over the C correspondences in
+order, the first-minimum winner, the Procrustes sums as 32 lane
+partials and a butterfly, the gate's poses.  Each product and sum
+rounds once, as the kernels' (a division by a Python float as a product
+with its reciprocal rounded to float32, as ATen's on the card).
+
+Over all 200 canonical scans and 199 pairs, at every cluster size the
+wrappers choose: the run-ordered arc equals a float64 cumsum's bits and
+the split window sums the bits of the same weights summed in the plain
+twin's order (float64 sums whose float32 roundings do not depend on the
+order); the split first minimum keeps every choice of one block's
+order.
 
 Tolerances are tests/test_torch_features.py's: masks, scales, selected
 beams, correspondences and inliers exactly; points and angles atol 2e-5;
@@ -63,6 +74,8 @@ TFP = interop.params_from_jax(FP)
 SCANS = (0, 1, 2, 100)
 PAIRS = ((0, 1), (1, 2), (99, 100), (0, 100))
 DESCRIBE_THREADS = 128      # csrc/features.cu kDescribeThreads
+RUN_THREADS = 256           # csrc/features.cu kScanRuns
+SMS = 132                   # the H100's multiprocessors
 F32 = np.float32
 
 
@@ -141,39 +154,144 @@ def take(x, idx):
     return torch.gather(x, -1, idx)
 
 
+def before(v, i, w, j):
+    """(v, i) precedes (w, j) in a first-minimum scan."""
+    return (v < w) | ((v == w) & (i < j))
+
+
+def first_min_split(x, cluster):
+    """(value, index) of the first minimum of the last dim as the match
+    kernel takes it over a cluster: block r's rows [r ceil(n / cluster),
+    ...), lane l of a warp its rows l, l + 32, ... in order, a butterfly
+    over offsets 16 .. 1 keeping the lower row among equals, then the
+    blocks in order (a later block only below)."""
+    n = x.shape[-1]
+    r1 = -(-n // cluster)
+    big = torch.iinfo(torch.int64).max
+    bv = bi = None
+    for r in range(cluster):
+        lo, hi = min(r * r1, n), min(r * r1 + r1, n)
+        v = torch.full(x.shape[:-1] + (32,), math.inf)
+        i = torch.full(x.shape[:-1] + (32,), big, dtype=torch.int64)
+        for row in range(lo, hi):
+            lane = (row - lo) % 32
+            take_it = before(x[..., row], torch.tensor(row), v[..., lane],
+                             i[..., lane])
+            v[..., lane] = torch.where(take_it, x[..., row], v[..., lane])
+            i[..., lane] = torch.where(take_it, row, i[..., lane])
+        lanes = torch.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            ov, oi = v[..., lanes ^ o], i[..., lanes ^ o]
+            t = before(ov, oi, v, i)
+            v, i = torch.where(t, ov, v), torch.where(t, oi, i)
+        if r == 0:
+            bv, bi = v[..., 0], i[..., 0]
+        else:
+            t = v[..., 0] < bv
+            bv, bi = torch.where(t, v[..., 0], bv), torch.where(
+                t, i[..., 0], bi)
+    return bv, bi
+
+
 # ---------------------------------------------------------------- detector
 
-def mirror_detect(fp, ranges, hit):
-    """features_detect_kernel over scans (N, B)."""
-    b, n_s, f, half = (fp.num_beams, fp.num_scales, fp.max_features,
-                       fp.smooth_half_beams)
+def scan_geometry(fp, ranges, hit):
+    """The detector's points, segment lengths and piece ids (N, B)."""
+    b = fp.num_beams
     ang = tds.beam_angles(b, device="cpu")
     px, py = ranges * torch.cos(ang), ranges * torch.sin(ang)
     seg = norm2(px - torch.roll(px, 1, -1), py - torch.roll(py, 1, -1))
     seg[..., 0] = 0.0
-    cum = torch.cumsum(seg.double(), -1).float()
     jump = (ranges - torch.roll(ranges, 1, -1)).abs() > 0.5
     jump[..., 0] = False
     jump = jump | ~hit | ~torch.roll(hit, 1, -1)
     sid = torch.cumsum(jump.to(torch.int32), -1)
+    return px, py, seg, sid
+
+
+def _warp_scan(x):
+    """Inclusive Hillis-Steele scan over the last dim (32 lanes): the
+    kernel's shuffle-up scan, each step adding the value `o` lanes
+    below."""
+    x = x.clone()
+    for o in (1, 2, 4, 8, 16):
+        x[..., o:] = x[..., o:] + x[..., :-o].clone()
+    return x
+
+
+def arc_runs(seg):
+    """The detector's cumulative arc (N, B) float32 in the kernel's
+    order: each of RUN_THREADS threads adds its run of beams in float64,
+    the runs' totals go through the block's exclusive scan (a warp scan,
+    then one over the warps' totals), and each thread adds its run onto
+    its offset."""
+    n, b = seg.shape
+    per = -(-b // RUN_THREADS)
+    s64 = torch.nn.functional.pad(seg.double(), (0, per * RUN_THREADS - b))
+    runs = s64.reshape(n, RUN_THREADS, per)
+    tot = torch.zeros(n, RUN_THREADS, dtype=torch.float64)
+    for k in range(per):
+        tot = tot + runs[..., k]
+    lanes = _warp_scan(tot.reshape(n, -1, 32))
+    excl = torch.cat([torch.zeros_like(lanes[..., :1]), lanes[..., :-1]],
+                     -1)
+    warps = _warp_scan(torch.nn.functional.pad(lanes[..., -1],
+                                               (0, 32 - lanes.shape[1])))
+    before_w = torch.cat([torch.zeros_like(warps[..., :1]),
+                          warps[..., :lanes.shape[1] - 1]], -1)
+    off = (before_w[..., None] + excl).reshape(n, RUN_THREADS)
+    out = torch.zeros(n, RUN_THREADS, per, dtype=torch.float64)
+    for k in range(per):
+        off = off + runs[..., k]
+        out[..., k] = off
+    return out.reshape(n, -1)[:, :b].float()
+
+
+def window_sums(fp, px, py, cum, sid, hit, beams):
+    """The smoothed points (S, N, len(beams), 2) of `beams`: each a
+    (beam, scale) thread's float64 sums over the window in offset order
+    (a window beam off the piece adds nothing), then the quotients."""
+    b, n_s, half = fp.num_beams, fp.num_scales, fp.smooth_half_beams
+    sig = [float(F32(fp.base_sigma * fp.sigma_step ** k))
+           for k in range(n_s)]
+    ar = torch.as_tensor(beams)
+    inv = torch.tensor([_recip(x) for x in sig])[:, None, None]
+    shape = (n_s, px.shape[0], ar.shape[0])
+    ws, sx, sy = (torch.zeros(shape, dtype=torch.float64) for _ in range(3))
+    for off in range(-half, half + 1):
+        j = (ar + off).clamp(0, b - 1)
+        same = (sid[..., j] == sid[..., ar]) & hit[..., j]
+        q = (cum[..., j] - cum[..., ar]).abs() * inv         # (S, N, nb)
+        w = torch.where(same, torch.exp(q * q * -0.5), 0.0).double()
+        ws += w
+        sx += w * px[..., j].double()
+        sy += w * py[..., j].double()
+    den = ws.clamp(min=1e-9)
+    return torch.stack([(sx / den).float(), (sy / den).float()], -1)
+
+
+def split_smoothing(fp, px, py, cum, sid, hit, cluster):
+    """The smoothed points (S, N, B, 2) as a cluster of `cluster` blocks
+    takes them: block r the beams [r ceil(B / cluster), ...)."""
+    b = fp.num_beams
+    per = -(-b // cluster)
+    parts = [window_sums(fp, px, py, cum, sid, hit,
+                         range(min(r * per, b), min(r * per + per, b)))
+             for r in range(cluster)]
+    return torch.cat(parts, 2)
+
+
+def mirror_detect(fp, ranges, hit, cluster=8):
+    """features_detect_kernel over scans (N, B), its window sums taken
+    by a cluster of `cluster` blocks."""
+    b, n_s, f = fp.num_beams, fp.num_scales, fp.max_features
+    px, py, seg, sid = scan_geometry(fp, ranges, hit)
+    cum = arc_runs(seg)
     sig = [float(F32(fp.base_sigma * fp.sigma_step ** k))
            for k in range(n_s)]
     ar = torch.arange(b)
-    ws, sx, sy = (torch.zeros((n_s,) + ranges.shape, dtype=torch.float64)
-                  for _ in range(3))
-    for off in range(-half, half + 1):
-        j = (ar + off).clamp(0, b - 1)
-        same = (sid[..., j] == sid) & hit[..., j]
-        d = (cum[..., j] - cum).abs()
-        xj, yj = px[..., j].double(), py[..., j].double()
-        for k in range(n_s):
-            q = d * _recip(sig[k])
-            w = torch.where(same, torch.exp(q * q * -0.5), 0.0).double()
-            ws[k] += w
-            sx[k] += w * xj
-            sy[k] += w * yj
-    den = ws.clamp(min=1e-9)
-    smx, smy = (sx / den).float(), (sy / den).float()
+    sm = split_smoothing(fp, px, py, cum, sid, hit, cluster)
+    smx, smy = sm[..., 0], sm[..., 1]
 
     def search(k):
         fwd = torch.searchsorted(cum, cum + sig[k]).clamp(max=b - 1)
@@ -336,8 +454,10 @@ def residual2(c, s, tx, ty, ax, ay, bx, by):
     return dx * dx + dy * dy
 
 
-def mirror_match(fp, ref, ref_desc, mov, mov_desc, u):
-    """features_match_kernel over pairs (P, ...)."""
+def mirror_match(fp, ref, ref_desc, mov, mov_desc, u, cluster=4):
+    """features_match_kernel over pairs (P, ...), its chi2 rows and
+    first minima taken by a cluster of `cluster` blocks (None: one
+    first-minimum scan over all rows)."""
     eps = 1e-9
     c_n, m_n, acc = (fp.max_correspondences, fp.ransac_hypotheses,
                      fp.ransac_acceptance)
@@ -358,8 +478,11 @@ def mirror_match(fp, ref, ref_desc, mov, mov_desc, u):
         s = s + (df * df) / ((pk + qk) + eps)
     good = ref.mask[:, :, None] & mov.mask[:, None, :]
     dist = torch.where(good, 0.5 * s, inf)
-    bref = first_min(dist.transpose(1, 2))                     # (P, F2)
-    bd = take(dist.transpose(1, 2), bref[..., None])[..., 0]
+    if cluster is None:
+        bref = first_min(dist.transpose(1, 2))                 # (P, F2)
+        bd = take(dist.transpose(1, 2), bref[..., None])[..., 0]
+    else:
+        bd, bref = first_min_split(dist.transpose(1, 2), cluster)
     order = torch.argsort(ranks_desc(-bd), -1)[:, :min(c_n, f2)]
     pad = c_n - order.shape[1]
     cmov = torch.cat([order, torch.zeros(p_n, pad, dtype=torch.int64)], 1)
@@ -742,3 +865,134 @@ def test_left_search_on_ties():
     np.testing.assert_array_equal(
         torch.searchsorted(torch.tensor(arc), torch.tensor(vals)).numpy(),
         want)
+
+
+# ------------------------------------------- the cluster splits, all scans
+
+@functools.lru_cache(maxsize=None)
+def _all_scans():
+    fx = _fixture()
+    r, h = torch.tensor(fx["ranges"]), torch.tensor(fx["hit"])
+    return (r, h, *scan_geometry(TFP, r, h))
+
+
+@functools.lru_cache(maxsize=None)
+def _twin_order_smoothing():
+    """The 200 canonical scans' arc (the kernel's) and smoothed points
+    (S, N, B, 2) summed in the plain twin's order: each scale's (B, W)
+    weights (the kernel's) summed over the window by torch.sum and the
+    twin's einsum, in float64."""
+    _, h, px, py, seg, sid = _all_scans()
+    cum = arc_runs(seg)
+    b, half = TFP.num_beams, TFP.smooth_half_beams
+    nidx = (torch.arange(b)[:, None] + torch.arange(-half, half + 1)[None]
+            ).clamp(0, b - 1)
+    out = []
+    for i in range(0, h.shape[0], 50):
+        sl = slice(i, i + 50)
+        darc = (cum[sl][:, nidx] - cum[sl][..., None]).abs()
+        same = (sid[sl][:, nidx] == sid[sl][..., None]) & h[sl][:, nidx]
+        pts = torch.stack([px[sl], py[sl]], -1)[:, nidx].double()
+        sms = []
+        for k in range(TFP.num_scales):
+            sig = float(F32(TFP.base_sigma * TFP.sigma_step ** k))
+            q = darc * _recip(sig)
+            w = torch.where(same, torch.exp(q * q * -0.5), 0.0).double()
+            wsum = w.sum(-1, keepdim=True).clamp(min=1e-9)
+            sms.append((torch.einsum("...bw,...bwc->...bc", w, pts)
+                        / wsum).float())
+        out.append(torch.stack(sms))
+    return cum, torch.cat(out, 1)
+
+
+def test_detect_arc_runs_equal_a_float64_cumsum_over_all_scans():
+    """The kernel's arc order (runs of three beams, the block's scan) and
+    a float64 cumsum in beam order give the same float32 arc, bit for
+    bit, on all 200 scans (the segment lengths rounded as the card's;
+    the CPU twin's own vector_norm fuses a product, so the card run
+    holds the kernel's arc to the twin's)."""
+    _, _, _, _, seg, _ = _all_scans()
+    assert torch.equal(arc_runs(seg), torch.cumsum(seg.double(), -1).float())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_detect_split_window_sums_equal_the_twin_order_over_all_scans(
+        cluster):
+    """Block by block of a cluster of `cluster` (each block's beams, each
+    window in offset order), the smoothed points of all 200 scans equal
+    bit for bit those of the same weights summed in the plain twin's
+    order (torch.sum and einsum in float64: the claim that these float64
+    sums round to float32 alike in any order), and the offset-order sums
+    over all beams at once."""
+    _, h, px, py, _, sid = _all_scans()
+    cum, sm_t = _twin_order_smoothing()
+    got = split_smoothing(TFP, px, py, cum, sid, h, cluster)
+    assert torch.equal(got, sm_t)
+    if cluster == 1:
+        return
+    assert torch.equal(got, split_smoothing(TFP, px, py, cum, sid, h, 1))
+
+
+def test_cluster_choices():
+    """The wrappers' cluster sizes on the H100's 132 SMs: the most blocks
+    that fill the SMs once, up to 8 a scan (one scan over 8 blocks, 200
+    scans one block each) and 4 a pair (one pair over 4 blocks, 199
+    pairs and the LC bank's 171 one)."""
+    got = [cuda_kernels.detect_cluster(n, SMS)
+           for n in (1, 16, 17, 32, 33, 34, 64, 66, 67, 132, 200)]
+    assert got == [8, 8, 4, 4, 4, 2, 2, 2, 1, 1, 1]
+    got = [cuda_kernels.match_cluster(n, SMS)
+           for n in (1, 33, 34, 66, 67, 171, 199)]
+    assert got == [4, 4, 2, 2, 1, 1, 1]
+
+
+def test_first_min_split_is_a_first_minimum_scan():
+    """Rows split over 1, 2 and 4 blocks, 32 lanes and a butterfly give a
+    first-minimum scan's row and value, on ties and inf columns (131
+    rows: lanes with several rows, a short last block)."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.choice([0.25, 0.5, 1.0, np.inf], (40, 7, 131),
+                                p=[0.05, 0.1, 0.35, 0.5]), dtype=torch.float32)
+    x[3] = math.inf
+    want_i = first_min(x)
+    for cluster in (1, 2, 4):
+        v, i = first_min_split(x, cluster)
+        assert torch.equal(i, want_i), cluster
+        assert torch.equal(v, take(x, want_i[..., None])[..., 0])
+
+
+@functools.lru_cache(maxsize=None)
+def _canonical_pairs():
+    """The fixture's 199 consecutive pairs on the plain twins' features
+    and descriptors, with the fixture's draws."""
+    r, h = _all_scans()[:2]
+    n = r.shape[0]
+    ft = tdet._detect_plain(TFP, r, h)
+    rows = lambda sl: tdet.FeatureSet(**{  # noqa: E731
+        k.name: getattr(ft, k.name)[sl]
+        for k in dataclasses.fields(tdet.FeatureSet)})
+    desc = torch.cat([tdesc._describe_plain(TFP, rows(slice(i, i + 10)),
+                                            r[i:i + 10], h[i:i + 10])
+                      for i in range(0, n, 10)])
+    return (rows(slice(0, n - 1)), desc[:-1], rows(slice(1, n)), desc[1:],
+            torch.tensor(_fixture()["ransac_u"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _one_block_match():
+    """The order of one block a pair: one first-minimum scan over the
+    rows."""
+    return mirror_match(TFP, *_canonical_pairs(), cluster=None)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_match_split_keeps_every_choice_over_all_pairs(cluster):
+    """The first minimum over a cluster's blocks keeps every
+    correspondence, inlier, count and validity of the one-block order on
+    the fixture's 199 pairs, and the poses' and scores' bits."""
+    want = _one_block_match()
+    got = mirror_match(TFP, *_canonical_pairs(), cluster=cluster)
+    for k in ("corr_ref", "corr_mov", "corr_mask", "inlier_mask",
+              "num_inliers", "valid", "score", "T"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert int(want.valid.sum()) > 150
