@@ -42,7 +42,10 @@ Runs on a machine with a CUDA card and no JAX:
          the statistics, `occupancy_update` for the occupancy;
          add_points_touched + update_occupancy of three canonical
          scans, into one grid and stacks of 3 and 64; the occupancy's
-         edge cases, occupancy_cases, at 1, 3 and 64 grids; a scatter
+         edge cases, occupancy_cases, at 1, 3 and 64 grids, at the
+         wrapper's cluster size, at 1-16 blocks a stream and on the
+         two-pass path, and a 1,200 x 1,200 grid that takes the
+         two-pass path by shape; a scatter
          with 5,000 entries on one cell; the segment sum's layouts,
          segment_layout_cases) on the card equals the CPU's
          bit for bit, equals the parent's path (the sorted index_put_
@@ -53,8 +56,9 @@ Runs on a machine with a CUDA card and no JAX:
          operations, and each kernel entry on those shapes beside its
          bound (segment_sum_checks: by the profiler's names only its
          two passes run, no sort, with each pass's time and a cold-L2
-         time; occupancy_checks: the longest chain
-         of the occupancy's row pass); torch.sqrt of 2^20 float32
+         time; occupancy_checks: one launch a call, timed also against
+         the two-pass path, and the longest chain of the occupancy's
+         rows); torch.sqrt of 2^20 float32
          values on the card equals numpy.sqrt (0 elements differ);
      3f. the feature front end's kernels (csrc/features.cu:
          `detect_features`, `describe_features`, `match_features`)
@@ -72,7 +76,11 @@ Runs on a machine with a CUDA card and no JAX:
          wrappers choose (detect on 1, 32, 64, 100 and 200 scans a call,
          its arc and smoothed points too; match on 1, 20, 40 and 199
          pairs a call and the LC bank pair by pair), each scan and pair
-         equal to its row.  Selected beams, masks, scales,
+         equal to its row; describe at 128, 256, 512 and 1,024 threads
+         a feature equal to the wrapper's choice, and its bits on
+         examples/describe_bits.py's inputs equal to the first design's
+         (DESCRIBE_FIRST_DESIGN_SHA256); the stage splits of the feature
+         kernels and the occupancy kernel (probe builds).  Selected beams, masks, scales,
          correspondences, inliers, counts and validity equal (a
          differing choice is named with the twin's own margin and must
          lie within FEATURE_ULPS); points and angles within 2e-5,
@@ -337,6 +345,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -3312,26 +3322,62 @@ def occupancy_plain():
         ndt_map.update_occupancy = kernel
 
 
-def occupancy_case_checks(mp, fx, dev, streams=0):
+@contextlib.contextmanager
+def occupancy_forced(k):
+    """The occupancy kernel's cluster forced to k blocks a stream (raised
+    to the fewest that hold a case's grid), or to the two-pass path
+    (k = 0), inside the block."""
+    rule = cuda_kernels.occupancy_cluster
+
+    def forced(rows, wide, n_streams, resident):
+        fewest = rule(rows, wide, 1 << 30, lambda _: 0)
+        return 0 if k == 0 or fewest == 0 else max(k, fewest)
+
+    cuda_kernels.occupancy_cluster = forced
+    try:
+        yield
+    finally:
+        cuda_kernels.occupancy_cluster = rule
+
+
+OCCUPANCY_PATHS = (0, 1, 2, 4, 8, 16)   # two-pass, then blocks a stream
+
+
+def occupancy_blocks(mp, mask, n_streams):
+    """The blocks a stream of the wrapper's own choice for an update of
+    n_streams grids by points with this mask (..., P) on the card."""
+    n_pts, rows = mask.shape[-1], mp.grid_h * mp.grid_w
+    wide = n_pts >= 2 ** 16 or n_pts * mp.ray_samples >= 2 ** 16
+    return cuda_kernels.occupancy_cluster(
+        rows, wide, n_streams, cuda_kernels._occupancy_resident(
+            cuda_kernels.build(), mask.device, rows, wide))
+
+
+def occupancy_case_checks(mp, fx, dev, streams=0, paths=()):
     """Every case of occupancy_cases through ndt_map.update_occupancy on
     `dev`, twice, against the plain twin on the CPU: {case: elements off
-    the CPU's bits, plus 1 if the second call differs}; on the card one
-    `occupancy_update` call each."""
+    the CPU's bits, plus 1 if the second call differs}, summed over the
+    wrapper's own choice and each forced path of `paths`
+    (occupancy_forced); on the card one `occupancy_update` call each."""
     out = {}
     for name, p, grid, sensor, pts, mask in occupancy_cases(mp, fx,
                                                             streams):
-        want = ndt_map.update_occupancy(grid, p, sensor, pts, mask).occ
+        want = _bits(ndt_map.update_occupancy(grid, p, sensor, pts,
+                                              mask).occ.numpy())
         args = (node_mod.map_tensors(lambda x: x.to(dev), grid), p,
                 sensor.to(dev), pts.to(dev), mask.to(dev))
-        before = cuda_kernels.LAUNCHES["occupancy_update"]
-        a = ndt_map.update_occupancy(*args).occ
-        b = ndt_map.update_occupancy(*args).occ
-        check(dev.type != "cuda"
-              or cuda_kernels.LAUNCHES["occupancy_update"] == before + 2,
-              f"{name}: not one occupancy_update a call")
-        out[name] = (int((_bits(a.cpu().numpy())
-                          != _bits(want.numpy())).sum())
-                     + int(not torch.equal(a, b)))
+        out[name] = 0
+        for k in (None, *paths):
+            with (contextlib.nullcontext() if k is None
+                  else occupancy_forced(k)):
+                before = cuda_kernels.LAUNCHES["occupancy_update"]
+                a = ndt_map.update_occupancy(*args).occ
+                b = ndt_map.update_occupancy(*args).occ
+            check(dev.type != "cuda"
+                  or cuda_kernels.LAUNCHES["occupancy_update"] == before + 2,
+                  f"{name}: not one occupancy_update a call")
+            out[name] += (int((_bits(a.cpu().numpy()) != want).sum())
+                          + int(not torch.equal(a, b)))
     return out
 
 
@@ -3387,20 +3433,29 @@ def occupancy_checks(name, mp, grid, scan):
     check(n_diff == 0 and n_parent == 0,
           f"{name}: occupancy_update is not the CPU's and the parent's bits")
     n_launch = ops_per_call(kernel)
+    check(n_launch == 1, f"{name}: {n_launch} device operations a call, "
+                         "expected the one cluster launch")
+
+    def two_pass():
+        with occupancy_forced(0):
+            return kernel()
+
     t_p = time_turns(kernel, parent, 50, 50, label="parent's path",
                      launches=n_launch, plain_launches=ops_per_call(parent))
     t_l = time_turns(kernel, library, 50, 50, label="index_add alone",
                      launches=n_launch, plain_launches=ops_per_call(library))
+    t_2 = time_turns(kernel, two_pass, 50, 50, label="two-pass path",
+                     launches=n_launch, plain_launches=2)
     # On a cold L2 full of dirty lines, as a fleet step's statistics and
     # table refresh leave it: a read-modify-write of L2_FLUSH_BYTES before
     # each call.
     buf = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
     cold = [cold_ms(f, lambda: buf.add_(1.0))
-            for f in (parent, kernel, kernel, parent)]
+            for f in (parent, kernel, two_pass, kernel, two_pass, parent)]
     del buf
     print("    device time on a cold, dirty L2, us (parent's path, kernel, "
-          "kernel, parent's path; CUDA events): "
-          + ", ".join(f"{t * 1e3:.2f}" for t in cold))
+          "two-pass path, kernel, two-pass path, parent's path; CUDA "
+          "events): " + ", ".join(f"{t * 1e3:.2f}" for t in cold))
     by_kernel = {k: us for k, (_, us) in device_by_kernel(
         kernel, launches=n_launch).items()}
     own = sum(v for k, v in by_kernel.items() if "occupancy" in k)
@@ -3422,8 +3477,11 @@ def occupancy_checks(name, mp, grid, scan):
            "library_call": "index_add (atomic) of the plain twin's "
                            "entries: the scatter alone, not the ray build",
            "kernel_alone_ms": own * 1e-3,
-           "cold_ms": (cold[1] + cold[2]) / 2,
-           "plain_cold_ms": (cold[0] + cold[3]) / 2,
+           "cold_ms": (cold[1] + cold[3]) / 2,
+           "plain_cold_ms": (cold[0] + cold[5]) / 2,
+           "cluster": occupancy_blocks(mp, mask, n_streams),
+           "two_pass_ms": t_2["plain_ms"],
+           "two_pass_cold_ms": (cold[2] + cold[4]) / 2,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": n_bytes, "longest_chain": longest, "chain_adds": adds,
@@ -3433,7 +3491,8 @@ def occupancy_checks(name, mp, grid, scan):
           f"kernels alone {own:.2f}; by name: "
           + ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(
               by_kernel.items(), key=lambda kv: -kv[1]))
-          + f"), the parent's path {out['plain_ms'] * 1e3:.2f}, index_add "
+          + f"), the two-pass path {out['two_pass_ms'] * 1e3:.2f}, the "
+          f"parent's path {out['plain_ms'] * 1e3:.2f}, index_add "
           f"alone {out['library_ms'] * 1e3:.2f}; with the host "
           f"{out['events_ms'] * 1e3:.2f} / "
           f"{out['plain_events_ms'] * 1e3:.2f} / "
@@ -3494,12 +3553,32 @@ def map_update_phase(sp, fx, dev):
               "statistics update and occupancy_update once an occupancy "
               "update")
         out[f"differing_{streams or 1}"] = diff
-        cases = occupancy_case_checks(mp, fx, dev, streams)
-        print(f"  {streams or 1} grid(s), the occupancy cases: elements off "
-              f"the CPU's bits or not repeating {cases}")
+        cases = occupancy_case_checks(
+            mp, fx, dev, streams,
+            OCCUPANCY_PATHS if dev.type == "cuda" else ())
+        print(f"  {streams or 1} grid(s), the occupancy cases at the "
+              f"wrapper's cluster size, at every forced size "
+              f"{OCCUPANCY_PATHS[1:]} and on the two-pass path: elements "
+              f"off the CPU's bits or not repeating {cases}")
         check(not any(cases.values()),
               "occupancy_update departs from the CPU on a case")
         out[f"occupancy_cases_{streams or 1}"] = cases
+    # A grid whose counters no cluster holds takes the two-pass path.
+    big = dataclasses.replace(mp, size_x=6 * mp.size_x, size_y=6 * mp.size_y)
+    rows = big.grid_h * big.grid_w
+    cpu = map_update_case(big, fx, torch.device("cpu"), scans=(0,))
+    card = map_update_case(big, fx, dev, scans=(0,))
+    again = map_update_case(big, fx, dev, scans=(0,))
+    off = sum(int((_bits(card[k]) != _bits(cpu[k])).sum())
+              + int(not np.array_equal(_bits(card[k]), _bits(again[k])))
+              for k in cpu)
+    path = cuda_kernels.occupancy_cluster(rows, False, 1, lambda _: 0)
+    print(f"  a {big.grid_h} x {big.grid_w} grid ({rows} cells; cluster "
+          f"{path}: the two-pass path), scan 0: elements off the CPU's bits "
+          f"or not repeating {off}")
+    check(off == 0 and path == 0,
+          "the two-pass path on a large grid departs from the CPU")
+    out["occupancy_two_pass_grid"] = {"cells": rows, "off": off}
     if dev.type == "cuda":
         for widths in ((1, 2, 4), (1,)):
             (cb, ci, cv), (gb, gi, gv) = long_run_case(dev, widths)
@@ -6357,6 +6436,10 @@ def feature_phase(sp, fx, lc, fl, dev):
     out["describe_end_to_end"] = keep("describe_features", compare_desc(
         "describe of the kernel's own features", descriptor.describe(
             fp, fk, R, H), dt))
+    if dev.type == "cuda":
+        out["describe_block_sizes"] = describe_size_checks(fp, hm, ft, R, H,
+                                                           dk, dk1)
+        out["describe_first_design"] = describe_first_design_checks(dev)
 
     # Match: the 199 consecutive pairs with the fixture's draws, then the
     # 171 candidate pairs of phase 9e's bank, on the twin's sets.
@@ -6533,30 +6616,101 @@ def feature_phase(sp, fx, lc, fl, dev):
         split = stage_split()
         out["stage_split"] = split
         for k, case in (("detect_features", "detect one scan"),
+                        ("describe_features", "describe one scan"),
                         ("match_features", "match one pair with the gate")):
             lines[k]["stages_us"] = split[case]
     return out, lines
 
 
-def stage_split():
-    """The detector's and the matcher's stage split at phase 3f's shapes:
-    examples/probe_feature_stages.py --stages in a process of its own (a
-    probe build of the kernels' library).  {case: {stage: mean µs over
-    the blocks}}."""
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "examples",
-                                      "probe_feature_stages.py"),
-         "--stages"], capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"the stage probe failed: {proc.stderr[-2000:]}")
+DESCRIBE_THREADS = (128, 256, 512, 1024)
+# sha256 of the descriptor kernel's output bits of the first design (one
+# block of 128 threads a feature, each binning and adding its own beams)
+# on examples/describe_bits.py's inputs, on an NVIDIA H100 80GB HBM3: the
+# redesign keeps that order of adds, so it must give the same bits.
+DESCRIBE_FIRST_DESIGN_SHA256 = {
+    "batch": "18d42c750f0fc8db2180c63e133046657f93d24c7839409f2954fcb1"
+             "f6f5e19c",
+    "per_scan": "18d42c750f0fc8db2180c63e133046657f93d24c7839409f2954fcb1"
+                "f6f5e19c",
+    "hitmiss": "b90039ef6642cb05e2ebaf164c400809938748feca47f4da4b60a868dce"
+               "416f2",
+    "fleet_b64": "93d1a2f4770016e76d5d02aab422a7914e0fac3d15ca04130794133540"
+                 "b63f29",
+}
+
+
+def describe_size_checks(fp, hm, ft, R, H, dk, dk1):
+    """describe_features at every block size (describe_threads forced):
+    the 200 scans in one call, scan by scan and the hitmiss statistic,
+    each equal to the wrapper's own choice's bits."""
+    rule = cuda_kernels.describe_threads
+    own_hm = descriptor.describe(hm, ft, R, H)
     out = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith("{"):
-            rec = json.loads(line)
-            out[rec["case"]] = {st["stage"]: st["mean_us"]
-                                for st in rec["stages"]}
-            print(f"    stages of {rec['case']}, µs (mean over "
-                  f"{rec['blocks']} blocks): {out[rec['case']]}")
+    for t in DESCRIBE_THREADS:
+        cuda_kernels.describe_threads = lambda *_, t=t: t
+        try:
+            out[t] = bool(
+                torch.equal(descriptor.describe(fp, ft, R, H), dk)
+                and torch.equal(torch.stack([descriptor.describe(
+                    fp, feature_rows(ft, i), R[i], H[i])
+                    for i in range(R.shape[0])]), dk1)
+                and torch.equal(descriptor.describe(hm, ft, R, H), own_hm))
+        finally:
+            cuda_kernels.describe_threads = rule
+    print(f"    describe at every block size (threads a feature: batch, "
+          f"scan by scan and hitmiss equal to the wrapper's own choice, "
+          f"{rule(R.shape[0] * ft.mask.shape[-1], cuda_kernels._sm_count(R.device))} "
+          f"threads for the batch): {out}")
+    check(all(out.values()), "describe: the bits depend on the block size")
+    return out
+
+
+def describe_first_design_checks(dev):
+    """The kernel's bits on examples/describe_bits.py's inputs (the 200
+    scans batched and scan by scan, hitmiss, a B = 64 fleet step) against
+    the first design's recorded sha256: {case: equal}."""
+    spec = importlib.util.spec_from_file_location(
+        "describe_bits", os.path.join(ROOT, "examples", "describe_bits.py"))
+    bits = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bits)
+    got = bits.outputs(dev)
+    out = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+           == DESCRIBE_FIRST_DESIGN_SHA256[k] for k, v in got.items()}
+    print(f"    describe against the first design's bits (sha256 of "
+          f"{ {k: v.size for k, v in got.items()} } entries): {out}")
+    check(all(out.values()),
+          "describe: the bits are not the first design's")
+    return out
+
+
+def stage_split():
+    """The feature kernels' stage split at phase 3f's shapes and the
+    occupancy kernel's phases at phase 3e's:
+    examples/probe_feature_stages.py --stages and
+    examples/probe_occupancy.py --stages, each in a process of its own
+    (a probe build of the kernels' library, built once).  {case: {stage:
+    mean µs over the blocks}}."""
+    out = {}
+    for script in ("probe_feature_stages.py", "probe_occupancy.py"):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", script),
+             "--stages"], capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"the stage probe failed: {proc.stderr[-2000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                name = rec["case"]
+                if "phases" in rec:
+                    name = f"occupancy {name}"
+                    stages = {st["phase"]: st["mean_us"]
+                              for st in rec["phases"]}
+                else:
+                    stages = {st["stage"]: st["mean_us"]
+                              for st in rec["stages"]}
+                out[name] = stages
+                print(f"    stages of {name}, µs (mean over "
+                      f"{rec['blocks']} blocks): {stages}")
     return out
 
 
@@ -6605,6 +6759,8 @@ def main():
     features, feature_lines = feature_phase(
         sp, fx, lc, dict(np.load(FLEET_FIXTURE)), dev)
     checks.update(feature_lines)
+    checks["occupancy_update"]["stages_us"] = (
+        features["stage_split"]["occupancy one scan"])
     features["wall_s"] = time.perf_counter() - t3f
     print(f"  phase 3f took {features['wall_s']:.1f} s")
 
@@ -6827,8 +6983,9 @@ def main():
             ("segment_add_rows", SEGMENT_SOURCE, SEGMENT_REPLACES,
              "every statistics update (add_points_touched)"),
             ("occupancy_update", OCCUPANCY_SOURCE, OCCUPANCY_REPLACES,
-             "every occupancy update (update_occupancy), two passes a "
-             "launch counted")):
+             "every occupancy update (update_occupancy), one cluster "
+             "launch (two passes, one launch counted, on a grid too large "
+             "for a cluster)")):
         by_name[k].update(
             source=src, replaces=where,
             path=f"{what}: the main path's launches; the chunked "

@@ -8,7 +8,8 @@ csrc/features.cu stamp each block's SM clock (clock64) at the end of each
 stage, and the global timer at its first and last mark.  It then runs,
 once each after a warm-up, the cases that chip_smoke.py phase 3f times:
 `detect_features` on one canonical scan and on the 200 scans in one
-call, `match_features` on one consecutive pair with the odometry gate
+call, `describe_features` on one scan's features and on the 200 scans'
+in one call (the first 4,096 blocks stamp), `match_features` on one consecutive pair with the odometry gate
 (the main path's call), on the 199 pairs and on the LC bank's 171 pairs
 of 128 features; and prints each stage's cycles and µs (the mean over
 the blocks that stamped it, and the largest), the marks' total, and the
@@ -100,6 +101,8 @@ def inputs(dev):
         "describe one scan": (
             "describe",
             lambda: descriptor.describe(fp, f1, R[k0 + 1], H[k0 + 1])),
+        f"describe {n} scans": (
+            "describe", lambda: descriptor.describe(fp, ft, R, H)),
         "match one pair with the gate": (
             "match", lambda: ransac.match_sets_gated(
                 fp, f0, dt[k0], f1, dt[k0 + 1], U[k0], gate)),

@@ -27,7 +27,7 @@ the "map_update" range (ndt_map.add_points_touched, update_occupancy),
 the "map_occupancy" range (update_occupancy alone) and the
 "map_scatter" range (ndt_map.scatter_add_rows), each the device time of
 the operations inside it plus the hand-written kernels' that it runs
-(the segment sum's, the occupancy kernel's two passes), which
+(the segment sum's, the occupancy kernel's launch), which
 torch.profiler sees outside any operation (ctypes launches); and the
 "features" range (feature_fuser._prepare_features: a scan's, or a fleet
 step's, feature front end), its device time and share with the three
@@ -250,7 +250,7 @@ def report(prof, gpu, wall, wall_prof, per, count, out, name, extra=None):
     # it, which the profiler attributes to no operation (ctypes
     # launches): the segment sum's (of one channel: a parent tree's
     # occupancy scatter; of more: the statistics') and the occupancy
-    # kernel's two passes; the feature kernels' (by name, wherever they
+    # kernel's (one cluster launch, or its two passes); the feature kernels' (by name, wherever they
     # ran: the first scan's detect and describe run in initialize) belong
     # to "features".
     own = {"stats": 0.0, "occ": 0.0, "feat": 0.0}

@@ -1,7 +1,7 @@
 """Launch-shape sweep of the port's objective kernel on one CUDA card.
 
     python3 examples/tune_torch_port_kernels.py [--out DIR]
-                                                [--fleet | --solve | --features]
+                                  [--fleet | --solve | --features | --occupancy]
 
 Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
 (-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
@@ -26,17 +26,30 @@ of that size the card holds at once (`ndtg_solve_max_clusters`).
 
 `--features` times `detect_features` alone with its cluster forced to
 1, 2, 4 and 8 blocks a scan on 1, 32, 64 and 200 canonical scans a call,
-and `match_features` with 1, 2 and 4 blocks a pair on one consecutive
+`match_features` with 1, 2 and 4 blocks a pair on one consecutive
 pair with the odometry gate (the main path's call), the 199 pairs and
-the LC bank's 171 pairs of 128 features; the sizes in turns, three
-rounds, each forced size's result held bit for bit against the wrapper's
-own choice's (`detect_cluster`, `match_cluster`).
+the LC bank's 171 pairs of 128 features, and `describe_features` with
+128, 256, 512 and 1,024 threads a feature on one scan's features and the
+200 scans'; the sizes in turns, three rounds, each forced size's result
+held bit for bit against the wrapper's own choice's (`detect_cluster`,
+`match_cluster`, `describe_threads`).
+
+`--occupancy` times `occupancy_update` alone on phase 3e's update
+(canonical scan 2 on scan 0's map) of one grid and of stacks of 8 and
+64, with csrc/occupancy.cu built at 512 and 1,024 threads a cluster
+block (-DNDTG_OCCUPANCY_THREADS) and the cluster forced to 1, 2, 4, 8
+and 16 blocks a stream where the counters fit, and to the two-pass
+path; the sizes in turns, three
+rounds, warm (torch.profiler) and on a cold L2 (CUDA events), each held
+to the wrapper's own choice's bits and the CPU's, with the clusters of
+that size the card holds at once (`ndtg_occupancy_max_clusters`).
 
 Times are device times per call (torch.profiler, as chip_smoke.py's
 `ms`).  Every forced shape is first held against the plain version.
 One JSON line per reading; with --out DIR they also go to
 DIR/tune_torch_port_kernels.jsonl.  It is how the block size in the
-source and the cluster-size rules in ops/cuda_kernels.py were chosen.
+source and the block- and cluster-size rules in ops/cuda_kernels.py were
+chosen.
 """
 
 from __future__ import annotations
@@ -56,10 +69,11 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 import probe_feature_stages  # noqa: E402  (beside this script)
 from ndt_feature_graph_tpu_torch.features import detector  # noqa: E402
-from ndt_feature_graph_tpu_torch.ops import cuda_kernels  # noqa: E402
+from ndt_feature_graph_tpu_torch.ops import cuda_kernels, ndt_map  # noqa: E402
 
 THREADS = (256, 512, 1024)
 CLUSTERS = (None, 1, 2, 4, 8)       # None: the wrapper's own choice
+OCCUPANCY_THREADS = (512, 1024)     # the occupancy cluster's block sizes
 BUDGET = 192                        # source cells per batched lane
 
 
@@ -132,13 +146,19 @@ def features_sweep(dev, emit, rounds=3):
               for n in (1, 32, 64, R.shape[0])]
     sweeps += [("match_features", "match_cluster", (1, 2, 4), name, fn)
                for name, (kind, fn) in cases.items() if kind == "match"]
+    sweeps += [("describe_features", "describe_threads",
+                (128, 256, 512, 1024), name, fn)
+               for name, (kind, fn) in cases.items() if kind == "describe"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def fields(x):
         x = x[0] if isinstance(x, tuple) else x
+        if isinstance(x, torch.Tensor):
+            return [x]
         return [getattr(x, f.name) for f in dataclasses.fields(x)]
 
     for entry, rule, sizes, case, fn in sweeps:
+        key = "threads" if rule == "describe_threads" else "blocks"
         own = fields(fn())
         seen = {}
         times = {k: [] for k in sizes}
@@ -153,8 +173,77 @@ def features_sweep(dev, emit, rounds=3):
                 finally:
                     setattr(cuda_kernels, rule, rule_fn)
         for k in sizes:
-            emit(entry=entry, case=case, blocks=k, sms=sms,
+            emit(entry=entry, case=case, **{key: k}, sms=sms,
                  equal_to_own_choice=seen[k], device_us=times[k])
+
+
+def occupancy_sweep(dev, emit, rounds=3):
+    """`occupancy_update` at each block size and forced cluster size (see
+    --occupancy)."""
+    flags = cuda_kernels.NVCC_FLAGS
+    try:
+        for threads in OCCUPANCY_THREADS:
+            cuda_kernels._lib = None
+            cuda_kernels._OCC_RESIDENT.clear()
+            cuda_kernels.NVCC_FLAGS = [
+                *flags, f"-DNDTG_OCCUPANCY_THREADS={threads}"]
+            occupancy_sizes(dev, emit, threads, rounds)
+    finally:
+        cuda_kernels.NVCC_FLAGS = flags
+        cuda_kernels._lib = None
+        cuda_kernels._OCC_RESIDENT.clear()
+
+
+def occupancy_sizes(dev, emit, threads, rounds):
+    fx = dict(np.load(chip_smoke.FIXTURE))
+    mp = chip_smoke.canonical_slam_params(float(fx["split_m"]),
+                                          int(fx["max_nodes"])).fuser.ndt
+    lib = cuda_kernels.build()
+    rows = mp.grid_h * mp.grid_w
+    rule = cuda_kernels.occupancy_cluster
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [k for k in (1, 2, 4, 8, 16)
+             if cuda_kernels.occupancy_block_rows(rows, k) * 8
+             <= cuda_kernels.OCCUPANCY_MAX_SMEM]
+    for streams in (0, 8, 64):
+        lead = (streams,) if streams else ()
+        grid = chip_smoke.map_update(ndt_map.empty_grid(mp, torch.zeros(
+            lead + (2,), device=dev)), mp, *chip_smoke.world_scan(
+                fx, 0, dev, streams))
+        world, mask, sensor = chip_smoke.world_scan(fx, 2, dev, streams)
+
+        def fn():
+            return ndt_map.update_occupancy(grid, mp, sensor, world, mask)
+
+        own = fn().occ
+        want = ndt_map.update_occupancy(
+            chip_smoke.node_mod.map_tensors(torch.Tensor.cpu, grid), mp,
+            sensor.cpu(), world.cpu(), mask.cpu()).occ
+        seen, times, cold = {}, {k: [] for k in (0, *sizes)}, {}
+        buf = torch.ones(chip_smoke.L2_FLUSH_BYTES // 4, device=dev)
+        for _ in range(rounds):
+            for k in (0, *sizes):
+                cuda_kernels.occupancy_cluster = lambda *_, k=k: k
+                try:
+                    got = fn().occ
+                    seen[k] = (torch.equal(got, own)
+                               and torch.equal(got.cpu(), want))
+                    times[k].append(1e3 * chip_smoke.device_ms(fn, 20))
+                    cold.setdefault(k, []).append(1e3 * chip_smoke.cold_ms(
+                        fn, lambda: buf.add_(1.0), 20))
+                finally:
+                    cuda_kernels.occupancy_cluster = rule
+        del buf
+        for k in (0, *sizes):
+            emit(entry="occupancy_update", streams=streams or 1,
+                 threads=threads, blocks=k or "two-pass", sms=sms,
+                 own_choice=rule(rows, False, streams or 1,
+                                 cuda_kernels._occupancy_resident(
+                                     lib, dev, rows, False)),
+                 resident_clusters=(lib.ndtg_occupancy_max_clusters(rows, k, 0)
+                                    if k else None),
+                 equal_to_own_choice_and_cpu=seen[k], device_us=times[k],
+                 cold_events_us=cold[k])
 
 
 def main():
@@ -166,7 +255,10 @@ def main():
                     help="sweep `newton_solve_batch` alone")
     ap.add_argument("--features", action="store_true",
                     help="sweep the feature detector's and matcher's "
-                         "cluster sizes alone")
+                         "cluster sizes and the descriptor's block size "
+                         "alone")
+    ap.add_argument("--occupancy", action="store_true",
+                    help="sweep the occupancy kernel's cluster size alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_torch_port_kernels: no CUDA device")
@@ -195,7 +287,10 @@ def main():
         solve_sweep(fleet_p, fleet_seq, dev, emit)
     if args.features:
         features_sweep(dev, emit)
-    for threads in () if args.solve or args.features else THREADS[:1] if args.fleet \
+    if args.occupancy:
+        occupancy_sweep(dev, emit)
+    alone = args.solve or args.features or args.occupancy
+    for threads in () if alone else THREADS[:1] if args.fleet \
             else THREADS:
         rebuild(threads)
         for cluster in CLUSTERS:

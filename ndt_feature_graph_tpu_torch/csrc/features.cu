@@ -6,8 +6,10 @@
 //
 //   * features_detect_kernel: the multi-scale curvature detector, a
 //     thread-block cluster of up to 8 blocks a scan;
-//   * features_describe_kernel: the beta-grid descriptor, one block a
-//     (scan, feature);
+//   * features_describe_kernel: the beta-grid descriptor, one block of
+//     128 to 1,024 threads a (scan, feature): every thread bins the
+//     feature's hits and chord samples, then 128 of them replay the
+//     float adds in a fixed order;
 //   * features_match_kernel: the descriptor chi2 matrix, the
 //     correspondences, the two-point RANSAC hypotheses with their MSAC
 //     scores, the winner's two Procrustes refinements and, where asked,
@@ -56,8 +58,12 @@
 // responses through distributed shared memory; the matcher spreads a
 // pair's chi2 rows over a cluster, divides the descriptor rows with
 // every thread, gives a warp to each first minimum and rank, and moves
-// the gate's pseudo-cells beside the hypotheses.  Each sum keeps the
-// order it had in one block, so the bits do not depend on the cluster.
+// the gate's pseudo-cells beside the hypotheses; the descriptor bins a
+// feature's 720 x 9 positions with every thread of a wide block (their
+// bins do not depend on the order) and only replays the adds in order
+// (~45 dependent adds a partial sum, no transcendental).  Each sum keeps
+// the order it had in one block, so the bits do not depend on the
+// cluster or the block size.
 //
 // Built with the other sources into one library (ops/cuda_kernels.py
 // build): nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
@@ -69,41 +75,16 @@
 #include <stdint.h>
 
 #include "cluster_launch.cuh"
+#include "stage_probe.cuh"
 
 namespace cg = cooperative_groups;
 
 #ifdef NDTG_STAGE_PROBE
-// A probe build (examples/probe_feature_stages.py): NDTG_STAGE(k, name)
-// stamps each block's SM clock at the end of stage k, and the global
-// timer at its first and last stamp, for the first kProbeBlocks blocks.
-constexpr int kProbeBlocks = 4096, kProbeStages = 16;
-__device__ long long ndtg_probe_clock[kProbeBlocks * kProbeStages];
-__device__ long long ndtg_probe_ns[kProbeBlocks * 2];
-__device__ __forceinline__ void probe_stamp(int k) {
-  if (threadIdx.x != 0 || blockIdx.x >= kProbeBlocks) return;
-  long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  ndtg_probe_clock[blockIdx.x * kProbeStages + k] = clock64();
-  if (k == 0) ndtg_probe_ns[2 * blockIdx.x] = ns;
-  ndtg_probe_ns[2 * blockIdx.x + 1] = ns;
-}
-// Copies the stamps to host memory and clears them.
+// Copies the stamps of the NDTG_STAGE marks below to host memory and
+// clears them (examples/probe_feature_stages.py).
 extern "C" int ndtg_features_probe_read(long long* clock, long long* ns) {
-  void* p = nullptr;
-  cudaError_t e = cudaMemcpyFromSymbol(clock, ndtg_probe_clock,
-                                       sizeof(ndtg_probe_clock));
-  if (e == cudaSuccess)
-    e = cudaMemcpyFromSymbol(ns, ndtg_probe_ns, sizeof(ndtg_probe_ns));
-  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, ndtg_probe_clock);
-  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(ndtg_probe_clock));
-  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, ndtg_probe_ns);
-  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(ndtg_probe_ns));
-  if (e == cudaSuccess) e = cudaDeviceSynchronize();
-  return (int)e;
+  return ndtg::probe_read(clock, ns);
 }
-#define NDTG_STAGE(k, name) probe_stamp(k)
-#else
-#define NDTG_STAGE(k, name) ((void)0)
 #endif
 
 namespace {
@@ -111,7 +92,9 @@ namespace {
 constexpr int kDetectThreads = 512;
 constexpr int kScanRuns = 256;        // the arc's and counts' runs
 constexpr int kMaxDetectCluster = 8;  // cuda_kernels.DETECT_MAX_CLUSTER
-constexpr int kDescribeThreads = 128;
+constexpr int kDescribeSums = 128;   // the miss sums' partials: their order
+constexpr int kDescribeMaxThreads = 1024;
+constexpr int kDropped = 0xff;       // a chord sample outside the support
 constexpr int kMatchThreads = 512;
 constexpr int kMaxMatchCluster = 4;   // cuda_kernels.MATCH_MAX_CLUSTER
 constexpr int kMaxScales = 8;
@@ -535,102 +518,200 @@ __device__ __forceinline__ int polar_bin(float rx, float ry, float ca,
   return (int)(rc * p_bins + pi);
 }
 
-// One block a (scan, feature): blockIdx.x = scan * F + feature.  Each
-// thread keeps its own bins in shared memory ([bin][thread]: integer hit
-// counts, float miss weights added in its beams' order), then a fixed
-// tree over the threads adds them.
-__global__ void __launch_bounds__(kDescribeThreads)
+// The descriptor's shared memory: the 128 partial miss sums of each bin
+// ([bin][sum]), each chord sample's bin (a byte, 8 a beam: kDropped where
+// the sample falls outside the support or the beam has no chord), the hit
+// count of each bin, each beam's chord start, length (-1: no chord) and
+// weight.
+__host__ __device__ constexpr long long describe_bins_bytes(int b) {
+  return ((long long)b * 8 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr long long describe_smem(int b, int nb) {
+  return (long long)nb * kDescribeSums * 4 + describe_bins_bytes(b) +
+         (long long)nb * 4 + (long long)b * 3 * 4;
+}
+
+// One block of blockDim.x threads (128 to 1,024, the wrapper's
+// describe_threads) a (scan, feature): blockIdx.x = scan * F + feature.
+// The bins of a feature's positions do not depend on the order, only its
+// float adds do, so every thread computes bins, and 128 threads then
+// replay the adds in the order of a 128-thread block that took beams t,
+// t + 128, ... a thread (the descriptor's first design):
+//   * beams: a thread a beam (strided), its hit's bin (integer counts, one
+//     shared atomic a group of lanes with the same bin) and its chord;
+//   * chord samples: a thread a (beam, sample), its bin as a byte;
+//   * replay: partial sum t (t < 128) takes beams t, t + 128, ... in
+//     turn and each beam's samples k = 0..7 in order, as that block's
+//     thread t did (a run of samples in the same bin stays in a
+//     register);
+//   * tree: sum t and sum t + stride paired as that block's tree paired
+//     them, a warp a bin: strides 64 and 32 in registers, 16 .. 1 by
+//     warp shuffles.
+// The same bits as the first design, at any block size.
+__global__ void __launch_bounds__(kDescribeMaxThreads)
 features_describe_kernel(DescribeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int S = kDescribeSums;
   const int T = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int nb = a.r_bins * a.p_bins;
-  float* mb = reinterpret_cast<float*>(smem);                  // (nb, T)
-  int* hb = reinterpret_cast<int*>(mb + (size_t)nb * T);      // (nb, T)
+  const int B = a.b;
+  float* mb = reinterpret_cast<float*>(smem);                  // (nb, S)
+  uint8_t* bins = reinterpret_cast<uint8_t*>(mb + (size_t)nb * S);  // (B, 8)
+  int* hits = reinterpret_cast<int*>(bins + describe_bins_bytes(B));  // (nb,)
+  float* c_t0 = reinterpret_cast<float*>(hits + nb);          // (B,)
+  float* c_len = c_t0 + B;                                     // (B,)
+  float* c_w = c_len + B;                                      // (B,)
   __shared__ float tot[2];
 
+  NDTG_STAGE(0, "describe: start");
   const size_t item = blockIdx.x;
   const size_t scan = item / a.f;
-  const int B = a.b;
-  for (int n = 0; n < nb; ++n) {
-    mb[n * T + tid] = 0.0f;
-    hb[n * T + tid] = 0;
-  }
-
-  if (a.fmask[item]) {
-    const float fx = a.fpts[2 * item], fy = a.fpts[2 * item + 1];
+  for (int i = tid; i < nb * S / 4; i += T)
+    reinterpret_cast<float4*>(mb)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int n = tid; n < nb; n += T) hits[n] = 0;
+  const bool live = a.fmask[item] != 0;
+  float fx = 0.0f, fy = 0.0f, ca = 0.0f, sa = 0.0f, rden = 0.0f;
+  if (live) {
+    fx = a.fpts[2 * item];
+    fy = a.fpts[2 * item + 1];
     const float fa = a.fang[item];
-    const float ca = cosf(-fa), sa = sinf(-fa);
-    const float sup = fminf(
-        fmaxf(mul(a.max_rho,
-                  __fsqrt_rn(clamp_min(mul(a.fscale[item], a.inv_base_sigma),
-                                       1.0f))),
-              a.max_rho),
-        4.0f * a.max_rho);
-    const float rden = sub(sup, a.min_rho);
+    ca = cosf(-fa);
+    sa = sinf(-fa);
+  }
+  const float sup = fminf(
+      fmaxf(mul(a.max_rho,
+                __fsqrt_rn(clamp_min(mul(a.fscale[item], a.inv_base_sigma),
+                                     1.0f))),
+            a.max_rho),
+      4.0f * a.max_rho);
+  rden = sub(sup, a.min_rho);
+  __syncthreads();
+  NDTG_STAGE(1, "describe: load and zero");
+
+  if (live) {
     const float bin_w = clamp_min(mul(rden, a.inv_r_bins), 1e-6f);
     const float p2 = add(mul(fx, fx), mul(fy, fy));
     const float sup2 = mul(sup, sup);
     const float* rng = a.ranges + scan * B;
     const uint8_t* hg = a.hit + scan * B;
-    for (int bm = tid; bm < B; bm += T) {
-      const float r = rng[bm];
-      const float dx = a.cosb[bm], dy = a.sinb[bm];
-      bool ok;
-      if (hg[bm]) {
-        const int n = polar_bin(sub(mul(r, dx), fx), sub(mul(r, dy), fy), ca,
-                                sa, rden, a.min_rho, a.r_bins, a.p_bins,
-                                a.inv_2pi, &ok);
-        if (ok) hb[n * T + tid] += 1;
+    // Warp-uniform trip count: every lane reaches the __match_any_sync.
+    for (int base = 0; base < B; base += T) {
+      const int bm = base + tid;
+      int hb = -1;
+      if (bm < B) {
+        const float r = rng[bm];
+        const float dx = a.cosb[bm], dy = a.sinb[bm];
+        if (hg[bm]) {
+          bool ok;
+          const int n = polar_bin(sub(mul(r, dx), fx), sub(mul(r, dy), fy),
+                                  ca, sa, rden, a.min_rho, a.r_bins,
+                                  a.p_bins, a.inv_2pi, &ok);
+          if (ok) hb = n;
+        }
+        // The beam's chord through the support circle.
+        const float dp = dot2(dx, fx, dy, fy);
+        const float disc = add(sub(mul(dp, dp), p2), sup2);
+        const float root = __fsqrt_rn(clamp_min(disc, 0.0f));
+        const float t0 = clamp_min(sub(dp, root), 0.0f);
+        const float t1 = minimum(add(dp, root), mul(r, 0.999f));
+        const float chord = clamp_min(sub(t1, t0), 0.0f);
+        const bool use = disc > 0.0f && chord > 1e-6f;
+        c_t0[bm] = t0;
+        c_len[bm] = use ? chord : -1.0f;
+        c_w[bm] = use ? fdiv(mul(chord, 0.125f), bin_w) : 0.0f;
       }
-      // The beam's chord through the support circle, 8 samples on it.
-      const float dp = dot2(dx, fx, dy, fy);
-      const float disc = add(sub(mul(dp, dp), p2), sup2);
-      const float root = __fsqrt_rn(clamp_min(disc, 0.0f));
-      const float t0 = clamp_min(sub(dp, root), 0.0f);
-      const float t1 = minimum(add(dp, root), mul(r, 0.999f));
-      const float chord = clamp_min(sub(t1, t0), 0.0f);
-      if (!(disc > 0.0f) || !(chord > 1e-6f)) continue;
-      const float w = fdiv(mul(chord, 0.125f), bin_w);
-      for (int k = 0; k < 8; ++k) {
-        const float ts = add(t0, mul(chord, ((float)k + 0.5f) * 0.125f));
-        const int n = polar_bin(sub(mul(ts, dx), fx), sub(mul(ts, dy), fy),
-                                ca, sa, rden, a.min_rho, a.r_bins, a.p_bins,
-                                a.inv_2pi, &ok);
-        if (ok) mb[n * T + tid] = add(mb[n * T + tid], w);
-      }
+      const unsigned peers = __match_any_sync(kFull, hb);
+      if (hb >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(hits + hb, __popc(peers));
     }
   }
   __syncthreads();
-  for (int stride = T >> 1; stride > 0; stride >>= 1) {
-    for (int it = tid; it < nb * stride; it += T) {
-      const int n = it / stride, t = it - n * stride;
-      mb[n * T + t] = add(mb[n * T + t], mb[n * T + t + stride]);
-      hb[n * T + t] += hb[n * T + t + stride];
+  NDTG_STAGE(2, "describe: hit bins");
+
+  if (live) {
+    for (int it = tid; it < B * 8; it += T) {
+      const int bm = it >> 3, k = it & 7;
+      const float len = c_len[bm];
+      uint8_t code = kDropped;
+      if (len >= 0.0f) {
+        const float ts = add(c_t0[bm], mul(len, ((float)k + 0.5f) * 0.125f));
+        const float dx = a.cosb[bm], dy = a.sinb[bm];
+        bool ok;
+        const int n = polar_bin(sub(mul(ts, dx), fx), sub(mul(ts, dy), fy),
+                                ca, sa, rden, a.min_rho, a.r_bins, a.p_bins,
+                                a.inv_2pi, &ok);
+        if (ok) code = (uint8_t)n;
+      }
+      bins[it] = code;
     }
-    __syncthreads();
   }
+  __syncthreads();
+  NDTG_STAGE(3, "describe: chord bins");
+
+  if (live && tid < S) {
+    int cur = -1;
+    float acc = 0.0f;
+    for (int bm = tid; bm < B; bm += S) {
+      const uint2 word = *reinterpret_cast<const uint2*>(bins + 8 * bm);
+      if ((word.x & word.y) == 0xffffffffu) continue;   // no sample kept
+      const float w = c_w[bm];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int n = ((k < 4 ? word.x : word.y) >> (8 * (k & 3))) & 0xff;
+        if (n == kDropped) continue;
+        if (n != cur) {
+          if (cur >= 0) mb[cur * S + tid] = acc;
+          cur = n;
+          acc = mb[n * S + tid];
+        }
+        acc = add(acc, w);
+      }
+    }
+    if (cur >= 0) mb[cur * S + tid] = acc;
+  }
+  __syncthreads();
+  NDTG_STAGE(4, "describe: replay");
+
+  // A warp a bin: lane l holds sums l, l + 32, l + 64 and l + 96; the
+  // strides 64 and 32 in registers, 16 .. 1 by shuffles.
+  for (int n = warp; n < nb; n += T >> 5) {
+    const float* m = mb + n * S;
+    const float lo = add(m[lane], m[lane + 64]);
+    const float hi = add(m[lane + 32], m[lane + 96]);
+    float v = add(lo, hi);
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1)
+      v = add(v, __shfl_down_sync(kFull, v, stride));
+    if (lane == 0) mb[n * S] = v;
+  }
+  __syncthreads();
+  NDTG_STAGE(5, "describe: tree");
+
   float* out = a.out + item * (size_t)(a.hitmiss ? 2 * nb : nb);
   if (!a.hitmiss) {
     for (int n = tid; n < nb; n += T) {
-      const float h = (float)hb[n * T], m = mb[n * T];
+      const float h = (float)hits[n], m = mb[n * S];
       out[n] = fdiv(add(h, 1.0f), add(add(h, m), 2.0f));
     }
+    NDTG_STAGE(6, "describe: output");
     return;
   }
   if (tid == 0) {
     float hs = 0.0f, ms = 0.0f;
     for (int n = 0; n < nb; ++n) {
-      hs = add(hs, (float)hb[n * T]);
-      ms = add(ms, mb[n * T]);
+      hs = add(hs, (float)hits[n]);
+      ms = add(ms, mb[n * S]);
     }
     tot[0] = clamp_min(hs, 1e-9f);
     tot[1] = clamp_min(ms, 1e-9f);
   }
   __syncthreads();
   for (int n = tid; n < nb; n += T) {
-    out[n] = mul(0.5f, fdiv((float)hb[n * T], tot[0]));
-    out[nb + n] = mul(0.5f, fdiv(mb[n * T], tot[1]));
+    out[n] = mul(0.5f, fdiv((float)hits[n], tot[0]));
+    out[nb + n] = mul(0.5f, fdiv(mb[n * S], tot[1]));
   }
+  NDTG_STAGE(6, "describe: output");
 }
 
 // ------------------------------------------------------------------- match
@@ -1225,6 +1306,7 @@ int ndtg_features_max_scales() { return kMaxScales; }
 int ndtg_features_max_bins() { return kMaxBins; }
 long long ndtg_features_max_smem() { return kMaxDynamicSmem; }
 long long ndtg_detect_smem(int b, int s) { return detect_smem(b, s); }
+long long ndtg_describe_smem(int b, int nb) { return describe_smem(b, nb); }
 long long ndtg_match_smem(int f1, int f2, int d, int c, int m, int k) {
   return match_smem(f1, f2, d, c, m, k);
 }
@@ -1261,7 +1343,9 @@ int ndtg_detect_features(const float* ranges, const uint8_t* hit,
                               cluster, (size_t)bytes, (cudaStream_t)stream, a);
 }
 
-// out (N, F, D): the descriptor of each feature of each of the n scans.
+// out (N, F, D): the descriptor of each feature of each of the n scans,
+// one block of `threads` threads a feature (a multiple of 32, 128 to
+// 1,024; the bits do not depend on it).
 int ndtg_describe_features(const float* ranges, const uint8_t* hit,
                            const float* cosb, const float* sinb,
                            const float* fpts, const float* fang,
@@ -1269,17 +1353,20 @@ int ndtg_describe_features(const float* ranges, const uint8_t* hit,
                            long long n, int b, int f, int r_bins, int p_bins,
                            int hitmiss, float min_rho, float max_rho,
                            float inv_base_sigma, float inv_r_bins,
-                           float inv_2pi, float* out, void* stream) {
-  if (r_bins < 1 || p_bins < 1 || r_bins * p_bins > kMaxBins)
+                           float inv_2pi, float* out, int threads,
+                           void* stream) {
+  if (r_bins < 1 || p_bins < 1 || r_bins * p_bins > kMaxBins || b < 1 ||
+      threads < kDescribeSums || threads > kDescribeMaxThreads ||
+      threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   DescribeArgs a{ranges, hit, cosb, sinb, fpts, fang, fscale, fmask, b, f,
                  r_bins, p_bins, hitmiss, min_rho, max_rho, inv_base_sigma,
                  inv_r_bins, inv_2pi, out};
-  const long long bytes = (long long)r_bins * p_bins * kDescribeThreads * 8;
+  const long long bytes = describe_smem(b, r_bins * p_bins);
   int err = set_smem((const void*)features_describe_kernel, bytes,
                      g_describe_smem);
   if (err) return err;
-  features_describe_kernel<<<(unsigned)(n * f), kDescribeThreads, bytes,
+  features_describe_kernel<<<(unsigned)(n * f), threads, bytes,
                              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

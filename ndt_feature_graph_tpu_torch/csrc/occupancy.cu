@@ -24,40 +24,56 @@
 // that changes a row only where its sum would otherwise end as -0.0
 // (x + y is -0.0 only when both are), which the row pass reproduces.
 //
-// Design, two launches:
-//   * Count pass: one thread a (stream, point) and kChunk of its ray
-//     samples (the chunk's first thread also takes the point's hit).
-//     Every cell coordinate is computed with the rounding of each eager
-//     operation on the CPU: (p - o) / res as a correctly rounded
-//     division, the sample position so + t (p - so) as three separately
-//     rounded operations (no contraction into a fused multiply-add),
-//     floor, then the int32 cast as the CPU makes it (INT_MIN for NaN
-//     and for values out of range).  A warp's lanes are 32 neighbouring
-//     points at the same sample: near the sensor every ray crosses the
-//     same few cells, so the lanes that share a cell are grouped
-//     (__match_any_sync) and one of them adds their number with one
-//     integer atomic.  Counters: one word a row, n_hit in the low
-//     `shift` bits and n_miss above them (32-bit words when P < 2^16
-//     and P * samples < 2^16, else 64-bit).  No float atomics.
-//   * Row pass: every row written exactly once, four consecutive rows
-//     a thread (16-byte accesses): the old value, n_hit adds of `hit`,
-//     n_miss adds of `miss`, each add rounded once (__fadd_rn), then
-//     torch's clamp.  The operands are
-//     registers: no load on the chain.  In the last non-empty phase the
-//     chain stops once the sum lies strictly beyond the clamp in the
-//     direction of that phase's constant: adding a constant of one sign
-//     is monotone, so the clamped result is already fixed.  Near the
-//     sensor that cuts a chain of thousands of misses to about
-//     (2 hi + hit n_hit) / |miss| adds.  The pass zeroes the counters
-//     it read, so they are zero for the next update on the stream with
-//     no memset launch.
-//
+// Design: integer hit and miss counts a cell, then each row's adds.
+//   * Counts: one warp a (stream, 32 points, kChunk of their ray samples;
+//     the first chunk also takes the points' hits).  Every cell
+//     coordinate is computed with the rounding of each eager operation
+//     on the CPU: (p - o) / res as a correctly rounded division, the
+//     sample position so + t (p - so) as three separately rounded
+//     operations (no contraction into a fused multiply-add), floor, then
+//     the int32 cast as the CPU makes it (INT_MIN for NaN and for values
+//     out of range).  A warp's lanes are 32 neighbouring points at the
+//     same sample: near the sensor every ray crosses the same few cells,
+//     so the lanes that share a cell are grouped (all of them by
+//     __match_any_sync on the two-pass path, runs of neighbouring lanes
+//     on the cluster path) and one of a group adds their number with one
+//     integer atomic.  Counter
+//     words: n_hit in the low `shift` bits and n_miss above them (32-bit
+//     words when P < 2^16 and P * samples < 2^16, else 64-bit).  No float
+//     atomics.
+//   * Rows: every row written exactly once: the old value, n_hit adds of
+//     `hit`, n_miss adds of `miss`, each add rounded once (__fadd_rn),
+//     then torch's clamp.  The operands are registers: no load on the
+//     chain.  In the last non-empty phase the chain stops once the sum
+//     lies strictly beyond the clamp in the direction of that phase's
+//     constant: adding a constant of one sign is monotone, so the clamped
+//     result is already fixed.  Near the sensor that cuts a chain of
+//     thousands of misses to about (2 hi + hit n_hit) / |miss| adds.
+// Two paths, chosen by shape (ops/cuda_kernels.py occupancy_cluster):
+//   * One launch (occupancy_cluster_kernel) wherever a stream's counters
+//     fit a thread-block cluster's shared memory: a cluster of k blocks
+//     a stream, each block owning a contiguous range of its rows (their
+//     counters and, staged by cp.async while the counts run, their old
+//     values).  The count tasks are spread over the cluster's warps in
+//     contiguous ranges; a count goes to its row's owner, by a shared
+//     atomic in the block or a distributed-shared-memory atomic in
+//     another block of the cluster (after a split cluster barrier that
+//     lets the first ray's cells overlap the other blocks' zeroing); a
+//     cluster barrier; then each block's rows, one a thread.  No counter
+//     buffer in device memory, no zeroing pass.
+//   * Two launches (occupancy_count_kernel, occupancy_row_kernel) for a
+//     grid too large for the largest cluster: the counts into one
+//     counter word a row in device memory, then the rows, four
+//     consecutive rows a thread (16-byte accesses), the pass zeroing the
+//     counters it read, so they are zero for the next update on the
+//     stream with no memset launch.
+
 // What bounds it on the H100: bytes in principle (occ read and written
 // once, 8 bytes a row, and the points, masks and origins read once:
-// 0.33 MB a scan, 20.5 MB for a B = 64 fleet step), in practice the
-// row pass's longest chain (4-cycle dependent adds) and the count
-// pass's atomics on the cells around the sensor.
-//
+// 0.33 MB a scan, 20.9 MB for a B = 64 fleet step), in practice the
+// launches, the row phase's longest chain (4-cycle dependent adds) and
+// the count phase's atomics on the cells around the sensor.
+
 // Not reproduced: a NaN already in `occ` comes out as a NaN, not with
 // the CPU's payload bits.
 //
@@ -65,13 +81,38 @@
 // build): nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3;
 // bound through the plain C interface at the bottom.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+#include "stage_probe.cuh"
+
+namespace cg = cooperative_groups;
+
+#ifdef NDTG_STAGE_PROBE
+// Copies the stamps of occupancy_cluster_kernel's NDTG_STAGE marks to
+// host memory and clears them (examples/probe_occupancy.py --stages).
+extern "C" int ndtg_occupancy_probe_read(long long* clock, long long* ns) {
+  return ndtg::probe_read(clock, ns);
+}
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // the two-pass path's blocks
+#ifndef NDTG_OCCUPANCY_THREADS
+#define NDTG_OCCUPANCY_THREADS 1024
+#endif
+// A cluster block's threads (examples/tune_torch_port_kernels.py
+// --occupancy rebuilds the source at other sizes).
+constexpr int kClusterThreads = NDTG_OCCUPANCY_THREADS;
+constexpr int kClusterChunk = 2;     // ray samples a cluster count task
+constexpr int kMaxCluster = 16;      // cuda_kernels.OCCUPANCY_MAX_CLUSTER
+// A cluster block's dynamic shared memory at most (227 KB).
+constexpr long long kMaxSmem = 232448;
+constexpr int kMaxDevices = 64;
 constexpr int kChunk = 4;        // ray samples a count-pass thread takes
 constexpr int kExitEvery = 8;    // adds between two tests of the stop
 constexpr int kRowsPerThread = 4;
@@ -334,6 +375,228 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The rows a cluster block owns: ceil(h w / k) rounded up to a multiple
+// of four, so that every block's first row keeps the stream's 16-byte
+// alignment.
+__host__ __device__ __forceinline__ long long cluster_block_rows(long long rows,
+                                                                 int k) {
+  return ((rows + k - 1) / k + 3) / 4 * 4;
+}
+
+// A block's shared memory on the cluster path: its rows' counter words
+// and old values.
+__host__ __device__ __forceinline__ long long cluster_smem(long long rows,
+                                                           int k, int word) {
+  return cluster_block_rows(rows, k) * (word + 4);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Each run of neighbouring lanes holding the same cell adds its length
+// to the cell's counter, by one lane, in the shared memory of the block
+// that owns the cell's row: this block's, by a shared atomic, or another
+// block's of the cluster, through distributed shared memory (cell -1:
+// nothing).  The lanes are neighbouring beams at the same ray sample, so
+// a cell's lanes are mostly one run (all 32 near the sensor); counts
+// are integers, so how the lanes are grouped does not change them.
+// Every lane of the warp calls it.
+template <typename Count>
+__device__ __forceinline__ void add_count_cluster(cg::cluster_group& cl,
+                                                  Count* cnt, int rank,
+                                                  int block_rows, int cell,
+                                                  Count unit, int lane) {
+  const int prev = __shfl_up_sync(0xffffffffu, cell, 1);
+  const unsigned heads =
+      __ballot_sync(0xffffffffu, lane == 0 || cell != prev);
+  if (cell >= 0 && ((heads >> lane) & 1u)) {
+    const unsigned later = lane == 31 ? 0u : heads >> (lane + 1);
+    const int run = later ? __ffs(later) : 32 - lane;
+    const Count n = unit * static_cast<Count>(run);
+    const int owner = cell / block_rows;
+    const int at = cell - owner * block_rows;
+    if (owner == rank) {
+      atomicAdd(cnt + at, n);
+    } else {
+      atomicAdd(cl.map_shared_rank(cnt, owner) + at, n);
+    }
+  }
+}
+
+// One cluster of k blocks a stream: blockIdx.x = stream * k + rank.
+// Block `rank` owns rows [rank R, min(h w, (rank + 1) R)) of its stream
+// (R = cluster_block_rows): their counters and their old values live in
+// its shared memory.  The counts' warps are spread over the cluster's
+// warps (warp-uniform loop: every lane reaches each __match_any_sync).
+template <typename Count>
+__global__ void __launch_bounds__(kClusterThreads)
+    occupancy_cluster_kernel(Scan s, Row p, const float* __restrict__ occ,
+                             float* __restrict__ out, int block_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Count* cnt = reinterpret_cast<Count*>(smem);
+  float* old = reinterpret_cast<float*>(cnt + block_rows);
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const long long b = blockIdx.x / k;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long rows = static_cast<long long>(s.h) * s.w;
+  const long long r0 = static_cast<long long>(rank) * block_rows;
+  const int n_own = static_cast<int>(
+      max(0LL, min(rows, r0 + block_rows) - r0));
+  const long long g0 = b * rows + r0;        // the block's first row
+  NDTG_STAGE(0, "occupancy: start");
+
+  // The old values of the block's rows, copied while the counts run.
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(occ + g0) & 15) == 0;
+  const int n4 = aligned ? n_own / 4 : 0;
+  for (int i = tid; i < n4; i += blockDim.x)
+    cp_async16(old + 4 * i, occ + g0 + 4 * i);
+  for (int i = 4 * n4 + tid; i < n_own; i += blockDim.x)
+    cp_async4(old + i, occ + g0 + i);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = tid; i < block_rows; i += blockDim.x) cnt[i] = 0;
+  // Arrive once the counters are zero (a release); wait (an acquire)
+  // only before the first count, so that the first ray's load and cells
+  // overlap the other blocks' zeroing.
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  NDTG_STAGE(1, "occupancy: zero the counters");
+
+  // The count tasks (32 points x kClusterChunk samples) of the stream, in
+  // contiguous ranges a warp: a warp's tasks mostly share their points,
+  // whose rays it loads once.
+  const int chunks = (s.samples + kClusterChunk - 1) / kClusterChunk;
+  const int groups = (s.n_points + 31) / 32;
+  const int n_tasks = groups * chunks;
+  const int warps = k * (blockDim.x >> 5);
+  const int warp = rank * (blockDim.x >> 5) + (tid >> 5);
+  const int t0 = static_cast<int>(static_cast<long long>(n_tasks) * warp /
+                                  warps);
+  const int t1 = static_cast<int>(static_cast<long long>(n_tasks) *
+                                  (warp + 1) / warps);
+  const Count miss_unit = Count(1) << p.shift;
+  bool waited = false;
+  int g_ray = -1;
+  Ray r = {};
+  bool active = false;
+  for (int task = t0; task < t1; ++task) {        // warp-uniform
+    const int c = task % chunks, g = task / chunks;
+    if (g != g_ray) {
+      const int pt = g * 32 + lane;
+      active = pt < s.n_points;
+      if (active) r = load_ray(s, b, pt);
+      g_ray = g;
+    }
+    int cell[kClusterChunk + 1];
+    cell[kClusterChunk] = c == 0 && active ? hit_cell(s, r) : -1;
+#pragma unroll
+    for (int j = 0; j < kClusterChunk; ++j) {
+      const int sj = c * kClusterChunk + j;
+      cell[j] = active && sj < s.samples ? sample_cell(s, r, sj) : -1;
+    }
+    if (!waited) {
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+      waited = true;
+    }
+    if (c == 0) {
+      add_count_cluster<Count>(cl, cnt, rank, block_rows, cell[kClusterChunk],
+                               Count(1), lane);
+    }
+#pragma unroll
+    for (int j = 0; j < kClusterChunk; ++j) {
+      add_count_cluster<Count>(cl, cnt, rank, block_rows, cell[j],
+                               miss_unit, lane);
+    }
+  }
+  if (!waited) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  NDTG_STAGE(2, "occupancy: count");
+  cl.sync();     // every count in; no block reads another's memory after
+  NDTG_STAGE(3, "occupancy: cluster barrier");
+
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  // One row a thread, neighbouring threads on neighbouring rows: the
+  // old values come from shared memory, and a warp's chains run side by
+  // side.
+  for (int i = tid; i < n_own; i += blockDim.x)
+    out[g0 + i] = row_value(s, p, g0 + i, old[i], cnt[i]);
+  NDTG_STAGE(4, "occupancy: row");
+}
+
+// Sets the cluster kernel's attributes on the current device (once a
+// device): `bytes` of dynamic shared memory and, for clusters of more
+// than 8 blocks, the non-portable cluster size.
+template <typename Count>
+cudaError_t configure_cluster(long long bytes) {
+  static long long configured[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (configured[dev] == 0) {
+    const void* fn = reinterpret_cast<const void*>(
+        occupancy_cluster_kernel<Count>);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    configured[dev] = 1;
+  }
+  return bytes > kMaxSmem ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+template <typename Count>
+cudaError_t launch_cluster_path(const Scan& s, const Row& p,
+                                const float* occ, float* out, int k,
+                                cudaStream_t stream) {
+  const long long rows = static_cast<long long>(s.h) * s.w;
+  const long long bytes = cluster_smem(rows, k, sizeof(Count));
+  const cudaError_t e = configure_cluster<Count>(bytes);
+  if (e != cudaSuccess) return e;
+  if (s.n_streams * k > 2147483647LL) return cudaErrorInvalidValue;
+  return static_cast<cudaError_t>(ndtg::launch_cluster(
+      occupancy_cluster_kernel<Count>,
+      dim3(static_cast<unsigned>(s.n_streams * k)), kClusterThreads, k,
+      static_cast<size_t>(bytes), stream, s, p, occ, out,
+      static_cast<int>(cluster_block_rows(rows, k))));
+}
+
+// Clusters of k blocks the card holds at once on the cluster path
+// (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+template <typename Count>
+int max_clusters(long long rows, int k) {
+  const long long bytes = cluster_smem(rows, k, sizeof(Count));
+  cudaError_t e = configure_cluster<Count>(bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, occupancy_cluster_kernel<Count>,
+                                     &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
 template <typename Count>
 cudaError_t launch(const Scan& s, const Row& p, const float* occ,
                    float* out, Count* counts, cudaStream_t stream) {
@@ -362,13 +625,26 @@ cudaError_t launch(const Scan& s, const Row& p, const float* occ,
 
 extern "C" {
 
+// Clusters of k blocks (1 to kMaxCluster) that the current card holds at
+// once on the cluster path for grids of `rows` cells, or a negative CUDA
+// error.
+int ndtg_occupancy_max_clusters(long long rows, int k, int wide) {
+  if (rows < 1 || k < 1 || k > kMaxCluster)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return wide ? max_clusters<unsigned long long>(rows, k)
+              : max_clusters<unsigned>(rows, k);
+}
+
 // out = the occupancy update of occ (n_streams grids of h x w, row-major,
 // contiguous) by the scans pts (n_streams, P, 2) / mask (n_streams, P)
 // seen from sensor, against grids whose (0, 0) corners are at origin;
 // origin and sensor rows `*_stride` floats apart (0: one row for all).
-// counts: n_streams * h * w words of zero (64-bit with `wide`, else
-// 32-bit), left zero.  chain: null, or one unsigned a row for the number
-// of adds its chain made.  Returns the launch error (0 = success).
+// Counter words 64-bit with `wide`, else 32-bit.  cluster: blocks a
+// stream (1 to kMaxCluster) on the one-launch path, whose counters live
+// in the cluster's shared memory (counts unused); 0 for the two-pass
+// path, whose counts are n_streams * h * w words of zero, left zero.
+// chain: null, or one unsigned a row for the number of adds its chain
+// made.  Returns the launch error (0 = success).
 int ndtg_occupancy_update(const float* occ, float* out, const float* origin,
                           long long origin_stride, const float* sensor,
                           long long sensor_stride, const float* pts,
@@ -376,8 +652,10 @@ int ndtg_occupancy_update(const float* occ, float* out, const float* origin,
                           int n_points, int h, int w, float res, int samples,
                           float hit, float miss, float lo, float hi,
                           void* counts, int wide, unsigned* chain,
-                          void* stream) {
-  if (n_streams < 1 || n_points < 0 || h < 1 || w < 1 || samples < 1) {
+                          int cluster, void* stream) {
+  if (n_streams < 1 || n_points < 0 || h < 1 || w < 1 || samples < 1 ||
+      cluster < 0 || cluster > kMaxCluster ||
+      (cluster == 0 && counts == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_rows = n_streams * h * w;
@@ -386,10 +664,16 @@ int ndtg_occupancy_update(const float* occ, float* out, const float* origin,
                   n_streams, n_points, h, w, samples, res};
   const Row p = {hit, miss, lo, hi, wide ? 32 : 16, n_rows, chain};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      wide ? launch(s, p, occ, out, static_cast<unsigned long long*>(counts),
-                    st)
-           : launch(s, p, occ, out, static_cast<unsigned*>(counts), st);
+  cudaError_t err;
+  if (cluster > 0) {
+    err = wide ? launch_cluster_path<unsigned long long>(s, p, occ, out,
+                                                         cluster, st)
+               : launch_cluster_path<unsigned>(s, p, occ, out, cluster, st);
+  } else {
+    err = wide ? launch(s, p, occ, out,
+                        static_cast<unsigned long long*>(counts), st)
+               : launch(s, p, occ, out, static_cast<unsigned*>(counts), st);
+  }
   return static_cast<int>(err);
 }
 

@@ -67,9 +67,11 @@ buffer a device and stream; each call writes what it reads).  Plain twin:
 
 `csrc/occupancy.cu` holds `update_occupancy`, the map's occupancy
 update (ndt_map.update_occupancy on the card): integer hit and miss
-counts a cell in a count pass, then each cell's adds in entry order from
-registers and the clamp in a row pass, two launches, the CPU's bits.
-Plain twin: ndt_map._update_occupancy_plain (the eager ray build through
+counts a cell, then each cell's adds in entry order from registers and
+the clamp, the CPU's bits; one launch, a thread-block cluster a stream
+whose counters live in the cluster's shared memory, wherever they fit
+(`occupancy_cluster`), else a count pass and a row pass.  Plain twin:
+ndt_map._update_occupancy_plain (the eager ray build through
 scatter_add_rows).
 
 `csrc/features.cu` holds the scan's feature front end in three kernels,
@@ -77,12 +79,15 @@ one launch each for a scan or a batch of scans / pairs:
 `detect_features` (features/detector.py detect: a thread-block cluster
 of up to 8 blocks a scan, `detect_cluster`, exchanging its smoothed
 points and best responses through distributed shared memory),
-`describe_features` (features/descriptor.py describe: one block a
-feature, per-thread bins and a fixed tree) and `match_features`
+`describe_features` (features/descriptor.py describe: one block of
+up to 1,024 threads a feature, `describe_threads`; every thread bins,
+then 128 partial sums replay the adds in a fixed order and a fixed tree
+adds them) and `match_features`
 (features/ransac.py match_sets: a cluster of up to 4 blocks a pair,
 `match_cluster`, splitting the chi2 rows; with an `OdometryGate`,
 match_sets_gated, the feature fuser's gate and paired pseudo-cells in
-the same launch).  Their bits do not depend on the cluster size.  Plain
+the same launch).  Their bits do not depend on the cluster or block
+size.  Plain
 twins: detector._detect_plain, descriptor._describe_plain,
 ransac._match_sets_plain and ransac._gate_plain.
 
@@ -125,7 +130,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "pair_fgh.cu", _PKG / "csrc" / "segment_sum.cu",
            _PKG / "csrc" / "occupancy.cu", _PKG / "csrc" / "overlap.cu",
            _PKG / "csrc" / "features.cu")
-HEADERS = (_PKG / "csrc" / "cluster_launch.cuh",)
+HEADERS = (_PKG / "csrc" / "cluster_launch.cuh",
+           _PKG / "csrc" / "stage_probe.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -237,9 +243,11 @@ def build():
         P, P, P, LL, P, LL, P, P, LL,  # occ, out, origin, sensor, points
         I, I, I, F, I,                 # P, h, w, resolution, samples
         F, F, F, F,                    # hit, miss, lo, hi
-        P, I, P, P,                    # counts, wide, chain, stream
+        P, I, P, I, P,                 # counts, wide, chain, cluster, stream
     ]
     lib.ndtg_occupancy_update.restype = I
+    lib.ndtg_occupancy_max_clusters.argtypes = [LL, I, I]
+    lib.ndtg_occupancy_max_clusters.restype = I
     lib.ndtg_overlap_cluster.argtypes = [LL]
     lib.ndtg_overlap_cluster.restype = I
     lib.ndtg_overlap_threads.argtypes = []
@@ -257,6 +265,8 @@ def build():
     lib.ndtg_features_max_smem.restype = LL
     lib.ndtg_detect_smem.argtypes = [I, I]
     lib.ndtg_detect_smem.restype = LL
+    lib.ndtg_describe_smem.argtypes = [I, I]
+    lib.ndtg_describe_smem.restype = LL
     lib.ndtg_match_smem.argtypes = [I, I, I, I, I, I]
     lib.ndtg_match_smem.restype = LL
     lib.ndtg_detect_features.argtypes = [
@@ -268,7 +278,8 @@ def build():
     lib.ndtg_describe_features.argtypes = [
         P, P, P, P, P, P, P, P,         # scan, trig, the features
         LL, I, I, I, I, I,              # n, b, f, bins, hitmiss
-        F, F, F, F, F, P, P,            # rho, 1 / sigma, 1 / bins, out
+        F, F, F, F, F, P,               # rho, 1 / sigma, 1 / bins, out
+        I, P,                           # threads, stream
     ]
     lib.ndtg_describe_features.restype = I
     lib.ndtg_match_features.argtypes = [
@@ -1219,7 +1230,7 @@ def segment_add_rows(bases, idx, vals):
 
 
 _SEGMENT_SCRATCH = {}   # (device, stream) -> the segment sum's scratch
-_OCC_COUNTS = {}        # (device, stream) -> the occupancy counters, zero
+_OCC_COUNTS = {}        # (device, stream) -> the two-pass path's counters
 
 
 def _stream_buffer(cache, dev, stream, n: int, dtype, zeroed: bool):
@@ -1252,6 +1263,60 @@ def _rows_of(name, t, lead, dev):
     return rows, rows.stride(0)
 
 
+OCCUPANCY_MAX_CLUSTER = 16      # csrc/occupancy.cu kMaxCluster
+OCCUPANCY_MAX_SMEM = 232448     # csrc/occupancy.cu kMaxSmem
+
+
+def occupancy_block_rows(rows: int, k: int) -> int:
+    """The rows each block of a k-block cluster owns (csrc/occupancy.cu
+    cluster_block_rows): ceil(rows / k) rounded up to a multiple of 4."""
+    return (-(-rows // k) + 3) // 4 * 4
+
+
+def occupancy_cluster(rows: int, wide: bool, n_streams: int,
+                      resident) -> int:
+    """Blocks of the occupancy kernel's cluster a stream of `rows` cells
+    (h * w), or 0 for the two-pass path.  The fewest blocks whose shared
+    memory holds the stream's counters and old values (4 + 4 bytes a
+    row, 8 + 4 with 64-bit counters; at most OCCUPANCY_MAX_CLUSTER blocks
+    of 227 KB; 0 where none does), raised to the most blocks (a power of
+    two) whose clusters, one a stream, the card holds at once:
+    resident(k) is the number of k-block clusters it holds
+    (cudaOccupancyMaxActiveClusters; on an H100 at 1,024 threads 66, 30,
+    15 and 7 for 2, 4, 8 and 16 blocks: 16 blocks for one stream, 8 for
+    8 streams, 2 for 64)."""
+    word = 8 if wide else 4
+    fewest = 1
+    while fewest <= OCCUPANCY_MAX_CLUSTER and (
+            occupancy_block_rows(rows, fewest) * (word + 4)
+            > OCCUPANCY_MAX_SMEM):
+        fewest *= 2
+    if fewest > OCCUPANCY_MAX_CLUSTER:
+        return 0
+    k = OCCUPANCY_MAX_CLUSTER
+    while k > fewest and resident(k) < n_streams:
+        k //= 2
+    return k
+
+
+_OCC_RESIDENT = {}      # (device, rows, k, wide) -> k-block clusters held
+
+
+def _occupancy_resident(lib, dev, rows: int, wide: bool):
+    """resident(k) of `occupancy_cluster` on `dev`, asked of the card once
+    a shape (a failed query raises)."""
+    def resident(k):
+        key = (dev, rows, k, wide)
+        n = _OCC_RESIDENT.get(key)
+        if n is None:
+            with _on(dev):
+                n = lib.ndtg_occupancy_max_clusters(rows, k, int(wide))
+            _raise_on(-n if n < 0 else 0, "update_occupancy (clusters held)")
+            _OCC_RESIDENT[key] = n
+        return n
+    return resident
+
+
 def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
                      chain=None):
     """ndt_map.update_occupancy: the grid (or stack of grids) with its
@@ -1259,11 +1324,17 @@ def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
     seen from sensor_origin (..., 2), then clamped.  A new tensor; the
     grid's is not changed.
 
-    On CUDA tensors: TWO launches of the occupancy kernel
-    (csrc/occupancy.cu: integer hit / miss counts a cell, then each
-    row's adds in entry order and the clamp), the CPU's bits; with
-    `chain`, an int32 tensor of one element a row, it also writes the
-    number of adds each row's chain made.  On the CPU,
+    On CUDA tensors, the occupancy kernel (csrc/occupancy.cu: integer
+    hit / miss counts a cell, then each row's adds in entry order and
+    the clamp), the CPU's bits.  Where a stream's counters and old
+    values fit a thread-block cluster's shared memory
+    (`occupancy_cluster`: grids of up to 464,896 cells at 16 blocks, or
+    309,888 with 64-bit counters), ONE launch, a cluster a stream, with
+    no counter buffer in device memory; a larger grid takes the
+    two-pass path (a count launch into a counter buffer kept a device
+    and stream, then a row launch).  The choice is one of shapes, not a
+    fallback.  With `chain`, an int32 tensor of one element a row, it
+    also writes the number of adds each row's chain made.  On the CPU,
     ndt_map._update_occupancy_plain."""
     dev = pts.device
     if dev.type == "cpu":
@@ -1299,20 +1370,24 @@ def update_occupancy(grid, params: NDTMapParams, sensor_origin, pts, mask,
     if n_rows == 0:
         return dataclasses.replace(grid, occ=out)
     lib = build()
-    with torch.cuda.device(dev):
+    wide = n_pts >= 2 ** 16 or n_pts * samples >= 2 ** 16
+    cluster = occupancy_cluster(h * w, wide, n,
+                                _occupancy_resident(lib, dev, h * w, wide))
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        # Zero: the row pass zeroes the counters it reads.
-        counts = _stream_buffer(_OCC_COUNTS, dev, stream, n_rows,
-                                torch.int64, zeroed=True)
+        counts = None
+        if not cluster:
+            # Zero: the row pass zeroes the counters it reads.
+            counts = _stream_buffer(_OCC_COUNTS, dev, stream, n_rows,
+                                    torch.int64, zeroed=True).data_ptr()
         err = lib.ndtg_occupancy_update(
             occ.data_ptr(), out.data_ptr(), origin.data_ptr(),
             o_stride, sensor.data_ptr(), s_stride, pts.data_ptr(),
             mask.data_ptr(), n, n_pts, h, w, params.resolution, samples,
             params.occ_hit, params.occ_miss, -params.occ_clamp,
-            params.occ_clamp, counts.data_ptr(),
-            int(n_pts >= 2 ** 16 or n_pts * samples >= 2 ** 16),
-            None if chain is None else chain.data_ptr(), stream)
-    if err != 0:
+            params.occ_clamp, counts, int(wide),
+            None if chain is None else chain.data_ptr(), cluster, stream)
+    if err != 0 and not cluster:
         # A pass that did not run leaves its counters as they are.
         _OCC_COUNTS.pop((dev, stream), None)
     _raise_on(err, "update_occupancy")
@@ -1385,6 +1460,23 @@ def match_cluster(n_pairs: int, sms: int) -> int:
     at the LC bank's 171 pairs; the same sweep).  The bits do not depend
     on it."""
     return _one_wave(n_pairs, MATCH_MAX_CLUSTER, sms)
+
+
+DESCRIBE_MAX_THREADS = 1024     # csrc/features.cu kDescribeMaxThreads
+
+
+def describe_threads(n_features: int, sms: int) -> int:
+    """Threads of the descriptor's block a feature on a card of `sms`
+    SMs: the most of 1,024, 512 and 256 that keep the call within 1,024
+    threads an SM (one scan's 32 features: 1,024; 200 scans' 6,400: 256;
+    on an H100 6.74-6.75 against 7.31-7.32 µs at 512 for one scan,
+    72.52-72.61 against 90.47-90.52 at 128 and 111.30-111.34 at 512 for
+    200 scans: examples/tune_torch_port_kernels.py --features).  The bits
+    do not depend on it."""
+    t = DESCRIBE_MAX_THREADS
+    while t > 256 and -(-n_features // sms) * t > DESCRIBE_MAX_THREADS:
+        t //= 2
+    return t
 
 
 def detect_features(params: FeatureParams, ranges, hit,
@@ -1472,10 +1564,13 @@ def describe_features(params: FeatureParams, feats, ranges, hit):
     with the same leading dims.
 
     On CUDA tensors: ONE launch of the descriptor kernel
-    (csrc/features.cu: one block a feature; its hits and chord samples
-    binned by each thread into its own bins, integer hit counts, then a
-    fixed tree over the threads; no one-hot tensor).  Limits: at most 64
-    bins (rho_bins * phi_bins).  On the CPU the plain twin,
+    (csrc/features.cu: one block of `describe_threads` threads a
+    feature; every thread bins hits and chord samples, integer hit
+    counts, then 128 partial miss sums replayed in a fixed order and a
+    fixed tree; no one-hot tensor; the bits do not depend on the block
+    size).  Limits: at most 64 bins (rho_bins * phi_bins), and the
+    shared memory of 128 sums a bin and 20 bytes a beam within a block's
+    226 KB (9,900 beams at 48 bins).  On the CPU the plain twin,
     descriptor._describe_plain."""
     dev = ranges.device
     if dev.type == "cpu":
@@ -1493,6 +1588,11 @@ def describe_features(params: FeatureParams, feats, ranges, hit):
         raise ValueError(f"describe_features: descriptor_stat "
                          f"{params.descriptor_stat!r}")
     hitmiss = params.descriptor_stat == "hitmiss"
+    smem = lib.ndtg_describe_smem(params.num_beams, nb)
+    if smem > lib.ndtg_features_max_smem():
+        raise ValueError(f"describe_features: {params.num_beams} beams at "
+                         f"{nb} bins need {smem} bytes of shared memory, at "
+                         f"most {lib.ndtg_features_max_smem()}")
     ranges, hit, lead, n = _scan_inputs("describe_features", params,
                                         ranges, hit)
     f = feats.mask.shape[-1]
@@ -1526,7 +1626,8 @@ def describe_features(params: FeatureParams, feats, ranges, hit):
             # with its reciprocal, taken in float64, rounded to float32.
             float(np.float32(1.0 / params.base_sigma)),
             float(np.float32(1.0 / params.rho_bins)),
-            float(np.float32(1.0 / (2 * math.pi))), out.data_ptr(), stream)
+            float(np.float32(1.0 / (2 * math.pi))), out.data_ptr(),
+            describe_threads(n * f, _sm_count(dev)), stream)
     _raise_on(err, "describe_features")
     LAUNCHES["describe_features"] += 1
     return out

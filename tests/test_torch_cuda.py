@@ -6,7 +6,9 @@ over the same objective kernel), the Newton-trial objective
 term, the batch entry, the fleet step's `newton_objective_batch` and the
 paired reduction; the map update's `segment_add_rows` against the CPU's
 index_add bits and the sorted index_put_ path it replaced, and its
-`occupancy_update` against the CPU's plain twin; the link paths'
+`occupancy_update` against the CPU's plain twin (at every cluster size
+and on the two-pass path); the feature kernels against their plain
+twins (the descriptor at every block size); the link paths'
 `overlap_score` against tests/test_torch_overlap.py's numpy mirror (bit
 for bit) and the eager path (cell by cell); the sharded
 dense solve in an NCCL world of one rank; and the chunked graph driver
@@ -430,6 +432,44 @@ def test_occupancy_update_equals_the_cpu(cuda_device, streams):
     mp = chip_smoke.canonical_slam_params().fuser.ndt
     off = chip_smoke.occupancy_case_checks(mp, fx, cuda_device, streams)
     assert not any(off.values()), off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [0, 3])
+@pytest.mark.parametrize("path", chip_smoke.OCCUPANCY_PATHS,
+                         ids=["two-pass", "k1", "k2", "k4", "k8", "k16"])
+def test_occupancy_update_at_every_cluster_size(cuda_device, path, streams):
+    """The occupancy kernel with its cluster forced to 1, 2, 4, 8 and 16
+    blocks a stream (raised to the fewest that hold the grid) and on the
+    two-pass path: the CPU's bits on every case and on repeat, one
+    launch counted a call."""
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    with chip_smoke.occupancy_forced(path):
+        off = chip_smoke.occupancy_case_checks(mp, fx, cuda_device, streams)
+    assert not any(off.values()), off
+
+
+@pytest.mark.cuda
+def test_occupancy_update_on_a_grid_too_large_for_a_cluster(cuda_device):
+    """A 1,200 x 1,200 grid's counters fit no cluster: the shape rule
+    takes the two-pass path, which gives the CPU's bits and repeats."""
+    import dataclasses
+
+    with np.load(chip_smoke.FIXTURE) as f:
+        fx = dict(f)
+    mp = chip_smoke.canonical_slam_params().fuser.ndt
+    big = dataclasses.replace(mp, size_x=6 * mp.size_x, size_y=6 * mp.size_y)
+    assert cuda_kernels.occupancy_cluster(
+        big.grid_h * big.grid_w, False, 1, lambda _: 0) == 0
+    want = chip_smoke.map_update_case(big, fx, torch.device("cpu"),
+                                      scans=(0, 2))
+    for _ in range(2):
+        got = chip_smoke.map_update_case(big, fx, cuda_device, scans=(0, 2))
+        for k in want:
+            assert np.array_equal(chip_smoke._bits(got[k]),
+                                  chip_smoke._bits(want[k])), k
 
 
 @pytest.mark.cuda
@@ -934,6 +974,35 @@ def test_describe_features_matches_plain(cuda_device, stat):
     chip_smoke.compare_desc(f"describe {stat}", got,
                             descriptor._describe_plain(fp, feats, r, h))
     assert torch.equal(got, descriptor.describe(fp, feats, r, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", chip_smoke.DESCRIBE_THREADS)
+def test_describe_features_bits_at_every_block_size(cuda_device, threads):
+    """The descriptor kernel with 128 to 1,024 threads a feature: the
+    wrapper's own choice's bits, batched, scan by scan and with the
+    hitmiss statistic; one launch a call."""
+    import dataclasses
+
+    from ndt_feature_graph_tpu_torch.features import descriptor
+
+    _, fp, r, h, _, feats, _ = _feature_inputs(cuda_device)
+    hm = dataclasses.replace(fp, descriptor_stat="hitmiss")
+    own = descriptor.describe(fp, feats, r, h)
+    own_hm = descriptor.describe(hm, feats, r, h)
+    rule = cuda_kernels.describe_threads
+    cuda_kernels.describe_threads = lambda *_: threads
+    try:
+        before = cuda_kernels.LAUNCHES["describe_features"]
+        got = descriptor.describe(fp, feats, r, h)
+        got_hm = descriptor.describe(hm, feats, r, h)
+        one = descriptor.describe(fp, chip_smoke.feature_rows(feats, 5),
+                                  r[5], h[5])
+        assert cuda_kernels.LAUNCHES["describe_features"] == before + 3
+    finally:
+        cuda_kernels.describe_threads = rule
+    assert torch.equal(got, own) and torch.equal(got_hm, own_hm)
+    assert torch.equal(one, own[5])
 
 
 @pytest.mark.cuda

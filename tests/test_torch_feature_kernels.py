@@ -16,7 +16,10 @@ searches as a left binary search (torch.searchsorted), the responses,
 peaks and the first-maximum scale, the top-K by counting ranks (a lower
 index first among ties); the descriptor's bins per thread (beam t, t +
 128, ... and the chord's 8 samples in order) and a fixed tree over the
-128 threads; the matcher's row sums and chi2 sums in order, the first
+128 threads (`mirror_describe`), and the kernel as it is built now
+(`mirror_describe_replay`: every bin first, a byte a chord sample, at
+any block size, then the 128 partial sums replayed in that order and
+the same tree), which must give mirror_describe's bits; the matcher's row sums and chi2 sums in order, the first
 minimum as the kernel's cluster takes it (each block's rows, 32 lanes
 and a butterfly, then the blocks in order: `first_min_split`), the
 stable top-C by rank, the MSAC sums over the C correspondences in
@@ -431,6 +434,114 @@ def mirror_describe(fp, feats, ranges, hit):
                       0.5 * (m / ms.clamp(min=1e-9)[..., None])], -1)
 
 
+DROPPED = 0xff              # csrc/features.cu kDropped
+
+
+def describe_bytes(fp, feats, ranges, hit, threads):
+    """The describe kernel's bin phases: each hit beam's bin (-1:
+    outside the support or no hit; counted, in any order), each chord
+    sample's bin as a byte (DROPPED: outside the support or no chord)
+    and each beam's weight.  Items go to `threads` threads in turn (a
+    beam a thread, then a (beam, sample) a thread); an item's bin does
+    not depend on which thread takes it or when."""
+    b = fp.num_beams
+    ang = tds.beam_angles(b, device="cpu")
+    dx, dy = torch.cos(ang), torch.sin(ang)
+    fx, fy = feats.pts[..., 0:1], feats.pts[..., 1:2]
+    fa = feats.angles[..., None]
+    ca, sa = torch.cos(-fa), torch.sin(-fa)
+    sup = (fp.max_rho * torch.sqrt(
+        (feats.scales * _recip(fp.base_sigma)).clamp(min=1.0))).clamp(
+            fp.max_rho, 4.0 * fp.max_rho)[..., None]
+    rden = sup - fp.min_rho
+    bin_w = (rden * _recip(fp.rho_bins)).clamp(min=1e-6)
+    fm = feats.mask[..., None]
+    lead = feats.mask.shape
+    hit_bin = torch.full(lead + (b,), -1, dtype=torch.int64)
+    t0 = torch.zeros(lead + (b,))
+    length = torch.full(lead + (b,), -1.0)
+    w = torch.zeros(lead + (b,))
+    for base in range(0, b, threads):
+        bm = slice(base, min(b, base + threads))
+        r = ranges[..., None, bm]
+        hb, hok = _polar_bins(fp, r * dx[bm] - fx, r * dy[bm] - fy, ca, sa,
+                              rden)
+        hok = hok & hit[..., None, bm] & fm
+        hit_bin[..., bm] = torch.where(hok, hb, -1)
+        dp = fma32(dy[bm], fy, dx[bm] * fx)
+        disc = (dp * dp - (fx * fx + fy * fy)) + sup * sup
+        root = torch.sqrt(disc.clamp(min=0.0))
+        lo = (dp - root).clamp(min=0.0)
+        chord = (torch.minimum(dp + root, r * 0.999) - lo).clamp(min=0.0)
+        use = (disc > 0.0) & (chord > 1e-6) & fm
+        t0[..., bm] = lo
+        length[..., bm] = torch.where(use, chord, -1.0)
+        w[..., bm] = torch.where(use, (chord * 0.125) / bin_w, 0.0)
+    codes = torch.full(lead + (b * 8,), DROPPED, dtype=torch.int64)
+    item = torch.arange(b * 8)
+    for base in range(0, b * 8, threads):
+        it = item[base:base + threads]
+        bm, k = it // 8, (it % 8).float()
+        ln = length[..., bm]
+        ts = t0[..., bm] + ln * ((k + 0.5) * 0.125)
+        n, ok = _polar_bins(fp, ts * dx[bm] - fx, ts * dy[bm] - fy, ca, sa,
+                            rden)
+        codes[..., base:base + threads] = torch.where(ok & (ln >= 0.0), n,
+                                                      DROPPED)
+    return hit_bin, codes.reshape(lead + (b, 8)), w
+
+
+def mirror_describe_replay(fp, feats, ranges, hit, threads=1024):
+    """features_describe_kernel as it is built: the bytes first
+    (describe_bytes), then the replay of the 128 partial miss sums —
+    sum t takes beams t, t + 128, ... and each beam's samples in order,
+    holding a run of samples in one bin in a register — then the tree,
+    a warp a bin: strides 64 and 32 in registers, 16 .. 1 as shuffles
+    (the one-thread-a-beam tree's pairing)."""
+    nb = fp.rho_bins * fp.phi_bins
+    b, t_n = fp.num_beams, DESCRIBE_THREADS
+    hit_bin, codes, w = describe_bytes(fp, feats, ranges, hit, threads)
+    lead = feats.mask.shape
+    hits = torch.zeros(lead + (nb + 1,), dtype=torch.int64)
+    hits.scatter_add_(-1, torch.where(hit_bin >= 0, hit_bin, nb),
+                      torch.ones_like(hit_bin))
+    partial = torch.zeros(lead + (t_n, nb + 1))      # column nb: no bin
+    cur = torch.full(lead + (t_n,), nb, dtype=torch.int64)
+    acc = torch.zeros(lead + (t_n,))
+    for rnd in range(-(-b // t_n)):
+        beam = (rnd * t_n + torch.arange(t_n)).clamp(max=b - 1)
+        live = rnd * t_n + torch.arange(t_n) < b
+        wb = w[..., beam]
+        for k in range(8):
+            code = codes[..., beam, k]
+            valid = (code != DROPPED) & live
+            code = torch.where(valid, code, nb)
+            change = valid & (code != cur)
+            partial.scatter_(-1, cur[..., None], torch.where(
+                change, acc, take(partial, cur[..., None])[..., 0])[..., None])
+            acc = torch.where(change, take(partial, code[..., None])[..., 0],
+                              acc)
+            cur = torch.where(change, code, cur)
+            acc = torch.where(valid, acc + wb, acc)
+    partial.scatter_(-1, cur[..., None], acc[..., None])
+    miss = partial[..., :nb]
+    stride = t_n // 2
+    while stride:
+        miss[..., :stride, :] = miss[..., :stride, :] \
+            + miss[..., stride:2 * stride, :]
+        stride //= 2
+    h, m = hits[..., :nb].float(), miss[..., 0, :]
+    if fp.descriptor_stat == "beta_mean":
+        return (h + 1.0) / ((h + m) + 2.0)
+    hs = torch.zeros(lead)
+    ms = torch.zeros(lead)
+    for n in range(nb):
+        hs = hs + h[..., n]
+        ms = ms + m[..., n]
+    return torch.cat([0.5 * (h / hs.clamp(min=1e-9)[..., None]),
+                      0.5 * (m / ms.clamp(min=1e-9)[..., None])], -1)
+
+
 # ----------------------------------------------------------------- matcher
 
 def warp_sum(v):
@@ -656,6 +767,33 @@ def test_describe_mirror_matches_jax(stat):
     assert got.shape == (3, fp.max_features, tdesc.descriptor_dim(tfp))
     np.testing.assert_allclose(got.numpy(), np.stack(want), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512, 1024])
+@pytest.mark.parametrize("stat", ["beta_mean", "hitmiss"])
+def test_describe_replay_is_the_one_thread_a_beam_order(stat, threads):
+    """The kernel's bytes-then-replay order, at every block size, gives
+    the bits of mirror_describe (128 threads, each binning and adding
+    its own beams) on the fixture's scans and their twin features."""
+    fp = dataclasses.replace(TFP, descriptor_stat=stat)
+    r, h = _scans(SCANS)
+    feats = tdet._detect_plain(fp, r, h)
+    want = mirror_describe(fp, feats, r, h)
+    got = mirror_describe_replay(fp, feats, r, h, threads)
+    assert torch.equal(got, want)
+    assert torch.equal(got[1], mirror_describe_replay(
+        fp, tdet.FeatureSet(**{k.name: getattr(feats, k.name)[1]
+                               for k in dataclasses.fields(feats)}),
+        r[1], h[1], threads))
+
+
+def test_describe_threads_rule():
+    """The most of 1,024, 512 and 256 threads a feature that keep the
+    call within 1,024 threads of each of the H100's 132 SMs: one scan's
+    32 features 1,024, a B = 8 fleet step's 256 512, 200 scans' 256."""
+    got = [cuda_kernels.describe_threads(n, SMS)
+           for n in (1, 32, 132, 133, 256, 264, 265, 2048, 6400)]
+    assert got == [1024, 1024, 1024, 512, 512, 512, 256, 256, 256]
 
 
 def _jax_pair(pair):

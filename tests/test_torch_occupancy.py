@@ -8,9 +8,12 @@ card kernel (csrc/occupancy.cu) and the JAX reference.
   clamp, tested every 8 adds), the dropped entries' +0.0 on a sum that
   ends as -0.0, torch's clamp — gives the plain update's bits (tolerance
   0) on every case of chip_smoke.occupancy_cases, one grid and a stack
-  of 3.  The kernel itself runs only on the card
+  of 3.  The one-launch path's split of the counters over a cluster of
+  1, 2, 4, 8 or 16 blocks a stream (each block owning a range of rows)
+  gives the same bits, and the wrapper's shape rule picks the cluster
+  path or the two-pass path.  The kernel itself runs only on the card
   (tests/test_torch_cuda.py holds it to the CPU's bits at 1, 3 and 64
-  grids).
+  grids, at every cluster size and on the two-pass path).
 * The chain's stop: for any (old, n_hit, n_miss, hit, miss, clamp) the
   stopped chain, clamped, is the whole chain, clamped.
 * The whole update against the reference's update_occupancy at the
@@ -117,8 +120,10 @@ def torch_clamp(x, clamp):
     return np.where(hi < x, hi, x)
 
 
-def occupancy_mirror(grid, p, sensor, pts, mask):
-    """(occ, adds a row) as csrc/occupancy.cu computes them."""
+def occupancy_entries(grid, p, sensor, pts, mask):
+    """Each stream's kept hit and miss entries as cells of its grid
+    (stream, cell), with the rounding of csrc/occupancy.cu, and the rows
+    (k mod n_rows) that a dropped entry of the concatenation lands on."""
     h, w, S = p.grid_h, p.grid_w, p.ray_samples
     lead, P = pts.shape[:-2], pts.shape[-2]
     n = math.prod(lead)
@@ -143,18 +148,55 @@ def occupancy_mirror(grid, p, sensor, pts, mask):
     miss_ok = (valid[..., None] & inb(riy, rix)
                & ~((riy == iy[..., None]) & (rix == ix[..., None])))
     n_rows = n * h * w
-    base = (np.arange(n) * h * w)[:, None]
-    n_hit = np.bincount((base + iy * w + ix)[hit_ok], minlength=n_rows)
-    n_miss = np.bincount((base[..., None] + riy * w + rix)[miss_ok],
-                         minlength=n_rows)
+    stream = np.arange(n)[:, None]
+    hits = (np.broadcast_to(stream, iy.shape)[hit_ok], (iy * w + ix)[hit_ok])
+    misses = (np.broadcast_to(stream[..., None], riy.shape)[miss_ok],
+              (riy * w + rix)[miss_ok])
     keep = np.concatenate([hit_ok.ravel(), miss_ok.ravel()])
     dropped = np.zeros(n_rows, bool)
     dropped[np.flatnonzero(~keep) % n_rows] = True
+    return hits, misses, dropped
+
+
+def occupancy_rows(grid, p, n_hit, n_miss, dropped):
+    """The row pass on every row's counts: (occ, adds a row)."""
     acc, beyond, adds = chain(grid.occ.numpy().reshape(-1), n_hit, n_miss,
                               p.occ_hit, p.occ_miss, p.occ_clamp)
     neg0 = ~beyond & (_bits(acc) == 0x80000000) & dropped
     acc[neg0] = 0.0
     return torch_clamp(acc, p.occ_clamp).reshape(grid.occ.shape), adds
+
+
+def occupancy_mirror(grid, p, sensor, pts, mask):
+    """(occ, adds a row) as csrc/occupancy.cu's two-pass path computes
+    them: one counter a row of the whole stack."""
+    (hs, hc), (ms, mc), dropped = occupancy_entries(grid, p, sensor, pts,
+                                                    mask)
+    rows = p.grid_h * p.grid_w
+    n_rows = dropped.size
+    n_hit = np.bincount(hs * rows + hc, minlength=n_rows)
+    n_miss = np.bincount(ms * rows + mc, minlength=n_rows)
+    return occupancy_rows(grid, p, n_hit, n_miss, dropped)
+
+
+def cluster_mirror(grid, p, sensor, pts, mask, k):
+    """(occ, adds a row) as the one-launch path computes them: a cluster
+    of k blocks a stream, block j owning rows [j R, (j + 1) R) of its
+    stream (R = cuda_kernels.occupancy_block_rows) and their counters;
+    each entry counted at (its stream, its row's owner, the row's place
+    in the owner's range); then each block's rows."""
+    (hs, hc), (ms, mc), dropped = occupancy_entries(grid, p, sensor, pts,
+                                                    mask)
+    rows = p.grid_h * p.grid_w
+    n = dropped.size // rows
+    r = cuda_kernels.occupancy_block_rows(rows, k)
+    assert r % 4 == 0 and k * r >= rows
+    owned = np.zeros((2, n, k, r), np.int64)       # hits, misses
+    for j, (st, cell) in enumerate(((hs, hc), (ms, mc))):
+        np.add.at(owned[j], (st, cell // r, cell % r), 1)
+    n_hit, n_miss = (owned[j].reshape(n, k * r)[:, :rows].reshape(-1)
+                     for j in range(2))
+    return occupancy_rows(grid, p, n_hit, n_miss, dropped)
 
 
 def _cases(mp, fx, streams):
@@ -175,6 +217,49 @@ def test_mirror_gives_the_plain_bits(mp, fx, streams):
             assert adds.max() < 128, adds.max()
         if name == "clamp inf":
             assert adds.max() > 1000, adds.max()
+
+
+@pytest.mark.parametrize("streams", [0, 3])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_cluster_ownership_gives_the_two_pass_bits(mp, fx, streams, k):
+    """The one-launch path's split of the counters over a cluster of k
+    blocks a stream gives occupancy_mirror's bits (tolerance 0) and its
+    chains on every case, for one grid and a stack of 3."""
+    for name, p, grid, sensor, pts, mask in _cases(mp, fx, streams):
+        want, adds = occupancy_mirror(grid, p, sensor, pts, mask)
+        got, got_adds = cluster_mirror(grid, p, sensor, pts, mask, k)
+        off = int((_bits(got) != _bits(want)).sum())
+        assert off == 0, f"{name}: {off} elements off the two-pass bits"
+        assert np.array_equal(got_adds, adds), name
+
+
+H100_RESIDENT = {1: 0, 2: 66, 4: 30, 8: 15, 16: 7}.get   # 1,024 threads
+
+
+def test_cluster_or_two_pass_by_shape():
+    """The wrapper's rule: the canonical 200 x 200 grid takes the
+    cluster path with the most blocks a stream whose clusters the card
+    holds at once (the H100's counts: 16 blocks for one stream, 8 up to
+    15 streams, 4 up to 30, then 2: 40,000 rows need 2 blocks of 160
+    KB), a grid whose counters and old values do not fit 16 blocks of
+    227 KB the two-pass path; each chosen block's shared memory fits."""
+    rule = cuda_kernels.occupancy_cluster
+    got = [rule(40_000, False, n, H100_RESIDENT)
+           for n in (1, 7, 8, 15, 16, 30, 31, 64, 66, 67, 200)]
+    assert got == [16, 16, 8, 8, 4, 4, 2, 2, 2, 2, 2]
+    most = cuda_kernels.OCCUPANCY_MAX_CLUSTER
+    word = {False: 4, True: 8}
+    for wide, fits in ((False, 464_896), (True, 309_888)):
+        assert rule(fits, wide, 1, H100_RESIDENT) == most
+        assert rule(fits + 4, wide, 1, H100_RESIDENT) == 0
+        assert rule(1024 * 1024, wide, 64, H100_RESIDENT) == 0
+        for rows in (1, 7, 40_000, 100_000, fits):
+            for n in (1, 64, 1000):
+                k = rule(rows, wide, n, H100_RESIDENT)
+                assert k in (1, 2, 4, 8, 16)
+                assert (cuda_kernels.occupancy_block_rows(rows, k)
+                        * (word[wide] + 4)
+                        <= cuda_kernels.OCCUPANCY_MAX_SMEM)
 
 
 def test_neg_zero_rows_take_the_dropped_zero(mp, fx):
