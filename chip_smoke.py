@@ -280,11 +280,14 @@ Runs on a machine with a CUDA card and no JAX:
      reference's LC node bank equal to its compute_links_batch rows at
      batches of 4, 64 and 171 pairs (pose, validity, score and overlap
      count), the proposals launching `overlap_score` alone; then the
-     overlap score at 1, 4, 64, 171 and 1,024 pairs: the kernel against
-     the eager path + `row_sum` (the parent's) and the eager path +
-     torch.sum, every cell index and count equal, the scores within
-     OVERLAP_SCORE_TOL, device time in turns on a warm and a cold L2
-     beside the bound; the kernel against its numpy mirror
+     overlap score at 1, 4, 64, 171 and 1,024 pairs: the kernel (by its
+     size rule), its pair path and its group path (groups of the rule's
+     size, 4 below 160 pairs) against the eager path + `row_sum` (the
+     parent's) and the eager path + torch.sum, every cell index and
+     count equal, the scores within OVERLAP_SCORE_TOL, every path's
+     scores and counts equal to overlap_mirror (the pair path's order) bit for
+     bit, device time in turns on a warm and a cold L2 beside the
+     bound; the kernel against its numpy mirror
      (tests/test_torch_overlap.py) bit for bit on small grids and edge
      cases; compute_links_batch and rescore_links with the kernel and
      with the parent's path in turns, with their device operations; and
@@ -303,8 +306,11 @@ Runs on a machine with a CUDA card and no JAX:
          LM step rounds as the lockstep's eager operations), but for
          lanes named where the lockstep itself is unstable, held as
          phase 3 holds the solves (held_to_all); the Hessian written
-         the objective's at the result; the clusters the card holds at
-         once against the lanes, ms in turns;
+         the objective's at the result; the first four lanes of each
+         call refined alone equal to their rows; the blocks a lane (by
+         its shape) and the persistent clusters; for the largest call
+         of each path every lane's trials, refine_links_d2d's ms in
+         turns with the lockstep and the solve's launch alone;
      (b) match_d2d (phase 3c's case) and match_p2d (phase 13a's, the
          guarded projection in the kernel) in one `newton_solve` launch
          against their per-trial loops (poses within MATCH_ONE_TOL, the
@@ -5059,6 +5065,18 @@ def overlap_bound(stacked, ref_i, mov_i, nb):
             "bytes": n_bytes, "operations": ops}
 
 
+@contextlib.contextmanager
+def overlap_group_forced(group):
+    """Inside: cuda_kernels.overlap_score takes groups of `group` pairs
+    (0: the pair path) whatever its size rule says."""
+    rule = cuda_kernels.overlap_group
+    cuda_kernels.overlap_group = lambda n_pairs: group
+    try:
+        yield
+    finally:
+        cuda_kernels.overlap_group = rule
+
+
 def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
                        sizes, rounds=5):
     """The link paths' overlap score at each of `sizes` pairs (the
@@ -5092,8 +5110,17 @@ def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
         return lambda r, m, T: cuda_kernels.overlap_score_reference(
             occ_flat, origins, r, m, T, h, w, res, sum_rows=rs)
 
+    def path(group):
+        def fn(r, m, T):
+            with overlap_group_forced(group):
+                return cuda_kernels.overlap_score(occ_flat, origins, r, m, T,
+                                                  h, w, res)
+        return fn
+
+    lib = cuda_kernels.build()
     fns = {"kernel": lambda r, m, T: cuda_kernels.overlap_score(
                occ_flat, origins, r, m, T, h, w, res),
+           "pair path": path(0), "group path": None,
            "eager + row_sum": eager(row_sum),
            "eager + torch.sum": eager(torch_sum)}
     order = list(fns) + list(fns)[::-1]
@@ -5105,6 +5132,8 @@ def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
         r, m = ref_i[idx].contiguous(), mov_i[idx].contiguous()
         T = links.T[idx].contiguous()
         args = (r, m, T)
+        group = cuda_kernels.overlap_group(p) or 4
+        fns["group path"] = path(group)
         score, nb, cells = cuda_kernels.overlap_score(
             occ_flat, origins, r, m, T, h, w, res, cells=True)
         e_cells = overlap_cells_eager(origins, r, m, T, h, w, res)
@@ -5120,6 +5149,18 @@ def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
                   for k, o in outs.items() if k != "kernel"}
         cells_off = int((cells.long() != e_cells).sum())
         del cells, e_cells
+        # Both kernel paths against the kernel's numpy mirror (the pair
+        # path's order) with the card's transcendentals.
+        m_score, m_nb, _ = overlap_mirror(
+            stacked.occ.reshape(-1, h * w).cpu().numpy(),
+            origins.cpu().numpy(), r.cpu().numpy(), m.cpu().numpy(),
+            T.cpu().numpy(), h, w, res,
+            fns=torch_transcendentals(occ_flat.device))
+        mirror_off = {k: int((o[0].cpu().numpy().view(np.uint32)
+                              != m_score.view(np.uint32)).sum()
+                             + (o[1].cpu().numpy() != m_nb).sum())
+                      for k, o in outs.items()
+                      if k in ("kernel", "pair path", "group path")}
         wall = {k: [] for k in fns}
         for _ in range(rounds):
             for k in order:
@@ -5161,10 +5202,11 @@ def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
         out[p] = {"warm_ms": warm, "cold_ms": cold, "device_ms": prof,
                   "warm_readings_ms": wall, "score_diff": diff,
                   "nb_off": nb_off, "cells_off": cells_off,
-                  "cells_call_equal": same,
+                  "cells_call_equal": same, "group": group,
+                  "mirror_off": mirror_off,
                   "overlap_cells": int(nb.sum()), **bnd}
-        print(f"  overlap score, {p} pairs of {h} x {w} cells: kernel / "
-              "eager + row_sum / eager + torch.sum, us: warm L2 (CUDA "
+        print(f"  overlap score, {p} pairs of {h} x {w} cells: "
+              + " / ".join(fns) + ", us: warm L2 (CUDA "
               f"events, median of {rounds} in turns) " + " / ".join(
                   f"{v * 1e3:.2f}" for v in warm.values())
               + "; cold L2 " + " / ".join(f"{v * 1e3:.2f}"
@@ -5176,7 +5218,11 @@ def overlap_score_case(stacked, ref_i, mov_i, links, res, fp, u, ones,
               f"{bnd['bytes'] / 1e6:.2f} MB, {bnd['operations'] / 1e6:.1f} "
               f"Mop); cell indices off the eager path's {cells_off} of "
               f"{p * h * w}, counts off {nb_off}, scores within {diff}, "
-              f"the timed call = the cell indices' call: {same}")
+              f"the timed call = the cell indices' call: {same}; "
+              f"groups of {group} on the group path; scores and counts "
+              f"off overlap_mirror: {mirror_off}")
+        check(not any(mirror_off.values()),
+              "an overlap kernel path departs from overlap_mirror")
         check(same, "the overlap kernel's timed call and its call with "
               "cell indices give different scores or counts")
         check(cells_off == 0 and not any(nb_off.values()),
@@ -5715,6 +5761,26 @@ def _lanes_equal(a, b):
     return same.reshape(a.shape[0], -1).all(-1)
 
 
+ALONE_LANES = 4   # phase 17a: lanes of each call refined alone
+
+
+def alone_lanes(sargs, solve):
+    """How many of the first ALONE_LANES lanes of a link solve's batch
+    keep their row's bits (d, score, trials, converged, H) when solved
+    alone: the link solve sizes a lane's cluster by its shape alone."""
+    T0, src_b, packed, origins, offs, h, w, res, m = sargs
+    same = 0
+    for i in range(min(T0.shape[0], ALONE_LANES)):
+        one = CellList(*(x[i:i + 1] for x in (src_b.means, src_b.covs,
+                                               src_b.mask)))
+        got = cuda_kernels.newton_solve_batch(
+            torch.zeros((1, 3), device=T0.device), T0[i:i + 1], one, packed,
+            origins[i:i + 1], offs[i:i + 1], h, w, res, m, with_hessian=True)
+        same += all(bool(_lanes_equal(g, x[i:i + 1])[0])
+                    for g, x in zip(got, solve))
+    return same
+
+
 def refinement_case(name, calls, dev, times=True):
     """Phase 17a on the recorded refinements of one path: each call once
     through links.refine_links_d2d (one `newton_solve_batch` launch, no
@@ -5732,7 +5798,8 @@ def refinement_case(name, calls, dev, times=True):
     the lanes.  Times the largest call in turns.  Returns a summary."""
     lib = cuda_kernels.build()
     out = {"calls": len(calls), "lanes": 0, "bits_equal": 0,
-           "hessian_equal": 0, "launches": 0, "per_trial_launches": 0,
+           "hessian_equal": 0, "alone_equal": 0, "launches": 0,
+           "per_trial_launches": 0,
            "syncs": 0, "per_trial_syncs": 0, "excepted": [], "waves": [],
            "score": 0.0, "per_trial_score": 0.0, "start_stopped": 0,
            "per_trial_start_stopped": 0}
@@ -5793,19 +5860,20 @@ def refinement_case(name, calls, dev, times=True):
         out["lanes"] += lanes
         out["bits_equal"] += int(same.sum())
         n_src = src_b.mask.shape[-1]
-        cluster = cuda_kernels._solve_cluster(lib, dev, lanes, n_src, 0)
-        resident = lib.ndtg_solve_max_clusters(n_src, 0, cluster)
+        cluster, resident = cuda_kernels._link_cluster(lib, dev, n_src, 0)
         if lanes > resident:
             out["waves"].append({"call": k, "lanes": lanes,
                                  "resident": resident})
         if k == 0 or lanes > resident:
-            objective = cuda_kernels._objective_cluster(lib, dev, lanes,
-                                                        n_src, 0)
             print(f"    {name} refinement {k}: {lanes} lanes x {n_src} "
                   f"source cells, {cluster} blocks a lane (the per-trial "
-                  f"objective's: {objective}); the card holds {resident} "
-                  "such clusters at once"
-                  + (" (a second wave)" if lanes > resident else ""))
+                  f"yardstick's too); {min(lanes, resident)} persistent "
+                  f"clusters (the card holds {resident}) take the lanes")
+        alone = alone_lanes(sargs, solve)
+        out["alone_equal"] += alone
+        check(alone == min(lanes, ALONE_LANES),
+              f"{name} refinement {k}: a link refined alone parts from "
+              "its row of the batch")
         if not bool(same.all()):
             parted = (~same).nonzero()[:, 0].tolist()
             spread = start_spread(per_solve, zero)
@@ -5865,16 +5933,29 @@ def refinement_case(name, calls, dev, times=True):
         out.update(bound(n_bytes + lanes * (4 * (3 + 3 + 2 + 9) + 8
                                             + 4 * (3 + 1 + 1) + 1),
                          int((evals * lane_pairs).sum())))
+        cluster, resident = cuda_kernels._link_cluster(
+            lib, dev, src_b.mask.shape[-1], 0)
+        out["timed_lane_trials"] = solve[2].tolist()
+        out["timed_blocks"] = cluster
+        out["timed_clusters"] = min(lanes, resident)
         print(f"    {name}, {out['timed_lanes']} lanes: "
               f"{int(evals.sum())} evaluations; bound "
-              f"{out['bound_ms'] * 1e3:.4f} us ({out['bound_by']})")
+              f"{out['bound_ms'] * 1e3:.4f} us ({out['bound_by']}); "
+              f"{cluster} blocks a lane on {out['timed_clusters']} "
+              f"clusters; trials a lane {out['timed_lane_trials']}")
         t = time_turns(lambda: links_mod.refine_links_d2d(*args, **kwargs),
                        lambda: per_trial_refine(*args, **kwargs), 20, 3,
                        label="per-trial lockstep")
         out.update(t)
-        print(f"    {name}, {out['timed_lanes']} lanes: one launch "
+        # The solve alone (one launch), without refine_links_d2d's
+        # covariances (d2d.cov_from_hessian, eager) and poses.
+        zero = torch.zeros((lanes, 3), device=dev)
+        out["solve_ms"] = device_ms(lambda: cuda_kernels.newton_solve_batch(
+            zero, *sargs, with_hessian=True), 20, launches=1)
+        print(f"    {name}, {out['timed_lanes']} lanes: refine_links_d2d "
               f"{t['ms'] * 1e3:.1f} us device / {t['events_ms'] * 1e3:.1f} "
-              f"us with the host, per-trial lockstep "
+              f"us with the host, of which the newton_solve_batch launch "
+              f"{out['solve_ms'] * 1e3:.1f} us; per-trial lockstep "
               f"{t['plain_ms'] * 1e3:.1f} / {t['plain_events_ms'] * 1e3:.1f}")
     return out
 
@@ -6963,6 +7044,14 @@ def main():
     by_name["newton_solve_batch"]["launches_refinement"] = {
         k: one_launch[k]["launches"] for k in ("offline", "grouped",
                                                 "online")}
+    by_name["newton_solve_batch"]["refinement_ms"] = {
+        k: {"lanes": one_launch[k]["timed_lanes"],
+            "blocks": one_launch[k]["timed_blocks"],
+            "solve_ms": one_launch[k]["solve_ms"],
+            "refine_links_d2d_ms": one_launch[k]["ms"],
+            "bound_ms": one_launch[k]["bound_ms"]}
+        for k in ("offline", "grouped", "online")
+        if "solve_ms" in one_launch[k]}
     by_name["newton_solve"]["launches_chunked"] = (
         entry_points["chunked"]["launches"]["newton_solve"])
     by_name["newton_solve"]["launches_match"] = {

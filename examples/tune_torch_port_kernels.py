@@ -1,7 +1,8 @@
 """Launch-shape sweep of the port's objective kernel on one CUDA card.
 
     python3 examples/tune_torch_port_kernels.py [--out DIR]
-                                  [--fleet | --solve | --features | --occupancy]
+                                  [--fleet | --solve | --features | --occupancy
+                                   | --links | --overlap]
 
 Builds csrc/pair_fgh.cu at 256, 512 and 1024 threads per block
 (-DNDTG_OBJECTIVE_THREADS) and, for each, times the entries at the
@@ -33,6 +34,22 @@ the LC bank's 171 pairs of 128 features, and `describe_features` with
 200 scans'; the sizes in turns, three rounds, each forced size's result
 held bit for bit against the wrapper's own choice's (`detect_cluster`,
 `match_cluster`, `describe_threads`).
+
+`--links` times link refinement (`newton_solve_batch` with the
+Hessians, the link solve) alone at its three shapes
+(examples/probe_link_stages.py's offline 171, grouped 16 and online 4
+lanes of the LC bank) with a lane's cluster forced to 2, 4 and 8 blocks
+beside the wrapper's own choice (`link_cluster`), built at 3 and 4
+blocks an SM (-DNDTG_LINK_MIN_BLOCKS), and in a build of up to 16
+(-DNDTG_LINK_MAX_CLUSTER=16, non-portable), three rounds in turns; each
+size of the default build first held through chip_smoke.refinement_case
+(every lane's bits against the per-trial lockstep at that size, four
+lanes alone against their rows).  `--overlap` times `overlap_score` alone on the LC
+bank's candidate pairs at 1, 4, 16, 64, 128, 171, 256, 512 and 1,024 pairs:
+the pair path and the group path at 1, 2, 4 and 8 pairs a group,
+beside the size rule's own choice, with the group kernel built at 3, 4
+and 6 blocks an SM (-DNDTG_OVERLAP_GROUP_BLOCKS), three rounds in
+turns, each held bit for bit to the pair path's.
 
 `--occupancy` times `occupancy_update` alone on phase 3e's update
 (canonical scan 2 on scan 0's map) of one grid and of stacks of 8 and
@@ -75,6 +92,8 @@ THREADS = (256, 512, 1024)
 CLUSTERS = (None, 1, 2, 4, 8)       # None: the wrapper's own choice
 OCCUPANCY_THREADS = (512, 1024)     # the occupancy cluster's block sizes
 BUDGET = 192                        # source cells per batched lane
+OVERLAP_GROUP_BLOCKS = (3, 4, 6)    # the group kernel's blocks an SM
+LINK_MIN_BLOCKS = (3, 4)            # the link solve's blocks an SM
 
 
 def rebuild(threads):
@@ -82,6 +101,7 @@ def rebuild(threads):
     cuda_kernels._lib = None
     cuda_kernels._RESIDENT_BLOCKS.clear()
     cuda_kernels._SOLVE_CLUSTER.clear()
+    cuda_kernels._LINK_CLUSTER.clear()
     cuda_kernels.NVCC_FLAGS = [
         f for f in cuda_kernels.NVCC_FLAGS
         if not f.startswith("-DNDTG_OBJECTIVE_THREADS")
@@ -130,6 +150,123 @@ def solve_sweep(fp, seq, dev, emit):
                  resident_clusters=lib.ndtg_solve_max_clusters(
                      n_src, n_feat, force),
                  trials_max=int(got[2].max()), device_us=us)
+
+
+def links_sweep(dev, emit, rounds=3):
+    """Link refinement at each forced cluster size (see --links)."""
+    import probe_link_stages
+    own = cuda_kernels._link_cluster
+    flags = cuda_kernels.NVCC_FLAGS
+    refs = probe_link_stages.refinements(dev)
+    try:
+        for most, min_blocks in [(8, k) for k in LINK_MIN_BLOCKS] + [
+                (16, LINK_MIN_BLOCKS[-1])]:
+            cuda_kernels._lib = None
+            cuda_kernels._LINK_CLUSTER.clear()
+            cuda_kernels.NVCC_FLAGS = [
+                *flags, f"-DNDTG_LINK_MIN_BLOCKS={min_blocks}"] + (
+                [f"-DNDTG_LINK_MAX_CLUSTER={most}"] if most != 8 else [])
+            lib = cuda_kernels.build()
+            sizes = (None, 2, 4, 8) if most == 8 else (16,)
+            for name, (args, kwargs) in refs.items():
+                sargs = chip_smoke.refine_args(*args, **kwargs)
+                n_src = sargs[1].mask.shape[-1]
+                zero = torch.zeros((sargs[0].shape[0], 3), device=dev)
+                times, seen = {k: [] for k in sizes}, {}
+                for _ in range(rounds):
+                    for k in sizes:
+                        cuda_kernels._link_cluster = own if k is None else (
+                            lambda lib_, d, s, f, k=k:
+                            (k, lib_.ndtg_link_max_clusters(s, f, k)))
+                        try:
+                            if k not in seen:
+                                out = cuda_kernels.newton_solve_batch(
+                                    zero, *sargs, with_hessian=True)
+                                held = (chip_smoke.refinement_case(
+                                    name, [(args, kwargs)], dev,
+                                    times=False) if most == 8
+                                    and min_blocks == LINK_MIN_BLOCKS[-1]
+                                    else None)
+                                seen[k] = (out, held)
+                            times[k].append(1e3 * chip_smoke.device_ms(
+                                lambda: cuda_kernels.newton_solve_batch(
+                                    zero, *sargs, with_hessian=True), 20))
+                        finally:
+                            cuda_kernels._link_cluster = own
+                for k in sizes:
+                    out, held = seen[k]
+                    emit(entry="link_solve", case=name,
+                         lanes=int(zero.shape[0]), n_src=n_src,
+                         blocks_an_sm=min_blocks,
+                         blocks=k or own(lib, dev, n_src, 0)[0],
+                         own_choice=k is None,
+                         resident_clusters=lib.ndtg_link_max_clusters(
+                             n_src, 0, k or own(lib, dev, n_src, 0)[0]),
+                         trials_max=int(out[2].max()),
+                         trials_sum=int(out[2].sum()),
+                         lanes_equal_to_lockstep=(
+                             held["bits_equal"] if held else None),
+                         alone_equal=held["alone_equal"] if held else None,
+                         device_us=times[k])
+    finally:
+        cuda_kernels.NVCC_FLAGS = flags
+        cuda_kernels._lib = None
+        cuda_kernels._LINK_CLUSTER.clear()
+
+
+def overlap_sweep(dev, emit, rounds=3):
+    """`overlap_score` on each path and layout (see --overlap), the group
+    kernel built at each of OVERLAP_GROUP_BLOCKS blocks an SM."""
+    flags = cuda_kernels.NVCC_FLAGS
+    try:
+        for blocks in OVERLAP_GROUP_BLOCKS:
+            cuda_kernels._lib = None
+            cuda_kernels.NVCC_FLAGS = [
+                *flags, f"-DNDTG_OVERLAP_GROUP_BLOCKS={blocks}"]
+            overlap_layouts(dev, emit, blocks, rounds)
+    finally:
+        cuda_kernels.NVCC_FLAGS = flags
+        cuda_kernels._lib = None
+
+
+def overlap_layouts(dev, emit, blocks, rounds):
+    from ndt_feature_graph_tpu_torch.graph import links as links_mod
+    lc = dict(np.load(chip_smoke.LC_FIXTURE))
+    sp, _, stacked, ref_i, mov_i, u = chip_smoke.link_bank(lc, dev)
+    res = sp.fuser.ndt.resolution
+    ls = links_mod.compute_links_batch(
+        sp.fuser.features, res, stacked, ref_i, mov_i,
+        torch.ones(ref_i.shape[0], dtype=torch.bool, device=dev), u)
+    h, w = stacked.occ.shape[1:]
+    occ, origins = stacked.occ.reshape(-1), stacked.occ_origin
+    layouts = [("rule", None), ("pair path", 0)] + [
+        (f"group path, {g} pairs a group", g) for g in (1, 2, 4, 8)]
+    for pairs in (1, 4, 16, 64, 128, 171, 256, 512, 1024):
+        idx = torch.arange(pairs, device=dev) % ref_i.shape[0]
+        r, m = ref_i[idx].contiguous(), mov_i[idx].contiguous()
+        T = ls.T[idx].contiguous()
+        with chip_smoke.overlap_group_forced(0):
+            want = cuda_kernels.overlap_score(occ, origins, r, m, T, h, w,
+                                              res)
+        times = {name: [] for name, _ in layouts}
+        same = {}
+        for _ in range(rounds):
+            for name, group in layouts:
+                def fn(group=group):
+                    if group is None:
+                        return cuda_kernels.overlap_score(
+                            occ, origins, r, m, T, h, w, res)
+                    with chip_smoke.overlap_group_forced(group):
+                        return cuda_kernels.overlap_score(
+                            occ, origins, r, m, T, h, w, res)
+                got = fn()
+                same[name] = (torch.equal(got[0], want[0])
+                              and torch.equal(got[1], want[1]))
+                times[name].append(1e3 * chip_smoke.device_ms(fn, 50))
+        for name, _ in layouts:
+            emit(entry="overlap_score", pairs=pairs, layout=name,
+                 group_blocks_an_sm=blocks,
+                 equal_to_pair_path=same[name], device_us=times[name])
 
 
 def features_sweep(dev, emit, rounds=3):
@@ -259,6 +396,10 @@ def main():
                          "alone")
     ap.add_argument("--occupancy", action="store_true",
                     help="sweep the occupancy kernel's cluster size alone")
+    ap.add_argument("--links", action="store_true",
+                    help="sweep the link solve's cluster size alone")
+    ap.add_argument("--overlap", action="store_true",
+                    help="sweep the overlap score's paths alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_torch_port_kernels: no CUDA device")
@@ -276,6 +417,7 @@ def main():
     state, src_full, T0, Q, d, fs, ft = chip_smoke.trial_case(sp, fx, dev)
     bank, pairs, T0_b = chip_smoke.small_bank(sp, fx, dev)
     own_choice = cuda_kernels._objective_cluster
+    own_link = cuda_kernels._link_cluster
     lines = []
 
     def emit(**rec):
@@ -289,13 +431,21 @@ def main():
         features_sweep(dev, emit)
     if args.occupancy:
         occupancy_sweep(dev, emit)
-    alone = args.solve or args.features or args.occupancy
+    if args.links:
+        links_sweep(dev, emit)
+    if args.overlap:
+        overlap_sweep(dev, emit)
+    alone = (args.solve or args.features or args.occupancy or args.links
+             or args.overlap)
     for threads in () if alone else THREADS[:1] if args.fleet \
             else THREADS:
         rebuild(threads)
         for cluster in CLUSTERS:
             cuda_kernels._objective_cluster = own_choice if cluster is None \
                 else (lambda *a, c=cluster: c)
+            # fgh_dense_flat_batch sizes its lanes as the link solve does.
+            cuda_kernels._link_cluster = own_link if cluster is None \
+                else (lambda *a, c=cluster: (c, 1))
             for n_src in () if args.fleet else (256, 1024):
                 src = src_full.head(n_src)
                 a = (d, T0, src, state.packed, state.grid.origin, h, w, res,
@@ -343,6 +493,7 @@ def main():
                          lambda: cuda_kernels.newton_objective_batch(*call),
                          20))
     cuda_kernels._objective_cluster = own_choice
+    cuda_kernels._link_cluster = own_link
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "tune_torch_port_kernels.jsonl"),

@@ -100,6 +100,10 @@
 //     same bits but was slower at every shape timed on the H100
 //     (PERF.md §6): an 800-byte box a cell waits out a copy's round
 //     trip, where a step's __ldg reads issue together and hit L2.
+//   * Link refinement runs link_solve_kernel: the same solve with a
+//     lane's cluster sized by its shape alone, persistent clusters
+//     taking lanes from a device counter, one cluster barrier a trial
+//     (its comment below says why).
 //   * row_sum_kernel: the link paths' overlap sum in one fixed order a
 //     row, so a pair scored alone keeps the bits of its row in a batch.
 //
@@ -114,14 +118,36 @@
 #include <stdint.h>
 
 #include "cluster_launch.cuh"
+#include "stage_probe.cuh"
 
 namespace cg = cooperative_groups;
+
+#ifdef NDTG_STAGE_PROBE
+// Copies the lap sums of the NDTG_LAP marks below to host memory and
+// clears them (examples/probe_link_stages.py).
+extern "C" int ndtg_solve_probe_read(long long* clock, long long* ns) {
+  return ndtg::probe_read(clock, ns);
+}
+#endif
 
 namespace {
 
 constexpr int kComps = 10;     // s, g0..g2, h00 h01 h02 h11 h12 h22
 constexpr int kOut = 13;       // f, g (3), H (3x3 row-major)
 constexpr int kMaxCluster = 8;   // the portable cluster size
+// The largest cluster of a link lane (link_solve_kernel); above 8 it is
+// non-portable (examples/tune_torch_port_kernels.py --links builds 16).
+#ifndef NDTG_LINK_MAX_CLUSTER
+#define NDTG_LINK_MAX_CLUSTER 8
+#endif
+constexpr int kLinkMaxCluster = NDTG_LINK_MAX_CLUSTER;
+// Blocks of the link solve an SM holds (a register cap; the objective
+// kernel's is three; examples/tune_torch_port_kernels.py --links builds
+// three and four).
+#ifndef NDTG_LINK_MIN_BLOCKS
+#define NDTG_LINK_MIN_BLOCKS 4
+#endif
+constexpr int kLinkMinBlocks = NDTG_LINK_MIN_BLOCKS;
 // Threads per block of the objective kernel.  256 is the fastest of
 // 256, 512 and 1024 on the H100 for the batched lanes and as fast as
 // 512 for one lane of 256 source cells
@@ -316,27 +342,30 @@ __device__ __forceinline__ float odometry_output(int o,
 
 // Sum over the cluster's blocks, in rank order, of component c of each
 // block's shared `part`: the reads are issued together, then added.
+template <int MAXC = kMaxCluster>
 __device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
                                              float* part, int c,
                                              unsigned n_blocks) {
-  float x[kMaxCluster];
+  float x[MAXC];
 #pragma unroll
-  for (unsigned r = 0; r < kMaxCluster; ++r) {
+  for (unsigned r = 0; r < MAXC; ++r) {
     x[r] = r < n_blocks ? cluster.map_shared_rank(part, r)[c] : 0.0f;
   }
   float acc = 0.0f;
 #pragma unroll
-  for (unsigned r = 0; r < kMaxCluster; ++r) {
+  for (unsigned r = 0; r < MAXC; ++r) {
     if (r < n_blocks) acc += x[r];
   }
   return acc;
 }
 
-// Output o (of the 13) of the cluster's sum: block rank 0 adds the
-// blocks' window partials part[0..10) in rank order, then (paired) the
-// paired partials part[10..20) of the first `paired_blocks` ranks, then
-// (Q != nullptr) the odometry term.  Called by threads o < kOut of rank
-// 0 after a cluster.sync() that follows every block's partials.
+// Output o (of the 13) of the cluster's sum: the blocks' window partials
+// part[0..10) added in rank order, then (paired) the paired partials
+// part[10..20) of the first `paired_blocks` ranks, then (Q != nullptr)
+// the odometry term.  Called by threads o < kOut of a block (rank 0, or
+// every block of a link cluster) after a cluster.sync() that follows
+// every block's partials.
+template <int MAXC = kMaxCluster>
 __device__ __forceinline__ float cluster_output(cg::cluster_group& cluster,
                                                 float* part, int o,
                                                 bool paired,
@@ -344,8 +373,10 @@ __device__ __forceinline__ float cluster_output(cg::cluster_group& cluster,
                                                 const float* d,
                                                 const float* __restrict__ Q) {
   const int c = comp_of_output(o);
-  float acc = cluster_sum(cluster, part, c, cluster.num_blocks());
-  if (paired) acc += cluster_sum(cluster, part, kComps + c, paired_blocks);
+  float acc = cluster_sum<MAXC>(cluster, part, c, cluster.num_blocks());
+  if (paired) {
+    acc += cluster_sum<MAXC>(cluster, part, kComps + c, paired_blocks);
+  }
   if (Q != nullptr) acc += odometry_output(o, d, Q);
   return acc;
 }
@@ -692,11 +723,13 @@ __device__ __forceinline__ void objective_partials(
     }
   }
 
+  NDTG_LAP(1, "solve: cell loop");
   if (paired && rank < (int)paired_block_count<THREADS>(a.n_feat, n_blocks)) {
     block_sum<THREADS, 2 * kComps>(v, warp_sums, part);
   } else {
     block_sum<THREADS, kComps>(v, warp_sums, part);
   }
+  NDTG_LAP(2, "solve: block sum");
 }
 
 // One cluster per lane evaluates the lane's objective once
@@ -1108,12 +1141,15 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
   if (threadIdx.x < 3) trial_d[threadIdx.x] = a.d[3 * b + threadIdx.x];
   if (threadIdx.x == 0) st.trials = -1;
   __syncthreads();
+  NDTG_LAP_BEGIN();
 
   for (;;) {
+    NDTG_LAP_COUNT();
     objective_partials<THREADS, BF16_ROWS, true>(
         a, b, trial_d, rank, n_blocks, solve_slots, feature_slots, pose,
         warp_sums, part);
     cluster.sync();                    // every block's partials are written
+    NDTG_LAP(3, "solve: first cluster sync");
     if (rank == 0) {
       if (threadIdx.x < kOut) {
         fgh[threadIdx.x] = cluster_output(cluster, part, threadIdx.x, paired,
@@ -1122,6 +1158,7 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
       __syncthreads();
       if (threadIdx.x == 0) go = lm_step(st, fgh, trial_d, s);
     }
+    NDTG_LAP(4, "solve: output and LM step");
     cluster.sync();                    // rank 0 has read and stepped
     if (rank != 0) {
       if (threadIdx.x < 3) {
@@ -1131,10 +1168,135 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 256 ? 3 : 1)
       }
     }
     __syncthreads();
+    NDTG_LAP(5, "solve: second sync and broadcast");
     if (!go) break;                    // uniform over the cluster
   }
   if (rank == 0 && threadIdx.x == 0) lm_finish(st, s, b);
   cluster.sync();                      // rank 0 stays until peers have read
+  NDTG_LAP_END((long long)blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// ---------------------------------------------------------------------
+// Link refinement (links.refine_links_d2d, the window term over a bank of
+// nodes with the Hessian at the result): the solve of newton_solve_kernel
+// with its lanes scheduled over persistent clusters.
+//
+// The link paths launch one solve for up to a few hundred lanes whose
+// trial counts differ by 50x (1 to 52 at the LC bank's 171 lanes,
+// PERF.md section 6), so a launch lasts as long as its slowest lane's
+// chain of trials or as the lanes' work over the clusters in flight,
+// whichever is longer.  newton_solve_kernel sizes a lane's cluster by
+// how many lanes share the card (2 blocks at 171 lanes, 8 at 16), which
+// makes a lane's summation order, and so its bits, depend on its batch.
+// This kernel instead:
+//   * sizes a lane's cluster by its shape alone (the wrapper's
+//     link_cluster: its source cells and feature pairs, and the card's
+//     cluster limit), so a link refined alone keeps the bits of its row
+//     in any batch, and those of the per-trial yardstick
+//     (fgh_dense_flat_batch at the same cluster size);
+//   * launches as many persistent clusters as the card holds at that
+//     size (ndtg_link_max_clusters) and lets each take its next lane from
+//     a device counter (an atomicAdd by rank 0, handed to its peers
+//     through distributed shared memory before a cluster barrier), so a
+//     cluster whose lane stops early takes another while a long lane
+//     runs; which cluster takes a lane changes none of its bits.  The
+//     last cluster to find the counter spent puts it back to zero, so
+//     the counter needs no reset between launches on a stream;
+//   * holds one cluster barrier a trial: every block reads all blocks'
+//     partials (a parity-double-buffered `part`, so a block that runs
+//     ahead into the next trial writes the other half) and runs
+//     cluster_output and lm_step itself, the same instructions on the
+//     same values in every block, so each holds the lane's LM state and
+//     needs no broadcast.  lm_step and its rounding are newton_solve's.
+// A trial at 8 blocks costs ~5.3-5.8 us (cell loop ~2.7-3.0, block sum
+// ~0.5, the barrier ~0.9, output and LM step ~1.4-1.8; PERF.md section
+// 6).  Registers are capped for four blocks an SM (64, some spilled):
+// the 171-lane launch is bound by the clusters in flight, and four
+// blocks an SM beat three there (examples/tune_torch_port_kernels.py).
+template <int THREADS, bool BF16_ROWS, int MAXC>
+__global__ void __launch_bounds__(THREADS,
+                                  THREADS <= 256 ? kLinkMinBlocks : 1)
+    link_solve_kernel(ObjectiveArgs a, SolveArgs s, int n_lanes,
+                      int* __restrict__ queue) {
+  constexpr int kWarps = THREADS / 32;
+  extern __shared__ float4 solve_slots[];
+  __shared__ float pose[4];
+  __shared__ float warp_sums[kWarps][2 * kComps];
+  __shared__ float part[2][2 * kComps];   // a trial's partials, by parity
+  __shared__ float trial_d[3];
+  __shared__ int lane_of_cluster;         // written by rank 0
+  __shared__ int go;
+  __shared__ float fgh[kOut];
+  __shared__ LMState st;
+
+  // Half a cluster barrier, waited on before the first lane is taken.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_blocks = (int)cluster.num_blocks();
+  const bool paired = a.fs_means != nullptr;
+  const unsigned paired_blocks =
+      paired_block_count<THREADS>(a.n_feat, n_blocks);
+  const int n_cell_slots =
+      a.packed != nullptr ? slots_per_block(a.n_src, n_blocks * kWarps, kWarps)
+                          : 0;
+  float4* feature_slots = solve_slots + 2 * n_cell_slots;
+  NDTG_LAP_BEGIN();
+  // Rank 0 writes into its peers' shared memory on its first take: the
+  // wait knows every block of the cluster has started.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (;;) {
+    if (rank == 0 && threadIdx.x == 0) {
+      const int lane = atomicAdd(queue, 1);
+      for (int r = 0; r < n_blocks; ++r) {
+        *cluster.map_shared_rank(&lane_of_cluster, r) = lane;
+      }
+      if (lane >= n_lanes) {
+        // This cluster's last take: the last of them resets the queue.
+        __threadfence();
+        if (atomicAdd(queue + 1, 1) == (int)gridDim.y - 1) {
+          queue[0] = 0;
+          queue[1] = 0;
+        }
+      }
+    }
+    cluster.sync();   // the lane is handed over; the last lane is read
+    const int lane = lane_of_cluster;
+    if (lane >= n_lanes) break;           // uniform over the cluster
+    const long long b = lane;
+    const float* Q = a.Q != nullptr ? a.Q + 9 * b : nullptr;
+    if (a.packed != nullptr) {
+      fill_slots<THREADS>(a.means + b * a.n_src * 2, a.covs + b * a.n_src * 4,
+                          a.mask + b * a.n_src, a.n_src, rank,
+                          n_blocks * kWarps, solve_slots);
+    }
+    if (paired) {
+      fill_feature_slots<THREADS>(a, b, rank, n_blocks, feature_slots);
+    }
+    if (threadIdx.x < 3) trial_d[threadIdx.x] = a.d[3 * b + threadIdx.x];
+    if (threadIdx.x == 0) st.trials = -1;
+    __syncthreads();
+    NDTG_LAP(0, "link: lane start");
+    for (int t = 0;; t ^= 1) {
+      NDTG_LAP_COUNT();
+      objective_partials<THREADS, BF16_ROWS, true>(
+          a, b, trial_d, rank, n_blocks, solve_slots, feature_slots, pose,
+          warp_sums, part[t]);
+      cluster.sync();                  // every block's partials are written
+      NDTG_LAP(3, "link: cluster sync");
+      if (threadIdx.x < kOut) {
+        fgh[threadIdx.x] = cluster_output<MAXC>(
+            cluster, part[t], threadIdx.x, paired, paired_blocks, trial_d, Q);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) go = lm_step(st, fgh, trial_d, s);
+      __syncthreads();
+      NDTG_LAP(4, "link: output and LM step");
+      if (!go) break;                  // uniform over the cluster
+    }
+    if (rank == 0 && threadIdx.x == 0) lm_finish(st, s, b);
+  }
+  NDTG_LAP_END((long long)blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 // ---------------------------------------------------------------------
@@ -1333,6 +1495,109 @@ int ndtg_newton_solve(const float* d_init, const float* T0,
   return launch_clusters(kernel, kObjectiveThreads, cluster, n_lanes,
                          static_cast<size_t>(smem),
                          static_cast<cudaStream_t>(stream), a, s);
+}
+
+int ndtg_link_max_cluster() { return kLinkMaxCluster; }
+
+// The link solve's two row modes, their dynamic shared memory allowed
+// up to `smem` and clusters above 8 blocks, once a process (the
+// attribute is the function's, for every launch).  Returns the error.
+static cudaError_t link_configure(int smem) {
+  void (*const kernels[2])(ObjectiveArgs, SolveArgs, int, int*) = {
+      link_solve_kernel<kObjectiveThreads, false, kLinkMaxCluster>,
+      link_solve_kernel<kObjectiveThreads, true, kLinkMaxCluster>};
+  for (auto kernel : kernels) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    if (kLinkMaxCluster > kMaxCluster) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
+// Clusters of the link solve the card holds at once at `cluster` blocks
+// a lane (both row modes, the fewer); 0 if such a cluster cannot launch.
+int ndtg_link_max_clusters(int n_src, int n_feat, int cluster) {
+  if (cluster < 1 || cluster > kLinkMaxCluster) return 0;
+  const int smem = ndtg_solve_smem(n_src, n_feat, cluster);
+  if (link_configure(smem) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  void (*const kernels[2])(ObjectiveArgs, SolveArgs, int, int*) = {
+      link_solve_kernel<kObjectiveThreads, false, kLinkMaxCluster>,
+      link_solve_kernel<kObjectiveThreads, true, kLinkMaxCluster>};
+  int least = -1;
+  for (auto kernel : kernels) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(kObjectiveThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    least = least < 0 || n < least ? n : least;
+  }
+  return least;
+}
+
+// Link refinement: the minimisation of ndtg_newton_solve (the same
+// arguments, terms and outputs) for n_lanes lanes on n_clusters
+// persistent clusters of `cluster` blocks, each taking its next lane
+// from `queue` (two ints, zero before the first launch on a stream; the
+// launch leaves them zero).  Returns the launch error (0 = success).
+int ndtg_link_solve(const float* d_init, const float* T0,
+                    const float* means, const float* covs,
+                    const uint8_t* mask, const float* packed,
+                    const float* origins, const long long* row_offsets,
+                    int n_lanes, int n_src, int h, int w, float res,
+                    int nb, int bf16_rows, const float* fs_means,
+                    const float* fs_covs, const uint8_t* fs_mask,
+                    const float* ft_means, const float* ft_covs,
+                    const uint8_t* ft_mask, int n_feat, const float* Q,
+                    float lfd1, float lfd2, int max_trials,
+                    float delta_score, int step_control, int psd_guard,
+                    float* d_out, float* score_out, int* trials_out,
+                    uint8_t* conv_out, float* h_out, int* queue,
+                    int n_clusters, int cluster, void* stream) {
+  const ObjectiveArgs a = {d_init, T0, means, covs, mask, packed, origins,
+                           row_offsets, n_src, h, w, nb, res, fs_means,
+                           fs_covs, fs_mask, ft_means, ft_covs, ft_mask,
+                           n_feat, Q, lfd1, lfd2, nullptr};
+  const SolveArgs s = {max_trials, delta_score, step_control, psd_guard,
+                       d_out, score_out, trials_out, conv_out, h_out};
+  if (cluster < 1 || cluster > kLinkMaxCluster || n_lanes < 1 ||
+      n_clusters < 1 || n_clusters > 65535 || queue == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = ndtg_solve_smem(packed != nullptr ? n_src : 0,
+                                   fs_means != nullptr ? n_feat : 0, cluster);
+  const cudaError_t err = link_configure(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void (*kernel)(ObjectiveArgs, SolveArgs, int, int*) =
+      bf16_rows != 0
+          ? link_solve_kernel<kObjectiveThreads, true, kLinkMaxCluster>
+          : link_solve_kernel<kObjectiveThreads, false, kLinkMaxCluster>;
+  return ndtg::launch_cluster(kernel, dim3(cluster, n_clusters, 1),
+                              kObjectiveThreads, cluster,
+                              static_cast<size_t>(smem),
+                              static_cast<cudaStream_t>(stream), a, s,
+                              n_lanes, queue);
 }
 
 // out: (13,).  One cluster of `cluster` blocks x ndtg_pair_threads().

@@ -17,7 +17,9 @@ fixed order.  The two solve entries run a whole registration:
     leaves at the lane's own stop: a fleet step's (fuser.update_batch)
     and a batch of links' D2D refinement (links.refine_links_d2d, the
     window term alone, with the Hessian at each lane's result for its
-    covariance).  Plain twin: `newton_solve_batch_reference`
+    covariance: the link solve, a lane's cluster sized by its shape
+    alone, `link_cluster`, on persistent clusters that take lanes from
+    a device counter).  Plain twin: `newton_solve_batch_reference`
     (d2d.newton_match_batch's masked lockstep).
 
 The others write one evaluation's (f, g, H) as 13 floats:
@@ -32,9 +34,9 @@ The others write one evaluation's (f, g, H) as 13 floats:
     evaluation.  Plain twin: d2d_analytic.fgh_dense_flat.
   * `fgh_dense_flat_batch` — the window term for B lanes against one
     flat (N*H*W, 8) node bank, each lane with its own row offset and its
-    own cluster: one lockstep trial of link refinement, launched by no
-    path since refinement runs in `newton_solve_batch`.  Plain twin:
-    d2d_analytic.fgh_dense_flat_batch.
+    own cluster, sized as the link solve sizes it: one lockstep trial of
+    link refinement, launched by no path since refinement runs in
+    `newton_solve_batch`.  Plain twin: d2d_analytic.fgh_dense_flat_batch.
   * `newton_objective_batch` — one Newton trial of B streams, the body
     of `newton_solve_batch`: every term per lane (its own source list,
     row offset into the flat (B*H*W, 8) stack of the streams' tables,
@@ -50,10 +52,12 @@ is torch.sum.  No path launches it since `overlap_score`.
 
 `csrc/overlap.cu` holds `overlap_score`, the link paths' occupancy-
 overlap score (links._overlap_score_flat, occupancy_overlap_score): a
-thread-block cluster a pair moves each cell of the moving map, gathers
-the reference map's log-odds and sums the squared sigmoid differences
-where both maps know the cell, in one launch and one pass over the node
-bank, the order a function of H*W alone.  Plain twin: the eager score,
+thread-block cluster a pair (from `overlap_group`'s batch size, a
+cluster a group of pairs of one moving node, which reads that map
+once) moves each cell of the moving map, gathers the reference map's
+log-odds and sums the squared sigmoid differences where both maps know
+the cell, in one launch and one pass over the node bank, the order a
+function of H*W alone on both paths.  Plain twin: the eager score,
 `overlap_score_reference`.
 
 `csrc/segment_sum.cu` holds `segment_add_rows`, the map statistics'
@@ -224,9 +228,17 @@ def build():
         I, P,              # cluster, stream
     ]
     lib.ndtg_newton_solve.restype = I
-    for fn in (lib.ndtg_solve_smem, lib.ndtg_solve_max_clusters):
+    for fn in (lib.ndtg_solve_smem, lib.ndtg_solve_max_clusters,
+               lib.ndtg_link_max_clusters):
         fn.argtypes = [I, I, I]
         fn.restype = I
+    lib.ndtg_link_max_cluster.argtypes = []
+    lib.ndtg_link_max_cluster.restype = I
+    lib.ndtg_link_solve.argtypes = [
+        *lib.ndtg_newton_solve.argtypes[:-2],
+        P, I, I, P,        # queue, clusters, cluster, stream
+    ]
+    lib.ndtg_link_solve.restype = I
     lib.ndtg_pair_fgh_reduce.argtypes = [
         P, P, P, P, P, LL, F, F, P, I, P,
     ]
@@ -258,6 +270,12 @@ def build():
         P, P, P, P,                # score, nb, cells, stream
     ]
     lib.ndtg_overlap_score.restype = I
+    lib.ndtg_overlap_group_score.argtypes = [
+        P, P, P, LL, P, P, P, LL,  # ref bank, origins, index, nodes; mov's
+        P, LL, I, I, F, F,         # T, pairs, h, w, res, 1 / res
+        I, LL, P, P, P,            # group, clusters, score, nb, stream
+    ]
+    lib.ndtg_overlap_group_score.restype = I
     for fn in (lib.ndtg_features_max_scales, lib.ndtg_features_max_bins):
         fn.argtypes = []
         fn.restype = I
@@ -389,6 +407,58 @@ def _objective_cluster(lib, device, n_lanes: int, n_src: int,
     return max(1, min(wanted, resident // n_lanes))
 
 
+def link_cluster(n_src: int, n_feat: int, max_cluster: int,
+                 threads: int = 256) -> int:
+    """Blocks of a link lane's cluster (the link solve and its per-trial
+    yardstick fgh_dense_flat_batch): as many as give each source cell a
+    warp and each feature pair a thread, up to `max_cluster` — a
+    function of the lane's shape and the card's cluster limit alone, not
+    of how many lanes share the launch, so a link refined alone sums in
+    the order of its row in any batch."""
+    wanted = max(-(-n_src // (threads // 32)), -(-n_feat // threads), 1)
+    return min(max_cluster, wanted)
+
+
+_LINK_CLUSTER = {}    # (device, n_src, n_feat) -> (blocks a lane, resident)
+
+
+def _link_cluster(lib, device, n_src: int, n_feat: int):
+    """(blocks a lane, clusters the card holds at once) of the link
+    solve: link_cluster's size, smaller only where that cluster cannot
+    launch with the solve's shared memory.  Cached per shape."""
+    key = (device, n_src, n_feat)
+    out = _LINK_CLUSTER.get(key)
+    if out is None:
+        cluster = link_cluster(n_src, n_feat, lib.ndtg_link_max_cluster(),
+                               lib.ndtg_objective_threads())
+        with _on(device):
+            resident = lib.ndtg_link_max_clusters(n_src, n_feat, cluster)
+            while cluster > 1 and resident == 0:
+                cluster -= 1
+                resident = lib.ndtg_link_max_clusters(n_src, n_feat,
+                                                      cluster)
+        if resident == 0:
+            raise RuntimeError("link solve: no cluster of the kernel fits "
+                               f"{n_src} source cells, {n_feat} pairs")
+        out = (cluster, resident)
+        _LINK_CLUSTER[key] = out
+    return out
+
+
+_LINK_QUEUES = {}     # (device, stream) -> the link solve's lane counter
+
+
+def _link_queue(device, stream: int):
+    """The lane counter of link solves on (device, stream): two int32,
+    zeroed once; each launch hands out its lanes from it and leaves it
+    zero, and launches on one stream run one after another."""
+    q = _LINK_QUEUES.get((device, stream))
+    if q is None:
+        q = torch.zeros(2, dtype=torch.int32, device=device)
+        _LINK_QUEUES[(device, stream)] = q
+    return q
+
+
 def _raise_on(err: int, entry: str):
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed, cudaError {err}")
@@ -396,10 +466,12 @@ def _raise_on(err: int, entry: str):
 
 def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
                       h, w, res, n, lfd1, lfd2, feat_src=None,
-                      feat_tgt=None, Q=None, bf16_rows=False):
+                      feat_tgt=None, Q=None, bf16_rows=False, link=False):
     """One launch of the objective kernel on checked CUDA tensors; None
     switches a term off.  d (B, 3) or (3,): returns the (B, 13) or (13,)
-    output.  Counts the launch under `entry`."""
+    output.  `link`: a lane's cluster as the link solve sizes it
+    (_link_cluster), else by _objective_cluster.  Counts the launch
+    under `entry`."""
     dev = d.device
     lib = build()
     n_lanes = d.shape[0] if d.dim() == 2 else 1
@@ -410,7 +482,8 @@ def _launch_objective(entry, d, T0, src, packed, origins, row_offsets,
     cells = lambda c: (  # noqa: E731
         (None, None, None) if c is None
         else (c.means.data_ptr(), c.covs.data_ptr(), c.mask.data_ptr()))
-    cluster = _objective_cluster(lib, dev, n_lanes, n_src, n_feat)
+    cluster = (_link_cluster(lib, dev, n_src, n_feat)[0] if link
+               else _objective_cluster(lib, dev, n_lanes, n_src, n_feat))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndtg_objective(
@@ -651,8 +724,10 @@ def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
     """One launch of the solve kernel on checked CUDA tensors; None
     switches a term off.  d_init (B, 3) or (3,): returns (d, score,
     trials int32, converged bool), and with `with_hessian` the Hessian
-    at d (..., 3, 3), with its leading shape.  Counts the launch under
-    `entry`."""
+    at d (..., 3, 3), with its leading shape: the link solve
+    (ndtg_link_solve: a lane's cluster by its shape, persistent clusters
+    taking lanes from a counter), else newton_solve_kernel.  Counts the
+    launch under `entry`."""
     dev = d_init.device
     lib = build()
     lead = d_init.shape[:-1]
@@ -669,18 +744,25 @@ def _launch_solve(entry, d_init, T0, src, packed, origins, row_offsets,
     cells = lambda c: (  # noqa: E731
         (None, None, None) if c is None
         else (c.means.data_ptr(), c.covs.data_ptr(), c.mask.data_ptr()))
-    cluster = _solve_cluster(lib, dev, n_lanes, n_src, n_feat)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ndtg_newton_solve(
+        common = (
             d_init.data_ptr(), T0.data_ptr(), *cells(src), ptr(packed),
             ptr(origins), ptr(row_offsets), n_lanes, n_src, h, w,
             float(res), m.n_neighbours, int(bf16_rows), *cells(feat_src),
             *cells(feat_tgt), n_feat, ptr(Q), float(m.lfd1), float(m.lfd2),
             d2d.trial_budget(m), float(m.delta_score), int(m.step_control),
             int(psd_guard), d.data_ptr(), score.data_ptr(), trials.data_ptr(),
-            conv.data_ptr(), ptr(hess), cluster, stream,
-        )
+            conv.data_ptr(), ptr(hess))
+        if with_hessian:
+            cluster, resident = _link_cluster(lib, dev, n_src, n_feat)
+            err = lib.ndtg_link_solve(
+                *common, _link_queue(dev, stream).data_ptr(),
+                min(n_lanes, resident), cluster, stream)
+        else:
+            err = lib.ndtg_newton_solve(
+                *common, _solve_cluster(lib, dev, n_lanes, n_src, n_feat),
+                stream)
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
     out = (d, score, trials, conv.view(torch.bool))
@@ -847,7 +929,7 @@ def fgh_dense_flat_batch(d_b, T0_b, src_b: CellList, packed_flat, origins,
     _check_lanes("fgh_dense_flat_batch", b)
     return _unpack13(_launch_objective(
         "fgh_dense_flat_batch", d_b, T0_b, src_b, packed_flat, origins,
-        row_offsets, h, w, res, n, lfd1, lfd2))
+        row_offsets, h, w, res, n, lfd1, lfd2, link=True))
 
 
 def _fgh_components(mu_x, mu_y, s00, s01, s11, mx, my, c00, c01, c11,
@@ -1068,6 +1150,58 @@ def overlap_score_reference(occ_flat, occ_origins, ref_i, mov_i, T, h: int,
                           occ_origins[ref_i], T, h, w, resolution, sum_rows)
 
 
+# csrc/overlap.cu's layout: threads a block, cells a vector, the largest
+# cluster, blocks an SM (kMinBlocks), vectors a thread of the group path
+# holds, moving nodes its count takes, pairs a group.
+OVERLAP_THREADS, OVERLAP_VEC, OVERLAP_MAX_CLUSTER = 256, 4, 8
+OVERLAP_BLOCKS_PER_SM = 6
+OVERLAP_GROUP_MAX_VEC, OVERLAP_GROUP_MAX_NODES = 6, 4096
+OVERLAP_GROUP_MAX = 8
+# The size rule's thresholds, from tune_torch_port_kernels.py --overlap on
+# the H100 (PERF.md section 6: at 128 pairs the pair path was the faster
+# by 1-2%, at 171 groups of 4 by 9%, from 256 groups of 8): fewer pairs
+# take the pair path, from OVERLAP_GROUP_MIN_PAIRS groups of 4, from
+# OVERLAP_GROUP_WIDE_PAIRS groups of 8.
+OVERLAP_GROUP_MIN_PAIRS, OVERLAP_GROUP_WIDE_PAIRS = 160, 256
+
+
+def overlap_cluster(hw: int) -> int:
+    """Blocks of a pair's cluster at `hw` cells (overlap.cu cluster_of):
+    a block a 256 vectors of four cells, at most the portable 8."""
+    n_vec = -(-hw // OVERLAP_VEC)
+    return max(1, min(OVERLAP_MAX_CLUSTER, -(-n_vec // OVERLAP_THREADS)))
+
+
+def overlap_group_fits(hw: int, n_mov: int) -> bool:
+    """Whether the group path takes a grid of `hw` cells and a moving
+    bank of `n_mov` maps (overlap.cu ndtg_overlap_group_fits): a
+    thread's vectors fit its registers and the nodes the count."""
+    n_vec = -(-hw // OVERLAP_VEC)
+    threads = overlap_cluster(hw) * OVERLAP_THREADS
+    return (-(-n_vec // threads) <= OVERLAP_GROUP_MAX_VEC
+            and 1 <= n_mov <= OVERLAP_GROUP_MAX_NODES)
+
+
+def overlap_group(n_pairs: int) -> int:
+    """Pairs a group of the overlap kernel's group path, 0 for the pair
+    path, by the batch's size: the pair path below
+    OVERLAP_GROUP_MIN_PAIRS pairs (its eight blocks a pair fit one wave
+    of the card up to ~100 pairs, and a group's search costs ~2 µs a
+    block), groups of 4 below OVERLAP_GROUP_WIDE_PAIRS, else of 8.  Only the
+    schedule depends on it: every pair's bits are the same on both paths
+    and at every group size."""
+    if n_pairs < OVERLAP_GROUP_MIN_PAIRS:
+        return 0
+    return 4 if n_pairs < OVERLAP_GROUP_WIDE_PAIRS else OVERLAP_GROUP_MAX
+
+
+def overlap_groups(n_pairs: int, group: int, n_mov: int) -> int:
+    """Clusters the group path launches: at least its groups, of which
+    there are at most ceil(n_pairs / group) plus one a distinct moving
+    key (a node, or the key of indices outside the bank)."""
+    return min(n_pairs, -(-n_pairs // group) + min(n_mov + 1, n_pairs))
+
+
 def overlap_score(occ_flat, occ_origins, ref_i, mov_i, T, h: int, w: int,
                   resolution: float, mov_flat=None, mov_origins=None,
                   cells: bool = False):
@@ -1089,9 +1223,14 @@ def overlap_score(occ_flat, occ_origins, ref_i, mov_i, T, h: int, w: int,
     gets the bits of its row in a batch); a pair whose index lies outside
     its bank gets score NaN and n_overlap -1.  `cells`: also return each
     moving cell's flat index into the reference map (P, H*W) int32, -1
-    out of bounds, for a check against the eager path; CUDA only.  On
-    the CPU the plain version, overlap_score_reference (the eager score,
-    its sum torch.sum)."""
+    out of bounds, for a check against the eager path; CUDA only.
+
+    Two paths, one order, so the same bits: the pair path (a cluster a
+    pair) and, for the batches `overlap_group` sends there, the group
+    path (a cluster a group of pairs of one moving node, reading its map
+    once; the kernel finds the groups in mov_i itself).  `cells` and the
+    one-pair form take the pair path.  On the CPU the plain version,
+    overlap_score_reference (the eager score, its sum torch.sum)."""
     dev = T.device
     if dev.type == "cpu":
         if cells:
@@ -1140,6 +1279,22 @@ def overlap_score(occ_flat, occ_origins, ref_i, mov_i, T, h: int, w: int,
         raise ValueError(f"overlap_score: {n_pairs} pairs of {hw} cells, "
                          "too many blocks for one launch")
     res32 = np.float32(resolution)
+    # ATen divides by a Python float on the card as a product with its
+    # float32 reciprocal.
+    inv = float(np.float32(1.0) / res32)
+    group = 0 if one or cells else overlap_group(n_pairs)
+    if group and overlap_group_fits(hw, banks["mov"]):
+        n_groups = overlap_groups(n_pairs, group, banks["mov"])
+        with _on(dev):
+            err = lib.ndtg_overlap_group_score(
+                occ_flat.data_ptr(), occ_origins.data_ptr(), ref_i.data_ptr(),
+                banks["occ"], mov_flat.data_ptr(), mov_origins.data_ptr(),
+                mov_i.data_ptr(), banks["mov"], T.data_ptr(), n_pairs, h, w,
+                float(res32), inv, group, n_groups, score.data_ptr(),
+                nb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "overlap_score")
+        LAUNCHES["overlap_score"] += 1
+        return score, nb
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndtg_overlap_score(
@@ -1147,10 +1302,7 @@ def overlap_score(occ_flat, occ_origins, ref_i, mov_i, T, h: int, w: int,
             None if one else ref_i.data_ptr(), banks["occ"],
             mov_flat.data_ptr(), mov_origins.data_ptr(),
             None if one else mov_i.data_ptr(), banks["mov"],
-            T.data_ptr(), n_pairs, h, w, float(res32),
-            # ATen divides by a Python float on the card as a product
-            # with its float32 reciprocal.
-            float(np.float32(1.0) / res32), score.data_ptr(),
+            T.data_ptr(), n_pairs, h, w, float(res32), inv, score.data_ptr(),
             nb.data_ptr(), None if idx is None else idx.data_ptr(), stream)
     _raise_on(err, "overlap_score")
     LAUNCHES["overlap_score"] += 1

@@ -10,7 +10,9 @@ index_add bits and the sorted index_put_ path it replaced, and its
 and on the two-pass path); the feature kernels against their plain
 twins (the descriptor at every block size); the link paths'
 `overlap_score` against tests/test_torch_overlap.py's numpy mirror (bit
-for bit) and the eager path (cell by cell); the sharded
+for bit, on its pair path and its group path) and the eager path (cell
+by cell); link refinement's lanes alone against their rows of the LC
+bank's 171-lane batch; the sharded
 dense solve in an NCCL world of one rank; and the chunked graph driver
 against its CPU twin.  Marked `cuda`: they
 skip without a CUDA card.  The file imports no JAX, so it also runs
@@ -1140,3 +1142,113 @@ def test_match_features_same_bits_at_every_cluster_size(cuda_device):
                 assert torch.equal(torch.cat([getattr(p[k], f)
                                               for p in parts]),
                                    getattr(want[k], f)), (m, k, f)
+
+
+def _lc_links(dev):
+    """The LC bank's 171 candidate links under their RANSAC poses
+    (chip_smoke.link_bank, compute_links_batch) and the link solve's
+    arguments at the bank's source-cell budget."""
+    from ndt_feature_graph_tpu_torch.graph import links as links_mod
+    lc = dict(np.load(chip_smoke.LC_FIXTURE))
+    sp, _, stacked, ref_i, mov_i, u = chip_smoke.link_bank(lc, dev)
+    ones = torch.ones(ref_i.shape[0], dtype=torch.bool, device=dev)
+    ls = links_mod.compute_links_batch(sp.fuser.features,
+                                       sp.fuser.ndt.resolution, stacked,
+                                       ref_i, mov_i, ones, u)
+    return stacked, ls, chip_smoke.refine_args(
+        sp.fuser.ndt, sp.fuser.matcher, stacked, ls,
+        links_mod.source_cell_budget(stacked))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", [0, 9, 85, 170])
+def test_link_refined_alone_is_its_row_of_the_batch(cuda_device, lane):
+    """A link of the LC bank's 171 solved alone in the link solve (one
+    lane, so one cluster) keeps the bits of its row of the 171-lane
+    launch (45-odd persistent clusters taking lanes from the counter): d,
+    score, trials, converged and the Hessian.  Two launches give the
+    same bits, and the lane counter is left zero."""
+    _, _, sargs = _lc_links(cuda_device)
+    T0, src, packed, origins, offs, h, w, res, m = sargs
+    n = T0.shape[0]
+    zero = torch.zeros((n, 3), device=cuda_device)
+    batch = cuda_kernels.newton_solve_batch(zero, *sargs, with_hessian=True)
+    again = cuda_kernels.newton_solve_batch(zero, *sargs, with_hessian=True)
+    assert all(torch.equal(a, b) for a, b in zip(batch, again))
+    one = CellList(*(x[lane:lane + 1] for x in (src.means, src.covs,
+                                                 src.mask)))
+    alone = cuda_kernels.newton_solve_batch(
+        zero[:1], T0[lane:lane + 1], one, packed, origins[lane:lane + 1],
+        offs[lane:lane + 1], h, w, res, m, with_hessian=True)
+    for a, b in zip(alone, batch):
+        assert torch.equal(a[0], b[lane])
+    torch.cuda.synchronize()
+    for q in cuda_kernels._LINK_QUEUES.values():
+        assert q.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("n_pairs", [1, 4, 171, 1024])
+def test_overlap_paths_are_the_mirror_on_the_lc_bank(cuda_device, n_pairs,
+                                                     group):
+    """`overlap_score` on the LC bank's candidate pairs under their
+    RANSAC poses (the 171 repeated to 1,024) on the pair path (group 0)
+    and the group path at 1, 2, 4 and 8 pairs a group, and by the size
+    rule: every score and count equal to overlap_mirror (the pair path's order)
+    with the card's transcendentals, bit for bit."""
+    stacked, ls, _ = _lc_links(cuda_device)
+    h, w = stacked.occ.shape[1:]
+    idx = torch.arange(n_pairs, device=cuda_device) % ls.ref.shape[0]
+    r, mv = ls.ref[idx].contiguous(), ls.mov[idx].contiguous()
+    T = ls.T[idx].contiguous()
+    occ, origins = stacked.occ.reshape(-1), stacked.occ_origin
+    res = 0.5
+    m_score, m_nb, _ = chip_smoke.overlap_mirror(
+        stacked.occ.reshape(-1, h * w).cpu().numpy(), origins.cpu().numpy(),
+        r.cpu().numpy(), mv.cpu().numpy(), T.cpu().numpy(), h, w, res,
+        fns=chip_smoke.torch_transcendentals(cuda_device))
+    runs = [cuda_kernels.overlap_score(occ, origins, r, mv, T, h, w, res)]
+    with chip_smoke.overlap_group_forced(group):
+        runs.append(cuda_kernels.overlap_score(occ, origins, r, mv, T, h, w,
+                                               res))
+    for score, nb in runs:
+        assert np.array_equal(score.cpu().numpy().view(np.uint32),
+                              m_score.view(np.uint32))
+        assert np.array_equal(nb.cpu().numpy(), m_nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [None, "no overlap", "out of bounds",
+                                  "thresholds"])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_overlap_group_path_is_the_mirror_on_edge_cases(cuda_device, group,
+                                                        edge):
+    """The group path against the mirror on chip_smoke.overlap_case's
+    random banks of 40 x 40 and 37 x 53 cells (24 pairs), with their edge
+    cases, and with moving and reference indices outside the bank (NaN
+    and -1 for those pairs, as on the pair path)."""
+    for h, w in ((40, 40), (37, 53)):
+        occ, origins, ref_i, mov_i, T, res = chip_smoke.overlap_case(
+            h, w, 24, h + group, edge)
+        ref_i, mov_i = ref_i.copy(), mov_i.copy()
+        ref_i[3], mov_i[5], mov_i[6] = 99, -1, occ.shape[0]
+        t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+        args = (t(occ).reshape(-1), t(origins), t(ref_i), t(mov_i), t(T), h,
+                w, res)
+        with chip_smoke.overlap_group_forced(0):
+            pair = cuda_kernels.overlap_score(*args)
+        with chip_smoke.overlap_group_forced(group):
+            got = cuda_kernels.overlap_score(*args)
+        assert torch.equal(got[1], pair[1])
+        assert np.array_equal(got[0].cpu().numpy().view(np.uint32),
+                              pair[0].cpu().numpy().view(np.uint32))
+        assert [int(pair[1][k]) for k in (3, 5, 6)] == [-1, -1, -1]
+        ok = np.ones(24, bool)
+        ok[[3, 5, 6]] = False
+        m_score, m_nb, _ = chip_smoke.overlap_mirror(
+            occ, origins, ref_i[ok], mov_i[ok], T[ok], h, w, res,
+            fns=chip_smoke.torch_transcendentals(cuda_device))
+        assert np.array_equal(got[0].cpu().numpy()[ok].view(np.uint32),
+                              m_score.view(np.uint32))
+        assert np.array_equal(got[1].cpu().numpy()[ok], m_nb)

@@ -28,6 +28,7 @@ Tolerances, each with its reason:
 import functools
 import importlib.util
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -390,3 +391,186 @@ def test_cov_from_hessian_matches_jax_and_passes_nan():
     scale = np.abs(ref[fin]).max((1, 2), keepdims=True)
     np.testing.assert_allclose(got[fin] / scale, ref[fin] / scale, atol=1e-3)
     np.testing.assert_allclose(got[3], np.eye(3) * 0.6e6, rtol=1e-6)
+
+
+# The link solve's order (csrc/pair_fgh.cu objective_partials at a lane's
+# cluster size, which link_cluster sets by the lane's shape alone): a
+# float32 numpy mirror of the window term's adds.  A lane's C blocks of
+# eight warps take its source cells i = warp + t * (8 C) in groups of g =
+# min(32, ceil(N / (8 C))) a warp; a group's (cell, window cell) pairs
+# are laid flat, pair q = j K + k on lane q % 32 in ascending q; each
+# lane adds its pairs in order, then the warp's shuffle tree, the
+# block's warps in order, the cluster's blocks in rank order.  The
+# per-pair terms are the plain version's (d2d_analytic._pair_fgh, float32
+# on the CPU); only the order is the kernel's.  Tolerance against the
+# plain twin (its sum over all pairs at once): f 1e-5, g and H 1e-4
+# relative to the lane's largest entry, the two orders' rounding over
+# ~3,000 float32 terms.
+WARPS = 8      # csrc/pair_fgh.cu kObjectiveThreads / 32
+
+
+def _pair_terms(d, T0, src, packed, origins, offs):
+    """Per-pair (B, N, K, 10) terms (s, g0..g2, h00 h01 h02 h11 h12 h22)
+    of the window term and their mask (B, N, K), the plain version's."""
+    moved, iy0, ix0 = tda.window_cells(d, T0, src, origins[:, None, :], RES)
+    t_means, t_covs, t_valid = td2d.gather_windows_flat(
+        packed, H_, W_, iy0, ix0, TM.n_neighbours, offs[:, None, None])
+    mu = moved.means[..., :, None, :] - t_means
+    Sig = moved.covs[..., :, None, :, :] + t_covs
+    m_rot = (moved.means - d[..., None, :2])[..., :, None, :]
+    s, g, H = tda._pair_fgh(mu, Sig, m_rot, moved.covs[..., :, None, :, :],
+                            TM.lfd1, TM.lfd2)
+    comps = torch.cat([s[..., None], g, H[..., [0, 0, 0, 1, 1, 2],
+                                         [0, 1, 2, 1, 2, 2]]], -1)
+    ok = t_valid & moved.mask[..., None]
+    return comps.numpy(), ok.numpy()
+
+
+def _lane_order_sum(comps, ok, cluster):
+    """The 10 sums of one lane (comps (N, K, 10), ok (N, K)) in the
+    link solve's order at `cluster` blocks."""
+    n, k = ok.shape
+    n_warps = cluster * WARPS
+    g = min(32, -(-n // n_warps))
+    f32 = np.float32
+    blocks = []
+    for rank in range(cluster):
+        warp_sums = []
+        for lw in range(WARPS):
+            w = rank * WARPS + lw
+            lanes = np.zeros((32, 10), f32)
+            t0 = 0
+            while w + t0 * n_warps < n:
+                for q in range(g * k):
+                    j, kk = divmod(q, k)
+                    i = w + (t0 + j) * n_warps
+                    if j < g and i < n and ok[i, kk]:
+                        lanes[q % 32] = lanes[q % 32] + comps[i, kk]
+                t0 += g
+            for off in (16, 8, 4, 2, 1):
+                lanes[:off] = lanes[:off] + lanes[off:2 * off]
+            warp_sums.append(lanes[0])
+        acc = np.zeros(10, f32)
+        for x in warp_sums:
+            acc = acc + x
+        blocks.append(acc)
+    total = np.zeros(10, f32)
+    for x in blocks:
+        total = total + x
+    return total
+
+
+def _order_lanes(n_lanes):
+    """n_lanes lanes of the bank's link inputs (the test bank's lanes
+    repeated), as numpy terms."""
+    d, T0, src, origins, offs = _lanes()
+    idx = np.arange(n_lanes) % d.shape[0]
+    packed = np.asarray(_bank()[0].target.packed).reshape(-1, 8)
+    return _pair_terms(torch.tensor(d[idx]), torch.tensor(T0[idx]),
+                       CellList(*(torch.tensor(x[idx]) for x in src)),
+                       torch.tensor(packed), torch.tensor(origins[idx]),
+                       torch.tensor(offs[idx]))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 4, 171])
+def test_link_order_is_a_function_of_the_lane_shape(n_lanes):
+    """At 1, 4 and 171 lanes each lane's blocks and summation order are
+    those of link_cluster at its shape: the mirror's sums of lane k in
+    the batch equal lane k's alone bit for bit, whatever the batch; the
+    per-trial rule the link solve left (blocks = the card's resident
+    blocks // lanes, 396 on the H100) gave lanes of the 171-lane batch
+    other blocks, and other bits, than a lane alone."""
+    comps, ok = _order_lanes(n_lanes)
+    n_src = ok.shape[1]
+    cluster = cuda_kernels.link_cluster(n_src, 0, 8)
+    assert cluster == min(8, -(-n_src // WARPS))
+    old_rule = max(1, min(cluster, 396 // n_lanes))
+    alone = _order_lanes(1)
+    want = _lane_order_sum(alone[0][0], alone[1][0], cluster)
+    got = _lane_order_sum(comps[0], ok[0], cluster)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    if n_lanes == 171:
+        assert old_rule == 2
+        assert not np.array_equal(
+            _lane_order_sum(comps[0], ok[0], old_rule).view(np.uint32),
+            want.view(np.uint32))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+def test_link_order_mirror_matches_the_plain_twin(cluster):
+    """The mirror's sums at 1, 2 and 8 blocks against
+    fgh_dense_flat_batch's plain twin on every lane of the bank, within
+    the stated tolerance."""
+    d, T0, src, origins, offs = _lanes()
+    packed = torch.tensor(np.asarray(_bank()[0].target.packed).reshape(
+        -1, 8))
+    tsrc = CellList(*(torch.tensor(x) for x in src))
+    f, g, H = cuda_kernels.fgh_dense_flat_batch(
+        torch.tensor(d), torch.tensor(T0), tsrc, packed,
+        torch.tensor(origins), torch.tensor(offs), H_, W_, RES,
+        TM.n_neighbours, TM.lfd1, TM.lfd2)
+    comps, ok = _pair_terms(torch.tensor(d), torch.tensor(T0), tsrc, packed,
+                            torch.tensor(origins), torch.tensor(offs))
+    for b in range(d.shape[0]):
+        got = _lane_order_sum(comps[b], ok[b], cluster)
+        want = np.concatenate([[float(f[b])], g[b].numpy(),
+                               H[b].numpy()[[0, 0, 0, 1, 1, 2],
+                                            [0, 1, 2, 1, 2, 2]]])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+        scale = max(float(np.abs(want[1:]).max()), 1e-6)
+        np.testing.assert_allclose(got[1:] / scale, want[1:] / scale,
+                                   atol=1e-4)
+
+
+# Distributed shared memory (cluster.map_shared_rank) may be touched only
+# once every block of the cluster has started, which a kernel knows after
+# its first cluster barrier: cluster.sync(), or the wait of a split
+# barrier whose arrive comes at the kernel's entry.  A textual check of
+# each kernel of csrc/: its first access, directly or through a device
+# function that accesses before a barrier of its own, comes after its
+# first barrier, and every split arrive has its wait.
+_CSRC = pathlib.Path(cuda_kernels.__file__).resolve().parents[1] / "csrc"
+_BARRIER = re.compile(r"\.sync\(\)|barrier\.cluster\.wait")
+_FUNC = re.compile(r"(__global__|__device__)[^;{}]*?\b(?!__launch_bounds__)"
+                   r"(\w+)\s*\([^;{}]*\)[^;{}]*\{")
+
+
+def _functions(text):
+    """{name: (is_kernel, body)} of the __global__ / __device__ functions
+    defined in `text` (comments removed)."""
+    out = {}
+    for m in _FUNC.finditer(text):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        out[m.group(2)] = (m.group(1) == "__global__", text[m.end():i])
+    return out
+
+
+def _first(pattern, body):
+    m = re.search(pattern, body)
+    return m.start() if m else len(body)
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in _CSRC.glob("*.cu")))
+def test_cluster_kernels_touch_peers_only_after_a_barrier(source):
+    text = (_CSRC / source).read_text()
+    text = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+    funcs = _functions(text)
+    early = {"map_shared_rank"}
+    changed = True
+    while changed:
+        changed = False
+        for name, (_, body) in funcs.items():
+            access = _first(r"\b(%s)\b" % "|".join(early), body)
+            if name not in early and access < _first(_BARRIER, body):
+                early.add(name)
+                changed = True
+    kernels = {n: b for n, (k, b) in funcs.items() if k}
+    assert kernels
+    for name, body in kernels.items():
+        assert name not in early, name
+        arrives = len(re.findall(r"barrier\.cluster\.arrive", body))
+        waits = len(re.findall(r"barrier\.cluster\.wait", body))
+        assert (arrives == 0) == (waits == 0), name

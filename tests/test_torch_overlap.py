@@ -284,3 +284,79 @@ def test_overlap_score_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.overlap_score(occ_flat, origins, ref_i, mov_i, T, 20,
                                    20, res, cells=True)
+
+
+def _group_search(mov_i, n_mov, group, k):
+    """csrc/overlap.cu overlap_group_kernel's search for cluster k's
+    group, in numpy: a key a pair (its moving node, n_mov outside the
+    bank), the groups a key (ceil(count / group)) and their prefix in key
+    order, then the key's pairs at positions [run * group, ...) in index
+    order.  Returns (key, members) or (None, []) for an idle cluster."""
+    mov_i = np.asarray(mov_i)
+    key = np.where((mov_i >= 0) & (mov_i < n_mov), mov_i, n_mov)
+    count = np.bincount(key, minlength=n_mov + 1)
+    groups = -(-count // group)
+    start = np.concatenate([[0], np.cumsum(groups)[:-1]])
+    hit = np.nonzero((k >= start) & (k < start + groups))[0]
+    if hit.size == 0:
+        return None, []
+    m = int(hit[0])
+    first = (k - int(start[m])) * group
+    pairs = np.nonzero(key == m)[0]
+    return m, pairs[first:first + group].tolist()
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("layout", ["offline", "online", "random",
+                                    "outside"])
+def test_group_search_covers_every_pair_once(layout, group):
+    """The groups the overlap kernel's clusters find (the launch's
+    overlap_groups clusters, the ones past the groups idle) cover every
+    pair exactly once; each group's pairs share their moving key, come
+    in index order and number at most `group`.  Layouts: the offline
+    graph's candidate pairs of 20 nodes (i < j, 171 pairs) repeated to
+    1,024, online LC's four candidates against one moving node, random
+    pairs, and moving indices outside the bank."""
+    rng = np.random.default_rng(group)
+    n_mov = 20
+    if layout == "offline":
+        mov = np.array([j for i in range(20) for j in range(i + 1, 20)])
+        mov = np.resize(mov, 1024)
+    elif layout == "online":
+        mov = np.full(4, 4)
+        n_mov = 5
+    elif layout == "random":
+        mov = rng.integers(0, n_mov, 300)
+    else:
+        mov = rng.integers(-3, n_mov + 3, 300)
+    n_clusters = cuda_kernels.overlap_groups(len(mov), group, n_mov)
+    seen = []
+    for k in range(n_clusters):
+        key, members = _group_search(mov, n_mov, group, k)
+        if key is None:
+            continue
+        assert 0 < len(members) <= group and members == sorted(members)
+        keys = {int(m) if 0 <= m < n_mov else n_mov for m in mov[members]}
+        assert keys == {key}
+        seen += members
+    assert sorted(seen) == list(range(len(mov)))
+
+
+@pytest.mark.parametrize("n_pairs,hw,n_mov,path", [
+    (1, 40000, 20, 0), (4, 40000, 5, 0), (64, 40000, 20, 0),
+    (128, 40000, 20, 0), (159, 40000, 20, 0), (160, 40000, 20, 4),
+    (171, 40000, 20, 4),
+    (255, 40000, 20, 4), (256, 40000, 20, 8), (1024, 40000, 20, 8),
+    (4096, 40000, 20, 8), (171, 1600, 20, 4), (171, 49152, 20, 4),
+    (171, 49153, 20, 0), (171, 1_440_000, 20, 0), (171, 40000, 4096, 4),
+    (171, 40000, 4097, 0)])
+def test_overlap_size_rule(n_pairs, hw, n_mov, path):
+    """The path overlap_score takes by P and H*W (and the moving bank's
+    nodes): the pair path (0) below 160 pairs, for a grid whose vectors
+    do not fit a thread's share of the group path (more than six a
+    thread: beyond 49,152 cells) and for more than 4,096 moving nodes;
+    else groups of 4 pairs below 256 pairs and of 8 from there."""
+    group = cuda_kernels.overlap_group(n_pairs)
+    fits = cuda_kernels.overlap_group_fits(hw, n_mov)
+    assert (group if fits else 0) == path
+    assert cuda_kernels.overlap_cluster(hw) == chip_smoke.overlap_cluster(hw)
