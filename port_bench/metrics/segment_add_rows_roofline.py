@@ -1,0 +1,9 @@
+"""Kernel: `segment_add_rows`'s share of its HBM roofline in the traced chunks:
+the bytes counts/segment_add_rows.py counts for them, at 3.35 TB/s, over its
+device time (profiler)."""
+
+from port_bench.harness.trace import roofline_pct
+
+
+def read(tr):
+    return roofline_pct(tr, "segment_add_rows")
